@@ -1,11 +1,12 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
-All ``csrc/*.cu`` sources compile in one ``nvcc`` call into a shared
-library with a plain C interface (no PyTorch headers: seconds to build,
-against minutes for ``torch.utils.cpp_extension.load``).  The library
-lands in ``backscrub_tpu_torch/_build/``, named by a hash of the sources
-and flags, so an edited kernel rebuilds and an unchanged one loads the
-cached file.  Every exported function returns the ``cudaError_t`` of its
+Each ``csrc/*.cu`` source compiles in its own ``nvcc`` process, all
+started together, and one more ``nvcc`` call links the objects into a
+shared library with a plain C interface (no PyTorch headers: seconds to
+build, against minutes for ``torch.utils.cpp_extension.load``).  The
+library lands in ``backscrub_tpu_torch/_build/``, named by a hash of the
+sources, headers and flags, so an edited kernel rebuilds and an unchanged
+one loads the cached file.  Every exported function returns the ``cudaError_t`` of its
 launch; :func:`launch` raises on anything but 0.
 
 Nothing here runs at import time: the CPU tests import every module on a
@@ -28,7 +29,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
-FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
+FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 P, I = ctypes.c_void_p, ctypes.c_int
 F32 = ctypes.c_float
@@ -37,6 +38,8 @@ SIGNATURES = {
     "bs_blend_pack_yuyv": (P, P, P, P, I, I, I, I, P),
     "bs_front": (P, P, P, I, I, I, I, I, I, I, I, F32, F32, F32, I, P),
     "bs_conv1x1": (P, P, P, P, I, I, I, I, P),
+    "bs_gemm": (P, P, P, P, I, I, I, I, P),
+    "bs_bcast": (P, P, I, I, P),
     "bs_dw": (P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I, P),
     "bs_gpool": (P, P, I, I, F32, I, P),
     "bs_eltwise": (P, P, P, I, I, I, I, I, P),
@@ -73,7 +76,7 @@ def _sources():
 
 def library_path() -> str:
     h = hashlib.sha256()
-    for s in _sources():
+    for s in _sources() + sorted(glob.glob(os.path.join(SRC_DIR, "*.cuh"))):
         h.update(os.path.basename(s).encode())
         with open(s, "rb") as f:
             h.update(f.read())
@@ -88,14 +91,34 @@ def build() -> str:
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), ARCH, *FLAGS, "-o", tmp, *_sources()]
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise KernelBuildError(f"nvcc failed ({r.returncode}):\n{' '.join(cmd)}\n"
-                               f"{r.stdout}\n{r.stderr}")
-    os.replace(tmp, out)
+    jobs = []
+    for src in _sources():
+        obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+        cmd = [nvcc, ARCH, *FLAGS, "-c", "-o", obj, src]
+        jobs.append((obj, cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for _, cmd, proc in jobs:
+        so, se = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{so}\n{se}")
+    objs = [obj for obj, _, _ in jobs]
+    try:
+        if failed:
+            raise KernelBuildError("\n".join(failed))
+        tmp = f"{out}.{tag}"
+        cmd = [nvcc, ARCH, "-shared", "-o", tmp, *objs]
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        if r.returncode != 0:
+            raise KernelBuildError(f"nvcc link failed ({r.returncode}):\n{' '.join(cmd)}\n"
+                                   f"{r.stdout}\n{r.stderr}")
+        os.replace(tmp, out)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     _Lib.build_seconds = time.perf_counter() - t0
     return out
 

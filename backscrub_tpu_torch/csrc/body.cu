@@ -18,24 +18,22 @@
 // step; each kernel here is the simple, right form: one thread per output
 // element, the 1x1 conv / FC dot product computed in the kernel's own loop
 // (no cuBLAS), as the TPU kernel computes its own dots.
+//
+// The same kernels run the prefix mode (body_mega_prefix_for, K2'): the
+// deeplab family's 129x129 and 65x65 stages at C <= 72, 12 launches a
+// frame.  Its largest tensor (48x129x129 f32, 3.2 MB) does not fit an SM,
+// but the whole 10 MB workspace stays in L2.  On an H100 80GB HBM3 at
+// 700 W the span takes ~55 us of device time a frame: ~31 us in the seven
+// 1x1 convs (0.046 GFLOP, ~1.5 TFLOP/s) and ~23 us in the four depthwise
+// convs.  Neither bytes nor FLOPs bound it there: each thread's serial
+// ci-long dot of dependent loads and FMAs sets the pace, with the frame's
+// launches (host side) costing more than the device time.
 
 #include <cuda_runtime.h>
 
-namespace {
+#include "body_act.cuh"
 
-// activation codes shared with megakernel.py (_ACT_CODES)
-__device__ __forceinline__ float activate(float x, int act) {
-  switch (act) {
-    case 1: return fmaxf(x, 0.0f);                              // RELU
-    case 2: return fminf(fmaxf(x, 0.0f), 6.0f);                 // RELU6
-    case 3: {                                                   // HARD_SWISH
-      float r = fminf(fmaxf(x + 3.0f, 0.0f), 6.0f);
-      return __fmul_rn(__fmul_rn(x, r), 1.0f / 6.0f);
-    }
-    case 4: return 1.0f / (1.0f + expf(-x));                    // LOGISTIC
-    default: return x;
-  }
-}
+namespace {
 
 constexpr int THREADS = 256;
 

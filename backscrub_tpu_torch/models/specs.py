@@ -3,8 +3,9 @@
 The reference sniffs the model "type" from the filename
 (``lib/libbackscrub.cc:116-130``) and hardcodes normalization per type
 (``:132-148``) and decode rules (``:317-361``).  A :class:`ModelSpec`
-carries both as data.  The TPU-only tuning fields of the JAX spec (MXU
-precision, continuation-chain default) have no counterpart here.
+carries both as data, and which families take the flat continuation
+(K2'', ``edge_cont``).  The JAX spec's MXU precision has no counterpart:
+the port computes f32 throughout.
 """
 
 from __future__ import annotations
@@ -23,6 +24,10 @@ class ModelSpec:
     threshold: float = 0.65        # for decode == "threshold" (libbackscrub.cc:338)
     person_class: int = 15         # PASCAL-VOC "person" for deeplab (libbackscrub.cc:154-159)
     num_classes: int = 21          # expected output channels for argmax decodes
+    # the fused edge path runs the flat continuation (K2'') after the
+    # prefix cut when the caller does not choose (edge_cont=None); the
+    # JAX spec's per-family choice: deeplab on, bodypix off
+    edge_cont: bool = False
 
     def expected_channels(self):
         """Output-channel count this decode rule needs (None = any)."""
@@ -32,7 +37,7 @@ class ModelSpec:
 
 _SPECS = {
     "deeplab": ModelSpec("deeplab", scale=1 / 127.5, offset=-1.0,
-                         decode="argmax_person"),
+                         decode="argmax_person", edge_cont=True),
     "bodypix": ModelSpec("bodypix", scale=1 / 255.0, offset=0.0,
                          decode="threshold"),
     "meet": ModelSpec("meet", scale=1 / 255.0, offset=0.0, decode="two_channel"),

@@ -1,23 +1,28 @@
-"""The CNN body between the fused edge layers as a plan of ops, run as
-plain PyTorch or as the CUDA kernels of ``csrc/body.cu``.
+"""A span of the CNN body as a plan of ops, run as plain PyTorch or as the
+CUDA kernels of ``csrc/body.cu`` and ``csrc/body_flat.cu``.
 
-Counterpart of ``backscrub_tpu/ops/megakernel.py:BodyMega`` in its
-full-span mode (``body_mega_for``).  :class:`BodyPlan` walks the same node
-span with the same guards and compiles it into a list of ops (1x1 conv /
-FC, depthwise, global pool, elementwise with broadcast, activation,
-concat, 2x bilinear upsample).  The TPU kernel's rowpad layout, lane
-spacing and grid masks have no reason to exist on Hopper: every tensor is
-a plain (C, H*W) f32 array.  The lane-spacing bookkeeping survives only
-inside the guards, so that the port accepts exactly the spans the JAX
-package accepts.
+Counterpart of ``backscrub_tpu/ops/megakernel.py:BodyMega`` in its three
+modes: the full span between the fused edge layers (``body_plan_for``,
+K2), the prefix of a front-only family's body up to the 33x33, C >= 96
+regime (``body_plan_prefix_for``, K2'), and the flat continuation through
+that regime (``body_plan_continuation_for``, K2'').  :class:`BodyPlan`
+walks the same node span with the same guards and compiles it into a
+list of ops (1x1 conv / FC, depthwise, global pool, elementwise with
+broadcast, activation, concat, 2x bilinear upsample, 1 -> N broadcast).
+The TPU kernel's rowpad layout, lane spacing and grid masks have no
+reason to exist on Hopper: every tensor is a plain (C, H*W) f32 array.
+The lane-spacing bookkeeping survives only inside the guards, so that the
+port accepts exactly the spans the JAX package accepts.
 
 ``BodyPlan(x)`` on a CPU tensor runs :meth:`BodyPlan.run_plain`; on a CUDA
 tensor it launches one kernel per op (:meth:`BodyPlan.run_cuda`), counted
-in ``body_launch.launches``.
+in ``body_launch.launches``, ``body_launch.by_kernel`` and the plan's own
+``launches``.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Dict, List, Optional, Tuple
 
@@ -59,12 +64,20 @@ class _T:
 
 
 def body_launch(name: str, *args) -> None:
-    """Launch one body kernel; ``body_launch.launches`` counts launches."""
+    """Launch one body kernel; ``body_launch.launches`` counts launches and
+    ``body_launch.by_kernel`` counts them by exported kernel name."""
     _build.launch(name, *args)
     body_launch.launches += 1
+    body_launch.by_kernel[name] += 1
 
 
 body_launch.launches = 0
+body_launch.by_kernel = collections.Counter()
+
+# kernel of each plan op kind on CUDA (conv1x1 and concat: see _kernels)
+_OP_KERNELS = {"dw": "bs_dw", "gpool": "bs_gpool", "binop": "bs_eltwise",
+               "bingate": "bs_eltwise", "act": "bs_eltwise",
+               "resize2x": "bs_resize", "bcast": "bs_bcast"}
 
 
 class BodyPlan:
@@ -72,22 +85,35 @@ class BodyPlan:
 
     ``__call__(x)`` takes (C_in, rows*w) f32 and returns (C_out,
     rows_out*w_out) f32 on the same device.
+
+    ``allow_spaced_output``: the output may sit at a coarser reference
+    lane spacing (a prefix span, whose stride-2 stages the reference
+    bridges out with a lane slice; here the output is dense anyway).
+    ``flat``: the reference's dense-layout mode (the continuation): no
+    stride-2 depthwise, no geometry-changing resize, every spatial tensor
+    keeps the input's shape, and 1x1 convs on spatial tensors run as the
+    tiled GEMM kernel of ``csrc/body_flat.cu``.
     """
 
-    def __init__(self, model, start: int, end: int, in_tid: int, out_tid: int):
+    def __init__(self, model, start: int, end: int, in_tid: int, out_tid: int,
+                 *, allow_spaced_output: bool = False, flat: bool = False):
         g = model.graph
         hp = model.host_params
         self.in_tid, self.out_tid = in_tid, out_tid
+        self.flat = flat
         s = tuple(g.tensor(in_tid).shape)
         if len(s) != 4 or s[0] != 1:
             raise Unsupported(f"tensor {in_tid} shape {s}")
         in_meta = _T(c=int(s[3]), rows=int(s[1]), w=int(s[2]),
                      vec=(s[1] == 1 and s[2] == 1))
-        # the reference's row stride: the widest row plus the depthwise
-        # reach (5x5 at sp <= 4, 3x3 at sp <= 8) must fit 128 or 256 lanes
-        rs = 128 if in_meta.w + 8 <= 128 else 256
-        if in_meta.w + 8 > 256:
-            raise Unsupported(f"row width {in_meta.w} too large")
+        if flat:
+            rs = in_meta.w
+        else:
+            # the reference's row stride: the widest row plus the depthwise
+            # reach (5x5 at sp <= 4, 3x3 at sp <= 8) must fit 128 or 256 lanes
+            rs = 128 if in_meta.w + 8 <= 128 else 256
+            if in_meta.w + 8 > 256:
+                raise Unsupported(f"row width {in_meta.w} too large")
         self.meta: Dict[int, _T] = {in_tid: in_meta}
         self.plan: List[tuple] = []
         self.weights: List[np.ndarray] = []
@@ -154,7 +180,9 @@ class BodyPlan:
                     raise Unsupported("dw stride")
                 if dil != 1 and st != 1:
                     raise Unsupported("dilated strided dw")
-                if m.w * m.sp + (fw - 1) * m.sp * dil > rs:
+                if flat and st != 1:
+                    raise Unsupported("flat dw stride")
+                if not flat and m.w * m.sp + (fw - 1) * m.sp * dil > rs:
                     raise Unsupported("dw column reach exceeds row stride")
                 om = (_T(m.c, m.rows, m.w, m.sp) if st == 1 else
                       _T(m.c, -(-m.rows // 2), -(-m.w // 2), m.sp * 2))
@@ -221,10 +249,32 @@ class BodyPlan:
                 if size is None:
                     raise Unsupported("dynamic resize size")
                 oh, ow = (int(v) for v in size.reshape(-1)[:2])
-                if m.vec or (oh, ow) != (2 * m.rows, 2 * m.w) or m.sp % 2:
-                    raise Unsupported("non-2x resize")
                 ac = o.get("align_corners", False)
                 hpc = o.get("half_pixel_centers", False)
+                if m.vec:
+                    # 1x1 -> oh x ow is a constant broadcast (the ASPP
+                    # pooling branch); the reference spacing follows the
+                    # spatial tensors of that size (a concat needs it equal)
+                    sps = {mm.sp for mm in self.meta.values()
+                           if not mm.vec and (mm.rows, mm.w) == (oh, ow)}
+                    self.plan.append(("bcast", node.inputs[0], out))
+                    self.meta[out] = _T(m.c, oh, ow, sps.pop() if len(sps) == 1 else 1)
+                    continue
+                if (oh, ow) == (m.rows, m.w):
+                    # same size: an identity iff both interpolation
+                    # matrices are exact identities (align_corners 33->33)
+                    if not (np.array_equal(resize_matrix(m.rows, oh, ac, hpc),
+                                           np.eye(oh, dtype=np.float32))
+                            and np.array_equal(resize_matrix(m.w, ow, ac, hpc),
+                                               np.eye(ow, dtype=np.float32))):
+                        raise Unsupported("same-size non-identity resize")
+                    self.plan.append(("act", "NONE", node.inputs[0], out))
+                    self.meta[out] = m
+                    continue
+                if flat:
+                    raise Unsupported("flat geometry-changing resize")
+                if (oh, ow) != (2 * m.rows, 2 * m.w) or m.sp % 2:
+                    raise Unsupported("non-2x resize")
                 ri, rw = _taps(resize_matrix(m.rows, oh, ac, hpc))
                 ci, cw = _taps(resize_matrix(m.w, ow, ac, hpc))
                 self.plan.append(("resize2x", node.inputs[0], out, wref(ri),
@@ -233,13 +283,17 @@ class BodyPlan:
             else:  # pragma: no cover
                 raise Unsupported(k)
 
+        if flat and any(not mm.vec and (mm.rows, mm.w, mm.sp) != (in_meta.rows, rs, 1)
+                        for mm in self.meta.values()):
+            raise Unsupported("flat span geometry change")
         if out_tid not in self.meta:
             raise Unsupported("output tensor not produced by span")
         self.in_meta, self.out_meta = in_meta, self.meta[out_tid]
         if self.out_meta.vec:
             raise Unsupported("span output is a pooled vector")
-        if self.out_meta.sp != 1:
+        if self.out_meta.sp != 1 and not allow_spaced_output:
             raise Unsupported("unbalanced strides: output spacing != 1")
+        self.launches = 0
         self._layout()
         self._dev: Dict[torch.device, List[torch.Tensor]] = {}
 
@@ -276,8 +330,18 @@ class BodyPlan:
         for tid, (root, off) in home.items():
             self._offsets[tid] = self._offsets[root] + off
         self._total = total
-        self.launches_per_run = sum(
-            len(self._copies[p[2]]) if p[0] == "concat" else 1 for p in self.plan)
+        self.kernels_per_run = collections.Counter(
+            k for p in self.plan for k in self._kernels(p))
+        self.launches_per_run = sum(self.kernels_per_run.values())
+
+    def _kernels(self, p: tuple) -> List[str]:
+        """The kernels plan op ``p`` launches on CUDA, in order."""
+        if p[0] == "concat":
+            return ["bs_copy"] * len(self._copies[p[2]])
+        if p[0] == "conv1x1":
+            spatial = not self.meta[p[1]].vec
+            return ["bs_gemm" if self.flat and spatial else "bs_conv1x1"]
+        return [_OP_KERNELS[p[0]]]
 
     def _weights_on(self, device) -> List[torch.Tensor]:
         if device not in self._dev:
@@ -305,8 +369,7 @@ class BodyPlan:
             op = p[0]
             if op == "conv1x1":
                 _, tin, tout, wi, bi, act = p
-                y = ws[wi] @ env[tin] + ws[bi][:, None]
-                env[tout] = apply_activation(y, act)
+                env[tout] = conv1x1_plain(ws[wi], ws[bi], env[tin], act)
             elif op == "dw":
                 _, tin, tout, wi, bi, fh, fw, st, dil, plo_h, plo_w, act = p
                 m, om = self.meta[tin], self.meta[tout]
@@ -331,6 +394,9 @@ class BodyPlan:
             elif op == "concat":
                 _, tins, tout = p
                 env[tout] = torch.cat([env[t] for t in tins], dim=0)
+            elif op == "bcast":
+                _, tin, tout = p
+                env[tout] = env[tin].expand(self._shape(tout))
             elif op == "resize2x":
                 _, tin, tout, ri, rw, ci, cw = p
                 m, om = self.meta[tin], self.meta[tout]
@@ -345,9 +411,9 @@ class BodyPlan:
         return env[self.out_tid]
 
     def run_cuda(self, x: torch.Tensor) -> torch.Tensor:
-        """The plan as ``csrc/body.cu`` kernels, one launch per op (concat:
-        one per copied operand), into one workspace on the current stream.
-        The result is a view of that workspace."""
+        """The plan as ``csrc/body.cu`` / ``csrc/body_flat.cu`` kernels, one
+        launch per op (concat: one per copied operand), into one workspace
+        on the current stream.  The result is a view of that workspace."""
         _build.check_cuda(x, "body input", torch.float32,
                           (self.in_meta.c, self.in_meta.rows * self.in_meta.w))
         ws = self._weights_on(x.device)
@@ -357,53 +423,85 @@ class BodyPlan:
         def ptr(tid):
             return x.data_ptr() if tid == self.in_tid else base + fs * self._offsets[tid]
 
+        def launch(name, *args):
+            body_launch(name, *args)
+            self.launches += 1
+
         for p in self.plan:
             op = p[0]
             if op == "conv1x1":
                 _, tin, tout, wi, bi, act = p
                 w = ws[wi]
                 L = 1 if self.meta[tin].vec else self.meta[tin].rows * self.meta[tin].w
-                body_launch("bs_conv1x1", w.data_ptr(), ws[bi].data_ptr(), ptr(tin),
-                            ptr(tout), w.shape[0], w.shape[1], L, _ACT_CODES[act])
+                launch(self._kernels(p)[0], w.data_ptr(), ws[bi].data_ptr(), ptr(tin),
+                       ptr(tout), w.shape[0], w.shape[1], L, _ACT_CODES[act])
             elif op == "dw":
                 _, tin, tout, wi, bi, fh, fw, st, dil, plo_h, plo_w, act = p
                 m, om = self.meta[tin], self.meta[tout]
-                body_launch("bs_dw", ptr(tin), ws[wi].data_ptr(), ws[bi].data_ptr(),
-                            ptr(tout), m.c, m.rows, m.w, om.rows, om.w, fh, fw,
-                            st, dil, plo_h, plo_w, _ACT_CODES[act])
+                launch("bs_dw", ptr(tin), ws[wi].data_ptr(), ws[bi].data_ptr(),
+                       ptr(tout), m.c, m.rows, m.w, om.rows, om.w, fh, fw,
+                       st, dil, plo_h, plo_w, _ACT_CODES[act])
             elif op == "gpool":
                 _, tin, tout, inv, act = p
                 m = self.meta[tin]
-                body_launch("bs_gpool", ptr(tin), ptr(tout), m.c, m.rows * m.w,
-                            inv, _ACT_CODES[act])
+                launch("bs_gpool", ptr(tin), ptr(tout), m.c, m.rows * m.w,
+                       inv, _ACT_CODES[act])
             elif op in ("binop", "bingate"):
                 _, k, a, b, tout, act = p
                 m = self.meta[a]
-                body_launch("bs_eltwise", ptr(a), ptr(b), ptr(tout), m.c,
-                            self._shape(a)[1], 1 if k == "ADD" else 2,
-                            int(op == "bingate"), _ACT_CODES[act])
+                launch("bs_eltwise", ptr(a), ptr(b), ptr(tout), m.c,
+                       self._shape(a)[1], 1 if k == "ADD" else 2,
+                       int(op == "bingate"), _ACT_CODES[act])
             elif op == "act":
                 _, k, tin, tout = p
                 c, L = self._shape(tin)
-                body_launch("bs_eltwise", ptr(tin), None, ptr(tout), c, L, 0, 0,
-                            _ACT_CODES[k])
+                launch("bs_eltwise", ptr(tin), None, ptr(tout), c, L, 0, 0,
+                       _ACT_CODES[k])
             elif op == "concat":
                 _, tins, tout = p
                 for t, off in self._copies[tout]:
-                    body_launch("bs_copy", ptr(t), ptr(tout) + fs * off,
-                                self.meta[t].size)
+                    launch("bs_copy", ptr(t), ptr(tout) + fs * off, self.meta[t].size)
             elif op == "resize2x":
                 _, tin, tout, ri, rw, ci, cw = p
                 m, om = self.meta[tin], self.meta[tout]
-                body_launch("bs_resize", ptr(tin), ws[ri].data_ptr(),
-                            ws[rw].data_ptr(), ws[ci].data_ptr(), ws[cw].data_ptr(),
-                            ptr(tout), m.c, m.rows, m.w, om.rows, om.w)
+                launch("bs_resize", ptr(tin), ws[ri].data_ptr(),
+                       ws[rw].data_ptr(), ws[ci].data_ptr(), ws[cw].data_ptr(),
+                       ptr(tout), m.c, m.rows, m.w, om.rows, om.w)
+            elif op == "bcast":
+                _, tin, tout = p
+                launch("bs_bcast", ptr(tin), ptr(tout), *self._shape(tout))
         o = self._offsets[self.out_tid]
         return buf[o:o + self.out_meta.size].view(self._shape(self.out_tid))
 
 
+def conv1x1_plain(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
+                  act: str = "NONE") -> torch.Tensor:
+    """act(w @ x + b) in plain PyTorch (any device)."""
+    return apply_activation(w @ x + b[:, None], act)
+
+
+def conv1x1_gemm(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
+                 act: str = "NONE") -> torch.Tensor:
+    """The K2'' 1x1 conv alone: act(w @ x + b) for w (co, ci), b (co,) and
+    x (ci, L) f32.  The tiled GEMM of ``csrc/body_flat.cu`` on CUDA tensors
+    (counted in ``body_launch``), :func:`conv1x1_plain` on CPU tensors."""
+    if x.device.type == "cpu":
+        return conv1x1_plain(w, b, x, act)
+    co, ci = w.shape
+    _build.check_cuda(w, "gemm weights", torch.float32)
+    _build.check_cuda(b, "gemm bias", torch.float32, (co,))
+    _build.check_cuda(x, "gemm input", torch.float32)
+    if x.ndim != 2 or x.shape[0] != ci:
+        raise ValueError(f"gemm input: expected ({ci}, L), got {tuple(x.shape)}")
+    y = torch.empty((co, x.shape[1]), dtype=torch.float32, device=x.device)
+    body_launch("bs_gemm", w.data_ptr(), b.data_ptr(), x.data_ptr(), y.data_ptr(),
+                co, ci, x.shape[1], _ACT_CODES[act])
+    return y
+
+
 def _out_tid(p: tuple) -> int:
-    """The tensor a plan op writes."""
+    """The tensor a plan op writes: p[2] for conv1x1, dw, gpool, concat,
+    resize2x and bcast."""
     if p[0] in ("binop", "bingate"):
         return p[4]
     return p[3] if p[0] == "act" else p[2]
@@ -446,3 +544,80 @@ def body_plan_for(model, info) -> Optional[BodyPlan]:
     if (plan.out_meta.rows, plan.out_meta.w) != (oh // 2, ow // 2):
         return None
     return plan
+
+
+def _cut_back(model, info, start: int, end: int, in_tid: int, build, min_nodes: int,
+              body_output_crosses: bool = False):
+    """Cut nodes[start:end] back, one node at a time while at least
+    ``min_nodes`` remain, until exactly one tensor it produces (``in_tid``
+    included) is read after it and ``build(end, tid)`` does not raise
+    Unsupported; with ``body_output_crosses``, the body output counts as
+    read when the span reaches the body's end.  Returns (plan, end, tid)
+    or None."""
+    nodes = model.graph.nodes
+    produced = {in_tid}
+    for n in nodes[start:end]:
+        produced.update(n.outputs)
+    while end - start >= min_nodes:
+        crossing = {t for n in nodes[end:info.body_end] for t in n.inputs if t in produced}
+        if body_output_crosses and end == info.body_end and info.body_out_tensor in produced:
+            crossing.add(info.body_out_tensor)
+        if len(crossing) == 1:
+            tid = crossing.pop()
+            try:
+                return build(end, tid), end, tid
+            except Unsupported:
+                pass
+        end -= 1
+        produced.difference_update(nodes[end].outputs)
+    return None
+
+
+def body_plan_prefix_for(model, info, *, min_nodes: int = 4):
+    """K2': a BodyPlan over the longest qualifying prefix of a front-only
+    family's body span (``body_mega_prefix_for``), or None.
+
+    The span runs from the body start up to the first node whose output
+    has c >= 96 at rows <= 33 (the regime the continuation takes), cut
+    back until exactly one tensor produced before the cut (the span input
+    included) is read after it.  Returns (plan, cut node index, cut
+    tensor id)."""
+    if not info.front_ok:
+        return None
+    g = model.graph
+    start = end = info.body_start
+    for i in range(start, info.body_end):
+        node = g.nodes[i]
+        s = g.tensor(node.outputs[0]).shape
+        if node.kind not in SUPPORTED or s is None or len(s) != 4 \
+                or (s[3] >= 96 and s[1] <= 33):
+            break
+        end = i + 1
+    return _cut_back(model, info, start, end, info.body_in_tensor,
+                     lambda e, tid: BodyPlan(model, start, e, info.body_in_tensor, tid,
+                                             allow_spaced_output=True), min_nodes)
+
+
+def body_plan_continuation_for(model, info, start: int, in_tid: int, *,
+                               min_nodes: int = 4):
+    """K2'': one flat BodyPlan over the body after the prefix cut
+    (``body_mega_continuation_for``), or None.
+
+    The same search as the reference's first link: the longest run of
+    supported 4-D nodes from ``start``, cut back until one tensor crosses
+    the cut and the flat plan builds.  The reference splits that span
+    into several kernels to fit a 40 MiB VMEM budget; here every tensor
+    lives in one device workspace, so the span is one plan, and it ends
+    where the reference's chain ends.  Returns (plan, end node index,
+    output tensor id)."""
+    g = model.graph
+    end = start
+    for i in range(start, info.body_end):
+        node = g.nodes[i]
+        s = g.tensor(node.outputs[0]).shape
+        if node.kind not in SUPPORTED or s is None or len(s) != 4:
+            break
+        end = i + 1
+    return _cut_back(model, info, start, end, in_tid,
+                     lambda e, tid: BodyPlan(model, start, e, in_tid, tid, flat=True),
+                     min_nodes, body_output_crosses=True)

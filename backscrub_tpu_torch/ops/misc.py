@@ -7,6 +7,8 @@ come from the same numpy ``resize_matrix``.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -57,14 +59,21 @@ def resize_matrix(in_size: int, out_size: int, align_corners: bool,
     return mat.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=64)
+def _resize_matrix_on(in_size: int, out_size: int, align_corners: bool,
+                      half_pixel_centers: bool, device: torch.device) -> torch.Tensor:
+    """resize_matrix as a tensor on ``device``, uploaded once (callers only
+    read it)."""
+    return torch.from_numpy(resize_matrix(in_size, out_size, align_corners,
+                                          half_pixel_centers)).to(device)
+
+
 def resize_bilinear_nhwc(x, out_h: int, out_w: int, align_corners: bool = False,
                          half_pixel_centers: bool = False):
     """Separable bilinear resize of a (..., H, W, C) float tensor: rows,
     then columns, each an f32 interpolation-matrix contraction."""
-    ah = torch.from_numpy(resize_matrix(x.shape[-3], out_h, align_corners,
-                                        half_pixel_centers)).to(x.device)
-    aw = torch.from_numpy(resize_matrix(x.shape[-2], out_w, align_corners,
-                                        half_pixel_centers)).to(x.device)
+    ah = _resize_matrix_on(x.shape[-3], out_h, align_corners, half_pixel_centers, x.device)
+    aw = _resize_matrix_on(x.shape[-2], out_w, align_corners, half_pixel_centers, x.device)
     y = torch.einsum("oh,...hwc->...owc", ah, x)
     return torch.einsum("pw,...owc->...opc", aw, y)
 

@@ -6,16 +6,24 @@ the body between (counterpart of ``backscrub_tpu/pipeline/edge.py``).
   contractions (``torch.matmul``, f32), rounded; then one kernel
   (``csrc/front.cu``, K1) runs bilateral + normalize + 3x3/s2 conv +
   activation and emits the body input as (C, oh, ow).
-- **body**: :class:`~backscrub_tpu_torch.ops.megakernel.BodyPlan`
-  (``csrc/body.cu``, K2).  A span that BodyPlan rejects gets no fused
-  path: :class:`MaskGen` runs such models through the classic stages.
+- **body**: :class:`~backscrub_tpu_torch.ops.megakernel.BodyPlan` spans.
+  With both edge layers (the segm family) one plan covers the body
+  (``csrc/body.cu``, K2); a span that BodyPlan rejects gets no fused path,
+  and :class:`MaskGen` runs such models through the classic stages.
+  Front only (deeplab, bodypix, or a crop too coarse for the tail): the
+  prefix plan (K2', ``csrc/body.cu``), then with ``cont`` the flat
+  continuation plan (K2'', ``csrc/body_flat.cu``), then the graph
+  executor over the nodes left; a model whose prefix or continuation
+  plan does not build gets no fused path either.
 - **tail**: because the 2x2/s2 transpose conv has kernel == stride, each
   output phase p = 2a+b is a 1x1 contraction of the body output, and the
   two-channel decode only needs sign(out1 - out0): one (4, K) dot, then
-  decode and the EMA bit trick, in plain PyTorch.  The EMA is carried in
-  the standard (oh, ow) layout, not the TPU's phase-major quadrants.
+  decode and the EMA bit trick, in plain PyTorch.  Front only: the
+  model's decode rule and the EMA.  The EMA is carried in the standard
+  (oh, ow) layout, not the TPU's phase-major quadrants.
 - **postprocess**: crop + bilinear upscale + 5x5 box blur as one matrix
-  per axis (fold-blur), matrices built in float64.
+  per axis (fold-blur), matrices built in float64; a crop under 64 px
+  runs the two stages with a round between them.
 
 The TPU-only layouts (quadrant planes, rowpad, chw store, the VMEM
 limits) have no counterpart.  Reference behaviour: the preprocess chain
@@ -35,11 +43,14 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
+from ..graph.executor import span_fn
 from ..ops.common import apply_activation
-from ..ops.megakernel import body_plan_for
+from ..ops.megakernel import (body_plan_continuation_for, body_plan_for,
+                              body_plan_prefix_for)
 from ..ops.misc import resize_matrix
+from .decode import decode_val, ema_update
 from .geometry import RoiGeometry
-from .image import _bilateral_taps, bilateral_planes, blur_matrix
+from .image import _bilateral_taps, bilateral_planes, blur_matrix, box_blur, resize_bilinear
 
 
 @dataclasses.dataclass
@@ -279,22 +290,103 @@ def fold_blur_post(ema: torch.Tensor, geo: RoiGeometry, ah: torch.Tensor,
     return pad_to_frame(torch.clamp(torch.round(y), 0, 255).to(torch.uint8), geo)
 
 
+def fold_blur_tensors(geo: RoiGeometry, device):
+    """The fold-blur matrices of ``geo`` on ``device``, or None where the
+    output crop is under 64 px (the two-stage post)."""
+    o = geo.out_roi
+    if min(o.h, o.w) < 64:
+        return None
+    ah, aw = fold_blur_matrices(o.h, o.w, geo.roi.h, geo.roi.w)
+    return torch.from_numpy(ah).to(device), torch.from_numpy(aw).to(device)
+
+
+def post_footprint(ema_pixels: torch.Tensor, geo: RoiGeometry, mats) -> torch.Tensor:
+    """The frame pixels (H, W) bool that the EMA pixels ``ema_pixels``
+    (oh, ow) bool reach through the fold-blur post (``mats`` from
+    :func:`fold_blur_tensors`; both matrices are non-negative and zero
+    outside each tap's support): where two EMAs differ only at those
+    pixels, their masks differ only inside it."""
+    o, r = geo.out_roi, geo.roi
+    ah, aw = mats
+    ind = ema_pixels[o.y:o.y + o.h, o.x:o.x + o.w].float()
+    foot = torch.zeros((geo.frame_h, geo.frame_w), dtype=torch.bool, device=ema_pixels.device)
+    foot[r.y:r.y + r.h, r.x:r.x + r.w] = torch.matmul(torch.matmul(ah, ind), aw.T) > 0
+    return foot
+
+
+def postprocess_mask(ema_u8: torch.Tensor, geo: RoiGeometry, mats=None) -> torch.Tensor:
+    """EMA (oh, ow) u8 -> full-frame mask (H, W) u8: crop the model-output
+    ROI, upscale to the frame ROI, 5x5 box blur, embed in 255.
+
+    A crop of at least 64 px both ways runs blur∘upscale as one matrix per
+    axis (fold-blur; ``mats`` from :func:`fold_blur_tensors`, built here
+    when not given); a coarser one runs the two stages with a round
+    between them, as the reference's u8 path quantizes.
+    """
+    o = geo.out_roi
+    if min(o.h, o.w) >= 64:
+        return fold_blur_post(ema_u8, geo, *(mats or fold_blur_tensors(geo, ema_u8.device)))
+    small = ema_u8[o.y:o.y + o.h, o.x:o.x + o.w].float()
+    up = torch.round(resize_bilinear(small[..., None], geo.roi.h, geo.roi.w))
+    m = torch.clamp(torch.round(box_blur(up, 5)[..., 0]), 0, 255).to(torch.uint8)
+    return pad_to_frame(m, geo)
+
+
+def body_plans(model, info: EdgeInfo, mega: Optional[bool] = None, cont: bool = False):
+    """The BodyPlans of the body span and where the graph executor takes
+    over: (plans, start node, start tensor), or None where a plan the
+    switches call for does not build.  ``mega=False``: no plan.  With both
+    edge layers: the full-span plan (K2).  Front only: the prefix plan
+    (K2') and, with ``cont``, the continuation plan (K2''); ``mega=True``
+    demands the full span, as in the reference.  A span left to the
+    executor runs plain PyTorch, so a missing plan is no fused path at all
+    rather than the executor in its place."""
+    start, tid = info.body_start, info.body_in_tensor
+    if mega is False:
+        return [], start, tid
+    if info.tail_ok:
+        plan = body_plan_for(model, info)
+        return None if plan is None else ([plan], info.body_end, info.body_out_tensor)
+    if mega:
+        return None
+    r = body_plan_prefix_for(model, info)
+    if r is None:
+        return None
+    plans, start, tid = [r[0]], r[1], r[2]
+    if cont:
+        rc = body_plan_continuation_for(model, info, start, tid)
+        if rc is None:
+            return None
+        plans.append(rc[0])
+        start, tid = rc[1], rc[2]
+    return plans, start, tid
+
+
 class EdgeFused:
-    """The fused edge path for one (model, geometry), on ``device``.
+    """The fused edge path for one (model, geometry), on ``device``
+    (``backscrub_tpu/pipeline/edge.py:EdgeFused``).
 
     ``step_mask(frame, ema)`` maps a (H, W, 3) BGR u8 frame and the (oh, ow)
     u8 EMA to (mask (H, W) u8, new EMA).  Edge weights are taken from the
-    model at construction.  The slice serves models where both edge layers
-    fuse and the body between them fits :class:`BodyPlan`; others raise
+    model at construction.  The fused front is required (ValueError
+    otherwise).  The body runs the plans of :func:`body_plans` (given as
+    ``plans``, or found here) and the graph executor over the nodes they
+    leave; a plan the switches call for that does not build raises
     ValueError.
     """
 
     def __init__(self, model, geo: RoiGeometry, spec, info: EdgeInfo, *,
-                 use_bilateral: bool = True, device="cpu"):
-        if not (info.front_ok and info.tail_ok):
-            raise ValueError("the PyTorch edge path needs both the fused "
-                             "front and the fused tail (ROADMAP queue 1 "
-                             "item 8 brings front-only families)")
+                 use_bilateral: bool = True, device="cpu",
+                 mega: Optional[bool] = None, cont: bool = False, plans=None):
+        if not info.front_ok:
+            raise ValueError("the PyTorch edge path needs the fused front")
+        if plans is None:
+            plans = body_plans(model, info, mega, cont)
+        if plans is None:
+            raise ValueError(f"the body span does not fit the BodyPlans that mega={mega}, "
+                             f"cont={cont} call for (K2 needs both fused edge layers; "
+                             "front only, K2' the prefix and K2'' the continuation); "
+                             "the classic path serves this model")
         self.model, self.geo, self.spec, self.info = model, geo, spec, info
         self.use_bilateral = use_bilateral
         dev = torch.device(device)
@@ -306,9 +398,22 @@ class EdgeFused:
             geo.roi.w, geo.in_roi.w, iw, geo.in_roi.x)).to(dev)
         self.front_params = torch.from_numpy(front_params(
             hp[info.front_w_key], hp[info.front_b_key])).to(dev)
+        self.post_mats = fold_blur_tensors(geo, dev)
 
-        # tail: flipped HWIO (2, 2, K, O), Wf[h, w, k, o] = W_ohwi[o, 1-h, 1-w, k];
+        if info.tail_ok:
+            self._init_tail(dev)
+        self.plans, start, tid = plans
+        self.body_plan = self.plans[0] if info.tail_ok and self.plans else None
+        self.prefix_plan = self.plans[0] if not info.tail_ok and self.plans else None
+        self.cont_plan = self.plans[1] if len(self.plans) == 2 else None
+        # the graph executor over the nodes no plan covers
+        self.rest = (None if (start, tid) == (info.body_end, info.body_out_tensor)
+                     else span_fn(model, start, info.body_end, tid, info.body_out_tensor))
+
+    def _init_tail(self, dev):
+        # flipped HWIO (2, 2, K, O), Wf[h, w, k, o] = W_ohwi[o, 1-h, 1-w, k];
         # phase p = 2a+b reads Wf[1-a, 1-b]; two_channel keeps out1 - out0
+        info, hp = self.info, self.model.host_params
         wt = np.asarray(hp[info.tail_w_key], np.float32)
         bt = np.asarray(hp[info.tail_b_key], np.float32)
         wd = np.zeros((4, wt.shape[2]), np.float32)
@@ -325,18 +430,8 @@ class EdgeFused:
                     bd[p] = bt[0]
         self.tail_wd = torch.from_numpy(wd).to(dev)
         self.tail_bd = torch.from_numpy(bd).to(dev)
-        oh2, ow2 = model.output_shape[1:3]
+        oh2, ow2 = self.model.output_shape[1:3]
         self.xh, self.xw = oh2 // 2, ow2 // 2
-        o = geo.out_roi
-        ah, aw = fold_blur_matrices(o.h, o.w, geo.roi.h, geo.roi.w)
-        self.post_ah = torch.from_numpy(ah).to(dev)
-        self.post_aw = torch.from_numpy(aw).to(dev)
-
-        self.body_plan = body_plan_for(model, info)
-        if self.body_plan is None:
-            raise ValueError("the body between the fused edge layers does not "
-                             "fit BodyPlan (the K2 kernels); the classic path "
-                             "serves this model")
 
     def canvas(self, frame_bgr_u8: torch.Tensor) -> torch.Tensor:
         """(H, W, 3) u8 -> the rounded, padded model canvas (3, ih+4, iw+4)
@@ -356,14 +451,23 @@ class EdgeFused:
                     scale=float(self.spec.scale), offset=float(self.spec.offset),
                     activation=info.front_activation)
 
-    def front(self, frame_bgr_u8: torch.Tensor) -> torch.Tensor:
-        """(H, W, 3) u8 -> body input (Cout, oh, ow) f32."""
-        return front_fused(self.canvas(frame_bgr_u8), self.front_params,
-                           **self.front_kwargs())
+    def front(self, frame_bgr_u8: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        """(H, W, 3) u8 -> body input (Cout, oh, ow) f32; ``plain`` runs K1's
+        plain version on any device."""
+        fn = front_plain if plain else front_fused
+        return fn(self.canvas(frame_bgr_u8), self.front_params, **self.front_kwargs())
 
-    def body(self, h: torch.Tensor) -> torch.Tensor:
-        """(C, oh, ow) -> tail input (K, xh*xw)."""
-        return self.body_plan(h.reshape(h.shape[0], -1))
+    def body(self, h: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        """(C, oh, ow) -> the body output (C_out, H_out, W_out): the tail's
+        input, or front only the model output in channel-major order.
+        ``plain`` runs the plans' plain versions on any device."""
+        for plan in self.plans:
+            m = plan.out_meta
+            x = h.reshape(h.shape[0], -1)
+            h = (plan.run_plain(x) if plain else plan(x)).reshape(m.c, m.rows, m.w)
+        if self.rest is not None:
+            h = self.rest(h.permute(1, 2, 0)[None])[0].permute(2, 0, 1)
+        return h
 
     def tail(self, body_out: torch.Tensor, ema: torch.Tensor) -> torch.Tensor:
         """Body output (K, xh*xw) + EMA (2xh, 2xw) u8 -> new EMA: one phase
@@ -376,9 +480,14 @@ class EdgeFused:
         return (val & 0xE0) | (ema >> 3)
 
     def postprocess(self, ema: torch.Tensor) -> torch.Tensor:
-        """EMA (oh, ow) u8 -> full-frame mask (H, W) u8 (fold-blur)."""
-        return fold_blur_post(ema, self.geo, self.post_ah, self.post_aw)
+        """EMA (oh, ow) u8 -> full-frame mask (H, W) u8."""
+        return postprocess_mask(ema, self.geo, self.post_mats)
 
-    def step_mask(self, frame: torch.Tensor, ema: torch.Tensor):
-        new_ema = self.tail(self.body(self.front(frame)), ema)
+    def step_mask(self, frame: torch.Tensor, ema: torch.Tensor, plain: bool = False):
+        """``plain`` runs every kernel's plain version (on any device)."""
+        out = self.body(self.front(frame, plain), plain)
+        if self.info.tail_ok:
+            new_ema = self.tail(out.reshape(out.shape[0], -1), ema)
+        else:
+            new_ema = ema_update(ema, decode_val(out.permute(1, 2, 0), self.spec))
         return self.postprocess(new_ema), new_ema

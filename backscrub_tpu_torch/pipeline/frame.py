@@ -3,10 +3,11 @@
 
 Replaces the reference's main-loop hot path (``app/deepseg.cc:627-690``):
 mask -> alpha blend -> RGB2YUYV.  On CUDA one step runs the fused edge
-path (K1, K2) and the blend + pack kernel (K3), with the EMA mask carried
-on the device.  The slice serves BGR in, YUYV out, an explicit or green
-background, the same geometry and no flips; other options raise
-NotImplementedError naming the ROADMAP item that brings them.
+path (K1 and K2 for the segm family; K1, K2' and K2'' for deeplab) and
+the blend + pack kernel (K3), with the EMA mask carried on the device.
+The slices serve BGR in, YUYV out, an explicit or green background, the
+same geometry and no flips; other options raise NotImplementedError
+naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -52,6 +53,10 @@ class PipelineConfig:
     mask_morph: str = ""
     edge_fused: Optional[bool] = None  # None: fused edge path when the model
                                        # matches; False: classic stages
+    edge_mega: Optional[bool] = None   # body plans (K2 / K2'); False: the
+                                       # graph executor behind the front
+    edge_cont: Optional[bool] = None   # flat continuation (K2''); None:
+                                       # ModelSpec.edge_cont
     chroma_order: str = "reference"    # or "yuy2" for spec-correct output
     correct_colors: bool = False       # True: proper BGR->RGB before the pack
     output_format: str = "yuyv"
@@ -79,7 +84,9 @@ class FramePipeline:
         self.cfg = config
         self.maskgen = MaskGen(model, config.width, config.height,
                                device=device, use_bilateral=config.use_bilateral,
-                               edge_fused=config.edge_fused)
+                               edge_fused=config.edge_fused,
+                               edge_mega=config.edge_mega,
+                               edge_cont=config.edge_cont)
         self.device = self.maskgen.device
         self.geo = self.maskgen.geo
         green = np.zeros((config.height, config.width, 3), np.uint8)

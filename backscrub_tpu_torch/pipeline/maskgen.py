@@ -3,8 +3,9 @@
 The reference chain (``lib/libbackscrub.cc:279-372``): ROI crop -> resize
 -> BGR2RGB -> bilateral filter -> normalize -> CNN -> decode with the
 temporal EMA -> upscale -> 5x5 box blur.  :class:`MaskGen` runs it either
-through the fused edge path (``pipeline/edge.py``: kernels K1 + K2 on
-CUDA) or through the classic stages below and the graph executor.
+through the fused edge path (``pipeline/edge.py``: kernels K1 and K2, or
+K1, K2' and K2'', on CUDA) or through the classic stages below and the
+graph executor.
 
 Masks are u8, 0 = person (keep the camera pixel), 255 = background; the
 area outside the aspect-ratio ROI is always 255.
@@ -19,12 +20,10 @@ import torch.nn.functional as F
 
 from ..graph.executor import CompiledModel, load_model
 from ..models.specs import ModelSpec, resolve_model_path, spec_for_model
-from ..ops.megakernel import body_plan_for
 from .decode import decode_val, ema_update
-from .edge import (EdgeFused, edge_applicable, fold_blur_matrices, fold_blur_post,
-                   pad_to_frame)
+from .edge import EdgeFused, body_plans, edge_applicable, postprocess_mask
 from .geometry import RoiGeometry, compute_roi
-from .image import bilateral5, box_blur, resize_bilinear
+from .image import bilateral5, resize_bilinear
 
 
 def set_precision_policy() -> None:
@@ -62,38 +61,24 @@ def preprocess(frame_bgr_u8: torch.Tensor, geo: RoiGeometry, spec: ModelSpec,
     return rgb * spec.scale + spec.offset
 
 
-def postprocess_mask(ema_u8: torch.Tensor, geo: RoiGeometry) -> torch.Tensor:
-    """EMA (oh, ow) u8 -> full-frame mask (H, W) u8: crop the model-output
-    ROI, upscale to the frame ROI, 5x5 box blur, embed in 255.
-
-    A crop of at least 64 px both ways runs blur∘upscale as one matrix per
-    axis (fold-blur); a coarser one runs the two stages with a round
-    between them, as the reference's u8 path quantizes.
-    """
-    o = geo.out_roi
-    if min(o.h, o.w) >= 64:
-        ah, aw = fold_blur_matrices(o.h, o.w, geo.roi.h, geo.roi.w)
-        dev = ema_u8.device
-        return fold_blur_post(ema_u8, geo, torch.from_numpy(ah).to(dev),
-                              torch.from_numpy(aw).to(dev))
-    small = ema_u8[o.y:o.y + o.h, o.x:o.x + o.w].float()
-    up = torch.round(resize_bilinear(small[..., None], geo.roi.h, geo.roi.w))
-    m = torch.clamp(torch.round(box_blur(up, 5)[..., 0]), 0, 255).to(torch.uint8)
-    return pad_to_frame(m, geo)
-
-
 class MaskGen:
     """bs_maskgen_new equivalent on ``device``.
 
-    ``edge_fused``: None picks the fused edge path when the model matches
-    its pattern and its body fits BodyPlan (the main path: K1 + K2 on
-    CUDA), True requires it and raises otherwise, False runs the classic
-    stages.
+    ``edge_fused``: None picks the fused edge path when the model's front
+    matches its pattern and every BodyPlan the switches call for builds
+    (the main paths: K1 + K2, or K1 + K2' + K2'' on CUDA), and the classic
+    stages otherwise; True requires it and raises otherwise; False runs
+    the classic stages.  ``edge_mega`` and ``edge_cont`` pass to
+    :class:`EdgeFused` as ``mega`` and ``cont`` (``edge_cont=None`` takes
+    the spec's ``edge_cont``); ``edge_mega=True`` raises where the
+    full-span plan does not build.
     """
 
     def __init__(self, model: str, width: int, height: int, *,
                  device="cpu", use_bilateral: bool = True,
-                 edge_fused: Optional[bool] = None):
+                 edge_fused: Optional[bool] = None,
+                 edge_mega: Optional[bool] = None,
+                 edge_cont: Optional[bool] = None):
         self.device = resolve_device(device)
         set_precision_policy()
         self.model_path = resolve_model_path(model)
@@ -112,14 +97,19 @@ class MaskGen:
         self.edge = None
         if edge_fused is not False:
             info = edge_applicable(self.model, self.spec, self.geo)
-            if info is not None and body_plan_for(self.model, info) is not None:
-                self.edge = EdgeFused(self.model, self.geo, self.spec, info,
-                                      use_bilateral=use_bilateral,
-                                      device=self.device)
-            elif edge_fused:
-                raise ValueError("edge_fused=True but the model/geometry does "
-                                 "not match the fusable edge pattern, or its "
-                                 "body does not fit BodyPlan")
+            cont = self.spec.edge_cont if edge_cont is None else edge_cont
+            plans = (body_plans(self.model, info, edge_mega, cont)
+                     if info is not None and info.front_ok else None)
+            if plans is not None:
+                self.edge = EdgeFused(
+                    self.model, self.geo, self.spec, info,
+                    use_bilateral=use_bilateral, device=self.device, mega=edge_mega,
+                    cont=cont, plans=plans)
+            elif edge_fused or edge_mega:
+                raise ValueError(f"edge_fused={edge_fused}, edge_mega={edge_mega}: the "
+                                 "model/geometry does not match the fusable edge "
+                                 "pattern, or its body does not fit the BodyPlans "
+                                 "these switches call for")
         self.ema_shape = (oh, ow)
         self.reset()
 

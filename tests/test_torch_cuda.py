@@ -15,14 +15,17 @@ import numpy as np
 import pytest
 import torch
 
+from backscrub_tpu_torch import _build
 from backscrub_tpu_torch.graph.executor import build_model
-from backscrub_tpu_torch.ops.megakernel import BodyPlan, body_launch
+from backscrub_tpu_torch.ops.megakernel import (BodyPlan, body_launch, conv1x1_gemm,
+                                                conv1x1_plain)
 from backscrub_tpu_torch.ops.pack_kernels import blend_pack_yuyv, blend_pack_yuyv_plain
 from backscrub_tpu_torch.pipeline import edge as tedge
 from backscrub_tpu_torch.pipeline.frame import FramePipeline, PipelineConfig
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FULL = ROOT / "tests" / "data" / "segm_synth_lite_96x160.tflite"
+DEEPLAB = ROOT / "tests" / "data" / "deeplab_synth_257.tflite"
 
 pytestmark = pytest.mark.cuda
 
@@ -182,3 +185,86 @@ def test_wrappers_validate_inputs(cuda_device):
         blend_pack_yuyv(frame, frame[:, :32], mask)
     with pytest.raises(ValueError):
         blend_pack_yuyv(frame, frame.transpose(0, 1).contiguous().transpose(0, 1), mask)
+
+
+@pytest.mark.parametrize("co,ci,L", [(96, 16, 1089), (480, 80, 1089), (256, 512, 1089),
+                                     (21, 256, 1089), (7, 5, 33)])
+@pytest.mark.parametrize("act", ["NONE", "RELU6"])
+def test_gemm_kernel_matches_plain(cuda_device, co, ci, L, act):
+    """The K2'' tiled GEMM at the continuation's shapes and at ragged ones."""
+    rng = np.random.default_rng(co * 1000 + ci)
+    w, x = (torch.from_numpy((rng.standard_normal(s) / np.sqrt(ci)).astype(np.float32))
+            .to(cuda_device) for s in ((co, ci), (ci, L)))
+    b = torch.from_numpy(rng.standard_normal(co).astype(np.float32)).to(cuda_device)
+    before = body_launch.by_kernel["bs_gemm"]
+    got = conv1x1_gemm(w, b, x, act)
+    assert body_launch.by_kernel["bs_gemm"] == before + 1
+    torch.testing.assert_close(got, conv1x1_plain(w, b, x, act), atol=2e-3, rtol=1e-3)
+
+
+def test_bcast_kernel(cuda_device):
+    x = torch.arange(256, dtype=torch.float32, device=cuda_device)
+    y = torch.empty((256, 1089), dtype=torch.float32, device=cuda_device)
+    _build.launch("bs_bcast", x.data_ptr(), y.data_ptr(), 256, 1089)
+    assert torch.equal(y, x[:, None].expand(256, 1089))
+
+
+def _deeplab(device, n):
+    pipe = FramePipeline(str(DEEPLAB), PipelineConfig(width=640, height=480), device=device)
+    _frame(640, 480)        # puts tools/ on sys.path
+    from make_synth_segm import moving_frames
+    return pipe, [torch.from_numpy(f).to(device) for f in moving_frames(640, 480, n)]
+
+
+def test_deeplab_prefix_and_continuation_match_plain(cuda_device):
+    pipe, (frame,) = _deeplab(cuda_device, 1)
+    e = pipe.maskgen.edge
+    pre, cont = e.prefix_plan, e.cont_plan
+    with torch.no_grad():
+        h = e.front(frame).reshape(16, -1)
+        before = pre.launches, cont.launches, body_launch.by_kernel["bs_bcast"]
+        k2 = pre.run_cuda(h)
+        torch.testing.assert_close(k2, pre.run_plain(h), atol=2e-3, rtol=1e-3)
+        k3 = cont.run_cuda(k2)
+        torch.testing.assert_close(k3, cont.run_plain(k2), atol=2e-3, rtol=1e-3)
+    assert (pre.launches, cont.launches) == (before[0] + pre.launches_per_run,
+                                             before[1] + cont.launches_per_run)
+    assert body_launch.by_kernel["bs_bcast"] == before[2] + 1
+
+
+def test_deeplab_pipeline_matches_plain(cuda_device):
+    """Five frames of the deeplab FramePipeline on the card against the
+    plain path, under the tolerance invariant: at most 2% of a frame's
+    bytes differ, 0.2% over the sequence; a decode decision may flip only
+    at a near-tie of the person margin (|margin| <= 1e-3); the EMAs are
+    equal wherever the decode never flipped; and outside the post's
+    footprint of the EMA pixels that differ no byte is off by more than 1."""
+    from backscrub_tpu_torch.pipeline.decode import decode_val, ema_update
+    pipe, frames = _deeplab(cuda_device, 5)
+    e = pipe.maskgen.edge
+    bg = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 256, (480, 640, 3), np.uint8)).to(cuda_device)
+    ema = torch.full(pipe.maskgen.ema_shape, 255, dtype=torch.uint8, device=cuda_device)
+    ever_flipped = torch.zeros_like(ema, dtype=torch.bool)
+    fracs = []
+    with torch.no_grad():
+        for f in frames:
+            yuyv, mask = pipe.step(f, bg)
+            ema_k = pipe.maskgen.ema
+            logits = e.body(e.front(f, plain=True), plain=True).permute(1, 2, 0)
+            ema = ema_update(ema, decode_val(logits, e.spec))
+            rm = e.postprocess(ema)
+            ry = blend_pack_yuyv_plain(f, bg, rm)
+            flipped = (ema_k >> 5) != (ema >> 5)
+            others = torch.cat([logits[..., :15], logits[..., 16:]], -1)
+            margin = logits[..., 15] - others.max(-1).values
+            assert bool((margin[flipped].abs() <= 1e-3).all())
+            ever_flipped |= flipped
+            assert torch.equal(ema_k[~ever_flipped], ema[~ever_flipped])
+            foot = tedge.post_footprint(ema_k != ema, e.geo, e.post_mats)
+            foot_yuyv = foot.reshape(480, 320, 2).any(-1)[..., None].expand(480, 320, 4)
+            for a, b, m in ((yuyv, ry, foot_yuyv.reshape(480, 1280)), (mask, rm, foot)):
+                assert int(torch.where(m, 0, (a.int() - b.int()).abs()).max()) <= 1
+            fracs.append(float(torch.cat([(yuyv != ry).flatten(),
+                                          (mask != rm).flatten()]).float().mean()))
+    assert max(fracs) <= 0.02 and float(np.mean(fracs)) <= 0.002

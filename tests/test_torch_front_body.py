@@ -76,13 +76,23 @@ def test_detect_edge_matches_jax(models, which):
     for w, h in ((320, 240), (640, 480), (100, 640)):
         _, _, _, jinfo, tinfo = _pair(models[which], w, h)
         assert dataclasses.asdict(tinfo) == dataclasses.asdict(jinfo)
-    # a 15-px-wide output crop keeps the fused tail off: the port's fused
-    # path needs both edge layers, so edge_fused=True raises and auto mode
-    # runs the classic stages
+    # a 15-px-wide output crop keeps the fused tail off: where the JAX
+    # package builds a prefix megakernel (narrow), auto mode runs the
+    # front-only fused path with the prefix plan; where it builds none
+    # (full), the port has no kernel for the body, so auto mode runs the
+    # classic stages and edge_fused=True raises
     assert not tinfo.tail_ok
-    with pytest.raises(ValueError):
-        MaskGen(models[which], 100, 640, edge_fused=True)
-    assert MaskGen(models[which], 100, 640).edge is None
+    port = MaskGen(models[which], 100, 640).edge
+    ref = JaxMaskGen(models[which], 100, 640, edge_fused=True, edge_interpret=True).edge
+    assert ref.mega is None and ref.mega_cont is None
+    assert (ref.mega_prefix is None) == (which == "full")
+    if which == "full":
+        assert port is None
+        with pytest.raises(ValueError, match="edge_fused=True"):
+            MaskGen(models[which], 100, 640, edge_fused=True)
+    else:
+        assert not port.info.tail_ok and port.body_plan is None
+        assert port.prefix_plan is not None and port.cont_plan is None
 
 
 def test_body_that_fails_a_plan_guard_takes_the_classic_path(models, monkeypatch):
@@ -256,3 +266,17 @@ def test_body_plan_rejects_what_the_megakernel_rejects(case, msg):
     model = build_model(GraphIR("synth", tensors, nodes, [0], [out]))
     with pytest.raises(Unsupported, match=msg):
         BodyPlan(model, 0, len(nodes), 0, out)
+
+
+def test_edge_mega_false_runs_the_executor_behind_the_front(models):
+    """edge_mega=False keeps K1 and the fused tail and runs the body through
+    the graph executor (the JAX package's mega=False), with the same masks
+    as the body plan."""
+    path = models["narrow"]
+    plan, graph = MaskGen(path, 640, 480), MaskGen(path, 640, 480, edge_mega=False)
+    assert graph.edge.body_plan is None and graph.edge.rest is not None
+    assert plan.edge.rest is None and graph.edge.info.tail_ok
+    for f in _tools().moving_frames(640, 480, 2):
+        a, b = plan.process(f), graph.process(f)
+        assert float((a != b).float().mean()) <= 0.02
+        assert torch.equal(plan.ema, graph.ema)

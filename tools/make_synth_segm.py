@@ -79,15 +79,21 @@ def moving_frames(width: int, height: int, n: int, seed: int = 0):
     colour = np.array([60.0, 110.0, 200.0], np.float32)
     frames = []
     for k in range(n):
-        cx = 0.5 + 0.15 * np.sin(0.3 * k)
-        cy = 0.02 * np.cos(0.2 * k)
-        head = ((u - cx) / 0.12) ** 2 + ((v - 0.35 - cy) / 0.18) ** 2 < 1.0
-        body = ((u - cx) / 0.30) ** 2 + ((v - 1.0 - cy) / 0.45) ** 2 < 1.0
-        person = (head | body)[..., None]
+        person = person_mask(u, v, k)[..., None]
         shade = 40.0 * np.cos(9.0 * u + 0.5 * k)[..., None]
         img = np.where(person, colour + shade, base) + grain
         frames.append(np.clip(img, 0, 255).astype(np.uint8))
     return frames
+
+
+def person_mask(u, v, k: int):
+    """Where frame ``k`` of ``moving_frames`` shows the person, at the
+    normalized coordinates ``u`` (x / width) and ``v`` (y / height)."""
+    cx = 0.5 + 0.15 * np.sin(0.3 * k)
+    cy = 0.02 * np.cos(0.2 * k)
+    head = ((u - cx) / 0.12) ** 2 + ((v - 0.35 - cy) / 0.18) ** 2 < 1.0
+    body = ((u - cx) / 0.30) ** 2 + ((v - 1.0 - cy) / 0.45) ** 2 < 1.0
+    return head | body
 
 
 class _Graph:
@@ -150,7 +156,7 @@ class _Graph:
         self.op("CONV_2D", [x, wt, b], [y], opt, sg.BuiltinOptions.Conv2DOptions)
         return y, (oh, ow, cout)
 
-    def dw(self, name, x, shape, k, stride, act="NONE"):
+    def dw(self, name, x, shape, k, stride, act="NONE", dilation=1):
         sg, rng = self.sg, self.rng
         h, w, c = shape
         wt = self.weight(name + "/w", rng.standard_normal((1, k, k, c))
@@ -160,6 +166,7 @@ class _Graph:
         y = self.tensor(name, (1, oh, ow, c))
         opt = sg.DepthwiseConv2DOptionsT()
         opt.padding, opt.strideW, opt.strideH = 0, stride, stride
+        opt.dilationWFactor = opt.dilationHFactor = dilation
         opt.depthMultiplier, opt.fusedActivationFunction = 1, _ACT[act]
         self.op("DEPTHWISE_CONV_2D", [x, wt, b], [y], opt,
                 sg.BuiltinOptions.DepthwiseConv2DOptions)

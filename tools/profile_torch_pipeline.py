@@ -1,17 +1,20 @@
 """Profile the PyTorch port's frame pipeline on one CUDA card.
 
 Runs ``FramePipeline`` on the committed synthetic segm_lite-shaped model
-(or ``--model``), warms up, then prints:
+(or ``--model``, e.g. the synthetic deeplab model), warms up, then prints:
 
 - ms/frame over ``--frames`` frames (host clock around work that ends in
   ``torch.cuda.synchronize()``);
 - a ``torch.profiler`` window over ``--window`` frames: device time by
   kernel name, the device's busy time per frame and its idle share;
+- the device time of each body plan of the fused path (K2, or K2' and
+  K2'') run alone on the frame's body input, by kernel name;
 - optionally (``--trace PATH``) the window's Chrome trace.
 
 Usage::
 
     python tools/profile_torch_pipeline.py --width 640 --height 480
+    python tools/profile_torch_pipeline.py --model tests/data/deeplab_synth_257.tflite
 """
 
 from __future__ import annotations
@@ -83,6 +86,30 @@ def main(argv=None) -> int:
     if a.trace:
         os.makedirs(os.path.dirname(os.path.abspath(a.trace)), exist_ok=True)
         prof.export_chrome_trace(a.trace)
+
+    e = pipe.maskgen.edge
+    if e is not None and e.plans:
+        with torch.no_grad():
+            x = e.front(frames[0])
+            for name, plan in (("K2", e.body_plan), ("K2'", e.prefix_plan),
+                               ("K2''", e.cont_plan)):
+                if plan is None:
+                    continue
+                m = plan.out_meta
+                x = x.reshape(x.shape[0], -1)
+                with profile(activities=[ProfilerActivity.CUDA]) as pp:
+                    for _ in range(a.window):
+                        y = plan(x)
+                    torch.cuda.synchronize()
+                rows = {k.key: k.self_device_time_total / a.window
+                        for k in pp.key_averages() if k.device_type == DeviceType.CUDA}
+                print(f"plan {name} -> {m.c}x{m.rows}x{m.w}, "
+                      f"{plan.launches_per_run} launches: device "
+                      f"{sum(rows.values()):.2f} us/run; " + "; ".join(
+                          f"{k.replace('(anonymous namespace)::', '').split('(')[0]} "
+                          f"{v:.2f} us"
+                          for k, v in sorted(rows.items(), key=lambda kv: -kv[1])))
+                x = y
     return 0
 
 
