@@ -36,6 +36,8 @@ F32 = ctypes.c_float
 # exported symbol -> argument types (pointers and the stream as void*)
 SIGNATURES = {
     "bs_blend_pack_yuyv": (P, P, P, P, I, I, I, I, P),
+    "bs_blend_pack_420": (P, P, P, P, I, I, I, P),
+    "bs_bilateral": (P, P, P, I, I, I, F32, P),
     "bs_front": (P, P, P, I, I, I, I, I, I, I, I, F32, F32, F32, I, P),
     "bs_conv1x1": (P, P, P, P, I, I, I, I, P),
     "bs_gemm": (P, P, P, P, I, I, I, I, P),
@@ -145,6 +147,19 @@ def launch(name: str, *args) -> None:
     err = getattr(lib(), name)(*args, stream())
     if err != 0:
         raise RuntimeError(f"{name} launch failed with cudaError {err}")
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device must exist (no silent
+    fallback to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device={device!r} requested but CUDA is not "
+                           f"available (pass device='cpu' to run the plain "
+                           f"versions on the CPU)")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"device must be cpu or cuda, got {device!r}")
+    return dev
 
 
 def check_cuda(t: torch.Tensor, name: str, dtype, shape=None) -> None:

@@ -26,12 +26,14 @@
 // (every thread reads the same weight at once: a shared-memory broadcast).
 //
 // Numerics follow the JAX expression sequence: rintf (not roundf) for
-// jnp.round, expf (not __expf), and the multiply/add pairs of the
-// bilateral and the normalization use __fmul_rn/__fadd_rn so that nvcc
-// cannot contract them into FMAs.  The 27-tap sum may use FMAs: that is
+// jnp.round; the bilateral is csrc/bilateral.cuh's (shared with K5: expf,
+// no contracted FMAs), and the normalization's multiply/add pair uses
+// __fmul_rn/__fadd_rn so that nvcc cannot contract it into an FMA.  The 27-tap sum may use FMAs: that is
 // the reassociation class the tolerance covers.
 
 #include <cuda_runtime.h>
+
+#include "bilateral.cuh"
 
 namespace {
 
@@ -39,11 +41,6 @@ constexpr int TILE = 16;            // conv outputs per CTA side
 constexpr int CT = 2 * TILE + 1;    // normalized pixels per side (33)
 constexpr int PT = CT + 4;          // canvas pixels per side (37)
 constexpr int MAX_COUT = 64;
-constexpr int NTAPS = 13;
-
-// OpenCV's d=5 bilateral window in backscrub's tap order
-__constant__ int c_di[NTAPS] = {-2, -1, -1, -1, 0, 0, 0, 0, 0, 1, 1, 1, 2};
-__constant__ int c_dj[NTAPS] = {0, -1, 0, 1, -2, -1, 0, 1, 2, -1, 0, 1, 0};
 
 __device__ __forceinline__ float activate(float x, int act) {
   if (act == 1) return fminf(fmaxf(x, 0.0f), 6.0f);  // RELU6
@@ -91,23 +88,13 @@ front_kernel(const float* __restrict__ canvas, const float* __restrict__ params,
       s_nrm[0][r][s] = s_nrm[1][r][s] = s_nrm[2][r][s] = 0.0f;
       continue;
     }
-    float ctr[3] = {s_can[0][r + 2][s + 2], s_can[1][r + 2][s + 2],
+    float val[3] = {s_can[0][r + 2][s + 2], s_can[1][r + 2][s + 2],
                     s_can[2][r + 2][s + 2]};
-    float val[3] = {ctr[0], ctr[1], ctr[2]};
     if (use_bilateral) {
-      float num[3] = {0.0f, 0.0f, 0.0f}, den = 0.0f;
-      for (int t = 0; t < NTAPS; ++t) {
-        int rr = r + 2 + c_di[t], ss = s + 2 + c_dj[t];
-        float nb[3] = {s_can[0][rr][ss], s_can[1][rr][ss], s_can[2][rr][ss]};
-        float cd = __fadd_rn(__fadd_rn(fabsf(nb[0] - ctr[0]), fabsf(nb[1] - ctr[1])),
-                             fabsf(nb[2] - ctr[2]));
-        float wgt = __fmul_rn(sw[t], expf(__fmul_rn(__fmul_rn(inv2sc, cd), cd)));
+      bilateral13(&s_can[0][r + 2][s + 2], &s_can[1][r + 2][s + 2],
+                  &s_can[2][r + 2][s + 2], PT + 1, sw, inv2sc, val);
 #pragma unroll
-        for (int c = 0; c < 3; ++c) num[c] = __fadd_rn(num[c], __fmul_rn(wgt, nb[c]));
-        den = __fadd_rn(den, wgt);
-      }
-#pragma unroll
-      for (int c = 0; c < 3; ++c) val[c] = rintf(num[c] / den);
+      for (int c = 0; c < 3; ++c) val[c] = rintf(val[c]);
     }
 #pragma unroll
     for (int c = 0; c < 3; ++c) s_nrm[c][r][s] = __fadd_rn(__fmul_rn(val[c], scale), offset);

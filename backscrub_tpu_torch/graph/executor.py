@@ -151,10 +151,13 @@ def build_model(graph: GraphIR) -> CompiledModel:
     return CompiledModel(graph, params, prepared)
 
 
-def load_model(path: str, device="cpu") -> CompiledModel:
-    """Path -> CompiledModel on ``device``."""
+def load_model(path: str, device="cuda") -> CompiledModel:
+    """Path -> CompiledModel on ``device`` (the card unless the caller asks
+    for the CPU; raises where CUDA is asked for and absent)."""
+    from .._build import resolve_device
     from ..tflite.loader import load_tflite
-    return build_model(load_tflite(path)).to(device)
+    dev = resolve_device(device)
+    return build_model(load_tflite(path)).to(dev)
 
 
 def params_from_jax(params: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:

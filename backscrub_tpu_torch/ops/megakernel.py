@@ -343,6 +343,32 @@ class BodyPlan:
             return ["bs_gemm" if self.flat and spatial else "bs_conv1x1"]
         return [_OP_KERNELS[p[0]]]
 
+    def work(self) -> Tuple[int, int]:
+        """(bytes, flops) of one run at the least: the input, the weights
+        and the output moved once (intermediates could stay on chip), and
+        2 flops a multiply-add, 1 per elementwise, pooled or activation
+        value, 8 per 2x-upsampled value; concats and broadcasts move data
+        only."""
+        flops = 0
+        for p in self.plan:
+            op = p[0]
+            if op == "conv1x1":
+                w = self.weights[p[3]]
+                m = self.meta[p[1]]
+                flops += 2 * w.shape[0] * w.shape[1] * (1 if m.vec else m.rows * m.w)
+            elif op == "dw":
+                om = self.meta[p[2]]
+                flops += 2 * p[5] * p[6] * om.c * om.rows * om.w
+            elif op in ("gpool", "act"):
+                flops += self.meta[p[2] if op == "act" else p[1]].size
+            elif op in ("binop", "bingate"):
+                flops += self.meta[p[4]].size
+            elif op == "resize2x":
+                flops += 8 * self.meta[p[2]].size
+        nbytes = 4 * (self.in_meta.size + self.out_meta.size
+                      + sum(w.size for w in self.weights))
+        return nbytes, flops
+
     def _weights_on(self, device) -> List[torch.Tensor]:
         if device not in self._dev:
             self._dev[device] = [torch.from_numpy(w).to(device) for w in self.weights]

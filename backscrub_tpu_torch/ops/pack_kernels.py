@@ -1,11 +1,14 @@
-"""Fused composite + YUYV pack (counterpart of
-``backscrub_tpu/ops/pallas_kernels.py:blend_pack_yuyv``).
+"""Fused composite + pack: YUYV (K3, counterpart of
+``backscrub_tpu/ops/pallas_kernels.py:blend_pack_yuyv``) and NV12/I420
+(K4, counterpart of ``pallas_kernels.py:blend_pack_420``).
 
-:func:`blend_pack_yuyv_plain` is the plain PyTorch version
-(``alpha_blend_u8`` + ``rgb_to_yuyv``); :func:`blend_pack_yuyv` runs it on
-CPU tensors and launches the CUDA kernel ``csrc/blend_pack.cu`` on CUDA
-tensors, counting launches in ``blend_pack_yuyv.launches``.  Both are
-byte-identical: the kernel is integer math throughout.
+:func:`blend_pack_yuyv_plain` (``alpha_blend_u8`` + ``rgb_to_yuyv``) and
+:func:`blend_pack_420_plain` (``alpha_blend_u8`` + ``bgr_to_nv12`` /
+``bgr_to_i420``) are the plain PyTorch versions; :func:`blend_pack_yuyv`
+and :func:`blend_pack_420` run them on CPU tensors and launch the CUDA
+kernels of ``csrc/blend_pack.cu`` on CUDA tensors, counting launches in
+their ``launches`` attribute.  Kernel and plain version are
+byte-identical: the kernels are integer math throughout.
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from ..pipeline.image import alpha_blend_u8, rgb_to_yuyv
+from ..pipeline.image import alpha_blend_u8, bgr_to_i420, bgr_to_nv12, rgb_to_yuyv
 
 
 def blend_pack_yuyv_plain(frame_bgr: torch.Tensor, bg_bgr: torch.Tensor,
@@ -52,3 +55,38 @@ def blend_pack_yuyv(frame_bgr: torch.Tensor, bg_bgr: torch.Tensor,
 
 
 blend_pack_yuyv.launches = 0
+
+
+def blend_pack_420_plain(frame_bgr: torch.Tensor, bg_bgr: torch.Tensor,
+                         mask: torch.Tensor, layout: str = "nv12") -> torch.Tensor:
+    """(H, W, 3) frame/bg u8 + (H, W) mask u8 -> NV12 (3H/2, W) or I420
+    (3HW/2,) bytes."""
+    comp = alpha_blend_u8(bg_bgr, frame_bgr, mask)
+    return bgr_to_nv12(comp) if layout == "nv12" else bgr_to_i420(comp)
+
+
+def blend_pack_420(frame_bgr: torch.Tensor, bg_bgr: torch.Tensor,
+                   mask: torch.Tensor, layout: str = "nv12") -> torch.Tensor:
+    """Composite and pack one frame as BT.601 4:2:0, ``layout`` "nv12"
+    (Y rows, then interleaved [U, V] rows: (3H/2, W)) or "i420" (flat Y,
+    U, V planes: (3HW/2,)); H and W even.  The kernel on CUDA, the plain
+    version on CPU."""
+    if layout not in ("nv12", "i420"):
+        raise ValueError(f"layout must be 'nv12' or 'i420', got {layout!r}")
+    if frame_bgr.device.type == "cpu":
+        return blend_pack_420_plain(frame_bgr, bg_bgr, mask, layout)
+    h, w = frame_bgr.shape[0], frame_bgr.shape[1]
+    if h % 2 or w % 2:
+        raise ValueError(f"{layout.upper()} needs even geometry, got {w}x{h}")
+    _build.check_cuda(frame_bgr, "frame", torch.uint8, (h, w, 3))
+    _build.check_cuda(bg_bgr, "background", torch.uint8, (h, w, 3))
+    _build.check_cuda(mask, "mask", torch.uint8, (h, w))
+    shape = (3 * h // 2, w) if layout == "nv12" else (3 * h * w // 2,)
+    out = torch.empty(shape, dtype=torch.uint8, device=frame_bgr.device)
+    _build.launch("bs_blend_pack_420", frame_bgr.data_ptr(), bg_bgr.data_ptr(),
+                  mask.data_ptr(), out.data_ptr(), h, w, int(layout == "i420"))
+    blend_pack_420.launches += 1
+    return out
+
+
+blend_pack_420.launches = 0

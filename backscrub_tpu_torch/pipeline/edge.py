@@ -367,7 +367,8 @@ class EdgeFused:
     (``backscrub_tpu/pipeline/edge.py:EdgeFused``).
 
     ``step_mask(frame, ema)`` maps a (H, W, 3) BGR u8 frame and the (oh, ow)
-    u8 EMA to (mask (H, W) u8, new EMA).  Edge weights are taken from the
+    u8 EMA to (mask (H, W) u8, new EMA); ``device`` is the card unless the
+    caller asks for the CPU.  Edge weights are taken from the
     model at construction.  The fused front is required (ValueError
     otherwise).  The body runs the plans of :func:`body_plans` (given as
     ``plans``, or found here) and the graph executor over the nodes they
@@ -376,7 +377,7 @@ class EdgeFused:
     """
 
     def __init__(self, model, geo: RoiGeometry, spec, info: EdgeInfo, *,
-                 use_bilateral: bool = True, device="cpu",
+                 use_bilateral: bool = True, device="cuda",
                  mega: Optional[bool] = None, cont: bool = False, plans=None):
         if not info.front_ok:
             raise ValueError("the PyTorch edge path needs the fused front")
@@ -389,7 +390,7 @@ class EdgeFused:
                              "the classic path serves this model")
         self.model, self.geo, self.spec, self.info = model, geo, spec, info
         self.use_bilateral = use_bilateral
-        dev = torch.device(device)
+        dev = _build.resolve_device(device)
         hp = model.host_params
         ih, iw = model.input_shape[1:3]
         self.front_ah = torch.from_numpy(front_axis_matrix(

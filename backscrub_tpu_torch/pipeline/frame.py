@@ -1,13 +1,15 @@
-"""Whole-frame pipeline: camera frame in, composited YUYV out
+"""Whole-frame pipeline: camera frame in, composited frame out
 (counterpart of ``backscrub_tpu/pipeline/frame.py``).
 
 Replaces the reference's main-loop hot path (``app/deepseg.cc:627-690``):
-mask -> alpha blend -> RGB2YUYV.  On CUDA one step runs the fused edge
-path (K1 and K2 for the segm family; K1, K2' and K2'' for deeplab) and
-the blend + pack kernel (K3), with the EMA mask carried on the device.
-The slices serve BGR in, YUYV out, an explicit or green background, the
-same geometry and no flips; other options raise NotImplementedError
-naming the ROADMAP item that brings them.
+mask -> background (explicit, green, or the camera frame with effects) ->
+alpha blend -> flip -> resize -> pack.  On CUDA one step runs the mask
+(the fused edge path: K1 and K2 for the segm family, K1, K2' and K2'' for
+deeplab; or the classic stages with K5) and, where the JAX package takes
+its fused pack kernels, the blend + pack kernel (K3 for YUYV, K4 for
+NV12/I420), with the EMA mask carried on the device.  BGR is the only
+ingest format; the options that still raise NotImplementedError name the
+ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -18,34 +20,29 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..ops.pack_kernels import blend_pack_yuyv
+from ..ops.pack_kernels import blend_pack_420, blend_pack_yuyv
+from .image import (alpha_blend_u8, bgr_to_i420, bgr_to_nv12, desaturate_u8, flip,
+                    gaussian_blur, pixelate_u8, resize_bilinear, rgb_to_yuyv)
 from .maskgen import MaskGen
 
-# option -> (value the slice serves, the ROADMAP item that brings the rest)
+# option -> (value the port serves, the ROADMAP item that brings the rest)
 _NOT_YET = {
-    "out_width": (None, "queue 1 item 10 (out-geometry resize)"),
-    "out_height": (None, "queue 1 item 10 (out-geometry resize)"),
-    "flip_horizontal": (False, "queue 1 item 10 (flips)"),
-    "flip_vertical": (False, "queue 1 item 10 (flips)"),
-    "blur_strength": (0, "queue 1 item 10 (background blur)"),
-    "bg_desaturate": (False, "queue 1 item 10 (background effects)"),
-    "bg_pixelate": (0, "queue 1 item 10 (background effects)"),
     "mask_refine": ("box", "queue 1 item 10 (refine=guided)"),
     "mask_morph": ("", "queue 1 item 10 (morph)"),
-    "output_format": ("yuyv", "queue 1 item 10 (NV12/I420 out, queue 2 item 4)"),
     "input_format": ("bgr", "queue 1 item 10 (yuyv/nv12/mjpg ingest)"),
 }
+_OUTPUT_FORMATS = ("yuyv", "nv12", "i420", "bgr")
 
 
 @dataclasses.dataclass
 class PipelineConfig:
     width: int = 640           # capture geometry (app/deepseg.cc:363-364 defaults)
     height: int = 480
-    out_width: Optional[int] = None
+    out_width: Optional[int] = None    # virtual camera geometry; None = same
     out_height: Optional[int] = None
-    blur_strength: int = 0
+    blur_strength: int = 0     # Gaussian background blur kernel; 0 = off
     bg_desaturate: bool = False
-    bg_pixelate: int = 0
+    bg_pixelate: int = 0       # mosaic tile size; 0 = off
     flip_horizontal: bool = False
     flip_vertical: bool = False
     use_bilateral: bool = True
@@ -59,29 +56,57 @@ class PipelineConfig:
                                        # ModelSpec.edge_cont
     chroma_order: str = "reference"    # or "yuy2" for spec-correct output
     correct_colors: bool = False       # True: proper BGR->RGB before the pack
-    output_format: str = "yuyv"
+    output_format: str = "yuyv"        # "yuyv" (H, 2W) | "nv12" (3H/2, W) |
+                                       # "i420" (3HW/2,) | "bgr" (H, W, 3)
     input_format: str = "bgr"
 
 
 class FramePipeline:
-    """End-to-end per-frame step with carried EMA state on ``device``.
+    """End-to-end per-frame step with carried EMA state on ``device`` (the
+    card unless the caller asks for the CPU; raises where CUDA is asked
+    for and absent).
 
-    ``step(frame_bgr_u8, background_bgr_u8=None)`` -> (yuyv (H, 2W) u8,
-    mask (H, W) u8) as tensors on the device; no background means green.
+    ``step(frame_bgr_u8, background_bgr_u8=None)`` -> (packed output,
+    mask (H, W) u8) as tensors on the device.  No background means green,
+    or, with any background effect on, the camera frame itself (the
+    reference's bgblur mode).
+
+    The output side follows the JAX package exactly.  Where its gate
+    holds (output yuyv/nv12/i420, no flips, output geometry equal to the
+    capture geometry) one kernel blends and packs (K3 or K4; on CPU tensors
+    their plain versions).  Otherwise the frame is blended,
+    flipped, resized to the output geometry (bilinear, rounded, clipped)
+    and converted in plain PyTorch: these are the JAX package's own
+    semantics for those options, not a fallback.
     """
 
-    def __init__(self, model: str, config: PipelineConfig, *, device="cpu"):
-        same_geometry = {"out_width": config.width, "out_height": config.height}
+    def __init__(self, model: str, config: PipelineConfig, *, device="cuda"):
         for name, (served, item) in _NOT_YET.items():
             value = getattr(config, name)
-            if value not in (served, same_geometry.get(name, served)):
+            if value != served:
                 raise NotImplementedError(
-                    f"{name}={value!r} is not in the PyTorch port yet: "
-                    f"ROADMAP {item}")
-        if config.width % 2:
-            raise ValueError(f"width={config.width}: YUYV output needs an "
-                             "even width (chroma is shared per pixel pair)")
+                    f"{name}={value!r} is not in the PyTorch port yet: ROADMAP {item}")
+        fmt = config.output_format
+        if fmt == "mjpg":
+            raise NotImplementedError("output_format='mjpg' is not in the PyTorch port "
+                                      "yet: ROADMAP queue 1 item 10 (MJPG encode)")
+        if fmt not in _OUTPUT_FORMATS:
+            raise ValueError(f"output_format must be one of {_OUTPUT_FORMATS}, got {fmt!r}")
+        ow = config.out_width or config.width
+        oh = config.out_height or config.height
+        if fmt == "yuyv":
+            for label, w in (("width", config.width), ("out_width", ow)):
+                if w % 2:
+                    raise ValueError(f"{label}={w}: YUYV output needs an even width "
+                                     "(chroma is shared per pixel pair)")
+        elif fmt in ("nv12", "i420"):
+            for label, a, b in (("capture", config.width, config.height),
+                                ("output", ow, oh)):
+                if a % 2 or b % 2:
+                    raise ValueError(f"{label} geometry {a}x{b}: 4:2:0 output ({fmt}) "
+                                     "needs even width and height")
         self.cfg = config
+        self.out_geo = (oh, ow)
         self.maskgen = MaskGen(model, config.width, config.height,
                                device=device, use_bilateral=config.use_bilateral,
                                edge_fused=config.edge_fused,
@@ -101,16 +126,77 @@ class FramePipeline:
                              f"{tuple(t.shape)} {t.dtype}")
         return t.contiguous()
 
+    def fused_pack_applies(self, flip_h: bool, flip_v: bool) -> bool:
+        """The JAX package's gate of the fused pack kernels
+        (``frame.py:280-283``); its ``fused_pack`` switch, which picks jnp
+        over Pallas off the TPU, has no counterpart here: the tensor's
+        device picks the kernel or its plain version."""
+        cfg = self.cfg
+        return (cfg.output_format in ("yuyv", "nv12", "i420")
+                and not flip_h and not flip_v
+                and self.out_geo == (cfg.height, cfg.width))
+
+    def background(self, frame: torch.Tensor, bg: Optional[torch.Tensor]) -> torch.Tensor:
+        """The background to blend (``frame.py:268-277``): ``bg``, or the
+        camera frame when none is given and an effect is on, then
+        desaturate -> pixelate -> Gaussian blur; green when neither."""
+        cfg = self.cfg
+        effects = cfg.blur_strength or cfg.bg_pixelate or cfg.bg_desaturate
+        if bg is None:
+            bg = frame if effects else self.green
+        if cfg.bg_desaturate:
+            bg = desaturate_u8(bg)
+        if cfg.bg_pixelate:
+            bg = pixelate_u8(bg, cfg.bg_pixelate)
+        if cfg.blur_strength:
+            bg = torch.clamp(torch.round(gaussian_blur(bg.float(), cfg.blur_strength)),
+                             0, 255).to(torch.uint8)
+        return bg.contiguous()
+
+    def finish(self, comp: torch.Tensor, flip_h: bool, flip_v: bool) -> torch.Tensor:
+        """Composite (H, W, 3) BGR u8 -> output bytes (``frame.py:201-227``):
+        flip, resize to the output geometry, convert."""
+        cfg = self.cfg
+        comp = flip(comp, flip_h, flip_v)
+        oh, ow = self.out_geo
+        if (oh, ow) != (cfg.height, cfg.width):
+            comp = torch.clamp(torch.round(resize_bilinear(comp.float(), oh, ow)),
+                               0, 255).to(torch.uint8)
+        fmt = cfg.output_format
+        if fmt == "bgr":
+            return comp
+        if fmt == "nv12":
+            return bgr_to_nv12(comp)
+        if fmt == "i420":
+            return bgr_to_i420(comp)
+        src = comp.flip(-1) if cfg.correct_colors else comp
+        yuyv = rgb_to_yuyv(src, chroma_order=cfg.chroma_order)
+        return yuyv.reshape(tuple(yuyv.shape[:-2]) + (yuyv.shape[-2] * 2,))
+
     @torch.no_grad()
-    def step(self, frame_bgr_u8, background_bgr_u8=None):
+    def step(self, frame_bgr_u8, background_bgr_u8=None, *, flip_horizontal=None,
+             flip_vertical=None, filter_active: bool = True):
+        """Process one frame.  ``flip_horizontal`` / ``flip_vertical``
+        override the config for this step; ``filter_active=False`` passes
+        the frame through (mask all 255, the EMA untouched), as the
+        reference's 's' key does."""
+        cfg = self.cfg
+        fh = cfg.flip_horizontal if flip_horizontal is None else flip_horizontal
+        fv = cfg.flip_vertical if flip_vertical is None else flip_vertical
         frame = self._upload(frame_bgr_u8, "frame")
-        bg = (self.green if background_bgr_u8 is None
-              else self._upload(background_bgr_u8, "background"))
-        mask = self.maskgen.step(frame)
-        yuyv = blend_pack_yuyv(frame, bg, mask.contiguous(),
-                               chroma_order=self.cfg.chroma_order,
-                               correct_colors=self.cfg.correct_colors)
-        return yuyv, mask
+        if not filter_active:
+            mask = torch.full(tuple(frame.shape[:-1]), 255, dtype=torch.uint8,
+                              device=self.device)
+            return self.finish(frame, fh, fv), mask
+        mask = self.maskgen.step(frame).contiguous()
+        bg = self.background(frame, None if background_bgr_u8 is None
+                             else self._upload(background_bgr_u8, "background"))
+        if self.fused_pack_applies(fh, fv):
+            if cfg.output_format == "yuyv":
+                return blend_pack_yuyv(frame, bg, mask, chroma_order=cfg.chroma_order,
+                                       correct_colors=cfg.correct_colors), mask
+            return blend_pack_420(frame, bg, mask, layout=cfg.output_format), mask
+        return self.finish(alpha_blend_u8(bg, frame, mask), fh, fv), mask
 
     def reset(self):
         self.maskgen.reset()

@@ -4,8 +4,9 @@ The reference chain (``lib/libbackscrub.cc:279-372``): ROI crop -> resize
 -> BGR2RGB -> bilateral filter -> normalize -> CNN -> decode with the
 temporal EMA -> upscale -> 5x5 box blur.  :class:`MaskGen` runs it either
 through the fused edge path (``pipeline/edge.py``: kernels K1 and K2, or
-K1, K2' and K2'', on CUDA) or through the classic stages below and the
-graph executor.
+K1, K2' and K2'', on CUDA) or through the classic stages below (the
+bilateral as K5 on CUDA) and the graph executor, in one step or staged
+with hooks between the stages.
 
 Masks are u8, 0 = person (keep the camera pixel), 255 = background; the
 area outside the aspect-ratio ROI is always 255.
@@ -13,17 +14,20 @@ area outside the aspect-ratio ROI is always 255.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .._build import resolve_device
 from ..graph.executor import CompiledModel, load_model
 from ..models.specs import ModelSpec, resolve_model_path, spec_for_model
+from ..ops.image_kernels import bilateral5
 from .decode import decode_val, ema_update
-from .edge import EdgeFused, body_plans, edge_applicable, postprocess_mask
+from .edge import EdgeFused, body_plans, edge_applicable, fold_blur_tensors, postprocess_mask
 from .geometry import RoiGeometry, compute_roi
-from .image import bilateral5, resize_bilinear
+from .image import resize_bilinear
 
 
 def set_precision_policy() -> None:
@@ -34,35 +38,38 @@ def set_precision_policy() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def resolve_device(device) -> torch.device:
-    """``device`` as a torch.device; a CUDA device must exist (no silent
-    fallback to the CPU)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device={device!r} requested but CUDA is not "
-                           f"available")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"device must be cpu or cuda, got {device!r}")
-    return dev
-
-
 def preprocess(frame_bgr_u8: torch.Tensor, geo: RoiGeometry, spec: ModelSpec,
                use_bilateral: bool = True) -> torch.Tensor:
-    """Frame (H, W, 3) BGR u8 -> model input (in_h, in_w, 3) f32."""
+    """Frame (..., H, W, 3) BGR u8 -> model input (..., in_h, in_w, 3) f32.
+
+    The bilateral is K5 (``ops/image_kernels.py``) on a CUDA frame and its
+    plain version on a CPU frame, as the JAX package takes its Pallas
+    kernel on the TPU (``maskgen.py:91-93``)."""
     r = geo.roi
-    roi = frame_bgr_u8[r.y:r.y + r.h, r.x:r.x + r.w, :].float()
+    roi = frame_bgr_u8[..., r.y:r.y + r.h, r.x:r.x + r.w, :].float()
     small = torch.round(resize_bilinear(roi, geo.in_roi.h, geo.in_roi.w))
     ix, iy = geo.in_roi.x, geo.in_roi.y
     canvas = F.pad(small, (0, 0, ix, geo.model_in_w - ix - geo.in_roi.w,
                            iy, geo.model_in_h - iy - geo.in_roi.h))
     rgb = canvas.flip(-1)  # BGR -> RGB (libbackscrub.cc:290)
     if use_bilateral:
-        rgb = torch.round(bilateral5(rgb))
+        rgb = torch.round(bilateral5(rgb.contiguous()))
     return rgb * spec.scale + spec.offset
 
 
 class MaskGen:
-    """bs_maskgen_new equivalent on ``device``.
+    """bs_maskgen_new equivalent on ``device`` (the card unless the caller
+    asks for the CPU; raises where CUDA is asked for and absent).
+
+    ``fused=False`` is the staged mode of the libbackscrub API: it turns
+    the fused edge path off, as in the JAX package, so every frame runs
+    the classic stages ``_pre`` (preprocess, K5 on the card), ``_infer``
+    (the graph executor) and ``_decode_post`` (decode, EMA, upscale +
+    blur).  The stage hooks fire in the reference order
+    (``lib/libbackscrub.cc:303,311,363``): ``onprep()`` and ``oninfer()``
+    after their classic stage, ``onmask()`` after every frame (the fused
+    edge path has no stage boundaries).  ``ondebug(msg)`` receives debug
+    text.
 
     ``edge_fused``: None picks the fused edge path when the model's front
     matches its pattern and every BodyPlan the switches call for builds
@@ -75,12 +82,18 @@ class MaskGen:
     """
 
     def __init__(self, model: str, width: int, height: int, *,
-                 device="cpu", use_bilateral: bool = True,
+                 device="cuda", use_bilateral: bool = True,
+                 fused: bool = True,
                  edge_fused: Optional[bool] = None,
                  edge_mega: Optional[bool] = None,
-                 edge_cont: Optional[bool] = None):
+                 edge_cont: Optional[bool] = None,
+                 onprep: Optional[Callable[[], None]] = None,
+                 oninfer: Optional[Callable[[], None]] = None,
+                 onmask: Optional[Callable[[], None]] = None,
+                 ondebug: Optional[Callable[[str], None]] = None):
         self.device = resolve_device(device)
         set_precision_policy()
+        self.onprep, self.oninfer, self.onmask, self.ondebug = onprep, oninfer, onmask, ondebug
         self.model_path = resolve_model_path(model)
         self.spec = spec_for_model(self.model_path)
         self.model: CompiledModel = load_model(self.model_path, self.device)
@@ -95,7 +108,7 @@ class MaskGen:
         self.geo = compute_roi(width, height, iw, ih, ow, oh)
         self.use_bilateral = use_bilateral
         self.edge = None
-        if edge_fused is not False:
+        if fused and edge_fused is not False:
             info = edge_applicable(self.model, self.spec, self.geo)
             cont = self.spec.edge_cont if edge_cont is None else edge_cont
             plans = (body_plans(self.model, info, edge_mega, cont)
@@ -110,28 +123,114 @@ class MaskGen:
                                  "model/geometry does not match the fusable edge "
                                  "pattern, or its body does not fit the BodyPlans "
                                  "these switches call for")
+        self.post_mats = (self.edge.post_mats if self.edge is not None
+                          else fold_blur_tensors(self.geo, self.device))
         self.ema_shape = (oh, ow)
         self.reset()
+        self._dbg(f"loaded {self.model_path} ({self.spec.kind}, "
+                  f"decode={self.spec.decode}) on {self.device}")
+        self._dbg(f"model input {iw}x{ih}, output {ow}x{oh}; frame "
+                  f"{width}x{height}; roi={self.geo.roi} in_roi={self.geo.in_roi}")
+
+    def _dbg(self, msg: str) -> None:
+        """Injected debug output (the ondebug seam, lib/libbackscrub.h:22-23)."""
+        if self.ondebug:
+            self.ondebug(msg)
 
     def reset(self):
         self.ema = torch.full(self.ema_shape, 255, dtype=torch.uint8,
                               device=self.device)
 
+    def _pre(self, frame: torch.Tensor) -> torch.Tensor:
+        """Stage 1: (H, W, 3) u8 frame -> model input (ih, iw, 3) f32."""
+        return preprocess(frame, self.geo, self.spec, self.use_bilateral)
+
+    def _infer(self, x: torch.Tensor) -> torch.Tensor:
+        """Stage 2: model input -> model output (oh, ow, C)."""
+        return self.model(x[None])[0]
+
+    def _decode_post(self, out: torch.Tensor, ema: torch.Tensor):
+        """Stage 3: model output + EMA -> (mask (H, W) u8, new EMA)."""
+        new_ema = ema_update(ema, decode_val(out, self.spec))
+        return postprocess_mask(new_ema, self.geo, self.post_mats), new_ema
+
     def step(self, frame: torch.Tensor):
-        """(H, W, 3) u8 frame on the device -> mask; advances the EMA."""
+        """(H, W, 3) u8 frame on the device -> mask; advances the EMA.  A
+        hook fires once its stage has been enqueued on the device."""
         if self.edge is not None:
             mask, self.ema = self.edge.step_mask(frame, self.ema)
             return mask
-        x = preprocess(frame, self.geo, self.spec, self.use_bilateral)
-        out = self.model(x[None])[0]
-        self.ema = ema_update(self.ema, decode_val(out, self.spec))
-        return postprocess_mask(self.ema, self.geo)
+        x = self._pre(frame)
+        if self.onprep:
+            self.onprep()
+        out = self._infer(x)
+        if self.oninfer:
+            self.oninfer()
+        mask, self.ema = self._decode_post(out, self.ema)
+        return mask
 
     @torch.no_grad()
     def process(self, frame_bgr_u8) -> torch.Tensor:
-        """bs_maskgen_process: (H, W, 3) BGR u8 (numpy or tensor) -> mask."""
+        """bs_maskgen_process: (H, W, 3) BGR u8 (numpy or tensor) -> mask
+        (H, W) u8 on the device."""
         frame = torch.as_tensor(frame_bgr_u8).to(self.device)
         expected = (self.geo.frame_h, self.geo.frame_w, 3)
         if tuple(frame.shape) != expected:
-            raise ValueError(f"frame shape {tuple(frame.shape)} != expected {expected}")
-        return self.step(frame)
+            raise ValueError(f"frame shape {tuple(frame.shape)} != expected {expected} "
+                             f"(geometry fixed at bs_maskgen_new time, like the reference)")
+        mask = self.step(frame)
+        if self.onmask:
+            self.onmask()
+        return mask
+
+    def process_bytes(self, frame_bytes: bytes, height: int, width: int) -> bytes:
+        """Raw-buffer entry point: BGR u8 bytes in, mask u8 bytes out."""
+        frame = np.frombuffer(frame_bytes, np.uint8).reshape(height, width, 3).copy()
+        return self.process(frame).cpu().numpy().tobytes()
+
+
+_NOT_YET_CAPI = "ROADMAP queue 1 item 10"
+
+
+def parse_capi_options(options: str) -> dict:
+    """The ``bs_maskgen_new_ex`` options string as MaskGen kwargs:
+    comma-separated tokens of the CLI's ``-p`` namespace.  ``no-bilateral``
+    skips the bilateral prefilter; ``u8exact``, ``refine:`` and ``morph:``
+    are not in the port yet and raise NotImplementedError; unknown tokens
+    raise ValueError."""
+    kw = {}
+    for tok in filter(None, (t.strip() for t in (options or "").split(","))):
+        if tok == "no-bilateral":
+            kw["use_bilateral"] = False
+        elif tok == "u8exact" or tok.startswith(("refine:", "morph:")):
+            raise NotImplementedError(f"maskgen option {tok!r} is not in the PyTorch "
+                                      f"port yet: {_NOT_YET_CAPI}")
+        else:
+            raise ValueError(f"unknown maskgen option {tok!r}; supported: no-bilateral "
+                             f"(refine:guided, morph:<op>[:k] and u8exact: "
+                             f"{_NOT_YET_CAPI})")
+    return kw
+
+
+# C-style aliases of the reference API (lib/libbackscrub.h:13-39)
+def bs_maskgen_new(model: str, width: int, height: int, **kwargs) -> MaskGen:
+    return MaskGen(model, width, height, **kwargs)
+
+
+def bs_maskgen_process(ctx: MaskGen, frame, out_mask: Optional[np.ndarray] = None):
+    """The mask as a tensor on the context's device; with ``out_mask`` (a
+    (H, W) u8 numpy array) the mask is copied there and True is returned."""
+    mask = ctx.process(frame)
+    if out_mask is None:
+        return mask
+    out_mask[...] = mask.cpu().numpy()
+    return True
+
+
+def bs_maskgen_delete(ctx: MaskGen) -> None:
+    ctx.reset()
+
+
+def bs_tensorflow_version() -> str:
+    """API-parity shim for bs_tensorflow_version (lib/libbackscrub.cc:150)."""
+    return f"torch-{torch.__version__}"

@@ -21,7 +21,8 @@ Usage (from the repository root, on a machine with a CUDA card)::
 5. the deeplab path on the committed synthetic deeplabv3_257-shaped model
    at 640x480: K1 at the 257x257 canvas, K2' (the prefix plan), K2'' (the
    flat continuation plan) and its tiled GEMM alone against their plain
-   versions (allclose(atol=2e-3, rtol=1e-3), CUDA-event times), then 30
+   versions (allclose(atol=2e-3, rtol=1e-3), CUDA-event times; the GEMM
+   also beside ``torch.addmm``), then 30
    frames of ``FramePipeline`` against the plain path on the card under
    the tolerance invariant (every decode flip a near-tie of class 15's
    margin, the EMAs equal wherever the decode never flipped, no byte off
@@ -29,13 +30,32 @@ Usage (from the repository root, on a machine with a CUDA card)::
    differ), every
    launch counter checked by kernel, and a person fraction strictly
    inside (0.01, 0.99);
-6. prints one JSON line with every kernel's numbers, then
+6. K4 (blend + NV12/I420 pack) byte-identical to its plain version at
+   640x480 and 1280x720, and K5 (the standalone bilateral) within
+   allclose(atol=2e-3, rtol=1e-3) of its plain version at the classic
+   path's canvases (segm 96x160, deeplab 257x257, a batch of 4 at
+   257x257), rounded bytes off by at most 1; CUDA-event times;
+7. the classic path: 30 frames of ``FramePipeline(edge_fused=False,
+   output_format="nv12")`` on the segm model at 640x480 (one K5 and one
+   K4 launch a frame, no K1/K2/K3), then I420 frames, then a
+   ``flip_horizontal`` run that takes no K4 (the JAX package's gate),
+   each held against the plain path on the card under the tolerance
+   invariant;
+8. the staged path: 10 frames of ``MaskGen(fused=False)`` with stage
+   hooks on the deeplab model at 640x480 (one K5 launch a frame at
+   257x257, hooks in order), masks held to the deeplab rule above;
+9. a pipeline constructed without ``device=`` lands on ``cuda``;
+10. prints one JSON line with every kernel's numbers (launches from the
+   run of the path it serves, errors and times measured here, and the
+   bound: the larger of the bytes it must move over 3.35 TB/s and its
+   operations over the 67 TFLOP/s f32 peak), then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failure raises and the script exits non-zero; without CUDA it exits 1
 before printing any result.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -53,6 +73,31 @@ DEEPLAB_SIZE, DEEPLAB_FRAMES = (640, 480), 30
 PERSON, TIE = 15, 1e-3      # deeplab's person class; a near-tie decode margin
 ATOL, RTOL = 2e-3, 1e-3
 FRAME_TOL, MEAN_TOL = 0.02, 0.002
+CLASSIC_SIZE, CLASSIC_FRAMES, STAGED_FRAMES = (640, 480), 30, 10
+VARIANT_FRAMES = 5         # classic I420 and flipped runs
+# the H100 SXM's published peaks (HBM3 bytes/s, f32 FLOP/s outside the
+# tensor cores) for the kernels' bounds
+HBM_BPS, F32_FLOPS = 3.35e12, 67e12
+# operations a pixel of the d=5 bilateral: 13 taps of 3 subtractions, 3
+# absolute values, 2 adds, 3 multiplies for the weight (counting its exp as
+# one), 6 for the numerators, 1 for the denominator; then 3 divides
+BILATERAL_OPS = 13 * 19 + 3
+
+
+def bound(nbytes, ops):
+    """The least time (ms) the card could take: the larger of the bytes
+    over the memory rate and the operations over the f32 peak."""
+    tb, to = nbytes / HBM_BPS * 1e3, ops / F32_FLOPS * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def front_work(kw, cout):
+    """(bytes, ops) of K1: canvas, parameters and output once; the
+    bilateral, round and normalization a canvas pixel, 27 multiply-adds an
+    output value."""
+    H, W, oh, ow = kw["H"], kw["W"], kw["oh"], kw["ow"]
+    nbytes = 4 * (3 * (H + 4) * (W + 4) + 28 * cout + 13 + cout * oh * ow)
+    return nbytes, (BILATERAL_OPS + 9) * H * W + 2 * 27 * cout * oh * ow
 
 
 def timed(fn, n=30, warmup=3):
@@ -76,10 +121,10 @@ def timed(fn, n=30, warmup=3):
 
 
 def kernel_phase(w, h):
-    """K1, K2, K3 against their plain versions at one frame size."""
+    """K1, K2, K3 and K4 against their plain versions at one frame size."""
     import torch
-    from backscrub_tpu_torch.ops.pack_kernels import (blend_pack_yuyv,
-                                                      blend_pack_yuyv_plain)
+    from backscrub_tpu_torch.ops.pack_kernels import (blend_pack_420, blend_pack_420_plain,
+                                                      blend_pack_yuyv, blend_pack_yuyv_plain)
     from backscrub_tpu_torch.pipeline.edge import front_fused, front_plain
     from backscrub_tpu_torch.pipeline.frame import FramePipeline, PipelineConfig
     from make_synth_segm import moving_frames
@@ -98,7 +143,8 @@ def kernel_phase(w, h):
         torch.testing.assert_close(k1, p1, atol=ATOL, rtol=RTOL)
         res["front"] = dict(max_abs_err=float((k1 - p1).abs().max()),
                             ms=timed(lambda: front_fused(canvas, edge.front_params, **kw)),
-                            plain_ms=timed(lambda: front_plain(canvas, edge.front_params, **kw)))
+                            plain_ms=timed(lambda: front_plain(canvas, edge.front_params, **kw)),
+                            bound=bound(*front_work(kw, k1.shape[0])))
 
         plan = edge.body_plan
         x = k1.reshape(k1.shape[0], -1)
@@ -107,7 +153,8 @@ def kernel_phase(w, h):
         torch.testing.assert_close(k2, p2, atol=ATOL, rtol=RTOL)
         res["body"] = dict(max_abs_err=float((k2 - p2).abs().max()),
                            ms=timed(lambda: plan.run_cuda(x)),
-                           plain_ms=timed(lambda: plan.run_plain(x)))
+                           plain_ms=timed(lambda: plan.run_plain(x)),
+                           bound=bound(*plan.work()))
 
         rng = np.random.default_rng(3)
         bg = torch.from_numpy(rng.integers(0, 256, (h, w, 3), np.uint8)).cuda()
@@ -124,11 +171,22 @@ def kernel_phase(w, h):
                                          f"({order}, correct_colors={cc})")
         res["pack"] = dict(max_abs_err=0.0,
                            ms=timed(lambda: blend_pack_yuyv(frame, bg, mask)),
-                           plain_ms=timed(lambda: blend_pack_yuyv_plain(frame, bg, mask)))
+                           plain_ms=timed(lambda: blend_pack_yuyv_plain(frame, bg, mask)),
+                           bound=bound(9 * h * w, 30 * h * w))
+        for layout in ("nv12", "i420"):
+            k4 = blend_pack_420(frame, bg, mask, layout)
+            if not torch.equal(k4, blend_pack_420_plain(frame, bg, mask, layout)):
+                raise AssertionError(f"K4 differs from its plain version ({layout})")
+        # 7 B read and 1.5 B written a pixel; ~35 integer operations
+        res["pack_420"] = dict(max_abs_err=0.0,
+                               ms=timed(lambda: blend_pack_420(frame, bg, mask)),
+                               plain_ms=timed(lambda: blend_pack_420_plain(frame, bg, mask)),
+                               bound=bound(17 * h * w // 2, 35 * h * w))
     for name, r in res.items():
         print(f"kernel {name} {w}x{h}: max_abs_err={r['max_abs_err']:.3g} "
               f"kernel {r['ms'][0]:.4f} ms (checksum {r['ms'][1]:.6g}) "
-              f"plain {r['plain_ms'][0]:.4f} ms (checksum {r['plain_ms'][1]:.6g})")
+              f"plain {r['plain_ms'][0]:.4f} ms (checksum {r['plain_ms'][1]:.6g}) "
+              f"bound {r['bound'][0]:.5f} ms ({r['bound'][1]})")
     return res
 
 
@@ -263,13 +321,16 @@ def deeplab_phase():
         res["front"] = _held("front", k1, front_plain(canvas, e.front_params, **kw),
                              lambda: front_fused(canvas, e.front_params, **kw),
                              lambda: front_plain(canvas, e.front_params, **kw))
+        res["front"]["bound"] = bound(*front_work(kw, k1.shape[0]))
         x = k1.reshape(k1.shape[0], -1)
         k2 = pre.run_cuda(x)
         res["body_prefix"] = _held("body_prefix", k2, pre.run_plain(x),
                                    lambda: pre.run_cuda(x), lambda: pre.run_plain(x))
+        res["body_prefix"]["bound"] = bound(*pre.work())
         k3 = cont.run_cuda(k2)
         res["body_cont"] = _held("body_cont", k3, cont.run_plain(k2),
                                  lambda: cont.run_cuda(k2), lambda: cont.run_plain(k2))
+        res["body_cont"]["bound"] = bound(*cont.work())
         # the GEMM alone at the continuation's largest 1x1 (the ASPP projection)
         conv = max((p for p in cont.plan if p[0] == "conv1x1"),
                    key=lambda p: cont.weights[p[3]].size)
@@ -282,6 +343,13 @@ def deeplab_phase():
                             conv1x1_plain(gw, gb, gx, conv[5]),
                             lambda: conv1x1_gemm(gw, gb, gx, conv[5]),
                             lambda: conv1x1_plain(gw, gb, gx, conv[5]))
+        gflop = 2 * gw.shape[0] * gw.shape[1] * gx.shape[1]
+        res["gemm"]["bound"] = bound(4 * (gw.numel() + gb.numel() + gx.numel()
+                                          + gw.shape[0] * gx.shape[1]), gflop)
+        res["gemm"]["library_ms"] = timed(lambda: torch.addmm(gb[:, None], gw, gx))
+        print(f"gemm alone: torch.addmm (bias, no activation) "
+              f"{res['gemm']['library_ms'][0]:.4f} ms; bound {res['gemm']['bound'][0]:.4f} ms "
+              f"({res['gemm']['bound'][1]}); {gflop / 1e9:.3f} GFLOP")
 
     bg = torch.from_numpy(np.random.default_rng(4).integers(
         0, 256, (h, w, 3), np.uint8)).cuda()
@@ -319,6 +387,8 @@ def deeplab_phase():
     ms = (time.perf_counter() - t0) * 1e3 / n
     _, outs = drive(keep=True)
     print(f"deeplab launches by kernel over {n} frames: {dict(body_launch.by_kernel)}")
+    print("deeplab bounds: " + ", ".join(f"{k} {r['bound'][0]:.5f} ms ({r['bound'][1]})"
+                                         for k, r in res.items()))
 
     # The plain path, frame by frame from the same fresh EMA.  A decode
     # decision may flip where class 15's margin is a near-tie (the two
@@ -374,11 +444,264 @@ def deeplab_phase():
     return res, launches, ms
 
 
+def _counters():
+    """Every kernel's launch counter: name -> (object holding ``launches``)."""
+    from backscrub_tpu_torch.ops.image_kernels import bilateral5
+    from backscrub_tpu_torch.ops.megakernel import body_launch
+    from backscrub_tpu_torch.ops.pack_kernels import blend_pack_420, blend_pack_yuyv
+    from backscrub_tpu_torch.pipeline.edge import front_fused
+    return dict(front=front_fused, body=body_launch, pack=blend_pack_yuyv,
+                pack_420=blend_pack_420, bilateral=bilateral5)
+
+
+def _zero_counts():
+    for c in _counters().values():
+        c.launches = 0
+
+
+def _counts():
+    return {k: c.launches for k, c in _counters().items()}
+
+
+def _canvas(mg, frame):
+    """The classic preprocess's canvas before the bilateral: the K5 input."""
+    from backscrub_tpu_torch.pipeline.maskgen import preprocess
+    return preprocess(frame, mg.geo, dataclasses.replace(mg.spec, scale=1.0, offset=0.0),
+                      use_bilateral=False).contiguous()
+
+
+def _plain_input(mg, frame):
+    """The classic preprocess with K5's plain version: the plain path's
+    model input."""
+    import torch
+    from backscrub_tpu_torch.pipeline.image import bilateral5 as bilateral5_plain
+    return torch.round(bilateral5_plain(_canvas(mg, frame))) * mg.spec.scale + mg.spec.offset
+
+
+def bilateral_phase(segm, deeplab):
+    """K5 against its plain version at the classic path's canvases: segm
+    96x160, deeplab 257x257, and a batch of 4 deeplab canvases.  ``segm``
+    and ``deeplab`` are the classic and staged phases' MaskGens at 640x480."""
+    import torch
+    from backscrub_tpu_torch.ops.image_kernels import bilateral5
+    from backscrub_tpu_torch.pipeline.image import bilateral5 as bilateral5_plain
+    from make_synth_segm import moving_frames
+
+    w, h = CLASSIC_SIZE
+    frames = [torch.from_numpy(f).cuda() for f in moving_frames(w, h, 4)]
+    cases = {"segm 96x160": _canvas(segm, frames[0]),
+             "deeplab 257x257": _canvas(deeplab, frames[0]),
+             "deeplab 4x257x257": torch.stack([_canvas(deeplab, f) for f in frames])}
+    res = {}
+    with torch.no_grad():
+        for name, x in cases.items():
+            k, p = bilateral5(x), bilateral5_plain(x)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(k, p, atol=ATOL, rtol=RTOL)
+            rd = (torch.round(k) - torch.round(p)).abs()
+            if float(rd.max()) > 1:
+                raise AssertionError(f"K5 {name}: a rounded byte off by {float(rd.max())}")
+            px = x.numel() // 3
+            r = dict(max_abs_err=float((k - p).abs().max()),
+                     ms=timed(lambda: bilateral5(x)), plain_ms=timed(lambda: bilateral5_plain(x)),
+                     bound=bound(24 * px, BILATERAL_OPS * px))
+            print(f"kernel bilateral {name}: max_abs_err={r['max_abs_err']:.3g}, rounded "
+                  f"bytes differing {100 * float((rd > 0).float().mean()):.4f}%, kernel "
+                  f"{r['ms'][0]:.4f} ms (checksum {r['ms'][1]:.6g}) plain "
+                  f"{r['plain_ms'][0]:.4f} ms (checksum {r['plain_ms'][1]:.6g}), bound "
+                  f"{r['bound'][0]:.5f} ms ({r['bound'][1]})")
+            res[name] = r
+    return res
+
+
+def _held_bytes(pairs, what):
+    """The tolerance invariant over (kernel, plain) u8 pairs of one frame:
+    no byte off by more than 1, at most FRAME_TOL of the bytes differ.
+    Returns the frame's differing share."""
+    import torch
+    frac = float(torch.cat([(a != b).flatten() for a, b in pairs]).float().mean())
+    worst = max(int((a.int() - b.int()).abs().max()) for a, b in pairs)
+    if worst > 1 or frac > FRAME_TOL:
+        raise AssertionError(f"{what}: max byte diff {worst}, {100 * frac:.3f}% differ")
+    return frac
+
+
+def classic_pipeline():
+    """The classic segm path with NV12 out at CLASSIC_SIZE on the card."""
+    from backscrub_tpu_torch.pipeline.frame import FramePipeline, PipelineConfig
+    w, h = CLASSIC_SIZE
+    pipe = FramePipeline(MODEL, PipelineConfig(width=w, height=h, edge_fused=False,
+                                               output_format="nv12"), device="cuda")
+    if pipe.maskgen.edge is not None:
+        raise AssertionError("edge_fused=False took the fused edge path")
+    return pipe
+
+
+def classic_phase(pipe):
+    """The classic path on the card: CLASSIC_FRAMES frames of ``pipe``
+    (NV12 out), then I420, then a horizontal flip (no K4: the JAX package's
+    gate), each held against the plain path (K5's and K4's plain
+    versions)."""
+    import torch
+    from backscrub_tpu_torch.ops.pack_kernels import blend_pack_420_plain
+    from backscrub_tpu_torch.pipeline.image import alpha_blend_u8
+    from make_synth_segm import moving_frames
+
+    w, h = CLASSIC_SIZE
+    n = CLASSIC_FRAMES
+    frames = [torch.from_numpy(f).cuda() for f in moving_frames(w, h, n)]
+    bg = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 256, (h, w, 3), np.uint8)).cuda()
+
+    def drive(frs, keep, flip_h=False):
+        pipe.reset()
+        torch.cuda.synchronize()
+        _zero_counts()
+        outs = []
+        for f in frs:
+            out = pipe.step(f, bg, flip_horizontal=flip_h)
+            if keep:
+                outs.append(out)
+        torch.cuda.synchronize()
+        return _counts(), outs
+
+    def check(frs, outs, flip_h):
+        mg = pipe.maskgen
+        ema = torch.full(mg.ema_shape, 255, dtype=torch.uint8, device="cuda")
+        fracs = []
+        with torch.no_grad():
+            for f, (out, mask) in zip(frs, outs):
+                rm, ema = mg._decode_post(mg._infer(_plain_input(mg, f)), ema)
+                ro = (pipe.finish(alpha_blend_u8(bg, f, rm), True, False) if flip_h
+                      else blend_pack_420_plain(f, bg, rm, pipe.cfg.output_format))
+                if out.shape != ro.shape or out.dtype != torch.uint8:
+                    raise AssertionError(f"output shape {tuple(out.shape)} {out.dtype}")
+                fracs.append(_held_bytes([(out, ro), (mask, rm)], "classic path"))
+        if not torch.equal(mg.ema, ema):
+            raise AssertionError("the classic path's EMA differs from the plain path's")
+        if float(np.mean(fracs)) > MEAN_TOL:
+            raise AssertionError(f"{100 * np.mean(fracs):.4f}% of bytes differ on average")
+        return fracs
+
+    for f in frames[:5]:                 # warm-up
+        pipe.step(f, bg)
+    t0 = time.perf_counter()
+    launches, _ = drive(frames, keep=False)
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    want = dict(front=0, body=0, pack=0, pack_420=n, bilateral=n)
+    if launches != want:
+        raise AssertionError(f"classic launch counts {launches}, expected {want}")
+    counts, outs = drive(frames, keep=True)
+    fracs = check(frames, outs, False)
+    person = float((outs[-1][1] < 128).float().mean())
+    if not 0.01 < person < 0.99:
+        raise AssertionError(f"degenerate mask: person fraction {person}")
+    print(f"pipeline classic nv12 {w}x{h}: {n} frames, {ms:.4f} ms/frame (host clock, "
+          f"synchronized), launches {launches}, differing bytes vs plain path mean "
+          f"{100 * np.mean(fracs):.4f}% max {100 * max(fracs):.4f}%, person fraction "
+          f"{person:.3f}")
+    # the variants reuse the pipeline: I420 by its config (the output
+    # format is read per step), the flip by the per-step override
+    m = VARIANT_FRAMES
+    nv12 = pipe.cfg
+    for fmt, flip_h, k4 in (("i420", False, m), ("nv12", True, 0)):
+        pipe.cfg = dataclasses.replace(nv12, output_format=fmt)
+        counts, outs = drive(frames[:m], keep=True, flip_h=flip_h)
+        if counts != dict(want, pack_420=k4, bilateral=m):
+            raise AssertionError(f"launch counts {counts} with {fmt}, flip_h={flip_h}")
+        fracs = check(frames[:m], outs, flip_h)
+        print(f"pipeline classic {fmt} flip_horizontal={flip_h}: {m} frames, launches "
+              f"{counts}, differing bytes max {100 * max(fracs):.4f}%")
+    pipe.cfg = nv12
+    return launches, ms
+
+
+def staged_maskgen(calls):
+    """The staged deeplab MaskGen at DEEPLAB_SIZE on the card, its hooks
+    appending to ``calls``."""
+    from backscrub_tpu_torch.pipeline.maskgen import MaskGen
+    w, h = DEEPLAB_SIZE
+    mg = MaskGen(DEEPLAB, w, h, fused=False, device="cuda",
+                 onprep=lambda: calls.append("prep"), oninfer=lambda: calls.append("infer"),
+                 onmask=lambda: calls.append("mask"))
+    if mg.edge is not None or tuple(mg.model.input_shape[1:3]) != (257, 257):
+        raise AssertionError("the staged deeplab MaskGen is not the classic 257x257 path")
+    return mg
+
+
+def staged_phase(mg, calls):
+    """STAGED_FRAMES frames of the staged MaskGen ``mg`` (fused=False,
+    stage hooks appending to ``calls``) on the deeplab model: one K5 launch
+    a frame, hooks in order, masks against the plain path under the deeplab
+    flip rule."""
+    import torch
+    from backscrub_tpu_torch.pipeline.decode import decode_val, ema_update
+    from backscrub_tpu_torch.pipeline.edge import post_footprint, postprocess_mask
+    from make_synth_segm import moving_frames
+
+    w, h = DEEPLAB_SIZE
+    n = STAGED_FRAMES
+    frames = [torch.from_numpy(f).cuda() for f in moving_frames(w, h, n)]
+    for f in frames[:2]:
+        mg.process(f)
+    mg.reset()
+    torch.cuda.synchronize()
+    calls.clear()
+    _zero_counts()
+    t0 = time.perf_counter()
+    outs = [(mg.process(f), mg.ema.clone()) for f in frames]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    launches = _counts()
+    if launches != dict(front=0, body=0, pack=0, pack_420=0, bilateral=n):
+        raise AssertionError(f"staged launch counts {launches}")
+    if calls != ["prep", "infer", "mask"] * n:
+        raise AssertionError(f"stage hooks fired as {calls[:6]}...")
+    ema = torch.full(mg.ema_shape, 255, dtype=torch.uint8, device="cuda")
+    ever_flipped = torch.zeros_like(ema, dtype=torch.bool)
+    flips, flip_margin, worst, fracs = 0, 0.0, 0, []
+    with torch.no_grad():
+        for f, (mask, ema_k) in zip(frames, outs):
+            logits = mg._infer(_plain_input(mg, f))
+            ema = ema_update(ema, decode_val(logits, mg.spec))
+            rm = postprocess_mask(ema, mg.geo, mg.post_mats)
+            flipped = (ema_k >> 5) != (ema >> 5)
+            if flipped.any():
+                others = torch.cat([logits[..., :PERSON], logits[..., PERSON + 1:]], -1)
+                margin = (logits[..., PERSON] - others.max(-1).values)[flipped].abs()
+                flips += int(flipped.sum())
+                flip_margin = max(flip_margin, float(margin.max()))
+            ever_flipped |= flipped
+            if not torch.equal(ema_k[~ever_flipped], ema[~ever_flipped]):
+                raise AssertionError("the EMAs differ at a pixel whose decode never flipped")
+            foot = post_footprint(ema_k != ema, mg.geo, mg.post_mats)
+            worst = max(worst, int(torch.where(foot, 0, (mask.int() - rm.int()).abs()).max()))
+            fracs.append(float((mask != rm).float().mean()))
+    print(f"staged deeplab {w}x{h}: {n} frames, {ms:.4f} ms/frame (host clock, synchronized), "
+          f"launches {launches}, hooks in order, decode flips {flips} (largest |margin| "
+          f"{flip_margin:.3g}), mask bytes differing mean {100 * np.mean(fracs):.4f}% max "
+          f"{100 * max(fracs):.4f}%, max byte diff outside the flips' footprint {worst}")
+    if worst > 1 or max(fracs) > FRAME_TOL or float(np.mean(fracs)) > MEAN_TOL \
+            or flip_margin > TIE:
+        raise AssertionError("staged masks outside the tolerance invariant")
+    return launches, ms
+
+
+def device_check():
+    """A pipeline built without ``device=`` runs on the card."""
+    from backscrub_tpu_torch.pipeline.frame import FramePipeline, PipelineConfig
+    pipe = FramePipeline(MODEL, PipelineConfig(width=320, height=240))
+    if pipe.device.type != "cuda" or pipe.maskgen.ema.device.type != "cuda":
+        raise AssertionError(f"the default device is {pipe.device}, not cuda")
+    print(f"default device: {pipe.device}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     sys.path.insert(0, REPO)
     sys.path.insert(0, os.path.join(REPO, "tools"))
     from backscrub_tpu_torch import _build
@@ -400,11 +723,22 @@ def main() -> int:
     t0 = time.perf_counter()
     dl_kernels, dl_launches, _ = deeplab_phase()
     print(f"deeplab phase: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    classic, calls = classic_pipeline(), []
+    staged = staged_maskgen(calls)
+    k5 = bilateral_phase(classic.maskgen, staged)
+    classic_launches, _ = classic_phase(classic)
+    staged_phase(staged, calls)
+    device_check()
+    print(f"bilateral, classic, staged and device phases: {time.perf_counter() - t0:.2f} s")
     main_size = SIZES[0]
+    # launches: each kernel's count from the run of the path it serves
     launches = dict(runs[main_size][0], body_prefix=dl_launches["body_prefix"],
-                    body_cont=dl_launches["body_cont"])
+                    body_cont=dl_launches["body_cont"],
+                    pack_420=classic_launches["pack_420"],
+                    bilateral=classic_launches["bilateral"])
     results = dict(kernels[main_size], body_prefix=dl_kernels["body_prefix"],
-                   body_cont=dl_kernels["body_cont"])
+                   body_cont=dl_kernels["body_cont"], bilateral=k5["segm 96x160"])
     meta = {
         "front": ("backscrub_tpu_torch/csrc/front.cu", "backscrub_tpu/pipeline/edge.py:424"),
         "body": ("backscrub_tpu_torch/csrc/body.cu",
@@ -416,14 +750,24 @@ def main() -> int:
         "body_cont": ("backscrub_tpu_torch/csrc/body_flat.cu",
                       "backscrub_tpu/ops/megakernel.py:794 (BodyMega flat=True, "
                       "continuation chain)"),
+        "pack_420": ("backscrub_tpu_torch/csrc/blend_pack.cu",
+                     "backscrub_tpu/ops/pallas_kernels.py:242"),
+        "bilateral": ("backscrub_tpu_torch/csrc/bilateral.cu",
+                      "backscrub_tpu/ops/pallas_kernels.py:71"),
     }
+    # no single PyTorch call computes any of these functions (K2''s GEMM
+    # alone has one, torch.addmm: printed in the deeplab phase)
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name],
          "max_abs_err": results[name]["max_abs_err"],
          "ms": results[name]["ms"][0],
-         "plain_ms": results[name]["plain_ms"][0]}
+         "plain_ms": results[name]["plain_ms"][0],
+         "bound_ms": results[name]["bound"][0],
+         "bound_by": results[name]["bound"][1],
+         "library_ms": None}
         for name, (src, rep) in meta.items()]}
+    print(f"chip_smoke phases: {time.perf_counter() - t_start:.2f} s")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,6 +8,7 @@ run it as::
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
 import pathlib
 import sys
 
@@ -19,15 +20,28 @@ from backscrub_tpu_torch import _build
 from backscrub_tpu_torch.graph.executor import build_model
 from backscrub_tpu_torch.ops.megakernel import (BodyPlan, body_launch, conv1x1_gemm,
                                                 conv1x1_plain)
-from backscrub_tpu_torch.ops.pack_kernels import blend_pack_yuyv, blend_pack_yuyv_plain
+from backscrub_tpu_torch.ops.image_kernels import bilateral5
+from backscrub_tpu_torch.ops.pack_kernels import (blend_pack_420, blend_pack_420_plain,
+                                                  blend_pack_yuyv, blend_pack_yuyv_plain)
 from backscrub_tpu_torch.pipeline import edge as tedge
 from backscrub_tpu_torch.pipeline.frame import FramePipeline, PipelineConfig
+from backscrub_tpu_torch.pipeline.image import bilateral5 as bilateral5_plain
+from backscrub_tpu_torch.pipeline.maskgen import MaskGen, preprocess
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FULL = ROOT / "tests" / "data" / "segm_synth_lite_96x160.tflite"
 DEEPLAB = ROOT / "tests" / "data" / "deeplab_synth_257.tflite"
 
 pytestmark = pytest.mark.cuda
+
+
+def plain_input(mg, frame):
+    """The classic preprocess with the plain bilateral: the canvas before
+    the bilateral (``preprocess`` with no bilateral and no normalization),
+    then the plain version, rounding and the spec's normalization."""
+    canvas = preprocess(frame, mg.geo, dataclasses.replace(mg.spec, scale=1.0, offset=0.0),
+                        use_bilateral=False)
+    return torch.round(bilateral5_plain(canvas.contiguous())) * mg.spec.scale + mg.spec.offset
 
 
 @pytest.fixture
@@ -133,12 +147,16 @@ def test_front_kernels_on_two_streams(cuda_device):
                 torch.testing.assert_close(o, ref, atol=2e-3, rtol=1e-3)
 
 
-def _frame(w, h):
+def _frames(w, h, n):
     tools = str(ROOT / "tools")
     if tools not in sys.path:
         sys.path.insert(0, tools)
     from make_synth_segm import moving_frames
-    return moving_frames(w, h, 1)[0]
+    return moving_frames(w, h, n)
+
+
+def _frame(w, h):
+    return _frames(w, h, 1)[0]
 
 
 @pytest.mark.parametrize("h,w", [(37, 64), (480, 640), (720, 1280)])
@@ -176,9 +194,93 @@ def test_front_and_body_kernels_match_plain(cuda_device, w, h):
         torch.testing.assert_close(k2, e.body_plan.run_plain(x), atol=2e-3, rtol=1e-3)
 
 
+@pytest.mark.parametrize("h,w", [(42, 58), (480, 640), (720, 1280)])
+def test_blend_pack_420_kernel_matches_plain(cuda_device, h, w):
+    """K4 byte-identical to its plain version, NV12 and I420."""
+    rng = np.random.default_rng(h)
+    fr, bg = (torch.from_numpy(rng.integers(0, 256, (h, w, 3), np.uint8)).to(cuda_device)
+              for _ in range(2))
+    m = rng.integers(0, 256, (h, w), np.uint8)
+    m[: h // 4], m[h // 4: h // 2] = 255, 0
+    m = torch.from_numpy(m).to(cuda_device)
+    for layout in ("nv12", "i420"):
+        before = blend_pack_420.launches
+        got = blend_pack_420(fr, bg, m, layout)
+        assert blend_pack_420.launches == before + 1
+        assert torch.equal(got, blend_pack_420_plain(fr, bg, m, layout))
+
+
+@pytest.mark.parametrize("n,h,w", [(1, 96, 160), (1, 257, 257), (4, 257, 257), (2, 5, 7)])
+def test_bilateral_kernel_matches_plain(cuda_device, n, h, w):
+    """K5 within allclose(atol=2e-3, rtol=1e-3) of its plain version; after
+    rounding no byte off by more than 1."""
+    x = torch.from_numpy(np.random.default_rng(n * h).integers(
+        0, 256, (n, h, w, 3)).astype(np.float32)).to(cuda_device)
+    x = x[0] if n == 1 else x
+    before = bilateral5.launches
+    got = bilateral5(x)
+    assert bilateral5.launches == before + 1
+    ref = bilateral5_plain(x)
+    torch.testing.assert_close(got, ref, atol=2e-3, rtol=1e-3)
+    assert float((torch.round(got) - torch.round(ref)).abs().max()) <= 1
+
+
+def test_classic_nv12_pipeline_launches_and_matches_plain(cuda_device):
+    """Three frames of the classic path with NV12 out: one K5 and one K4
+    launch a frame, no K1/K2/K3; the outputs against the plain path on the
+    card under the tolerance invariant."""
+    w, h = 640, 480
+    pipe = FramePipeline(str(FULL), PipelineConfig(width=w, height=h, edge_fused=False,
+                                                   output_format="nv12"),
+                         device=cuda_device)
+    mg = pipe.maskgen
+    frames = [torch.from_numpy(f).to(cuda_device) for f in _frames(w, h, 3)]
+    bg = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 256, (h, w, 3), np.uint8)).to(cuda_device)
+    counters = (bilateral5, blend_pack_420, tedge.front_fused, body_launch, blend_pack_yuyv)
+    before = [c.launches for c in counters]
+    ema = mg.ema.clone()
+    fracs = []
+    with torch.no_grad():
+        for f in frames:
+            out, mask = pipe.step(f, bg)
+            x = plain_input(mg, f)
+            rm, ema = mg._decode_post(mg._infer(x), ema)
+            for a, b in ((out, blend_pack_420_plain(f, bg, rm)), (mask, rm)):
+                assert int((a.int() - b.int()).abs().max()) <= 1
+                fracs.append(float((a != b).float().mean()))
+    assert [c.launches - b for c, b in zip(counters, before)] == [3, 3, 0, 0, 0]
+    assert max(fracs) <= 0.02 and float(np.mean(fracs)) <= 0.002
+
+
+def test_staged_maskgen_on_card(cuda_device):
+    """MaskGen(fused=False) on the card: the hooks in order, one K5 launch
+    a frame."""
+    calls = []
+    mg = MaskGen(str(FULL), 640, 480, fused=False, device=cuda_device,
+                 onprep=lambda: calls.append("prep"), oninfer=lambda: calls.append("infer"),
+                 onmask=lambda: calls.append("mask"))
+    before = bilateral5.launches
+    for f in _frames(640, 480, 2):
+        mask = mg.process(f)
+        assert mask.device.type == "cuda" and mask.shape == (480, 640)
+    assert calls == ["prep", "infer", "mask"] * 2 and bilateral5.launches == before + 2
+
+
+def test_default_device_is_cuda(cuda_device):
+    pipe = FramePipeline(str(FULL), PipelineConfig(width=320, height=240))
+    assert pipe.device.type == "cuda" and pipe.maskgen.ema.device.type == "cuda"
+
+
 def test_wrappers_validate_inputs(cuda_device):
     frame = torch.zeros((48, 64, 3), dtype=torch.uint8, device=cuda_device)
     mask = torch.zeros((48, 64), dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError):
+        blend_pack_420(frame[:47], frame[:47], mask[:47])
+    with pytest.raises(ValueError):
+        blend_pack_420(frame, frame, mask, "yv12")
+    with pytest.raises(ValueError):
+        bilateral5(torch.zeros((2, 64, 3), device=cuda_device))
     with pytest.raises(ValueError):
         blend_pack_yuyv(frame, frame, mask.float())
     with pytest.raises(ValueError):

@@ -73,7 +73,7 @@ def pair():
     """(JAX model at the deeplab spec's HIGH precision, port model, JAX
     edge info, port edge info) at 640x480."""
     jm = jax_load_model(DEEPLAB, precision=jax.lax.Precision.HIGH)
-    tm = load_model(DEEPLAB)
+    tm = load_model(DEEPLAB, "cpu")
     geo = compute_roi(640, 480, 257, 257, 257, 257)
     jinfo = jedge.edge_applicable(jm, jspecs.spec_for_model(DEEPLAB), geo)
     tinfo = tedge.edge_applicable(tm, specs.spec_for_model(DEEPLAB), geo)
@@ -95,7 +95,7 @@ def cuts(pair):
 def test_generator_structure():
     """The folded graph is what the JAX package's deeplab tests and
     SURVEY.md 2.2 assume of deeplabv3_257_mv_gpu.tflite."""
-    g = load_model(DEEPLAB).graph
+    g = load_model(DEEPLAB, "cpu").graph
     assert len(g.nodes) == 70
     assert collections.Counter(n.kind for n in g.nodes) == {
         "CONV_2D": 38, "DEPTHWISE_CONV_2D": 17, "ADD": 10, "AVERAGE_POOL_2D": 1,
@@ -132,7 +132,7 @@ def test_generator_reproduces_the_committed_file(tmp_path):
 
 
 def test_params_from_jax(pair):
-    jm, tm = pair[0], load_model(DEEPLAB)
+    jm, tm = pair[0], load_model(DEEPLAB, "cpu")
     p = params_from_jax(jm.params)
     assert set(p) == set(tm.params)
     tm.params = p
@@ -262,7 +262,8 @@ def test_spec_edge_cont_matches_jax():
 def test_switches_match_jax(mega, cont, plans):
     """edge_mega / edge_cont pick the same stages as in the JAX package;
     the graph executor runs whatever no plan covers."""
-    port = MaskGen(DEEPLAB, 640, 480, edge_mega=mega, edge_cont=cont).edge
+    port = MaskGen(DEEPLAB, 640, 480, edge_mega=mega, edge_cont=cont,
+                   device="cpu").edge
     ref = JaxMaskGen(DEEPLAB, 640, 480, edge_fused=True, edge_interpret=True,
                      edge_mega=mega, edge_cont=cont).edge
     assert (port.prefix_plan is not None) == (ref.mega_prefix is not None) == ("prefix" in plans)
@@ -275,7 +276,7 @@ def test_mega_true_needs_the_full_span():
     """As in the JAX package, edge_mega=True demands the full-span body
     plan, which a front-only family does not have."""
     with pytest.raises(ValueError, match="mega=True"):
-        MaskGen(DEEPLAB, 640, 480, edge_mega=True)
+        MaskGen(DEEPLAB, 640, 480, edge_mega=True, device="cpu")
 
 
 def test_continuation_that_fails_a_flat_guard_takes_the_classic_path(monkeypatch):
@@ -303,21 +304,22 @@ def test_continuation_that_fails_a_flat_guard_takes_the_classic_path(monkeypatch
     assert body_plan_continuation_for(tm, info, cut, cut_tid) is None
     assert tedge.body_plans(tm, info, None, True) is None
     with pytest.raises(ValueError, match="BodyPlans"):
-        tedge.EdgeFused(tm, geo, spec, info, cont=True)
-    prefix_only = tedge.EdgeFused(tm, geo, spec, info, cont=False)
+        tedge.EdgeFused(tm, geo, spec, info, cont=True, device="cpu")
+    prefix_only = tedge.EdgeFused(tm, geo, spec, info, cont=False, device="cpu")
     assert prefix_only.prefix_plan is not None and prefix_only.cont_plan is None
     monkeypatch.setattr(tmaskgen, "load_model", planted)
     with pytest.raises(ValueError, match="edge_fused=True"):
-        MaskGen(DEEPLAB, 640, 480, edge_fused=True)
-    assert MaskGen(DEEPLAB, 640, 480).edge is None
-    assert MaskGen(DEEPLAB, 640, 480, edge_cont=False).edge.prefix_plan is not None
+        MaskGen(DEEPLAB, 640, 480, edge_fused=True, device="cpu")
+    assert MaskGen(DEEPLAB, 640, 480, device="cpu").edge is None
+    assert MaskGen(DEEPLAB, 640, 480, edge_cont=False,
+                   device="cpu").edge.prefix_plan is not None
 
 
 def test_post_footprint_bounds_what_an_ema_flip_moves():
     """Flipping a few EMA pixels' decode bits changes the mask only inside
     their post footprint, which stays a few dozen pixels each (the bar
     the on-card checks use for decode flips at near-ties)."""
-    e = MaskGen(DEEPLAB, 640, 480).edge
+    e = MaskGen(DEEPLAB, 640, 480, device="cpu").edge
     ema = torch.from_numpy(np.random.default_rng(7).integers(0, 256, (257, 257), np.uint8))
     moved, picked = ema.clone(), torch.zeros((257, 257), dtype=torch.bool)
     for i, j in ((0, 0), (100, 120), (128, 40), (256, 256)):
@@ -352,7 +354,7 @@ def test_slice_matches_both_jax_paths():
     w, h = 640, 480
     frames = _tools().moving_frames(w, h, 5)
     bg = np.random.default_rng(5).integers(0, 256, (h, w, 3), np.uint8)
-    port = FramePipeline(DEEPLAB, PipelineConfig(width=w, height=h))
+    port = FramePipeline(DEEPLAB, PipelineConfig(width=w, height=h), device="cpu")
     e = port.maskgen.edge
     assert e.prefix_plan is not None and e.cont_plan is not None and e.body_plan is None
     refs = {

@@ -50,7 +50,7 @@ def models(tmp_path_factory):
 
 def _pair(path, w, h):
     """(JAX model, port model, geometry, JAX info, port info)."""
-    jm, tm = jax_load_model(path), load_model(path)
+    jm, tm = jax_load_model(path), load_model(path, "cpu")
     geo = compute_roi(w, h, 160, 96, 160, 96)
     jinfo = jedge.edge_applicable(jm, jax_spec(path), geo)
     tinfo = tedge.edge_applicable(tm, spec_for_model(path), geo)
@@ -65,7 +65,7 @@ def test_jax_reference_runs_the_pallas_path(models):
         assert mg.edge.interpret
         assert mg.edge.info.front_ok and mg.edge.info.tail_ok
         assert mg.edge.mega is not None
-        port = MaskGen(path, 320, 240)
+        port = MaskGen(path, 320, 240, device="cpu")
         assert port.edge is not None and port.edge.body_plan is not None
         assert [p[0] for p in port.edge.body_plan.plan] == \
             [p[0] for p in mg.edge.mega.plan]
@@ -82,14 +82,14 @@ def test_detect_edge_matches_jax(models, which):
     # (full), the port has no kernel for the body, so auto mode runs the
     # classic stages and edge_fused=True raises
     assert not tinfo.tail_ok
-    port = MaskGen(models[which], 100, 640).edge
+    port = MaskGen(models[which], 100, 640, device="cpu").edge
     ref = JaxMaskGen(models[which], 100, 640, edge_fused=True, edge_interpret=True).edge
     assert ref.mega is None and ref.mega_cont is None
     assert (ref.mega_prefix is None) == (which == "full")
     if which == "full":
         assert port is None
         with pytest.raises(ValueError, match="edge_fused=True"):
-            MaskGen(models[which], 100, 640, edge_fused=True)
+            MaskGen(models[which], 100, 640, edge_fused=True, device="cpu")
     else:
         assert not port.info.tail_ok and port.body_plan is None
         assert port.prefix_plan is not None and port.cont_plan is None
@@ -116,11 +116,12 @@ def test_body_that_fails_a_plan_guard_takes_the_classic_path(models, monkeypatch
         BodyPlan(tm, info.body_start, info.body_end, info.body_in_tensor,
                  info.body_out_tensor)
     with pytest.raises(ValueError, match="BodyPlan"):
-        tedge.EdgeFused(tm, geo, spec_for_model(path), info)
+        tedge.EdgeFused(tm, geo, spec_for_model(path), info, device="cpu")
     monkeypatch.setattr(tmaskgen, "load_model", planted)
     with pytest.raises(ValueError, match="edge_fused=True"):
-        MaskGen(path, 320, 240, edge_fused=True)
-    auto, classic = MaskGen(path, 320, 240), MaskGen(path, 320, 240, edge_fused=False)
+        MaskGen(path, 320, 240, edge_fused=True, device="cpu")
+    auto = MaskGen(path, 320, 240, device="cpu")
+    classic = MaskGen(path, 320, 240, edge_fused=False, device="cpu")
     assert auto.edge is None
     for f in _tools().moving_frames(320, 240, 2):
         assert torch.equal(auto.process(f), classic.process(f))
@@ -133,7 +134,7 @@ def test_front_matches_jax_interpret(models, which, w, h):
     jm, tm, geo, jinfo, tinfo = _pair(path, w, h)
     je = jedge.EdgeFused(jm, geo, jax_spec(path), jinfo, mega=False, interpret=True)
     assert je.front_layout == "chw" and je.interpret
-    te = tedge.EdgeFused(tm, geo, spec_for_model(path), tinfo)
+    te = tedge.EdgeFused(tm, geo, spec_for_model(path), tinfo, device="cpu")
     frames = _tools().moving_frames(w, h, 2)
     frames.append(np.random.default_rng(7).integers(0, 256, (h, w, 3), np.uint8))
     for f in frames:
@@ -177,7 +178,7 @@ def test_tail_and_postprocess_match_jax(models, which):
     path = models[which]
     jm, tm, geo, jinfo, tinfo = _pair(path, 640, 480)
     je = jedge.EdgeFused(jm, geo, jax_spec(path), jinfo, mega=False, interpret=True)
-    te = tedge.EdgeFused(tm, geo, spec_for_model(path), tinfo)
+    te = tedge.EdgeFused(tm, geo, spec_for_model(path), tinfo, device="cpu")
     rng = np.random.default_rng(4)
     k = jm.graph.tensor(jinfo.body_out_tensor).shape[3]
     ema_q = np.full((2, 2, 48, 80), 255, np.uint8)
@@ -205,7 +206,7 @@ def _no_overlap(plan):
 
 @pytest.mark.parametrize("which", ["full", "narrow"])
 def test_body_plan_memory_plan(models, which):
-    plan = body_plan_for(load_model(models[which]),
+    plan = body_plan_for(load_model(models[which], "cpu"),
                          _pair(models[which], 640, 480)[4])
     _no_overlap(plan)
     n_concat = sum(p[0] == "concat" for p in plan.plan)
@@ -273,7 +274,8 @@ def test_edge_mega_false_runs_the_executor_behind_the_front(models):
     the graph executor (the JAX package's mega=False), with the same masks
     as the body plan."""
     path = models["narrow"]
-    plan, graph = MaskGen(path, 640, 480), MaskGen(path, 640, 480, edge_mega=False)
+    plan = MaskGen(path, 640, 480, device="cpu")
+    graph = MaskGen(path, 640, 480, edge_mega=False, device="cpu")
     assert graph.edge.body_plan is None and graph.edge.rest is not None
     assert plan.edge.rest is None and graph.edge.info.tail_ok
     for f in _tools().moving_frames(640, 480, 2):

@@ -32,7 +32,7 @@ def models(tmp_path_factory):
 
 @pytest.mark.parametrize("which", ["full", "narrow"])
 def test_compiled_model_matches_jax(models, which):
-    jm, tm = jax_load_model(models[which]), load_model(models[which])
+    jm, tm = jax_load_model(models[which]), load_model(models[which], "cpu")
     assert tm.input_shape == jm.input_shape and tm.output_shape == jm.output_shape
     rng = np.random.default_rng(0)
     for _ in range(2):
@@ -45,7 +45,7 @@ def test_compiled_model_matches_jax(models, which):
 
 @pytest.mark.parametrize("which", ["full", "narrow"])
 def test_params_from_jax_equal_own_load(models, which):
-    jm, tm = jax_load_model(models[which]), load_model(models[which])
+    jm, tm = jax_load_model(models[which]), load_model(models[which], "cpu")
     for src in (jm.params, jm.host_params):
         p = params_from_jax(src)
         assert set(p) == set(tm.params)

@@ -75,7 +75,7 @@ def _quadrant_to_std(ema_q):
 def _run(path, w, h, n, refs, check_mask_vs_fused=True):
     frames = _tools().moving_frames(w, h, n)
     bg = np.random.default_rng(5).integers(0, 256, (h, w, 3), np.uint8)
-    port = FramePipeline(path, PipelineConfig(width=w, height=h))
+    port = FramePipeline(path, PipelineConfig(width=w, height=h), device="cpu")
     assert port.maskgen.edge is not None and port.maskgen.edge.body_plan is not None
     jax_pipes = {}
     if "fused" in refs:
@@ -130,17 +130,31 @@ def test_cuda_device_requires_cuda(monkeypatch):
         FramePipeline(str(FULL), PipelineConfig(width=320, height=240), device="cuda")
 
 
+def test_entry_points_default_to_cuda(monkeypatch):
+    """Constructed without ``device=``, the entry points ask for the card
+    and raise where it is absent; nothing falls back to the CPU."""
+    from backscrub_tpu_torch.graph.executor import load_model
+    from backscrub_tpu_torch.pipeline.maskgen import MaskGen
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: FramePipeline(str(FULL), PipelineConfig(width=320, height=240)),
+                 lambda: MaskGen(str(FULL), 320, 240),
+                 lambda: load_model(str(FULL))):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+
+
 @pytest.mark.parametrize("option", [
-    dict(flip_horizontal=True), dict(out_width=320, out_height=180),
-    dict(output_format="nv12"), dict(mask_refine="guided"), dict(blur_strength=5),
+    dict(mask_morph="open"), dict(input_format="nv12"),
+    dict(output_format="mjpg"), dict(mask_refine="guided"), dict(mask_morph="erode:5"),
     dict(input_format="yuyv")])
 def test_options_outside_the_slice_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FramePipeline(str(FULL), PipelineConfig(width=640, height=480, **option))
+        FramePipeline(str(FULL), PipelineConfig(width=640, height=480, **option),
+                      device="cpu")
 
 
 def test_green_background_and_reset():
-    port = FramePipeline(str(FULL), PipelineConfig(width=320, height=240))
+    port = FramePipeline(str(FULL), PipelineConfig(width=320, height=240), device="cpu")
     f = _tools().moving_frames(320, 240, 1)[0]
     y1, m1 = port.step(f)
     ema1 = port.maskgen.ema.clone()
@@ -153,7 +167,8 @@ def test_green_background_and_reset():
 
 def test_import_pulls_in_no_jax_or_tensorflow():
     code = ("import sys, backscrub_tpu_torch.pipeline.frame, "
-            "backscrub_tpu_torch.ops.megakernel, backscrub_tpu_torch.graph.executor; "
+            "backscrub_tpu_torch.ops.megakernel, backscrub_tpu_torch.graph.executor, "
+            "backscrub_tpu_torch.ops.image_kernels, backscrub_tpu_torch.ops.pack_kernels; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'tensorflow', 'flatbuffers', 'backscrub_tpu')); "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -168,7 +183,7 @@ def test_coarse_crop_two_stage_post_matches_jax_classic():
     upscale + box-blur post instead of fold-blur."""
     from backscrub_tpu.pipeline.maskgen import MaskGen as JaxMaskGen
     from backscrub_tpu_torch.pipeline.maskgen import MaskGen
-    port = MaskGen(str(FULL), 100, 640)
+    port = MaskGen(str(FULL), 100, 640, device="cpu")
     ref = JaxMaskGen(str(FULL), 100, 640, edge_fused=False)
     assert port.edge is None and min(port.geo.out_roi.w, port.geo.out_roi.h) < 64
     inv = _Invariant()

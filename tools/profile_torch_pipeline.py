@@ -1,20 +1,30 @@
 """Profile the PyTorch port's frame pipeline on one CUDA card.
 
 Runs ``FramePipeline`` on the committed synthetic segm_lite-shaped model
-(or ``--model``, e.g. the synthetic deeplab model), warms up, then prints:
+(or ``--model``, e.g. the synthetic deeplab model) on the card, warms up,
+then prints:
 
 - ms/frame over ``--frames`` frames (host clock around work that ends in
   ``torch.cuda.synchronize()``);
 - a ``torch.profiler`` window over ``--window`` frames: device time by
-  kernel name, the device's busy time per frame and its idle share;
+  kernel name, the device's busy time per frame and its idle share, and
+  each of the port's own kernels' launches per frame and device time per
+  launch;
 - the device time of each body plan of the fused path (K2, or K2' and
   K2'') run alone on the frame's body input, by kernel name;
 - optionally (``--trace PATH``) the window's Chrome trace.
+
+``--classic`` runs the classic stages (``edge_fused=False``: preprocess
+with K5, the graph executor), ``--output-format`` picks yuyv, nv12, i420
+or bgr, and ``--staged`` profiles ``MaskGen(fused=False).process`` (the
+staged libbackscrub API, masks only) instead of the pipeline.
 
 Usage::
 
     python tools/profile_torch_pipeline.py --width 640 --height 480
     python tools/profile_torch_pipeline.py --model tests/data/deeplab_synth_257.tflite
+    python tools/profile_torch_pipeline.py --classic --output-format nv12
+    python tools/profile_torch_pipeline.py --staged --model tests/data/deeplab_synth_257.tflite
 """
 
 from __future__ import annotations
@@ -27,6 +37,11 @@ import time
 import numpy as np
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the __global__ functions of backscrub_tpu_torch/csrc
+_PORT_KERNELS = {"front_kernel", "bilateral_kernel", "blend_pack_yuyv_kernel",
+                 "blend_pack_420_kernel", "conv1x1_kernel", "dw_kernel", "gemm_kernel",
+                 "eltwise_kernel", "gpool_kernel", "resize_kernel", "bcast_kernel",
+                 "copy_kernel"}
 
 
 def main(argv=None) -> int:
@@ -38,6 +53,9 @@ def main(argv=None) -> int:
     ap.add_argument("--frames", type=int, default=200)
     ap.add_argument("--window", type=int, default=20)
     ap.add_argument("--trace", default="")
+    ap.add_argument("--classic", action="store_true")
+    ap.add_argument("--staged", action="store_true")
+    ap.add_argument("--output-format", default="yuyv")
     a = ap.parse_args(argv)
 
     import torch
@@ -49,29 +67,38 @@ def main(argv=None) -> int:
     sys.path.insert(0, _REPO)
     sys.path.insert(0, os.path.join(_REPO, "tools"))
     from backscrub_tpu_torch.pipeline.frame import FramePipeline, PipelineConfig
+    from backscrub_tpu_torch.pipeline.maskgen import MaskGen
     from make_synth_segm import moving_frames
 
     w, h = a.width, a.height
-    pipe = FramePipeline(a.model, PipelineConfig(width=w, height=h), device="cuda")
     frames = [torch.from_numpy(f).cuda() for f in moving_frames(w, h, 16)]
     bg = torch.from_numpy(np.random.default_rng(4).integers(
         0, 256, (h, w, 3), np.uint8)).cuda()
+    if a.staged:
+        mg = MaskGen(a.model, w, h, fused=False)     # on the card by default
+        step, edge, what = (lambda f: mg.process(f)), None, "staged MaskGen"
+    else:
+        pipe = FramePipeline(a.model, PipelineConfig(
+            width=w, height=h, edge_fused=False if a.classic else None,
+            output_format=a.output_format))
+        step, edge = (lambda f: pipe.step(f, bg)), pipe.maskgen.edge
+        what = f"{'classic' if edge is None else 'fused'} {a.output_format}"
     for i in range(20):
-        pipe.step(frames[i % len(frames)], bg)
+        step(frames[i % len(frames)])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(a.frames):
-        pipe.step(frames[i % len(frames)], bg)
+        step(frames[i % len(frames)])
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / a.frames
-    print(f"{w}x{h}: {ms:.4f} ms/frame over {a.frames} frames "
+    print(f"{what} {w}x{h}: {ms:.4f} ms/frame over {a.frames} frames "
           f"({torch.cuda.get_device_name(0)})")
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for i in range(a.window):
-            pipe.step(frames[i % len(frames)], bg)
+            step(frames[i % len(frames)])
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     # device-side rows only (kernels, memcpy/memset): the aten rows repeat
@@ -83,11 +110,18 @@ def main(argv=None) -> int:
           f"(profiled), device busy {busy_ms:.4f} ms/frame; idle share "
           f"{1 - busy_ms / ms:.3f} of the unprofiled {ms:.4f} ms/frame")
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=30))
+    # the port's own kernels (csrc/), by name: launches and device time
+    for k in sorted(prof.key_averages(), key=lambda k: -k.self_device_time_total):
+        name = k.key.replace("(anonymous namespace)::", "").split("(")[0]
+        if k.device_type == DeviceType.CUDA and name in _PORT_KERNELS:
+            print(f"port kernel {name}: {k.count / a.window:.1f} launches/frame, "
+                  f"{k.self_device_time_total / k.count:.3f} us/launch, "
+                  f"{k.self_device_time_total / a.window:.3f} us/frame")
     if a.trace:
         os.makedirs(os.path.dirname(os.path.abspath(a.trace)), exist_ok=True)
         prof.export_chrome_trace(a.trace)
 
-    e = pipe.maskgen.edge
+    e = edge
     if e is not None and e.plans:
         with torch.no_grad():
             x = e.front(frames[0])
