@@ -1,5 +1,6 @@
 """A span of the CNN body as a plan of ops, run as plain PyTorch or as the
-CUDA kernels of ``csrc/body.cu`` and ``csrc/body_flat.cu``.
+CUDA kernels of ``csrc/body_mega.cu``, ``csrc/body.cu`` and
+``csrc/body_flat.cu``.
 
 Counterpart of ``backscrub_tpu/ops/megakernel.py:BodyMega`` in its three
 modes: the full span between the fused edge layers (``body_plan_for``,
@@ -15,9 +16,12 @@ The lane-spacing bookkeeping survives only inside the guards, so that the
 port accepts exactly the spans the JAX package accepts.
 
 ``BodyPlan(x)`` on a CPU tensor runs :meth:`BodyPlan.run_plain`; on a CUDA
-tensor it launches one kernel per op (:meth:`BodyPlan.run_cuda`), counted
-in ``body_launch.launches``, ``body_launch.by_kernel`` and the plan's own
-``launches``.
+tensor :meth:`BodyPlan.run_cuda` launches the full span as ONE persistent
+kernel (``bs_body_mega``, walking the :class:`MegaTable` that
+``body_plan_for`` compiles) and the prefix and flat plans as one kernel
+per op, the flat plan's spatial 1x1 convs as the bf16x3 tensor-core GEMM.
+Launches are counted in ``body_launch.launches``, ``body_launch.by_kernel``
+and the plan's own ``launches``.
 """
 
 from __future__ import annotations
@@ -79,6 +83,36 @@ _OP_KERNELS = {"dw": "bs_dw", "gpool": "bs_gpool", "binop": "bs_eltwise",
                "bingate": "bs_eltwise", "act": "bs_eltwise",
                "resize2x": "bs_resize", "bcast": "bs_bcast"}
 
+# The op table of csrc/body_mega.cu: one row of MEGA_DESC int32 an op, the
+# fields in this order (the kernel's enum Field).  Operand offsets ("in",
+# "out", "aux") are float offsets into the workspace, -1 the span input;
+# weight offsets ("w", "b", "w1", "b1", "w2", "b2") are float offsets into
+# the arena; "pinv" holds a float's bits; "pout" is the offset of the
+# pooled vector a depthwise op writes ("pool") and an SE conv reads
+# ("gate").
+MEGA_FIELDS = ("code", "sync", "act", "act2", "in", "out", "aux", "w", "b",
+               "c", "co", "h", "wd", "oh", "ow", "fh", "fw", "s", "d", "ph", "pw",
+               "band", "n", "elt", "bvec", "gate", "res", "pact", "pinv", "hid",
+               "w1", "b1", "act1", "w2", "b2", "actg", "pool", "pout", "tm", "tn", "cpi")
+MEGA_DESC = 48
+MEGA_CODES = {"conv": 1, "fc": 2, "dw": 3, "gpool": 4, "elt": 5, "resize": 6, "copy": 7}
+MEGA_ELT = {"unary": 0, "ADD": 1, "MUL": 2, "bcast": 3}
+# csrc/body_mega.cu's sizes: threads a CTA, the K a conv stages at once,
+# the SE vectors' capacity, the depthwise band's input window (floats) and
+# its deepest band
+_MEGA_NT, _CONV_K, _SE_MAX_C = 256, 320, 512
+_DW_SMEM_FLOATS, _DW_MAX_BAND = 8192, 8
+# a conv's CTA tiles (rows, columns; _MEGA_NT / (rows * columns) thread
+# groups split K), largest first.  A phase's items should not outnumber
+# the CTAs (the H100's 132 SMs: one round of L2 round trips), nor an SE
+# conv's 48 (each of its CTAs stages both FCs' weights).
+_CONV_TILES = ((16, 16), (8, 16), (8, 8), (4, 8))
+_MEGA_CTAS, _SE_CONV_CTAS = 132, 48
+_SE_W_FLOATS = 48 * 1024           # both SE FCs' weights, staged in shared memory
+
+# the GEMM's CTA tiles (csrc/body_flat.cu, bs_gemm's ``tile``)
+_GEMM_TILES = ((64, 64), (32, 64), (32, 32), (16, 32))
+
 
 class BodyPlan:
     """nodes[start:end] of a model's folded graph as a list of plan ops.
@@ -92,7 +126,11 @@ class BodyPlan:
     ``flat``: the reference's dense-layout mode (the continuation): no
     stride-2 depthwise, no geometry-changing resize, every spatial tensor
     keeps the input's shape, and 1x1 convs on spatial tensors run as the
-    tiled GEMM kernel of ``csrc/body_flat.cu``.
+    bf16x3 tensor-core GEMM of ``csrc/body_flat.cu``.
+
+    :meth:`compile_mega` (``body_plan_for`` calls it) compiles the plan
+    into a :class:`MegaTable`; from then on a CUDA run is one launch of
+    ``bs_body_mega``.
     """
 
     def __init__(self, model, start: int, end: int, in_tid: int, out_tid: int,
@@ -294,8 +332,18 @@ class BodyPlan:
         if self.out_meta.sp != 1 and not allow_spaced_output:
             raise Unsupported("unbalanced strides: output spacing != 1")
         self.launches = 0
+        self.mega: Optional[MegaTable] = None
         self._layout()
         self._dev: Dict[torch.device, List[torch.Tensor]] = {}
+        self._split: Dict[torch.device, Dict[int, Tuple[torch.Tensor, torch.Tensor]]] = {}
+
+    def compile_mega(self) -> "MegaTable":
+        """Compile the plan into the op table and weight arena of the
+        persistent kernel; CUDA runs become one ``bs_body_mega`` launch."""
+        self.mega = MegaTable(self)
+        self.kernels_per_run = collections.Counter({"bs_body_mega": 1})
+        self.launches_per_run = 1
+        return self.mega
 
     # -- memory plan (CUDA) -------------------------------------------------
 
@@ -374,6 +422,15 @@ class BodyPlan:
             self._dev[device] = [torch.from_numpy(w).to(device) for w in self.weights]
         return self._dev[device]
 
+    def _split_on(self, device) -> Dict[int, Tuple[torch.Tensor, torch.Tensor]]:
+        """The GEMM weights' bf16 hi/lo split (:func:`split_bf16`), made
+        once when they go to ``device``: weight index -> (hi, lo)."""
+        if device not in self._split:
+            ws = self._weights_on(device)
+            self._split[device] = {p[3]: split_bf16(ws[p[3]]) for p in self.plan
+                                   if "bs_gemm" in self._kernels(p)}
+        return self._split[device]
+
     # -- execution -----------------------------------------------------------
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
@@ -437,12 +494,13 @@ class BodyPlan:
         return env[self.out_tid]
 
     def run_cuda(self, x: torch.Tensor) -> torch.Tensor:
-        """The plan as ``csrc/body.cu`` / ``csrc/body_flat.cu`` kernels, one
-        launch per op (concat: one per copied operand), into one workspace
-        on the current stream.  The result is a view of that workspace."""
+        """The plan on the card into one workspace on the current stream:
+        with a :class:`MegaTable`, one ``bs_body_mega`` launch; else the
+        ``csrc/body.cu`` / ``csrc/body_flat.cu`` kernels, one launch per op
+        (concat: one per copied operand).  The result is a view of the
+        workspace."""
         _build.check_cuda(x, "body input", torch.float32,
                           (self.in_meta.c, self.in_meta.rows * self.in_meta.w))
-        ws = self._weights_on(x.device)
         buf = torch.empty(self._total, dtype=torch.float32, device=x.device)
         base, fs = buf.data_ptr(), 4
 
@@ -453,14 +511,27 @@ class BodyPlan:
             body_launch(name, *args)
             self.launches += 1
 
+        o = self._offsets[self.out_tid]
+        out = buf[o:o + self.out_meta.size].view(self._shape(self.out_tid))
+        if self.mega is not None:
+            arena, table = self.mega.on(x.device)
+            launch("bs_body_mega", x.data_ptr(), base, arena.data_ptr(), table.data_ptr(),
+                   len(self.mega.ops), self.mega.smem_bytes)
+            return out
+        ws = self._weights_on(x.device)
         for p in self.plan:
             op = p[0]
             if op == "conv1x1":
                 _, tin, tout, wi, bi, act = p
                 w = ws[wi]
                 L = 1 if self.meta[tin].vec else self.meta[tin].rows * self.meta[tin].w
-                launch(self._kernels(p)[0], w.data_ptr(), ws[bi].data_ptr(), ptr(tin),
-                       ptr(tout), w.shape[0], w.shape[1], L, _ACT_CODES[act])
+                if self._kernels(p)[0] == "bs_gemm":
+                    hi, lo = self._split_on(x.device)[wi]
+                    _gemm(launch, hi, lo, ws[bi].data_ptr(), ptr(tin), ptr(tout),
+                          w.shape[0], w.shape[1], L, act, x.device)
+                else:
+                    launch("bs_conv1x1", w.data_ptr(), ws[bi].data_ptr(), ptr(tin),
+                           ptr(tout), w.shape[0], w.shape[1], L, _ACT_CODES[act])
             elif op == "dw":
                 _, tin, tout, wi, bi, fh, fw, st, dil, plo_h, plo_w, act = p
                 m, om = self.meta[tin], self.meta[tout]
@@ -496,8 +567,7 @@ class BodyPlan:
             elif op == "bcast":
                 _, tin, tout = p
                 launch("bs_bcast", ptr(tin), ptr(tout), *self._shape(tout))
-        o = self._offsets[self.out_tid]
-        return buf[o:o + self.out_meta.size].view(self._shape(self.out_tid))
+        return out
 
 
 def conv1x1_plain(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
@@ -506,11 +576,81 @@ def conv1x1_plain(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
     return apply_activation(w @ x + b[:, None], act)
 
 
+def _bf16_split(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """a = hi + lo: hi = bf16_rn(a), lo = bf16_rn(a - hi), both bf16."""
+    hi = a.to(torch.bfloat16)
+    return hi, (a - hi.float()).to(torch.bfloat16)
+
+
+def conv1x1_bf16x3_plain(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
+                         act: str = "NONE") -> torch.Tensor:
+    """The GEMM's arithmetic in plain PyTorch (any device): the reference's
+    HIGH split (``backscrub_tpu/ops/megakernel.py:501-515``), w_hi @ x_hi +
+    w_hi @ x_lo + w_lo @ x_hi as three f32 matmuls of bf16-rounded
+    operands (lo @ lo dropped), then the bias and the activation."""
+    wh, wl = (t.float() for t in _bf16_split(w))
+    xh, xl = (t.float() for t in _bf16_split(x))
+    return apply_activation(wh @ xh + wh @ xl + wl @ xh + b[:, None], act)
+
+
+def split_bf16(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The GEMM's weight operand: (hi, lo) bf16 of w (co, ci), each
+    (co, ci rounded up to 8) with zero columns, contiguous."""
+    hi, lo = _bf16_split(w)
+    pad = -w.shape[1] % 8
+    return F.pad(hi, (0, pad)).contiguous(), F.pad(lo, (0, pad)).contiguous()
+
+
+def gemm_config(co: int, ci: int, L: int, sms: int) -> Tuple[int, int, int]:
+    """(tile, split, kchunk) of ``bs_gemm`` for a (co, ci) by (ci, L) GEMM
+    on a card with ``sms`` SMs: the largest tile of ``_GEMM_TILES`` whose
+    grid reaches 2 waves of the SMs for a deep K (ci >= 256), 3 for a
+    shallow one; else the smallest tile, a deep K split into the fewest
+    chunks of 16-multiples (``kchunk``) that reach 2 waves (or 16-deep
+    ones), a shallow K not split.  Fitted to tools/sweep_gemm_tiles.py on
+    the H100: small tiles at several CTAs an SM beat large ones, and the
+    split-K sum pass costs more than it saves on a shallow K."""
+    kp = ci + (-ci % 8)
+    deep = kp >= 256
+    waves = (2 if deep else 3) * sms
+    for i, (bm, bn) in enumerate(_GEMM_TILES):
+        if -(-co // bm) * -(-L // bn) >= waves:
+            return i, 1, kp + (-kp % 16)
+    bm, bn = _GEMM_TILES[-1]
+    grid, slices = -(-co // bm) * -(-L // bn), -(-kp // 16)
+    if not deep:
+        return len(_GEMM_TILES) - 1, 1, 16 * slices
+    for s in range(1, slices + 1):
+        n16 = -(-slices // s)
+        split = -(-slices // n16)
+        if grid * split >= waves:
+            break
+    return len(_GEMM_TILES) - 1, split, 16 * n16
+
+
+_SMS: Dict[torch.device, int] = {}
+
+
+def _gemm(launch, whi, wlo, b_ptr, x_ptr, y_ptr, co, ci, L, act, device) -> None:
+    """One ``bs_gemm`` launch through ``launch``, with the split-K
+    partials' buffer when the shape's config splits K."""
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    tile, split, kchunk = gemm_config(co, ci, L, _SMS[device])
+    part = (torch.empty(split * co * L, dtype=torch.float32, device=device)
+            if split > 1 else None)
+    launch("bs_gemm", whi.data_ptr(), wlo.data_ptr(), b_ptr, x_ptr, y_ptr,
+           None if part is None else part.data_ptr(), co, ci, whi.shape[1], L,
+           _ACT_CODES[act], tile, split, kchunk)
+
+
 def conv1x1_gemm(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
-                 act: str = "NONE") -> torch.Tensor:
+                 act: str = "NONE", split=None) -> torch.Tensor:
     """The K2'' 1x1 conv alone: act(w @ x + b) for w (co, ci), b (co,) and
-    x (ci, L) f32.  The tiled GEMM of ``csrc/body_flat.cu`` on CUDA tensors
-    (counted in ``body_launch``), :func:`conv1x1_plain` on CPU tensors."""
+    x (ci, L) f32.  On CUDA tensors the bf16x3 tensor-core GEMM of
+    ``csrc/body_flat.cu`` (counted in ``body_launch``), its weight split
+    ``split`` = :func:`split_bf16` (w) given or made here; on CPU tensors
+    :func:`conv1x1_plain`."""
     if x.device.type == "cpu":
         return conv1x1_plain(w, b, x, act)
     co, ci = w.shape
@@ -519,9 +659,12 @@ def conv1x1_gemm(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
     _build.check_cuda(x, "gemm input", torch.float32)
     if x.ndim != 2 or x.shape[0] != ci:
         raise ValueError(f"gemm input: expected ({ci}, L), got {tuple(x.shape)}")
+    hi, lo = split_bf16(w) if split is None else split
+    for t, name in ((hi, "gemm weights hi"), (lo, "gemm weights lo")):
+        _build.check_cuda(t, name, torch.bfloat16, (co, ci + (-ci % 8)))
     y = torch.empty((co, x.shape[1]), dtype=torch.float32, device=x.device)
-    body_launch("bs_gemm", w.data_ptr(), b.data_ptr(), x.data_ptr(), y.data_ptr(),
-                co, ci, x.shape[1], _ACT_CODES[act])
+    _gemm(body_launch, hi, lo, b.data_ptr(), x.data_ptr(), y.data_ptr(), co, ci,
+          x.shape[1], act, x.device)
     return y
 
 
@@ -555,10 +698,312 @@ def _dense(idx: torch.Tensor, wt: torch.Tensor, n_in: int) -> torch.Tensor:
     return m.scatter_add_(1, idx.long(), wt)
 
 
+class MegaTable:
+    """A full-span :class:`BodyPlan` compiled for ``csrc/body_mega.cu``.
+
+    ``ops``: the table's ops in run order, each a dict (``kind``, operand
+    tensor ids, fused extras, ``idx``: the plan ops it covers, ``level``:
+    its phase, 1-based); ``table``: (len(ops), MEGA_DESC) int32 rows of
+    MEGA_FIELDS; ``arena``: every weight, bias and resize tap the table
+    reads, f32 (tap indices as exact floats); ``phases``: the number of
+    phases, each but the last ending in a barrier (``sync``);
+    ``smem_bytes``: the dynamic shared memory a CTA needs.
+
+    Each plan op becomes one table op, then these fusions, which keep the
+    JAX plan's arithmetic but its summation order, merge ops:
+    - a standalone activation runs in its producer's epilogue;
+    - a residual ADD runs in the epilogue of the spatial 1x1 conv that
+      produces one operand;
+    - a squeeze-excite block (global pool -> FC -> FC -> MUL gate): the
+      pool runs in the depthwise op that produces the pooled tensor (one
+      CTA a whole channel), the FCs and the gate in the prologue of the
+      spatial 1x1 conv that consumes the gated tensor.
+    Each fusion needs the fused-away tensor read once, by the fusing op,
+    and not the span's output.  Ops are then levelled by their reads
+    (level = 1 + the deepest op writing anything they read) and run level
+    by level."""
+
+    def __init__(self, plan: BodyPlan):
+        self._plan = plan
+        ops = self._ops()
+        while self._fuse_act(ops) or self._fuse_residual(ops) or self._fuse_se(ops):
+            pass
+        level = {}
+        for m in ops:
+            deps = [d for t in self._reads(m) for d in self._writers(ops, t)]
+            level[id(m)] = 1 + max((level[id(d)] for d in deps), default=0)
+            m["level"] = level[id(m)]
+        self.ops = sorted(ops, key=lambda m: m["level"])    # stable
+        self.phases = max(m["level"] for m in self.ops)
+        self.covered = sorted({i for m in self.ops for i in m["idx"]}
+                              | {i for i, p in enumerate(plan.plan) if p[0] == "concat"})
+        self._build_rows()
+        self._dev: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def on(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(arena, table) on ``device``, copied once."""
+        if device not in self._dev:
+            self._dev[device] = (torch.from_numpy(self.arena).to(device),
+                                 torch.from_numpy(self.table).to(device))
+        return self._dev[device]
+
+    # -- the ops and the fusions ---------------------------------------------
+
+    def _ops(self) -> List[dict]:
+        plan, ops = self._plan, []
+        for i, p in enumerate(plan.plan):
+            op = p[0]
+            m = dict(idx=[i], act="NONE", act2="NONE", res=None, se=None, aux=None)
+            if op == "conv1x1":
+                _, tin, tout, wi, bi, act = p
+                m.update(kind="fc" if plan.meta[tin].vec else "conv", src=tin, out=tout,
+                         w=wi, b=bi, act=act)
+            elif op == "dw":
+                _, tin, tout, wi, bi, fh, fw, st, dil, ph, pw, act = p
+                m.update(kind="dw", src=tin, out=tout, w=wi, b=bi, fh=fh, fw=fw, s=st,
+                         d=dil, ph=ph, pw=pw, act=act)
+            elif op == "gpool":
+                m.update(kind="gpool", src=p[1], out=p[2], inv=p[3], act=p[4])
+            elif op in ("binop", "bingate"):
+                _, k, a, b, tout, act = p
+                m.update(kind="elt", elt=k, src=a, aux=b, bvec=op == "bingate", out=tout,
+                         act=act)
+            elif op == "act":
+                m.update(kind="elt", elt="unary", src=p[2], out=p[3], act=p[1], bvec=False)
+            elif op == "bcast":
+                m.update(kind="elt", elt="bcast", src=p[1], out=p[2], bvec=False)
+            elif op == "resize2x":
+                m.update(kind="resize", src=p[1], out=p[2], taps=p[3:7])
+            if op != "concat":
+                ops.append(m)
+                continue
+            for t, off in plan._copies[p[2]]:
+                ops.append(dict(m, kind="copy", src=t, out=p[2], off=off))
+        return ops
+
+    @staticmethod
+    def _reads(m) -> List[int]:
+        r = [m["src"]]
+        if m["kind"] == "elt" and m["elt"] in ("ADD", "MUL"):
+            r.append(m["aux"])
+        if m["res"] is not None:
+            r.append(m["res"])
+        if m["se"] is not None:
+            r.append(m["se"]["pout"])
+        return r
+
+    def _uses(self, ops, t) -> int:
+        """How often tensor ``t`` is read: by ops, concats, the span output."""
+        plan = self._plan
+        return (sum(self._reads(m).count(t) for m in ops)
+                + sum(p[1].count(t) for p in plan.plan if p[0] == "concat")
+                + (t == plan.out_tid))
+
+    @staticmethod
+    def _producer(ops, t) -> Optional[dict]:
+        return next((m for m in ops if m["kind"] != "copy" and (
+            m["out"] == t or m.get("pool") is not None and m["pool"]["out"] == t)), None)
+
+    def _band(self, m) -> int:
+        """A depthwise op's output rows a CTA item: up to _DW_MAX_BAND, or
+        the whole channel when it pools, within _DW_SMEM_FLOATS of input."""
+        om = self._plan.meta[m["out"]]
+        band = om.rows if m.get("pool") is not None else min(om.rows, _DW_MAX_BAND)
+        while band > 1 and self._dw_window(m, band) > _DW_SMEM_FLOATS:
+            band -= 1
+        return band
+
+    def _dw_window(self, m, band) -> int:
+        """Floats of input a depthwise item of ``band`` output rows stages,
+        a channel."""
+        return ((band - 1) * m["s"] + (m["fh"] - 1) * m["d"] + 1) * self._plan.meta[m["src"]].w
+
+    def _writers(self, ops, t) -> List[dict]:
+        """The ops that write (part of) tensor ``t``: its producer, or for a
+        concat output the writers of its operands and its copies."""
+        concat = next((p for p in self._plan.plan if p[0] == "concat" and p[2] == t), None)
+        if concat is None:
+            m = self._producer(ops, t)
+            return [] if m is None else [m]
+        return ([d for u in concat[1] for d in self._writers(ops, u)]
+                + [m for m in ops if m["kind"] == "copy" and m["out"] == t])
+
+    @staticmethod
+    def _absorb(ops, host, gone) -> None:
+        """``host`` takes over ``gone``'s place in the run order (after all
+        it reads) and its plan ops; ``gone`` leaves the list."""
+        host["idx"] = host["idx"] + gone["idx"]
+        i = next(k for k, m in enumerate(ops) if m is gone)
+        j = next(k for k, m in enumerate(ops) if m is host)
+        ops[i] = host
+        del ops[j]
+
+    def _fuse_act(self, ops) -> bool:
+        for a in ops:
+            if a["kind"] != "elt" or a["elt"] != "unary":
+                continue
+            p = self._producer(ops, a["src"])
+            if p is None or p["kind"] not in ("conv", "fc", "dw", "gpool", "elt") \
+                    or self._uses(ops, a["src"]) != 1:
+                continue
+            slot = "act" if p["res"] is None else "act2"
+            if p[slot] != "NONE":
+                continue
+            p[slot], p["out"] = a["act"], a["out"]
+            self._absorb(ops, p, a)
+            return True
+        return False
+
+    def _fuse_residual(self, ops) -> bool:
+        for e in ops:
+            if e["kind"] != "elt" or e["elt"] != "ADD" or e["bvec"]:
+                continue
+            cands = []
+            for t, other in ((e["src"], e["aux"]), (e["aux"], e["src"])):
+                p = self._producer(ops, t)
+                if p is not None and p["kind"] == "conv" and p["res"] is None \
+                        and self._uses(ops, t) == 1:
+                    cands.append((next(k for k, m in enumerate(ops) if m is p), p, other))
+            if not cands:
+                continue
+            _, p, other = max(cands, key=lambda c: c[0])
+            p["res"], p["act2"], p["out"] = other, e["act"], e["out"]
+            self._absorb(ops, p, e)
+            return True
+        return False
+
+    def _fuse_se(self, ops) -> bool:
+        meta, weights = self._plan.meta, self._plan.weights
+        for g in ops:
+            if not (g["kind"] == "elt" and g["elt"] == "MUL" and g["bvec"]
+                    and g["act"] == "NONE"):
+                continue
+            conv = next((m for m in ops if m["kind"] == "conv" and m["src"] == g["out"]), None)
+            f2 = self._producer(ops, g["aux"])
+            f1 = f2 and self._producer(ops, f2["src"])
+            pool = f1 and self._producer(ops, f1["src"])
+            dw = pool and self._producer(ops, pool["src"])
+            if conv is None or conv["se"] is not None or dw is None \
+                    or (f1["kind"], f2["kind"], pool["kind"], dw["kind"]) \
+                    != ("fc", "fc", "gpool", "dw") \
+                    or pool["src"] != g["src"] or dw.get("pool") is not None \
+                    or any(self._uses(ops, t) != 1
+                           for t in (g["out"], g["aux"], f2["src"], f1["src"])):
+                continue
+            hid = weights[f1["w"]].shape[0]
+            whole = self._dw_window(dw, meta[dw["out"]].rows) <= _DW_SMEM_FLOATS
+            if meta[g["src"]].c > _SE_MAX_C or hid > _SE_MAX_C or not whole \
+                    or _se_floats(meta[g["src"]].c, hid) > _SE_W_FLOATS:
+                continue
+            dw["pool"] = dict(out=pool["out"], inv=pool["inv"], act=pool["act"])
+            conv["se"] = dict(pout=pool["out"], w1=f1["w"], b1=f1["b"], act1=f1["act"],
+                              hid=hid, w2=f2["w"], b2=f2["b"], actg=f2["act"])
+            conv["src"] = g["src"]
+            dw["idx"] = dw["idx"] + pool["idx"]
+            conv["idx"] = conv["idx"] + f1["idx"] + f2["idx"] + g["idx"]
+            for m in (pool, f1, f2, g):
+                ops.remove(m)
+            return True
+        return False
+
+    # -- the rows --------------------------------------------------------------
+
+    def _build_rows(self) -> None:
+        plan = self._plan
+        chunks, where, pos = [], {}, 0
+
+        def arena(wi, transposed=False):
+            nonlocal pos
+            if (wi, transposed) not in where:
+                a = np.asarray(plan.weights[wi], np.float32)
+                a = (a.T if transposed else a).ravel()
+                where[wi, transposed] = pos
+                chunks.append(np.pad(a, (0, -a.size % 4)))
+                pos += chunks[-1].size
+            return where[wi, transposed]
+
+        def off(t):
+            return -1 if t == plan.in_tid else plan._offsets[t]
+
+        rows, smem = [], 0
+        for i, m in enumerate(self.ops):
+            r = dict.fromkeys(MEGA_FIELDS, 0)
+            sm = plan.meta[m["src"]]
+            r.update(code=MEGA_CODES[m["kind"]], act=_ACT_CODES[m["act"]],
+                     act2=_ACT_CODES[m["act2"]], **{"in": off(m["src"])},
+                     out=off(m["out"]), c=sm.c,
+                     n=1 if sm.vec else sm.rows * sm.w,
+                     sync=int(i + 1 < len(self.ops)
+                              and self.ops[i + 1]["level"] != m["level"]))
+            k = m["kind"]
+            if k in ("conv", "fc"):
+                r.update(w=arena(m["w"]), b=arena(m["b"]), co=plan.weights[m["w"]].shape[0])
+                if m["res"] is not None:
+                    r.update(res=1, aux=off(m["res"]))
+                if m["se"] is not None:      # the FC weights transposed, (ci, co)
+                    se = m["se"]
+                    r.update(gate=1, pout=off(se["pout"]), hid=se["hid"],
+                             w1=arena(se["w1"], True), b1=arena(se["b1"]),
+                             act1=_ACT_CODES[se["act1"]], w2=arena(se["w2"], True),
+                             b2=arena(se["b2"]), actg=_ACT_CODES[se["actg"]])
+                if k == "conv":           # the tile or the SE weights, then the SE vectors
+                    co, L = r["co"], r["n"]
+                    cap = _MEGA_CTAS if m["se"] is None else _SE_CONV_CTAS
+                    fits = [t for t in _CONV_TILES if -(-co // t[0]) * -(-L // t[1]) <= cap]
+                    tm, tn = fits[-1] if fits else _CONV_TILES[0]
+                    r.update(tm=tm, tn=tn)
+                    tile = min(sm.c, _CONV_K) * (tm + 1 + tn)
+                    se_w = 0 if m["se"] is None else _se_floats(sm.c, m["se"]["hid"])
+                    smem = max(smem, 4 * (max(tile, se_w) + 2 * _SE_MAX_C + _MEGA_NT))
+            elif k in ("dw", "resize"):
+                om = plan.meta[m["out"]]
+                r.update(h=sm.rows, wd=sm.w, oh=om.rows, ow=om.w, c=om.c)
+                if k == "resize":
+                    ri, rw, ci, cw = (arena(w) for w in m["taps"])
+                    r.update(w=ri, b=rw, w1=ci, w2=cw)
+                else:       # channels an item: the fewest that keep items <= CTAs
+                    band = self._band(m)
+                    win, items = self._dw_window(m, band), -(-om.rows // band) * om.c
+                    cpi = max(1, min(-(-items // _MEGA_CTAS), _DW_SMEM_FLOATS // win))
+                    smem = max(smem, 4 * (cpi * win + _MEGA_NT))
+                    r.update(w=arena(m["w"]), b=arena(m["b"]), fh=m["fh"], fw=m["fw"],
+                             s=m["s"], d=m["d"], ph=m["ph"], pw=m["pw"], band=band,
+                             cpi=cpi)
+                    if m.get("pool") is not None:
+                        pl = m["pool"]
+                        r.update(pool=1, pout=off(pl["out"]), pinv=_f32_bits(pl["inv"]),
+                                 pact=_ACT_CODES[pl["act"]])
+            elif k == "gpool":
+                r.update(pinv=_f32_bits(m["inv"]))
+            elif k == "elt":
+                r.update(elt=MEGA_ELT[m["elt"]], bvec=int(m["bvec"]))
+                if m["elt"] in ("ADD", "MUL"):
+                    r.update(aux=off(m["aux"]))
+                if m["elt"] == "bcast":
+                    om = plan.meta[m["out"]]
+                    r.update(n=om.rows * om.w)
+            elif k == "copy":
+                r.update(out=off(m["out"]) + m["off"], n=sm.size)
+            rows.append([r[f] for f in MEGA_FIELDS] + [0] * (MEGA_DESC - len(MEGA_FIELDS)))
+        self.table = np.asarray(rows, np.int32).reshape(len(rows), MEGA_DESC)
+        self.arena = np.concatenate(chunks) if chunks else np.zeros(4, np.float32)
+        self.smem_bytes = self.table.nbytes + smem     # the table, then the ops' memory
+
+
+def _se_floats(c: int, hid: int) -> int:
+    """Shared floats of an SE block's two FC weights, each rounded up to 4."""
+    return 8 * -(-c * hid // 4)
+
+
+def _f32_bits(v: float) -> int:
+    return int(np.float32(v).view(np.int32))
+
+
 def body_plan_for(model, info) -> Optional[BodyPlan]:
     """A BodyPlan for the edge span if the graph qualifies, else None
     (``body_mega_for``): both fused edge layers must be present, and the
-    output must be the tail's (K, oh/2, ow/2) input."""
+    output must be the tail's (K, oh/2, ow/2) input.  The plan comes
+    compiled for the persistent kernel (:meth:`BodyPlan.compile_mega`)."""
     if not (info.front_ok and info.tail_ok):
         return None
     try:
@@ -569,6 +1014,7 @@ def body_plan_for(model, info) -> Optional[BodyPlan]:
     oh, ow = model.output_shape[1:3]
     if (plan.out_meta.rows, plan.out_meta.w) != (oh // 2, ow // 2):
         return None
+    plan.compile_mega()
     return plan
 
 

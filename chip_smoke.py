@@ -11,18 +11,25 @@ Usage (from the repository root, on a machine with a CUDA card)::
 3. holds each kernel against its plain PyTorch version on the card, at the
    main path's shapes (the committed synthetic segm_lite-shaped model at
    640x480 and 1280x720): K3 (blend + YUYV pack) byte-identical, K1
-   (front) and K2 (body) within allclose(atol=2e-3, rtol=1e-3); times both
-   with CUDA events;
+   (front) and K2 (body, the persistent ``bs_body_mega``: one launch, its
+   phase count printed, two runs bit-identical) within allclose(atol=2e-3,
+   rtol=1e-3); times both with CUDA events, K2 also as device time (one
+   event pair around 100 back-to-back runs); the barrier microbenchmark
+   (a cooperative grid sync and a cluster sync, microseconds each);
 4. runs ``FramePipeline`` for 50 frames of a seeded moving sequence at
    640x480 and 1280x720 on ``cuda``, checks that every kernel's launch
-   counter rose as the path requires, and holds YUYV and mask against the
+   counter rose as the path requires (``bs_body_mega`` once a frame, no
+   per-op body kernel), and holds YUYV and mask against the
    port's plain path on the card under the repo's tolerance invariant (at
    most 2% of a frame's bytes differ, at most 0.2% over the sequence);
 5. the deeplab path on the committed synthetic deeplabv3_257-shaped model
    at 640x480: K1 at the 257x257 canvas, K2' (the prefix plan), K2'' (the
-   flat continuation plan) and its tiled GEMM alone against their plain
-   versions (allclose(atol=2e-3, rtol=1e-3), CUDA-event times; the GEMM
-   also beside ``torch.addmm``), then 30
+   flat continuation plan) against their plain versions (allclose(atol=
+   2e-3, rtol=1e-3), CUDA-event times); the bf16x3 tensor-core GEMM at
+   every 1x1 shape of the continuation against ``conv1x1_plain``
+   (allclose(2e-3, 1e-3)) and ``conv1x1_bf16x3_plain`` (1e-5 relative),
+   bit-identical over two runs, with its device time beside
+   ``torch.addmm``'s; then 30
    frames of ``FramePipeline`` against the plain path on the card under
    the tolerance invariant (every decode flip a near-tie of class 15's
    margin, the EMAs equal wherever the decode never flipped, no byte off
@@ -48,13 +55,18 @@ Usage (from the repository root, on a machine with a CUDA card)::
 10. prints one JSON line with every kernel's numbers (launches from the
    run of the path it serves, errors and times measured here, and the
    bound: the larger of the bytes it must move over 3.35 TB/s and its
-   operations over the 67 TFLOP/s f32 peak), then
+   operations over the peak of their type, 67 TFLOP/s f32 or 989 TFLOP/s
+   bf16 on the tensor cores; the GEMM, K2 and K2'' also with ``device_ms``
+   (the profiler's kernel time a call) and ``b2b_ms`` (an event pair around
+   100 back-to-back calls), the GEMM with ``library_ms`` = ``torch.addmm``
+   and its device and back-to-back times), then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failure raises and the script exits non-zero; without CUDA it exits 1
 before printing any result.
 """
 
+import collections
 import dataclasses
 import json
 import os
@@ -76,19 +88,91 @@ FRAME_TOL, MEAN_TOL = 0.02, 0.002
 CLASSIC_SIZE, CLASSIC_FRAMES, STAGED_FRAMES = (640, 480), 30, 10
 VARIANT_FRAMES = 5         # classic I420 and flipped runs
 # the H100 SXM's published peaks (HBM3 bytes/s, f32 FLOP/s outside the
-# tensor cores) for the kernels' bounds
-HBM_BPS, F32_FLOPS = 3.35e12, 67e12
+# tensor cores, dense bf16 FLOP/s on them) for the kernels' bounds
+HBM_BPS, F32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
+GEMM_REL = 1e-5            # the GEMM against conv1x1_bf16x3_plain, relative
 # operations a pixel of the d=5 bilateral: 13 taps of 3 subtractions, 3
 # absolute values, 2 adds, 3 multiplies for the weight (counting its exp as
 # one), 6 for the numerators, 1 for the denominator; then 3 divides
 BILATERAL_OPS = 13 * 19 + 3
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, bf16_ops=0):
     """The least time (ms) the card could take: the larger of the bytes
-    over the memory rate and the operations over the f32 peak."""
-    tb, to = nbytes / HBM_BPS * 1e3, ops / F32_FLOPS * 1e3
+    over the memory rate and the operations over their peak (f32, and
+    ``bf16_ops`` on the tensor cores)."""
+    tb, to = nbytes / HBM_BPS * 1e3, (ops / F32_FLOPS + bf16_ops / BF16_FLOPS) * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def gemm_work(co, ci, L):
+    """(bytes, f32 ops, bf16 ops) of one GEMM: x, the bias and y in f32 and
+    the split weights (hi and lo, bf16, ci padded to 8) moved once; three
+    bf16 products of 2 * co * ci * L operations on the tensor cores."""
+    kp = ci + (-ci % 8)
+    return 4 * (ci * L + co + co * L) + 2 * 2 * co * kp, 0, 3 * 2 * co * ci * L
+
+
+def cont_work(plan):
+    """(bytes, f32 ops, bf16 ops) of the continuation plan: its work() with
+    the GEMMs' multiply-adds moved to the tensor cores as three passes."""
+    nbytes, flops = plan.work()
+    mm = sum(2 * plan.weights[p[3]].size * plan.meta[p[1]].rows * plan.meta[p[1]].w
+             for p in plan.plan if "bs_gemm" in plan._kernels(p))
+    return nbytes, flops - mm, 3 * mm
+
+
+def b2b_ms(fn, n=100, warmup=3):
+    """ms a call of ``fn`` from one CUDA event pair around ``n`` back-to-back
+    calls, divided by ``n``: device time where the device is slower than
+    the host's launches, else the host's launch rate."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def device_ms(fn, n=100, warmup=3, attempts=3):
+    """Device time (ms) a call of ``fn``: the torch.profiler's sum of the
+    card's kernel (and copy) time over ``n`` calls, divided by ``n``.  A
+    profiler window now and then records no device events at all; such a
+    window is measured again, up to ``attempts`` windows."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / n
+    raise RuntimeError(f"the profiler saw no device time in {attempts} windows")
+
+
+def barrier_us():
+    """The cost of one phase barrier: ``bs_barrier_bench`` runs 2000 and 0
+    barriers back to back in one launch, for a cooperative grid of one CTA
+    an SM (grid.sync) and one cluster of 16 CTAs (cluster.sync)."""
+    from backscrub_tpu_torch import _build
+    res = {}
+    for name, kind, size in (("grid", 0, 0), ("cluster16", 1, 16)):
+        t = [b2b_ms(lambda: _build.launch("bs_barrier_bench", n, kind, size), n=5)
+             for n in (2000, 0)]
+        res[name] = (t[0] - t[1]) * 1e3 / 2000
+    return res
 
 
 def front_work(kw, cout):
@@ -123,6 +207,7 @@ def timed(fn, n=30, warmup=3):
 def kernel_phase(w, h):
     """K1, K2, K3 and K4 against their plain versions at one frame size."""
     import torch
+    from backscrub_tpu_torch.ops.megakernel import body_launch
     from backscrub_tpu_torch.ops.pack_kernels import (blend_pack_420, blend_pack_420_plain,
                                                       blend_pack_yuyv, blend_pack_yuyv_plain)
     from backscrub_tpu_torch.pipeline.edge import front_fused, front_plain
@@ -148,13 +233,29 @@ def kernel_phase(w, h):
 
         plan = edge.body_plan
         x = k1.reshape(k1.shape[0], -1)
-        k2, p2 = plan.run_cuda(x), plan.run_plain(x)
+        before = dict(body_launch.by_kernel)
+        k2, p2 = plan.run_cuda(x).clone(), plan.run_plain(x)
+        k2b = plan.run_cuda(x)
         torch.cuda.synchronize()
+        if dict(body_launch.by_kernel - collections.Counter(before)) != {"bs_body_mega": 2}:
+            raise AssertionError("K2 did not run as one bs_body_mega launch a run")
         torch.testing.assert_close(k2, p2, atol=ATOL, rtol=RTOL)
+        if not torch.equal(k2, k2b):
+            raise AssertionError("two K2 runs differ")
         res["body"] = dict(max_abs_err=float((k2 - p2).abs().max()),
                            ms=timed(lambda: plan.run_cuda(x)),
                            plain_ms=timed(lambda: plan.run_plain(x)),
+                           device_ms=device_ms(lambda: plan.run_cuda(x)),
+                           b2b_ms=b2b_ms(lambda: plan.run_cuda(x)),
                            bound=bound(*plan.work()))
+        bars = barrier_us()
+        print(f"kernel body {w}x{h}: bs_body_mega, {len(plan.mega.ops)} table ops in "
+              f"{plan.mega.phases} phases ({plan.mega.phases - 1} barriers) for "
+              f"{len(plan.plan)} plan ops, {plan.mega.smem_bytes} B shared memory a CTA, "
+              f"device {res['body']['device_ms'] * 1e3:.2f} us a run (back to back "
+              f"{res['body']['b2b_ms'] * 1e3:.2f} us); barrier "
+              f"microbenchmark: cooperative grid sync {bars['grid']:.3f} us, cluster "
+              f"(16 CTAs) sync {bars['cluster16']:.3f} us")
 
         rng = np.random.default_rng(3)
         bg = torch.from_numpy(rng.integers(0, 256, (h, w, 3), np.uint8)).cuda()
@@ -218,8 +319,9 @@ def pipeline_phase(w, h):
         0, 256, (h, w, 3), np.uint8)).cuda()
     for f in frames[:10]:             # warm-up: library load, allocator, cuBLAS
         pipe.step(f, bg)
-    per_run = pipe.maskgen.edge.body_plan.launches_per_run
-    want = dict(front=FRAMES, body=FRAMES * per_run, pack=FRAMES)
+    if pipe.maskgen.edge.body_plan.launches_per_run != 1:
+        raise AssertionError("K2 is not one launch a run")
+    want = dict(front=FRAMES, body=FRAMES, pack=FRAMES)
 
     def drive(keep):
         """One pass of the sequence from a fresh EMA; returns the launch
@@ -228,6 +330,7 @@ def pipeline_phase(w, h):
         pipe.reset()
         torch.cuda.synchronize()
         front_fused.launches = body_launch.launches = blend_pack_yuyv.launches = 0
+        body_launch.by_kernel.clear()
         outs = []
         for f in frames:
             out = pipe.step(f, bg)
@@ -236,8 +339,9 @@ def pipeline_phase(w, h):
         torch.cuda.synchronize()
         counts = dict(front=front_fused.launches, body=body_launch.launches,
                       pack=blend_pack_yuyv.launches)
-        if counts != want:
-            raise AssertionError(f"launch counts {counts}, expected {want}")
+        if counts != want or dict(body_launch.by_kernel) != {"bs_body_mega": FRAMES}:
+            raise AssertionError(f"launch counts {counts} {dict(body_launch.by_kernel)}, "
+                                 f"expected {want} and bs_body_mega once a frame")
         return counts, outs
 
     t0 = time.perf_counter()
@@ -285,13 +389,78 @@ def _held(name, k, p, fn_k, fn_p):
     return r
 
 
+def gemm_phase(cont, device):
+    """The bf16x3 GEMM alone at every 1x1 shape of the continuation ``cont``
+    (its weights, seeded inputs at L = 33 * 33): against conv1x1_plain
+    (allclose) and conv1x1_bf16x3_plain (GEMM_REL relative), two runs
+    bit-identical, device time beside torch.addmm's (bias, no activation).
+    Returns the kernels-line numbers at the largest shape (the ASPP
+    projection)."""
+    import torch
+    from backscrub_tpu_torch.ops.megakernel import (_GEMM_TILES, conv1x1_bf16x3_plain,
+                                                    conv1x1_gemm, conv1x1_plain, gemm_config)
+    ws, split = cont._weights_on(device), cont._split_on(device)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    shapes = collections.defaultdict(list)
+    for p in cont.plan:
+        if "bs_gemm" in cont._kernels(p):
+            shapes[cont.weights[p[3]].shape].append(p)
+    frame_us = lib_frame_us = 0.0
+    with torch.no_grad():
+        for (co, ci), ps in sorted(shapes.items()):
+            _, tin, _, wi, bi, act = ps[0]
+            gw, gb, sp = ws[wi], ws[bi], split[wi]
+            L = cont.meta[tin].rows * cont.meta[tin].w
+            gx = torch.from_numpy(np.random.default_rng(co * 1000 + ci).uniform(
+                0, 2, (ci, L)).astype(np.float32)).to(device)
+            k, k2 = (conv1x1_gemm(gw, gb, gx, act, split=sp) for _ in range(2))
+            pf, pb = conv1x1_plain(gw, gb, gx, act), conv1x1_bf16x3_plain(gw, gb, gx, act)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(k, pf, atol=ATOL, rtol=RTOL)
+            rel = float((k - pb).abs().max() / pb.abs().max())
+            if rel > GEMM_REL or not torch.equal(k, k2):
+                raise AssertionError(f"GEMM {co}x{ci}: {rel:.3g} from bf16x3, or runs differ")
+            dev = device_ms(lambda: conv1x1_gemm(gw, gb, gx, "NONE", split=sp))
+            lib = device_ms(lambda: torch.addmm(gb[:, None], gw, gx))
+            bb = b2b_ms(lambda: conv1x1_gemm(gw, gb, gx, "NONE", split=sp))
+            tile, nsplit, _ = gemm_config(co, ci, L, sms)
+            bm, bn = _GEMM_TILES[tile]
+            b = bound(*gemm_work(co, ci, L))
+            frame_us += 1e3 * dev * len(ps)
+            lib_frame_us += 1e3 * lib * len(ps)
+            print(f"gemm {co}x{ci} by {ci}x{L} ({len(ps)} a frame): tile {bm}x{bn} split "
+                  f"{nsplit}, {-(-co // bm) * -(-L // bn) * nsplit} CTAs; max_abs_err vs f32 "
+                  f"{float((k - pf).abs().max()):.3g}, vs bf16x3 {rel:.3g} relative; device "
+                  f"{dev * 1e3:.3f} us (back to back {bb * 1e3:.3f} us), torch.addmm "
+                  f"{lib * 1e3:.3f} us, bound {b[0] * 1e3:.3f} us ({b[1]})")
+        co, ci = max(shapes, key=lambda s: s[0] * s[1])
+        _, tin, _, wi, bi, act = shapes[(co, ci)][0]
+        gw, gb, sp = ws[wi], ws[bi], split[wi]
+        gx = torch.from_numpy(np.random.default_rng(6).uniform(
+            0, 2, (ci, cont.meta[tin].rows * cont.meta[tin].w)).astype(np.float32)).to(device)
+        r = _held(f"gemm {co}x{ci}x{gx.shape[1]}", conv1x1_gemm(gw, gb, gx, split=sp),
+                  conv1x1_plain(gw, gb, gx), lambda: conv1x1_gemm(gw, gb, gx, split=sp),
+                  lambda: conv1x1_plain(gw, gb, gx))
+        r.update(bound=bound(*gemm_work(co, ci, gx.shape[1])),
+                 device_ms=device_ms(lambda: conv1x1_gemm(gw, gb, gx, split=sp)),
+                 b2b_ms=b2b_ms(lambda: conv1x1_gemm(gw, gb, gx, split=sp)),
+                 library_ms=timed(lambda: torch.addmm(gb[:, None], gw, gx)),
+                 library_device_ms=device_ms(lambda: torch.addmm(gb[:, None], gw, gx)),
+                 library_b2b_ms=b2b_ms(lambda: torch.addmm(gb[:, None], gw, gx)))
+    print(f"gemm {co}x{ci}: device {r['device_ms'] * 1e3:.3f} us, torch.addmm device "
+          f"{r['library_device_ms'] * 1e3:.3f} us; back to back {r['b2b_ms'] * 1e3:.3f} vs "
+          f"{r['library_b2b_ms'] * 1e3:.3f} us; wrapper {r['ms'][0]:.4f} ms vs "
+          f"{r['library_ms'][0]:.4f} ms; a deeplab frame's {sum(map(len, shapes.values()))} "
+          f"GEMMs: {frame_us:.2f} us of device time (torch.addmm {lib_frame_us:.2f} us)")
+    return r
+
+
 def deeplab_phase():
     """The deeplab path: K1 at 257x257, K2', K2'' and the GEMM against their
     plain versions, then DEEPLAB_FRAMES frames of FramePipeline on cuda
     against the plain path, with every launch counter checked."""
     import torch
-    from backscrub_tpu_torch.ops.megakernel import (body_launch, conv1x1_gemm,
-                                                    conv1x1_plain)
+    from backscrub_tpu_torch.ops.megakernel import body_launch
     from backscrub_tpu_torch.ops.pack_kernels import (blend_pack_yuyv,
                                                       blend_pack_yuyv_plain)
     from backscrub_tpu_torch.pipeline.decode import decode_val, ema_update
@@ -330,26 +499,9 @@ def deeplab_phase():
         k3 = cont.run_cuda(k2)
         res["body_cont"] = _held("body_cont", k3, cont.run_plain(k2),
                                  lambda: cont.run_cuda(k2), lambda: cont.run_plain(k2))
-        res["body_cont"]["bound"] = bound(*cont.work())
-        # the GEMM alone at the continuation's largest 1x1 (the ASPP projection)
-        conv = max((p for p in cont.plan if p[0] == "conv1x1"),
-                   key=lambda p: cont.weights[p[3]].size)
-        ws = cont._weights_on(k2.device)
-        gw, gb = ws[conv[3]], ws[conv[4]]
-        gx = torch.from_numpy(np.random.default_rng(6).uniform(
-            0, 2, (gw.shape[1], 33 * 33)).astype(np.float32)).cuda()
-        kg = conv1x1_gemm(gw, gb, gx, conv[5])
-        res["gemm"] = _held(f"gemm {tuple(gw.shape)}x{tuple(gx.shape)}", kg,
-                            conv1x1_plain(gw, gb, gx, conv[5]),
-                            lambda: conv1x1_gemm(gw, gb, gx, conv[5]),
-                            lambda: conv1x1_plain(gw, gb, gx, conv[5]))
-        gflop = 2 * gw.shape[0] * gw.shape[1] * gx.shape[1]
-        res["gemm"]["bound"] = bound(4 * (gw.numel() + gb.numel() + gx.numel()
-                                          + gw.shape[0] * gx.shape[1]), gflop)
-        res["gemm"]["library_ms"] = timed(lambda: torch.addmm(gb[:, None], gw, gx))
-        print(f"gemm alone: torch.addmm (bias, no activation) "
-              f"{res['gemm']['library_ms'][0]:.4f} ms; bound {res['gemm']['bound'][0]:.4f} ms "
-              f"({res['gemm']['bound'][1]}); {gflop / 1e9:.3f} GFLOP")
+        res["body_cont"]["bound"] = bound(*cont_work(cont))
+        res["body_cont"]["device_ms"] = device_ms(lambda: cont.run_cuda(k2))
+        res["gemm"] = gemm_phase(cont, k2.device)
 
     bg = torch.from_numpy(np.random.default_rng(4).integers(
         0, 256, (h, w, 3), np.uint8)).cuda()
@@ -359,7 +511,8 @@ def deeplab_phase():
     want_kernels = {k: n * (pre.kernels_per_run[k] + cont.kernels_per_run[k])
                     for k in pre.kernels_per_run | cont.kernels_per_run}
     want = dict(front=n, body_prefix=n * pre.launches_per_run,
-                body_cont=n * cont.launches_per_run, pack=n)
+                body_cont=n * cont.launches_per_run, pack=n,
+                gemm=n * cont.kernels_per_run["bs_gemm"])
 
     def drive(keep):
         """One pass from a fresh EMA; with ``keep``, the outputs and the EMA
@@ -376,7 +529,8 @@ def deeplab_phase():
                 outs.append(out + (pipe.maskgen.ema.clone(),))
         torch.cuda.synchronize()
         counts = dict(front=front_fused.launches, body_prefix=pre.launches,
-                      body_cont=cont.launches, pack=blend_pack_yuyv.launches)
+                      body_cont=cont.launches, pack=blend_pack_yuyv.launches,
+                      gemm=body_launch.by_kernel["bs_gemm"])
         if counts != want or dict(body_launch.by_kernel) != want_kernels:
             raise AssertionError(f"launch counts {counts} {dict(body_launch.by_kernel)}, "
                                  f"expected {want} {want_kernels}")
@@ -734,14 +888,15 @@ def main() -> int:
     main_size = SIZES[0]
     # launches: each kernel's count from the run of the path it serves
     launches = dict(runs[main_size][0], body_prefix=dl_launches["body_prefix"],
-                    body_cont=dl_launches["body_cont"],
+                    body_cont=dl_launches["body_cont"], gemm=dl_launches["gemm"],
                     pack_420=classic_launches["pack_420"],
                     bilateral=classic_launches["bilateral"])
     results = dict(kernels[main_size], body_prefix=dl_kernels["body_prefix"],
-                   body_cont=dl_kernels["body_cont"], bilateral=k5["segm 96x160"])
+                   body_cont=dl_kernels["body_cont"], gemm=dl_kernels["gemm"],
+                   bilateral=k5["segm 96x160"])
     meta = {
         "front": ("backscrub_tpu_torch/csrc/front.cu", "backscrub_tpu/pipeline/edge.py:424"),
-        "body": ("backscrub_tpu_torch/csrc/body.cu",
+        "body": ("backscrub_tpu_torch/csrc/body_mega.cu",
                  "backscrub_tpu/ops/megakernel.py:660 (BodyMega, full span)"),
         "pack": ("backscrub_tpu_torch/csrc/blend_pack.cu",
                  "backscrub_tpu/ops/pallas_kernels.py:156"),
@@ -750,13 +905,16 @@ def main() -> int:
         "body_cont": ("backscrub_tpu_torch/csrc/body_flat.cu",
                       "backscrub_tpu/ops/megakernel.py:794 (BodyMega flat=True, "
                       "continuation chain)"),
+        "gemm": ("backscrub_tpu_torch/csrc/body_flat.cu",
+                 "backscrub_tpu/ops/megakernel.py:501 (BodyMega flat=True, the bf16x3 "
+                 "1x1-conv dots of the continuation chain)"),
         "pack_420": ("backscrub_tpu_torch/csrc/blend_pack.cu",
                      "backscrub_tpu/ops/pallas_kernels.py:242"),
         "bilateral": ("backscrub_tpu_torch/csrc/bilateral.cu",
                       "backscrub_tpu/ops/pallas_kernels.py:71"),
     }
-    # no single PyTorch call computes any of these functions (K2''s GEMM
-    # alone has one, torch.addmm: printed in the deeplab phase)
+    # one PyTorch call computes only the GEMM's function (torch.addmm);
+    # "device_ms" where measured (event pair around 100 back-to-back calls)
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name],
@@ -765,7 +923,10 @@ def main() -> int:
          "plain_ms": results[name]["plain_ms"][0],
          "bound_ms": results[name]["bound"][0],
          "bound_by": results[name]["bound"][1],
-         "library_ms": None}
+         "library_ms": results[name]["library_ms"][0] if "library_ms" in results[name]
+         else None,
+         **{k: results[name][k] for k in ("device_ms", "b2b_ms", "library_device_ms",
+                                         "library_b2b_ms") if k in results[name]}}
         for name, (src, rep) in meta.items()]}
     print(f"chip_smoke phases: {time.perf_counter() - t_start:.2f} s")
     print(json.dumps(line))

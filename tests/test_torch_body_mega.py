@@ -1,0 +1,277 @@
+"""The persistent body kernel's op table and the GEMM's bf16x3 arithmetic,
+on the CPU, against the port's plain versions and the JAX package.
+
+- The op table: a walker here executes ``MegaTable``'s rows and weight
+  arena with PyTorch ops, phase by phase (an op reads the workspace as it
+  stood when its phase began, NaN where nothing was written), so a row
+  that read a tensor of its own phase would go wrong.  It must equal
+  ``BodyPlan.run_plain`` (atol 1e-5: the same operations, fused) and the
+  JAX ``BodyMega`` in interpret mode (allclose(2e-3, 1e-3), the body bar).
+- The split: ``conv1x1_bf16x3_plain`` against the reference's HIGH split
+  (``backscrub_tpu/ops/megakernel.py:501-515``) through
+  ``jax.lax.dot_general`` on the CPU, relative error <= 1e-5.
+- ``gemm_config``: the tile and split-K choice at every 1x1 shape of the
+  deeplab frame on the H100's 132 SMs.
+The kernels themselves run against these in tests/test_torch_cuda.py."""
+
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+import jax
+import jax.numpy as jnp
+from backscrub_tpu.graph.executor import build_model as jax_build
+from backscrub_tpu.graph.executor import load_model as jax_load_model
+from backscrub_tpu.models.specs import spec_for_model as jax_spec
+from backscrub_tpu.ops.megakernel import BodyMega, body_mega_for
+from backscrub_tpu.pipeline import edge as jedge
+from backscrub_tpu.pipeline.geometry import compute_roi
+from backscrub_tpu_torch.graph.executor import build_model, load_model
+from backscrub_tpu_torch.models.specs import spec_for_model
+from backscrub_tpu_torch.ops.common import apply_activation
+from backscrub_tpu_torch.ops.megakernel import (_ACT_CODES, _GEMM_TILES, MEGA_CODES,
+                                                MEGA_ELT, MEGA_FIELDS, BodyPlan,
+                                                body_plan_for, conv1x1_bf16x3_plain,
+                                                conv1x1_plain, gemm_config, split_bf16)
+from backscrub_tpu_torch.pipeline import edge as tedge
+from backscrub_tpu_torch.tflite import ir
+
+from test_torch_cuda import span_graph
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+FULL = ROOT / "tests" / "data" / "segm_synth_lite_96x160.tflite"
+# the deeplab frame's 1x1 conv shapes (co, ci) at L = 33 * 33
+DEEPLAB_GEMMS = [(16, 96), (21, 256), (32, 96), (32, 192), (48, 192), (48, 288),
+                 (80, 288), (80, 480), (96, 16), (160, 480), (192, 32), (256, 160),
+                 (256, 512), (288, 48), (480, 80)]
+
+_F = {f: i for i, f in enumerate(MEGA_FIELDS)}
+_ACTS = {v: k for k, v in _ACT_CODES.items()}
+_CODES = {v: k for k, v in MEGA_CODES.items()}
+_ELTS = {v: k for k, v in MEGA_ELT.items()}
+
+
+def walk(plan, x):
+    """Run ``plan.mega``'s table on the CPU; returns (output, phases)."""
+    mt = plan.mega
+    ar = torch.from_numpy(mt.arena)
+    ws = torch.full((plan._total,), float("nan"))
+    snap, phases = ws.clone(), 1
+    xf = x.reshape(-1)
+
+    def rd(off, n):
+        return (xf if off < 0 else snap[off:])[:n]
+
+    def arr(off, *shape):
+        return ar[off:off + int(np.prod(shape))].reshape(shape)
+
+    for row in mt.table:
+        d = {f: int(row[i]) for f, i in _F.items()}
+        kind, act, act2 = _CODES[d["code"]], _ACTS[d["act"]], _ACTS[d["act2"]]
+        c, n = d["c"], d["n"]
+        inv = float(np.int32(d["pinv"]).view(np.float32))
+        if kind in ("conv", "fc"):
+            co = d["co"]
+            xi = rd(d["in"], c * n).reshape(c, n)
+            if d["gate"]:       # the FC weights are stored transposed
+                hid = d["hid"]
+                pool = rd(d["pout"], c)[:, None]
+                h = apply_activation(arr(d["w1"], c, hid).T @ pool
+                                     + arr(d["b1"], hid)[:, None], _ACTS[d["act1"]])
+                gate = apply_activation(arr(d["w2"], hid, c).T @ h
+                                        + arr(d["b2"], c)[:, None], _ACTS[d["actg"]])
+                xi = xi * gate
+            y = apply_activation(arr(d["w"], co, c) @ xi + arr(d["b"], co)[:, None], act)
+            if d["res"]:
+                y = apply_activation(y + rd(d["aux"], co * n).reshape(co, n), act2)
+        elif kind == "dw":
+            H, W, OH, OW = d["h"], d["wd"], d["oh"], d["ow"]
+            fh, fw, s, dil = d["fh"], d["fw"], d["s"], d["d"]
+            rh = max(0, (OH - 1) * s + (fh - 1) * dil + 1 - H - d["ph"])
+            rw = max(0, (OW - 1) * s + (fw - 1) * dil + 1 - W - d["pw"])
+            xi = F.pad(rd(d["in"], c * H * W).reshape(1, c, H, W), (d["pw"], rw, d["ph"], rh))
+            y = F.conv2d(xi, arr(d["w"], c, 1, fh, fw), arr(d["b"], c), stride=s,
+                         dilation=dil, groups=c)[0, :, :OH, :OW]
+            y = apply_activation(y, act)
+            if d["pool"]:
+                assert d["band"] == OH          # one CTA holds the whole channel
+                pooled = apply_activation(y.reshape(c, -1).sum(dim=1) * inv,
+                                          _ACTS[d["pact"]])
+                ws[d["pout"]:d["pout"] + c] = pooled
+        elif kind == "gpool":
+            y = apply_activation(rd(d["in"], c * n).reshape(c, n).sum(dim=1) * inv, act)
+        elif kind == "elt":
+            op = _ELTS[d["elt"]]
+            if op == "bcast":
+                v = rd(d["in"], c)[:, None].expand(c, n)
+            else:
+                v = rd(d["in"], c * n).reshape(c, n)
+            if op in ("ADD", "MUL"):
+                u = rd(d["aux"], c if d["bvec"] else c * n).reshape(c, 1 if d["bvec"] else n)
+                v = v + u if op == "ADD" else v * u
+            y = apply_activation(v, act)
+        elif kind == "resize":
+            H, W, OH, OW = d["h"], d["wd"], d["oh"], d["ow"]
+            ah = torch.zeros(OH, H).scatter_add_(1, arr(d["w"], OH, 2).long(),
+                                                 arr(d["b"], OH, 2))
+            aw = torch.zeros(OW, W).scatter_add_(1, arr(d["w1"], OW, 2).long(),
+                                                 arr(d["w2"], OW, 2))
+            y = torch.einsum("chw,pw->chp", rd(d["in"], c * H * W).reshape(c, H, W), aw)
+            y = torch.einsum("oh,chp->cop", ah, y)
+        else:
+            y = rd(d["in"], n)
+        y = y.reshape(-1)
+        ws[d["out"]:d["out"] + y.numel()] = y
+        if d["sync"]:
+            snap, phases = ws.clone(), phases + 1
+    o = plan._offsets[plan.out_tid]
+    return ws[o:o + plan.out_meta.size].reshape(plan.out_meta.c, -1), phases
+
+
+@pytest.fixture(scope="module")
+def segm():
+    """(port plan, JAX full-span BodyMega in interpret mode) of the committed
+    synthetic segm model at 640x480."""
+    path = str(FULL)
+    geo = compute_roi(640, 480, 160, 96, 160, 96)
+    jm, tm = jax_load_model(path), load_model(path, "cpu")
+    jinfo = jedge.edge_applicable(jm, jax_spec(path), geo)
+    tinfo = tedge.edge_applicable(tm, spec_for_model(path), geo)
+    return body_plan_for(tm, tinfo), body_mega_for(jm, jinfo, interpret=True)
+
+
+@pytest.fixture(scope="module")
+def span():
+    g, out = span_graph(ir)
+    plan = BodyPlan(build_model(g), 0, len(g.nodes), 0, out)
+    plan.compile_mega()
+    jg, _ = span_graph(ir)
+    return plan, BodyMega(jax_build(jg, jit=False), 0, len(jg.nodes), 0, out, interpret=True)
+
+
+def _jax_mega(mega, x):
+    """The JAX kernel on (C, H, W) ``x``: rowpad in, dense (C, H*W) out."""
+    rs, im, om = mega.rs, mega.in_meta, mega.out_meta
+    xr = np.zeros((im.c, im.rows * rs), np.float32)
+    for i in range(im.rows):
+        xr[:, i * rs:i * rs + im.w] = x[:, i]
+    y = np.asarray(jax.jit(mega)(jnp.asarray(xr)))
+    return np.stack([y[:, i * rs + np.arange(om.w) * om.sp] for i in range(om.rows)],
+                    axis=1).reshape(om.c, -1)
+
+
+@pytest.mark.parametrize("which", ["segm", "span"])
+def test_op_table_walker_matches_plain_and_jax(request, which):
+    plan, mega = request.getfixturevalue(which)
+    im = plan.in_meta
+    x = (np.random.default_rng(11).standard_normal((im.c, im.rows, im.w)) * 2
+         ).astype(np.float32)
+    xt = torch.from_numpy(x.reshape(im.c, -1))
+    with torch.no_grad():
+        got, phases = walk(plan, xt)
+        plain = plan.run_plain(xt)
+    assert phases == plan.mega.phases
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, plain, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got.numpy(), _jax_mega(mega, x), atol=2e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("which", ["segm", "span"])
+def test_op_table_covers_the_plan(request, which):
+    """Every plan op is in the table (a concat by its operands' placement and
+    copies), the phase count is what the kernel runs (one barrier after the
+    last op of each phase but the final one), and a run is one launch."""
+    plan = request.getfixturevalue(which)[0]
+    mt = plan.mega
+    assert mt.covered == list(range(len(plan.plan)))
+    assert int(mt.table[:, _F["sync"]].sum()) + 1 == mt.phases
+    assert mt.table[-1, _F["sync"]] == 0
+    levels = [m["level"] for m in mt.ops]
+    assert levels == sorted(levels) and levels[-1] == mt.phases
+    assert plan.launches_per_run == 1 and dict(plan.kernels_per_run) == {"bs_body_mega": 1}
+    assert mt.table.dtype == np.int32 and mt.arena.dtype == np.float32
+
+
+def test_segm_table_fuses_to_few_phases(segm):
+    """The segm body: 94 plan ops, 34 table ops in 33 phases; every
+    standalone activation, squeeze-excite block (its pool in the depthwise
+    op before it) and residual ADD fused."""
+    plan, mt = segm[0], segm[0].mega
+    kinds = [m["kind"] for m in mt.ops]
+    assert len(plan.plan) == 94 and (len(mt.ops), mt.phases) == (34, 33)
+    assert "elt" not in kinds and "gpool" not in kinds and "fc" not in kinds
+    assert sum(m["se"] is not None for m in mt.ops) == 7
+    assert sum(m.get("pool") is not None for m in mt.ops) == 7
+    assert sum(m["res"] is not None for m in mt.ops) == 4
+    assert kinds.count("copy") == 1 and mt.ops[1]["level"] == 1
+
+
+def test_span_table_keeps_unfusable_ops(span):
+    """span_graph's ADD gate (not a MUL SE) and its pooled activation stay
+    generic ops; its spatial MUL and concat too."""
+    mt = span[0].mega
+    kinds = [(m["kind"], m.get("elt")) for m in mt.ops]
+    assert ("gpool", None) in kinds and ("fc", None) in kinds
+    assert ("elt", "ADD") in kinds and ("elt", "MUL") in kinds
+
+
+def _jax_split_dot(w, b, x):
+    """backscrub_tpu/ops/megakernel.py:501-515 on the CPU, plus the bias."""
+    dims = (((1,), (0,)), ((), ()))
+
+    def split(a):
+        hi = a.astype(jnp.bfloat16)
+        return hi, (a - hi.astype(jnp.float32)).astype(jnp.bfloat16)
+
+    def d(u, v):
+        return jax.lax.dot_general(u, v, dims, precision=jax.lax.Precision.DEFAULT,
+                                   preferred_element_type=jnp.float32)
+    ah, al = split(jnp.asarray(w))
+    bh, bl = split(jnp.asarray(x))
+    return np.asarray(d(ah, bh) + d(ah, bl) + d(al, bh) + jnp.asarray(b)[:, None])
+
+
+@pytest.mark.parametrize("co,ci", [(16, 96), (256, 512), (480, 80)])
+def test_bf16x3_plain_matches_jax_split(co, ci):
+    rng = np.random.default_rng(co + ci)
+    w = (rng.standard_normal((co, ci)) / np.sqrt(ci)).astype(np.float32)
+    x = rng.uniform(0, 2, (ci, 1089)).astype(np.float32)
+    b = rng.standard_normal(co).astype(np.float32)
+    ref = _jax_split_dot(w, b, x)
+    got = conv1x1_bf16x3_plain(*(torch.from_numpy(a) for a in (w, b, x))).numpy()
+    assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+    # the split is not the f32 product: it drops lo.lo and rounds the terms
+    f32 = conv1x1_plain(*(torch.from_numpy(a) for a in (w, b, x))).numpy()
+    assert 0 < np.abs(got - f32).max() <= 1e-3 * np.abs(f32).max()
+
+
+def test_split_bf16_pads_and_reconstructs():
+    w = torch.from_numpy(np.random.default_rng(5).standard_normal((7, 13)).astype(np.float32))
+    hi, lo = split_bf16(w)
+    assert hi.dtype == lo.dtype == torch.bfloat16 and hi.shape == lo.shape == (7, 16)
+    assert hi.is_contiguous() and not hi[:, 13:].any() and not lo[:, 13:].any()
+    assert torch.equal(hi[:, :13], w.to(torch.bfloat16))
+    err = (hi[:, :13].float() + lo[:, :13].float() - w).abs()
+    assert float((err / w.abs()).max()) <= 2.0 ** -16
+
+
+@pytest.mark.parametrize("co,ci", DEEPLAB_GEMMS)
+def test_gemm_config_grid(co, ci):
+    """At 132 SMs a deep GEMM (ci >= 256) launches two waves; a shallow one
+    three, or, at the smallest tile and no split, what it has: the four
+    shallow, narrow shapes of the frame.  Split K covers ci in chunks of
+    16-multiples, and only a deep K is split."""
+    tile, split, kchunk = gemm_config(co, ci, 1089, 132)
+    bm, bn = _GEMM_TILES[tile]
+    ctas = -(-co // bm) * -(-1089 // bn) * split
+    kp = ci + (-ci % 8)
+    assert kchunk % 16 == 0 and (split - 1) * kchunk < kp <= split * kchunk
+    assert split == 1 or (tile == len(_GEMM_TILES) - 1 and kp >= 256)
+    if kp >= 256:
+        assert ctas >= 2 * 132
+    elif ctas < 3 * 132:
+        assert tile == len(_GEMM_TILES) - 1 and split == 1
+    assert (ctas < 132) == ((co, ci) in {(16, 96), (32, 96), (32, 192), (48, 192)})

@@ -18,8 +18,9 @@ import torch
 
 from backscrub_tpu_torch import _build
 from backscrub_tpu_torch.graph.executor import build_model
-from backscrub_tpu_torch.ops.megakernel import (BodyPlan, body_launch, conv1x1_gemm,
-                                                conv1x1_plain)
+from backscrub_tpu_torch.ops.megakernel import (BodyPlan, body_launch,
+                                                conv1x1_bf16x3_plain, conv1x1_gemm,
+                                                conv1x1_plain, split_bf16)
 from backscrub_tpu_torch.ops.image_kernels import bilateral5
 from backscrub_tpu_torch.ops.pack_kernels import (blend_pack_420, blend_pack_420_plain,
                                                   blend_pack_yuyv, blend_pack_yuyv_plain)
@@ -289,19 +290,83 @@ def test_wrappers_validate_inputs(cuda_device):
         blend_pack_yuyv(frame, frame.transpose(0, 1).contiguous().transpose(0, 1), mask)
 
 
-@pytest.mark.parametrize("co,ci,L", [(96, 16, 1089), (480, 80, 1089), (256, 512, 1089),
-                                     (21, 256, 1089), (7, 5, 33)])
+# the deeplab frame's 15 1x1 shapes at L = 33 * 33, and ragged ones
+_GEMM_SHAPES = [(co, ci, 1089) for co, ci in (
+    (16, 96), (21, 256), (32, 96), (32, 192), (48, 192), (48, 288), (80, 288), (80, 480),
+    (96, 16), (160, 480), (192, 32), (256, 160), (256, 512), (288, 48), (480, 80))] + [
+    (7, 5, 33), (33, 100, 77), (130, 13, 1)]
+
+
+@pytest.mark.parametrize("co,ci,L", _GEMM_SHAPES)
 @pytest.mark.parametrize("act", ["NONE", "RELU6"])
 def test_gemm_kernel_matches_plain(cuda_device, co, ci, L, act):
-    """The K2'' tiled GEMM at the continuation's shapes and at ragged ones."""
+    """The K2'' bf16x3 tensor-core GEMM at the continuation's shapes and at
+    ragged ones: allclose(2e-3, 1e-3) of the f32 plain version, 1e-5
+    relative of the bf16x3 plain version, two runs bit-identical."""
     rng = np.random.default_rng(co * 1000 + ci)
     w, x = (torch.from_numpy((rng.standard_normal(s) / np.sqrt(ci)).astype(np.float32))
             .to(cuda_device) for s in ((co, ci), (ci, L)))
     b = torch.from_numpy(rng.standard_normal(co).astype(np.float32)).to(cuda_device)
     before = body_launch.by_kernel["bs_gemm"]
     got = conv1x1_gemm(w, b, x, act)
-    assert body_launch.by_kernel["bs_gemm"] == before + 1
+    again = conv1x1_gemm(w, b, x, act, split=split_bf16(w))
+    assert body_launch.by_kernel["bs_gemm"] == before + 2
     torch.testing.assert_close(got, conv1x1_plain(w, b, x, act), atol=2e-3, rtol=1e-3)
+    ref = conv1x1_bf16x3_plain(w, b, x, act)
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("w,h", [(640, 480), (1280, 720)])
+def test_body_mega_matches_plain(cuda_device, w, h):
+    """K2 as one bs_body_mega launch a run, against the plain plan; two runs
+    bit-identical."""
+    pipe = FramePipeline(str(FULL), PipelineConfig(width=w, height=h), device=cuda_device)
+    plan = pipe.maskgen.edge.body_plan
+    with torch.no_grad():
+        x = pipe.maskgen.edge.front(torch.from_numpy(_frame(w, h)).to(cuda_device))
+        x = x.reshape(x.shape[0], -1)
+        before = dict(body_launch.by_kernel)
+        got = plan.run_cuda(x).clone()
+        again = plan.run_cuda(x)
+        torch.cuda.synchronize()
+    assert body_launch.by_kernel["bs_body_mega"] == before.get("bs_body_mega", 0) + 2
+    assert sum(body_launch.by_kernel.values()) == sum(before.values()) + 2
+    torch.testing.assert_close(got, plan.run_plain(x), atol=2e-3, rtol=1e-3)
+    assert torch.equal(got, again)
+
+
+def test_body_mega_span_graph_matches_plain(cuda_device):
+    """The persistent kernel's generic ops (dilated and 5x5/s2 depthwise,
+    pooled activation, FC, broadcast ADD gate, resize, concat, spatial MUL)."""
+    from backscrub_tpu_torch.tflite import ir
+    g, out = span_graph(ir)
+    plan = BodyPlan(build_model(g), 0, len(g.nodes), 0, out)
+    plan.compile_mega()
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal((8, 144)).astype(
+        np.float32)).to(cuda_device)
+    before = body_launch.by_kernel["bs_body_mega"]
+    got = plan.run_cuda(x).clone()
+    assert body_launch.by_kernel["bs_body_mega"] == before + 1 and plan.launches == 1
+    torch.testing.assert_close(got, plan.run_plain(x), atol=2e-3, rtol=1e-3)
+    assert torch.equal(got, plan.run_cuda(x))
+
+
+def test_refused_launches_raise(cuda_device):
+    """A table whose shared memory exceeds the card's, and a cluster the
+    card does not schedule, raise instead of running."""
+    pipe = FramePipeline(str(FULL), PipelineConfig(width=640, height=480), device=cuda_device)
+    plan = pipe.maskgen.edge.body_plan
+    x = torch.zeros((plan.in_meta.c, plan.in_meta.rows * plan.in_meta.w), device=cuda_device)
+    arena, table = plan.mega.on(x.device)
+    ws = torch.empty(plan._total, device=cuda_device)
+    with pytest.raises(RuntimeError, match="bs_body_mega launch failed"):
+        _build.launch("bs_body_mega", x.data_ptr(), ws.data_ptr(), arena.data_ptr(),
+                      table.data_ptr(), len(plan.mega.ops), 300 * 1024)
+    with pytest.raises(RuntimeError, match="bs_barrier_bench launch failed"):
+        _build.launch("bs_barrier_bench", 1, 1, 64)
+    _build.launch("bs_barrier_bench", 10, 0, 0)      # the grid the table runs on
+    torch.cuda.synchronize()
 
 
 def test_bcast_kernel(cuda_device):

@@ -218,7 +218,7 @@ def test_continuation_matches_jax(pair, cuts):
     h = jnp.asarray(x.reshape(16, -1))
     for mk in jlinks:
         h = jax.jit(mk)(h)
-    np.testing.assert_allclose(got, np.asarray(h).reshape(21, 33, 33), atol=2e-2, rtol=1e-2)
+    np.testing.assert_allclose(got, np.asarray(h).reshape(21, 33, 33), atol=2e-3, rtol=1e-3)
 
 
 def test_plan_guards(pair):

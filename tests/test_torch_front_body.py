@@ -212,7 +212,14 @@ def test_body_plan_memory_plan(models, which):
     n_concat = sum(p[0] == "concat" for p in plan.plan)
     copies = sum(len(c) for c in plan._copies.values())
     assert copies == 1     # only the body input (the stem output) is copied
-    assert plan.launches_per_run == len(plan.plan) - n_concat + copies
+    # one launch of the persistent kernel; its table copies what the
+    # per-op path would copy and runs every other non-concat op
+    assert plan.launches_per_run == 1
+    ops = plan.mega.ops
+    assert sum(m["kind"] == "copy" for m in ops) == copies
+    assert sorted(i for m in ops for i in m["idx"] if m["kind"] != "copy") == \
+        [i for i, p in enumerate(plan.plan) if p[0] != "concat"]
+    assert len(plan.plan) - n_concat + copies > len(ops)
 
 
 def test_synthetic_span_matches_jax_mega_and_span():

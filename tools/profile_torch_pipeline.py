@@ -37,11 +37,18 @@ import time
 import numpy as np
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# the __global__ functions of backscrub_tpu_torch/csrc
+# the __global__ functions of backscrub_tpu_torch/csrc (templates by name)
 _PORT_KERNELS = {"front_kernel", "bilateral_kernel", "blend_pack_yuyv_kernel",
-                 "blend_pack_420_kernel", "conv1x1_kernel", "dw_kernel", "gemm_kernel",
-                 "eltwise_kernel", "gpool_kernel", "resize_kernel", "bcast_kernel",
-                 "copy_kernel"}
+                 "blend_pack_420_kernel", "conv1x1_kernel", "dw_kernel", "gemm_tc_kernel",
+                 "splitk_sum_kernel", "eltwise_kernel", "gpool_kernel", "resize_kernel",
+                 "bcast_kernel", "copy_kernel", "body_mega_kernel"}
+
+
+def _kernel_name(key: str) -> str:
+    """A profiler key as a plain kernel name: no namespace, return type,
+    template arguments or parameter list."""
+    key = key.replace("(anonymous namespace)::", "")
+    return key.removeprefix("void ").split("(")[0].split("<")[0]
 
 
 def main(argv=None) -> int:
@@ -112,7 +119,7 @@ def main(argv=None) -> int:
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=30))
     # the port's own kernels (csrc/), by name: launches and device time
     for k in sorted(prof.key_averages(), key=lambda k: -k.self_device_time_total):
-        name = k.key.replace("(anonymous namespace)::", "").split("(")[0]
+        name = _kernel_name(k.key)
         if k.device_type == DeviceType.CUDA and name in _PORT_KERNELS:
             print(f"port kernel {name}: {k.count / a.window:.1f} launches/frame, "
                   f"{k.self_device_time_total / k.count:.3f} us/launch, "
@@ -140,8 +147,7 @@ def main(argv=None) -> int:
                 print(f"plan {name} -> {m.c}x{m.rows}x{m.w}, "
                       f"{plan.launches_per_run} launches: device "
                       f"{sum(rows.values()):.2f} us/run; " + "; ".join(
-                          f"{k.replace('(anonymous namespace)::', '').split('(')[0]} "
-                          f"{v:.2f} us"
+                          f"{_kernel_name(k)} {v:.2f} us"
                           for k, v in sorted(rows.items(), key=lambda kv: -kv[1])))
                 x = y
     return 0
