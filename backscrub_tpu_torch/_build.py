@@ -39,16 +39,9 @@ SIGNATURES = {
     "bs_blend_pack_420": (P, P, P, P, I, I, I, P),
     "bs_bilateral": (P, P, P, I, I, I, F32, P),
     "bs_front": (P, P, P, I, I, I, I, I, I, I, I, F32, F32, F32, I, P),
-    "bs_conv1x1": (P, P, P, P, I, I, I, I, P),
     "bs_gemm": (P, P, P, P, P, P, I, I, I, I, I, I, I, I, P),
-    "bs_body_mega": (P, P, P, P, I, I, P),
+    "bs_body_mega": (P, P, P, P, I, I, P, P),
     "bs_barrier_bench": (I, I, I, P),
-    "bs_bcast": (P, P, I, I, P),
-    "bs_dw": (P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I, P),
-    "bs_gpool": (P, P, I, I, F32, I, P),
-    "bs_eltwise": (P, P, P, I, I, I, I, I, P),
-    "bs_resize": (P, P, P, P, P, P, I, I, I, I, I, P),
-    "bs_copy": (P, P, I, P),
 }
 
 

@@ -1,5 +1,5 @@
-// cp.async (sm_80+) helpers of the GEMM (body_flat.cu) and the persistent
-// body kernel (body_mega.cu).
+// cp.async (sm_80+) helpers of the GEMM tile (gemm_tc.cuh) and the
+// persistent body kernel (body_mega.cu).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -16,6 +16,13 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
                "l"(src), "r"(valid ? 16 : 0));
+}
+
+// 16 bytes to shared memory, L2 only: the first ``bytes`` (0-16) from
+// ``src``, the rest zero-filled
+__device__ __forceinline__ void cp_async16n(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(bytes));
 }
 
 // 4 bytes to shared memory; with !valid a zero

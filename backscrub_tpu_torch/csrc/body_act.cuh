@@ -1,4 +1,5 @@
-// The fused activations of the body kernels (body.cu, body_flat.cu).
+// The fused activations of the body kernels (body_mega.cu, gemm_tc.cuh,
+// body_flat.cu).
 #pragma once
 
 #include <cuda_runtime.h>

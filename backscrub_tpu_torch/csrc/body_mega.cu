@@ -1,17 +1,22 @@
-// K2, the segm body's full span, as one persistent launch for Hopper
-// (sm_90a): bs_body_mega walks an op table that
+// The body spans, as one persistent launch each, for Hopper (sm_90a):
+// bs_body_mega walks an op table that
 // backscrub_tpu_torch/ops/megakernel.py:MegaTable compiles once per plan.
+// It runs K2, the segm body's full span, and the deeplab body's two spans:
+// K2', the prefix at 129x129 and 65x65, and K2'', the flat continuation at
+// 33x33 (its 1x1 convs as the bf16x3 tensor-core GEMM of gemm_tc.cuh).
 //
 // Replaces the TPU kernel backscrub_tpu/ops/megakernel.py:BodyMega in its
-// full-span mode (body_mega_for; plan interpreter _run_plan), which runs
-// the body between the stem conv and the transpose-conv tail as one Pallas
-// program with every intermediate in VMEM.  One SM cannot hold that span
-// (the 72-channel expansion at 24x40 f32 is 276 KB), but the whole span is
-// ~31 MFLOP over a 3.3 MB workspace, which sits in the 50 MB L2.  So here
-// the CTAs of one launch walk the table together: the ops of a phase split
-// their tiles over the CTAs, and a barrier separates dependent phases.
-// Intermediates go through L2, read with ld.global.cg (L2, never the
-// non-coherent or L1 path, since this very launch wrote them).
+// full-span mode (body_mega_for; plan interpreter _run_plan), its prefix
+// mode (body_mega_prefix_for) and its flat mode (body_mega_continuation_for,
+// the chain of dense-layout kernels), which run a span as Pallas programs
+// with every intermediate in VMEM.  One SM cannot hold a span (the
+// 72-channel expansion at 24x40 f32 is 276 KB; deeplab's 48x129x129 is 3.2
+// MB), but each span's workspace (segm 3.3 MB, the prefix 10 MB, the
+// continuation 38 MB) sits in the 50 MB L2.  So here the CTAs of one
+// launch walk the table together: the ops of a phase split their tiles
+// over the CTAs, and a barrier separates dependent phases.  Intermediates
+// go through L2, read with ld.global.cg or cp.async.cg (L2, never the
+// non-coherent path, since this very launch wrote them).
 //
 // The barrier: the launch is a cooperative grid of one CTA an SM, and
 // cg::this_grid().sync() separates the phases.  It orders every write a
@@ -35,28 +40,35 @@
 // the weights come into shared memory in one burst) and scales its input
 // rows by the gate.  Every other plan op has a generic op code.
 //
-// Work in a phase: 1x1 convs as output tiles of 256 to 32 outputs, sized
-// per op so that the phase's tiles spread over the SMs, with K split over
-// the CTA's thread groups (W and X for up to 320 of K staged in shared
-// memory by one burst of cp.async; f32 FFMA: the span is too small for the
-// split tensor-core product to pay, and f32 keeps the meet family's
-// HIGHEST class); depthwise convs as (channel, band of output rows) items with the
+// Work in a phase: the flat continuation's spatial 1x1 convs as OP_GEMM
+// tiles of 128x64 to 16x32 outputs on the tensor cores (bf16x3, the
+// reference's HIGH split, gemm_tc.cuh; the tile per op so that the phase is
+// one round over the SMs, a 3-deep ring of 16-byte cp.async.cg loads);
+// the other 1x1 convs (segm's, the deeplab prefix's) as output tiles of 256
+// to 32 outputs, sized per op so that the phase's tiles spread over the
+// SMs, with K split over the CTA's thread groups (W and X for up to 320 of
+// K staged in shared memory by one burst of cp.async; f32 FFMA, as the
+// reference's f32 spans: these convs are too small for the split
+// tensor-core product to pay); depthwise convs as (channel, band of output rows) items with the
 // band's input window, halo included, in shared memory; pooled-vector FCs
 // and global pools one warp an output; elementwise, resize and copy one
 // thread an element.  Every sum has a fixed order (xor-butterfly warp
 // sums, fixed block trees), so two runs give the same bits.
 //
-// Bound: latency.  31 MFLOP and 1.6 MB of compulsory traffic are well
-// under a microsecond of the card's f32 or HBM rate; what a run costs is
-// the chain of 33 dependent phases, each an L2 round trip or two plus a
-// grid barrier (~1.1 us).  So every phase puts all of its loads in flight
-// at once (cp.async bursts) rather than in dependent chains.
+// Bound: latency.  segm's 31 MFLOP and 1.6 MB of compulsory traffic are
+// well under a microsecond of the card's f32 or HBM rate, deeplab's 1.4
+// GFLOP (1.3 of it in the GEMMs, three bf16 passes) a few microseconds;
+// what a run costs is the chain of dependent phases (33 segm; 11 and 43
+// deeplab), each an L2 round trip or two plus a grid barrier (~1.1 us).
+// So every phase puts all of its loads in flight at once (cp.async bursts,
+// or the GEMM's ring) rather than in dependent chains.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "async_copy.cuh"
 #include "body_act.cuh"
+#include "gemm_tc.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -70,10 +82,10 @@ enum Field {
   F_CODE, F_SYNC, F_ACT, F_ACT2, F_IN, F_OUT, F_AUX, F_W, F_B,
   F_C, F_CO, F_H, F_WD, F_OH, F_OW, F_FH, F_FW, F_S, F_D, F_PH, F_PW, F_BAND,
   F_N, F_ELT, F_BVEC, F_GATE, F_RES, F_PACT, F_PINV, F_HID, F_W1, F_B1, F_ACT1,
-  F_W2, F_B2, F_ACTG, F_POOL, F_POUT, F_TM, F_TN, F_CPI, DESC = 48
+  F_W2, F_B2, F_ACTG, F_POOL, F_POUT, F_TM, F_TN, F_CPI, F_KP, F_TILE, F_BN, DESC = 48
 };
 // op codes (megakernel.py:MEGA_CODES)
-enum Code { OP_CONV = 1, OP_FC, OP_DW, OP_GPOOL, OP_ELT, OP_RESIZE, OP_COPY };
+enum Code { OP_CONV = 1, OP_FC, OP_DW, OP_GPOOL, OP_ELT, OP_RESIZE, OP_COPY, OP_GEMM, OP_CONVW };
 // the conv's K staged at once (up to CK) and the SE vectors' capacity
 // (megakernel.py:_CONV_K, _SE_MAX_C)
 constexpr int CK = 320, SE_MAX_C = 512;
@@ -216,9 +228,88 @@ __device__ void conv_op(const Args& a, const int* d, float* sm) {
   }
 }
 
-// a pooled-vector FC: y[o] = act(W x + b), one warp an output
+// y = act2(act(W x + b) + r) over a wide span (at least a warp of columns
+// a CTA: the deeplab prefix at 129x129 and 65x65, where conv_op's tiles
+// would take many rounds): a CTA takes F_TN consecutive columns at a time,
+// stages W (co, ci) and those columns of x in shared memory by one burst of
+// cp.async, and computes all of their outputs, a thread a (column, every
+// G-th row) with G = NT / columns; each output's K sum in order, f32 FFMA
+__device__ void convw_op(const Args& a, const int* d, float* sm) {
+  const int M = d[F_CO], K = d[F_C], L = d[F_N], cols = d[F_TN];
+  const float* x = operand(a, d[F_IN]);
+  const float* w = a.ar + d[F_W];
+  const float* b = a.ar + d[F_B];
+  const float* r = d[F_RES] ? operand(a, d[F_AUX]) : nullptr;
+  float* y = a.ws + d[F_OUT];
+  const int act = d[F_ACT], act2 = d[F_ACT2];
+  float* sw = sm;                      // [M][K]
+  float* sx = sw + M * K;              // [K][cols]
+  for (int e = threadIdx.x; e < M * K; e += NT) cp_async4(sw + e, w + e, true);
+  for (int n0 = blockIdx.x * cols; n0 < L; n0 += gridDim.x * cols) {
+    const int nc = min(cols, L - n0), G = max(1, NT / nc);
+    for (int e = threadIdx.x; e < K * nc; e += NT) {
+      int k = e / nc, n = e % nc;
+      cp_async4(sx + k * cols + n, x + (size_t)k * L + n0 + n, true);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    if ((int)threadIdx.x < G * nc) {
+      const int n = threadIdx.x % nc;
+      for (int m = threadIdx.x / nc; m < M; m += G) {
+        float acc = 0.0f;
+#pragma unroll 4
+        for (int k = 0; k < K; ++k) acc = fmaf(sw[m * K + k], sx[k * cols + n], acc);
+        float v = activate(acc + b[m], act);
+        if (r != nullptr) v = activate(v + ld(r + (size_t)m * L + n0 + n), act2);
+        y[(size_t)m * L + n0 + n] = v;
+      }
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+}
+
+// the flat continuation's spatial 1x1 conv on the tensor cores: y =
+// act2(act(W x + b) + r) with W split into bf16 hi/lo on the host (the
+// arena holds W_hi at F_W and W_lo at F_W1, (co, F_KP) bf16 each), x (ci,
+// L) from the workspace, r the optional residual.  The CTA's 256 threads
+// run one gemm_tc tile at a time (F_TILE: megakernel.py:_MEGA_GEMM_TILES),
+// the tiles of the op spread over the grid.
+template <int BM, int BN, int WARPS_M, int WARPS_N, int KG>
+__device__ void gemm_tiles(const Args& a, const int* d, unsigned char* sm) {
+  using T = gemm_tc::Tile<BM, BN, WARPS_M, WARPS_N, KG>;
+  static_assert(T::NT == NT, "a table GEMM tile takes the whole CTA");
+  const int M = d[F_CO], K = d[F_C], N = d[F_N], Kp = d[F_KP];
+  const int tn = (N + BN - 1) / BN, tiles = ((M + BM - 1) / BM) * tn;
+  const auto* whi = reinterpret_cast<const __nv_bfloat16*>(a.ar + d[F_W]);
+  const auto* wlo = reinterpret_cast<const __nv_bfloat16*>(a.ar + d[F_W1]);
+  const gemm_tc::Epilogue ep{a.ar + d[F_B], d[F_ACT], d[F_RES] ? operand(a, d[F_AUX]) : nullptr,
+                             d[F_ACT2], a.ws + d[F_OUT], nullptr};
+  const float* x = operand(a, d[F_IN]);
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    T::run(sm, whi, wlo, x, M, Kp, N, (tile / tn) * BM, (tile % tn) * BN, 0, Kp, K, ep);
+    __syncthreads();   // the next tile refills the ring
+  }
+}
+
+__device__ void gemm_op(const Args& a, const int* d, float* sm) {
+  unsigned char* s = reinterpret_cast<unsigned char*>(sm);
+  switch (d[F_TILE]) {
+    case 0: gemm_tiles<128, 64, 4, 2, 1>(a, d, s); break;
+    case 1: gemm_tiles<64, 64, 2, 2, 2>(a, d, s); break;
+    case 2: gemm_tiles<32, 64, 2, 2, 2>(a, d, s); break;
+    case 3: gemm_tiles<32, 32, 2, 2, 2>(a, d, s); break;
+    case 4: gemm_tiles<16, 32, 1, 4, 2>(a, d, s); break;
+    default: break;
+  }
+}
+
+// a pooled-vector FC: y[o] = act(W x + b), one warp an output; with F_BN
+// (the 1 -> N broadcast that follows it) the warp writes y[o] across N
+// columns, y[o * N + l]
 __device__ void fc_op(const Args& a, const int* d) {
-  const int ci = d[F_C], co = d[F_CO];
+  const int ci = d[F_C], co = d[F_CO], bn = d[F_BN];
   const float* x = operand(a, d[F_IN]);
   const float* w = a.ar + d[F_W];
   const float* b = a.ar + d[F_B];
@@ -229,7 +320,12 @@ __device__ void fc_op(const Args& a, const int* d) {
 #pragma unroll 4
     for (int k = lane; k < ci; k += 32) s = fmaf(w[(size_t)o * ci + k], ld(x + k), s);
     s = warp_sum(s);
-    if (lane == 0) y[o] = activate(s + b[o], d[F_ACT]);
+    const float v = activate(s + b[o], d[F_ACT]);
+    if (bn == 0) {
+      if (lane == 0) y[o] = v;
+    } else {
+      for (int l = lane; l < bn; l += 32) y[(size_t)o * bn + l] = v;
+    }
   }
 }
 
@@ -249,67 +345,157 @@ __device__ void gpool_op(const Args& a, const int* d) {
   }
 }
 
+// one depthwise output before bias and activation: the taps of column
+// tj, then of tj + 1, each column's taps top to bottom; ``xs`` the window
+// row of the output's first tap row, ``jj0`` its first tap column
+__device__ __forceinline__ float dw_taps(const float* xs, const float* wc, int W, int fh, int fw,
+                                         int dd, int jj0) {
+  float acc = 0.0f;
+  for (int tj = 0; tj < fw; ++tj) {
+    int jj = jj0 + tj * dd;
+    if (jj < 0 || jj >= W) continue;
+    for (int ti = 0; ti < fh; ++ti) acc = fmaf(xs[ti * dd * W + jj], wc[ti * fw + tj], acc);
+  }
+  return acc;
+}
+
+// the depthwise outputs of channel c at column oj down ``nrow`` rows of a
+// band (window ``xs``): the FH x FW weights in registers, each output's
+// taps in dw_taps' order
+template <int FH, int FW>
+__device__ __forceinline__ void dw_column(const float* xs, const float* wc, float bias, float* yc,
+                                          int W, int OW, int s, int dd, int jj0, int nrow,
+                                          int act) {
+  float wr[FH * FW];
+  bool ok[FW];
+#pragma unroll
+  for (int t = 0; t < FH * FW; ++t) wr[t] = wc[t];
+#pragma unroll
+  for (int tj = 0; tj < FW; ++tj) ok[tj] = jj0 + tj * dd >= 0 && jj0 + tj * dd < W;
+  for (int i = 0; i < nrow; ++i) {
+    const float* xr = xs + i * s * W + jj0;
+    float acc = 0.0f;
+#pragma unroll
+    for (int tj = 0; tj < FW; ++tj) {
+      if (!ok[tj]) continue;
+#pragma unroll
+      for (int ti = 0; ti < FH; ++ti) acc = fmaf(xr[ti * dd * W + tj * dd], wr[ti * FW + tj], acc);
+    }
+    yc[(size_t)i * OW] = activate(acc + bias, act);
+  }
+}
+
+// A depthwise window: input rows i0 .. i0 + R - 1 of channel c.  The rows
+// inside the input are one run of ``count`` floats from ``src``, at window
+// position ``p0``; the window starts ``o`` floats into its shared-memory
+// slot, so that the run's 16-byte-aligned start (``sh`` floats before it)
+// lands 16-byte aligned.
+struct DwRun {
+  const float* src;
+  int p0, count, sh, o;
+};
+
+__device__ __forceinline__ DwRun dw_run(const float* x, int c, int i0, int R, int H, int W) {
+  const int lo = max(i0, 0), hi = min(i0 + R, H);
+  DwRun r;
+  r.src = x + ((size_t)c * H + lo) * W;
+  r.p0 = (lo - i0) * W;
+  r.count = (hi - lo) * W;
+  r.sh = (int)(((uintptr_t)r.src >> 2) & 3);
+  r.o = (r.sh - r.p0) & 3;
+  return r;
+}
+
 // depthwise fh x fw, stride s, dilation dd, SAME zero padding: an item is
 // (a group of F_CPI channels, a band of F_BAND output rows); the group's
-// input windows, halo and zero rows for the padding included, land in
-// shared memory by one burst of cp.async.  With F_POOL the band is the whole channel, and the CTA also writes each
-// channel's global average (the SE block's pool: act(sum * inv), a
-// fixed-order block sum)
+// input windows (slots of RWP floats), halo and zero rows for the padding
+// included, land in shared memory by one burst of 16-byte cp.async (the
+// run's first chunk float by float where floats before it would land in
+// the padding), and the item's (channel, output
+// column) pairs spread over the CTA's threads, each down the band's rows
+// (3x3 and 5x5 with the weights in registers).  With F_POOL the band
+// is the whole channel and the channels go one at a time: the CTA also
+// writes each channel's global average (the SE block's pool: act(sum *
+// inv), a fixed-order block sum)
 __device__ void dw_op(const Args& a, const int* d, float* sm) {
   const int C = d[F_C], H = d[F_H], W = d[F_WD], OH = d[F_OH], OW = d[F_OW];
   const int fh = d[F_FH], fw = d[F_FW], s = d[F_S], dd = d[F_D];
   const int ph = d[F_PH], pw = d[F_PW], band = d[F_BAND], act = d[F_ACT], cpi = d[F_CPI];
   const int nb = (OH + band - 1) / band, R = (band - 1) * s + (fh - 1) * dd + 1;
-  const int groups = (C + cpi - 1) / cpi, RW = R * W;
+  const int groups = (C + cpi - 1) / cpi, RW = R * W, RWP = ((RW + 3) & ~3) + 8;
+  const int NCH = RW / 4 + 2;          // 16-byte chunks of a run, at most
   const bool pool = d[F_POOL] != 0;
   const float* x = operand(a, d[F_IN]);
   const float* w = a.ar + d[F_W];
   const float* b = a.ar + d[F_B];
   float* y = a.ws + d[F_OUT];
-  float* win = sm;                     // [cpi][RW]: the item's input windows
-  float* red = win + cpi * RW;         // NT floats: the pool's block sum
+  float* win = sm;                     // [cpi][RWP]: the item's input windows
+  float* red = win + cpi * RWP;        // NT floats: the pool's block sum
   for (int item = blockIdx.x; item < groups * nb; item += gridDim.x) {
     const int c0 = (item / nb) * cpi, nc = min(cpi, C - c0);
     const int oh0 = (item % nb) * band, i0 = oh0 * s - ph;
-    for (int e = threadIdx.x; e < nc * RW; e += NT) {
-      int ci = e / RW, rr = e % RW, ii = i0 + rr / W;
-      bool ok = ii >= 0 && ii < H;
-      cp_async4(win + e, x + (ok ? ((size_t)(c0 + ci) * H + ii) * W + rr % W : 0), ok);
+    for (int e = threadIdx.x; e < nc * NCH; e += NT) {
+      const int ci = e / NCH, k = e - ci * NCH;
+      const DwRun run = dw_run(x, c0 + ci, i0, R, H, W);
+      float* xs = win + ci * RWP + run.o;
+      const int left = run.sh + run.count - 4 * k;     // floats of the run from the chunk on
+      if (left <= 0) continue;
+      float* dst = xs + run.p0 - run.sh + 4 * k;
+      const float* src = run.src - run.sh + 4 * k;
+      if (k == 0 && run.sh > 0 && run.p0 > 0) {
+        for (int f = 0; f < 4; ++f) cp_async4(dst + f, f >= run.sh ? src + f : x, f >= run.sh);
+      } else {
+        cp_async16n(dst, src, 4 * min(4, left));
+      }
+    }
+    for (int ci = 0; ci < nc; ++ci) {       // the padding rows (top and bottom bands): zeros
+      const DwRun run = dw_run(x, c0 + ci, i0, R, H, W);
+      const int below = RW - run.p0 - run.count;
+      for (int f = threadIdx.x; f < run.p0 + below; f += NT)
+        win[ci * RWP + run.o + (f < run.p0 ? f : run.count + f)] = 0.0f;
     }
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
-    for (int ci = 0; ci < nc; ++ci) {
+    const int nrow = min(band, OH - oh0);
+    for (int e = threadIdx.x; !pool && e < nc * OW; e += NT) {
+      const int ci = e / OW, oj = e % OW, c = c0 + ci, jj0 = oj * s - pw;
+      const float* xs = win + ci * RWP + dw_run(x, c, i0, R, H, W).o;
+      const float* wc = w + (size_t)c * fh * fw;
+      float* yc = y + ((size_t)c * OH + oh0) * OW + oj;
+      if (fh == 3 && fw == 3) {
+        dw_column<3, 3>(xs, wc, b[c], yc, W, OW, s, dd, jj0, nrow, act);
+      } else if (fh == 5 && fw == 5) {
+        dw_column<5, 5>(xs, wc, b[c], yc, W, OW, s, dd, jj0, nrow, act);
+      } else {
+        for (int i = 0; i < nrow; ++i)
+          yc[(size_t)i * OW] = activate(dw_taps(xs + i * s * W, wc, W, fh, fw, dd, jj0) + b[c],
+                                        act);
+      }
+    }
+    for (int ci = 0; pool && ci < nc; ++ci) {
       const int c = c0 + ci;
-      const float* xs = win + ci * RW;
+      const float* xs = win + ci * RWP + dw_run(x, c, i0, R, H, W).o;
       const float* wc = w + (size_t)c * fh * fw;
       const float bias = b[c];
       float sum = 0.0f;
       for (int e = threadIdx.x; e < band * OW; e += NT) {
         int oi = oh0 + e / OW, oj = e % OW;
         if (oi >= OH) continue;
-        float acc = 0.0f;
-        for (int tj = 0; tj < fw; ++tj) {
-          int jj = oj * s + tj * dd - pw;
-          if (jj < 0 || jj >= W) continue;
-          for (int ti = 0; ti < fh; ++ti)
-            acc = fmaf(xs[((oi - oh0) * s + ti * dd) * W + jj], wc[ti * fw + tj], acc);
-        }
+        float acc = dw_taps(xs + (oi - oh0) * s * W, wc, W, fh, fw, dd, oj * s - pw);
         float v = activate(acc + bias, act);
         y[((size_t)c * OH + oi) * OW + oj] = v;
         sum += v;
       }
-      if (pool) {
-        red[threadIdx.x] = sum;
-        __syncthreads();
-        for (int k = NT / 2; k > 0; k >>= 1) {
-          if ((int)threadIdx.x < k) red[threadIdx.x] += red[threadIdx.x + k];
-          __syncthreads();
-        }
-        if (threadIdx.x == 0)
-          a.ws[d[F_POUT] + c] = activate(red[0] * __int_as_float(d[F_PINV]), d[F_PACT]);
+      red[threadIdx.x] = sum;
+      __syncthreads();
+      for (int k = NT / 2; k > 0; k >>= 1) {
+        if ((int)threadIdx.x < k) red[threadIdx.x] += red[threadIdx.x + k];
         __syncthreads();
       }
+      if (threadIdx.x == 0)
+        a.ws[d[F_POUT] + c] = activate(red[0] * __int_as_float(d[F_PINV]), d[F_PACT]);
+      __syncthreads();
     }
     __syncthreads();
   }
@@ -334,8 +520,8 @@ __device__ void elt_op(const Args& a, const int* d) {
   }
 }
 
-// separable 2-tap bilinear resize, columns then rows (csrc/body.cu's
-// resize_kernel); the tap indices are stored in the arena as floats
+// separable 2-tap bilinear resize, columns then rows, as the reference
+// sums; the tap indices are stored in the arena as floats
 __device__ void resize_op(const Args& a, const int* d) {
   const int C = d[F_C], H = d[F_H], W = d[F_WD], OH = d[F_OH], OW = d[F_OW];
   const float* x = operand(a, d[F_IN]);
@@ -381,12 +567,21 @@ __device__ __forceinline__ void phase_barrier() {
     cg::this_cluster().sync();
 }
 
+__device__ __forceinline__ unsigned long long globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
 // the table is copied to shared memory once (n_ops * DESC int32 at the
 // start of the dynamic shared memory, a multiple of 16 bytes); the ops'
-// working memory follows it
+// working memory follows it.  With ``stamps`` (a measurement run), CTA 0
+// writes the device's nanosecond clock after the start barrier and after
+// each phase's barrier (one more barrier ends the last phase): phases + 1
+// stamps
 __global__ void __launch_bounds__(NT)
 body_mega_kernel(const float* x, float* ws, const float* arena, const int* table,
-                 int n_ops) {
+                 int n_ops, unsigned long long* stamps) {
   extern __shared__ __align__(16) float smem[];
   int* tab = reinterpret_cast<int*>(smem);
   float* sm = smem + n_ops * DESC;
@@ -396,6 +591,10 @@ body_mega_kernel(const float* x, float* ws, const float* arena, const int* table
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
+  const bool stamp = stamps != nullptr && blockIdx.x == 0 && threadIdx.x == 0;
+  int phase = 0;
+  if (stamps != nullptr) phase_barrier<0>();
+  if (stamp) stamps[phase++] = globaltimer();
   for (int i = 0; i < n_ops; ++i) {
     const int* sd = tab + i * DESC;
     switch (sd[F_CODE]) {
@@ -406,10 +605,15 @@ body_mega_kernel(const float* x, float* ws, const float* arena, const int* table
       case OP_ELT: elt_op(a, sd); break;
       case OP_RESIZE: resize_op(a, sd); break;
       case OP_COPY: copy_op(a, sd); break;
+      case OP_GEMM: gemm_op(a, sd, sm); break;
+      case OP_CONVW: convw_op(a, sd, sm); break;
       default: break;
     }
     __syncthreads();   // the next op reuses the working memory
-    if (sd[F_SYNC]) phase_barrier<0>();
+    if (sd[F_SYNC] || (stamps != nullptr && i == n_ops - 1)) {
+      phase_barrier<0>();
+      if (stamp) stamps[phase++] = globaltimer();
+    }
   }
 }
 
@@ -470,12 +674,13 @@ extern "C" {
 
 // one run of the op table: ``n_ops`` descriptors of DESC int32 at
 // ``table``, operands in ``ws`` (and ``x``), weights in ``arena``;
-// ``smem`` dynamic shared bytes a CTA (MegaTable.smem_bytes)
+// ``smem`` dynamic shared bytes a CTA (MegaTable.smem_bytes); ``stamps``
+// null, or phases + 1 uint64 for the phase clock (a measurement run)
 int bs_body_mega(const void* x, void* ws, const void* arena, const void* table, int n_ops,
-                 int smem, void* stream) {
+                 int smem, void* stamps, void* stream) {
   return launch_resident<0>(body_mega_kernel, 0, smem, (cudaStream_t)stream,
                             (const float*)x, (float*)ws, (const float*)arena,
-                            (const int*)table, n_ops);
+                            (const int*)table, n_ops, (unsigned long long*)stamps);
 }
 
 // ``iters`` phase barriers in one launch: barrier 0, a cooperative grid of

@@ -1,6 +1,5 @@
-"""A span of the CNN body as a plan of ops, run as plain PyTorch or as the
-CUDA kernels of ``csrc/body_mega.cu``, ``csrc/body.cu`` and
-``csrc/body_flat.cu``.
+"""A span of the CNN body as a plan of ops, run as plain PyTorch or as one
+launch of the persistent CUDA kernel of ``csrc/body_mega.cu``.
 
 Counterpart of ``backscrub_tpu/ops/megakernel.py:BodyMega`` in its three
 modes: the full span between the fused edge layers (``body_plan_for``,
@@ -16,12 +15,14 @@ The lane-spacing bookkeeping survives only inside the guards, so that the
 port accepts exactly the spans the JAX package accepts.
 
 ``BodyPlan(x)`` on a CPU tensor runs :meth:`BodyPlan.run_plain`; on a CUDA
-tensor :meth:`BodyPlan.run_cuda` launches the full span as ONE persistent
-kernel (``bs_body_mega``, walking the :class:`MegaTable` that
-``body_plan_for`` compiles) and the prefix and flat plans as one kernel
-per op, the flat plan's spatial 1x1 convs as the bf16x3 tensor-core GEMM.
+tensor :meth:`BodyPlan.run_cuda` launches the plan as ONE persistent kernel
+(``bs_body_mega``, walking the :class:`MegaTable` that ``body_plan_for``,
+``body_plan_prefix_for`` and ``body_plan_continuation_for`` compile); the
+flat plan's spatial 1x1 convs run in it as the bf16x3 tensor-core GEMM
+(``csrc/gemm_tc.cuh``), whose standalone probe is :func:`conv1x1_gemm`.
 Launches are counted in ``body_launch.launches``, ``body_launch.by_kernel``
-and the plan's own ``launches``.
+and the plan's own ``launches``; the table ops they ran, by kind, in
+``body_launch.table_ops``.
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ SUPPORTED = {
     "RESIZE_BILINEAR", "CONCATENATION",
 }
 ACTIVATIONS = {None, "NONE", "RELU", "RELU6", "HARD_SWISH", "LOGISTIC"}
-# activation codes of csrc/body.cu:activate
+# activation codes of csrc/body_act.cuh:activate
 _ACT_CODES = {"NONE": 0, "RELU": 1, "RELU6": 2, "HARD_SWISH": 3, "LOGISTIC": 4}
 
 
@@ -67,21 +68,21 @@ class _T:
         return self.c * (1 if self.vec else self.rows * self.w)
 
 
-def body_launch(name: str, *args) -> None:
-    """Launch one body kernel; ``body_launch.launches`` counts launches and
-    ``body_launch.by_kernel`` counts them by exported kernel name."""
+def body_launch(name: str, *args, table_ops=None) -> None:
+    """Launch one body kernel; ``body_launch.launches`` counts launches,
+    ``body_launch.by_kernel`` counts them by exported kernel name and
+    ``body_launch.table_ops`` the op table's ops (``table_ops``, a Counter
+    by kind) that a ``bs_body_mega`` launch runs."""
     _build.launch(name, *args)
     body_launch.launches += 1
     body_launch.by_kernel[name] += 1
+    if table_ops is not None:
+        body_launch.table_ops.update(table_ops)
 
 
 body_launch.launches = 0
 body_launch.by_kernel = collections.Counter()
-
-# kernel of each plan op kind on CUDA (conv1x1 and concat: see _kernels)
-_OP_KERNELS = {"dw": "bs_dw", "gpool": "bs_gpool", "binop": "bs_eltwise",
-               "bingate": "bs_eltwise", "act": "bs_eltwise",
-               "resize2x": "bs_resize", "bcast": "bs_bcast"}
+body_launch.table_ops = collections.Counter()
 
 # The op table of csrc/body_mega.cu: one row of MEGA_DESC int32 an op, the
 # fields in this order (the kernel's enum Field).  Operand offsets ("in",
@@ -93,24 +94,42 @@ _OP_KERNELS = {"dw": "bs_dw", "gpool": "bs_gpool", "binop": "bs_eltwise",
 MEGA_FIELDS = ("code", "sync", "act", "act2", "in", "out", "aux", "w", "b",
                "c", "co", "h", "wd", "oh", "ow", "fh", "fw", "s", "d", "ph", "pw",
                "band", "n", "elt", "bvec", "gate", "res", "pact", "pinv", "hid",
-               "w1", "b1", "act1", "w2", "b2", "actg", "pool", "pout", "tm", "tn", "cpi")
+               "w1", "b1", "act1", "w2", "b2", "actg", "pool", "pout", "tm", "tn", "cpi",
+               "kp", "tile", "bn")
 MEGA_DESC = 48
-MEGA_CODES = {"conv": 1, "fc": 2, "dw": 3, "gpool": 4, "elt": 5, "resize": 6, "copy": 7}
+MEGA_CODES = {"conv": 1, "fc": 2, "dw": 3, "gpool": 4, "elt": 5, "resize": 6, "copy": 7,
+              "gemm": 8, "convw": 9}
 MEGA_ELT = {"unary": 0, "ADD": 1, "MUL": 2, "bcast": 3}
 # csrc/body_mega.cu's sizes: threads a CTA, the K a conv stages at once,
 # the SE vectors' capacity, the depthwise band's input window (floats) and
 # its deepest band
 _MEGA_NT, _CONV_K, _SE_MAX_C = 256, 320, 512
 _DW_SMEM_FLOATS, _DW_MAX_BAND = 8192, 8
+_DW_ITEM_FLOATS = 12288            # an item's windows, all its channels
 # a conv's CTA tiles (rows, columns; _MEGA_NT / (rows * columns) thread
 # groups split K), largest first.  A phase's items should not outnumber
 # the CTAs (the H100's 132 SMs: one round of L2 round trips), nor an SE
 # conv's 48 (each of its CTAs stages both FCs' weights).
 _CONV_TILES = ((16, 16), (8, 16), (8, 8), (4, 8))
 _MEGA_CTAS, _SE_CONV_CTAS = 132, 48
+# a conv over at least a warp of columns a CTA runs column-wise (``convw``:
+# csrc/body_mega.cu:convw_op, W and the CTA's columns in shared memory)
+_CONVW_MIN_COLS = 32
 _SE_W_FLOATS = 48 * 1024           # both SE FCs' weights, staged in shared memory
 
-# the GEMM's CTA tiles (csrc/body_flat.cu, bs_gemm's ``tile``)
+# the table GEMM's CTA tiles (csrc/body_mega.cu:gemm_op's ``F_TILE``, 256
+# threads each) and its ring (csrc/gemm_tc.cuh: 3 stages of 32 of K, W hi
+# and lo bf16 rows of 40, x rows of BN + 4 floats); a card's shared memory
+# a CTA (the H100's 227 KB)
+_MEGA_GEMM_TILES = ((128, 64), (64, 64), (32, 64), (32, 32), (16, 32))
+_MAX_SMEM = 232448
+
+
+def _gemm_ring_bytes(bm: int, bn: int) -> int:
+    return 3 * (2 * bm * 40 * 2 + 32 * (bn + 4) * 4)
+
+
+# the standalone GEMM's CTA tiles (csrc/body_flat.cu, bs_gemm's ``tile``)
 _GEMM_TILES = ((64, 64), (32, 64), (32, 32), (16, 32))
 
 
@@ -126,11 +145,12 @@ class BodyPlan:
     ``flat``: the reference's dense-layout mode (the continuation): no
     stride-2 depthwise, no geometry-changing resize, every spatial tensor
     keeps the input's shape, and 1x1 convs on spatial tensors run as the
-    bf16x3 tensor-core GEMM of ``csrc/body_flat.cu``.
+    bf16x3 tensor-core GEMM (the table's ``gemm`` op).
 
-    :meth:`compile_mega` (``body_plan_for`` calls it) compiles the plan
-    into a :class:`MegaTable`; from then on a CUDA run is one launch of
-    ``bs_body_mega``.
+    :meth:`compile_mega` (``body_plan_for``, ``body_plan_prefix_for`` and
+    ``body_plan_continuation_for`` call it) compiles the plan into a
+    :class:`MegaTable`; a CUDA run is one launch of ``bs_body_mega``, and
+    a plan not compiled does not run on CUDA.
     """
 
     def __init__(self, model, start: int, end: int, in_tid: int, out_tid: int,
@@ -333,13 +353,15 @@ class BodyPlan:
             raise Unsupported("unbalanced strides: output spacing != 1")
         self.launches = 0
         self.mega: Optional[MegaTable] = None
+        self.kernels_per_run: collections.Counter = collections.Counter()
+        self.launches_per_run = 0
         self._layout()
         self._dev: Dict[torch.device, List[torch.Tensor]] = {}
-        self._split: Dict[torch.device, Dict[int, Tuple[torch.Tensor, torch.Tensor]]] = {}
 
     def compile_mega(self) -> "MegaTable":
         """Compile the plan into the op table and weight arena of the
-        persistent kernel; CUDA runs become one ``bs_body_mega`` launch."""
+        persistent kernel; CUDA runs become one ``bs_body_mega`` launch.
+        Raises Unsupported where the table does not fit the kernel."""
         self.mega = MegaTable(self)
         self.kernels_per_run = collections.Counter({"bs_body_mega": 1})
         self.launches_per_run = 1
@@ -348,12 +370,13 @@ class BodyPlan:
     # -- memory plan (CUDA) -------------------------------------------------
 
     def _layout(self):
-        """Offsets of every in-span tensor in one f32 workspace.  A concat's
-        operands produced in-span by a non-concat op are placed inside the
-        concat's own block at their channel offsets, so the concat costs
-        nothing; the others (the span input, another concat's output, a
-        tensor a second concat also takes) are copied there, one kernel
-        each."""
+        """Where concat operands live in the f32 workspace (whose offsets
+        :class:`MegaTable` plans): an operand produced in-span by a
+        non-concat op is placed inside the concat's own block at its
+        channel offset (``_home``: tid -> (concat tid, float offset)), so
+        the concat costs nothing; the others (the span input, another
+        concat's output, a tensor a second concat also takes) are copied
+        there (``_copies``), one table op each."""
         producer = {_out_tid(p): p[0] for p in self.plan}
         home: Dict[int, Tuple[int, int]] = {}   # tid -> (concat tid, float offset)
         self._copies: Dict[int, List[Tuple[int, int]]] = {}
@@ -369,27 +392,7 @@ class BodyPlan:
                     copies.append((t, off))
                 off += self.meta[t].size
             self._copies[tout] = copies
-        self._offsets: Dict[int, int] = {}
-        total = 0
-        for tid, m in self.meta.items():
-            if tid != self.in_tid and tid not in home:
-                self._offsets[tid] = total
-                total += m.size
-        for tid, (root, off) in home.items():
-            self._offsets[tid] = self._offsets[root] + off
-        self._total = total
-        self.kernels_per_run = collections.Counter(
-            k for p in self.plan for k in self._kernels(p))
-        self.launches_per_run = sum(self.kernels_per_run.values())
-
-    def _kernels(self, p: tuple) -> List[str]:
-        """The kernels plan op ``p`` launches on CUDA, in order."""
-        if p[0] == "concat":
-            return ["bs_copy"] * len(self._copies[p[2]])
-        if p[0] == "conv1x1":
-            spatial = not self.meta[p[1]].vec
-            return ["bs_gemm" if self.flat and spatial else "bs_conv1x1"]
-        return [_OP_KERNELS[p[0]]]
+        self._home = home
 
     def work(self) -> Tuple[int, int]:
         """(bytes, flops) of one run at the least: the input, the weights
@@ -421,15 +424,6 @@ class BodyPlan:
         if device not in self._dev:
             self._dev[device] = [torch.from_numpy(w).to(device) for w in self.weights]
         return self._dev[device]
-
-    def _split_on(self, device) -> Dict[int, Tuple[torch.Tensor, torch.Tensor]]:
-        """The GEMM weights' bf16 hi/lo split (:func:`split_bf16`), made
-        once when they go to ``device``: weight index -> (hi, lo)."""
-        if device not in self._split:
-            ws = self._weights_on(device)
-            self._split[device] = {p[3]: split_bf16(ws[p[3]]) for p in self.plan
-                                   if "bs_gemm" in self._kernels(p)}
-        return self._split[device]
 
     # -- execution -----------------------------------------------------------
 
@@ -494,80 +488,36 @@ class BodyPlan:
         return env[self.out_tid]
 
     def run_cuda(self, x: torch.Tensor) -> torch.Tensor:
-        """The plan on the card into one workspace on the current stream:
-        with a :class:`MegaTable`, one ``bs_body_mega`` launch; else the
-        ``csrc/body.cu`` / ``csrc/body_flat.cu`` kernels, one launch per op
-        (concat: one per copied operand).  The result is a view of the
+        """The plan on the card as one ``bs_body_mega`` launch on the
+        current stream, into one workspace; the result is a view of the
         workspace."""
+        buf, args = self._mega_args(x)
+        body_launch("bs_body_mega", *args, None, table_ops=self.mega.kinds)
+        self.launches += 1
+        o = self._offsets[self.out_tid]
+        return buf[o:o + self.out_meta.size].view(self._shape(self.out_tid))
+
+    def phase_ns(self, x: torch.Tensor) -> List[int]:
+        """A measurement run on the card: one ``bs_body_mega`` launch (not
+        counted in ``body_launch``) that stamps the device clock after each
+        phase's barrier; returns each phase's nanoseconds, barrier
+        included.  Synchronizes."""
+        _, args = self._mega_args(x)
+        stamps = torch.zeros(self.mega.phases + 1, dtype=torch.int64, device=x.device)
+        _build.launch("bs_body_mega", *args, stamps.data_ptr())
+        return torch.diff(stamps).tolist()
+
+    def _mega_args(self, x: torch.Tensor):
+        """(workspace, the launch's arguments up to the stamps)."""
+        if self.mega is None:
+            raise RuntimeError("BodyPlan.run_cuda: the plan has no op table "
+                               "(compile_mega first)")
         _build.check_cuda(x, "body input", torch.float32,
                           (self.in_meta.c, self.in_meta.rows * self.in_meta.w))
         buf = torch.empty(self._total, dtype=torch.float32, device=x.device)
-        base, fs = buf.data_ptr(), 4
-
-        def ptr(tid):
-            return x.data_ptr() if tid == self.in_tid else base + fs * self._offsets[tid]
-
-        def launch(name, *args):
-            body_launch(name, *args)
-            self.launches += 1
-
-        o = self._offsets[self.out_tid]
-        out = buf[o:o + self.out_meta.size].view(self._shape(self.out_tid))
-        if self.mega is not None:
-            arena, table = self.mega.on(x.device)
-            launch("bs_body_mega", x.data_ptr(), base, arena.data_ptr(), table.data_ptr(),
-                   len(self.mega.ops), self.mega.smem_bytes)
-            return out
-        ws = self._weights_on(x.device)
-        for p in self.plan:
-            op = p[0]
-            if op == "conv1x1":
-                _, tin, tout, wi, bi, act = p
-                w = ws[wi]
-                L = 1 if self.meta[tin].vec else self.meta[tin].rows * self.meta[tin].w
-                if self._kernels(p)[0] == "bs_gemm":
-                    hi, lo = self._split_on(x.device)[wi]
-                    _gemm(launch, hi, lo, ws[bi].data_ptr(), ptr(tin), ptr(tout),
-                          w.shape[0], w.shape[1], L, act, x.device)
-                else:
-                    launch("bs_conv1x1", w.data_ptr(), ws[bi].data_ptr(), ptr(tin),
-                           ptr(tout), w.shape[0], w.shape[1], L, _ACT_CODES[act])
-            elif op == "dw":
-                _, tin, tout, wi, bi, fh, fw, st, dil, plo_h, plo_w, act = p
-                m, om = self.meta[tin], self.meta[tout]
-                launch("bs_dw", ptr(tin), ws[wi].data_ptr(), ws[bi].data_ptr(),
-                       ptr(tout), m.c, m.rows, m.w, om.rows, om.w, fh, fw,
-                       st, dil, plo_h, plo_w, _ACT_CODES[act])
-            elif op == "gpool":
-                _, tin, tout, inv, act = p
-                m = self.meta[tin]
-                launch("bs_gpool", ptr(tin), ptr(tout), m.c, m.rows * m.w,
-                       inv, _ACT_CODES[act])
-            elif op in ("binop", "bingate"):
-                _, k, a, b, tout, act = p
-                m = self.meta[a]
-                launch("bs_eltwise", ptr(a), ptr(b), ptr(tout), m.c,
-                       self._shape(a)[1], 1 if k == "ADD" else 2,
-                       int(op == "bingate"), _ACT_CODES[act])
-            elif op == "act":
-                _, k, tin, tout = p
-                c, L = self._shape(tin)
-                launch("bs_eltwise", ptr(tin), None, ptr(tout), c, L, 0, 0,
-                       _ACT_CODES[k])
-            elif op == "concat":
-                _, tins, tout = p
-                for t, off in self._copies[tout]:
-                    launch("bs_copy", ptr(t), ptr(tout) + fs * off, self.meta[t].size)
-            elif op == "resize2x":
-                _, tin, tout, ri, rw, ci, cw = p
-                m, om = self.meta[tin], self.meta[tout]
-                launch("bs_resize", ptr(tin), ws[ri].data_ptr(),
-                       ws[rw].data_ptr(), ws[ci].data_ptr(), ws[cw].data_ptr(),
-                       ptr(tout), m.c, m.rows, m.w, om.rows, om.w)
-            elif op == "bcast":
-                _, tin, tout = p
-                launch("bs_bcast", ptr(tin), ptr(tout), *self._shape(tout))
-        return out
+        arena, table = self.mega.on(x.device)
+        return buf, (x.data_ptr(), buf.data_ptr(), arena.data_ptr(), table.data_ptr(),
+                     len(self.mega.ops), self.mega.smem_bytes)
 
 
 def conv1x1_plain(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
@@ -583,12 +533,16 @@ def _bf16_split(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def conv1x1_bf16x3_plain(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
-                         act: str = "NONE") -> torch.Tensor:
+                         act: str = "NONE", split=None) -> torch.Tensor:
     """The GEMM's arithmetic in plain PyTorch (any device): the reference's
     HIGH split (``backscrub_tpu/ops/megakernel.py:501-515``), w_hi @ x_hi +
     w_hi @ x_lo + w_lo @ x_hi as three f32 matmuls of bf16-rounded
-    operands (lo @ lo dropped), then the bias and the activation."""
-    wh, wl = (t.float() for t in _bf16_split(w))
+    operands (lo @ lo dropped), then the bias and the activation.
+    ``split``: w's (hi, lo) as :func:`split_bf16` makes them, given instead
+    of ``w`` (None); columns past x's rows are padding."""
+    if split is None:
+        split = _bf16_split(w)
+    wh, wl = (t[:, :x.shape[0]].float() for t in split)
     xh, xl = (t.float() for t in _bf16_split(x))
     return apply_activation(wh @ xh + wh @ xl + wl @ xh + b[:, None], act)
 
@@ -647,10 +601,11 @@ def _gemm(launch, whi, wlo, b_ptr, x_ptr, y_ptr, co, ci, L, act, device) -> None
 def conv1x1_gemm(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
                  act: str = "NONE", split=None) -> torch.Tensor:
     """The K2'' 1x1 conv alone: act(w @ x + b) for w (co, ci), b (co,) and
-    x (ci, L) f32.  On CUDA tensors the bf16x3 tensor-core GEMM of
-    ``csrc/body_flat.cu`` (counted in ``body_launch``), its weight split
-    ``split`` = :func:`split_bf16` (w) given or made here; on CPU tensors
-    :func:`conv1x1_plain`."""
+    x (ci, L) f32.  On CUDA tensors ``bs_gemm`` (``csrc/body_flat.cu``,
+    counted in ``body_launch``): the table's bf16x3 tensor-core GEMM tile
+    (``csrc/gemm_tc.cuh``) as a standalone kernel, the per-shape probe of
+    that code, its weight split ``split`` = :func:`split_bf16` (w) given or
+    made here; on CPU tensors :func:`conv1x1_plain`."""
     if x.device.type == "cpu":
         return conv1x1_plain(w, b, x, act)
     co, ci = w.shape
@@ -699,21 +654,30 @@ def _dense(idx: torch.Tensor, wt: torch.Tensor, n_in: int) -> torch.Tensor:
 
 
 class MegaTable:
-    """A full-span :class:`BodyPlan` compiled for ``csrc/body_mega.cu``.
+    """A :class:`BodyPlan` compiled for ``csrc/body_mega.cu``.
 
     ``ops``: the table's ops in run order, each a dict (``kind``, operand
     tensor ids, fused extras, ``idx``: the plan ops it covers, ``level``:
     its phase, 1-based); ``table``: (len(ops), MEGA_DESC) int32 rows of
     MEGA_FIELDS; ``arena``: every weight, bias and resize tap the table
-    reads, f32 (tap indices as exact floats); ``phases``: the number of
+    reads, f32 (tap indices as exact floats; a ``gemm`` op's weight split
+    into bf16 hi and lo, two bf16 to a float); ``phases``: the number of
     phases, each but the last ending in a barrier (``sync``);
-    ``smem_bytes``: the dynamic shared memory a CTA needs.
+    ``smem_bytes``: the dynamic shared memory a CTA needs; ``kinds``: the
+    ops by kind.  Raises Unsupported where an op does not fit the kernel's
+    shared memory.
 
-    Each plan op becomes one table op, then these fusions, which keep the
-    JAX plan's arithmetic but its summation order, merge ops:
+    Each plan op becomes one table op (a flat plan's spatial 1x1 conv the
+    ``gemm`` op, the bf16x3 tensor-core GEMM; another spatial 1x1 conv over
+    at least _CONVW_MIN_COLS columns a CTA the column-wise ``convw``, else
+    the tiled ``conv``), then these fusions, which keep the JAX plan's
+    arithmetic but its summation order, merge ops:
     - a standalone activation runs in its producer's epilogue;
-    - a residual ADD runs in the epilogue of the spatial 1x1 conv that
-      produces one operand;
+    - a residual ADD runs in the epilogue of the spatial 1x1 conv (or
+      GEMM) that produces one operand;
+    - the 1 -> N broadcast of a pooled-vector FC's output (the ASPP
+      pooling branch) runs in the FC, which writes each output across the
+      N columns;
     - a squeeze-excite block (global pool -> FC -> FC -> MUL gate): the
       pool runs in the depthwise op that produces the pooled tensor (one
       CTA a whole channel), the FCs and the gate in the prologue of the
@@ -726,7 +690,8 @@ class MegaTable:
     def __init__(self, plan: BodyPlan):
         self._plan = plan
         ops = self._ops()
-        while self._fuse_act(ops) or self._fuse_residual(ops) or self._fuse_se(ops):
+        while self._fuse_act(ops) or self._fuse_residual(ops) or self._fuse_se(ops) \
+                or self._fuse_bcast(ops):
             pass
         level = {}
         for m in ops:
@@ -735,8 +700,10 @@ class MegaTable:
             m["level"] = level[id(m)]
         self.ops = sorted(ops, key=lambda m: m["level"])    # stable
         self.phases = max(m["level"] for m in self.ops)
+        self.kinds = collections.Counter(m["kind"] for m in self.ops)
         self.covered = sorted({i for m in self.ops for i in m["idx"]}
                               | {i for i, p in enumerate(plan.plan) if p[0] == "concat"})
+        self._memory()
         self._build_rows()
         self._dev: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
 
@@ -756,8 +723,11 @@ class MegaTable:
             m = dict(idx=[i], act="NONE", act2="NONE", res=None, se=None, aux=None)
             if op == "conv1x1":
                 _, tin, tout, wi, bi, act = p
-                m.update(kind="fc" if plan.meta[tin].vec else "conv", src=tin, out=tout,
-                         w=wi, b=bi, act=act)
+                mi = plan.meta[tin]
+                kind = ("fc" if mi.vec else "gemm" if plan.flat
+                        else "convw" if mi.rows * mi.w >= _CONVW_MIN_COLS * _MEGA_CTAS
+                        else "conv")
+                m.update(kind=kind, src=tin, out=tout, w=wi, b=bi, act=act)
             elif op == "dw":
                 _, tin, tout, wi, bi, fh, fw, st, dil, ph, pw, act = p
                 m.update(kind="dw", src=tin, out=tout, w=wi, b=bi, fh=fh, fw=fw, s=st,
@@ -843,7 +813,8 @@ class MegaTable:
             if a["kind"] != "elt" or a["elt"] != "unary":
                 continue
             p = self._producer(ops, a["src"])
-            if p is None or p["kind"] not in ("conv", "fc", "dw", "gpool", "elt") \
+            if p is None or p["kind"] not in ("conv", "convw", "gemm", "fc", "dw", "gpool",
+                                              "elt") \
                     or self._uses(ops, a["src"]) != 1:
                 continue
             slot = "act" if p["res"] is None else "act2"
@@ -861,13 +832,26 @@ class MegaTable:
             cands = []
             for t, other in ((e["src"], e["aux"]), (e["aux"], e["src"])):
                 p = self._producer(ops, t)
-                if p is not None and p["kind"] == "conv" and p["res"] is None \
+                if p is not None and p["kind"] in ("conv", "convw", "gemm") and p["res"] is None \
                         and self._uses(ops, t) == 1:
                     cands.append((next(k for k, m in enumerate(ops) if m is p), p, other))
             if not cands:
                 continue
             _, p, other = max(cands, key=lambda c: c[0])
             p["res"], p["act2"], p["out"] = other, e["act"], e["out"]
+            self._absorb(ops, p, e)
+            return True
+        return False
+
+    def _fuse_bcast(self, ops) -> bool:
+        for e in ops:
+            if e["kind"] != "elt" or e["elt"] != "bcast":
+                continue
+            p = self._producer(ops, e["src"])
+            if p is None or p["kind"] != "fc" or p.get("bn") or self._uses(ops, e["src"]) != 1:
+                continue
+            om = self._plan.meta[e["out"]]
+            p["bn"], p["out"] = om.rows * om.w, e["out"]
             self._absorb(ops, p, e)
             return True
         return False
@@ -906,21 +890,68 @@ class MegaTable:
             return True
         return False
 
+    # -- the workspace ---------------------------------------------------------
+
+    def _memory(self) -> None:
+        """The workspace plan (the plan's ``_offsets`` and ``_total``): each
+        tensor a table op writes gets a block, 16-byte aligned (a concat's
+        homed operands inside their concat's), live from the phase of its
+        first writer to that of its last reader, the span output to the
+        end (``live``: tid -> (first, last) phase).  Phases are ordered by
+        the grid barrier, so a later tensor may take a block from the phase
+        after its last read on: the lowest offset free over the tensor's
+        first phase.  A dead tensor's block is reused, and the continuation's
+        workspace stays in L2."""
+        plan, home = self._plan, self._plan._home
+        root = {t: home[t][0] if t in home else t for t in plan.meta}
+        span: Dict[int, List[int]] = {}
+        for m in self.ops:
+            lvl = m["level"]
+            wrote = [m["out"]] + ([m["pool"]["out"]] if m.get("pool") is not None else [])
+            for t in wrote + [t for t in self._reads(m) if t != plan.in_tid]:
+                a = span.setdefault(root[t], [lvl, lvl])
+                a[0], a[1] = min(a[0], lvl), max(a[1], lvl)
+        span[root[plan.out_tid]][1] = self.phases + 1
+        blocks, at = [], {}          # (offset, floats, last phase); root -> offset
+        for r in sorted(span, key=lambda r: (span[r][0], r)):
+            first, last = span[r]
+            size = plan.meta[r].size + (-plan.meta[r].size % 4)
+            off = 0
+            for b0, b1 in sorted((o, o + n) for o, n, end in blocks if end >= first):
+                if off + size <= b0:
+                    break
+                off = max(off, b1)
+            at[r] = off
+            blocks.append((off, size, last))
+        plan._offsets = {t: at[r] + (home[t][1] if t in home else 0)
+                         for t, r in root.items() if r in at}
+        plan._total = max(o + n for o, n, _ in blocks)
+        self.live = {t: tuple(span[r]) for t, r in root.items() if r in at}
+
     # -- the rows --------------------------------------------------------------
 
     def _build_rows(self) -> None:
         plan = self._plan
         chunks, where, pos = [], {}, 0
 
-        def arena(wi, transposed=False):
+        def arena(wi, form=""):
+            """Weight ``wi``'s float offset: as it is, transposed ("T"), or
+            its bf16 hi or lo half ("hi", "lo": :func:`split_bf16`, rows
+            padded to a multiple of 8, two bf16 to a float); each chunk
+            16-byte aligned."""
             nonlocal pos
-            if (wi, transposed) not in where:
+            if (wi, form) not in where:
                 a = np.asarray(plan.weights[wi], np.float32)
-                a = (a.T if transposed else a).ravel()
-                where[wi, transposed] = pos
+                if form == "T":
+                    a = a.T
+                elif form:
+                    half = split_bf16(torch.from_numpy(a))[form == "lo"]
+                    a = half.view(torch.int16).numpy().view(np.float32)
+                a = a.ravel()
+                where[wi, form] = pos
                 chunks.append(np.pad(a, (0, -a.size % 4)))
                 pos += chunks[-1].size
-            return where[wi, transposed]
+            return where[wi, form]
 
         def off(t):
             return -1 if t == plan.in_tid else plan._offsets[t]
@@ -936,15 +967,16 @@ class MegaTable:
                      sync=int(i + 1 < len(self.ops)
                               and self.ops[i + 1]["level"] != m["level"]))
             k = m["kind"]
-            if k in ("conv", "fc"):
-                r.update(w=arena(m["w"]), b=arena(m["b"]), co=plan.weights[m["w"]].shape[0])
+            if k in ("conv", "convw", "fc"):
+                r.update(w=arena(m["w"]), b=arena(m["b"]), co=plan.weights[m["w"]].shape[0],
+                         bn=m.get("bn") or 0)
                 if m["res"] is not None:
                     r.update(res=1, aux=off(m["res"]))
                 if m["se"] is not None:      # the FC weights transposed, (ci, co)
                     se = m["se"]
                     r.update(gate=1, pout=off(se["pout"]), hid=se["hid"],
-                             w1=arena(se["w1"], True), b1=arena(se["b1"]),
-                             act1=_ACT_CODES[se["act1"]], w2=arena(se["w2"], True),
+                             w1=arena(se["w1"], "T"), b1=arena(se["b1"]),
+                             act1=_ACT_CODES[se["act1"]], w2=arena(se["w2"], "T"),
                              b2=arena(se["b2"]), actg=_ACT_CODES[se["actg"]])
                 if k == "conv":           # the tile or the SE weights, then the SE vectors
                     co, L = r["co"], r["n"]
@@ -955,6 +987,17 @@ class MegaTable:
                     tile = min(sm.c, _CONV_K) * (tm + 1 + tn)
                     se_w = 0 if m["se"] is None else _se_floats(sm.c, m["se"]["hid"])
                     smem = max(smem, 4 * (max(tile, se_w) + 2 * _SE_MAX_C + _MEGA_NT))
+                elif k == "convw":         # columns a CTA; W and those columns staged
+                    cols = -(-r["n"] // _MEGA_CTAS)
+                    r.update(tn=cols)
+                    smem = max(smem, 4 * (r["co"] * sm.c + sm.c * cols))
+            elif k == "gemm":            # W's bf16 halves, the tile a round fills
+                co = plan.weights[m["w"]].shape[0]
+                r.update(w=arena(m["w"], "hi"), w1=arena(m["w"], "lo"), b=arena(m["b"]),
+                         co=co, kp=sm.c + (-sm.c % 8), tile=_gemm_tile(co, r["n"]))
+                if m["res"] is not None:
+                    r.update(res=1, aux=off(m["res"]))
+                smem = max(smem, _gemm_ring_bytes(*_MEGA_GEMM_TILES[r["tile"]]))
             elif k in ("dw", "resize"):
                 om = plan.meta[m["out"]]
                 r.update(h=sm.rows, wd=sm.w, oh=om.rows, ow=om.w, c=om.c)
@@ -963,9 +1006,13 @@ class MegaTable:
                     r.update(w=ri, b=rw, w1=ci, w2=cw)
                 else:       # channels an item: the fewest that keep items <= CTAs
                     band = self._band(m)
-                    win, items = self._dw_window(m, band), -(-om.rows // band) * om.c
-                    cpi = max(1, min(-(-items // _MEGA_CTAS), _DW_SMEM_FLOATS // win))
-                    smem = max(smem, 4 * (cpi * win + _MEGA_NT))
+                    win, bands = self._dw_window(m, band), -(-om.rows // band)
+                    if win > _DW_SMEM_FLOATS:
+                        raise Unsupported(f"depthwise window of {win} floats")
+                    groups = max(1, _MEGA_CTAS // bands)
+                    cpi = max(1, min(-(-om.c // groups), _DW_ITEM_FLOATS // win))
+                    slot = win + (-win % 4) + 8      # a window's slot: 16-byte chunks, slack
+                    smem = max(smem, 4 * (cpi * slot + _MEGA_NT))
                     r.update(w=arena(m["w"]), b=arena(m["b"]), fh=m["fh"], fw=m["fw"],
                              s=m["s"], d=m["d"], ph=m["ph"], pw=m["pw"], band=band,
                              cpi=cpi)
@@ -988,6 +1035,19 @@ class MegaTable:
         self.table = np.asarray(rows, np.int32).reshape(len(rows), MEGA_DESC)
         self.arena = np.concatenate(chunks) if chunks else np.zeros(4, np.float32)
         self.smem_bytes = self.table.nbytes + smem     # the table, then the ops' memory
+        if self.smem_bytes > _MAX_SMEM:
+            raise Unsupported(f"table needs {self.smem_bytes} B of shared memory a CTA")
+
+
+def _gemm_tile(co: int, L: int) -> int:
+    """The table GEMM's tile for a (co, L) output: the smallest of
+    _MEGA_GEMM_TILES whose tiles fit one round over the CTAs (the most SMs
+    at work, none twice), else the largest."""
+    for i in reversed(range(len(_MEGA_GEMM_TILES))):
+        bm, bn = _MEGA_GEMM_TILES[i]
+        if -(-co // bm) * -(-L // bn) <= _MEGA_CTAS:
+            return i
+    return 0
 
 
 def _se_floats(c: int, hid: int) -> int:
@@ -1003,7 +1063,8 @@ def body_plan_for(model, info) -> Optional[BodyPlan]:
     """A BodyPlan for the edge span if the graph qualifies, else None
     (``body_mega_for``): both fused edge layers must be present, and the
     output must be the tail's (K, oh/2, ow/2) input.  The plan comes
-    compiled for the persistent kernel (:meth:`BodyPlan.compile_mega`)."""
+    compiled for the persistent kernel (:meth:`BodyPlan.compile_mega`); a
+    table that does not compile is no plan."""
     if not (info.front_ok and info.tail_ok):
         return None
     try:
@@ -1014,8 +1075,18 @@ def body_plan_for(model, info) -> Optional[BodyPlan]:
     oh, ow = model.output_shape[1:3]
     if (plan.out_meta.rows, plan.out_meta.w) != (oh // 2, ow // 2):
         return None
-    plan.compile_mega()
-    return plan
+    return plan if _compiles(plan) else None
+
+
+def _compiles(plan: BodyPlan) -> bool:
+    """Compile ``plan`` for the persistent kernel; False where its table
+    does not compile: then the span has no fused path and the model runs
+    the classic stages (no per-op kernels take its place)."""
+    try:
+        plan.compile_mega()
+    except Unsupported:
+        return False
+    return True
 
 
 def _cut_back(model, info, start: int, end: int, in_tid: int, build, min_nodes: int,
@@ -1052,8 +1123,8 @@ def body_plan_prefix_for(model, info, *, min_nodes: int = 4):
     The span runs from the body start up to the first node whose output
     has c >= 96 at rows <= 33 (the regime the continuation takes), cut
     back until exactly one tensor produced before the cut (the span input
-    included) is read after it.  Returns (plan, cut node index, cut
-    tensor id)."""
+    included) is read after it.  Returns (plan compiled, cut node index,
+    cut tensor id)."""
     if not info.front_ok:
         return None
     g = model.graph
@@ -1065,9 +1136,10 @@ def body_plan_prefix_for(model, info, *, min_nodes: int = 4):
                 or (s[3] >= 96 and s[1] <= 33):
             break
         end = i + 1
-    return _cut_back(model, info, start, end, info.body_in_tensor,
-                     lambda e, tid: BodyPlan(model, start, e, info.body_in_tensor, tid,
-                                             allow_spaced_output=True), min_nodes)
+    found = _cut_back(model, info, start, end, info.body_in_tensor,
+                      lambda e, tid: BodyPlan(model, start, e, info.body_in_tensor, tid,
+                                              allow_spaced_output=True), min_nodes)
+    return found if found is not None and _compiles(found[0]) else None
 
 
 def body_plan_continuation_for(model, info, start: int, in_tid: int, *,
@@ -1080,8 +1152,8 @@ def body_plan_continuation_for(model, info, start: int, in_tid: int, *,
     the cut and the flat plan builds.  The reference splits that span
     into several kernels to fit a 40 MiB VMEM budget; here every tensor
     lives in one device workspace, so the span is one plan, and it ends
-    where the reference's chain ends.  Returns (plan, end node index,
-    output tensor id)."""
+    where the reference's chain ends.  Returns (plan compiled, end node
+    index, output tensor id)."""
     g = model.graph
     end = start
     for i in range(start, info.body_end):
@@ -1090,6 +1162,7 @@ def body_plan_continuation_for(model, info, start: int, in_tid: int, *,
         if node.kind not in SUPPORTED or s is None or len(s) != 4:
             break
         end = i + 1
-    return _cut_back(model, info, start, end, in_tid,
-                     lambda e, tid: BodyPlan(model, start, e, in_tid, tid, flat=True),
-                     min_nodes, body_output_crosses=True)
+    found = _cut_back(model, info, start, end, in_tid,
+                      lambda e, tid: BodyPlan(model, start, e, in_tid, tid, flat=True),
+                      min_nodes, body_output_crosses=True)
+    return found if found is not None and _compiles(found[0]) else None

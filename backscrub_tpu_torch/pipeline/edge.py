@@ -7,14 +7,15 @@ the body between (counterpart of ``backscrub_tpu/pipeline/edge.py``).
   (``csrc/front.cu``, K1) runs bilateral + normalize + 3x3/s2 conv +
   activation and emits the body input as (C, oh, ow).
 - **body**: :class:`~backscrub_tpu_torch.ops.megakernel.BodyPlan` spans.
-  With both edge layers (the segm family) one plan covers the body
-  (``csrc/body.cu``, K2); a span that BodyPlan rejects gets no fused path,
-  and :class:`MaskGen` runs such models through the classic stages.
-  Front only (deeplab, bodypix, or a crop too coarse for the tail): the
-  prefix plan (K2', ``csrc/body.cu``), then with ``cont`` the flat
-  continuation plan (K2'', ``csrc/body_flat.cu``), then the graph
+  With both edge layers (the segm family) one plan covers the body (K2);
+  a span that BodyPlan rejects gets no fused path, and :class:`MaskGen`
+  runs such models through the classic stages.  Front only (deeplab,
+  bodypix, or a crop too coarse for the tail): the prefix plan (K2'),
+  then with ``cont`` the flat continuation plan (K2''), then the graph
   executor over the nodes left; a model whose prefix or continuation
-  plan does not build gets no fused path either.
+  plan does not build, or whose op table does not compile, gets no
+  fused path either.  Each plan runs on the card as one launch of the
+  persistent kernel (``csrc/body_mega.cu``).
 - **tail**: because the 2x2/s2 transpose conv has kernel == stride, each
   output phase p = 2a+b is a 1x1 contraction of the body output, and the
   two-channel decode only needs sign(out1 - out0): one (4, K) dot, then

@@ -19,24 +19,27 @@ Usage (from the repository root, on a machine with a CUDA card)::
 4. runs ``FramePipeline`` for 50 frames of a seeded moving sequence at
    640x480 and 1280x720 on ``cuda``, checks that every kernel's launch
    counter rose as the path requires (``bs_body_mega`` once a frame, no
-   per-op body kernel), and holds YUYV and mask against the
+   other body kernel), and holds YUYV and mask against the
    port's plain path on the card under the repo's tolerance invariant (at
    most 2% of a frame's bytes differ, at most 0.2% over the sequence);
 5. the deeplab path on the committed synthetic deeplabv3_257-shaped model
-   at 640x480: K1 at the 257x257 canvas, K2' (the prefix plan), K2'' (the
-   flat continuation plan) against their plain versions (allclose(atol=
-   2e-3, rtol=1e-3), CUDA-event times); the bf16x3 tensor-core GEMM at
-   every 1x1 shape of the continuation against ``conv1x1_plain``
-   (allclose(2e-3, 1e-3)) and ``conv1x1_bf16x3_plain`` (1e-5 relative),
-   bit-identical over two runs, with its device time beside
-   ``torch.addmm``'s; then 30
+   at 640x480: K1 at the 257x257 canvas, K2' (the prefix plan) and K2''
+   (the flat continuation plan), each one ``bs_body_mega`` launch a run
+   over its op table (table ops and phases printed, two runs
+   bit-identical), against their plain versions (allclose(atol=2e-3,
+   rtol=1e-3)), timed with CUDA events and as device time; the bf16x3
+   tensor-core GEMM tile that the continuation's table runs as its GEMM
+   ops, alone (``bs_gemm``, its standalone probe) at every 1x1 shape of
+   the continuation against ``conv1x1_plain`` (allclose(2e-3, 1e-3)) and
+   ``conv1x1_bf16x3_plain`` (1e-5 relative), bit-identical over two runs,
+   with its device time beside ``torch.addmm``'s; then 30
    frames of ``FramePipeline`` against the plain path on the card under
    the tolerance invariant (every decode flip a near-tie of class 15's
    margin, the EMAs equal wherever the decode never flipped, no byte off
    by more than 1 outside the post's footprint of the EMA pixels that
    differ), every
-   launch counter checked by kernel, and a person fraction strictly
-   inside (0.01, 0.99);
+   launch counter checked by kernel (``bs_body_mega`` twice a frame, no
+   other body kernel), and a person fraction strictly inside (0.01, 0.99);
 6. K4 (blend + NV12/I420 pack) byte-identical to its plain version at
    640x480 and 1280x720, and K5 (the standalone bilateral) within
    allclose(atol=2e-3, rtol=1e-3) of its plain version at the classic
@@ -56,10 +59,13 @@ Usage (from the repository root, on a machine with a CUDA card)::
    run of the path it serves, errors and times measured here, and the
    bound: the larger of the bytes it must move over 3.35 TB/s and its
    operations over the peak of their type, 67 TFLOP/s f32 or 989 TFLOP/s
-   bf16 on the tensor cores; the GEMM, K2 and K2'' also with ``device_ms``
-   (the profiler's kernel time a call) and ``b2b_ms`` (an event pair around
-   100 back-to-back calls), the GEMM with ``library_ms`` = ``torch.addmm``
-   and its device and back-to-back times), then
+   bf16 on the tensor cores; the GEMM, K2, K2' and K2'' also with
+   ``device_ms`` (the profiler's kernel time a call), the GEMM and K2 with
+   ``b2b_ms`` (an event pair around 100 back-to-back calls), the GEMM with
+   ``library_ms`` = ``torch.addmm`` and its device and back-to-back times;
+   the GEMM's ``launches`` are the GEMM ops that the continuation's
+   ``bs_body_mega`` launches ran on the main path, its other numbers those
+   of the standalone probe at the ASPP shape), then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failure raises and the script exits non-zero; without CUDA it exits 1
@@ -113,12 +119,17 @@ def gemm_work(co, ci, L):
     return 4 * (ci * L + co + co * L) + 2 * 2 * co * kp, 0, 3 * 2 * co * ci * L
 
 
+def gemm_ops(plan):
+    """The plan ops (1x1 convs) that ``plan``'s table runs as GEMM ops."""
+    return [plan.plan[m["idx"][0]] for m in plan.mega.ops if m["kind"] == "gemm"]
+
+
 def cont_work(plan):
     """(bytes, f32 ops, bf16 ops) of the continuation plan: its work() with
     the GEMMs' multiply-adds moved to the tensor cores as three passes."""
     nbytes, flops = plan.work()
     mm = sum(2 * plan.weights[p[3]].size * plan.meta[p[1]].rows * plan.meta[p[1]].w
-             for p in plan.plan if "bs_gemm" in plan._kernels(p))
+             for p in gemm_ops(plan))
     return nbytes, flops - mm, 3 * mm
 
 
@@ -390,26 +401,29 @@ def _held(name, k, p, fn_k, fn_p):
 
 
 def gemm_phase(cont, device):
-    """The bf16x3 GEMM alone at every 1x1 shape of the continuation ``cont``
-    (its weights, seeded inputs at L = 33 * 33): against conv1x1_plain
-    (allclose) and conv1x1_bf16x3_plain (GEMM_REL relative), two runs
-    bit-identical, device time beside torch.addmm's (bias, no activation).
-    Returns the kernels-line numbers at the largest shape (the ASPP
-    projection)."""
+    """The bf16x3 GEMM tile of the continuation table's GEMM ops, alone
+    (``bs_gemm``, the standalone probe built from the same gemm_tc.cuh), at
+    every 1x1 shape of the continuation ``cont`` (its weights, seeded
+    inputs at L = 33 * 33): against conv1x1_plain (allclose) and
+    conv1x1_bf16x3_plain (GEMM_REL relative), two runs bit-identical,
+    device time beside torch.addmm's (bias, no activation).  Returns the
+    kernels-line numbers at the largest shape (the ASPP projection)."""
     import torch
-    from backscrub_tpu_torch.ops.megakernel import (_GEMM_TILES, conv1x1_bf16x3_plain,
-                                                    conv1x1_gemm, conv1x1_plain, gemm_config)
-    ws, split = cont._weights_on(device), cont._split_on(device)
+    from backscrub_tpu_torch.ops.megakernel import (_GEMM_TILES, _MEGA_GEMM_TILES, _gemm_tile,
+                                                    conv1x1_bf16x3_plain, conv1x1_gemm,
+                                                    conv1x1_plain, gemm_config, split_bf16)
+    ws = cont._weights_on(device)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     shapes = collections.defaultdict(list)
-    for p in cont.plan:
-        if "bs_gemm" in cont._kernels(p):
-            shapes[cont.weights[p[3]].shape].append(p)
+    for p in gemm_ops(cont):
+        shapes[cont.weights[p[3]].shape].append(p)
+    split = {}
     frame_us = lib_frame_us = 0.0
     with torch.no_grad():
         for (co, ci), ps in sorted(shapes.items()):
             _, tin, _, wi, bi, act = ps[0]
-            gw, gb, sp = ws[wi], ws[bi], split[wi]
+            gw, gb = ws[wi], ws[bi]
+            sp = split[wi] = split_bf16(gw)
             L = cont.meta[tin].rows * cont.meta[tin].w
             gx = torch.from_numpy(np.random.default_rng(co * 1000 + ci).uniform(
                 0, 2, (ci, L)).astype(np.float32)).to(device)
@@ -425,11 +439,13 @@ def gemm_phase(cont, device):
             bb = b2b_ms(lambda: conv1x1_gemm(gw, gb, gx, "NONE", split=sp))
             tile, nsplit, _ = gemm_config(co, ci, L, sms)
             bm, bn = _GEMM_TILES[tile]
+            tm, tn = _MEGA_GEMM_TILES[_gemm_tile(co, L)]
             b = bound(*gemm_work(co, ci, L))
             frame_us += 1e3 * dev * len(ps)
             lib_frame_us += 1e3 * lib * len(ps)
             print(f"gemm {co}x{ci} by {ci}x{L} ({len(ps)} a frame): tile {bm}x{bn} split "
-                  f"{nsplit}, {-(-co // bm) * -(-L // bn) * nsplit} CTAs; max_abs_err vs f32 "
+                  f"{nsplit}, {-(-co // bm) * -(-L // bn) * nsplit} CTAs (in the table: tile "
+                  f"{tm}x{tn}, {-(-co // tm) * -(-L // tn)} CTAs); max_abs_err vs f32 "
                   f"{float((k - pf).abs().max()):.3g}, vs bf16x3 {rel:.3g} relative; device "
                   f"{dev * 1e3:.3f} us (back to back {bb * 1e3:.3f} us), torch.addmm "
                   f"{lib * 1e3:.3f} us, bound {b[0] * 1e3:.3f} us ({b[1]})")
@@ -475,12 +491,17 @@ def deeplab_phase():
         raise RuntimeError("the deeplab model did not take the prefix + continuation path")
     pre, cont = e.prefix_plan, e.cont_plan
     dils = sorted({p[8] for p in cont.plan if p[0] == "dw"})
-    print(f"deeplab plans: prefix {len(pre.plan)} ops {dict(pre.kernels_per_run)}; "
-          f"continuation {len(cont.plan)} ops {dict(cont.kernels_per_run)}, "
-          f"depthwise dilations {dils}")
-    if cont.kernels_per_run["bs_gemm"] == 0 or cont.kernels_per_run["bs_bcast"] == 0 \
-            or not {2, 4} <= set(dils):
-        raise AssertionError("the continuation plan lacks the GEMM, the broadcast "
+    for name, plan in (("prefix", pre), ("continuation", cont)):
+        mt = plan.mega
+        print(f"deeplab {name}: {len(plan.plan)} plan ops -> {dict(plan.kernels_per_run)} a "
+              f"run, {len(mt.ops)} table ops {dict(mt.kinds)} in {mt.phases} phases, "
+              f"{mt.smem_bytes} B shared memory a CTA")
+        if dict(plan.kernels_per_run) != {"bs_body_mega": 1}:
+            raise AssertionError(f"the deeplab {name} is not one bs_body_mega launch a run")
+    print(f"deeplab continuation depthwise dilations {dils}")
+    if cont.mega.kinds["gemm"] == 0 or not {2, 4} <= set(dils) \
+            or not any(m.get("bn") for m in cont.mega.ops):
+        raise AssertionError("the continuation table lacks the GEMM, the broadcast "
                              "or the dilated depthwise convs")
     frames = [torch.from_numpy(f).cuda() for f in moving_frames(w, h, DEEPLAB_FRAMES)]
     res = {}
@@ -492,15 +513,25 @@ def deeplab_phase():
                              lambda: front_plain(canvas, e.front_params, **kw))
         res["front"]["bound"] = bound(*front_work(kw, k1.shape[0]))
         x = k1.reshape(k1.shape[0], -1)
-        k2 = pre.run_cuda(x)
+        before = collections.Counter(body_launch.by_kernel)
+        k2, k2b = pre.run_cuda(x).clone(), pre.run_cuda(x)
+        k3, k3b = cont.run_cuda(k2).clone(), cont.run_cuda(k2)
+        torch.cuda.synchronize()
+        if dict(body_launch.by_kernel - before) != {"bs_body_mega": 4}:
+            raise AssertionError("a deeplab plan did not run as one bs_body_mega launch")
+        if not (torch.equal(k2, k2b) and torch.equal(k3, k3b)):
+            raise AssertionError("two runs of a deeplab table differ")
         res["body_prefix"] = _held("body_prefix", k2, pre.run_plain(x),
                                    lambda: pre.run_cuda(x), lambda: pre.run_plain(x))
         res["body_prefix"]["bound"] = bound(*pre.work())
-        k3 = cont.run_cuda(k2)
+        res["body_prefix"]["device_ms"] = device_ms(lambda: pre.run_cuda(x))
         res["body_cont"] = _held("body_cont", k3, cont.run_plain(k2),
                                  lambda: cont.run_cuda(k2), lambda: cont.run_plain(k2))
         res["body_cont"]["bound"] = bound(*cont_work(cont))
         res["body_cont"]["device_ms"] = device_ms(lambda: cont.run_cuda(k2))
+        print(f"deeplab tables, device time a run: prefix "
+              f"{res['body_prefix']['device_ms'] * 1e3:.2f} us, continuation "
+              f"{res['body_cont']['device_ms'] * 1e3:.2f} us")
         res["gemm"] = gemm_phase(cont, k2.device)
 
     bg = torch.from_numpy(np.random.default_rng(4).integers(
@@ -508,11 +539,8 @@ def deeplab_phase():
     for f in frames[:5]:
         pipe.step(f, bg)
     n = DEEPLAB_FRAMES
-    want_kernels = {k: n * (pre.kernels_per_run[k] + cont.kernels_per_run[k])
-                    for k in pre.kernels_per_run | cont.kernels_per_run}
-    want = dict(front=n, body_prefix=n * pre.launches_per_run,
-                body_cont=n * cont.launches_per_run, pack=n,
-                gemm=n * cont.kernels_per_run["bs_gemm"])
+    want_kernels = {"bs_body_mega": 2 * n}
+    want = dict(front=n, body_prefix=n, body_cont=n, pack=n, gemm=n * cont.mega.kinds["gemm"])
 
     def drive(keep):
         """One pass from a fresh EMA; with ``keep``, the outputs and the EMA
@@ -522,6 +550,7 @@ def deeplab_phase():
         front_fused.launches = body_launch.launches = blend_pack_yuyv.launches = 0
         pre.launches = cont.launches = 0
         body_launch.by_kernel.clear()
+        body_launch.table_ops.clear()
         outs = []
         for f in frames:
             out = pipe.step(f, bg)
@@ -530,7 +559,7 @@ def deeplab_phase():
         torch.cuda.synchronize()
         counts = dict(front=front_fused.launches, body_prefix=pre.launches,
                       body_cont=cont.launches, pack=blend_pack_yuyv.launches,
-                      gemm=body_launch.by_kernel["bs_gemm"])
+                      gemm=body_launch.table_ops["gemm"])
         if counts != want or dict(body_launch.by_kernel) != want_kernels:
             raise AssertionError(f"launch counts {counts} {dict(body_launch.by_kernel)}, "
                                  f"expected {want} {want_kernels}")
@@ -540,7 +569,8 @@ def deeplab_phase():
     launches, _ = drive(keep=False)
     ms = (time.perf_counter() - t0) * 1e3 / n
     _, outs = drive(keep=True)
-    print(f"deeplab launches by kernel over {n} frames: {dict(body_launch.by_kernel)}")
+    print(f"deeplab launches by kernel over {n} frames: {dict(body_launch.by_kernel)}; "
+          f"table ops run: {dict(body_launch.table_ops)}")
     print("deeplab bounds: " + ", ".join(f"{k} {r['bound'][0]:.5f} ms ({r['bound'][1]})"
                                          for k, r in res.items()))
 
@@ -900,12 +930,12 @@ def main() -> int:
                  "backscrub_tpu/ops/megakernel.py:660 (BodyMega, full span)"),
         "pack": ("backscrub_tpu_torch/csrc/blend_pack.cu",
                  "backscrub_tpu/ops/pallas_kernels.py:156"),
-        "body_prefix": ("backscrub_tpu_torch/csrc/body.cu",
+        "body_prefix": ("backscrub_tpu_torch/csrc/body_mega.cu",
                         "backscrub_tpu/ops/megakernel.py:712 (BodyMega, prefix mode)"),
-        "body_cont": ("backscrub_tpu_torch/csrc/body_flat.cu",
+        "body_cont": ("backscrub_tpu_torch/csrc/body_mega.cu",
                       "backscrub_tpu/ops/megakernel.py:794 (BodyMega flat=True, "
                       "continuation chain)"),
-        "gemm": ("backscrub_tpu_torch/csrc/body_flat.cu",
+        "gemm": ("backscrub_tpu_torch/csrc/gemm_tc.cuh",
                  "backscrub_tpu/ops/megakernel.py:501 (BodyMega flat=True, the bf16x3 "
                  "1x1-conv dots of the continuation chain)"),
         "pack_420": ("backscrub_tpu_torch/csrc/blend_pack.cu",

@@ -7,6 +7,8 @@ on the CPU, against the port's plain versions and the JAX package.
   that read a tensor of its own phase would go wrong.  It must equal
   ``BodyPlan.run_plain`` (atol 1e-5: the same operations, fused) and the
   JAX ``BodyMega`` in interpret mode (allclose(2e-3, 1e-3), the body bar).
+  It runs the deeplab tables too (tests/test_torch_deeplab.py), their
+  ``gemm`` ops as ``conv1x1_bf16x3_plain`` on the arena's bf16 halves.
 - The split: ``conv1x1_bf16x3_plain`` against the reference's HIGH split
   (``backscrub_tpu/ops/megakernel.py:501-515``) through
   ``jax.lax.dot_general`` on the CPU, relative error <= 1e-5.
@@ -39,7 +41,7 @@ from backscrub_tpu_torch.ops.megakernel import (_ACT_CODES, _GEMM_TILES, MEGA_CO
 from backscrub_tpu_torch.pipeline import edge as tedge
 from backscrub_tpu_torch.tflite import ir
 
-from test_torch_cuda import span_graph
+from test_torch_cuda import flat_graph, span_graph
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FULL = ROOT / "tests" / "data" / "segm_synth_lite_96x160.tflite"
@@ -73,7 +75,15 @@ def walk(plan, x):
         kind, act, act2 = _CODES[d["code"]], _ACTS[d["act"]], _ACTS[d["act2"]]
         c, n = d["c"], d["n"]
         inv = float(np.int32(d["pinv"]).view(np.float32))
-        if kind in ("conv", "fc"):
+        if kind == "gemm":      # W's bf16 hi and lo, rows padded to kp, two to a float
+            co, kp = d["co"], d["kp"]
+            split = [ar[d[f]:d[f] + co * kp // 2].view(torch.bfloat16).reshape(co, kp)
+                     for f in ("w", "w1")]
+            y = conv1x1_bf16x3_plain(None, arr(d["b"], co), rd(d["in"], c * n).reshape(c, n),
+                                     act, split=split)
+            if d["res"]:
+                y = apply_activation(y + rd(d["aux"], co * n).reshape(co, n), act2)
+        elif kind in ("conv", "convw", "fc"):
             co = d["co"]
             xi = rd(d["in"], c * n).reshape(c, n)
             if d["gate"]:       # the FC weights are stored transposed
@@ -85,6 +95,8 @@ def walk(plan, x):
                                         + arr(d["b2"], c)[:, None], _ACTS[d["actg"]])
                 xi = xi * gate
             y = apply_activation(arr(d["w"], co, c) @ xi + arr(d["b"], co)[:, None], act)
+            if d["bn"]:         # the broadcast that followed the pooled FC
+                y = y.expand(co, d["bn"])
             if d["res"]:
                 y = apply_activation(y + rd(d["aux"], co * n).reshape(co, n), act2)
         elif kind == "dw":
@@ -207,6 +219,27 @@ def test_segm_table_fuses_to_few_phases(segm):
     assert sum(m.get("pool") is not None for m in mt.ops) == 7
     assert sum(m["res"] is not None for m in mt.ops) == 4
     assert kinds.count("copy") == 1 and mt.ops[1]["level"] == 1
+
+
+def test_flat_span_table_walker_matches_plain():
+    """A small flat plan (flat_graph: GEMM ops, the ASPP pooling branch's
+    FC writing its broadcast into a homed concat, a residual in a GEMM's
+    epilogue) walked
+    on the CPU: the body bar of run_plain (f32; the table's GEMMs are
+    bf16x3)."""
+    g, out = flat_graph(ir)
+    plan = BodyPlan(build_model(g), 0, len(g.nodes), 0, out, flat=True)
+    mt = plan.compile_mega()
+    assert dict(mt.kinds) == {"gemm": 2, "gpool": 1, "fc": 1}
+    assert [m.get("bn") for m in mt.ops if m["kind"] == "fc"] == [1089]
+    assert sum(m["res"] is not None for m in mt.ops) == 1
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal((16, 1089)).astype(
+        np.float32))
+    with torch.no_grad():
+        got, phases = walk(plan, x)
+        plain = plan.run_plain(x)
+    assert phases == mt.phases and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, plain, atol=2e-3, rtol=1e-3)
 
 
 def test_span_table_keeps_unfusable_ops(span):

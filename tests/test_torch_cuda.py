@@ -99,13 +99,60 @@ def span_graph(ir):
     return ir.GraphIR("span", ts, nodes, [x], [out]), out
 
 
+def flat_graph(ir):
+    """A 33x33x16 flat span (the deeplab continuation's regime) built from
+    ``ir``: a spatial 1x1 conv, the ASPP pooling branch (global pool, 1x1 on
+    the pooled vector, 1x1 -> 33x33 broadcast), a concat of the broadcast
+    and the conv, a projection 1x1 conv and a residual ADD of the input.
+    Returns (graph, output tensor id)."""
+    rng = np.random.default_rng(9)
+    C, H = 16, 33
+    ts = []
+
+    def t(shape, data=None, dtype=np.float32):
+        ts.append(ir.TensorIR(len(ts), f"t{len(ts)}", tuple(shape), dtype,
+                              None if data is None else np.asarray(data, dtype)))
+        return len(ts) - 1
+
+    def w(*shape):
+        return t(shape, rng.standard_normal(shape) / np.sqrt(shape[-1]))
+
+    x = t((1, H, H, C))
+    nodes = []
+
+    def node(kind, inputs, shape, **opts):
+        out = t(shape)
+        nodes.append(ir.NodeIR(kind, inputs, [out], opts))
+        return out
+
+    conv = dict(padding="SAME", stride_h=1, stride_w=1)
+    a = node("CONV_2D", [x, w(24, 1, 1, C), w(24)], (1, H, H, 24), activation="RELU", **conv)
+    p = node("AVERAGE_POOL_2D", [a], (1, 1, 1, 24), padding="VALID", stride_h=H,
+             stride_w=H, filter_h=H, filter_w=H, activation="NONE")
+    f = node("CONV_2D", [p, w(8, 1, 1, 24), w(8)], (1, 1, 1, 8), activation="RELU", **conv)
+    size = t((2,), [H, H], np.int32)
+    u = node("RESIZE_BILINEAR", [f, size], (1, H, H, 8), align_corners=False,
+             half_pixel_centers=False)
+    k = node("CONCATENATION", [u, a], (1, H, H, 32), axis=3, activation="NONE")
+    y = node("CONV_2D", [k, w(C, 1, 1, 32), w(C)], (1, H, H, C), activation="NONE", **conv)
+    out = node("ADD", [y, x], (1, H, H, C), activation="RELU6")
+    return ir.GraphIR("flat", ts, nodes, [x], [out]), out
+
+
 def test_synthetic_span_kernels_match_plain(cuda_device):
+    """A plan runs on the card only as its op table: not compiled, it
+    raises; compiled, one bs_body_mega launch matches the plain plan."""
     from backscrub_tpu_torch.tflite import ir
     g, out = span_graph(ir)
     plan = BodyPlan(build_model(g), 0, len(g.nodes), 0, out)
     x = torch.from_numpy(np.random.default_rng(2).standard_normal((8, 144)).astype(
         np.float32)).to(cuda_device)
+    with pytest.raises(RuntimeError, match="compile_mega"):
+        plan.run_cuda(x)
+    plan.compile_mega()
+    before = body_launch.by_kernel["bs_body_mega"]
     torch.testing.assert_close(plan.run_cuda(x), plan.run_plain(x), atol=2e-3, rtol=1e-3)
+    assert body_launch.by_kernel["bs_body_mega"] == before + 1
 
 
 @pytest.mark.parametrize("activation", ["NONE", "RELU6", "HARD_SWISH"])
@@ -362,7 +409,7 @@ def test_refused_launches_raise(cuda_device):
     ws = torch.empty(plan._total, device=cuda_device)
     with pytest.raises(RuntimeError, match="bs_body_mega launch failed"):
         _build.launch("bs_body_mega", x.data_ptr(), ws.data_ptr(), arena.data_ptr(),
-                      table.data_ptr(), len(plan.mega.ops), 300 * 1024)
+                      table.data_ptr(), len(plan.mega.ops), 300 * 1024, None)
     with pytest.raises(RuntimeError, match="bs_barrier_bench launch failed"):
         _build.launch("bs_barrier_bench", 1, 1, 64)
     _build.launch("bs_barrier_bench", 10, 0, 0)      # the grid the table runs on
@@ -370,10 +417,23 @@ def test_refused_launches_raise(cuda_device):
 
 
 def test_bcast_kernel(cuda_device):
-    x = torch.arange(256, dtype=torch.float32, device=cuda_device)
-    y = torch.empty((256, 1089), dtype=torch.float32, device=cuda_device)
-    _build.launch("bs_bcast", x.data_ptr(), y.data_ptr(), 256, 1089)
-    assert torch.equal(y, x[:, None].expand(256, 1089))
+    """The table's broadcast (the ASPP pooling branch: gpool, then the fc
+    writing its output across the columns of a homed concat) and GEMM ops,
+    one with a residual, on a small flat plan: one bs_body_mega launch,
+    within the body bar of the plain plan, two runs bit-identical."""
+    from backscrub_tpu_torch.tflite import ir
+    g, out = flat_graph(ir)
+    plan = BodyPlan(build_model(g), 0, len(g.nodes), 0, out, flat=True)
+    plan.compile_mega()
+    assert plan.mega.kinds["gemm"] == 2 and plan.mega.kinds["copy"] == 0
+    assert [m.get("bn") for m in plan.mega.ops if m["kind"] == "fc"] == [1089]
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal((16, 1089)).astype(
+        np.float32)).to(cuda_device)
+    before = body_launch.by_kernel["bs_body_mega"]
+    got = plan.run_cuda(x).clone()
+    assert body_launch.by_kernel["bs_body_mega"] == before + 1
+    torch.testing.assert_close(got, plan.run_plain(x), atol=2e-3, rtol=1e-3)
+    assert torch.equal(got, plan.run_cuda(x))
 
 
 def _deeplab(device, n):
@@ -389,14 +449,16 @@ def test_deeplab_prefix_and_continuation_match_plain(cuda_device):
     pre, cont = e.prefix_plan, e.cont_plan
     with torch.no_grad():
         h = e.front(frame).reshape(16, -1)
-        before = pre.launches, cont.launches, body_launch.by_kernel["bs_bcast"]
+        before = pre.launches, cont.launches, dict(body_launch.by_kernel)
         k2 = pre.run_cuda(h)
         torch.testing.assert_close(k2, pre.run_plain(h), atol=2e-3, rtol=1e-3)
         k3 = cont.run_cuda(k2)
         torch.testing.assert_close(k3, cont.run_plain(k2), atol=2e-3, rtol=1e-3)
-    assert (pre.launches, cont.launches) == (before[0] + pre.launches_per_run,
-                                             before[1] + cont.launches_per_run)
-    assert body_launch.by_kernel["bs_bcast"] == before[2] + 1
+        assert torch.equal(k2, pre.run_cuda(h)) and torch.equal(k3, cont.run_cuda(k2))
+    # each plan: one bs_body_mega launch a run, no other body kernel
+    assert (pre.launches, cont.launches) == (before[0] + 2, before[1] + 2)
+    assert dict(body_launch.by_kernel) == dict(
+        before[2], bs_body_mega=before[2].get("bs_body_mega", 0) + 4)
 
 
 def test_deeplab_pipeline_matches_plain(cuda_device):

@@ -15,6 +15,10 @@ chain, whose dots emulate XLA's HIGH precision as three bf16 passes
 (products carry ~2^-16 relative error, summed over up to 512 terms);
 masks, EMA and YUYV under the repo's tolerance invariant (at most 2% of a
 frame's bytes differ, at most 0.2% over the sequence).
+
+Both plans run on the card as one launch of the persistent kernel each;
+their op tables are walked here on the CPU (``walk`` of
+tests/test_torch_body_mega.py) against ``run_plain`` and the JAX kernels.
 """
 
 import collections
@@ -38,16 +42,21 @@ from backscrub_tpu.pipeline.geometry import compute_roi
 from backscrub_tpu.pipeline.maskgen import MaskGen as JaxMaskGen
 from backscrub_tpu_torch.graph.executor import load_model, params_from_jax
 from backscrub_tpu_torch.models import specs
-from backscrub_tpu_torch.ops.megakernel import (BodyPlan, Unsupported,
+from backscrub_tpu_torch.ops import megakernel as tmega
+from backscrub_tpu_torch.ops.megakernel import (_MAX_SMEM, _MEGA_GEMM_TILES, MEGA_CODES,
+                                                MEGA_FIELDS, BodyPlan, Unsupported,
                                                 body_plan_continuation_for,
                                                 body_plan_prefix_for)
 from backscrub_tpu_torch.pipeline import edge as tedge
 from backscrub_tpu_torch.pipeline.frame import FramePipeline, PipelineConfig
 from backscrub_tpu_torch.pipeline.maskgen import MaskGen
 
+from test_torch_body_mega import walk
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 DEEPLAB = str(ROOT / "tests" / "data" / "deeplab_synth_257.tflite")
 FRAME_TOL, MEAN_TOL = 0.02, 0.002
+_F = {f: i for i, f in enumerate(MEGA_FIELDS)}
 
 
 def _tools():
@@ -158,11 +167,13 @@ def test_cut_points_match_jax(cuts):
     assert [p[0] for p in tp.plan] == [p[0] for p in jp.plan]
     assert [p[0] for p in tc.plan] == [p[0] for mk in jlinks for p in mk.plan]
     assert tp.out_meta.sp == jp.out_meta.sp == 4 and (tp.out_meta.rows, tp.out_meta.w) == (33, 33)
-    # K2'' runs the new kernels: GEMMs for the spatial 1x1 convs, the
-    # broadcast, and depthwise convs at dilation 1, 2 and 4
-    assert tc.kernels_per_run["bs_gemm"] == 29 and tc.kernels_per_run["bs_bcast"] == 1
+    # each plan is one launch of the persistent kernel; K2'''s table has
+    # GEMM ops for the spatial 1x1 convs, the broadcast, and depthwise
+    # convs at dilation 1, 2 and 4
+    assert dict(tc.kernels_per_run) == dict(tp.kernels_per_run) == {"bs_body_mega": 1}
+    assert tc.mega.kinds["gemm"] == 29 and tp.mega.kinds["gemm"] == 0
+    assert [m.get("bn") for m in tc.mega.ops if m["kind"] == "fc"] == [33 * 33]
     assert {p[8] for p in tc.plan if p[0] == "dw"} == {1, 2, 4}
-    assert tp.kernels_per_run["bs_gemm"] == 0
 
 
 def test_continuation_concat_is_homed(cuts):
@@ -176,7 +187,7 @@ def test_continuation_concat_is_homed(cuts):
     assert tins[0] == bcast[2] and tc._copies[tout] == []
     assert tc._offsets[tins[0]] == tc._offsets[tout]
     assert tc._offsets[tins[1]] == tc._offsets[tout] + 256 * 33 * 33
-    assert tc.launches_per_run == len(tc.plan) - 1
+    assert tc.launches_per_run == 1 and tc.mega.kinds["copy"] == 0
 
 
 def _rowpad(x, rs):
@@ -192,33 +203,117 @@ def _unrowpad(y, meta, rs):
                      for i in range(meta.rows)], axis=1)
 
 
-def test_prefix_matches_jax_interpret(cuts):
-    jp, tp = cuts[0][0], cuts[2][0]
+@pytest.fixture(scope="module")
+def prefix_ref(cuts):
+    """A seeded prefix input (16, 129, 129) and the JAX prefix megakernel's
+    output on it (interpret mode), (16, 33, 33)."""
+    jp = cuts[0][0]
     x = np.random.default_rng(3).uniform(0, 6, (16, 129, 129)).astype(np.float32)
     ref = _unrowpad(np.asarray(jax.jit(jp)(jnp.asarray(_rowpad(x, jp.rs)))),
                     jp.out_meta, jp.rs)
+    return x, ref
+
+
+@pytest.fixture(scope="module")
+def cont_ref(pair, cuts):
+    """A seeded continuation input (16, 33, 33) and on it the JAX span
+    lowerings (f32 on the CPU: the edge_cont=False remainder) and the JAX
+    chain (edge_cont=True, bf16x3 dots, interpret mode), each (21, 33, 33)."""
+    jm = pair[0]
+    jlinks, jend, jout = cuts[1]
+    _, cut, cut_tid = cuts[2]
+    x = (np.random.default_rng(4).standard_normal((16, 33, 33)) * 0.5).astype(np.float32)
+    span = jedge._make_span_fn(jm, cut, jend, cut_tid, jout)
+    f32 = np.asarray(jax.jit(span)(jm.params, jnp.asarray(x.transpose(1, 2, 0)[None])))
+    h = jnp.asarray(x.reshape(16, -1))
+    for mk in jlinks:
+        h = jax.jit(mk)(h)
+    return x, f32[0].transpose(2, 0, 1), np.asarray(h).reshape(21, 33, 33)
+
+
+def test_prefix_matches_jax_interpret(cuts, prefix_ref):
+    tp = cuts[2][0]
+    x, ref = prefix_ref
     with torch.no_grad():
         got = tp(torch.from_numpy(x.reshape(16, -1))).reshape(16, 33, 33).numpy()
     np.testing.assert_allclose(got, ref, atol=2e-3, rtol=1e-3)
 
 
-def test_continuation_matches_jax(pair, cuts):
-    jm = pair[0]
-    jlinks, jend, jout = cuts[1]
-    _, cut, cut_tid = cuts[2]
+def test_continuation_matches_jax(cuts, cont_ref):
     tc = cuts[3][0]
-    x = (np.random.default_rng(4).standard_normal((16, 33, 33)) * 0.5).astype(np.float32)
+    x, f32, chain = cont_ref
     with torch.no_grad():
         got = tc(torch.from_numpy(x.reshape(16, -1))).reshape(21, 33, 33).numpy()
-    # the edge_cont=False remainder: the JAX span lowerings, f32 on the CPU
-    span = jedge._make_span_fn(jm, cut, jend, cut_tid, jout)
-    ref = np.asarray(jax.jit(span)(jm.params, jnp.asarray(x.transpose(1, 2, 0)[None])))
-    np.testing.assert_allclose(got, ref[0].transpose(2, 0, 1), atol=2e-3, rtol=1e-3)
-    # the edge_cont=True chain (bf16x3 dots)
-    h = jnp.asarray(x.reshape(16, -1))
-    for mk in jlinks:
-        h = jax.jit(mk)(h)
-    np.testing.assert_allclose(got, np.asarray(h).reshape(21, 33, 33), atol=2e-3, rtol=1e-3)
+    np.testing.assert_allclose(got, f32, atol=2e-3, rtol=1e-3)
+    np.testing.assert_allclose(got, chain, atol=2e-3, rtol=1e-3)
+
+
+def _walked(plan, x):
+    """``plan``'s op table walked on the CPU on ``x``, and run_plain on it."""
+    xt = torch.from_numpy(x.reshape(plan.in_meta.c, -1))
+    with torch.no_grad():
+        got, phases = walk(plan, xt)
+        plain = plan.run_plain(xt)
+    assert phases == plan.mega.phases
+    assert bool(torch.isfinite(got).all())
+    return got, plain
+
+
+def test_prefix_table_walker_matches_plain_and_jax(cuts, prefix_ref):
+    """The prefix's op table (f32 convs at 129x129 and 65x65) walked phase
+    by phase: atol 1e-5 of run_plain (the same f32 operations, fused), the
+    body bar of the JAX prefix kernel."""
+    tp = cuts[2][0]
+    x, ref = prefix_ref
+    got, plain = _walked(tp, x)
+    torch.testing.assert_close(got, plain, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got.reshape(16, 33, 33).numpy(), ref, atol=2e-3, rtol=1e-3)
+
+
+def test_continuation_table_walker_matches_plain_and_jax(cuts, cont_ref):
+    """The continuation's op table, its 29 GEMM ops in the bf16x3 split,
+    walked phase by phase: the body bar against run_plain (f32) and the JAX
+    chain (the same split)."""
+    tc = cuts[3][0]
+    x, _, chain = cont_ref
+    got, plain = _walked(tc, x)
+    torch.testing.assert_close(got, plain, atol=2e-3, rtol=1e-3)
+    np.testing.assert_allclose(got.reshape(21, 33, 33).numpy(), chain, atol=2e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("which", ["prefix", "cont"])
+def test_deeplab_tables_structure(cuts, which):
+    """Each deeplab plan is one bs_body_mega launch over a table that covers
+    every plan op, with no copy op (the ASPP concat is homed).  The prefix
+    keeps f32 convs, column-wise (``convw``) at 129x129 and 65x65 and tiled
+    at 33x33, its residual ADD in a conv's epilogue; the
+    continuation has its 29 spatial 1x1 convs as ``gemm`` ops, each tile
+    grid at most one round of 132 CTAs, depthwise convs at dilations 1, 2
+    and 4, each a round of items, the ASPP pool -> 1x1 -> broadcast as
+    gpool and an fc that writes its broadcast, and its 9 residual ADDs in
+    GEMM epilogues (the model's 10th is the prefix's)."""
+    plan = cuts[2][0] if which == "prefix" else cuts[3][0]
+    mt = plan.mega
+    assert dict(plan.kernels_per_run) == {"bs_body_mega": 1} and plan.launches_per_run == 1
+    assert mt.covered == list(range(len(plan.plan)))
+    assert int(mt.table[:, _F["sync"]].sum()) + 1 == mt.phases
+    assert mt.table[-1, _F["sync"]] == 0 and mt.smem_bytes <= _MAX_SMEM
+    dils = {int(r[_F["d"]]) for r in mt.table if r[_F["code"]] == MEGA_CODES["dw"]}
+    fused = sum(m["res"] is not None for m in mt.ops)
+    if which == "prefix":
+        assert dict(mt.kinds) == {"convw": 6, "conv": 1, "dw": 4} and dils == {1}
+        assert fused == 1
+        assert mt.phases == 11
+        return
+    assert dict(mt.kinds) == {"gemm": 29, "dw": 13, "gpool": 1, "fc": 1}
+    assert dils == {1, 2, 4} and fused == 9 and mt.phases == 43
+    for r in mt.table[mt.table[:, _F["code"]] == MEGA_CODES["dw"]]:
+        bands = -(-r[_F["oh"]] // r[_F["band"]])
+        assert bands * -(-r[_F["c"]] // r[_F["cpi"]]) <= 132
+    assert all(m["kind"] == "gemm" for m in mt.ops if m["res"] is not None)
+    for r in mt.table[mt.table[:, _F["code"]] == MEGA_CODES["gemm"]]:
+        bm, bn = _MEGA_GEMM_TILES[r[_F["tile"]]]
+        assert -(-r[_F["co"]] // bm) * -(-r[_F["n"]] // bn) <= 132
 
 
 def test_plan_guards(pair):
@@ -313,6 +408,30 @@ def test_continuation_that_fails_a_flat_guard_takes_the_classic_path(monkeypatch
     assert MaskGen(DEEPLAB, 640, 480, device="cpu").edge is None
     assert MaskGen(DEEPLAB, 640, 480, edge_cont=False,
                    device="cpu").edge.prefix_plan is not None
+
+
+def test_table_that_does_not_compile_takes_the_classic_path(monkeypatch):
+    """A plan whose op table does not fit the persistent kernel gets no
+    fused path, never per-op kernels: with the continuation's table over
+    the shared memory a CTA has, auto mode runs the classic stages and
+    edge_fused=True raises, while without cont the prefix still fuses; with
+    the prefix's depthwise windows over their capacity, not even that."""
+    tm = load_model(DEEPLAB, "cpu")
+    geo = compute_roi(640, 480, 257, 257, 257, 257)
+    info = tedge.edge_applicable(tm, specs.spec_for_model(DEEPLAB), geo)
+    _, cut, cut_tid = body_plan_prefix_for(tm, info)
+    monkeypatch.setattr(tmega, "_MAX_SMEM", 64 * 1024)    # the continuation needs ~94 KB
+    with pytest.raises(Unsupported, match="shared memory"):
+        BodyPlan(tm, cut, 69, cut_tid, tm.graph.nodes[68].outputs[0], flat=True).compile_mega()
+    assert body_plan_continuation_for(tm, info, cut, cut_tid) is None
+    assert tedge.body_plans(tm, info, None, True) is None
+    with pytest.raises(ValueError, match="edge_fused=True"):
+        MaskGen(DEEPLAB, 640, 480, edge_fused=True, device="cpu")
+    assert MaskGen(DEEPLAB, 640, 480, device="cpu").edge is None
+    assert MaskGen(DEEPLAB, 640, 480, edge_cont=False, device="cpu").edge.prefix_plan is not None
+    monkeypatch.setattr(tmega, "_DW_SMEM_FLOATS", 256)    # under a 129-wide window's 387
+    assert body_plan_prefix_for(tm, info) is None
+    assert MaskGen(DEEPLAB, 640, 480, edge_cont=False, device="cpu").edge is None
 
 
 def test_post_footprint_bounds_what_an_ema_flip_moves():

@@ -11,7 +11,8 @@ then prints:
   each of the port's own kernels' launches per frame and device time per
   launch;
 - the device time of each body plan of the fused path (K2, or K2' and
-  K2'') run alone on the frame's body input, by kernel name;
+  K2'') run alone on the frame's body input, by kernel name (each plan is
+  one ``bs_body_mega`` launch over its op table: its ops and phases);
 - optionally (``--trace PATH``) the window's Chrome trace.
 
 ``--classic`` runs the classic stages (``edge_fused=False``: preprocess
@@ -39,9 +40,8 @@ import numpy as np
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the __global__ functions of backscrub_tpu_torch/csrc (templates by name)
 _PORT_KERNELS = {"front_kernel", "bilateral_kernel", "blend_pack_yuyv_kernel",
-                 "blend_pack_420_kernel", "conv1x1_kernel", "dw_kernel", "gemm_tc_kernel",
-                 "splitk_sum_kernel", "eltwise_kernel", "gpool_kernel", "resize_kernel",
-                 "bcast_kernel", "copy_kernel", "body_mega_kernel"}
+                 "blend_pack_420_kernel", "gemm_tc_kernel", "splitk_sum_kernel",
+                 "body_mega_kernel"}
 
 
 def _kernel_name(key: str) -> str:
@@ -49,6 +49,21 @@ def _kernel_name(key: str) -> str:
     template arguments or parameter list."""
     key = key.replace("(anonymous namespace)::", "")
     return key.removeprefix("void ").split("(")[0].split("<")[0]
+
+
+def _print_phases(plan, x, runs: int = 20) -> None:
+    """The plan's phases by the device clock (``BodyPlan.phase_ns``, the
+    median of ``runs`` measurement runs), each with its table ops."""
+    ns = np.median(np.array([plan.phase_ns(x) for _ in range(runs)]), axis=0)
+    ops = {}
+    for m in plan.mega.ops:
+        ops.setdefault(m["level"], []).append(m)
+    print(f"  phases by device clock (median of {runs} runs): {ns.sum() / 1e3:.2f} us")
+    for level, t in enumerate(ns, 1):
+        desc = ", ".join(f"{m['kind']}{'+res' if m.get('res') is not None else ''} "
+                         f"{plan.meta[m['src']].c}->{plan.meta[m['out']].c}"
+                         for m in ops.get(level, []))
+        print(f"  phase {level}: {t / 1e3:.2f} us  {desc}")
 
 
 def main(argv=None) -> int:
@@ -145,10 +160,13 @@ def main(argv=None) -> int:
                 rows = {k.key: k.self_device_time_total / a.window
                         for k in pp.key_averages() if k.device_type == DeviceType.CUDA}
                 print(f"plan {name} -> {m.c}x{m.rows}x{m.w}, "
-                      f"{plan.launches_per_run} launches: device "
+                      f"{dict(plan.kernels_per_run)} a run, {len(plan.mega.ops)} table ops "
+                      f"in {plan.mega.phases} phases: device "
                       f"{sum(rows.values()):.2f} us/run; " + "; ".join(
                           f"{_kernel_name(k)} {v:.2f} us"
                           for k, v in sorted(rows.items(), key=lambda kv: -kv[1])))
+                if plan.mega is not None:
+                    _print_phases(plan, x)
                 x = y
     return 0
 
