@@ -42,6 +42,11 @@ SIGNATURES = {
     "bs_gemm": (P, P, P, P, P, P, I, I, I, I, I, I, I, I, P),
     "bs_body_mega": (P, P, P, P, I, I, P, P),
     "bs_barrier_bench": (I, I, I, P),
+    "bs_probe_dw9": (P, P, I, I, I, I, I, I, P),
+    "bs_probe_dot": (P, P, P, I, I, P),
+    "bs_probe_se": (P, P, P, I, I, P),
+    "bs_probe_cat": (P, P, P, I, I, P),
+    "bs_probe_stride2": (P, P, I, I, P),
 }
 
 

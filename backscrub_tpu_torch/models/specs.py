@@ -4,8 +4,11 @@ The reference sniffs the model "type" from the filename
 (``lib/libbackscrub.cc:116-130``) and hardcodes normalization per type
 (``:132-148``) and decode rules (``:317-361``).  A :class:`ModelSpec`
 carries both as data, and which families take the flat continuation
-(K2'', ``edge_cont``).  The JAX spec's MXU precision has no counterpart:
-the port computes f32 throughout.
+(K2'', ``edge_cont``).  The JAX spec's MXU precision is not a field
+here: the plans' plain versions and the classic path compute f32, and
+the flat continuation's GEMM (K2'') computes bf16x3, the deeplab
+family's HIGH precision (``backscrub_tpu/models/specs.py:59-61``), on the
+card and in ``BodyPlan.run_plain(gemm="bf16x3")``.
 """
 
 from __future__ import annotations

@@ -438,15 +438,24 @@ class BodyPlan:
         m = self.meta[tid]
         return (m.c, 1) if m.vec else (m.c, m.rows * m.w)
 
-    def run_plain(self, x: torch.Tensor) -> torch.Tensor:
-        """The plan in plain PyTorch on (C, H*W) tensors (any device)."""
+    def run_plain(self, x: torch.Tensor, gemm: str = "f32") -> torch.Tensor:
+        """The plan in plain PyTorch on (C, H*W) tensors (any device).
+        ``gemm="bf16x3"`` runs a flat plan's spatial 1x1 convs, the ops its
+        table runs as ``gemm`` ops, as :func:`conv1x1_bf16x3_plain`: the
+        kernel's own arithmetic.  Every other op, and every op of the
+        default ``"f32"``, is f32."""
+        if gemm not in ("f32", "bf16x3"):
+            raise ValueError(f"gemm must be 'f32' or 'bf16x3', got {gemm!r}")
+        split = gemm == "bf16x3" and self.flat
         ws = self._weights_on(x.device)
         env = {self.in_tid: x.float().reshape(self._shape(self.in_tid))}
         for p in self.plan:
             op = p[0]
             if op == "conv1x1":
                 _, tin, tout, wi, bi, act = p
-                env[tout] = conv1x1_plain(ws[wi], ws[bi], env[tin], act)
+                conv = (conv1x1_bf16x3_plain if split and not self.meta[tin].vec
+                        else conv1x1_plain)
+                env[tout] = conv(ws[wi], ws[bi], env[tin], act)
             elif op == "dw":
                 _, tin, tout, wi, bi, fh, fw, st, dil, plo_h, plo_w, act = p
                 m, om = self.meta[tin], self.meta[tout]

@@ -459,14 +459,15 @@ class EdgeFused:
         fn = front_plain if plain else front_fused
         return fn(self.canvas(frame_bgr_u8), self.front_params, **self.front_kwargs())
 
-    def body(self, h: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    def body(self, h: torch.Tensor, plain: bool = False, gemm: str = "f32") -> torch.Tensor:
         """(C, oh, ow) -> the body output (C_out, H_out, W_out): the tail's
         input, or front only the model output in channel-major order.
-        ``plain`` runs the plans' plain versions on any device."""
+        ``plain`` runs the plans' plain versions on any device, their flat
+        GEMMs in ``gemm`` precision (``BodyPlan.run_plain``)."""
         for plan in self.plans:
             m = plan.out_meta
             x = h.reshape(h.shape[0], -1)
-            h = (plan.run_plain(x) if plain else plan(x)).reshape(m.c, m.rows, m.w)
+            h = (plan.run_plain(x, gemm) if plain else plan(x)).reshape(m.c, m.rows, m.w)
         if self.rest is not None:
             h = self.rest(h.permute(1, 2, 0)[None])[0].permute(2, 0, 1)
         return h
@@ -485,9 +486,11 @@ class EdgeFused:
         """EMA (oh, ow) u8 -> full-frame mask (H, W) u8."""
         return postprocess_mask(ema, self.geo, self.post_mats)
 
-    def step_mask(self, frame: torch.Tensor, ema: torch.Tensor, plain: bool = False):
-        """``plain`` runs every kernel's plain version (on any device)."""
-        out = self.body(self.front(frame, plain), plain)
+    def step_mask(self, frame: torch.Tensor, ema: torch.Tensor, plain: bool = False,
+                  gemm: str = "f32"):
+        """``plain`` runs every kernel's plain version (on any device), the
+        flat GEMMs in ``gemm`` precision."""
+        out = self.body(self.front(frame, plain), plain, gemm)
         if self.info.tail_ok:
             new_ema = self.tail(out.reshape(out.shape[0], -1), ema)
         else:

@@ -26,14 +26,18 @@ Usage (from the repository root, on a machine with a CUDA card)::
    at 640x480: K1 at the 257x257 canvas, K2' (the prefix plan) and K2''
    (the flat continuation plan), each one ``bs_body_mega`` launch a run
    over its op table (table ops and phases printed, two runs
-   bit-identical), against their plain versions (allclose(atol=2e-3,
-   rtol=1e-3)), timed with CUDA events and as device time; the bf16x3
+   bit-identical), against their plain versions (K2' allclose(atol=2e-3,
+   rtol=1e-3); K2'' against ``run_plain(gemm="bf16x3")``, its own
+   arithmetic, at MATCHED_ATOL/RTOL and a mean-abs bar, the f32 distance
+   printed as the precision gap beside the twins' one-ulp noise floor),
+   timed with CUDA events and as device time; the bf16x3
    tensor-core GEMM tile that the continuation's table runs as its GEMM
    ops, alone (``bs_gemm``, its standalone probe) at every 1x1 shape of
    the continuation against ``conv1x1_plain`` (allclose(2e-3, 1e-3)) and
    ``conv1x1_bf16x3_plain`` (1e-5 relative), bit-identical over two runs,
-   with its device time beside ``torch.addmm``'s; then 30
-   frames of ``FramePipeline`` against the plain path on the card under
+   with its device time beside ``torch.addmm``'s; then 30 frames held out
+   from the synthetic model's fit (seed 1, frames 30-59) of
+   ``FramePipeline`` against the plain path (K2'' in bf16x3) on the card under
    the tolerance invariant (every decode flip a near-tie of class 15's
    margin, the EMAs equal wherever the decode never flipped, no byte off
    by more than 1 outside the post's footprint of the EMA pixels that
@@ -55,7 +59,14 @@ Usage (from the repository root, on a machine with a CUDA card)::
    hooks on the deeplab model at 640x480 (one K5 launch a frame at
    257x257, hooks in order), masks held to the deeplab rule above;
 9. a pipeline constructed without ``device=`` lands on ``cuda``;
-10. prints one JSON line with every kernel's numbers (launches from the
+10. P1-P7, the probe kernels of ``tools/probe_mosaic.py``
+   (``csrc/probes.cu``), through ``tools/probe_hopper.py`` on the
+   original's inputs: the probe path once from zeroed counts (each kernel
+   within the original's atol of its numpy reference), each kernel
+   against its plain twin (P1, P2, P5-P7 bit-identical, P3 at DEFAULT,
+   HIGH and HIGHEST and P4 within 1e-5), two runs bit-identical, device
+   times beside the library calls' (P3's precisions on one line);
+11. prints one JSON line with every kernel's numbers (launches from the
    run of the path it serves, errors and times measured here, and the
    bound: the larger of the bytes it must move over 3.35 TB/s and its
    operations over the peak of their type, 67 TFLOP/s f32 or 989 TFLOP/s
@@ -65,7 +76,9 @@ Usage (from the repository root, on a machine with a CUDA card)::
    ``library_ms`` = ``torch.addmm`` and its device and back-to-back times;
    the GEMM's ``launches`` are the GEMM ops that the continuation's
    ``bs_body_mega`` launches ran on the main path, its other numbers those
-   of the standalone probe at the ASPP shape), then
+   of the standalone probe at the ASPP shape; K2'' with its
+   ``precision_gap``; P1-P7 with their launches on the probe path,
+   ``main_path_launches`` 0, ``device_ms`` and ``library_ms`` or null), then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failure raises and the script exits non-zero; without CUDA it exits 1
@@ -90,6 +103,18 @@ DEEPLAB = os.path.join(REPO, "tests", "data", "deeplab_synth_257.tflite")
 DEEPLAB_SIZE, DEEPLAB_FRAMES = (640, 480), 30
 PERSON, TIE = 15, 1e-3      # deeplab's person class; a near-tie decode margin
 ATOL, RTOL = 2e-3, 1e-3
+# K2'' against its plain version in its own arithmetic (bf16x3 GEMMs).  The
+# split rounds each GEMM input's low half to bf16, so a one-ulp difference
+# in an input (another summation order upstream) moves the chain's output
+# ~20x more than in f32: on an H100 (700 W) a one-ulp nudge of the first
+# held-out frame's continuation input moved the bf16x3 plain plan by
+# 5.89e-4 at most and the f32 one by 3.24e-5 (deeplab_phase prints this
+# each run).  So the max-abs bar sits above that floor, and the mean-abs bar
+# discriminates: tests/test_torch_deeplab.py::
+# test_continuation_bf16x3_noise_floor holds the floor's mean under half of
+# it and a GEMM that drops one cross term over ten times it.
+MATCHED_ATOL, MATCHED_RTOL, MATCHED_MEAN = 2e-3, 1e-4, 1e-4
+PROBE_TOL = 1e-5           # P3 and P4 against their plain twins (summation order)
 FRAME_TOL, MEAN_TOL = 0.02, 0.002
 CLASSIC_SIZE, CLASSIC_FRAMES, STAGED_FRAMES = (640, 480), 30, 10
 VARIANT_FRAMES = 5         # classic I420 and flipped runs
@@ -131,6 +156,13 @@ def cont_work(plan):
     mm = sum(2 * plan.weights[p[3]].size * plan.meta[p[1]].rows * plan.meta[p[1]].w
              for p in gemm_ops(plan))
     return nbytes, flops - mm, 3 * mm
+
+
+def ulp_nudge(x, seed):
+    """``x`` with every element moved one ulp up or down (seeded signs)."""
+    import torch
+    s = np.random.default_rng(seed).choice([-1.0, 1.0], tuple(x.shape)).astype(np.float32)
+    return torch.nextafter(x, x + torch.from_numpy(s).to(x.device) * 1e30)
 
 
 def b2b_ms(fn, n=100, warmup=3):
@@ -387,11 +419,11 @@ def pipeline_phase(w, h):
     return launches, ms
 
 
-def _held(name, k, p, fn_k, fn_p):
+def _held(name, k, p, fn_k, fn_p, atol=ATOL, rtol=RTOL):
     """Hold kernel output ``k`` against plain ``p``; time both callables."""
     import torch
     torch.cuda.synchronize()
-    torch.testing.assert_close(k, p, atol=ATOL, rtol=RTOL)
+    torch.testing.assert_close(k, p, atol=atol, rtol=rtol)
     r = dict(max_abs_err=float((k - p).abs().max()), ms=timed(fn_k), plain_ms=timed(fn_p))
     print(f"kernel {name} deeplab {DEEPLAB_SIZE[0]}x{DEEPLAB_SIZE[1]}: "
           f"max_abs_err={r['max_abs_err']:.3g} kernel {r['ms'][0]:.4f} ms "
@@ -503,7 +535,10 @@ def deeplab_phase():
             or not any(m.get("bn") for m in cont.mega.ops):
         raise AssertionError("the continuation table lacks the GEMM, the broadcast "
                              "or the dilated depthwise convs")
-    frames = [torch.from_numpy(f).cuda() for f in moving_frames(w, h, DEEPLAB_FRAMES)]
+    # held out from the synthetic model's fit (seed 0, frames 0-29): another
+    # seed's grain and frame indices 30-59 (the pose repeats every ~21 frames)
+    frames = [torch.from_numpy(f).cuda()
+              for f in moving_frames(w, h, 2 * DEEPLAB_FRAMES, seed=1)[DEEPLAB_FRAMES:]]
     res = {}
     with torch.no_grad():
         canvas, kw = e.canvas(frames[0]), e.front_kwargs()
@@ -525,8 +560,28 @@ def deeplab_phase():
                                    lambda: pre.run_cuda(x), lambda: pre.run_plain(x))
         res["body_prefix"]["bound"] = bound(*pre.work())
         res["body_prefix"]["device_ms"] = device_ms(lambda: pre.run_cuda(x))
-        res["body_cont"] = _held("body_cont", k3, cont.run_plain(k2),
-                                 lambda: cont.run_cuda(k2), lambda: cont.run_plain(k2))
+        # held to the plain plan in the kernel's own arithmetic (its GEMM ops
+        # bf16x3); the f32 plain plan's distance is the precision gap
+        res["body_cont"] = _held("body_cont", k3, cont.run_plain(k2, gemm="bf16x3"),
+                                 lambda: cont.run_cuda(k2),
+                                 lambda: cont.run_plain(k2, gemm="bf16x3"),
+                                 atol=MATCHED_ATOL, rtol=MATCHED_RTOL)
+        matched, f32 = cont.run_plain(k2, gemm="bf16x3"), cont.run_plain(k2)
+        mean = float((k3 - matched).abs().mean())
+        gap = float((k3 - f32).abs().max())
+        # the twins' own noise floor: their input nudged by one ulp
+        nudged = ulp_nudge(k2, 7)
+        floor = float((cont.run_plain(nudged, gemm="bf16x3") - matched).abs().max())
+        floor_f32 = float((cont.run_plain(nudged) - f32).abs().max())
+        res["body_cont"].update(precision_gap=gap, mean_abs_err=mean)
+        print(f"deeplab continuation: against run_plain(gemm='bf16x3') max_abs_err "
+              f"{res['body_cont']['max_abs_err']:.3g} (allclose(atol={MATCHED_ATOL:g}, "
+              f"rtol={MATCHED_RTOL:g})), mean {mean:.3g} (<= {MATCHED_MEAN:g}); precision gap "
+              f"to the f32 plain plan {gap:.3g} (mean {float((k3 - f32).abs().mean()):.3g}); "
+              f"a one-ulp nudge of the input moves the bf16x3 plain plan by {floor:.3g}, the "
+              f"f32 one by {floor_f32:.3g}")
+        if mean > MATCHED_MEAN:
+            raise AssertionError(f"K2'' is {mean:.3g} from its matched twin on average")
         res["body_cont"]["bound"] = bound(*cont_work(cont))
         res["body_cont"]["device_ms"] = device_ms(lambda: cont.run_cuda(k2))
         print(f"deeplab tables, device time a run: prefix "
@@ -590,7 +645,8 @@ def deeplab_phase():
         for f, (yuyv, mask, ema_k) in zip(frames, outs):
             if yuyv.shape != (h, 2 * w) or mask.shape != (h, w):
                 raise AssertionError(f"output shapes {yuyv.shape} {mask.shape}")
-            logits = e.body(e.front(f, plain=True), plain=True).permute(1, 2, 0)
+            logits = e.body(e.front(f, plain=True), plain=True,
+                            gemm="bf16x3").permute(1, 2, 0)
             ema = ema_update(ema, decode_val(logits, e.spec))
             rm = e.postprocess(ema)
             ry = blend_pack_yuyv_plain(f, bg, rm)
@@ -616,7 +672,8 @@ def deeplab_phase():
     print(f"pipeline deeplab {w}x{h}: {n} frames, {ms:.4f} ms/frame (host clock, "
           f"synchronized), launches {launches}, differing bytes vs plain path mean "
           f"{100 * np.mean(fracs):.4f}% max {100 * max(fracs):.4f}% ({sum(map(bool, fracs))} "
-          f"frames differ), decode flips {flips} (largest |margin| {flip_margin:.3g}), "
+          f"frames differ), decode flips against the matched plain path {flips} "
+          f"(largest |margin| {flip_margin:.3g}), "
           f"bytes in the flips' footprint {masked} of {n * 3 * h * w}, max byte diff "
           f"outside it {worst}, person fraction {person:.3f}")
     if max(fracs) > FRAME_TOL or float(np.mean(fracs)) > MEAN_TOL or worst > 1:
@@ -880,6 +937,70 @@ def device_check():
     print(f"default device: {pipe.device}")
 
 
+def probe_phase():
+    """P1-P7, the probe kernels of tools/probe_mosaic.py (csrc/probes.cu),
+    on the original's inputs through tools/probe_hopper.py: the probe path
+    once with the counts from 0 (each kernel against the original's numpy
+    reference at its atol), then each kernel against its plain twin (P1, P2
+    and P5-P7 bit-identical, P3 and P4 within PROBE_TOL), two runs
+    bit-identical, the library call against the reference too; CUDA-event
+    and device times.  Returns {probe name: numbers} and the path's
+    launches by kernel id."""
+    import torch
+    import probe_hopper
+    from backscrub_tpu_torch.ops import probe_kernels as pk
+    from backscrub_tpu_torch.pipeline.maskgen import set_precision_policy
+
+    if any(k.launches for k in pk.KERNELS):
+        raise AssertionError("a probe kernel ran on the pipelines' paths")
+    set_precision_policy()
+    ps = probe_hopper.probes("cuda")
+    res = {}
+    with torch.no_grad():
+        for k in pk.KERNELS:
+            k.launches = 0
+        checked = probe_hopper.run(ps)
+        torch.cuda.synchronize()
+        launches = {p.kernel_id: p.counter.launches for p in ps}
+        if launches != dict(P1=1, P2=1, P3=3, P4=1, P5=1, P6=1, P7=1):
+            raise AssertionError(f"the probe path launched {launches}")
+        for p, ok, err in checked:
+            if not ok:
+                raise AssertionError(f"{p.kernel_id} {p.name}: {err:.3g} from the "
+                                     f"original's reference (atol {p.atol:g})")
+            k, k2, pl = p.kernel(), p.kernel(), p.plain()
+            lib = p.library() if p.library else None
+            torch.cuda.synchronize()
+            diff = float((k - pl).abs().max())
+            if (not torch.equal(k, pl)) if p.exact else diff > PROBE_TOL:
+                raise AssertionError(f"{p.kernel_id} {p.name}: {diff:.3g} from its plain twin")
+            if not torch.equal(k, k2):
+                raise AssertionError(f"{p.kernel_id} {p.name}: two runs differ")
+            if lib is not None and not np.allclose(lib.float().cpu().numpy(), p.ref,
+                                                   atol=p.atol, rtol=1e-4):
+                raise AssertionError(f"{p.kernel_id} {p.name}: the library call is off")
+            r = res[p.name] = dict(
+                kernel_id=p.kernel_id, site=p.site, max_abs_err=diff, ms=timed(p.kernel),
+                plain_ms=timed(p.plain), device_ms=device_ms(p.kernel),
+                bound=bound(p.nbytes, p.ops, p.bf16_ops))
+            if lib is not None:
+                r.update(library_ms=timed(p.library),
+                         library_device_ms=device_ms(p.library))
+            print(f"probe {p.kernel_id} {p.name}: vs plain {diff:.3g}"
+                  f"{' (bit-identical)' if p.exact else ''}, vs the original's reference "
+                  f"{err:.3g} (atol {p.atol:g}); device {r['device_ms'] * 1e3:.3f} us "
+                  f"(warm), library "
+                  + (f"{r['library_device_ms'] * 1e3:.3f} us" if lib is not None else "none")
+                  + f", bound {r['bound'][0] * 1e3:.3f} us ({r['bound'][1]}); kernel "
+                  f"{r['ms'][0]:.4f} ms plain {r['plain_ms'][0]:.4f} ms (event pairs)")
+    dots = {n[4:]: res[n]["device_ms"] * 1e3 for n in ("dot_default", "dot_high", "dot_highest")}
+    print(f"probe P3 (16x16 @ 16x3840) device us: DEFAULT {dots['default']:.3f}, HIGH "
+          f"(bf16x3) {dots['high']:.3f}, HIGHEST (f32) {dots['highest']:.3f}; torch.matmul "
+          f"f32 {res['dot_highest']['library_device_ms'] * 1e3:.3f}, bf16 operands "
+          f"{res['dot_default']['library_device_ms'] * 1e3:.3f}")
+    return res, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -915,6 +1036,9 @@ def main() -> int:
     staged_phase(staged, calls)
     device_check()
     print(f"bilateral, classic, staged and device phases: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    probes, probe_launches = probe_phase()
+    print(f"probe phase: {time.perf_counter() - t0:.2f} s")
     main_size = SIZES[0]
     # launches: each kernel's count from the run of the path it serves
     launches = dict(runs[main_size][0], body_prefix=dl_launches["body_prefix"],
@@ -943,8 +1067,18 @@ def main() -> int:
         "bilateral": ("backscrub_tpu_torch/csrc/bilateral.cu",
                       "backscrub_tpu/ops/pallas_kernels.py:71"),
     }
-    # one PyTorch call computes only the GEMM's function (torch.addmm);
-    # "device_ms" where measured (event pair around 100 back-to-back calls)
+    # P1-P7: launches from the probe path (probe_phase checked that the
+    # pipelines launched none: main_path_launches); each kernel's first
+    # run, so P3 at DEFAULT, the original's first precision
+    for name, r in probes.items():
+        key = f"probe_{r['kernel_id']}"
+        if key not in meta:
+            launches[key] = probe_launches[r["kernel_id"]]
+            results[key] = dict(r, main_path_launches=0)
+            meta[key] = ("backscrub_tpu_torch/csrc/probes.cu", f"{r['site']} ({name})")
+    # library_ms where one PyTorch call computes the same function (the
+    # GEMM's torch.addmm, the probes' library twins); "device_ms" where
+    # measured (the profiler's kernel time a call)
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name],
@@ -956,7 +1090,8 @@ def main() -> int:
          "library_ms": results[name]["library_ms"][0] if "library_ms" in results[name]
          else None,
          **{k: results[name][k] for k in ("device_ms", "b2b_ms", "library_device_ms",
-                                         "library_b2b_ms") if k in results[name]}}
+                                         "library_b2b_ms", "precision_gap",
+                                         "main_path_launches") if k in results[name]}}
         for name, (src, rep) in meta.items()]}
     print(f"chip_smoke phases: {time.perf_counter() - t_start:.2f} s")
     print(json.dumps(line))

@@ -225,8 +225,8 @@ def test_flat_span_table_walker_matches_plain():
     """A small flat plan (flat_graph: GEMM ops, the ASPP pooling branch's
     FC writing its broadcast into a homed concat, a residual in a GEMM's
     epilogue) walked
-    on the CPU: the body bar of run_plain (f32; the table's GEMMs are
-    bf16x3)."""
+    on the CPU: atol 1e-5 of run_plain(gemm="bf16x3"), the table's own
+    arithmetic, and the body bar of run_plain's f32 GEMMs."""
     g, out = flat_graph(ir)
     plan = BodyPlan(build_model(g), 0, len(g.nodes), 0, out, flat=True)
     mt = plan.compile_mega()
@@ -238,8 +238,27 @@ def test_flat_span_table_walker_matches_plain():
     with torch.no_grad():
         got, phases = walk(plan, x)
         plain = plan.run_plain(x)
+        matched = plan.run_plain(x, gemm="bf16x3")
     assert phases == mt.phases and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, matched, atol=1e-5, rtol=0)
     torch.testing.assert_close(got, plain, atol=2e-3, rtol=1e-3)
+
+
+def test_run_plain_gemm_precision(span):
+    """gemm="bf16x3" changes a flat plan's spatial 1x1 convs only: a
+    non-flat plan (span_graph, its FC included) gives the f32 bits, and
+    an unknown precision raises."""
+    plan = span[0]
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal((8, 144)).astype(
+        np.float32))
+    assert torch.equal(plan.run_plain(x, gemm="bf16x3"), plan.run_plain(x))
+    with pytest.raises(ValueError, match="gemm"):
+        plan.run_plain(x, gemm="bf16")
+    g, out = flat_graph(ir)
+    flat = BodyPlan(build_model(g), 0, len(g.nodes), 0, out, flat=True)
+    xf = torch.from_numpy(np.random.default_rng(3).standard_normal((16, 1089)).astype(
+        np.float32))
+    assert not torch.equal(flat.run_plain(xf, gemm="bf16x3"), flat.run_plain(xf))
 
 
 def test_span_table_keeps_unfusable_ops(span):

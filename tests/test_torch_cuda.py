@@ -195,12 +195,12 @@ def test_front_kernels_on_two_streams(cuda_device):
                 torch.testing.assert_close(o, ref, atol=2e-3, rtol=1e-3)
 
 
-def _frames(w, h, n):
+def _frames(w, h, n, seed=0):
     tools = str(ROOT / "tools")
     if tools not in sys.path:
         sys.path.insert(0, tools)
     from make_synth_segm import moving_frames
-    return moving_frames(w, h, n)
+    return moving_frames(w, h, n, seed)
 
 
 def _frame(w, h):
@@ -420,7 +420,8 @@ def test_bcast_kernel(cuda_device):
     """The table's broadcast (the ASPP pooling branch: gpool, then the fc
     writing its output across the columns of a homed concat) and GEMM ops,
     one with a residual, on a small flat plan: one bs_body_mega launch,
-    within the body bar of the plain plan, two runs bit-identical."""
+    within allclose(atol=2e-4, rtol=1e-4) of the plain plan in its own
+    arithmetic (run_plain(gemm="bf16x3")), two runs bit-identical."""
     from backscrub_tpu_torch.tflite import ir
     g, out = flat_graph(ir)
     plan = BodyPlan(build_model(g), 0, len(g.nodes), 0, out, flat=True)
@@ -432,15 +433,16 @@ def test_bcast_kernel(cuda_device):
     before = body_launch.by_kernel["bs_body_mega"]
     got = plan.run_cuda(x).clone()
     assert body_launch.by_kernel["bs_body_mega"] == before + 1
-    torch.testing.assert_close(got, plan.run_plain(x), atol=2e-3, rtol=1e-3)
+    torch.testing.assert_close(got, plan.run_plain(x, gemm="bf16x3"), atol=2e-4, rtol=1e-4)
     assert torch.equal(got, plan.run_cuda(x))
 
 
 def _deeplab(device, n):
+    """The deeplab pipeline and ``n`` frames held out from the synthetic
+    model's fit (seed 0, frames 0-29): seed 1, from frame 30 on."""
     pipe = FramePipeline(str(DEEPLAB), PipelineConfig(width=640, height=480), device=device)
-    _frame(640, 480)        # puts tools/ on sys.path
-    from make_synth_segm import moving_frames
-    return pipe, [torch.from_numpy(f).to(device) for f in moving_frames(640, 480, n)]
+    frames = _frames(640, 480, 60, seed=1)[30:30 + n]
+    return pipe, [torch.from_numpy(f).to(device) for f in frames]
 
 
 def test_deeplab_prefix_and_continuation_match_plain(cuda_device):
@@ -453,6 +455,12 @@ def test_deeplab_prefix_and_continuation_match_plain(cuda_device):
         k2 = pre.run_cuda(h)
         torch.testing.assert_close(k2, pre.run_plain(h), atol=2e-3, rtol=1e-3)
         k3 = cont.run_cuda(k2)
+        # K2'' in its own arithmetic (bf16x3 GEMMs), at the bars of
+        # chip_smoke.py (MATCHED_*: above the split's noise floor); f32 is
+        # the precision gap
+        matched = cont.run_plain(k2, gemm="bf16x3")
+        torch.testing.assert_close(k3, matched, atol=2e-3, rtol=1e-4)
+        assert float((k3 - matched).abs().mean()) <= 1e-4
         torch.testing.assert_close(k3, cont.run_plain(k2), atol=2e-3, rtol=1e-3)
         assert torch.equal(k2, pre.run_cuda(h)) and torch.equal(k3, cont.run_cuda(k2))
     # each plan: one bs_body_mega launch a run, no other body kernel
@@ -462,8 +470,10 @@ def test_deeplab_prefix_and_continuation_match_plain(cuda_device):
 
 
 def test_deeplab_pipeline_matches_plain(cuda_device):
-    """Five frames of the deeplab FramePipeline on the card against the
-    plain path, under the tolerance invariant: at most 2% of a frame's
+    """Five held-out frames of the deeplab FramePipeline on the card against
+    the plain path in the kernels' arithmetic (K2''s GEMMs bf16x3), under
+    the tolerance invariant, with a person fraction inside (0.01, 0.99):
+    at most 2% of a frame's
     bytes differ, 0.2% over the sequence; a decode decision may flip only
     at a near-tie of the person margin (|margin| <= 1e-3); the EMAs are
     equal wherever the decode never flipped; and outside the post's
@@ -480,7 +490,8 @@ def test_deeplab_pipeline_matches_plain(cuda_device):
         for f in frames:
             yuyv, mask = pipe.step(f, bg)
             ema_k = pipe.maskgen.ema
-            logits = e.body(e.front(f, plain=True), plain=True).permute(1, 2, 0)
+            logits = e.body(e.front(f, plain=True), plain=True,
+                            gemm="bf16x3").permute(1, 2, 0)
             ema = ema_update(ema, decode_val(logits, e.spec))
             rm = e.postprocess(ema)
             ry = blend_pack_yuyv_plain(f, bg, rm)
@@ -497,3 +508,73 @@ def test_deeplab_pipeline_matches_plain(cuda_device):
             fracs.append(float(torch.cat([(yuyv != ry).flatten(),
                                           (mask != rm).flatten()]).float().mean()))
     assert max(fracs) <= 0.02 and float(np.mean(fracs)) <= 0.002
+    assert 0.01 < float((mask < 128).float().mean()) < 0.99
+
+
+_PROBES = ["dw_flat_lane_shifts_9tap", "dw_padded_rows_9tap", "dot_default", "dot_high",
+           "dot_highest", "se_pool_fc_gate", "sublane_concat", "lane_stride2",
+           "inkernel_reshape"]
+
+
+@pytest.fixture(scope="module")
+def probe_runs():
+    """tools/probe_hopper.py's probes on the card, by name."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels build only there)")
+    _frames(8, 8, 1)        # puts tools/ on sys.path
+    import probe_hopper
+    from backscrub_tpu_torch.pipeline.maskgen import set_precision_policy
+    set_precision_policy()
+    return {p.name: p for p in probe_hopper.probes("cuda")}
+
+
+@pytest.mark.parametrize("name", _PROBES)
+def test_probe_kernel_matches_plain(probe_runs, name):
+    """P1-P7 on tools/probe_mosaic.py's inputs: one launch each, P1, P2 and
+    P5-P7 bit-identical to their plain twins, P3 and P4 within 1e-5; two
+    runs bit-identical; within the original's atol of its numpy reference."""
+    p = probe_runs[name]
+    before = p.counter.launches
+    with torch.no_grad():
+        got, again, plain = p.kernel(), p.kernel(), p.plain()
+        torch.cuda.synchronize()
+    assert p.counter.launches == before + 2
+    if p.exact:
+        assert torch.equal(got, plain)
+    else:
+        assert float((got - plain).abs().max()) <= 1e-5
+    assert torch.equal(got, again)
+    np.testing.assert_allclose(got.cpu().numpy(), p.ref, atol=p.atol, rtol=1e-4)
+
+
+def test_probe_kernels_at_ragged_shapes(cuda_device):
+    """The probes' scalar paths: widths that are no multiple of 4 or 8 (no
+    16-byte vectors, a partial MMA tile), a concat of unequal heights."""
+    from backscrub_tpu_torch.ops import probe_kernels as pk
+    rng = np.random.default_rng(12)
+
+    def t(*shape):
+        return torch.from_numpy(rng.random(shape, np.float32)).to(cuda_device)
+    w, x = t(16, 16), t(16, 37)
+    for prec in pk.PRECISIONS:
+        assert float((pk.dot(w, x, prec) - pk.dot_plain(w, x, prec)).abs().max()) <= 1e-5
+    xs, ws = t(5, 333), t(5, 5)
+    assert float((pk.se(xs, ws) - pk.se_plain(xs, ws)).abs().max()) <= 1e-5
+    a, b = t(3, 7), t(2, 7)
+    assert torch.equal(pk.concat(a, b), pk.concat_plain(a, b))
+    assert torch.equal(pk.lane_stride2(x), pk.lane_stride2_plain(x))
+    x3 = t(3, 5, 7)
+    assert torch.equal(pk.reshape_flat(x3), pk.reshape_flat_plain(x3))
+    xf, xr = t(4, 4 * 9 + 5 * 9), t(2, 3 * 128 + 3)
+    assert torch.equal(pk.dw_flat(xf, 9), pk.dw_flat_plain(xf, 9))
+    assert torch.equal(pk.dw_rowpad(xr), pk.dw_rowpad_plain(xr))
+    with pytest.raises(ValueError):
+        pk.dot(w, x, "tf32")
+    with pytest.raises(ValueError):
+        pk.dot(w[:8], x)
+    with pytest.raises(ValueError):
+        pk.se(t(33, 8), t(33, 33))
+    with pytest.raises(ValueError):
+        pk.concat(a, t(2, 8))
+    with pytest.raises(ValueError):
+        pk.dw_rowpad(t(2, 256))
