@@ -38,7 +38,7 @@ SIGNATURES = {
     "bs_blend_pack_yuyv": (P, P, P, P, I, I, I, I, P),
     "bs_blend_pack_420": (P, P, P, P, I, I, I, P),
     "bs_bilateral": (P, P, P, I, I, I, F32, P),
-    "bs_front": (P, P, P, I, I, I, I, I, I, I, I, F32, F32, F32, I, P),
+    "bs_front": (P, P, P, I, I, I, I, I, I, I, I, F32, F32, F32, I, I, I, I, P),
     "bs_gemm": (P, P, P, P, P, P, I, I, I, I, I, I, I, I, P),
     "bs_body_mega": (P, P, P, P, I, I, P, P),
     "bs_barrier_bench": (I, I, I, P),
@@ -147,6 +147,16 @@ def launch(name: str, *args) -> None:
     err = getattr(lib(), name)(*args, stream())
     if err != 0:
         raise RuntimeError(f"{name} launch failed with cudaError {err}")
+
+
+_SMS: dict[torch.device, int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The number of SMs of CUDA ``device`` (read once a device)."""
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _SMS[device]
 
 
 def resolve_device(device) -> torch.device:

@@ -10,11 +10,18 @@
 // alpha_blend_u8 + rgb_to_yuyv.
 //
 // Bound: bytes.  Per pixel it reads 3 + 3 + 1 and writes 2 bytes, 9 B/px:
-// 8.3 MB a 720p frame, a few microseconds at HBM rate; the arithmetic is
-// ~30 integer ops per pixel.  One thread per pixel pair reads its 6 + 6 + 2
-// bytes and writes one 4-byte word, so the writes are fully coalesced and
-// the reads walk contiguous bytes across a warp.  The TPU row tiling has
-// no counterpart: any H and any even W work.
+// 8.3 MB a 720p frame, 2.5 us at HBM rate.  A thread takes 4 consecutive
+// pixels in 4-byte words (3 frame, 3 background, 1 mask word in, 2 out);
+// across a warp the three frame words of consecutive threads fill the same
+// L1 lines, so each line comes from L2 once.  4 pixels at 128 threads a CTA
+// was the fastest launch shape at 640x480 and 1280x720, against 8 and 16
+// pixels a thread in 8- and 16-byte words (PERF.md §6).  The output is
+// flat pixel pairs (a pair never crosses a row: W is even), so the pixel
+// range splits into npix / 4 vectors and a tail of at most one pair that a
+// thread past the vectors takes (the per-pair path).  A call whose
+// pointers are not 4-byte aligned (a view of a frame may start anywhere)
+// runs every pair on the per-pair path, in the same kernel.  The TPU row
+// tiling has no counterpart: any H and any even W work.
 
 // K4 replaces backscrub_tpu/ops/pallas_kernels.py:blend_pack_420
 // (_blend_420_kernel): the same blend, then OpenCV's BT.601 video-range
@@ -44,34 +51,60 @@ __device__ __forceinline__ int blend(int bg, int fr, int m) {
 
 __device__ __forceinline__ int clamp255(int v) { return min(max(v, 0), 255); }
 
-__global__ void blend_pack_yuyv_kernel(const uint8_t* __restrict__ fr,
-                                       const uint8_t* __restrict__ bg,
-                                       const uint8_t* __restrict__ mask,
-                                       uint32_t* __restrict__ out,
-                                       long long npairs, int r_ch, int b_ch,
-                                       int c0_is_v) {
-  long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= npairs) return;
+// One YUYV word from a pixel pair: f, g, m hold the pair's frame,
+// background and mask bytes.  CC: correct_colors; REF: the reference's
+// chroma order (C0 = V)
+template <bool CC, bool REF>
+__device__ __forceinline__ uint32_t yuyv_word(const uint8_t* f, const uint8_t* g,
+                                              const uint8_t* m) {
   int y[2], u[2], v[2];
 #pragma unroll
   for (int k = 0; k < 2; ++k) {
-    long long px = 2 * p + k;
-    int m = mask[px];
     int comp[3];
 #pragma unroll
-    for (int c = 0; c < 3; ++c) comp[c] = blend(bg[3 * px + c], fr[3 * px + c], m);
+    for (int c = 0; c < 3; ++c) comp[c] = blend(g[3 * k + c], f[3 * k + c], m[k]);
     // r/b roles: correct_colors=False feeds BGR into the RGB math (the
     // reference's quirk), True swaps them
-    int r = comp[r_ch], g = comp[1], b = comp[b_ch];
-    y[k] = (r * 4899 + g * 9617 + b * 1868 + (1 << 13)) >> 14;
+    int r = comp[CC ? 2 : 0], gr = comp[1], b = comp[CC ? 0 : 2];
+    y[k] = (r * 4899 + gr * 9617 + b * 1868 + (1 << 13)) >> 14;
     u[k] = clamp255(((b - y[k]) * 8061 + (128 << 14) + (1 << 13)) >> 14);
     v[k] = clamp255(((r - y[k]) * 14369 + (128 << 14) + (1 << 13)) >> 14);
   }
   int ua = (u[0] + u[1]) >> 1, va = (v[0] + v[1]) >> 1;
-  int c0 = c0_is_v ? va : ua, c1 = c0_is_v ? ua : va;
+  int c0 = REF ? va : ua, c1 = REF ? ua : va;
   // little-endian word: bytes [Y0, C0, Y1, C1]
-  out[p] = (uint32_t)y[0] | ((uint32_t)c0 << 8) | ((uint32_t)y[1] << 16) |
-           ((uint32_t)c1 << 24);
+  return (uint32_t)y[0] | ((uint32_t)c0 << 8) | ((uint32_t)y[1] << 16) |
+         ((uint32_t)c1 << 24);
+}
+
+constexpr int YUYV_THREADS = 128;
+
+// threads [0, nvec): 4 pixels each (vector path); threads past them: one
+// pair each, pairs 2 * nvec .. npairs - 1 (per-pair path)
+template <bool CC, bool REF>
+__global__ void blend_pack_yuyv_kernel(const uint8_t* __restrict__ fr,
+                                       const uint8_t* __restrict__ bg,
+                                       const uint8_t* __restrict__ mask,
+                                       uint32_t* __restrict__ out, long long nvec,
+                                       long long npairs) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t < nvec) {
+    union { uint32_t v[3]; uint8_t b[12]; } f, g;
+    union { uint32_t v; uint8_t b[4]; } m;
+    const uint32_t* fv = reinterpret_cast<const uint32_t*>(fr) + 3 * t;
+    const uint32_t* gv = reinterpret_cast<const uint32_t*>(bg) + 3 * t;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) f.v[k] = __ldg(fv + k);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) g.v[k] = __ldg(gv + k);
+    m.v = __ldg(reinterpret_cast<const uint32_t*>(mask) + t);
+    out[2 * t] = yuyv_word<CC, REF>(f.b, g.b, m.b);
+    out[2 * t + 1] = yuyv_word<CC, REF>(f.b + 6, g.b + 6, m.b + 2);
+    return;
+  }
+  const long long p = 2 * nvec + (t - nvec);
+  if (p >= npairs) return;
+  out[p] = yuyv_word<CC, REF>(fr + 6 * p, bg + 6 * p, mask + 2 * p);
 }
 
 // BT.601 video-range encode constants (color_yuv ITUR_BT_601_*, shift 20);
@@ -117,6 +150,19 @@ __global__ void blend_pack_420_kernel(const uint8_t* __restrict__ fr,
   }
 }
 
+template <bool CC, bool REF>
+int launch_yuyv(const uint8_t* fr, const uint8_t* bg, const uint8_t* mask, uint32_t* out,
+                long long npairs, cudaStream_t s) {
+  const bool aligned =
+      ((uintptr_t)fr | (uintptr_t)bg | (uintptr_t)mask | (uintptr_t)out) % 4 == 0;
+  const long long nvec = aligned ? npairs / 2 : 0;
+  const long long work = nvec + (npairs - 2 * nvec);
+  const long long blocks = (work + YUYV_THREADS - 1) / YUYV_THREADS;
+  blend_pack_yuyv_kernel<CC, REF><<<(unsigned)blocks, YUYV_THREADS, 0, s>>>(
+      fr, bg, mask, out, nvec, npairs);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // fr, bg: (H, W, 3) u8; mask: (H, W) u8; H and W even; out: 3HW/2 bytes,
@@ -136,18 +182,22 @@ extern "C" int bs_blend_pack_420(const void* fr, const void* bg,
   return (int)cudaGetLastError();
 }
 
-// fr, bg: (H, W, 3) u8; mask: (H, W) u8; out: (H, 2W) u8 (4-byte aligned).
+// fr, bg: (H, W, 3) u8; mask: (H, W) u8; W even; out: (H, 2W) u8 (4-byte
+// aligned).  The colour and chroma orders are template arguments: no
+// selects per pixel.
 extern "C" int bs_blend_pack_yuyv(const void* fr, const void* bg,
                                   const void* mask, void* out, int h, int w,
                                   int chroma_reference, int correct_colors,
                                   void* stream) {
   long long npairs = (long long)h * (w / 2);
+  if (w % 2 || (uintptr_t)out % 4) return (int)cudaErrorInvalidValue;
   if (npairs <= 0) return 0;
-  int r_ch = correct_colors ? 2 : 0, b_ch = correct_colors ? 0 : 2;
-  const int threads = 256;
-  long long blocks = (npairs + threads - 1) / threads;
-  blend_pack_yuyv_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)fr, (const uint8_t*)bg, (const uint8_t*)mask,
-      (uint32_t*)out, npairs, r_ch, b_ch, chroma_reference);
-  return (int)cudaGetLastError();
+  const uint8_t *f = (const uint8_t*)fr, *g = (const uint8_t*)bg, *m = (const uint8_t*)mask;
+  uint32_t* o = (uint32_t*)out;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (correct_colors)
+    return chroma_reference ? launch_yuyv<true, true>(f, g, m, o, npairs, s)
+                            : launch_yuyv<true, false>(f, g, m, o, npairs, s);
+  return chroma_reference ? launch_yuyv<false, true>(f, g, m, o, npairs, s)
+                          : launch_yuyv<false, false>(f, g, m, o, npairs, s);
 }

@@ -591,15 +591,10 @@ def gemm_config(co: int, ci: int, L: int, sms: int) -> Tuple[int, int, int]:
     return len(_GEMM_TILES) - 1, split, 16 * n16
 
 
-_SMS: Dict[torch.device, int] = {}
-
-
 def _gemm(launch, whi, wlo, b_ptr, x_ptr, y_ptr, co, ci, L, act, device) -> None:
     """One ``bs_gemm`` launch through ``launch``, with the split-K
     partials' buffer when the shape's config splits K."""
-    if device not in _SMS:
-        _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
-    tile, split, kchunk = gemm_config(co, ci, L, _SMS[device])
+    tile, split, kchunk = gemm_config(co, ci, L, _build.sm_count(device))
     part = (torch.empty(split * co * L, dtype=torch.float32, device=device)
             if split > 1 else None)
     launch("bs_gemm", whi.data_ptr(), wlo.data_ptr(), b_ptr, x_ptr, y_ptr,

@@ -37,7 +37,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -235,12 +235,30 @@ def front_plain(canvas: torch.Tensor, params: torch.Tensor, *, H: int, W: int,
     return apply_activation(y, activation)
 
 
+# K1's tiles, the instantiations of csrc/front.cu's bs_front: (conv output
+# rows, output columns, channel groups) a CTA, one thread an (output,
+# group) and at least one a normalized pixel
+FRONT_TILES = ((4, 8, 8), (4, 16, 4))
+
+
+def front_tile(oh: int, ow: int, sms: int) -> Tuple[int, int, int]:
+    """K1's tile for an (oh, ow) output on a card with ``sms`` SMs: 4x8
+    outputs in 8 channel groups while that grid stays within one CTA an
+    SM (segm's 48x80: 120 CTAs), else 4x16 outputs in 4 groups (deeplab's
+    129x129: 297 CTAs).  Both keep the normalized tile (9x17 or 9x33
+    pixels) near one pixel a thread.  Fitted on the 132-SM H100 SXM at
+    those two shapes (``tools/sweep_front_tiles.py``, PERF.md §6); on a
+    card with fewer SMs the same rule switches to 4x16x4 at a smaller
+    output, which is not measured."""
+    return FRONT_TILES[0] if -(-oh // 4) * -(-ow // 8) <= sms else FRONT_TILES[1]
+
+
 def front_fused(canvas: torch.Tensor, params: torch.Tensor, *, H: int, W: int,
                 oh: int, ow: int, pad_lo_h: int, pad_lo_w: int,
                 use_bilateral: bool, scale: float, offset: float,
                 activation: str) -> torch.Tensor:
     """K1 on CUDA tensors (``front_fused.launches`` counts launches), the
-    plain version on CPU tensors."""
+    plain version on CPU tensors; the tile is :func:`front_tile`'s."""
     kw = dict(H=H, W=W, oh=oh, ow=ow, pad_lo_h=pad_lo_h, pad_lo_w=pad_lo_w,
               use_bilateral=use_bilateral, scale=scale, offset=offset,
               activation=activation)
@@ -254,7 +272,8 @@ def front_fused(canvas: torch.Tensor, params: torch.Tensor, *, H: int, W: int,
     out = torch.empty((cout, oh, ow), dtype=torch.float32, device=canvas.device)
     _build.launch("bs_front", canvas.data_ptr(), params.data_ptr(), out.data_ptr(),
                   H, W, oh, ow, cout, pad_lo_h, pad_lo_w, int(use_bilateral),
-                  -0.5 / _SIGMA ** 2, scale, offset, _FRONT_ACT[activation])
+                  -0.5 / _SIGMA ** 2, scale, offset, _FRONT_ACT[activation],
+                  *front_tile(oh, ow, _build.sm_count(canvas.device)))
     front_fused.launches += 1
     return out
 

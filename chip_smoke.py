@@ -13,8 +13,9 @@ Usage (from the repository root, on a machine with a CUDA card)::
    640x480 and 1280x720): K3 (blend + YUYV pack) byte-identical, K1
    (front) and K2 (body, the persistent ``bs_body_mega``: one launch, its
    phase count printed, two runs bit-identical) within allclose(atol=2e-3,
-   rtol=1e-3); times both with CUDA events, K2 also as device time (one
-   event pair around 100 back-to-back runs); the barrier microbenchmark
+   rtol=1e-3); times each with CUDA events and as device time (the
+   profiler's kernel time), K2 also as one event pair around 100
+   back-to-back runs; the barrier microbenchmark
    (a cooperative grid sync and a cluster sync, microseconds each);
 4. runs ``FramePipeline`` for 50 frames of a seeded moving sequence at
    640x480 and 1280x720 on ``cuda``, checks that every kernel's launch
@@ -70,8 +71,11 @@ Usage (from the repository root, on a machine with a CUDA card)::
    run of the path it serves, errors and times measured here, and the
    bound: the larger of the bytes it must move over 3.35 TB/s and its
    operations over the peak of their type, 67 TFLOP/s f32 or 989 TFLOP/s
-   bf16 on the tensor cores; the GEMM, K2, K2' and K2'' also with
-   ``device_ms`` (the profiler's kernel time a call), the GEMM and K2 with
+   bf16 on the tensor cores; every kernel also with ``device_ms`` (the
+   profiler's kernel time a call, at the main path's shapes: K1 on the
+   segm canvas, K3 and K4 at 640x480, K5 at segm's 96x160; printed
+   earlier for K1 on the deeplab canvas and K3 and K4 at 1280x720 too),
+   the GEMM and K2 with
    ``b2b_ms`` (an event pair around 100 back-to-back calls), the GEMM with
    ``library_ms`` = ``torch.addmm`` and its device and back-to-back times;
    the GEMM's ``launches`` are the GEMM ops that the continuation's
@@ -272,6 +276,8 @@ def kernel_phase(w, h):
         res["front"] = dict(max_abs_err=float((k1 - p1).abs().max()),
                             ms=timed(lambda: front_fused(canvas, edge.front_params, **kw)),
                             plain_ms=timed(lambda: front_plain(canvas, edge.front_params, **kw)),
+                            device_ms=device_ms(
+                                lambda: front_fused(canvas, edge.front_params, **kw)),
                             bound=bound(*front_work(kw, k1.shape[0])))
 
         plan = edge.body_plan
@@ -316,6 +322,7 @@ def kernel_phase(w, h):
         res["pack"] = dict(max_abs_err=0.0,
                            ms=timed(lambda: blend_pack_yuyv(frame, bg, mask)),
                            plain_ms=timed(lambda: blend_pack_yuyv_plain(frame, bg, mask)),
+                           device_ms=device_ms(lambda: blend_pack_yuyv(frame, bg, mask)),
                            bound=bound(9 * h * w, 30 * h * w))
         for layout in ("nv12", "i420"):
             k4 = blend_pack_420(frame, bg, mask, layout)
@@ -325,11 +332,13 @@ def kernel_phase(w, h):
         res["pack_420"] = dict(max_abs_err=0.0,
                                ms=timed(lambda: blend_pack_420(frame, bg, mask)),
                                plain_ms=timed(lambda: blend_pack_420_plain(frame, bg, mask)),
+                               device_ms=device_ms(lambda: blend_pack_420(frame, bg, mask)),
                                bound=bound(17 * h * w // 2, 35 * h * w))
     for name, r in res.items():
         print(f"kernel {name} {w}x{h}: max_abs_err={r['max_abs_err']:.3g} "
               f"kernel {r['ms'][0]:.4f} ms (checksum {r['ms'][1]:.6g}) "
               f"plain {r['plain_ms'][0]:.4f} ms (checksum {r['plain_ms'][1]:.6g}) "
+              f"device {r['device_ms'] * 1e3:.3f} us "
               f"bound {r['bound'][0]:.5f} ms ({r['bound'][1]})")
     return res
 
@@ -547,6 +556,9 @@ def deeplab_phase():
                              lambda: front_fused(canvas, e.front_params, **kw),
                              lambda: front_plain(canvas, e.front_params, **kw))
         res["front"]["bound"] = bound(*front_work(kw, k1.shape[0]))
+        res["front"]["device_ms"] = device_ms(lambda: front_fused(canvas, e.front_params, **kw))
+        print(f"kernel front deeplab: device {res['front']['device_ms'] * 1e3:.3f} us, bound "
+              f"{res['front']['bound'][0] * 1e3:.3f} us ({res['front']['bound'][1]})")
         x = k1.reshape(k1.shape[0], -1)
         before = collections.Counter(body_launch.by_kernel)
         k2, k2b = pre.run_cuda(x).clone(), pre.run_cuda(x)
@@ -745,12 +757,13 @@ def bilateral_phase(segm, deeplab):
             px = x.numel() // 3
             r = dict(max_abs_err=float((k - p).abs().max()),
                      ms=timed(lambda: bilateral5(x)), plain_ms=timed(lambda: bilateral5_plain(x)),
+                     device_ms=device_ms(lambda: bilateral5(x)),
                      bound=bound(24 * px, BILATERAL_OPS * px))
             print(f"kernel bilateral {name}: max_abs_err={r['max_abs_err']:.3g}, rounded "
                   f"bytes differing {100 * float((rd > 0).float().mean()):.4f}%, kernel "
                   f"{r['ms'][0]:.4f} ms (checksum {r['ms'][1]:.6g}) plain "
-                  f"{r['plain_ms'][0]:.4f} ms (checksum {r['plain_ms'][1]:.6g}), bound "
-                  f"{r['bound'][0]:.5f} ms ({r['bound'][1]})")
+                  f"{r['plain_ms'][0]:.4f} ms (checksum {r['plain_ms'][1]:.6g}), device "
+                  f"{r['device_ms'] * 1e3:.3f} us, bound {r['bound'][0]:.5f} ms ({r['bound'][1]})")
             res[name] = r
     return res
 

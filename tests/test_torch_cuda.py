@@ -155,17 +155,53 @@ def test_synthetic_span_kernels_match_plain(cuda_device):
     assert body_launch.by_kernel["bs_body_mega"] == before + 1
 
 
+def _front_case(case, dev):
+    """(canvas, parameter block, front kwargs) of a K1 case on ``dev``: the
+    segm front (96x160 canvas of a 320x240 frame), the deeplab front
+    (257x257 of a 640x480 frame), or a ragged 37x54 canvas with Cout = 13
+    (seeded) whose oh, ow and Cout divide no tile."""
+    if case == "ragged":
+        rng = np.random.default_rng(11)
+        img = rng.integers(0, 256, (3, 37, 54)).astype(np.float32)
+        canvas = np.pad(img, ((0, 0), (2, 2), (2, 2)), mode="reflect")
+        params = tedge.front_params((rng.standard_normal((3, 3, 3, 13)) * 0.2).astype(
+            np.float32), (rng.standard_normal(13) * 0.1).astype(np.float32))
+        kw = dict(H=37, W=54, oh=19, ow=27, pad_lo_h=1, pad_lo_w=0, use_bilateral=True,
+                  scale=1 / 127.5, offset=-1.0, activation="RELU6")
+        return torch.from_numpy(canvas).to(dev), torch.from_numpy(params).to(dev), kw
+    path, (w, h) = (FULL, (320, 240)) if case == "segm" else (DEEPLAB, (640, 480))
+    e = FramePipeline(str(path), PipelineConfig(width=w, height=h), device=dev).maskgen.edge
+    return e.canvas(torch.from_numpy(_frame(w, h)).to(dev)), e.front_params, e.front_kwargs()
+
+
 @pytest.mark.parametrize("activation", ["NONE", "RELU6", "HARD_SWISH"])
 @pytest.mark.parametrize("use_bilateral", [True, False])
-def test_front_kernel_variants_match_plain(cuda_device, activation, use_bilateral):
-    pipe = FramePipeline(str(FULL), PipelineConfig(width=320, height=240),
-                         device=cuda_device)
-    e = pipe.maskgen.edge
-    canvas = e.canvas(torch.from_numpy(_frame(320, 240)).to(cuda_device))
-    kw = dict(e.front_kwargs(), activation=activation, use_bilateral=use_bilateral)
-    torch.testing.assert_close(tedge.front_fused(canvas, e.front_params, **kw),
-                               tedge.front_plain(canvas, e.front_params, **kw),
-                               atol=2e-3, rtol=1e-3)
+@pytest.mark.parametrize("case", ["segm", "deeplab", "ragged"])
+def test_front_kernel_variants_match_plain(cuda_device, case, activation, use_bilateral):
+    canvas, params, kw = _front_case(case, cuda_device)
+    kw = dict(kw, activation=activation, use_bilateral=use_bilateral)
+    with torch.no_grad():
+        before = tedge.front_fused.launches
+        got = tedge.front_fused(canvas, params, **kw)
+        assert tedge.front_fused.launches == before + 1
+        torch.testing.assert_close(got, tedge.front_plain(canvas, params, **kw),
+                                   atol=2e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("tile", tedge.FRONT_TILES)
+@pytest.mark.parametrize("case", ["segm", "deeplab", "ragged"])
+def test_front_kernel_tiles_agree(cuda_device, monkeypatch, case, tile):
+    """Each tile of FRONT_TILES, forced, gives the bits of front_tile's own
+    choice (each output's 27-tap chain does not depend on the tiling)
+    within the bar of the plain version."""
+    canvas, params, kw = _front_case(case, cuda_device)
+    with torch.no_grad():
+        own = tedge.front_fused(canvas, params, **kw)
+        monkeypatch.setattr(tedge, "front_tile", lambda oh, ow, sms: tile)
+        got = tedge.front_fused(canvas, params, **kw)
+        torch.testing.assert_close(got, tedge.front_plain(canvas, params, **kw),
+                                   atol=2e-3, rtol=1e-3)
+        assert torch.equal(got, own), f"tile {tile}"
 
 
 def test_front_kernels_on_two_streams(cuda_device):
@@ -207,20 +243,41 @@ def _frame(w, h):
     return _frames(w, h, 1)[0]
 
 
-@pytest.mark.parametrize("h,w", [(37, 64), (480, 640), (720, 1280)])
-def test_blend_pack_kernel_matches_plain(cuda_device, h, w):
-    rng = np.random.default_rng(3)
-    fr, bg = (torch.from_numpy(rng.integers(0, 256, (h, w, 3), np.uint8)).to(cuda_device)
+def _pack_inputs(h, w, dev, seed=3):
+    """Seeded frame, background and mask (a quarter of rows 255, a quarter
+    0, the rest random)."""
+    rng = np.random.default_rng(seed)
+    fr, bg = (torch.from_numpy(rng.integers(0, 256, (h, w, 3), np.uint8)).to(dev)
               for _ in range(2))
     m = rng.integers(0, 256, (h, w), np.uint8)
     m[: h // 4], m[h // 4: h // 2] = 255, 0
-    m = torch.from_numpy(m).to(cuda_device)
+    return fr, bg, torch.from_numpy(m).to(dev)
+
+
+@pytest.mark.parametrize("h,w", [(37, 64), (480, 640), (720, 1280), (37, 642), (721, 1282)])
+def test_blend_pack_kernel_matches_plain(cuda_device, h, w):
+    fr, bg, m = _pack_inputs(h, w, cuda_device)
     for order in ("reference", "yuy2"):
         for cc in (False, True):
             before = blend_pack_yuyv.launches
             got = blend_pack_yuyv(fr, bg, m, order, cc)
             assert blend_pack_yuyv.launches == before + 1
             assert torch.equal(got, blend_pack_yuyv_plain(fr, bg, m, order, cc))
+
+
+def test_blend_pack_kernel_on_misaligned_views(cuda_device):
+    """Views one row into contiguous frames of width 642 start off a 4-byte
+    boundary (1926 and 642 bytes in), so off every vector width: the kernel
+    takes its per-pair path and stays byte-identical."""
+    h, w = 37, 642
+    big_fr, big_bg, big_m = _pack_inputs(h + 1, w, cuda_device, seed=5)
+    fr, bg, m = big_fr[1:], big_bg[1:], big_m[1:]
+    assert fr.is_contiguous() and fr.data_ptr() % 4 and m.data_ptr() % 4
+    for order in ("reference", "yuy2"):
+        for cc in (False, True):
+            ref = blend_pack_yuyv_plain(fr, bg, m, order, cc)
+            assert torch.equal(blend_pack_yuyv(fr, bg, m, order, cc), ref)
+            assert torch.equal(blend_pack_yuyv(fr, bg, big_m[1:].clone(), order, cc), ref)
 
 
 @pytest.mark.parametrize("w,h", [(640, 480), (1280, 720)])
