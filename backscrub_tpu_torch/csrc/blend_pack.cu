@@ -28,16 +28,26 @@
 // RGB->YUV at 20-bit fixed point (cv2 COLOR_BGR2YUV_I420), chroma sampled
 // at the top-left pixel of each 2x2 block.  Integer math throughout (>>
 // on a negative int is arithmetic in nvcc, as on int32 in PyTorch):
-// byte-identical to alpha_blend_u8 + _bt601_yuv420.  A layout flag makes
-// one launch write NV12 (the Y plane, then interleaved [U, V] rows) or
-// I420 (Y, U, V planes).
+// byte-identical to alpha_blend_u8 + _bt601_yuv420.  The layout, NV12
+// (the Y plane, then interleaved [U, V] rows) or I420 (Y, U, V planes), is
+// a template argument: no select per pixel.
 //
 // Bound: bytes.  Per pixel it reads 3 + 3 + 1 = 7 B and writes 1.5 B:
-// 2.6 MB at 640x480, about 0.8 us at 3.35 TB/s.  One thread per 2x2 block
-// blends its 4 pixels and writes 4 Y and one U and one V.  The TPU kernel
-// computed chroma at full height and the wrapper dropped the odd rows
-// outside the kernel (Mosaic cannot lower a strided row subsample); here
-// the kernel computes only the samples it writes.
+// 2.6 MB at 640x480 (0.78 us at 3.35 TB/s), 7.8 MB at 1280x720 (2.34 us).
+// K3's design carried to 4:2:0: a thread takes 4 pixels of one row in
+// 4-byte words (three frame, three background, one mask word in, one Y
+// word out), so across a warp the frame words of consecutive threads fill
+// the same L1 lines, at 128 threads a CTA (K3's measured shape).  A
+// thread on an even row also holds the top-left pixels of two 2x2 blocks
+// and writes their chroma: one [U, V, U, V] word (NV12) or one 2-byte U
+// and one 2-byte V store (I420).  Two rows or 8 columns a thread were
+// slower at 640x480 (PERF.md §6).  The vector path needs W % 4 == 0 and
+// the four pointers on 4-byte boundaries; any other call (W % 4 == 2, a
+// frame that is a view off a word boundary) runs every block on the
+// per-block path, one thread a 2x2 block in single bytes, in the same
+// kernel.  The TPU kernel computed chroma at full height and the wrapper
+// dropped the odd rows outside the kernel (Mosaic cannot lower a strided
+// row subsample); here the kernel computes only the samples it writes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -114,15 +124,71 @@ constexpr int CRU = -155188, CGU = -305135, CBU = 460324;
 constexpr int CGV = -385875, CBV = -74448;
 constexpr int SHIFT = 20, HALF = 1 << (SHIFT - 1);
 
-__global__ void blend_pack_420_kernel(const uint8_t* __restrict__ fr,
-                                      const uint8_t* __restrict__ bg,
-                                      const uint8_t* __restrict__ mask,
-                                      uint8_t* __restrict__ out, int h, int w,
-                                      int i420) {
+__device__ __forceinline__ int luma(int r, int g, int b) {
+  return clamp255((r * CRY + g * CGY + b * CBY + HALF + (16 << SHIFT)) >> SHIFT);
+}
+__device__ __forceinline__ int chroma_u(int r, int g, int b) {
+  return clamp255((r * CRU + g * CGU + b * CBU + HALF + (128 << SHIFT)) >> SHIFT);
+}
+__device__ __forceinline__ int chroma_v(int r, int g, int b) {
+  return clamp255((r * CBU + g * CGV + b * CBV + HALF + (128 << SHIFT)) >> SHIFT);
+}
+
+constexpr int PACK420_THREADS = 128;
+
+// threads [0, nvec): 4 pixels of one row each (vector path), row-major; a
+// thread on an even row also writes the chroma of the two 2x2 blocks whose
+// top-left pixels it holds.  Threads [nvec, nvec + nblk): one 2x2 block
+// each (per-block path).  The vector path covers every pixel or none (the
+// launcher's choice).
+template <bool I420>
+__global__ void __launch_bounds__(PACK420_THREADS)
+blend_pack_420_kernel(const uint8_t* __restrict__ fr, const uint8_t* __restrict__ bg,
+                      const uint8_t* __restrict__ mask, uint8_t* __restrict__ out, int h,
+                      int w, int nvec, int nblk) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  uint8_t* chroma = out + (long long)h * w;
   const int hw = w / 2;
-  long long blk = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (blk >= (long long)(h / 2) * hw) return;
-  const int bi = (int)(blk / hw), bj = (int)(blk % hw);
+  if (t < nvec) {
+    const int per_row = w / 4, row = t / per_row, col = (t - row * per_row) * 4;
+    const long long px = (long long)row * w + col;
+    union { uint32_t v[3]; uint8_t b[12]; } f, g;
+    union { uint32_t v; uint8_t b[4]; } m;
+    const uint32_t* fv = reinterpret_cast<const uint32_t*>(fr + 3 * px);
+    const uint32_t* gv = reinterpret_cast<const uint32_t*>(bg + 3 * px);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) f.v[k] = __ldg(fv + k);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) g.v[k] = __ldg(gv + k);
+    m.v = __ldg(reinterpret_cast<const uint32_t*>(mask + px));
+    uint32_t y = 0, u = 0, v = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int b = blend(g.b[3 * k], f.b[3 * k], m.b[k]);
+      const int gr = blend(g.b[3 * k + 1], f.b[3 * k + 1], m.b[k]);
+      const int r = blend(g.b[3 * k + 2], f.b[3 * k + 2], m.b[k]);
+      y |= (uint32_t)luma(r, gr, b) << (8 * k);
+      if (k % 2 == 0) {
+        u |= (uint32_t)chroma_u(r, gr, b) << (4 * k);
+        v |= (uint32_t)chroma_v(r, gr, b) << (4 * k);
+      }
+    }
+    *reinterpret_cast<uint32_t*>(out + px) = y;
+    if (row & 1) return;
+    const int bi = row / 2;
+    if (I420) {
+      const long long q = (long long)(h / 2) * hw, at = (long long)bi * hw + col / 2;
+      *reinterpret_cast<uint16_t*>(chroma + at) = (uint16_t)u;
+      *reinterpret_cast<uint16_t*>(chroma + q + at) = (uint16_t)v;
+    } else {
+      *reinterpret_cast<uint32_t*>(chroma + (long long)bi * w + col) =
+          (u & 0xff) | (v & 0xff) << 8 | (u >> 8) << 16 | (v >> 8) << 24;
+    }
+    return;
+  }
+  const int blk = t - nvec;
+  if (blk >= nblk) return;
+  const int bi = blk / hw, bj = blk - bi * hw;
   int b00 = 0, g00 = 0, r00 = 0;
 #pragma unroll
   for (int di = 0; di < 2; ++di) {
@@ -133,21 +199,34 @@ __global__ void blend_pack_420_kernel(const uint8_t* __restrict__ fr,
       const int b = blend(bg[3 * px], fr[3 * px], m);
       const int g = blend(bg[3 * px + 1], fr[3 * px + 1], m);
       const int r = blend(bg[3 * px + 2], fr[3 * px + 2], m);
-      out[px] = (uint8_t)clamp255((r * CRY + g * CGY + b * CBY + HALF + (16 << SHIFT)) >> SHIFT);
+      out[px] = (uint8_t)luma(r, g, b);
       if (di == 0 && dj == 0) b00 = b, g00 = g, r00 = r;
     }
   }
-  const int u = clamp255((r00 * CRU + g00 * CGU + b00 * CBU + HALF + (128 << SHIFT)) >> SHIFT);
-  const int v = clamp255((r00 * CBU + g00 * CGV + b00 * CBV + HALF + (128 << SHIFT)) >> SHIFT);
-  uint8_t* chroma = out + (long long)h * w;
-  if (i420) {
+  const uint8_t u = (uint8_t)chroma_u(r00, g00, b00), v = (uint8_t)chroma_v(r00, g00, b00);
+  if (I420) {
     const long long q = (long long)(h / 2) * hw;
-    chroma[(long long)bi * hw + bj] = (uint8_t)u;
-    chroma[q + (long long)bi * hw + bj] = (uint8_t)v;
+    chroma[(long long)bi * hw + bj] = u;
+    chroma[q + (long long)bi * hw + bj] = v;
   } else {
-    chroma[(long long)bi * w + 2 * bj] = (uint8_t)u;
-    chroma[(long long)bi * w + 2 * bj + 1] = (uint8_t)v;
+    chroma[(long long)bi * w + 2 * bj] = u;
+    chroma[(long long)bi * w + 2 * bj + 1] = v;
   }
+}
+
+template <bool I420>
+int launch_420(const uint8_t* fr, const uint8_t* bg, const uint8_t* mask, uint8_t* out,
+               int h, int w, cudaStream_t s) {
+  const long long blocks4 = (long long)(h / 2) * (w / 2);
+  if (blocks4 > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const bool vec =
+      ((uintptr_t)fr | (uintptr_t)bg | (uintptr_t)mask | (uintptr_t)out) % 4 == 0 && w % 4 == 0;
+  const long long nvec = vec ? (long long)h * (w / 4) : 0;
+  const long long nblk = vec ? 0 : blocks4;
+  const long long ctas = (nvec + nblk + PACK420_THREADS - 1) / PACK420_THREADS;
+  blend_pack_420_kernel<I420><<<(unsigned)ctas, PACK420_THREADS, 0, s>>>(
+      fr, bg, mask, out, h, w, (int)nvec, (int)nblk);
+  return (int)cudaGetLastError();
 }
 
 template <bool CC, bool REF>
@@ -172,14 +251,11 @@ extern "C" int bs_blend_pack_420(const void* fr, const void* bg,
                                  const void* mask, void* out, int h, int w,
                                  int i420, void* stream) {
   if (h % 2 || w % 2) return (int)cudaErrorInvalidValue;
-  long long blocks4 = (long long)(h / 2) * (w / 2);
-  if (blocks4 <= 0) return 0;
-  const int threads = 256;
-  long long blocks = (blocks4 + threads - 1) / threads;
-  blend_pack_420_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)fr, (const uint8_t*)bg, (const uint8_t*)mask,
-      (uint8_t*)out, h, w, i420);
-  return (int)cudaGetLastError();
+  if (h <= 0 || w <= 0) return 0;
+  const uint8_t *f = (const uint8_t*)fr, *g = (const uint8_t*)bg, *m = (const uint8_t*)mask;
+  uint8_t* o = (uint8_t*)out;
+  cudaStream_t s = (cudaStream_t)stream;
+  return i420 ? launch_420<true>(f, g, m, o, h, w, s) : launch_420<false>(f, g, m, o, h, w, s);
 }
 
 // fr, bg: (H, W, 3) u8; mask: (H, W) u8; W even; out: (H, 2W) u8 (4-byte

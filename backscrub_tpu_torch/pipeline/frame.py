@@ -23,13 +23,13 @@ import torch
 from ..ops.pack_kernels import blend_pack_420, blend_pack_yuyv
 from .image import (alpha_blend_u8, bgr_to_i420, bgr_to_nv12, desaturate_u8, flip,
                     gaussian_blur, pixelate_u8, resize_bilinear, rgb_to_yuyv)
-from .maskgen import MaskGen
+from .maskgen import ROADMAP_FRAME_OPTIONS, MaskGen
 
-# option -> (value the port serves, the ROADMAP item that brings the rest)
+# option -> (value the port serves, what of the ROADMAP item brings the rest)
 _NOT_YET = {
-    "mask_refine": ("box", "queue 1 item 10 (refine=guided)"),
-    "mask_morph": ("", "queue 1 item 10 (morph)"),
-    "input_format": ("bgr", "queue 1 item 10 (yuyv/nv12/mjpg ingest)"),
+    "mask_refine": ("box", "refine=guided"),
+    "mask_morph": ("", "morph"),
+    "input_format": ("bgr", "yuyv/nv12/mjpg ingest"),
 }
 _OUTPUT_FORMATS = ("yuyv", "nv12", "i420", "bgr")
 
@@ -85,11 +85,12 @@ class FramePipeline:
             value = getattr(config, name)
             if value != served:
                 raise NotImplementedError(
-                    f"{name}={value!r} is not in the PyTorch port yet: ROADMAP {item}")
+                    f"{name}={value!r} is not in the PyTorch port yet: "
+                    f"{ROADMAP_FRAME_OPTIONS} ({item})")
         fmt = config.output_format
         if fmt == "mjpg":
-            raise NotImplementedError("output_format='mjpg' is not in the PyTorch port "
-                                      "yet: ROADMAP queue 1 item 10 (MJPG encode)")
+            raise NotImplementedError(f"output_format='mjpg' is not in the PyTorch port "
+                                      f"yet: {ROADMAP_FRAME_OPTIONS} (MJPG encode)")
         if fmt not in _OUTPUT_FORMATS:
             raise ValueError(f"output_format must be one of {_OUTPUT_FORMATS}, got {fmt!r}")
         ow = config.out_width or config.width

@@ -189,7 +189,9 @@ class MaskGen:
         return self.process(frame).cpu().numpy().tobytes()
 
 
-_NOT_YET_CAPI = "ROADMAP queue 1 item 10"
+# the ROADMAP item, by its queue and title (a re-anchor may renumber
+# items), that brings the options the port does not serve yet
+ROADMAP_FRAME_OPTIONS = "ROADMAP queue 1, Frame options and formats"
 
 
 def parse_capi_options(options: str) -> dict:
@@ -204,11 +206,11 @@ def parse_capi_options(options: str) -> dict:
             kw["use_bilateral"] = False
         elif tok == "u8exact" or tok.startswith(("refine:", "morph:")):
             raise NotImplementedError(f"maskgen option {tok!r} is not in the PyTorch "
-                                      f"port yet: {_NOT_YET_CAPI}")
+                                      f"port yet: {ROADMAP_FRAME_OPTIONS}")
         else:
             raise ValueError(f"unknown maskgen option {tok!r}; supported: no-bilateral "
                              f"(refine:guided, morph:<op>[:k] and u8exact: "
-                             f"{_NOT_YET_CAPI})")
+                             f"{ROADMAP_FRAME_OPTIONS})")
     return kw
 
 

@@ -46,10 +46,14 @@ Usage (from the repository root, on a machine with a CUDA card)::
    launch counter checked by kernel (``bs_body_mega`` twice a frame, no
    other body kernel), and a person fraction strictly inside (0.01, 0.99);
 6. K4 (blend + NV12/I420 pack) byte-identical to its plain version at
-   640x480 and 1280x720, and K5 (the standalone bilateral) within
-   allclose(atol=2e-3, rtol=1e-3) of its plain version at the classic
-   path's canvases (segm 96x160, deeplab 257x257, a batch of 4 at
-   257x257), rounded bytes off by at most 1; CUDA-event times;
+   640x480 and 1280x720 (step 3) and at 42x58, 480x642 (W % 4 == 2) and a
+   480x642 view off a 4-byte boundary (its per-block path), and K5 (the
+   standalone bilateral) within allclose(atol=2e-3, rtol=1e-3) of its
+   plain version at the classic path's canvases (segm 96x160, deeplab
+   257x257, a batch of 4 at 257x257), rounded bytes off by at most 1;
+   CUDA-event times, device times warm and cold (``device_ms_cold``: a
+   128 MB buffer overwritten before each launch, so the inputs come from
+   HBM; K3 too);
 7. the classic path: 30 frames of ``FramePipeline(edge_fused=False,
    output_format="nv12")`` on the segm model at 640x480 (one K5 and one
    K4 launch a frame, no K1/K2/K3), then I420 frames, then a
@@ -59,7 +63,11 @@ Usage (from the repository root, on a machine with a CUDA card)::
 8. the staged path: 10 frames of ``MaskGen(fused=False)`` with stage
    hooks on the deeplab model at 640x480 (one K5 launch a frame at
    257x257, hooks in order), masks held to the deeplab rule above;
-9. a pipeline constructed without ``device=`` lands on ``cuda``;
+9. a pipeline constructed without ``device=`` lands on ``cuda``; then the
+   default (fused) segm path with NV12 out: 10 frames at 640x480, each
+   one K1, one K2 and one K4 launch and no K3 or K5 (counted frame by
+   frame), held against the plain path under the tolerance invariant,
+   then one I420 frame;
 10. P1-P7, the probe kernels of ``tools/probe_mosaic.py``
    (``csrc/probes.cu``), through ``tools/probe_hopper.py`` on the
    original's inputs: the probe path once from zeroed counts (each kernel
@@ -78,6 +86,7 @@ Usage (from the repository root, on a machine with a CUDA card)::
    the GEMM and K2 with
    ``b2b_ms`` (an event pair around 100 back-to-back calls), the GEMM with
    ``library_ms`` = ``torch.addmm`` and its device and back-to-back times;
+   K4's ``launches`` are the fused NV12 run's, K5's the classic run's;
    the GEMM's ``launches`` are the GEMM ops that the continuation's
    ``bs_body_mega`` launches ran on the main path, its other numbers those
    of the standalone probe at the ASPP shape; K2'' with its
@@ -121,6 +130,8 @@ MATCHED_ATOL, MATCHED_RTOL, MATCHED_MEAN = 2e-3, 1e-4, 1e-4
 PROBE_TOL = 1e-5           # P3 and P4 against their plain twins (summation order)
 FRAME_TOL, MEAN_TOL = 0.02, 0.002
 CLASSIC_SIZE, CLASSIC_FRAMES, STAGED_FRAMES = (640, 480), 30, 10
+FUSED_420_FRAMES = 10      # the fused segm path with NV12 out
+L2_FLUSH_BYTES = 128 << 20  # overwritten before each cold launch: over twice the 50 MB L2
 VARIANT_FRAMES = 5         # classic I420 and flipped runs
 # the H100 SXM's published peaks (HBM3 bytes/s, f32 FLOP/s outside the
 # tensor cores, dense bf16 FLOP/s on them) for the kernels' bounds
@@ -186,27 +197,35 @@ def b2b_ms(fn, n=100, warmup=3):
     return a.elapsed_time(b) / n
 
 
-def device_ms(fn, n=100, warmup=3, attempts=3):
+def device_ms(fn, n=100, warmup=3, attempts=3, cold=None):
     """Device time (ms) a call of ``fn``: the torch.profiler's sum of the
-    card's kernel (and copy) time over ``n`` calls, divided by ``n``.  A
+    card's kernel (and copy) time over ``n`` calls, divided by ``n``.  With
+    ``cold``, a kernel name launched once a call, a buffer of
+    L2_FLUSH_BYTES is overwritten before each call (so the inputs come from
+    HBM) and only the kernels whose name holds ``cold`` are summed.  A
     profiler window now and then records no device events at all; such a
     window is measured again, up to ``attempts`` windows."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda") if cold else None
     for _ in range(warmup):
         fn()
     for _ in range(attempts):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
+            for i in range(n):
+                if cold:
+                    flush.fill_(i)
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA)
-        if us > 0:
-            return us / 1e3 / n
-    raise RuntimeError(f"the profiler saw no device time in {attempts} windows")
+        ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+              and (cold is None or cold in e.key)]
+        if sum(e.self_device_time_total for e in ev) > 0 \
+                and (cold is None or sum(e.count for e in ev) == n):
+            return sum(e.self_device_time_total for e in ev) / 1e3 / n
+    raise RuntimeError(f"the profiler saw no device time{f' of {n} {cold}' if cold else ''} "
+                       f"in {attempts} windows")
 
 
 def barrier_us():
@@ -323,6 +342,8 @@ def kernel_phase(w, h):
                            ms=timed(lambda: blend_pack_yuyv(frame, bg, mask)),
                            plain_ms=timed(lambda: blend_pack_yuyv_plain(frame, bg, mask)),
                            device_ms=device_ms(lambda: blend_pack_yuyv(frame, bg, mask)),
+                           device_ms_cold=device_ms(lambda: blend_pack_yuyv(frame, bg, mask),
+                                                    cold="blend_pack_yuyv_kernel"),
                            bound=bound(9 * h * w, 30 * h * w))
         for layout in ("nv12", "i420"):
             k4 = blend_pack_420(frame, bg, mask, layout)
@@ -333,26 +354,34 @@ def kernel_phase(w, h):
                                ms=timed(lambda: blend_pack_420(frame, bg, mask)),
                                plain_ms=timed(lambda: blend_pack_420_plain(frame, bg, mask)),
                                device_ms=device_ms(lambda: blend_pack_420(frame, bg, mask)),
+                               device_ms_cold=device_ms(
+                                   lambda: blend_pack_420(frame, bg, mask),
+                                   cold="blend_pack_420_kernel"),
                                bound=bound(17 * h * w // 2, 35 * h * w))
     for name, r in res.items():
         print(f"kernel {name} {w}x{h}: max_abs_err={r['max_abs_err']:.3g} "
               f"kernel {r['ms'][0]:.4f} ms (checksum {r['ms'][1]:.6g}) "
               f"plain {r['plain_ms'][0]:.4f} ms (checksum {r['plain_ms'][1]:.6g}) "
-              f"device {r['device_ms'] * 1e3:.3f} us "
-              f"bound {r['bound'][0]:.5f} ms ({r['bound'][1]})")
+              f"device {r['device_ms'] * 1e3:.3f} us"
+              + (f" (cold {r['device_ms_cold'] * 1e3:.3f} us)" if "device_ms_cold" in r else "")
+              + f" bound {r['bound'][0]:.5f} ms ({r['bound'][1]})")
     return res
 
 
-def plain_step(pipe, frame, bg, ema):
-    """The port's main path with every kernel replaced by its plain version."""
-    from backscrub_tpu_torch.ops.pack_kernels import blend_pack_yuyv_plain
+def plain_step(pipe, frame, bg, ema, layout="yuyv"):
+    """The port's fused segm path with every kernel replaced by its plain
+    version; ``layout`` "yuyv" (K3's plain version) or "nv12"/"i420"
+    (K4's)."""
+    from backscrub_tpu_torch.ops.pack_kernels import blend_pack_420_plain, blend_pack_yuyv_plain
     from backscrub_tpu_torch.pipeline.edge import front_plain
     e = pipe.maskgen.edge
     h = front_plain(e.canvas(frame), e.front_params, **e.front_kwargs())
     body = e.body_plan.run_plain(h.reshape(h.shape[0], -1))
     ema = e.tail(body, ema)
     mask = e.postprocess(ema)
-    return blend_pack_yuyv_plain(frame, bg, mask), mask, ema
+    out = (blend_pack_yuyv_plain(frame, bg, mask) if layout == "yuyv"
+           else blend_pack_420_plain(frame, bg, mask, layout))
+    return out, mask, ema
 
 
 def pipeline_phase(w, h):
@@ -758,12 +787,14 @@ def bilateral_phase(segm, deeplab):
             r = dict(max_abs_err=float((k - p).abs().max()),
                      ms=timed(lambda: bilateral5(x)), plain_ms=timed(lambda: bilateral5_plain(x)),
                      device_ms=device_ms(lambda: bilateral5(x)),
+                     device_ms_cold=device_ms(lambda: bilateral5(x), cold="bilateral_kernel"),
                      bound=bound(24 * px, BILATERAL_OPS * px))
             print(f"kernel bilateral {name}: max_abs_err={r['max_abs_err']:.3g}, rounded "
                   f"bytes differing {100 * float((rd > 0).float().mean()):.4f}%, kernel "
                   f"{r['ms'][0]:.4f} ms (checksum {r['ms'][1]:.6g}) plain "
                   f"{r['plain_ms'][0]:.4f} ms (checksum {r['plain_ms'][1]:.6g}), device "
-                  f"{r['device_ms'] * 1e3:.3f} us, bound {r['bound'][0]:.5f} ms ({r['bound'][1]})")
+                  f"{r['device_ms'] * 1e3:.3f} us (cold {r['device_ms_cold'] * 1e3:.3f} us), "
+                  f"bound {r['bound'][0]:.5f} ms ({r['bound'][1]})")
             res[name] = r
     return res
 
@@ -867,6 +898,110 @@ def classic_phase(pipe):
         print(f"pipeline classic {fmt} flip_horizontal={flip_h}: {m} frames, launches "
               f"{counts}, differing bytes max {100 * max(fracs):.4f}%")
     pipe.cfg = nv12
+    return launches, ms
+
+
+def pack420_shapes():
+    """K4 byte-identical to its plain version, NV12 and I420, where its
+    vector path does not cover the frame: 42x58 and 480x642 (W % 4 == 2:
+    every block per-block) and a 480x642 frame that is a view one row into
+    a larger one (off a 4-byte boundary, 1926 bytes in)."""
+    import torch
+    from backscrub_tpu_torch.ops.pack_kernels import blend_pack_420, blend_pack_420_plain
+    cases = []
+    for h, w in ((42, 58), (480, 642), (481, 642)):
+        rng = np.random.default_rng(h + w)
+        fr, bg = (torch.from_numpy(rng.integers(0, 256, (h, w, 3), np.uint8)).cuda()
+                  for _ in range(2))
+        m = rng.integers(0, 256, (h, w), np.uint8)
+        m[: h // 4], m[h // 4: h // 2] = 255, 0
+        cases.append((f"{h}x{w}", fr, bg, torch.from_numpy(m).cuda()))
+    name, fr, bg, m = cases.pop()
+    cases.append(("480x642 view off a word boundary", fr[1:], bg[1:], m[1:]))
+    if fr[1:].data_ptr() % 4 == 0 or not fr[1:].is_contiguous():
+        raise AssertionError("the view is not a contiguous frame off a word boundary")
+    for name, fr, bg, m in cases:
+        for layout in ("nv12", "i420"):
+            if not torch.equal(blend_pack_420(fr, bg, m, layout),
+                               blend_pack_420_plain(fr, bg, m, layout)):
+                raise AssertionError(f"K4 differs from its plain version ({name}, {layout})")
+    print("kernel pack_420: byte-identical to plain, NV12 and I420, at "
+          + ", ".join(c[0] for c in cases))
+
+
+def fused_420_phase():
+    """The default (fused) segm path with NV12 out at CLASSIC_SIZE on the
+    card: FUSED_420_FRAMES frames, each one K1, one K2 (``bs_body_mega``)
+    and one K4 launch and no K3 or K5; output and mask held against the
+    plain path (K1, K2 and K4 by their plain versions) under the tolerance
+    invariant; then one I420 frame on the same pipeline."""
+    import torch
+    from backscrub_tpu_torch.ops.megakernel import body_launch
+    from backscrub_tpu_torch.pipeline.frame import FramePipeline, PipelineConfig
+    from make_synth_segm import moving_frames
+
+    w, h = CLASSIC_SIZE
+    n = FUSED_420_FRAMES
+    pipe = FramePipeline(MODEL, PipelineConfig(width=w, height=h, output_format="nv12"),
+                         device="cuda")
+    if pipe.maskgen.edge is None or pipe.maskgen.edge.body_plan is None:
+        raise AssertionError("the default nv12 pipeline did not take the fused path")
+    frames = [torch.from_numpy(f).cuda() for f in moving_frames(w, h, n)]
+    bg = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 256, (h, w, 3), np.uint8)).cuda()
+    for f in frames[:3]:                 # warm-up
+        pipe.step(f, bg)
+    want = dict(front=1, body=1, pack=0, pack_420=1, bilateral=0)
+
+    def drive(frs):
+        """Frames from a fresh EMA, the launch counts checked frame by
+        frame; returns the outputs and the summed counts."""
+        pipe.reset()
+        torch.cuda.synchronize()
+        outs, total = [], collections.Counter()
+        for f in frs:
+            _zero_counts()
+            body_launch.by_kernel.clear()
+            outs.append(pipe.step(f, bg))
+            counts = _counts()
+            if counts != want or dict(body_launch.by_kernel) != {"bs_body_mega": 1}:
+                raise AssertionError(f"fused {pipe.cfg.output_format} launch counts a frame "
+                                     f"{counts} {dict(body_launch.by_kernel)}, expected {want}")
+            total.update(counts)
+        torch.cuda.synchronize()
+        return outs, {k: total[k] for k in want}
+
+    def check(frs, outs):
+        ema = torch.full(pipe.maskgen.ema_shape, 255, dtype=torch.uint8, device="cuda")
+        fracs = []
+        with torch.no_grad():
+            for f, (out, mask) in zip(frs, outs):
+                ro, rm, ema = plain_step(pipe, f, bg, ema, pipe.cfg.output_format)
+                if out.shape != ro.shape or out.dtype != torch.uint8:
+                    raise AssertionError(f"output shape {tuple(out.shape)} {out.dtype}")
+                fracs.append(_held_bytes([(out, ro), (mask, rm)], "fused 4:2:0 path"))
+        if float(np.mean(fracs)) > MEAN_TOL:
+            raise AssertionError(f"{100 * np.mean(fracs):.4f}% of bytes differ on average")
+        return fracs
+
+    t0 = time.perf_counter()
+    outs, launches = drive(frames)
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    fracs = check(frames, outs)
+    person = float((outs[-1][1] < 128).float().mean())
+    if not 0.01 < person < 0.99:
+        raise AssertionError(f"degenerate mask: person fraction {person}")
+    print(f"pipeline fused nv12 {w}x{h}: {n} frames, {ms:.4f} ms/frame (host clock, "
+          f"synchronized, launch counts read a frame), launches {launches}, differing "
+          f"bytes vs plain path mean {100 * np.mean(fracs):.4f}% max {100 * max(fracs):.4f}%, "
+          f"person fraction {person:.3f}")
+    nv12 = pipe.cfg
+    pipe.cfg = dataclasses.replace(nv12, output_format="i420")
+    outs, counts = drive(frames[:1])
+    fracs = check(frames[:1], outs)
+    pipe.cfg = nv12
+    print(f"pipeline fused i420 {w}x{h}: 1 frame, launches {counts}, differing bytes "
+          f"{100 * fracs[0]:.4f}%")
     return launches, ms
 
 
@@ -1050,13 +1185,17 @@ def main() -> int:
     device_check()
     print(f"bilateral, classic, staged and device phases: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
+    pack420_shapes()
+    fused_420_launches, _ = fused_420_phase()
+    print(f"K4 shapes and fused 4:2:0 phases: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
     probes, probe_launches = probe_phase()
     print(f"probe phase: {time.perf_counter() - t0:.2f} s")
     main_size = SIZES[0]
     # launches: each kernel's count from the run of the path it serves
     launches = dict(runs[main_size][0], body_prefix=dl_launches["body_prefix"],
                     body_cont=dl_launches["body_cont"], gemm=dl_launches["gemm"],
-                    pack_420=classic_launches["pack_420"],
+                    pack_420=fused_420_launches["pack_420"],
                     bilateral=classic_launches["bilateral"])
     results = dict(kernels[main_size], body_prefix=dl_kernels["body_prefix"],
                    body_cont=dl_kernels["body_cont"], gemm=dl_kernels["gemm"],
@@ -1102,7 +1241,8 @@ def main() -> int:
          "bound_by": results[name]["bound"][1],
          "library_ms": results[name]["library_ms"][0] if "library_ms" in results[name]
          else None,
-         **{k: results[name][k] for k in ("device_ms", "b2b_ms", "library_device_ms",
+         **{k: results[name][k] for k in ("device_ms", "device_ms_cold", "b2b_ms",
+                                         "library_device_ms",
                                          "library_b2b_ms", "precision_gap",
                                          "main_path_launches") if k in results[name]}}
         for name, (src, rep) in meta.items()]}

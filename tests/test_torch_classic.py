@@ -14,6 +14,7 @@ against its plain version on the card in tests/test_torch_cuda.py.
 """
 
 import pathlib
+import re
 import sys
 
 import numpy as np
@@ -154,10 +155,33 @@ def test_capi_surface():
     assert tmaskgen.bs_tensorflow_version() == f"torch-{torch.__version__}"
     assert tmaskgen.parse_capi_options(" , ") == {}
     for tok in ("u8exact", "refine:guided", "morph:open:3"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+        with pytest.raises(NotImplementedError, match="queue 1, Frame options and formats"):
             tmaskgen.parse_capi_options(f"no-bilateral,{tok}")
     with pytest.raises(ValueError, match="unknown maskgen option"):
         tmaskgen.parse_capi_options("bogus")
+
+
+def test_not_yet_messages_name_a_roadmap_item():
+    """Every option the port does not serve yet raises naming a ROADMAP item
+    by its queue and title, and that item is in ROADMAP.md's queue."""
+    msgs = []
+    for option in (dict(mask_refine="guided"), dict(mask_morph="open"),
+                   dict(input_format="nv12"), dict(output_format="mjpg")):
+        with pytest.raises(NotImplementedError) as e:
+            FramePipeline(str(FULL), PipelineConfig(width=640, height=480, **option),
+                          device="cpu")
+        msgs.append(str(e.value))
+    for tok in ("u8exact", "refine:guided", "morph:open:3"):
+        with pytest.raises(NotImplementedError) as e:
+            tmaskgen.parse_capi_options(tok)
+        msgs.append(str(e.value))
+    roadmap = (ROOT / "ROADMAP.md").read_text()
+    for msg in msgs:
+        m = re.search(r"ROADMAP queue (\d+), ([^(]+?)(?: \(|$)", msg)
+        assert m, f"no ROADMAP item named in {msg!r}"
+        queue = roadmap.split(f"### Queue {m.group(1)} ")[1].split("\n### ")[0]
+        assert re.search(rf"^\d+\. \*\*{re.escape(m.group(2))}\.\*\*", queue, re.M), \
+            f"ROADMAP queue {m.group(1)} has no item {m.group(2)!r}"
 
 
 def test_classic_nv12_pipeline_matches_jax():

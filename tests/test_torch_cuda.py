@@ -299,9 +299,10 @@ def test_front_and_body_kernels_match_plain(cuda_device, w, h):
         torch.testing.assert_close(k2, e.body_plan.run_plain(x), atol=2e-3, rtol=1e-3)
 
 
-@pytest.mark.parametrize("h,w", [(42, 58), (480, 640), (720, 1280)])
+@pytest.mark.parametrize("h,w", [(42, 58), (480, 640), (720, 1280), (480, 642)])
 def test_blend_pack_420_kernel_matches_plain(cuda_device, h, w):
-    """K4 byte-identical to its plain version, NV12 and I420."""
+    """K4 byte-identical to its plain version, NV12 and I420: the vector
+    path at W % 4 == 0, the per-block path at W % 4 == 2."""
     rng = np.random.default_rng(h)
     fr, bg = (torch.from_numpy(rng.integers(0, 256, (h, w, 3), np.uint8)).to(cuda_device)
               for _ in range(2))
@@ -313,6 +314,19 @@ def test_blend_pack_420_kernel_matches_plain(cuda_device, h, w):
         got = blend_pack_420(fr, bg, m, layout)
         assert blend_pack_420.launches == before + 1
         assert torch.equal(got, blend_pack_420_plain(fr, bg, m, layout))
+
+
+def test_blend_pack_420_kernel_on_misaligned_views(cuda_device):
+    """A view one row into a 642-wide frame starts off a 4-byte boundary
+    (1926 and 642 bytes in): every block takes the per-block path, byte-
+    identical, NV12 and I420."""
+    h, w = 480, 642
+    big_fr, big_bg, big_m = _pack_inputs(h + 1, w, cuda_device, seed=6)
+    fr, bg, m = big_fr[1:], big_bg[1:], big_m[1:]
+    assert fr.is_contiguous() and fr.data_ptr() % 4 and m.data_ptr() % 4
+    for layout in ("nv12", "i420"):
+        assert torch.equal(blend_pack_420(fr, bg, m, layout),
+                           blend_pack_420_plain(fr, bg, m, layout))
 
 
 @pytest.mark.parametrize("n,h,w", [(1, 96, 160), (1, 257, 257), (4, 257, 257), (2, 5, 7)])
@@ -355,6 +369,35 @@ def test_classic_nv12_pipeline_launches_and_matches_plain(cuda_device):
                 assert int((a.int() - b.int()).abs().max()) <= 1
                 fracs.append(float((a != b).float().mean()))
     assert [c.launches - b for c, b in zip(counters, before)] == [3, 3, 0, 0, 0]
+    assert max(fracs) <= 0.02 and float(np.mean(fracs)) <= 0.002
+
+
+def test_fused_nv12_pipeline_launches_and_matches_plain(cuda_device):
+    """Three frames of the default (fused) segm path with NV12 out: one K1,
+    one K2 and one K4 launch a frame, no K3 or K5; output and mask against
+    the plain path on the card under the tolerance invariant."""
+    w, h = 640, 480
+    pipe = FramePipeline(str(FULL), PipelineConfig(width=w, height=h, output_format="nv12"),
+                         device=cuda_device)
+    e = pipe.maskgen.edge
+    assert e is not None and e.body_plan is not None
+    frames = [torch.from_numpy(f).to(cuda_device) for f in _frames(w, h, 3)]
+    bg = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 256, (h, w, 3), np.uint8)).to(cuda_device)
+    counters = (tedge.front_fused, body_launch, blend_pack_420, blend_pack_yuyv, bilateral5)
+    ema = pipe.maskgen.ema.clone()
+    fracs = []
+    with torch.no_grad():
+        for f in frames:
+            before = [c.launches for c in counters]
+            out, mask = pipe.step(f, bg)
+            assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 1, 0, 0]
+            k1 = tedge.front_plain(e.canvas(f), e.front_params, **e.front_kwargs())
+            ema = e.tail(e.body_plan.run_plain(k1.reshape(k1.shape[0], -1)), ema)
+            rm = e.postprocess(ema)
+            for a, b in ((out, blend_pack_420_plain(f, bg, rm)), (mask, rm)):
+                assert a.shape == b.shape and int((a.int() - b.int()).abs().max()) <= 1
+                fracs.append(float((a != b).float().mean()))
     assert max(fracs) <= 0.02 and float(np.mean(fracs)) <= 0.002
 
 

@@ -14,14 +14,24 @@ between the two checkouts can be compared.  The cases:
   model's parameter block and options, at the tile ``front_tile`` picks;
 - ``gemm``: the K2'' GEMM tile alone, ``conv1x1_gemm`` under RELU6 at
   every 1x1 shape of the deeplab frame and at ragged ones, on seeded
-  inputs, at ``gemm_config``'s tile and split.
+  inputs, at ``gemm_config``'s tile and split;
+- ``bilateral``: K5, ``bilateral5`` on seeded u8-valued canvases at
+  (1, 96, 160), (1, 257, 257), (4, 257, 257) and (2, 5, 7);
+- ``pack420``: K4, ``blend_pack_420`` NV12 and I420 on seeded frames,
+  backgrounds and masks at 480x640, 720x1280, 42x58 and 480x642.
 
 Prints, per call, whether the outputs are bit-identical (else how many
-values differ and by how much) and exits 1 if any differs.
+values differ and by how much) and exits 1 if any differs.  With
+``--time`` it also times the kernel of each call at a main path's shape
+(K1's canvases, K5 at the three canvas shapes, K4 at 640x480 and
+1280x720) in each checkout by the profiler's device time a launch, warm
+(the inputs in the 50 MB L2) and cold (a 128 MB buffer overwritten
+before each launch), both by this checkout's ``chip_smoke.device_ms``,
+in fresh subprocesses in turns: the other, this, this, the other.
 
 Usage (from the repository root, on a machine with a CUDA card)::
 
-    python tools/bits_vs_build.py OTHER_CHECKOUT [front] [gemm]
+    python tools/bits_vs_build.py OTHER_CHECKOUT [--time] [front] [gemm] [bilateral] [pack420]
 """
 
 import os
@@ -33,20 +43,31 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# run in a checkout: each call's wrapper on the saved inputs, on the card
+# run in a checkout: each call's wrapper on the saved inputs, on the card;
+# given a timer file (this checkout's chip_smoke.py), also its kernel's
+# device us a launch by that file's device_ms, warm and cold
 _RUN = """
-import importlib, sys, torch
+import functools, importlib, importlib.util, sys, torch
 sys.path.insert(0, sys.argv[1])
+device_ms = None
+if len(sys.argv) > 4:
+    spec = importlib.util.spec_from_file_location("timer", sys.argv[4])
+    timer = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(timer)
+    device_ms = timer.device_ms
 def dev(v):
     return v.cuda() if isinstance(v, torch.Tensor) else v
-outs = []
+outs, times = [], []
 with torch.no_grad():
     for c in torch.load(sys.argv[2]):
         mod, name = c["wrapper"].split(":")
-        fn = getattr(importlib.import_module(mod), name)
-        outs.append(fn(*map(dev, c["args"]),
-                       **{k: dev(v) for k, v in c["kwargs"].items()}).cpu())
-torch.save(outs, sys.argv[3])
+        call = functools.partial(getattr(importlib.import_module(mod), name),
+                                 *map(dev, c["args"]),
+                                 **{k: dev(v) for k, v in c["kwargs"].items()})
+        outs.append(call().cpu())
+        if device_ms is not None:
+            times.append((1e3 * device_ms(call), 1e3 * device_ms(call, cold=c["kernel"])))
+torch.save((outs, times), sys.argv[3])
 """
 
 GEMM_SHAPES = [(16, 96), (21, 256), (32, 96), (32, 192), (48, 192), (48, 288), (80, 288),
@@ -74,8 +95,8 @@ def front_calls():
                               device="cuda").maskgen.edge
             canvas = e.canvas(torch.from_numpy(frame).cuda()).cpu()
             calls.append((f"front {os.path.basename(path)} {w}x{h}", dict(
-                wrapper="backscrub_tpu_torch.pipeline.edge:front_fused",
-                args=[canvas, e.front_params.cpu()], kwargs=e.front_kwargs())))
+                wrapper="backscrub_tpu_torch.pipeline.edge:front_fused", kernel="front_kernel",
+                timed=True, args=[canvas, e.front_params.cpu()], kwargs=e.front_kwargs())))
     return calls
 
 
@@ -89,26 +110,66 @@ def gemm_calls():
                 for s in ((co, ci), (ci, n)))
         b = torch.from_numpy(rng.standard_normal(co).astype(np.float32))
         calls.append((f"gemm {co}x{ci}x{n}", dict(
-            wrapper="backscrub_tpu_torch.ops.megakernel:conv1x1_gemm",
+            wrapper="backscrub_tpu_torch.ops.megakernel:conv1x1_gemm", kernel="gemm_tc_kernel",
             args=[w, b, x], kwargs=dict(act="RELU6"))))
     return calls
 
 
-CASES = {"front": front_calls, "gemm": gemm_calls}
+BILATERAL_SHAPES = [(1, 96, 160), (1, 257, 257), (4, 257, 257), (2, 5, 7)]
+PACK420_SHAPES = [(480, 640), (720, 1280), (42, 58), (480, 642)]
 
 
-def run(checkout: str, calls, tmp: str, tag: str):
-    """The outputs of ``calls`` in ``checkout``, run in a subprocess there."""
+def bilateral_calls():
+    """(name, call) of K5 on seeded canvases at the classic path's shapes."""
+    import torch
+    calls = []
+    for n, h, w in BILATERAL_SHAPES:
+        x = torch.from_numpy(np.random.default_rng(n * h * w).integers(
+            0, 256, (n, h, w, 3)).astype(np.float32))
+        calls.append((f"bilateral {n}x{h}x{w}", dict(
+            wrapper="backscrub_tpu_torch.ops.image_kernels:bilateral5",
+            kernel="bilateral_kernel", timed=h > 5, args=[x], kwargs={})))
+    return calls
+
+
+def pack420_calls():
+    """(name, call) of K4, NV12 and I420, on seeded inputs."""
+    import torch
+    calls = []
+    for h, w in PACK420_SHAPES:
+        rng = np.random.default_rng(h + w)
+        fr, bg = (torch.from_numpy(rng.integers(0, 256, (h, w, 3), np.uint8))
+                  for _ in range(2))
+        m = rng.integers(0, 256, (h, w), np.uint8)
+        m[: h // 4], m[h // 4: h // 2] = 255, 0
+        for layout in ("nv12", "i420"):
+            calls.append((f"pack420 {layout} {h}x{w}", dict(
+                wrapper="backscrub_tpu_torch.ops.pack_kernels:blend_pack_420",
+                kernel="blend_pack_420_kernel", timed=(h, w) in ((480, 640), (720, 1280)),
+                args=[fr, bg, torch.from_numpy(m), layout], kwargs={})))
+    return calls
+
+
+CASES = {"front": front_calls, "gemm": gemm_calls, "bilateral": bilateral_calls,
+         "pack420": pack420_calls}
+
+
+def run(checkout: str, calls, tmp: str, tag: str, time: bool):
+    """The outputs of ``calls`` in ``checkout``, run in a subprocess there,
+    and with ``time`` each call's (warm, cold) device us a launch."""
     import torch
     inp, outp = os.path.join(tmp, f"{tag}.in.pt"), os.path.join(tmp, f"{tag}.out.pt")
     torch.save(calls, inp)
-    subprocess.run([sys.executable, "-c", _RUN, checkout, inp, outp], check=True,
+    timer = [os.path.join(REPO, "chip_smoke.py")] if time else []
+    subprocess.run([sys.executable, "-c", _RUN, checkout, inp, outp, *timer], check=True,
                    cwd=checkout)
     return torch.load(outp)
 
 
 def main(argv) -> int:
     import torch
+    time = "--time" in argv
+    argv = [a for a in argv if a != "--time"]
     if not argv or any(c not in CASES for c in argv[1:]):
         print(__doc__, file=sys.stderr)
         return 2
@@ -119,8 +180,15 @@ def main(argv) -> int:
     sys.path.insert(0, REPO)
     named = [nc for case in (argv[1:] or list(CASES)) for nc in CASES[case]()]
     names, calls = [n for n, _ in named], [c for _, c in named]
+    timed = [k for k, c in enumerate(calls) if c.get("timed")]
     with tempfile.TemporaryDirectory() as tmp:
-        ours, theirs = run(REPO, calls, tmp, "this"), run(other, calls, tmp, "other")
+        ours, theirs = (run(d, calls, tmp, tag, False)[0]
+                        for d, tag in ((REPO, "this"), (other, "other")))
+        if time:        # the timed calls, in turns: other, this, this, other
+            t_other, t_this, t_this2, t_other2 = (
+                run(d, [calls[k] for k in timed], tmp, f"{tag}{i}", True)[1]
+                for i, (d, tag) in enumerate(((other, "other"), (REPO, "this"),
+                                              (REPO, "this"), (other, "other"))))
     differ = 0
     for name, got, ref in zip(names, ours, theirs):
         same = got.shape == ref.shape and torch.equal(got, ref)
@@ -130,6 +198,12 @@ def main(argv) -> int:
             f"shapes {tuple(got.shape)} vs {tuple(ref.shape)}" if got.shape != ref.shape else
             f"{int((got != ref).sum())} values differ, max "
             f"{float((got - ref).abs().max()):.3g}"))
+    if time:
+        for k, name in enumerate(names[i] for i in timed):
+            print(f"time {name}: device us a launch, this warm {t_this[k][0]:.3f} / "
+                  f"{t_this2[k][0]:.3f}, cold {t_this[k][1]:.3f} / {t_this2[k][1]:.3f}; "
+                  f"the other warm {t_other[k][0]:.3f} / {t_other2[k][0]:.3f}, cold "
+                  f"{t_other[k][1]:.3f} / {t_other2[k][1]:.3f}")
     print(f"vs the other build: {len(calls)} calls, {differ} differ "
           f"({torch.cuda.get_device_name(0)})")
     return 1 if differ else 0
