@@ -45,6 +45,7 @@ SIGNATURES = {
     "bs_probe_dw9": (P, P, I, I, I, I, I, I, P),
     "bs_probe_dot": (P, P, P, I, I, P),
     "bs_probe_se": (P, P, P, I, I, P),
+    "bs_probe_se_cluster": (),
     "bs_probe_cat": (P, P, P, I, I, P),
     "bs_probe_stride2": (P, P, I, I, P),
 }

@@ -69,6 +69,7 @@
 #include "async_copy.cuh"
 #include "body_act.cuh"
 #include "gemm_tc.cuh"
+#include "launch.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -629,10 +630,10 @@ __global__ void barrier_bench_kernel(int iters) {
 template <int BARRIER, typename... Args_>
 int launch_resident(void (*kern)(Args_...), int cluster, int smem, cudaStream_t stream,
                     Args_... args) {
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       smem);
-  if (e != cudaSuccess) return (int)e;
   if constexpr (BARRIER == 0) {
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem);
+    if (e != cudaSuccess) return (int)e;
     int dev = 0, sms = 0, per_sm = 0;
     if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
     if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
@@ -644,27 +645,7 @@ int launch_resident(void (*kern)(Args_...), int cluster, int smem, cudaStream_t 
     e = cudaLaunchCooperativeKernel((const void*)kern, dim3(sms), dim3(NT), argv, smem, stream);
     return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
   } else {
-    if (cluster > 8 &&
-        (e = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)) !=
-            cudaSuccess)
-      return (int)e;
-    cudaLaunchConfig_t cfg = {};
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = cluster;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.gridDim = dim3(cluster);
-    cfg.blockDim = dim3(NT);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = stream;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    int n = 0;
-    if ((e = cudaOccupancyMaxActiveClusters(&n, kern, &cfg)) != cudaSuccess) return (int)e;
-    if (n < 1) return (int)cudaErrorLaunchOutOfResources;
-    e = cudaLaunchKernelEx(&cfg, kern, args...);
-    return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+    return launch_cluster(kern, cluster, NT, smem, stream, args...);
   }
 }
 

@@ -17,28 +17,38 @@
 // float, so here they are plain copies.
 //
 // Bound: bytes, for every probe.  Each moves 0.37-0.98 MB (0.11-0.29 us at
-// 3.35 TB/s) and does at most ~6 MFLOP; a launch costs ~2 us.  So the
-// kernels are simple: one thread an output (or a 16-byte vector of them),
-// inputs through the read-only path, no staging.
+// 3.35 TB/s) and does at most ~6 MFLOP; a launch and one L2 round trip
+// cost ~1.1 us (P7's copy), which no probe at these sizes gets under.  P1,
+// P2 and P5-P7 are simple: one thread an output (or a 16-byte vector of
+// them), inputs through the read-only path, no staging.  P3 and P4 are
+// laid out for Hopper: P3 on wgmma from one staged tile a warpgroup, P4 on
+// one thread-block cluster whose CTAs share their row sums through
+// distributed shared memory (each below).
 //
 // Arithmetic, so that the plain twins can match bit for bit where asked:
 // P1/P2 multiply and add with __fmul_rn/__fadd_rn (no FMA contraction), the
 // taps in the original's order (di outer, dj inner, from 0), each weight the
 // f32 rounding of the double 0.1 + di + 2 dj; P5-P7 copy.  P3 runs DEFAULT
-// as one mma.sync.m16n8k16 bf16 pass (f32 accumulate), HIGH as the bf16x3
-// split of gemm_tc.cuh (K2''s GEMM), HIGHEST as f32 FFMA; P4 sums each row,
+// as one bf16 wgmma pass (f32 accumulate), HIGH as the bf16x3 split of
+// gemm_tc.cuh (K2''s GEMM), HIGHEST as f32 FFMA; P4 sums each row,
 // divides by N (jnp.mean), and gates with 1 / (1 + expf(-z)).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "async_copy.cuh"
 #include "gemm_tc.cuh"
+#include "launch.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int NT = 256;          // threads a CTA of the elementwise probes
-constexpr int SE_NT = 512;       // P4's single CTA: 16 warps
 
 inline int blocks(long long n, int per) { return (int)((n + per - 1) / per); }
 
@@ -65,112 +75,345 @@ dw9_kernel(const float* __restrict__ x, float* __restrict__ out, int c, int n_in
   out[e] = acc;
 }
 
-// P3 DEFAULT (high = 0) and HIGH (high = 1): y = W x for W (16, 16) and x
-// (16, n), f32 in and out.  One warp an 8-column tile: W is one m16n8k16 A
-// fragment, split to bf16 hi (and lo) in registers; x's 16 x 8 block one B
-// fragment.  DEFAULT is hi.hi; HIGH adds hi.lo + lo.hi from a second
-// accumulator, as gemm_tc.cuh's tile does.
-__global__ void __launch_bounds__(128)
-dot_mma_kernel(const float* __restrict__ w, const float* __restrict__ x,
-               float* __restrict__ y, int n, int high) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int n0 = (blockIdx.x * 4 + (threadIdx.x >> 5)) * 8;
-  if (n0 >= n) return;
-  uint32_t ah[4], al[4], bh[2], bl[2];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {          // A[g (+8)][2t (+8) .. +1]
-    const int r = g + (q & 1) * 8, k = 2 * t + (q >> 1) * 8;
-    gemm_tc::split2(__ldg(w + r * 16 + k), __ldg(w + r * 16 + k + 1), ah[q], al[q]);
-  }
-  const int col = n0 + g;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {          // B[2t + 8h .. +1][g]
-    const int k = 2 * t + 8 * h;
-    const float v0 = col < n ? __ldg(x + (size_t)k * n + col) : 0.0f;
-    const float v1 = col < n ? __ldg(x + (size_t)(k + 1) * n + col) : 0.0f;
-    gemm_tc::split2(v0, v1, bh[h], bl[h]);
-  }
-  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f}, cor[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  gemm_tc::mma_bf16(acc, ah, bh);
-  if (high) {
-    gemm_tc::mma_bf16(cor, ah, bl);
-    gemm_tc::mma_bf16(cor, al, bh);
-  }
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {          // C[g (+8)][2t (+1)]
-    const int r = g + (q >> 1) * 8, cc = n0 + 2 * t + (q & 1);
-    if (cc < n) y[(size_t)r * n + cc] = high ? acc[q] + cor[q] : acc[q];
-  }
+// -- P3: y = W x, W (16, 16), x (16, n), f32 in and out ---------------------
+//
+// A CTA is one warpgroup (128 threads) that walks 64-column tiles of x
+// (DOT_TILE, wgmma's M), at most one CTA an SM.  Each tile is staged
+// into xs (16 rows at an XS-float stride, zero past n; loaded while W is
+// read), its output goes through ys and out as row stores.  DEFAULT and HIGH run the
+// product transposed, Y^T = X^T W^T, as wgmma.m64n16k16 (M = 64 columns, N
+// = 16 output channels, K = 16): A = X^T from registers, each thread's
+// fragment read from xs and split to bf16 hi (and lo) in registers (X^T is
+// MN-major in memory, which A from shared memory would need transposed);
+// B = W^T from shared memory, W split once a CTA into hi and lo in the
+// no-swizzle K-major core-matrix layout (W (o, k) row-major is already
+// K-major for W^T).  DEFAULT is hi.hi; HIGH adds lo.hi + hi.lo from a
+// second accumulator, then acc + cor as gemm_tc.cuh does.  HIGHEST is f32
+// FFMA on the same staged tile: a thread 4 consecutive columns of 2 rows,
+// k ascending.
+
+constexpr int DOT_NT = 128;           // one warpgroup
+constexpr int DOT_TILE = 64;          // columns a tile
+constexpr int XS = DOT_TILE + 4;      // xs/ys row stride: A reads and D writes conflict-free
+// B's core matrices (8 rows of 16 bytes, 128 bytes each): the K-neighbour
+// at LBO bytes, the next 8 output channels at SBO
+constexpr int B_LBO = 128, B_SBO = 256;
+
+// byte offset of W[o][k] (bf16) in the K-major core-matrix layout
+__device__ __forceinline__ int b_offset(int o, int k) {
+  return (o >> 3) * B_SBO + (k >> 3) * B_LBO + (o & 7) * 16 + (k & 7) * 2;
 }
 
-// P3 HIGHEST: y = W x in f32 FFMA; a thread computes four rows of one
-// column, W staged in shared memory.
-__global__ void __launch_bounds__(NT)
-dot_f32_kernel(const float* __restrict__ w, const float* __restrict__ x,
-               float* __restrict__ y, int n) {
-  __shared__ float sw[256];
-  for (int i = threadIdx.x; i < 256; i += NT) sw[i] = w[i];
-  __syncthreads();
-  const long long e = (long long)blockIdx.x * NT + threadIdx.x;
-  if (e >= 4LL * n) return;
-  const int col = (int)(e % n), m0 = (int)(e / n) * 4;
-  float xv[16];
-#pragma unroll
-  for (int k = 0; k < 16; ++k) xv[k] = __ldg(x + (size_t)k * n + col);
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    float acc = 0.0f;
-#pragma unroll
-    for (int k = 0; k < 16; ++k) acc = fmaf(sw[(m0 + r) * 16 + k], xv[k], acc);
-    y[(size_t)(m0 + r) * n + col] = acc;
-  }
+// wgmma's matrix descriptor of a no-swizzle tile at ``p``: start address,
+// leading (K) and stride (M/N) byte offsets, each in 16-byte units; base
+// offset 0, layout type 0 (no swizzle) in bits 62-63
+__device__ __forceinline__ uint64_t smem_desc(const void* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(B_LBO >> 4) << 16) |
+         ((uint64_t)(B_SBO >> 4) << 32);
 }
 
-// P4: out = x * sigmoid(W mean(x, 1)) for x (c, n), W (c, c), c <= 32, in
-// ONE CTA: warps sum rows (16-byte loads when ``vec``), then c threads the
-// gate, then every thread multiplies (x read twice, the second time from
-// L2).  The gate needs every row's mean, so one CTA is the simple form; a
-// cluster sharing means through distributed shared memory is later work.
-__global__ void __launch_bounds__(SE_NT)
-se_kernel(const float* __restrict__ x, const float* __restrict__ w, float* __restrict__ out,
-          int c, int n, int vec) {
-  __shared__ float mean[32], gate[32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int r = warp; r < c; r += SE_NT / 32) {
-    const float* row = x + (size_t)r * n;
-    float s = 0.0f;
-    if (vec) {
-      const float4* r4 = reinterpret_cast<const float4*>(row);
-      for (int i = lane; i < n / 4; i += 32) {
-        const float4 v = __ldg(r4 + i);
-        s += (v.x + v.y) + (v.z + v.w);
-      }
-    } else {
-      for (int i = lane; i < n; i += 32) s += __ldg(row + i);
+// d (64 x 16 f32 a warpgroup, 8 a thread) += a (64 x 16 bf16, registers) .
+// b (16 x 16 bf16, K-major in shared memory)
+__device__ __forceinline__ void wgmma_m64n16k16(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// keep the compiler from moving register reads or writes across a wgmma
+// boundary (the instructions are asynchronous)
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// the 16 x 64 tile of x at column c0 (zeros past n) into registers, 8
+// floats a thread: two 16-byte vectors where ``VEC``, else single floats;
+// then (dot_put) into xs.  Loads through registers measured faster than
+// cp.async at this size (PERF.md §6).
+template <bool VEC>
+__device__ __forceinline__ void dot_load(const float* __restrict__ x, int n, int c0,
+                                         float (&v)[8]) {
+  const int tid = threadIdx.x;
+  if (VEC) {                                       // 16 rows x 16 vectors
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int i = tid + j * DOT_NT, col = c0 + (i & 15) * 4;
+      const float4 f = col < n ? __ldg(reinterpret_cast<const float4*>(x + (size_t)(i >> 4) * n
+                                                                       + col))
+                               : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      v[4 * j] = f.x; v[4 * j + 1] = f.y; v[4 * j + 2] = f.z; v[4 * j + 3] = f.w;
     }
+  } else {                                         // 16 rows x 64 floats
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    if (lane == 0) mean[r] = s / (float)n;
+    for (int j = 0; j < 8; ++j) {
+      const int i = tid + j * DOT_NT, col = c0 + (i & 63);
+      v[j] = col < n ? __ldg(x + (size_t)(i >> 6) * n + col) : 0.0f;
+    }
   }
-  __syncthreads();
-  if (threadIdx.x < c) {
-    float z = 0.0f;
-    for (int k = 0; k < c; ++k) z = fmaf(w[threadIdx.x * c + k], mean[k], z);
-    gate[threadIdx.x] = 1.0f / (1.0f + expf(-z));
-  }
-  __syncthreads();
-  if (vec) {
-    const float4* x4 = reinterpret_cast<const float4*>(x);
-    float4* o4 = reinterpret_cast<float4*>(out);
-    const int n4 = n / 4;
-    for (int i = threadIdx.x; i < c * n4; i += SE_NT) {
-      const float gv = gate[i / n4];
-      float4 v = x4[i];
-      v.x *= gv; v.y *= gv; v.z *= gv; v.w *= gv;
-      o4[i] = v;
+}
+
+template <bool VEC>
+__device__ __forceinline__ void dot_put(float* xs, const float (&v)[8]) {
+  const int tid = threadIdx.x;
+  if (VEC) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int i = tid + j * DOT_NT;
+      *reinterpret_cast<float4*>(xs + (i >> 4) * XS + (i & 15) * 4) =
+          make_float4(v[4 * j], v[4 * j + 1], v[4 * j + 2], v[4 * j + 3]);
     }
   } else {
-    for (int i = threadIdx.x; i < c * n; i += SE_NT) out[i] = x[i] * gate[i / n];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int i = tid + j * DOT_NT;
+      xs[(i >> 6) * XS + (i & 63)] = v[j];
+    }
+  }
+}
+
+// MODE 0 DEFAULT, 1 HIGH (wgmma), 2 HIGHEST (FFMA); VEC: n % 4 == 0, x and y
+// on 16-byte boundaries
+template <int MODE, bool VEC>
+__global__ void __launch_bounds__(DOT_NT)
+dot_kernel(const float* __restrict__ w, const float* __restrict__ x, float* __restrict__ y,
+           int n) {
+  __shared__ __align__(16) float xs[16 * XS], ys[16 * XS];
+  __shared__ __align__(128) uint8_t bw[2][512];    // W hi, lo (wgmma's B)
+  __shared__ __align__(16) float ws[256];          // W in f32 (HIGHEST)
+  const int tid = threadIdx.x, tiles = (n + DOT_TILE - 1) / DOT_TILE;
+  float v[8];
+  dot_load<VEC>(x, n, blockIdx.x * DOT_TILE, v);   // in flight while W is read
+  if constexpr (MODE < 2) {
+    const int o = tid >> 3, k = (tid & 7) * 2;     // a pair (k, k + 1) a thread
+    uint32_t hi, lo;
+    gemm_tc::split2(__ldg(w + o * 16 + k), __ldg(w + o * 16 + k + 1), hi, lo);
+    *reinterpret_cast<uint32_t*>(bw[0] + b_offset(o, k)) = hi;
+    if (MODE == 1) *reinterpret_cast<uint32_t*>(bw[1] + b_offset(o, k)) = lo;
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
+  } else {
+    ws[tid] = __ldg(w + tid);
+    ws[tid + DOT_NT] = __ldg(w + tid + DOT_NT);
+  }
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int c0 = tile * DOT_TILE;
+    if (tile != blockIdx.x) dot_load<VEC>(x, n, c0, v);
+    dot_put<VEC>(xs, v);                           // xs's readers passed the last barrier
+    __syncthreads();
+    if constexpr (MODE < 2) {
+      const int lane = tid & 31, g = lane >> 2, t = lane & 3, m0 = (tid >> 5) * 16 + g;
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {                // A[m][k], A[m][k + 1] = xs[k][m], xs[k + 1][m]
+        const int m = m0 + (q & 1) * 8, k = 2 * t + (q >> 1) * 8;
+        gemm_tc::split2(xs[k * XS + m], xs[(k + 1) * XS + m], ah[q], al[q]);
+      }
+      float acc[8] = {}, cor[8] = {};
+      reg_fence(acc);
+      reg_fence(cor);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      wgmma_m64n16k16(acc, ah, smem_desc(bw[0]));
+      if (MODE == 1) {
+        wgmma_m64n16k16(cor, al, smem_desc(bw[0]));
+        wgmma_m64n16k16(cor, ah, smem_desc(bw[1]));
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      reg_fence(acc);
+      reg_fence(cor);
+      reg_fence(ah);
+      reg_fence(al);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {                // D[m][o] = y[o][c0 + m]
+        const int m = m0 + ((i >> 1) & 1) * 8, o = (i >> 2) * 8 + 2 * t + (i & 1);
+        ys[o * XS + m] = MODE == 1 ? acc[i] + cor[i] : acc[i];
+      }
+    } else {
+      const int q = (tid & 15) * 4, r0 = (tid >> 4) * 2;
+      float4 xv[16];
+#pragma unroll
+      for (int k = 0; k < 16; ++k) xv[k] = *reinterpret_cast<const float4*>(xs + k * XS + q);
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const float* wr = ws + (r0 + rr) * 16;
+        float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+        for (int k = 0; k < 16; ++k) {
+          a.x = fmaf(wr[k], xv[k].x, a.x);
+          a.y = fmaf(wr[k], xv[k].y, a.y);
+          a.z = fmaf(wr[k], xv[k].z, a.z);
+          a.w = fmaf(wr[k], xv[k].w, a.w);
+        }
+        *reinterpret_cast<float4*>(ys + (r0 + rr) * XS + q) = a;
+      }
+    }
+    __syncthreads();
+    if (VEC) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int i = tid + j * DOT_NT, r = i >> 4, col = c0 + (i & 15) * 4;
+        if (col < n)
+          *reinterpret_cast<float4*>(y + (size_t)r * n + col) =
+              *reinterpret_cast<const float4*>(ys + r * XS + (i & 15) * 4);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int i = tid + j * DOT_NT, r = i >> 6, col = c0 + (i & 63);
+        if (col < n) y[(size_t)r * n + col] = ys[r * XS + (i & 63)];
+      }
+    }
+  }
+}
+
+// -- P4: out = x * sigmoid(W mean(x, 1)), x (c, n), W (c, c), c <= 32 -------
+//
+// ONE thread-block cluster of SE_R CTAs.  CTA j owns columns [j S, (j + 1)
+// S) of every row (S = ceil(n / SE_R) rounded up to 4).  Warp v takes rows
+// v, v + SE_NW, ...; its lanes load the row's slice into registers (16-byte
+// vectors where n % 4 == 0 and the pointers are aligned, else floats; lane
+// i elements i and i + 32 of each 64-element chunk), all rows' loads in
+// flight together, and sum them, then a shuffle tree.  It pushes its c
+// partial sums into slot [j][row] of every CTA's ``part`` through
+// distributed shared memory, after a cluster barrier whose arrive was
+// issued at entry (a CTA is written to only once all have started) and
+// before one cluster sync (the pushes visible).  Then each CTA reads only
+// its own shared memory: the SE_R partials in rank order (the same order
+// on every CTA, so runs are bit-identical), mean = sum / n, the c gates
+// (fmaf, k ascending, then 1 / (1 + expf(-z))), and multiplies its slice
+// with 16-byte stores, the first chunk from registers.  x is read from
+// memory once where a row's slice is one chunk (S <= 256 columns, or 64
+// unvectorized; the probe's 240); the rest of a longer slice is read again
+// for the multiply.  Staging the slice in shared memory by cp.async
+// instead was slower at the probe's shape (PERF.md §6).
+
+constexpr int SE_R = 16;                      // CTAs in the cluster
+constexpr int SE_NT = 256, SE_NW = SE_NT / 32;
+constexpr int SE_H = 2;                       // elements a lane of a row's chunk
+constexpr int SE_CHUNK = 32 * SE_H;           // elements (vectors or floats) a chunk
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float hsum(float4 v) { return (v.x + v.y) + (v.z + v.w); }
+__device__ __forceinline__ float hsum(float v) { return v; }
+__device__ __forceinline__ float4 scale(float4 v, float g) {
+  return make_float4(v.x * g, v.y * g, v.z * g, v.w * g);
+}
+__device__ __forceinline__ float scale(float v, float g) { return v * g; }
+
+template <bool VEC>
+using SeT = typename std::conditional<VEC, float4, float>::type;
+
+// chunk ``ch`` of the RW rows of warp ``warp`` into v (zeros past E elements
+// or c rows), all loads in flight together; then its sums into acc
+template <bool VEC, int RW>
+__device__ __forceinline__ void se_load(const float* __restrict__ x, int n, int col0, int c,
+                                        int E, int ch, float (&acc)[RW],
+                                        SeT<VEC> (&v)[RW][SE_H]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int j = 0; j < RW; ++j) {
+    const SeT<VEC>* row =
+        reinterpret_cast<const SeT<VEC>*>(x + (size_t)(warp + j * SE_NW) * n + col0);
+#pragma unroll
+    for (int h = 0; h < SE_H; ++h) {
+      const int e = ch * SE_CHUNK + lane + 32 * h;
+      v[j][h] = warp + j * SE_NW < c && e < E ? __ldg(row + e) : SeT<VEC>{};
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < RW; ++j)
+#pragma unroll
+    for (int h = 0; h < SE_H; ++h) acc[j] += hsum(v[j][h]);
+}
+
+template <bool VEC, int RW>  // RW rows a warp: c <= SE_NW RW
+__global__ void __launch_bounds__(SE_NT)
+se_kernel(const float* __restrict__ x, const float* __restrict__ w, float* __restrict__ out,
+          int c, int n, int S) {
+  using T = SeT<VEC>;
+  __shared__ float part[SE_R * 32];               // part[j * 32 + r]: CTA j's sum of row r
+  __shared__ float mean[32], gate[32];
+  __shared__ float ws[32 * 33];                   // W[r][k] at r * 33 + k: no bank conflicts
+  cluster_arrive_relaxed();                       // this CTA has started
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int col0 = rank * S, cols = max(0, min(S, n - col0));
+  const int E = VEC ? cols / 4 : cols, nch = (E + SE_CHUNK - 1) / SE_CHUNK;
+  for (int i = tid; i < c * c; i += SE_NT) cp_async4(ws + i / c * 33 + i % c, w + i, true);
+  cp_async_commit();
+  T v[RW][SE_H];                                  // the first chunk, kept for the multiply
+  float acc[RW] = {};
+  se_load<VEC, RW>(x, n, col0, c, E, 0, acc, v);
+  for (int ch = 1; ch < nch; ++ch) {              // a longer slice: read again below
+    T u[RW][SE_H];
+    se_load<VEC, RW>(x, n, col0, c, E, ch, acc, u);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)                // the rows' shuffle trees side by side
+#pragma unroll
+    for (int j = 0; j < RW; ++j)
+      if (warp + j * SE_NW < c) acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], o);
+  cluster_wait();                                 // every CTA has started: push
+  constexpr int PER = 32 / SE_R;                  // rows a round: lane l, row l / SE_R to CTA
+                                                  // l % SE_R
+#pragma unroll
+  for (int p = 0; p < RW; p += PER) {
+    const int u = lane / SE_R, r = warp + (p + u) * SE_NW;
+    float s = acc[p];
+#pragma unroll
+    for (int k = 1; k < PER && p + k < RW; ++k) s = u == k ? acc[p + k] : s;
+    if (p + u < RW && r < c) cluster.map_shared_rank(part, lane % SE_R)[rank * 32 + r] = s;
+  }
+  cluster_arrive();
+  cp_async_wait<0>();
+  cluster_wait();                                 // every partial has landed
+  if (tid < c) {
+    float s = 0.0f;
+#pragma unroll
+    for (int j = 0; j < SE_R; ++j) s += part[j * 32 + tid];
+    mean[tid] = s / (float)n;
+  }
+  __syncthreads();
+  if (tid < c) {
+    float z = 0.0f;
+    for (int k = 0; k < c; ++k) z = fmaf(ws[tid * 33 + k], mean[k], z);
+    gate[tid] = 1.0f / (1.0f + expf(-z));
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < RW; ++j) {
+    const int r = warp + j * SE_NW;
+    if (r >= c) continue;
+    const T* src = reinterpret_cast<const T*>(x + (size_t)r * n + col0);
+    T* dst = reinterpret_cast<T*>(out + (size_t)r * n + col0);
+    const float g = gate[r];
+#pragma unroll
+    for (int h = 0; h < SE_H; ++h)                // the first chunk from registers
+      if (lane + 32 * h < E) dst[lane + 32 * h] = scale(v[j][h], g);
+    for (int e = SE_CHUNK + lane; e < E; e += 32) dst[e] = scale(__ldg(src + e), g);
   }
 }
 
@@ -226,24 +469,39 @@ extern "C" int bs_probe_dot(const void* w, const void* x, void* y, int n, int mo
                             void* stream) {
   if (n <= 0) return 0;
   if (mode < 0 || mode > 2) return (int)cudaErrorInvalidValue;
-  if (mode == 2)
-    dot_f32_kernel<<<blocks(4LL * n, NT), NT, 0, (cudaStream_t)stream>>>(
-        (const float*)w, (const float*)x, (float*)y, n);
-  else
-    dot_mma_kernel<<<blocks((n + 7) / 8, 4), 128, 0, (cudaStream_t)stream>>>(
-        (const float*)w, (const float*)x, (float*)y, n, mode);
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const int tiles = blocks(n, DOT_TILE), grid = tiles < sms ? tiles : sms;
+  void (*const kerns[2][3])(const float*, const float*, float*, int) = {
+      {&dot_kernel<0, false>, &dot_kernel<1, false>, &dot_kernel<2, false>},
+      {&dot_kernel<0, true>, &dot_kernel<1, true>, &dot_kernel<2, true>}};
+  const int vec = n % 4 == 0 && aligned16(x) && aligned16(y);
+  kerns[vec][mode]<<<grid, DOT_NT, 0, (cudaStream_t)stream>>>((const float*)w, (const float*)x,
+                                                               (float*)y, n);
   return (int)cudaGetLastError();
 }
 
-// P4: x (c, n), w (c, c), out (c, n), f32, 1 <= c <= 32
+// P4: x (c, n), w (c, c), out (c, n), f32, 1 <= c <= 32; one cluster of
+// SE_R CTAs, refused (an error, nothing launched) where the card cannot
+// hold it
 extern "C" int bs_probe_se(const void* x, const void* w, void* out, int c, int n,
                            void* stream) {
   if (c < 1 || c > 32 || n < 1) return (int)cudaErrorInvalidValue;
   const int vec = n % 4 == 0 && aligned16(x) && aligned16(out);
-  se_kernel<<<1, SE_NT, 0, (cudaStream_t)stream>>>((const float*)x, (const float*)w,
-                                                   (float*)out, c, n, vec);
-  return (int)cudaGetLastError();
+  const int S = (blocks(n, SE_R) + 3) / 4 * 4;          // columns a CTA
+  const int rw = blocks(c, SE_NW);                       // rows a warp: 1, 2, 3 or 4
+  void (*kern)(const float*, const float*, float*, int, int, int) =
+      vec ? (rw == 1 ? &se_kernel<true, 1> : rw == 2 ? &se_kernel<true, 2> : &se_kernel<true, 4>)
+          : (rw == 1 ? &se_kernel<false, 1> : rw == 2 ? &se_kernel<false, 2>
+                                                     : &se_kernel<false, 4>);
+  return launch_cluster(kern, SE_R, SE_NT, 0, (cudaStream_t)stream, (const float*)x,
+                        (const float*)w, (float*)out, c, n, S);
 }
+
+// the CTAs of P4's cluster
+extern "C" int bs_probe_se_cluster(void) { return SE_R; }
 
 // P5 (a, b -> out = [a; b]) and P7 (b = null, nb = 0: a plain copy); counts
 // in floats

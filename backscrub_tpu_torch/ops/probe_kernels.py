@@ -13,8 +13,11 @@ the clone).  ``tools/probe_hopper.py`` runs them on the original's inputs.
 - P2 :func:`dw_rowpad`: the same taps on the rowpad layout of ``k_dwp``
   (rows at a 128-float stride): (C, n) -> (C, n - 256).
 - P3 :func:`dot`: ``mk_dot``'s weight-stationary (16, 16) @ (16, N) at
-  "default" (one bf16 pass), "high" (bf16x3, K2''s GEMM) or "highest" (f32).
-- P4 :func:`se`: ``k_se``, x * sigmoid(w @ mean(x, 1)).
+  "default" (one bf16 pass), "high" (bf16x3, K2''s GEMM) or "highest" (f32);
+  the first two on ``wgmma``, one 64-column tile a warpgroup.
+- P4 :func:`se`: ``k_se``, x * sigmoid(w @ mean(x, 1)), as one
+  thread-block cluster whose CTAs share their row sums through distributed
+  shared memory; a card that refuses the cluster raises.
 - P5 :func:`concat`, P6 :func:`lane_stride2`, P7 :func:`reshape_flat`:
   ``k_cat``, ``k_ls`` and ``k_rs`` as copies.
 

@@ -74,7 +74,10 @@ Usage (from the repository root, on a machine with a CUDA card)::
    within the original's atol of its numpy reference), each kernel
    against its plain twin (P1, P2, P5-P7 bit-identical, P3 at DEFAULT,
    HIGH and HIGHEST and P4 within 1e-5), two runs bit-identical, device
-   times beside the library calls' (P3's precisions on one line);
+   times beside the library calls' (P3's precisions on one line), P3 and
+   P4 also cold; P4's cluster size, and P3's DEFAULT and HIGH kernels
+   checked for HGMMA (the wgmma instruction) in their SASS
+   (``cuobjdump -sass`` of the built library);
 11. prints one JSON line with every kernel's numbers (launches from the
    run of the path it serves, errors and times measured here, and the
    bound: the larger of the bytes it must move over 3.35 TB/s and its
@@ -91,7 +94,8 @@ Usage (from the repository root, on a machine with a CUDA card)::
    ``bs_body_mega`` launches ran on the main path, its other numbers those
    of the standalone probe at the ASPP shape; K2'' with its
    ``precision_gap``; P1-P7 with their launches on the probe path,
-   ``main_path_launches`` 0, ``device_ms`` and ``library_ms`` or null), then
+   ``main_path_launches`` 0, ``device_ms`` (P3 and P4 ``device_ms_cold``
+   too) and ``library_ms`` or null), then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failure raises and the script exits non-zero; without CUDA it exits 1
@@ -102,6 +106,7 @@ import collections
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -128,6 +133,9 @@ ATOL, RTOL = 2e-3, 1e-3
 # it and a GEMM that drops one cross term over ten times it.
 MATCHED_ATOL, MATCHED_RTOL, MATCHED_MEAN = 2e-3, 1e-4, 1e-4
 PROBE_TOL = 1e-5           # P3 and P4 against their plain twins (summation order)
+# the probes timed cold too, by their kernels' profiler names (the L2 flush's
+# elementwise_kernel holds "se_kernel" as well)
+PROBE_COLD = {"P3": "::dot_kernel", "P4": "::se_kernel"}
 FRAME_TOL, MEAN_TOL = 0.02, 0.002
 CLASSIC_SIZE, CLASSIC_FRAMES, STAGED_FRAMES = (640, 480), 30, 10
 FUSED_420_FRAMES = 10      # the fused segm path with NV12 out
@@ -1085,6 +1093,26 @@ def device_check():
     print(f"default device: {pipe.device}")
 
 
+def wgmma_in_sass():
+    """The SASS of the built library (``cuobjdump -sass``): raise unless each
+    of P3's DEFAULT and HIGH kernels (``dot_kernel<0, *>``, ``<1, *>``, the
+    vector and the scalar path) holds HGMMA, the instruction wgmma compiles
+    to, so that a kernel that did not compile to it is not reported as one.
+    Returns the HGMMA counts by precision, a count a kernel."""
+    from backscrub_tpu_torch import _build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", _build.library_path()], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    counts = {"DEFAULT": [], "HIGH": []}
+    for fn in sass.split("Function : ")[1:]:
+        for mode, name in enumerate(counts):
+            if f"dot_kernelILi{mode}E" in fn.split("\n", 1)[0]:
+                counts[name].append(fn.count("HGMMA"))
+    if any(len(c) != 2 or not all(c) for c in counts.values()):
+        raise AssertionError(f"P3's wgmma kernels hold no HGMMA in their SASS: {counts}")
+    return counts
+
+
 def probe_phase():
     """P1-P7, the probe kernels of tools/probe_mosaic.py (csrc/probes.cu),
     on the original's inputs through tools/probe_hopper.py: the probe path
@@ -1096,6 +1124,7 @@ def probe_phase():
     launches by kernel id."""
     import torch
     import probe_hopper
+    from backscrub_tpu_torch import _build
     from backscrub_tpu_torch.ops import probe_kernels as pk
     from backscrub_tpu_torch.pipeline.maskgen import set_precision_policy
 
@@ -1131,17 +1160,23 @@ def probe_phase():
                 kernel_id=p.kernel_id, site=p.site, max_abs_err=diff, ms=timed(p.kernel),
                 plain_ms=timed(p.plain), device_ms=device_ms(p.kernel),
                 bound=bound(p.nbytes, p.ops, p.bf16_ops))
+            if p.kernel_id in PROBE_COLD:
+                r["device_ms_cold"] = device_ms(p.kernel, cold=PROBE_COLD[p.kernel_id])
             if lib is not None:
                 r.update(library_ms=timed(p.library),
                          library_device_ms=device_ms(p.library))
             print(f"probe {p.kernel_id} {p.name}: vs plain {diff:.3g}"
                   f"{' (bit-identical)' if p.exact else ''}, vs the original's reference "
                   f"{err:.3g} (atol {p.atol:g}); device {r['device_ms'] * 1e3:.3f} us "
-                  f"(warm), library "
+                  f"(warm)"
+                  + (f", {r['device_ms_cold'] * 1e3:.3f} us (cold)" if "device_ms_cold" in r
+                     else "") + ", library "
                   + (f"{r['library_device_ms'] * 1e3:.3f} us" if lib is not None else "none")
                   + f", bound {r['bound'][0] * 1e3:.3f} us ({r['bound'][1]}); kernel "
                   f"{r['ms'][0]:.4f} ms plain {r['plain_ms'][0]:.4f} ms (event pairs)")
     dots = {n[4:]: res[n]["device_ms"] * 1e3 for n in ("dot_default", "dot_high", "dot_highest")}
+    print(f"probe P4 runs as one cluster of {_build.lib().bs_probe_se_cluster()} CTAs; P3's "
+          f"DEFAULT and HIGH kernels hold HGMMA in their SASS: {wgmma_in_sass()}")
     print(f"probe P3 (16x16 @ 16x3840) device us: DEFAULT {dots['default']:.3f}, HIGH "
           f"(bf16x3) {dots['high']:.3f}, HIGHEST (f32) {dots['highest']:.3f}; torch.matmul "
           f"f32 {res['dot_highest']['library_device_ms'] * 1e3:.3f}, bf16 operands "

@@ -678,3 +678,47 @@ def test_probe_kernels_at_ragged_shapes(cuda_device):
         pk.concat(a, t(2, 8))
     with pytest.raises(ValueError):
         pk.dw_rowpad(t(2, 256))
+
+
+def test_se_cluster_at_edge_shapes(cuda_device):
+    """P4's cluster kernel where its common path does not reach: the
+    chunked slices of (32, 100000) (x read again for the multiply), one
+    column (1, 1) (15 CTAs with no columns), and (16, 3840) as a view off
+    a 16-byte boundary (4-byte copies, scalar stores); each within 1e-5 of
+    se_plain and bit-identical over two runs."""
+    from backscrub_tpu_torch.ops import probe_kernels as pk
+    rng = np.random.default_rng(13)
+
+    def t(*shape):
+        return torch.from_numpy(rng.random(shape, np.float32)).to(cuda_device)
+    view = t(16 * 3840 + 1)[1:].view(16, 3840)
+    assert view.data_ptr() % 16 != 0
+    for x, w in ((t(32, 100000), t(32, 32) - 0.5), (t(1, 1), t(1, 1)), (view, t(16, 16))):
+        got, again = pk.se(x, w), pk.se(x, w)
+        assert torch.equal(got, again), tuple(x.shape)
+        assert float((got - pk.se_plain(x, w)).abs().max()) <= 1e-5, tuple(x.shape)
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 4 * 3840])
+@pytest.mark.parametrize("prec", ["default", "high", "highest"])
+def test_dot_kernel_at_tile_edges(cuda_device, n, prec):
+    """P3 at widths around its 64-column tile (a lone column, a ragged
+    tile, one tile, a tile and one column) and at four times the probe's
+    width (more tiles than SMs), every precision, within 1e-5 of its plain
+    twin and bit-identical over two runs."""
+    from backscrub_tpu_torch.ops import probe_kernels as pk
+    rng = np.random.default_rng(n)
+    w, x = (torch.from_numpy(rng.random(s, np.float32)).to(cuda_device)
+            for s in ((16, 16), (16, n)))
+    got, again = pk.dot(w, x, prec), pk.dot(w, x, prec)
+    assert torch.equal(got, again)
+    assert float((got - pk.dot_plain(w, x, prec)).abs().max()) <= 1e-5
+
+
+def test_refused_cluster_launch_raises(cuda_device):
+    """``launch_cluster`` (csrc/launch.cuh), P4's launcher, refuses a
+    cluster the card cannot hold (32 CTAs, twice the non-portable 16) and
+    launches nothing; the wrapper raises on the error, with no fallback."""
+    with pytest.raises(RuntimeError, match="cudaError"):
+        _build.launch("bs_barrier_bench", 1, 1, 32)
+    torch.cuda.synchronize()

@@ -48,12 +48,12 @@ TWINS = {
 }
 
 
-@pytest.fixture(scope="module")
-def jax_runs():
+def jax_probe_runs(names=None):
     """{name: (JAX output, arguments, the original's reference, its atol)}
-    of every run() in probe_mosaic.main(), the kernels in interpret mode.
-    The tool seeds model search roots in os.environ when it is imported;
-    the environment is restored for the tests that follow."""
+    of the run()s in probe_mosaic.main() (those in ``names``, or all), the
+    kernels in interpret mode.  The tool seeds model search roots in
+    os.environ when it is imported; the environment is restored for the
+    tests that follow."""
     env = dict(os.environ)
     try:
         import probe_mosaic
@@ -68,9 +68,16 @@ def jax_runs():
                    functools.partial(pl.pallas_call, interpret=True))
         probe_mosaic.main()
         for name, fn, args, ref, atol in recorded:
-            out[name] = (np.asarray(jax.jit(fn)(*args)), [np.asarray(a) for a in args],
-                         ref, atol)
+            if names is None or name in names:
+                out[name] = (np.asarray(jax.jit(fn)(*args)), [np.asarray(a) for a in args],
+                             ref, atol)
     return out
+
+
+@pytest.fixture(scope="module")
+def jax_runs():
+    """Every probe's JAX run (jax_probe_runs)."""
+    return jax_probe_runs()
 
 
 def test_every_pallas_call_is_recorded(jax_runs):

@@ -18,13 +18,20 @@ between the two checkouts can be compared.  The cases:
 - ``bilateral``: K5, ``bilateral5`` on seeded u8-valued canvases at
   (1, 96, 160), (1, 257, 257), (4, 257, 257) and (2, 5, 7);
 - ``pack420``: K4, ``blend_pack_420`` NV12 and I420 on seeded frames,
-  backgrounds and masks at 480x640, 720x1280, 42x58 and 480x642.
+  backgrounds and masks at 480x640, 720x1280, 42x58 and 480x642;
+- ``probe_se``: P4, ``se`` on the original probe inputs (16, 3840) and at
+  (5, 333) and (32, 100000);
+- ``probe_dot``: P3, ``dot`` at DEFAULT, HIGH and HIGHEST on the original
+  probe inputs and at n = 37.
 
 Prints, per call, whether the outputs are bit-identical (else how many
-values differ and by how much) and exits 1 if any differs.  With
+values differ and by how much) and exits 1 if any differs; the probe
+calls, whose kernels may sum in another order than the other build's,
+print the largest difference instead and fail above 2e-5.  With
 ``--time`` it also times the kernel of each call at a main path's shape
 (K1's canvases, K5 at the three canvas shapes, K4 at 640x480 and
-1280x720) in each checkout by the profiler's device time a launch, warm
+1280x720, the probes on the original's inputs) in each checkout by the
+profiler's device time a launch, warm
 (the inputs in the 50 MB L2) and cold (a 128 MB buffer overwritten
 before each launch), both by this checkout's ``chip_smoke.device_ms``,
 in fresh subprocesses in turns: the other, this, this, the other.
@@ -32,6 +39,7 @@ in fresh subprocesses in turns: the other, this, this, the other.
 Usage (from the repository root, on a machine with a CUDA card)::
 
     python tools/bits_vs_build.py OTHER_CHECKOUT [--time] [front] [gemm] [bilateral] [pack420]
+        [probe_se] [probe_dot]
 """
 
 import os
@@ -150,8 +158,46 @@ def pack420_calls():
     return calls
 
 
+def _probe_inputs():
+    """The original probe inputs x2 (16, 3840) and w16 (16, 16) as tensors."""
+    import torch
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import probe_hopper
+    a = probe_hopper.inputs()
+    return torch.from_numpy(a["x2"]), torch.from_numpy(a["w16"])
+
+
+def probe_se_calls():
+    """(name, call) of P4, ``se``, on the original's inputs and at (5, 333)
+    and the chunked (32, 100000)."""
+    import torch
+    x2, w16 = _probe_inputs()
+    rng = np.random.default_rng(13)
+    cases = [(x2, w16)] + [(torch.from_numpy(rng.random((c, n), np.float32)),
+                            torch.from_numpy(rng.random((c, c), np.float32) - 0.5))
+                           for c, n in ((5, 333), (32, 100000))]
+    return [(f"probe_se {tuple(x.shape)}", dict(
+        wrapper="backscrub_tpu_torch.ops.probe_kernels:se", kernel="::se_kernel",
+        timed=k == 0, exact=False, args=[x, w], kwargs={})) for k, (x, w) in enumerate(cases)]
+
+
+def probe_dot_calls():
+    """(name, call) of P3, ``dot``, at each precision on the original's
+    inputs and at n = 37."""
+    import torch
+    x2, w16 = _probe_inputs()
+    x37 = torch.from_numpy(np.random.default_rng(37).random((16, 37), np.float32))
+    return [(f"probe_dot {prec} {tuple(x.shape)}", dict(
+        wrapper="backscrub_tpu_torch.ops.probe_kernels:dot", kernel="::dot_",
+        timed=x is x2, exact=False, args=[w16, x, prec], kwargs={}))
+        for x in (x2, x37) for prec in ("default", "high", "highest")]
+
+
 CASES = {"front": front_calls, "gemm": gemm_calls, "bilateral": bilateral_calls,
-         "pack420": pack420_calls}
+         "pack420": pack420_calls, "probe_se": probe_se_calls, "probe_dot": probe_dot_calls}
+# calls not bit for bit (``exact`` False): the most two builds' outputs may
+# differ, each within 1e-5 of the same plain twin (summation order)
+INEXACT_TOL = 2e-5
 
 
 def run(checkout: str, calls, tmp: str, tag: str, time: bool):
@@ -190,14 +236,22 @@ def main(argv) -> int:
                 for i, (d, tag) in enumerate(((other, "other"), (REPO, "this"),
                                               (REPO, "this"), (other, "other"))))
     differ = 0
-    for name, got, ref in zip(names, ours, theirs):
-        same = got.shape == ref.shape and torch.equal(got, ref)
+    for name, call, got, ref in zip(names, calls, ours, theirs):
+        if got.shape != ref.shape:
+            differ += 1
+            print(f"{name}: shapes {tuple(got.shape)} vs {tuple(ref.shape)}")
+            continue
+        diff = float((got - ref).abs().max())
+        if not call.get("exact", True):
+            differ += diff > INEXACT_TOL
+            print(f"{name} {tuple(ref.shape)}: max difference {diff:.3g} from the other "
+                  f"build (bar {INEXACT_TOL:g})")
+            continue
+        same = torch.equal(got, ref)
         differ += not same
         print(f"{name} {tuple(ref.shape)}: " + (
             "bit-identical to the other build" if same else
-            f"shapes {tuple(got.shape)} vs {tuple(ref.shape)}" if got.shape != ref.shape else
-            f"{int((got != ref).sum())} values differ, max "
-            f"{float((got - ref).abs().max()):.3g}"))
+            f"{int((got != ref).sum())} values differ, max {diff:.3g}"))
     if time:
         for k, name in enumerate(names[i] for i in timed):
             print(f"time {name}: device us a launch, this warm {t_this[k][0]:.3f} / "
