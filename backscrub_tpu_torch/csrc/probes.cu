@@ -18,12 +18,14 @@
 //
 // Bound: bytes, for every probe.  Each moves 0.37-0.98 MB (0.11-0.29 us at
 // 3.35 TB/s) and does at most ~6 MFLOP; a launch and one L2 round trip
-// cost ~1.1 us (P7's copy), which no probe at these sizes gets under.  P1,
-// P2 and P5-P7 are simple: one thread an output (or a 16-byte vector of
-// them), inputs through the read-only path, no staging.  P3 and P4 are
-// laid out for Hopper: P3 on wgmma from one staged tile a warpgroup, P4 on
-// one thread-block cluster whose CTAs share their row sums through
-// distributed shared memory (each below).
+// cost ~1.1 us (P7's copy), which no probe at these sizes gets under
+// (bs_probe_empty, an empty launch, measures the floor's launch part).
+// P5-P7 are simple: one thread an output (or a 16-byte vector of them),
+// inputs through the read-only path, no staging.  P1, P2, P3 and P4 are
+// laid out for Hopper: P1 and P2 as one register-window stencil (16-byte
+// loads, the edge taps by warp shuffles), P3 on wgmma from one staged tile
+// a warpgroup, P4 on one thread-block cluster whose CTAs share their row
+// sums through distributed shared memory (each below).
 //
 // Arithmetic, so that the plain twins can match bit for bit where asked:
 // P1/P2 multiply and add with __fmul_rn/__fadd_rn (no FMA contraction), the
@@ -52,28 +54,156 @@ constexpr int NT = 256;          // threads a CTA of the elementwise probes
 
 inline int blocks(long long n, int per) { return (int)((n + per - 1) / per); }
 
-// P1, P2: out[c, p] = sum over a, b in 0..2 (a outer, b inner) of
+// -- P1, P2: the 9-tap stencils ---------------------------------------------
+//
+// out[c, p] = sum over a, b in 0..2 (a outer, b inner) of
 // x[c, p + off + a * s + b - 1] * f32(0.1 + (di0 + a) + 2 (b - 1)); reads
 // outside the row [0, n_in) are zeros (P2's shifted copies xpl and xm).
-__global__ void __launch_bounds__(NT)
-dw9_kernel(const float* __restrict__ x, float* __restrict__ out, int c, int n_in,
-           int n_out, int s, int off, int di0) {
-  const long long e = (long long)blockIdx.x * NT + threadIdx.x;
-  if (e >= (long long)c * n_out) return;
-  const int ch = (int)(e / n_out), p = (int)(e % n_out);
-  const float* row = x + (size_t)ch * n_in;
-  float acc = 0.0f;
+// P1: off = s = W, di0 = -1; P2: off = 0, s = 128, di0 = 0.
+//
+// Every input float feeds 9 outputs, so the bound is the bytes; at the
+// probe's 0.5-0.8 MB it is the launch and one L2 round trip.  The grid is
+// 2-D, blockIdx.y the channel and blockIdx.x a segment of its row, so
+// every index within a row is a 32-bit sum (no division).
+// dw9_kernel, the register window: a thread DW_VEC adjacent outputs of a
+// row, stored as 16-byte vectors.  For each tap row a it loads the DW_VEC
+// floats at p0 + off + a s (16-byte aligned) and takes the float left of
+// them from the lane below (__shfl_up_sync) and the float right of them
+// from the lane above (__shfl_down_sync); a warp's first lane and its last
+// lane with outputs load that outer float themselves, zero outside the
+// row.  So a warp reads each float of a tap row's window once, and a
+// thread's 9 x DW_VEC products come from 3 x (DW_VEC + 2) registers.  All
+// of a thread's loads are issued before a fence, then the shuffles: one
+// L2 (or HBM) round trip a launch.  Staging the window in shared memory
+// instead (the body's dw_op) measured no faster (tools/sweep_dw9.py).
+// dw9_scalar_kernel: one output a thread, every tap a guarded load; the
+// launcher takes it where dw9_vec says the vectors do not fit.
+
+constexpr int DW_NT = 128;      // threads a CTA of the stencil
+constexpr int DW_VEC = 4;       // outputs a thread on the vector path (a multiple of 4)
+constexpr int DW_MAX_Y = 65535;  // gridDim.y's limit: more channels loop
+
+__device__ __forceinline__ float dw9_weight(int di, int b) {
+  return (float)(0.1 + (double)di + 2.0 * (double)(b - 1));
+}
+
+// Loads of 16 and 4 bytes where ``pred``, else zeros (volatile PTX, no
+// branch), and a fence behind them.  Left to itself the compiler sank each
+// tap row's load down to its use, behind the row before: three L2 round
+// trips in a row instead of one (the SASS, and 0.3-0.8 us a launch on the
+// card); a load cannot pass the fence, so all of them are in flight before
+// the first shuffle.
+__device__ __forceinline__ float4 ld4_if(const float* p, bool pred) {
+  float4 v;
+  asm volatile(
+      "{\n"
+      ".reg .pred q;\n"
+      "setp.ne.b32 q, %5, 0;\n"
+      "mov.f32 %0, 0f00000000;\n"
+      "mov.f32 %1, 0f00000000;\n"
+      "mov.f32 %2, 0f00000000;\n"
+      "mov.f32 %3, 0f00000000;\n"
+      "@q ld.global.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+      "}\n"
+      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+      : "l"(p), "r"((int)pred));
+  return v;
+}
+
+__device__ __forceinline__ float ld_if(const float* p, bool pred) {
+  float v;
+  asm volatile(
+      "{\n"
+      ".reg .pred q;\n"
+      "setp.ne.b32 q, %2, 0;\n"
+      "mov.f32 %0, 0f00000000;\n"
+      "@q ld.global.f32 %0, [%1];\n"
+      "}\n"
+      : "=f"(v)
+      : "l"(p), "r"((int)pred));
+  return v;
+}
+
+__global__ void __launch_bounds__(DW_NT)
+dw9_kernel(const float* __restrict__ x, float* __restrict__ out, int c, int n_in, int n_out,
+           int s, int off, int di0) {
+  constexpr unsigned FULL = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const int p0 = (blockIdx.x * DW_NT + threadIdx.x) * DW_VEC;
+  const bool active = p0 < n_out;
+  const bool last = active && (lane == 31 || p0 + DW_VEC >= n_out);  // no outputs above
+  float w[3][3];
 #pragma unroll
   for (int a = 0; a < 3; ++a)
 #pragma unroll
-    for (int b = 0; b < 3; ++b) {
-      const float w = (float)(0.1 + (double)(di0 + a) + 2.0 * (double)(b - 1));
-      const int q = p + off + a * s + b - 1;
-      const float v = q >= 0 && q < n_in ? __ldg(row + q) : 0.0f;
-      acc = __fadd_rn(acc, __fmul_rn(v, w));
+    for (int b = 0; b < 3; ++b) w[a][b] = dw9_weight(di0 + a, b);
+  for (int ch = blockIdx.y; ch < c; ch += gridDim.y) {
+    const float* row = x + (size_t)ch * n_in;
+    // every load first, all in flight at once: v[a][1..DW_VEC] the
+    // thread's floats of tap row a, v[a][0] and v[a][DW_VEC + 1] the outer
+    // floats where this lane loads them
+    float v[3][DW_VEC + 2];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const int q = p0 + off + a * s;          // the thread's first float of tap row a
+#pragma unroll
+      for (int k = 0; k < DW_VEC / 4; ++k) {
+        const float4 t = ld4_if(row + q + 4 * k, active);
+        v[a][1 + 4 * k] = t.x;
+        v[a][2 + 4 * k] = t.y;
+        v[a][3 + 4 * k] = t.z;
+        v[a][4 + 4 * k] = t.w;
+      }
+      v[a][0] = ld_if(row + q - 1, active && lane == 0 && q >= 1);
+      v[a][DW_VEC + 1] = ld_if(row + q + DW_VEC, last && q + DW_VEC < n_in);
     }
-  out[e] = acc;
+    __threadfence_block();                     // the loads' fence
+    float acc[DW_VEC];
+#pragma unroll
+    for (int j = 0; j < DW_VEC; ++j) acc[j] = 0.0f;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float up = __shfl_up_sync(FULL, v[a][DW_VEC], 1);
+      const float down = __shfl_down_sync(FULL, v[a][1], 1);
+      if (lane != 0) v[a][0] = up;
+      if (!last) v[a][DW_VEC + 1] = down;
+#pragma unroll
+      for (int b = 0; b < 3; ++b)
+#pragma unroll
+        for (int j = 0; j < DW_VEC; ++j)
+          acc[j] = __fadd_rn(acc[j], __fmul_rn(v[a][j + b], w[a][b]));
+    }
+    if (active) {
+      float4* dst = reinterpret_cast<float4*>(out + (size_t)ch * n_out + p0);
+#pragma unroll
+      for (int k = 0; k < DW_VEC / 4; ++k)
+        dst[k] = make_float4(acc[4 * k], acc[4 * k + 1], acc[4 * k + 2], acc[4 * k + 3]);
+    }
+  }
 }
+
+__global__ void __launch_bounds__(DW_NT)
+dw9_scalar_kernel(const float* __restrict__ x, float* __restrict__ out, int c, int n_in,
+                  int n_out, int s, int off, int di0) {
+  const int p = blockIdx.x * DW_NT + threadIdx.x;
+  if (p >= n_out) return;
+  for (int ch = blockIdx.y; ch < c; ch += gridDim.y) {
+    const float* row = x + (size_t)ch * n_in;
+    float acc = 0.0f;
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+#pragma unroll
+      for (int b = 0; b < 3; ++b) {
+        const int q = p + off + a * s + b - 1;
+        const float v = q >= 0 && q < n_in ? __ldg(row + q) : 0.0f;
+        acc = __fadd_rn(acc, __fmul_rn(v, dw9_weight(di0 + a, b)));
+      }
+    out[(size_t)ch * n_out + p] = acc;
+  }
+}
+
+// The launch floor: a kernel that does nothing.
+__global__ void empty_kernel() {}
 
 // -- P3: y = W x, W (16, 16), x (16, n), f32 in and out ---------------------
 //
@@ -451,16 +581,34 @@ stride2_kernel(const float* __restrict__ x, float* __restrict__ out, int c, int 
 
 inline bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 
+// P1 and P2's vector path: every thread's vectors inside the row and
+// 16-byte aligned (off, s and the row length multiples of 4, whole
+// vectors of outputs, both pointers aligned); otherwise the scalar path
+inline bool dw9_vec(const void* x, const void* out, int n_in, int n_out, int s, int off) {
+  return off >= 0 && s >= 0 && off % 4 == 0 && s % 4 == 0 && n_in % 4 == 0 &&
+         n_out % DW_VEC == 0 && (long long)n_out + off + 2LL * s <= n_in && aligned16(x) &&
+         aligned16(out);
+}
+
 }  // namespace
 
 // P1 (off = s = W, di0 = -1) and P2 (off = 0, s = 128, di0 = 0): x (c,
 // n_in), out (c, n_out), f32.
 extern "C" int bs_probe_dw9(const void* x, void* out, int c, int n_in, int n_out, int s,
                             int off, int di0, void* stream) {
-  const long long total = (long long)c * n_out;
-  if (total <= 0) return 0;
-  dw9_kernel<<<blocks(total, NT), NT, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (float*)out, c, n_in, n_out, s, off, di0);
+  if (c <= 0 || n_out <= 0) return 0;
+  const bool vec = dw9_vec(x, out, n_in, n_out, s, off);
+  const dim3 grid(blocks(vec ? n_out / DW_VEC : n_out, DW_NT), c < DW_MAX_Y ? c : DW_MAX_Y);
+  void (*const kern)(const float*, float*, int, int, int, int, int, int) =
+      vec ? &dw9_kernel : &dw9_scalar_kernel;
+  kern<<<grid, DW_NT, 0, (cudaStream_t)stream>>>((const float*)x, (float*)out, c, n_in, n_out,
+                                                  s, off, di0);
+  return (int)cudaGetLastError();
+}
+
+// the launch floor: one CTA of one warp of empty_kernel
+extern "C" int bs_probe_empty(void* stream) {
+  empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 

@@ -11,7 +11,10 @@ the clone).  ``tools/probe_hopper.py`` runs them on the original's inputs.
 - P1 :func:`dw_flat`: the 9-tap stencil of ``k_dw_flat`` on the flat
   (C, H*W) layout, from a (C, H*W + 4W) input zero-padded by 2W a side.
 - P2 :func:`dw_rowpad`: the same taps on the rowpad layout of ``k_dwp``
-  (rows at a 128-float stride): (C, n) -> (C, n - 256).
+  (rows at a 128-float stride): (C, n) -> (C, n - 256).  Both launch
+  ``bs_probe_dw9``: a register window of 4 outputs a thread (16-byte
+  loads, the edge taps by warp shuffles) where the row's offsets, widths
+  and pointers allow 16-byte vectors, else one output a thread.
 - P3 :func:`dot`: ``mk_dot``'s weight-stationary (16, 16) @ (16, N) at
   "default" (one bf16 pass), "high" (bf16x3, K2''s GEMM) or "highest" (f32);
   the first two on ``wgmma``, one 64-column tile a warpgroup.

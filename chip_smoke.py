@@ -74,8 +74,14 @@ Usage (from the repository root, on a machine with a CUDA card)::
    within the original's atol of its numpy reference), each kernel
    against its plain twin (P1, P2, P5-P7 bit-identical, P3 at DEFAULT,
    HIGH and HIGHEST and P4 within 1e-5), two runs bit-identical, device
-   times beside the library calls' (P3's precisions on one line), P3 and
-   P4 also cold; P4's cluster size, and P3's DEFAULT and HIGH kernels
+   times beside the library calls' (P3's precisions on one line), every
+   probe also cold; P1 and P2 bit-identical to their twins at
+   ``probe_hopper.STENCIL_SHAPES`` and a view off 16 bytes, each on the
+   kernel its shape picks (the register window or the scalar path, by
+   the profiler's kernel name); the launch floor, an empty kernel's
+   device time (``bs_probe_empty``, no kernel of the port's, so not in
+   the JSON line), and each copy probe's distance to it; P4's cluster
+   size, and P3's DEFAULT and HIGH kernels
    checked for HGMMA (the wgmma instruction) in their SASS
    (``cuobjdump -sass`` of the built library);
 11. prints one JSON line with every kernel's numbers (launches from the
@@ -94,8 +100,8 @@ Usage (from the repository root, on a machine with a CUDA card)::
    ``bs_body_mega`` launches ran on the main path, its other numbers those
    of the standalone probe at the ASPP shape; K2'' with its
    ``precision_gap``; P1-P7 with their launches on the probe path,
-   ``main_path_launches`` 0, ``device_ms`` (P3 and P4 ``device_ms_cold``
-   too) and ``library_ms`` or null), then
+   ``main_path_launches`` 0, ``device_ms``, ``device_ms_cold`` and
+   ``library_ms`` or null), then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failure raises and the script exits non-zero; without CUDA it exits 1
@@ -133,9 +139,11 @@ ATOL, RTOL = 2e-3, 1e-3
 # it and a GEMM that drops one cross term over ten times it.
 MATCHED_ATOL, MATCHED_RTOL, MATCHED_MEAN = 2e-3, 1e-4, 1e-4
 PROBE_TOL = 1e-5           # P3 and P4 against their plain twins (summation order)
-# the probes timed cold too, by their kernels' profiler names (the L2 flush's
-# elementwise_kernel holds "se_kernel" as well)
-PROBE_COLD = {"P3": "::dot_kernel", "P4": "::se_kernel"}
+# every probe's kernels by their profiler names, which its warm and cold
+# times sum (the L2 flush's elementwise_kernel holds "se_kernel" as well);
+# "::dw9_" is both stencil paths
+PROBE_KERNELS = {"P1": "::dw9_", "P2": "::dw9_", "P3": "::dot_kernel", "P4": "::se_kernel",
+              "P5": "::cat_kernel", "P6": "::stride2_kernel", "P7": "::cat_kernel"}
 FRAME_TOL, MEAN_TOL = 0.02, 0.002
 CLASSIC_SIZE, CLASSIC_FRAMES, STAGED_FRAMES = (640, 480), 30, 10
 FUSED_420_FRAMES = 10      # the fused segm path with NV12 out
@@ -205,35 +213,44 @@ def b2b_ms(fn, n=100, warmup=3):
     return a.elapsed_time(b) / n
 
 
-def device_ms(fn, n=100, warmup=3, attempts=3, cold=None):
+def device_ms(fn, n=100, warmup=3, attempts=3, cold=None, kernel=None):
     """Device time (ms) a call of ``fn``: the torch.profiler's sum of the
     card's kernel (and copy) time over ``n`` calls, divided by ``n``.  With
-    ``cold``, a kernel name launched once a call, a buffer of
-    L2_FLUSH_BYTES is overwritten before each call (so the inputs come from
-    HBM) and only the kernels whose name holds ``cold`` are summed.  A
-    profiler window now and then records no device events at all; such a
-    window is measured again, up to ``attempts`` windows."""
+    ``kernel``, a kernel name launched once a call, only the kernels whose
+    name holds it are summed, divided by their count.  With ``cold``, such
+    a name, a buffer of L2_FLUSH_BYTES is overwritten before each call (so
+    the inputs come from HBM) and only the kernels whose name holds
+    ``cold`` are summed, divided by their count.  The profiler leaves out
+    the first kernel of a window (99 of 100 launches were counted on an
+    H100), so each window opens with a short ``torch.cuda._sleep`` kernel
+    that nothing sums.  A window that records no device events at all, or
+    (with a name) under ``n - 1`` of the named kernel, is measured again,
+    up to ``attempts`` windows."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    name = cold or kernel
     flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda") if cold else None
     for _ in range(warmup):
         fn()
+    counts = []
     for _ in range(attempts):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
             for i in range(n):
                 if cold:
                     flush.fill_(i)
                 fn()
             torch.cuda.synchronize()
         ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-              and (cold is None or cold in e.key)]
-        if sum(e.self_device_time_total for e in ev) > 0 \
-                and (cold is None or sum(e.count for e in ev) == n):
-            return sum(e.self_device_time_total for e in ev) / 1e3 / n
-    raise RuntimeError(f"the profiler saw no device time{f' of {n} {cold}' if cold else ''} "
-                       f"in {attempts} windows")
+              and "spin_kernel" not in e.key and (name is None or name in e.key)]
+        counts.append(sum(e.count for e in ev))
+        total = sum(e.self_device_time_total for e in ev)
+        if total > 0 and (name is None or n - 1 <= counts[-1] <= n):
+            return total / 1e3 / (counts[-1] if name else n)
+    raise RuntimeError(f"the profiler saw no device time{f' of {n} {name}' if name else ''} "
+                       f"in {attempts} windows (kernels counted: {counts})")
 
 
 def barrier_us():
@@ -1158,10 +1175,10 @@ def probe_phase():
                 raise AssertionError(f"{p.kernel_id} {p.name}: the library call is off")
             r = res[p.name] = dict(
                 kernel_id=p.kernel_id, site=p.site, max_abs_err=diff, ms=timed(p.kernel),
-                plain_ms=timed(p.plain), device_ms=device_ms(p.kernel),
+                plain_ms=timed(p.plain),
+                device_ms=device_ms(p.kernel, kernel=PROBE_KERNELS[p.kernel_id]),
+                device_ms_cold=device_ms(p.kernel, cold=PROBE_KERNELS[p.kernel_id]),
                 bound=bound(p.nbytes, p.ops, p.bf16_ops))
-            if p.kernel_id in PROBE_COLD:
-                r["device_ms_cold"] = device_ms(p.kernel, cold=PROBE_COLD[p.kernel_id])
             if lib is not None:
                 r.update(library_ms=timed(p.library),
                          library_device_ms=device_ms(p.library))
@@ -1169,11 +1186,28 @@ def probe_phase():
                   f"{' (bit-identical)' if p.exact else ''}, vs the original's reference "
                   f"{err:.3g} (atol {p.atol:g}); device {r['device_ms'] * 1e3:.3f} us "
                   f"(warm)"
-                  + (f", {r['device_ms_cold'] * 1e3:.3f} us (cold)" if "device_ms_cold" in r
-                     else "") + ", library "
+                  f", {r['device_ms_cold'] * 1e3:.3f} us (cold), library "
                   + (f"{r['library_device_ms'] * 1e3:.3f} us" if lib is not None else "none")
                   + f", bound {r['bound'][0] * 1e3:.3f} us ({r['bound'][1]}); kernel "
                   f"{r['ms'][0]:.4f} ms plain {r['plain_ms'][0]:.4f} ms (event pairs)")
+    for name, kernel, plain, vec in probe_hopper.stencil_cases("cuda"):
+        k, pl = kernel(), plain()
+        torch.cuda.synchronize()
+        if not torch.equal(k, pl):
+            raise AssertionError(f"stencil {name}: {float((k - pl).abs().max()):.3g} from "
+                                 f"its plain twin")
+        names = probe_hopper.launched_kernels(kernel)
+        if len(names) != 1 or probe_hopper.STENCIL_KERNELS[vec] not in names[0]:
+            raise AssertionError(f"stencil {name} ran {names}, not "
+                                 f"{probe_hopper.STENCIL_KERNELS[vec]}")
+    print(f"probe P1/P2 stencil bit-identical to its twins at "
+          f"{len(probe_hopper.STENCIL_SHAPES) + 1} shapes, each on the path its shape picks "
+          f"(profiler names {sorted(probe_hopper.STENCIL_KERNELS.values())})")
+    floor = device_ms(lambda: _build.launch("bs_probe_empty"), kernel="::empty_kernel") * 1e3
+    print(f"launch floor: an empty kernel (one CTA of one warp) {floor:.3f} us device time "
+          f"(warm); above it: " + ", ".join(
+              f"{r['kernel_id']} {r['device_ms'] * 1e3 - floor:.3f} us"
+              for r in res.values() if r["kernel_id"] in ("P1", "P2", "P5", "P6", "P7")))
     dots = {n[4:]: res[n]["device_ms"] * 1e3 for n in ("dot_default", "dot_high", "dot_highest")}
     print(f"probe P4 runs as one cluster of {_build.lib().bs_probe_se_cluster()} CTAs; P3's "
           f"DEFAULT and HIGH kernels hold HGMMA in their SASS: {wgmma_in_sass()}")

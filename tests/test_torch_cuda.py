@@ -649,7 +649,13 @@ def test_probe_kernel_matches_plain(probe_runs, name):
 
 def test_probe_kernels_at_ragged_shapes(cuda_device):
     """The probes' scalar paths: widths that are no multiple of 4 or 8 (no
-    16-byte vectors, a partial MMA tile), a concat of unequal heights."""
+    16-byte vectors, a partial MMA tile), a concat of unequal heights; P1
+    and P2 at probe_hopper's stencil cases (W = 81 and 7, C = 1, a ragged
+    warp, both zero ends of P2's row, a view off 16 bytes), each
+    bit-identical to its twin on the path its shape picks, by the
+    profiler's kernel name."""
+    _frames(8, 8, 1)        # puts tools/ on sys.path
+    import probe_hopper
     from backscrub_tpu_torch.ops import probe_kernels as pk
     rng = np.random.default_rng(12)
 
@@ -668,6 +674,10 @@ def test_probe_kernels_at_ragged_shapes(cuda_device):
     xf, xr = t(4, 4 * 9 + 5 * 9), t(2, 3 * 128 + 3)
     assert torch.equal(pk.dw_flat(xf, 9), pk.dw_flat_plain(xf, 9))
     assert torch.equal(pk.dw_rowpad(xr), pk.dw_rowpad_plain(xr))
+    for name, kernel, plain, vec in probe_hopper.stencil_cases("cuda"):
+        assert torch.equal(kernel(), plain()), name
+        names = probe_hopper.launched_kernels(kernel)
+        assert len(names) == 1 and probe_hopper.STENCIL_KERNELS[vec] in names[0], (name, names)
     with pytest.raises(ValueError):
         pk.dot(w, x, "tf32")
     with pytest.raises(ValueError):

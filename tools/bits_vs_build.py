@@ -22,7 +22,11 @@ between the two checkouts can be compared.  The cases:
 - ``probe_se``: P4, ``se`` on the original probe inputs (16, 3840) and at
   (5, 333) and (32, 100000);
 - ``probe_dot``: P3, ``dot`` at DEFAULT, HIGH and HIGHEST on the original
-  probe inputs and at n = 37.
+  probe inputs and at n = 37;
+- ``probe_dw_flat``, ``probe_dw_rowpad``: P1 and P2, ``dw_flat`` and
+  ``dw_rowpad``, at ``tools/probe_hopper.py``'s ``STENCIL_SHAPES`` on
+  seeded inputs (the probe shape and the shapes of the scalar path), bit
+  for bit.
 
 Prints, per call, whether the outputs are bit-identical (else how many
 values differ and by how much) and exits 1 if any differs; the probe
@@ -39,7 +43,7 @@ in fresh subprocesses in turns: the other, this, this, the other.
 Usage (from the repository root, on a machine with a CUDA card)::
 
     python tools/bits_vs_build.py OTHER_CHECKOUT [--time] [front] [gemm] [bilateral] [pack420]
-        [probe_se] [probe_dot]
+        [probe_se] [probe_dot] [probe_dw_flat] [probe_dw_rowpad]
 """
 
 import os
@@ -74,7 +78,8 @@ with torch.no_grad():
                                  **{k: dev(v) for k, v in c["kwargs"].items()})
         outs.append(call().cpu())
         if device_ms is not None:
-            times.append((1e3 * device_ms(call), 1e3 * device_ms(call, cold=c["kernel"])))
+            times.append((1e3 * device_ms(call, kernel=c["kernel"]),
+                          1e3 * device_ms(call, cold=c["kernel"])))
 torch.save((outs, times), sys.argv[3])
 """
 
@@ -167,6 +172,39 @@ def _probe_inputs():
     return torch.from_numpy(a["x2"]), torch.from_numpy(a["w16"])
 
 
+def _stencil_calls(probe, wrapper):
+    """(name, call) of a stencil probe's wrapper at probe_hopper's
+    STENCIL_SHAPES of that probe: the probe shape on the original's input,
+    timed, the others on seeded inputs."""
+    import torch
+    import probe_hopper
+    orig = probe_hopper.inputs()["xpad" if probe == "P1" else "xp"]
+    calls = []
+    for name, (p, c, n, width, _) in probe_hopper.STENCIL_SHAPES.items():
+        if p != probe:
+            continue
+        x = torch.from_numpy(orig if name.endswith("original") else
+                             np.random.default_rng(c * n).random((c, n), np.float32))
+        calls.append((f"probe_{wrapper} {name}", dict(
+            wrapper=f"backscrub_tpu_torch.ops.probe_kernels:{wrapper}", kernel="::dw9_",
+            timed=name.endswith("original"), args=[x] + ([width] if width else []),
+            kwargs={})))
+    return calls
+
+
+def probe_dw_flat_calls():
+    """(name, call) of P1, ``dw_flat``, on the original's input and at the
+    other P1 stencil shapes."""
+    _probe_inputs()            # puts tools/ on sys.path
+    return _stencil_calls("P1", "dw_flat")
+
+
+def probe_dw_rowpad_calls():
+    """(name, call) of P2, ``dw_rowpad``, as probe_dw_flat_calls."""
+    _probe_inputs()
+    return _stencil_calls("P2", "dw_rowpad")
+
+
 def probe_se_calls():
     """(name, call) of P4, ``se``, on the original's inputs and at (5, 333)
     and the chunked (32, 100000)."""
@@ -194,7 +232,8 @@ def probe_dot_calls():
 
 
 CASES = {"front": front_calls, "gemm": gemm_calls, "bilateral": bilateral_calls,
-         "pack420": pack420_calls, "probe_se": probe_se_calls, "probe_dot": probe_dot_calls}
+         "pack420": pack420_calls, "probe_se": probe_se_calls, "probe_dot": probe_dot_calls,
+         "probe_dw_flat": probe_dw_flat_calls, "probe_dw_rowpad": probe_dw_rowpad_calls}
 # calls not bit for bit (``exact`` False): the most two builds' outputs may
 # differ, each within 1e-5 of the same plain twin (summation order)
 INEXACT_TOL = 2e-5

@@ -152,6 +152,68 @@ def probes(device="cuda") -> List[Probe]:
     return out
 
 
+# P1 and P2 beyond the probe shape, for the stencil kernel's two paths:
+# name -> (probe, C, columns, P1's row width, the vector path on
+# 16-byte-aligned tensors)
+STENCIL_SHAPES = {
+    "P1 original": ("P1", C, HW + 4 * W, W, True),
+    "P2 original": ("P2", C, (H + 2) * 128, None, True),
+    "P1 W=81": ("P1", 3, 5 * 81 + 4 * 81, 81, False),
+    "P1 W=7": ("P1", 4, 6 * 7 + 4 * 7, 7, False),
+    "P1 C=1": ("P1", 1, HW + 4 * W, W, True),
+    "P1 ragged warp": ("P1", 3, 5 * 20 + 4 * 20, 20, True),     # 100 outputs a row
+    "P2 3x128+5": ("P2", 2, 3 * 128 + 5, None, False),
+    "P2 3x128+4": ("P2", 2, 3 * 128 + 4, None, True),           # 132 outputs a row
+}
+# the kernels' profiler names on each path
+STENCIL_KERNELS = {True: "::dw9_kernel", False: "::dw9_scalar_kernel"}
+
+
+def stencil_cases(device="cuda"):
+    """(name, kernel call, plain call, vector path) of P1 and P2 at each of
+    STENCIL_SHAPES on seeded inputs, and at the probe shape as a view 4
+    bytes off a 16-byte boundary (the scalar path)."""
+    import torch
+    from backscrub_tpu_torch import _build
+    from backscrub_tpu_torch.ops import probe_kernels as pk
+
+    dev = _build.resolve_device(device)
+    shapes = dict(STENCIL_SHAPES)
+    shapes["P1 original, a view off 16 bytes"] = STENCIL_SHAPES["P1 original"][:4] + (False,)
+    out = []
+    for seed, (name, (probe, c, n, width, vec)) in enumerate(shapes.items()):
+        flat = torch.from_numpy(np.random.default_rng(seed).random(c * n + 1, np.float32))
+        flat = flat.to(dev)
+        x = (flat[1:] if "view" in name else flat[:-1]).view(c, n)
+        if probe == "P1":
+            out.append((name, functools.partial(pk.dw_flat, x, width),
+                        functools.partial(pk.dw_flat_plain, x, width), vec))
+        else:
+            out.append((name, functools.partial(pk.dw_rowpad, x),
+                        functools.partial(pk.dw_rowpad_plain, x), vec))
+    return out
+
+
+def launched_kernels(fn, calls=10, attempts=5) -> List[str]:
+    """The names of the CUDA kernels that ``fn`` launches, by the profiler
+    over ``calls`` calls in one window (the profiler leaves out a window's
+    first kernel, so one call alone may show none).  A window with no
+    device events is taken again, up to ``attempts`` windows."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        if names:
+            return names
+    return []
+
+
 def run(ps: List[Probe]):
     """The probe path: each kernel once, against the original's reference
     at its atol (rtol 1e-4, as the original's run()).  Returns (probe, ok,
