@@ -48,7 +48,9 @@ SIGNATURES = {
     "bs_probe_se_cluster": (),
     "bs_probe_cat": (P, P, P, I, I, P),
     "bs_probe_stride2": (P, P, I, I, P),
+    "bs_probe_copy": (P, P, I, I, P),
     "bs_probe_empty": (P,),
+    "bs_probe_touch": (P, P, P),
 }
 
 

@@ -17,15 +17,18 @@
 // float, so here they are plain copies.
 //
 // Bound: bytes, for every probe.  Each moves 0.37-0.98 MB (0.11-0.29 us at
-// 3.35 TB/s) and does at most ~6 MFLOP; a launch and one L2 round trip
-// cost ~1.1 us (P7's copy), which no probe at these sizes gets under
-// (bs_probe_empty, an empty launch, measures the floor's launch part).
-// P5-P7 are simple: one thread an output (or a 16-byte vector of them),
-// inputs through the read-only path, no staging.  P1, P2, P3 and P4 are
-// laid out for Hopper: P1 and P2 as one register-window stencil (16-byte
-// loads, the edge taps by warp shuffles), P3 on wgmma from one staged tile
-// a warpgroup, P4 on one thread-block cluster whose CTAs share their row
-// sums through distributed shared memory (each below).
+// 3.35 TB/s) and does at most ~6 MFLOP; no probe at these sizes gets under
+// the cost of a launch that reads and writes: on an H100 80GB HBM3 (700 W)
+// an empty launch takes 0.868 us and one warp that loads 16 bytes a lane
+// and stores them 1.045-1.058 us warm, 1.269-1.374 cold (bs_probe_empty,
+// bs_probe_touch; chip_smoke.py).  P5 is simple: a 16-byte vector a
+// thread, inputs through the read-only path, no staging.  P1-P4, P6 and P7
+// are laid out for Hopper: P1 and P2 as one register-window stencil
+// (16-byte loads, the edge taps by warp shuffles), P3 on wgmma from one
+// staged tile a warpgroup, P4 on one thread-block cluster whose CTAs share
+// their row sums through distributed shared memory, P6 and P7 as one
+// strided copy with every load in flight before the first store (each
+// below).
 //
 // Arithmetic, so that the plain twins can match bit for bit where asked:
 // P1/P2 multiply and add with __fmul_rn/__fadd_rn (no FMA contraction), the
@@ -38,6 +41,7 @@
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -201,9 +205,6 @@ dw9_scalar_kernel(const float* __restrict__ x, float* __restrict__ out, int c, i
     out[(size_t)ch * n_out + p] = acc;
   }
 }
-
-// The launch floor: a kernel that does nothing.
-__global__ void empty_kernel() {}
 
 // -- P3: y = W x, W (16, 16), x (16, n), f32 in and out ---------------------
 //
@@ -547,8 +548,8 @@ se_kernel(const float* __restrict__ x, const float* __restrict__ w, float* __res
   }
 }
 
-// P5 (and P7 with nb = 0): out[0, na) = a, out[na, na + nb) = b, floats;
-// ``vec``: 16-byte loads and stores (na, nb multiples of 4, pointers aligned)
+// P5: out[0, na) = a, out[na, na + nb) = b, floats; ``vec``: 16-byte loads
+// and stores (na, nb multiples of 4, pointers aligned)
 __global__ void __launch_bounds__(NT)
 cat_kernel(const float* __restrict__ a, const float* __restrict__ b, float* __restrict__ out,
            int na, int nb, int vec) {
@@ -563,20 +564,71 @@ cat_kernel(const float* __restrict__ a, const float* __restrict__ b, float* __re
   }
 }
 
-// P6: out[r, j] = x[r, 2j] for x (c, n), out (c, (n + 1) / 2); ``vec`` (n a
-// multiple of 4, pointers aligned): a thread reads 16 bytes and stores the
-// 8 of its even lanes
-__global__ void __launch_bounds__(NT)
-stride2_kernel(const float* __restrict__ x, float* __restrict__ out, int c, int n, int vec) {
-  const int i = blockIdx.x * NT + threadIdx.x;
-  if (vec) {
-    if (i >= c * n / 4) return;
-    const float4 v = __ldg(reinterpret_cast<const float4*>(x) + i);
-    reinterpret_cast<float2*>(out)[i] = make_float2(v.x, v.z);
-  } else {
-    const int no = (n + 1) / 2;
-    if (i < c * no) out[i] = __ldg(x + (size_t)(i / no) * n + 2 * (i % no));
+// -- P6, P7: the strided copy -----------------------------------------------
+//
+// out[r, j] = x[r, S j] for x (c, n) f32 and out (c, ceil(n / S)): P6 is
+// S = 2 (x[:, 0::2]), P7 is S = 1 on the flattened (C, H*W) view.  A copy:
+// no arithmetic, so kernel and twin agree bit for bit.  Bound: the bytes,
+// and at the probe's 0.37-0.49 MB the launch and one L2 round trip.
+// strided_copy_kernel, the vector path: where S = 1 or n is even the copy
+// is flat, out_flat[k] = x_flat[S k].  A thread loads CP_LOADS 16-byte
+// input vectors and stores the CP_LOADS / S output vectors they make,
+// CP_NT apart (a warp's stores adjacent); P6 keeps lanes x and z of each
+// input vector, so every store is 16 bytes (ptxas then loads only those
+// two lanes, 4 bytes each; volatile 16-byte loads measured the same).  All
+// of a thread's loads are issued before a fence and the first store: one
+// round trip a launch.  A CTA moves the same bytes in for P6 and P7.  1-D
+// grid, 32-bit indices, no division.  Neither P6's loads made contiguous
+// across a warp (lanes x and z then traded by shuffles) nor P7 by the
+// TMA's bulk copies measured faster (tools/sweep_copy.py).
+// strided_copy_scalar_kernel: one output a thread on a 2-D grid
+// (blockIdx.y the row, looping past DW_MAX_Y; blockIdx.x a segment of
+// it), where copy_vec says the vectors do not fit.
+
+constexpr int CP_NT = 128;      // threads a CTA of the copy
+constexpr int CP_LOADS = 2;     // input vectors a thread on the vector path (S divides it)
+
+template <int S>
+__global__ void __launch_bounds__(CP_NT)
+strided_copy_kernel(const float4* __restrict__ x, float4* __restrict__ out, int m) {
+  constexpr int V = CP_LOADS / S;              // output vectors a thread
+  const int v0 = blockIdx.x * (CP_NT * V) + threadIdx.x;
+  float4 in[V][S];
+#pragma unroll
+  for (int k = 0; k < V; ++k)
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int v = v0 + k * CP_NT;
+      in[k][s] = ld4_if(reinterpret_cast<const float*>(x + S * v + s), v < m);
+    }
+  __threadfence_block();                       // the loads' fence
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    const int v = v0 + k * CP_NT;
+    if (v >= m) continue;
+    if constexpr (S == 1)
+      out[v] = in[k][0];
+    else
+      out[v] = make_float4(in[k][0].x, in[k][0].z, in[k][1].x, in[k][1].z);
   }
+}
+
+template <int S>
+__global__ void __launch_bounds__(CP_NT)
+strided_copy_scalar_kernel(const float* __restrict__ x, float* __restrict__ out, int c, int n,
+                           int no) {
+  const int j = blockIdx.x * CP_NT + threadIdx.x;
+  if (j >= no) return;
+  for (int r = blockIdx.y; r < c; r += gridDim.y)
+    out[(size_t)r * no + j] = __ldg(x + (size_t)r * n + S * j);
+}
+
+// The floors of a launch: a kernel that does nothing, and one warp whose
+// lanes each load 16 bytes and store them to another buffer.
+__global__ void empty_kernel() {}
+
+__global__ void touch_kernel(const float4* __restrict__ x, float4* __restrict__ out) {
+  out[threadIdx.x] = __ldg(x + threadIdx.x);
 }
 
 inline bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
@@ -588,6 +640,33 @@ inline bool dw9_vec(const void* x, const void* out, int n_in, int n_out, int s, 
   return off >= 0 && s >= 0 && off % 4 == 0 && s % 4 == 0 && n_in % 4 == 0 &&
          n_out % DW_VEC == 0 && (long long)n_out + off + 2LL * s <= n_in && aligned16(x) &&
          aligned16(out);
+}
+
+// P6 and P7's vector path: the copy flat (S = 1 or n even), whole 16-byte
+// vectors of output, the input's floats countable in 32 bits and both
+// pointers aligned; otherwise the scalar path
+inline bool copy_vec(const void* x, const void* out, int c, int n, int S) {
+  return (S == 1 || n % 2 == 0) && (long long)c * n / S % 4 == 0 &&
+         (long long)c * n <= INT_MAX && aligned16(x) && aligned16(out);
+}
+
+// P6 and P7's launch: x (c, n) -> out (c, ceil(n / S)), f32; the path by
+// copy_vec, decided before the launch
+template <int S>
+int strided_copy(const void* x, void* out, int c, int n, void* stream) {
+  if (c <= 0 || n <= 0) return 0;
+  if (copy_vec(x, out, c, n, S)) {
+    const int m = (int)((long long)c * n / S / 4);   // output vectors
+    const int per = CP_NT * (CP_LOADS / S);           // output vectors a CTA
+    strided_copy_kernel<S><<<blocks(m, per), CP_NT, 0, (cudaStream_t)stream>>>(
+        (const float4*)x, (float4*)out, m);
+  } else {
+    const int no = (n + S - 1) / S;
+    const dim3 grid(blocks(no, CP_NT), c < DW_MAX_Y ? c : DW_MAX_Y);
+    strided_copy_scalar_kernel<S><<<grid, CP_NT, 0, (cudaStream_t)stream>>>(
+        (const float*)x, (float*)out, c, n, no);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -609,6 +688,13 @@ extern "C" int bs_probe_dw9(const void* x, void* out, int c, int n_in, int n_out
 // the launch floor: one CTA of one warp of empty_kernel
 extern "C" int bs_probe_empty(void* stream) {
   empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+
+// the read-then-write floor: one CTA of one warp of touch_kernel, x and out
+// 512 bytes each, 16-byte aligned
+extern "C" int bs_probe_touch(const void* x, void* out, void* stream) {
+  touch_kernel<<<1, 32, 0, (cudaStream_t)stream>>>((const float4*)x, (float4*)out);
   return (int)cudaGetLastError();
 }
 
@@ -651,8 +737,7 @@ extern "C" int bs_probe_se(const void* x, const void* w, void* out, int c, int n
 // the CTAs of P4's cluster
 extern "C" int bs_probe_se_cluster(void) { return SE_R; }
 
-// P5 (a, b -> out = [a; b]) and P7 (b = null, nb = 0: a plain copy); counts
-// in floats
+// P5: a, b -> out = [a; b]; counts in floats
 extern "C" int bs_probe_cat(const void* a, const void* b, void* out, int na, int nb,
                             void* stream) {
   if (na + nb <= 0) return 0;
@@ -666,10 +751,10 @@ extern "C" int bs_probe_cat(const void* a, const void* b, void* out, int na, int
 
 // P6: x (c, n) -> out (c, (n + 1) / 2), f32
 extern "C" int bs_probe_stride2(const void* x, void* out, int c, int n, void* stream) {
-  if (c <= 0 || n <= 0) return 0;
-  const int vec = n % 4 == 0 && aligned16(x) && aligned16(out);
-  const int m = vec ? c * n / 4 : c * ((n + 1) / 2);
-  stride2_kernel<<<blocks(m, NT), NT, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (float*)out, c, n, vec);
-  return (int)cudaGetLastError();
+  return strided_copy<2>(x, out, c, n, stream);
+}
+
+// P7: x (c, n) -> out (c, n), f32: (C, H, W) as (C, H*W)
+extern "C" int bs_probe_copy(const void* x, void* out, int c, int n, void* stream) {
+  return strided_copy<1>(x, out, c, n, stream);
 }

@@ -21,8 +21,12 @@ the clone).  ``tools/probe_hopper.py`` runs them on the original's inputs.
 - P4 :func:`se`: ``k_se``, x * sigmoid(w @ mean(x, 1)), as one
   thread-block cluster whose CTAs share their row sums through distributed
   shared memory; a card that refuses the cluster raises.
-- P5 :func:`concat`, P6 :func:`lane_stride2`, P7 :func:`reshape_flat`:
-  ``k_cat``, ``k_ls`` and ``k_rs`` as copies.
+- P5 :func:`concat`: ``k_cat`` as a copy.
+- P6 :func:`lane_stride2`, P7 :func:`reshape_flat`: ``k_ls`` and ``k_rs``
+  as one strided copy, out[r, j] = x[r, S j] with S = 2 and 1 (P7 on the
+  flat (C, H*W) view): on 16-byte vectors where the copy is flat and
+  the output whole vectors, every load issued before the first store,
+  else one output a thread.
 
 Kernel and twin agree bit for bit for P1, P2 and P5-P7 (the stencils
 multiply and add without contraction, in the twin's order), within 1e-5 for
@@ -237,9 +241,8 @@ def lane_stride2(x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return lane_stride2_plain(x)
     _check(x, "lane_stride2 input", 2)
-    c, n = x.shape
-    out = _out(x, c, (n + 1) // 2)
-    _build.launch("bs_probe_stride2", x.data_ptr(), out.data_ptr(), c, n)
+    out = _out(x, x.shape[0], (x.shape[1] + 1) // 2)
+    _build.launch("bs_probe_stride2", x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1])
     lane_stride2.launches += 1
     return out
 
@@ -250,7 +253,8 @@ def reshape_flat(x: torch.Tensor) -> torch.Tensor:
         return reshape_flat_plain(x)
     _check(x, "reshape_flat input", 3)
     out = _out(x, x.shape[0], x.shape[1] * x.shape[2])
-    _build.launch("bs_probe_cat", x.data_ptr(), None, out.data_ptr(), x.numel(), 0)
+    _build.launch("bs_probe_copy", x.data_ptr(), out.data_ptr(), x.shape[0],
+                  x.shape[1] * x.shape[2])
     reshape_flat.launches += 1
     return out
 

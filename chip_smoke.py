@@ -76,14 +76,17 @@ Usage (from the repository root, on a machine with a CUDA card)::
    HIGH and HIGHEST and P4 within 1e-5), two runs bit-identical, device
    times beside the library calls' (P3's precisions on one line), every
    probe also cold; P1 and P2 bit-identical to their twins at
-   ``probe_hopper.STENCIL_SHAPES`` and a view off 16 bytes, each on the
-   kernel its shape picks (the register window or the scalar path, by
-   the profiler's kernel name); the launch floor, an empty kernel's
-   device time (``bs_probe_empty``, no kernel of the port's, so not in
-   the JSON line), and each copy probe's distance to it; P4's cluster
-   size, and P3's DEFAULT and HIGH kernels
-   checked for HGMMA (the wgmma instruction) in their SASS
-   (``cuobjdump -sass`` of the built library);
+   ``probe_hopper.STENCIL_SHAPES`` and a view off 16 bytes, P6 and P7 at
+   ``probe_hopper.COPY_SHAPES`` and views off 16 bytes, each on the
+   kernel its shape picks (the vector or the scalar path, by the
+   profiler's kernel name); the two launch floors warm and cold, one CTA
+   of one warp each: an empty kernel (``bs_probe_empty``) and a 16-byte
+   load and store a lane (``bs_probe_touch``), no kernels of the port's,
+   so not in the JSON line; P1, P2 and P5-P7's distance to both; P4's
+   cluster size; in the SASS (``cuobjdump -sass`` of the built library),
+   P3's DEFAULT and HIGH kernels checked for HGMMA (the wgmma
+   instruction) and P6/P7's vector kernels for every load issued before
+   the first store;
 11. prints one JSON line with every kernel's numbers (launches from the
    run of the path it serves, errors and times measured here, and the
    bound: the larger of the bytes it must move over 3.35 TB/s and its
@@ -112,6 +115,7 @@ import collections
 import dataclasses
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -141,9 +145,9 @@ MATCHED_ATOL, MATCHED_RTOL, MATCHED_MEAN = 2e-3, 1e-4, 1e-4
 PROBE_TOL = 1e-5           # P3 and P4 against their plain twins (summation order)
 # every probe's kernels by their profiler names, which its warm and cold
 # times sum (the L2 flush's elementwise_kernel holds "se_kernel" as well);
-# "::dw9_" is both stencil paths
+# "::dw9_" is both stencil paths, "::strided_copy_" both copy paths
 PROBE_KERNELS = {"P1": "::dw9_", "P2": "::dw9_", "P3": "::dot_kernel", "P4": "::se_kernel",
-              "P5": "::cat_kernel", "P6": "::stride2_kernel", "P7": "::cat_kernel"}
+                 "P5": "::cat_kernel", "P6": "::strided_copy_", "P7": "::strided_copy_"}
 FRAME_TOL, MEAN_TOL = 0.02, 0.002
 CLASSIC_SIZE, CLASSIC_FRAMES, STAGED_FRAMES = (640, 480), 30, 10
 FUSED_420_FRAMES = 10      # the fused segm path with NV12 out
@@ -1110,24 +1114,70 @@ def device_check():
     print(f"default device: {pipe.device}")
 
 
-def wgmma_in_sass():
-    """The SASS of the built library (``cuobjdump -sass``): raise unless each
-    of P3's DEFAULT and HIGH kernels (``dot_kernel<0, *>``, ``<1, *>``, the
-    vector and the scalar path) holds HGMMA, the instruction wgmma compiles
-    to, so that a kernel that did not compile to it is not reported as one.
-    Returns the HGMMA counts by precision, a count a kernel."""
+def sass_functions(path=None):
+    """{function header: its SASS} of the library at ``path``, the built
+    one by default (``cuobjdump -sass``)."""
     from backscrub_tpu_torch import _build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass", _build.library_path()], capture_output=True,
+    sass = subprocess.run([tool, "-sass", path or _build.library_path()], capture_output=True,
                           text=True, check=True, timeout=120).stdout
+    return {fn.split("\n", 1)[0]: fn for fn in sass.split("Function : ")[1:]}
+
+
+def wgmma_in_sass(sass):
+    """Raise unless each of P3's DEFAULT and HIGH kernels (``dot_kernel<0,
+    *>``, ``<1, *>``, the vector and the scalar path) holds HGMMA in
+    ``sass`` (sass_functions), the instruction wgmma compiles to, so that a
+    kernel that did not compile to it is not reported as one.  Returns the
+    HGMMA counts by precision, a count a kernel."""
     counts = {"DEFAULT": [], "HIGH": []}
-    for fn in sass.split("Function : ")[1:]:
+    for head, fn in sass.items():
         for mode, name in enumerate(counts):
-            if f"dot_kernelILi{mode}E" in fn.split("\n", 1)[0]:
+            if f"dot_kernelILi{mode}E" in head:
                 counts[name].append(fn.count("HGMMA"))
     if any(len(c) != 2 or not all(c) for c in counts.values()):
         raise AssertionError(f"P3's wgmma kernels hold no HGMMA in their SASS: {counts}")
     return counts
+
+
+def loads_first_in_sass(sass):
+    """Raise unless P6 and P7's vector kernels (``strided_copy_kernel<S>``,
+    S = 2 and 1) issue every LDG before their first STG in ``sass``, so
+    that all of a thread's loads are in flight together.  Returns the LDG
+    count by S."""
+    counts = {}
+    for head, fn in sass.items():
+        m = re.search(r"strided_copy_kernelILi(\d)E", head)
+        if m:
+            lines = fn.splitlines()
+            ldg = [i for i, line in enumerate(lines) if "LDG" in line]
+            stg = [i for i, line in enumerate(lines) if "STG" in line]
+            if not ldg or not stg or max(ldg) > min(stg):
+                raise AssertionError(f"strided_copy_kernel<{m.group(1)}> issues a load after "
+                                     f"its first store (LDG lines {ldg}, STG lines {stg})")
+            counts[int(m.group(1))] = len(ldg)
+    if sorted(counts) != [1, 2]:
+        raise AssertionError(f"the SASS holds strided_copy_kernel for S in {sorted(counts)}")
+    return counts
+
+
+def launch_floors():
+    """Device us a launch, (warm, cold), of the two floors, one CTA of one
+    warp each: ``bs_probe_empty`` (a kernel that does nothing) and
+    ``bs_probe_touch`` (each lane loads 16 bytes and stores them to another
+    buffer; the copy is checked)."""
+    import torch
+    from backscrub_tpu_torch import _build
+    src = torch.rand(128, device="cuda")
+    dst = torch.zeros_like(src)
+    fns = {"empty": lambda: _build.launch("bs_probe_empty"),
+           "touch": lambda: _build.launch("bs_probe_touch", src.data_ptr(), dst.data_ptr())}
+    floors = {k: (device_ms(fn, kernel=f"::{k}_kernel") * 1e3,
+                  device_ms(fn, cold=f"::{k}_kernel") * 1e3) for k, fn in fns.items()}
+    torch.cuda.synchronize()
+    if not torch.equal(dst, src):
+        raise AssertionError("bs_probe_touch did not copy its 512 bytes")
+    return floors
 
 
 def probe_phase():
@@ -1190,27 +1240,34 @@ def probe_phase():
                   + (f"{r['library_device_ms'] * 1e3:.3f} us" if lib is not None else "none")
                   + f", bound {r['bound'][0] * 1e3:.3f} us ({r['bound'][1]}); kernel "
                   f"{r['ms'][0]:.4f} ms plain {r['plain_ms'][0]:.4f} ms (event pairs)")
-    for name, kernel, plain, vec in probe_hopper.stencil_cases("cuda"):
-        k, pl = kernel(), plain()
-        torch.cuda.synchronize()
-        if not torch.equal(k, pl):
-            raise AssertionError(f"stencil {name}: {float((k - pl).abs().max()):.3g} from "
-                                 f"its plain twin")
-        names = probe_hopper.launched_kernels(kernel)
-        if len(names) != 1 or probe_hopper.STENCIL_KERNELS[vec] not in names[0]:
-            raise AssertionError(f"stencil {name} ran {names}, not "
-                                 f"{probe_hopper.STENCIL_KERNELS[vec]}")
-    print(f"probe P1/P2 stencil bit-identical to its twins at "
-          f"{len(probe_hopper.STENCIL_SHAPES) + 1} shapes, each on the path its shape picks "
-          f"(profiler names {sorted(probe_hopper.STENCIL_KERNELS.values())})")
-    floor = device_ms(lambda: _build.launch("bs_probe_empty"), kernel="::empty_kernel") * 1e3
-    print(f"launch floor: an empty kernel (one CTA of one warp) {floor:.3f} us device time "
-          f"(warm); above it: " + ", ".join(
-              f"{r['kernel_id']} {r['device_ms'] * 1e3 - floor:.3f} us"
-              for r in res.values() if r["kernel_id"] in ("P1", "P2", "P5", "P6", "P7")))
+    for what, cases, kernels in (
+            ("P1/P2 stencil", probe_hopper.stencil_cases("cuda"), probe_hopper.STENCIL_KERNELS),
+            ("P6/P7 copy", probe_hopper.copy_cases("cuda"), probe_hopper.COPY_KERNELS)):
+        for name, kernel, plain, vec in cases:
+            k, pl = kernel(), plain()
+            torch.cuda.synchronize()
+            if not torch.equal(k, pl):
+                raise AssertionError(f"{what} {name}: {float((k - pl).abs().max()):.3g} from "
+                                     f"its plain twin")
+            names = probe_hopper.launched_kernels(kernel)
+            if len(names) != 1 or kernels[vec] not in names[0]:
+                raise AssertionError(f"{what} {name} ran {names}, not {kernels[vec]}")
+        print(f"probe {what} bit-identical to its twins at {len(cases)} shapes, each on the "
+              f"path its shape picks (profiler names {sorted(kernels.values())})")
+    floors = launch_floors()
+    print("launch floors, device us warm / cold: " + ", ".join(
+        f"{k} {w:.3f} / {c:.3f}" for k, (w, c) in floors.items()))
+    for kid in ("P1", "P2", "P5", "P6", "P7"):
+        r = next(r for r in res.values() if r["kernel_id"] == kid)
+        w, c = r["device_ms"] * 1e3, r["device_ms_cold"] * 1e3
+        print(f"probe {kid} above the floors, device us warm / cold: " + ", ".join(
+            f"{k} {w - fw:.3f} / {c - fc:.3f}" for k, (fw, fc) in floors.items()))
+    sass = sass_functions()
+    print(f"probe P6/P7's vector kernels issue every load before their first store in the "
+          f"SASS (LDGs by S: {loads_first_in_sass(sass)})")
     dots = {n[4:]: res[n]["device_ms"] * 1e3 for n in ("dot_default", "dot_high", "dot_highest")}
     print(f"probe P4 runs as one cluster of {_build.lib().bs_probe_se_cluster()} CTAs; P3's "
-          f"DEFAULT and HIGH kernels hold HGMMA in their SASS: {wgmma_in_sass()}")
+          f"DEFAULT and HIGH kernels hold HGMMA in their SASS: {wgmma_in_sass(sass)}")
     print(f"probe P3 (16x16 @ 16x3840) device us: DEFAULT {dots['default']:.3f}, HIGH "
           f"(bf16x3) {dots['high']:.3f}, HIGHEST (f32) {dots['highest']:.3f}; torch.matmul "
           f"f32 {res['dot_highest']['library_device_ms'] * 1e3:.3f}, bf16 operands "

@@ -690,6 +690,30 @@ def test_probe_kernels_at_ragged_shapes(cuda_device):
         pk.dw_rowpad(t(2, 256))
 
 
+def test_strided_copy_at_copy_shapes(cuda_device):
+    """P6 and P7 at probe_hopper's copy cases (the probe shapes, odd n, a
+    row length of 6, C = 1, partial last vectors, rows past gridDim.y's
+    limit, views off 16 bytes): each bit-identical to its twin and over
+    two runs, on the path its shape picks, by the profiler's kernel name."""
+    _frames(8, 8, 1)        # puts tools/ on sys.path
+    import probe_hopper
+    for name, kernel, plain, vec in probe_hopper.copy_cases("cuda"):
+        got, again = kernel(), kernel()
+        assert torch.equal(got, plain()) and torch.equal(got, again), name
+        names = probe_hopper.launched_kernels(kernel)
+        assert len(names) == 1 and probe_hopper.COPY_KERNELS[vec] in names[0], (name, names)
+
+
+def test_launch_floor_kernels(cuda_device):
+    """bs_probe_empty launches; bs_probe_touch copies its 512 bytes."""
+    src = torch.rand(128, device=cuda_device)
+    dst = torch.zeros_like(src)
+    _build.launch("bs_probe_empty")
+    _build.launch("bs_probe_touch", src.data_ptr(), dst.data_ptr())
+    torch.cuda.synchronize()
+    assert torch.equal(dst, src)
+
+
 def test_se_cluster_at_edge_shapes(cuda_device):
     """P4's cluster kernel where its common path does not reach: the
     chunked slices of (32, 100000) (x read again for the multiply), one

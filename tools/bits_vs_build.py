@@ -19,6 +19,8 @@ between the two checkouts can be compared.  The cases:
   (1, 96, 160), (1, 257, 257), (4, 257, 257) and (2, 5, 7);
 - ``pack420``: K4, ``blend_pack_420`` NV12 and I420 on seeded frames,
   backgrounds and masks at 480x640, 720x1280, 42x58 and 480x642;
+- ``pack_yuyv``: K3, ``blend_pack_yuyv`` in both chroma orders, with and
+  without colour correction, on the same inputs;
 - ``probe_se``: P4, ``se`` on the original probe inputs (16, 3840) and at
   (5, 333) and (32, 100000);
 - ``probe_dot``: P3, ``dot`` at DEFAULT, HIGH and HIGHEST on the original
@@ -26,15 +28,22 @@ between the two checkouts can be compared.  The cases:
 - ``probe_dw_flat``, ``probe_dw_rowpad``: P1 and P2, ``dw_flat`` and
   ``dw_rowpad``, at ``tools/probe_hopper.py``'s ``STENCIL_SHAPES`` on
   seeded inputs (the probe shape and the shapes of the scalar path), bit
-  for bit.
+  for bit;
+- ``probe_cat``: P5, ``concat`` on the original probe inputs and at
+  (3, 7) + (2, 7);
+- ``probe_stride2``, ``probe_copy``: P6 and P7, ``lane_stride2`` and
+  ``reshape_flat``, at ``tools/probe_hopper.py``'s ``COPY_SHAPES`` (the
+  probe shape on the original's input), bit for bit.  Their kernels were
+  ``stride2_kernel`` and ``cat_kernel`` before the strided copy: a build
+  that has no ``strided_copy_kernel`` is timed by those names.
 
 Prints, per call, whether the outputs are bit-identical (else how many
 values differ and by how much) and exits 1 if any differs; the probe
 calls, whose kernels may sum in another order than the other build's,
 print the largest difference instead and fail above 2e-5.  With
 ``--time`` it also times the kernel of each call at a main path's shape
-(K1's canvases, K5 at the three canvas shapes, K4 at 640x480 and
-1280x720, the probes on the original's inputs) in each checkout by the
+(K1's canvases, K5 at the three canvas shapes, K3 and K4 at 640x480
+and 1280x720, the probes on the original's inputs) in each checkout by the
 profiler's device time a launch, warm
 (the inputs in the 50 MB L2) and cold (a 128 MB buffer overwritten
 before each launch), both by this checkout's ``chip_smoke.device_ms``,
@@ -43,7 +52,8 @@ in fresh subprocesses in turns: the other, this, this, the other.
 Usage (from the repository root, on a machine with a CUDA card)::
 
     python tools/bits_vs_build.py OTHER_CHECKOUT [--time] [front] [gemm] [bilateral] [pack420]
-        [probe_se] [probe_dot] [probe_dw_flat] [probe_dw_rowpad]
+        [pack_yuyv] [probe_se] [probe_dot] [probe_dw_flat] [probe_dw_rowpad] [probe_cat]
+        [probe_stride2] [probe_copy]
 """
 
 import os
@@ -69,6 +79,8 @@ if len(sys.argv) > 4:
     device_ms = timer.device_ms
 def dev(v):
     return v.cuda() if isinstance(v, torch.Tensor) else v
+# whether this checkout has the strided copy (else a call's old_kernel is timed)
+NEW = "strided_copy_kernel" in open("backscrub_tpu_torch/csrc/probes.cu").read()
 outs, times = [], []
 with torch.no_grad():
     for c in torch.load(sys.argv[2]):
@@ -78,8 +90,8 @@ with torch.no_grad():
                                  **{k: dev(v) for k, v in c["kwargs"].items()})
         outs.append(call().cpu())
         if device_ms is not None:
-            times.append((1e3 * device_ms(call, kernel=c["kernel"]),
-                          1e3 * device_ms(call, cold=c["kernel"])))
+            k = c["kernel"] if "old_kernel" not in c or NEW else c["old_kernel"]
+            times.append((1e3 * device_ms(call, kernel=k), 1e3 * device_ms(call, cold=k)))
 torch.save((outs, times), sys.argv[3])
 """
 
@@ -145,22 +157,38 @@ def bilateral_calls():
     return calls
 
 
-def pack420_calls():
-    """(name, call) of K4, NV12 and I420, on seeded inputs."""
+def _pack_inputs():
+    """(h, w, frame, background, mask) of the packs' seeded inputs at
+    PACK420_SHAPES."""
     import torch
-    calls = []
     for h, w in PACK420_SHAPES:
         rng = np.random.default_rng(h + w)
         fr, bg = (torch.from_numpy(rng.integers(0, 256, (h, w, 3), np.uint8))
                   for _ in range(2))
         m = rng.integers(0, 256, (h, w), np.uint8)
         m[: h // 4], m[h // 4: h // 2] = 255, 0
-        for layout in ("nv12", "i420"):
-            calls.append((f"pack420 {layout} {h}x{w}", dict(
-                wrapper="backscrub_tpu_torch.ops.pack_kernels:blend_pack_420",
-                kernel="blend_pack_420_kernel", timed=(h, w) in ((480, 640), (720, 1280)),
-                args=[fr, bg, torch.from_numpy(m), layout], kwargs={})))
-    return calls
+        yield h, w, fr, bg, torch.from_numpy(m)
+
+
+def pack420_calls():
+    """(name, call) of K4, NV12 and I420, on seeded inputs."""
+    return [(f"pack420 {layout} {h}x{w}", dict(
+        wrapper="backscrub_tpu_torch.ops.pack_kernels:blend_pack_420",
+        kernel="blend_pack_420_kernel", timed=(h, w) in ((480, 640), (720, 1280)),
+        args=[fr, bg, m, layout], kwargs={}))
+        for h, w, fr, bg, m in _pack_inputs() for layout in ("nv12", "i420")]
+
+
+def pack_yuyv_calls():
+    """(name, call) of K3 in both chroma orders, with and without colour
+    correction, on the packs' seeded inputs."""
+    return [(f"pack_yuyv {order} cc={cc} {h}x{w}", dict(
+        wrapper="backscrub_tpu_torch.ops.pack_kernels:blend_pack_yuyv",
+        kernel="blend_pack_yuyv_kernel",
+        timed=(h, w) in ((480, 640), (720, 1280)) and order == "reference" and not cc,
+        args=[fr, bg, m, order, cc], kwargs={}))
+        for h, w, fr, bg, m in _pack_inputs() for order in ("reference", "yuy2")
+        for cc in (False, True)]
 
 
 def _probe_inputs():
@@ -205,6 +233,50 @@ def probe_dw_rowpad_calls():
     return _stencil_calls("P2", "dw_rowpad")
 
 
+def _copy_calls(probe, wrapper, old_kernel):
+    """(name, call) of a copy probe's wrapper at probe_hopper's COPY_SHAPES
+    of that probe: the probe shape on the original's input, timed, the
+    others on seeded inputs; ``old_kernel`` its kernel's name in a build
+    without the strided copy."""
+    import torch
+    _probe_inputs()            # puts tools/ on sys.path
+    import probe_hopper
+    orig = probe_hopper.inputs()["x2" if probe == "P6" else "x3"]
+    calls = []
+    for name, (p, shape, _) in probe_hopper.COPY_SHAPES.items():
+        if p != probe:
+            continue
+        x = torch.from_numpy(orig if name.endswith("original") else
+                             np.random.default_rng(sum(shape)).random(shape, np.float32))
+        calls.append((f"probe_{wrapper} {name}", dict(
+            wrapper=f"backscrub_tpu_torch.ops.probe_kernels:{wrapper}",
+            kernel="::strided_copy_", old_kernel=old_kernel, timed=name.endswith("original"),
+            args=[x], kwargs={})))
+    return calls
+
+
+def probe_cat_calls():
+    """(name, call) of P5, ``concat``, on the original's inputs and at
+    (3, 7) + (2, 7)."""
+    import torch
+    x2, _ = _probe_inputs()
+    rng = np.random.default_rng(7)
+    a, b = (torch.from_numpy(rng.random(s, np.float32)) for s in ((3, 7), (2, 7)))
+    return [(f"probe_concat {tuple(u.shape)} + {tuple(v.shape)}", dict(
+        wrapper="backscrub_tpu_torch.ops.probe_kernels:concat", kernel="::cat_kernel",
+        timed=u is x2, args=[u, v], kwargs={})) for u, v in ((x2, x2), (a, b))]
+
+
+def probe_stride2_calls():
+    """(name, call) of P6, ``lane_stride2``, at the P6 copy shapes."""
+    return _copy_calls("P6", "lane_stride2", "::stride2_kernel")
+
+
+def probe_copy_calls():
+    """(name, call) of P7, ``reshape_flat``, at the P7 copy shapes."""
+    return _copy_calls("P7", "reshape_flat", "::cat_kernel")
+
+
 def probe_se_calls():
     """(name, call) of P4, ``se``, on the original's inputs and at (5, 333)
     and the chunked (32, 100000)."""
@@ -232,8 +304,10 @@ def probe_dot_calls():
 
 
 CASES = {"front": front_calls, "gemm": gemm_calls, "bilateral": bilateral_calls,
-         "pack420": pack420_calls, "probe_se": probe_se_calls, "probe_dot": probe_dot_calls,
-         "probe_dw_flat": probe_dw_flat_calls, "probe_dw_rowpad": probe_dw_rowpad_calls}
+         "pack420": pack420_calls, "pack_yuyv": pack_yuyv_calls, "probe_se": probe_se_calls,
+         "probe_dot": probe_dot_calls, "probe_cat": probe_cat_calls,
+         "probe_dw_flat": probe_dw_flat_calls, "probe_dw_rowpad": probe_dw_rowpad_calls,
+         "probe_stride2": probe_stride2_calls, "probe_copy": probe_copy_calls}
 # calls not bit for bit (``exact`` False): the most two builds' outputs may
 # differ, each within 1e-5 of the same plain twin (summation order)
 INEXACT_TOL = 2e-5

@@ -194,6 +194,47 @@ def stencil_cases(device="cuda"):
     return out
 
 
+# P6 and P7 beyond the probe shape, for the strided copy's two paths:
+# name -> (probe, x's shape, the vector path on 16-byte-aligned tensors)
+COPY_SHAPES = {
+    "P6 original": ("P6", (C, HW), True),
+    "P7 original": ("P7", (C, H, W), True),
+    "P6 n=37": ("P6", (3, 37), False),                  # odd n
+    "P6 n=12": ("P6", (6, 12), True),                   # 6 outputs a row: vectors span rows
+    "P6 C=1": ("P6", (1, HW), True),
+    "P7 C=1": ("P7", (1, H, W), True),
+    "P6 partial vector": ("P6", (3, 10), False),        # 15 outputs
+    "P7 partial vector": ("P7", (3, 5, 7), False),      # 105 outputs
+    "P6 rows past the grid limit": ("P6", (65537, 3), False),
+}
+# the kernels' profiler names on each path
+COPY_KERNELS = {True: "::strided_copy_kernel", False: "::strided_copy_scalar_kernel"}
+
+
+def copy_cases(device="cuda"):
+    """(name, kernel call, plain call, vector path) of P6 and P7 at each of
+    COPY_SHAPES on seeded inputs, and at their probe shapes as views 4
+    bytes off a 16-byte boundary (the scalar path)."""
+    import torch
+    from backscrub_tpu_torch import _build
+    from backscrub_tpu_torch.ops import probe_kernels as pk
+
+    dev = _build.resolve_device(device)
+    shapes = dict(COPY_SHAPES)
+    for p in ("P6", "P7"):
+        shapes[f"{p} original, a view off 16 bytes"] = COPY_SHAPES[f"{p} original"][:2] + (False,)
+    fns = {"P6": (pk.lane_stride2, pk.lane_stride2_plain),
+           "P7": (pk.reshape_flat, pk.reshape_flat_plain)}
+    out = []
+    for seed, (name, (probe, shape, vec)) in enumerate(shapes.items()):
+        flat = np.random.default_rng(seed).random(int(np.prod(shape)) + 1, np.float32)
+        flat = torch.from_numpy(flat).to(dev)
+        x = (flat[1:] if "view" in name else flat[:-1]).view(shape)
+        kernel, plain = fns[probe]
+        out.append((name, functools.partial(kernel, x), functools.partial(plain, x), vec))
+    return out
+
+
 def launched_kernels(fn, calls=10, attempts=5) -> List[str]:
     """The names of the CUDA kernels that ``fn`` launches, by the profiler
     over ``calls`` calls in one window (the profiler leaves out a window's
