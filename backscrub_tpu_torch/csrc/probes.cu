@@ -21,14 +21,13 @@
 // the cost of a launch that reads and writes: on an H100 80GB HBM3 (700 W)
 // an empty launch takes 0.868 us and one warp that loads 16 bytes a lane
 // and stores them 1.045-1.058 us warm, 1.269-1.374 cold (bs_probe_empty,
-// bs_probe_touch; chip_smoke.py).  P5 is simple: a 16-byte vector a
-// thread, inputs through the read-only path, no staging.  P1-P4, P6 and P7
-// are laid out for Hopper: P1 and P2 as one register-window stencil
-// (16-byte loads, the edge taps by warp shuffles), P3 on wgmma from one
-// staged tile a warpgroup, P4 on one thread-block cluster whose CTAs share
-// their row sums through distributed shared memory, P6 and P7 as one
-// strided copy with every load in flight before the first store (each
-// below).
+// bs_probe_touch; chip_smoke.py).  Every probe is laid out for Hopper: P1
+// and P2 as one register-window stencil (16-byte loads, the edge taps by
+// warp shuffles), P3 on wgmma from one staged tile a warpgroup, P4 on one
+// thread-block cluster whose CTAs share their row sums through distributed
+// shared memory, P6 and P7 as one strided copy with every load in flight
+// before the first store, and P5 as that copy's body on a grid split
+// between its two sources (each below).
 //
 // Arithmetic, so that the plain twins can match bit for bit where asked:
 // P1/P2 multiply and add with __fmul_rn/__fadd_rn (no FMA contraction), the
@@ -53,8 +52,6 @@
 namespace cg = cooperative_groups;
 
 namespace {
-
-constexpr int NT = 256;          // threads a CTA of the elementwise probes
 
 inline int blocks(long long n, int per) { return (int)((n + per - 1) / per); }
 
@@ -548,22 +545,6 @@ se_kernel(const float* __restrict__ x, const float* __restrict__ w, float* __res
   }
 }
 
-// P5: out[0, na) = a, out[na, na + nb) = b, floats; ``vec``: 16-byte loads
-// and stores (na, nb multiples of 4, pointers aligned)
-__global__ void __launch_bounds__(NT)
-cat_kernel(const float* __restrict__ a, const float* __restrict__ b, float* __restrict__ out,
-           int na, int nb, int vec) {
-  const int i = blockIdx.x * NT + threadIdx.x;
-  if (vec) {
-    const int a4 = na / 4;
-    if (i >= (na + nb) / 4) return;
-    reinterpret_cast<float4*>(out)[i] = i < a4 ? __ldg(reinterpret_cast<const float4*>(a) + i)
-                                               : __ldg(reinterpret_cast<const float4*>(b) + i - a4);
-  } else if (i < na + nb) {
-    out[i] = i < na ? __ldg(a + i) : __ldg(b + i - na);
-  }
-}
-
 // -- P6, P7: the strided copy -----------------------------------------------
 //
 // out[r, j] = x[r, S j] for x (c, n) f32 and out (c, ceil(n / S)): P6 is
@@ -588,11 +569,15 @@ cat_kernel(const float* __restrict__ a, const float* __restrict__ b, float* __re
 constexpr int CP_NT = 128;      // threads a CTA of the copy
 constexpr int CP_LOADS = 2;     // input vectors a thread on the vector path (S divides it)
 
+// The vector path's body, shared by P5-P7: CTA ``cta`` of a 1-D grid
+// stores output vectors [cta CP_NT V, (cta + 1) CP_NT V) of out's m, V =
+// CP_LOADS / S a thread CP_NT apart, each from the S input vectors behind
+// it; every load before the fence and the first store.
 template <int S>
-__global__ void __launch_bounds__(CP_NT)
-strided_copy_kernel(const float4* __restrict__ x, float4* __restrict__ out, int m) {
+__device__ __forceinline__ void copy_vectors(const float4* __restrict__ x,
+                                             float4* __restrict__ out, int m, int cta) {
   constexpr int V = CP_LOADS / S;              // output vectors a thread
-  const int v0 = blockIdx.x * (CP_NT * V) + threadIdx.x;
+  const int v0 = cta * (CP_NT * V) + threadIdx.x;
   float4 in[V][S];
 #pragma unroll
   for (int k = 0; k < V; ++k)
@@ -615,12 +600,45 @@ strided_copy_kernel(const float4* __restrict__ x, float4* __restrict__ out, int 
 
 template <int S>
 __global__ void __launch_bounds__(CP_NT)
+strided_copy_kernel(const float4* __restrict__ x, float4* __restrict__ out, int m) {
+  copy_vectors<S>(x, out, m, blockIdx.x);
+}
+
+template <int S>
+__global__ void __launch_bounds__(CP_NT)
 strided_copy_scalar_kernel(const float* __restrict__ x, float* __restrict__ out, int c, int n,
                            int no) {
   const int j = blockIdx.x * CP_NT + threadIdx.x;
   if (j >= no) return;
   for (int r = blockIdx.y; r < c; r += gridDim.y)
     out[(size_t)r * no + j] = __ldg(x + (size_t)r * n + S * j);
+}
+
+// -- P5: the concat, a two-source copy ---------------------------------------
+//
+// out[0, na) = a, out[na, na + nb) = b (floats): [a; b] on the row axis of
+// row-major (Ca, N) and (Cb, N) is the two buffers one after the other.
+// One launch on a 1-D grid split between the sources: CTAs [0, ba) copy a
+// to out, CTAs [ba, gridDim.x) copy b to out + na, the source chosen once
+// a CTA from blockIdx.x.  concat_kernel, where na and nb are whole 16-byte
+// vectors and a, b and out aligned (out + na then is too): each half the
+// strided copy's vector body at S = 1 (copy_vectors).  concat_scalar_kernel
+// otherwise: one float a thread on the same split.
+
+__global__ void __launch_bounds__(CP_NT)
+concat_kernel(const float4* __restrict__ a, const float4* __restrict__ b,
+              float4* __restrict__ out, int ma, int mb, int ba) {
+  const bool first = (int)blockIdx.x < ba;
+  copy_vectors<1>(first ? a : b, first ? out : out + ma, first ? ma : mb,
+                  first ? (int)blockIdx.x : (int)blockIdx.x - ba);
+}
+
+__global__ void __launch_bounds__(CP_NT)
+concat_scalar_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                     float* __restrict__ out, int na, int nb, int ba) {
+  const bool first = (int)blockIdx.x < ba;
+  const int i = (first ? (int)blockIdx.x : (int)blockIdx.x - ba) * CP_NT + threadIdx.x;
+  if (i < (first ? na : nb)) (first ? out : out + na)[i] = __ldg((first ? a : b) + i);
 }
 
 // The floors of a launch: a kernel that does nothing, and one warp whose
@@ -648,6 +666,13 @@ inline bool dw9_vec(const void* x, const void* out, int n_in, int n_out, int s, 
 inline bool copy_vec(const void* x, const void* out, int c, int n, int S) {
   return (S == 1 || n % 2 == 0) && (long long)c * n / S % 4 == 0 &&
          (long long)c * n <= INT_MAX && aligned16(x) && aligned16(out);
+}
+
+// P5's vector path: both counts whole 16-byte vectors and every pointer
+// of a non-empty source aligned; otherwise the scalar path
+inline bool concat_vec(const void* a, const void* b, const void* out, int na, int nb) {
+  return na % 4 == 0 && nb % 4 == 0 && (na == 0 || aligned16(a)) && (nb == 0 || aligned16(b)) &&
+         aligned16(out);
 }
 
 // P6 and P7's launch: x (c, n) -> out (c, ceil(n / S)), f32; the path by
@@ -737,15 +762,23 @@ extern "C" int bs_probe_se(const void* x, const void* w, void* out, int c, int n
 // the CTAs of P4's cluster
 extern "C" int bs_probe_se_cluster(void) { return SE_R; }
 
-// P5: a, b -> out = [a; b]; counts in floats
+// P5: a, b -> out = [a; b]; counts in floats, refused (an error, nothing
+// launched) past INT_MAX floats in all, where the kernels' 32-bit indices
+// would wrap
 extern "C" int bs_probe_cat(const void* a, const void* b, void* out, int na, int nb,
                             void* stream) {
-  if (na + nb <= 0) return 0;
-  const int vec = na % 4 == 0 && nb % 4 == 0 && aligned16(a) && aligned16(out) &&
-                  (nb == 0 || aligned16(b));
-  const int n = vec ? (na + nb) / 4 : na + nb;
-  cat_kernel<<<blocks(n, NT), NT, 0, (cudaStream_t)stream>>>(
-      (const float*)a, (const float*)b, (float*)out, na, nb, vec);
+  if (na < 0 || nb < 0 || (long long)na + nb > INT_MAX) return (int)cudaErrorInvalidValue;
+  if (na + nb == 0) return 0;
+  if (concat_vec(a, b, out, na, nb)) {
+    const int ma = na / 4, mb = nb / 4, per = CP_NT * CP_LOADS;    // vectors; a CTA's
+    const int ba = blocks(ma, per);
+    concat_kernel<<<ba + blocks(mb, per), CP_NT, 0, (cudaStream_t)stream>>>(
+        (const float4*)a, (const float4*)b, (float4*)out, ma, mb, ba);
+  } else {
+    const int ba = blocks(na, CP_NT);
+    concat_scalar_kernel<<<ba + blocks(nb, CP_NT), CP_NT, 0, (cudaStream_t)stream>>>(
+        (const float*)a, (const float*)b, (float*)out, na, nb, ba);
+  }
   return (int)cudaGetLastError();
 }
 

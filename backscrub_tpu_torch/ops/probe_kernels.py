@@ -21,7 +21,11 @@ the clone).  ``tools/probe_hopper.py`` runs them on the original's inputs.
 - P4 :func:`se`: ``k_se``, x * sigmoid(w @ mean(x, 1)), as one
   thread-block cluster whose CTAs share their row sums through distributed
   shared memory; a card that refuses the cluster raises.
-- P5 :func:`concat`: ``k_cat`` as a copy.
+- P5 :func:`concat`: ``k_cat`` as a two-source copy: one launch whose
+  grid is split between ``a`` and ``b``, each half the strided copy's
+  vector body (below) where both counts are whole 16-byte vectors and the
+  pointers aligned, else one float a thread; past 2**31 - 1 floats in all
+  the launcher refuses and the wrapper raises.
 - P6 :func:`lane_stride2`, P7 :func:`reshape_flat`: ``k_ls`` and ``k_rs``
   as one strided copy, out[r, j] = x[r, S j] with S = 2 and 1 (P7 on the
   flat (C, H*W) view): on 16-byte vectors where the copy is flat and
@@ -222,7 +226,8 @@ def reshape_flat_plain(x: torch.Tensor) -> torch.Tensor:
 
 
 def concat(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """P5: (Ca, N) and (Cb, N) f32 -> (Ca + Cb, N)."""
+    """P5: (Ca, N) and (Cb, N) f32 -> (Ca + Cb, N); raises past 2**31 - 1
+    floats in all (the launcher's 32-bit counts)."""
     if a.device.type == "cpu":
         return concat_plain(a, b)
     _check(a, "concat a", 2)

@@ -491,15 +491,20 @@ class EdgeFused:
             h = self.rest(h.permute(1, 2, 0)[None])[0].permute(2, 0, 1)
         return h
 
-    def tail(self, body_out: torch.Tensor, ema: torch.Tensor) -> torch.Tensor:
-        """Body output (K, xh*xw) + EMA (2xh, 2xw) u8 -> new EMA: one phase
-        dot, decode and the bit trick of lib/libbackscrub.cc:330,342-357."""
+    def tail_logits(self, body_out: torch.Tensor) -> torch.Tensor:
+        """Body output (K, xh*xw) -> the value the decode compares with
+        ``info.tail_threshold``, (2xh, 2xw): one phase dot (two_channel:
+        out1 - out0; threshold: the logit before the model's LOGISTIC)."""
         dq = self.tail_wd @ body_out + self.tail_bd[:, None]
-        val = torch.where(dq > self.info.tail_threshold, 0, 255).to(torch.uint8)
         # phase (a, b) at (i, j) is mask pixel (2i+a, 2j+b)
-        val = val.reshape(2, 2, self.xh, self.xw).permute(2, 0, 3, 1)
-        val = val.reshape(2 * self.xh, 2 * self.xw)
-        return (val & 0xE0) | (ema >> 3)
+        dq = dq.reshape(2, 2, self.xh, self.xw).permute(2, 0, 3, 1)
+        return dq.reshape(2 * self.xh, 2 * self.xw)
+
+    def tail(self, body_out: torch.Tensor, ema: torch.Tensor) -> torch.Tensor:
+        """Body output (K, xh*xw) + EMA (2xh, 2xw) u8 -> new EMA: the phase
+        dot, decode and the bit trick of lib/libbackscrub.cc:330,342-357."""
+        val = torch.where(self.tail_logits(body_out) > self.info.tail_threshold, 0, 255)
+        return (val.to(torch.uint8) & 0xE0) | (ema >> 3)
 
     def postprocess(self, ema: torch.Tensor) -> torch.Tensor:
         """EMA (oh, ow) u8 -> full-frame mask (H, W) u8."""

@@ -32,6 +32,7 @@ from backscrub_tpu_torch.pipeline.maskgen import MaskGen, preprocess
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FULL = ROOT / "tests" / "data" / "segm_synth_lite_96x160.tflite"
 DEEPLAB = ROOT / "tests" / "data" / "deeplab_synth_257.tflite"
+SELFIE = ROOT / "tests" / "data" / "selfie_synth_mlkit_256x256.tflite"
 
 pytestmark = pytest.mark.cuda
 
@@ -401,6 +402,107 @@ def test_fused_nv12_pipeline_launches_and_matches_plain(cuda_device):
     assert max(fracs) <= 0.02 and float(np.mean(fracs)) <= 0.002
 
 
+@pytest.mark.parametrize("w,h", [(640, 480), (1280, 720)])
+def test_selfie_front_and_body_match_plain(cuda_device, w, h):
+    """The mlkit selfie family's K1 (256x256 canvas -> 16x128x128) and K2
+    (its 128-wide body as one bs_body_mega launch) against their plain
+    versions; two K2 runs bit-identical."""
+    pipe = FramePipeline(str(SELFIE), PipelineConfig(width=w, height=h), device=cuda_device)
+    e = pipe.maskgen.edge
+    assert e.info.tail_kind == "threshold" and e.body_plan.launches_per_run == 1
+    frame = torch.from_numpy(_frame(w, h)).to(cuda_device)
+    with torch.no_grad():
+        canvas, kw = e.canvas(frame), e.front_kwargs()
+        k1 = tedge.front_fused(canvas, e.front_params, **kw)
+        torch.testing.assert_close(k1, tedge.front_plain(canvas, e.front_params, **kw),
+                                   atol=2e-3, rtol=1e-3)
+        x = k1.reshape(k1.shape[0], -1)
+        before = dict(body_launch.by_kernel)
+        got = e.body_plan.run_cuda(x).clone()
+        again = e.body_plan.run_cuda(x)
+        torch.cuda.synchronize()
+    assert body_launch.by_kernel["bs_body_mega"] == before.get("bs_body_mega", 0) + 2
+    torch.testing.assert_close(got, e.body_plan.run_plain(x), atol=2e-3, rtol=1e-3)
+    assert torch.equal(got, again)
+
+
+def _near_tie_flips(ema_k, ema, margin, ever_flipped):
+    """The decode flip rule: a decode that differs (EMA bits 5-7) sits at
+    |margin| <= 1e-3, and the EMAs are equal wherever no decode flipped."""
+    flipped = (ema_k >> 5) != (ema >> 5)
+    assert bool((margin[flipped].abs() <= 1e-3).all())
+    ever_flipped |= flipped
+    assert torch.equal(ema_k[~ever_flipped], ema[~ever_flipped])
+
+
+def test_selfie_fused_pipeline_launches_and_matches_plain(cuda_device):
+    """Three frames of the mlkit selfie family's fused path, YUYV out: one
+    K1, one K2 and one K3 launch a frame (the threshold tail between K2 and
+    the post), no K4 or K5; against the plain path under the decode flip
+    rule, no byte off by more than 1 outside the flips' post footprint."""
+    w, h = 640, 480
+    pipe = FramePipeline(str(SELFIE), PipelineConfig(width=w, height=h), device=cuda_device)
+    e = pipe.maskgen.edge
+    frames = [torch.from_numpy(f).to(cuda_device) for f in _frames(w, h, 3)]
+    bg = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 256, (h, w, 3), np.uint8)).to(cuda_device)
+    counters = (tedge.front_fused, body_launch, blend_pack_yuyv, blend_pack_420, bilateral5)
+    ema = pipe.maskgen.ema.clone()
+    ever = torch.zeros_like(ema, dtype=torch.bool)
+    fracs = []
+    with torch.no_grad():
+        for f in frames:
+            before = [c.launches for c in counters]
+            out, mask = pipe.step(f, bg)
+            assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 1, 0, 0]
+            body = e.body(e.front(f, plain=True), plain=True)
+            body = body.reshape(body.shape[0], -1)
+            margin = e.tail_logits(body) - e.info.tail_threshold
+            ema = e.tail(body, ema)
+            _near_tie_flips(pipe.maskgen.ema, ema, margin, ever)
+            rm = e.postprocess(ema)
+            foot = tedge.post_footprint(pipe.maskgen.ema != ema, e.geo, e.post_mats)
+            foot_yuyv = foot.reshape(h, w // 2, 2).any(-1)[..., None].expand(h, w // 2, 4)
+            for a, b, m in ((out, blend_pack_yuyv_plain(f, bg, rm), foot_yuyv.reshape(h, 2 * w)),
+                            (mask, rm, foot)):
+                assert a.shape == b.shape
+                assert int(torch.where(m, 0, (a.int() - b.int()).abs()).max()) <= 1
+                fracs.append(float((a != b).float().mean()))
+    assert max(fracs) <= 0.02 and float(np.mean(fracs)) <= 0.002
+    assert 0.01 < float((mask < 128).float().mean()) < 0.99
+
+
+def test_selfie_classic_nv12_pipeline_launches_and_matches_plain(cuda_device):
+    """Three frames of the mlkit selfie family's classic path with NV12
+    out: one K5 (256x256 canvas) and one K4 launch a frame, no K1/K2/K3;
+    the masks against the plain path under the decode flip rule (the
+    margin the logit of the model's probability less logit(0.65))."""
+    w, h = 640, 480
+    pipe = FramePipeline(str(SELFIE), PipelineConfig(width=w, height=h, edge_fused=False,
+                                                     output_format="nv12"),
+                         device=cuda_device)
+    mg = pipe.maskgen
+    frames = [torch.from_numpy(f).to(cuda_device) for f in _frames(w, h, 3)]
+    bg = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 256, (h, w, 3), np.uint8)).to(cuda_device)
+    counters = (bilateral5, blend_pack_420, tedge.front_fused, body_launch, blend_pack_yuyv)
+    thr = float(np.log(0.65 / 0.35))
+    ema = mg.ema.clone()
+    ever = torch.zeros_like(ema, dtype=torch.bool)
+    with torch.no_grad():
+        for f in frames:
+            before = [c.launches for c in counters]
+            out, mask = pipe.step(f, bg)
+            assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 0, 0, 0]
+            prob = mg._infer(plain_input(mg, f))
+            rm, ema = mg._decode_post(prob, ema)
+            p = prob[..., 0].double()
+            _near_tie_flips(mg.ema, ema, torch.log(p / (1 - p)) - thr, ever)
+            foot = tedge.post_footprint(mg.ema != ema, mg.geo, mg.post_mats)
+            assert int(torch.where(foot, 0, (mask.int() - rm.int()).abs()).max()) <= 1
+            assert out.shape == blend_pack_420_plain(f, bg, rm).shape
+
+
 def test_staged_maskgen_on_card(cuda_device):
     """MaskGen(fused=False) on the card: the hooks in order, one K5 launch
     a frame."""
@@ -595,12 +697,8 @@ def test_deeplab_pipeline_matches_plain(cuda_device):
             ema = ema_update(ema, decode_val(logits, e.spec))
             rm = e.postprocess(ema)
             ry = blend_pack_yuyv_plain(f, bg, rm)
-            flipped = (ema_k >> 5) != (ema >> 5)
             others = torch.cat([logits[..., :15], logits[..., 16:]], -1)
-            margin = logits[..., 15] - others.max(-1).values
-            assert bool((margin[flipped].abs() <= 1e-3).all())
-            ever_flipped |= flipped
-            assert torch.equal(ema_k[~ever_flipped], ema[~ever_flipped])
+            _near_tie_flips(ema_k, ema, logits[..., 15] - others.max(-1).values, ever_flipped)
             foot = tedge.post_footprint(ema_k != ema, e.geo, e.post_mats)
             foot_yuyv = foot.reshape(480, 320, 2).any(-1)[..., None].expand(480, 320, 4)
             for a, b, m in ((yuyv, ry, foot_yuyv.reshape(480, 1280)), (mask, rm, foot)):
@@ -702,6 +800,37 @@ def test_strided_copy_at_copy_shapes(cuda_device):
         assert torch.equal(got, plain()) and torch.equal(got, again), name
         names = probe_hopper.launched_kernels(kernel)
         assert len(names) == 1 and probe_hopper.COPY_KERNELS[vec] in names[0], (name, names)
+
+
+def test_concat_at_cat_shapes(cuda_device):
+    """P5 at probe_hopper's concat cases (the probe shape, unequal heights,
+    partial vectors, an empty source, partial last CTAs, a large pair, a
+    or b a view off 16 bytes): each one launch a call, bit-identical to
+    its twin and over two runs, on the path its shapes pick, by the
+    profiler's kernel name."""
+    _frames(8, 8, 1)        # puts tools/ on sys.path
+    import probe_hopper
+    from backscrub_tpu_torch.ops import probe_kernels as pk
+    for name, kernel, plain, vec in probe_hopper.cat_cases("cuda"):
+        before = pk.concat.launches
+        got, again = kernel(), kernel()
+        assert pk.concat.launches == before + 2, name
+        assert torch.equal(got, plain()) and torch.equal(got, again), name
+        names = probe_hopper.launched_kernels(kernel)
+        assert len(names) == 1 and probe_hopper.CAT_KERNELS[vec] in names[0], (name, names)
+
+
+def test_concat_past_int_max_raises(cuda_device):
+    """A concat of more than 2**31 - 1 floats in all is refused by the
+    launcher, and the wrapper raises (12 GB of the card's memory)."""
+    from backscrub_tpu_torch.ops import probe_kernels as pk
+    a = torch.empty((2 ** 14, 2 ** 16), device=cuda_device)
+    before = pk.concat.launches
+    with pytest.raises(RuntimeError, match="cudaError"):
+        pk.concat(a, a)
+    assert pk.concat.launches == before
+    del a
+    torch.cuda.empty_cache()
 
 
 def test_launch_floor_kernels(cuda_device):

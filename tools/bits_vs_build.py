@@ -29,13 +29,15 @@ between the two checkouts can be compared.  The cases:
   ``dw_rowpad``, at ``tools/probe_hopper.py``'s ``STENCIL_SHAPES`` on
   seeded inputs (the probe shape and the shapes of the scalar path), bit
   for bit;
-- ``probe_cat``: P5, ``concat`` on the original probe inputs and at
-  (3, 7) + (2, 7);
+- ``probe_cat``: P5, ``concat``, at ``tools/probe_hopper.py``'s
+  ``CAT_SHAPES`` (the probe shape on the original's inputs), bit for bit;
+  its kernel was ``cat_kernel`` before the two-source copy;
 - ``probe_stride2``, ``probe_copy``: P6 and P7, ``lane_stride2`` and
   ``reshape_flat``, at ``tools/probe_hopper.py``'s ``COPY_SHAPES`` (the
   probe shape on the original's input), bit for bit.  Their kernels were
-  ``stride2_kernel`` and ``cat_kernel`` before the strided copy: a build
-  that has no ``strided_copy_kernel`` is timed by those names.
+  ``stride2_kernel`` and ``cat_kernel`` before the strided copy.  A build
+  whose ``probes.cu`` does not name a call's kernel is timed by the old
+  name.
 
 Prints, per call, whether the outputs are bit-identical (else how many
 values differ and by how much) and exits 1 if any differs; the probe
@@ -79,8 +81,8 @@ if len(sys.argv) > 4:
     device_ms = timer.device_ms
 def dev(v):
     return v.cuda() if isinstance(v, torch.Tensor) else v
-# whether this checkout has the strided copy (else a call's old_kernel is timed)
-NEW = "strided_copy_kernel" in open("backscrub_tpu_torch/csrc/probes.cu").read()
+# a call's kernel by its name in this checkout's probes.cu, else its old_kernel
+PROBES = open("backscrub_tpu_torch/csrc/probes.cu").read()
 outs, times = [], []
 with torch.no_grad():
     for c in torch.load(sys.argv[2]):
@@ -90,7 +92,9 @@ with torch.no_grad():
                                  **{k: dev(v) for k, v in c["kwargs"].items()})
         outs.append(call().cpu())
         if device_ms is not None:
-            k = c["kernel"] if "old_kernel" not in c or NEW else c["old_kernel"]
+            k = c["kernel"]
+            if "old_kernel" in c and k.lstrip(":") not in PROBES:
+                k = c["old_kernel"]
             times.append((1e3 * device_ms(call, kernel=k), 1e3 * device_ms(call, cold=k)))
 torch.save((outs, times), sys.argv[3])
 """
@@ -256,15 +260,23 @@ def _copy_calls(probe, wrapper, old_kernel):
 
 
 def probe_cat_calls():
-    """(name, call) of P5, ``concat``, on the original's inputs and at
-    (3, 7) + (2, 7)."""
+    """(name, call) of P5, ``concat``, at probe_hopper's CAT_SHAPES: the
+    probe shape on the original's inputs, timed, the others on seeded
+    inputs; ``cat_kernel`` its kernel's name in a build without the
+    two-source copy."""
     import torch
-    x2, _ = _probe_inputs()
-    rng = np.random.default_rng(7)
-    a, b = (torch.from_numpy(rng.random(s, np.float32)) for s in ((3, 7), (2, 7)))
-    return [(f"probe_concat {tuple(u.shape)} + {tuple(v.shape)}", dict(
-        wrapper="backscrub_tpu_torch.ops.probe_kernels:concat", kernel="::cat_kernel",
-        timed=u is x2, args=[u, v], kwargs={})) for u, v in ((x2, x2), (a, b))]
+    x2, _ = _probe_inputs()    # puts tools/ on sys.path
+    import probe_hopper
+    calls = []
+    for name, (sa, sb, _) in probe_hopper.CAT_SHAPES.items():
+        rng = np.random.default_rng(sum(sa) + sum(sb))
+        a, b = ((x2, x2) if name.endswith("original") else
+                (torch.from_numpy(rng.random(s, np.float32)) for s in (sa, sb)))
+        calls.append((f"probe_concat {name}", dict(
+            wrapper="backscrub_tpu_torch.ops.probe_kernels:concat", kernel="::concat_",
+            old_kernel="::cat_kernel", timed=name.endswith("original"), args=[a, b],
+            kwargs={})))
+    return calls
 
 
 def probe_stride2_calls():

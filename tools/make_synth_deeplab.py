@@ -93,7 +93,6 @@ def build_model(seed: int = 0, person=None, features: bool = False) -> bytes:
     ``person``: (weights (256,), bias) of class 15's logit, replacing the
     drawn ones.  ``features``: end the graph at the ASPP projection (the
     logits' input) instead."""
-    import flatbuffers
     from tensorflow.lite.python import schema_py_generated as sg
 
     rng = np.random.default_rng(seed)
@@ -140,27 +139,7 @@ def build_model(seed: int = 0, person=None, features: bool = False) -> bytes:
         same = _resize(g, "logits/same", logits, CLASSES, h, w)
         y = _resize(g, "output", same, CLASSES, SIZE, SIZE)
 
-    sub = sg.SubGraphT()
-    sub.tensors, sub.operators = g.tensors, g.ops
-    sub.inputs, sub.outputs, sub.name = [0], [y], "main"
-    model = sg.ModelT()
-    model.version = 3
-    model.description = f"backscrub synthetic deeplabv3_257-shaped model, seed={seed}"
-    model.subgraphs = [sub]
-    model.buffers = []
-    for data in g.buffers:
-        buf = sg.BufferT()
-        buf.data = np.frombuffer(data, np.uint8) if data else None
-        model.buffers.append(buf)
-    model.operatorCodes = []
-    for builtin, custom in g.codes:
-        oc = sg.OperatorCodeT()
-        oc.builtinCode, oc.deprecatedBuiltinCode = builtin, min(builtin, 127)
-        oc.customCode = custom
-        model.operatorCodes.append(oc)
-    fb = flatbuffers.Builder(1024)
-    fb.Finish(model.Pack(fb), file_identifier=b"TFL3")
-    return bytes(fb.Output())
+    return g.pack(y, f"backscrub synthetic deeplabv3_257-shaped model, seed={seed}")
 
 
 def _jax_run(path: str, frame) -> np.ndarray:

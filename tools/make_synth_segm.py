@@ -139,6 +139,33 @@ class _Graph:
         self.ops.append(o)
         return outputs[0]
 
+    def pack(self, output: int, description: str) -> bytes:
+        """The flatbuffer bytes of a one-subgraph model: input tensor 0,
+        ``output`` its output."""
+        import flatbuffers
+        sg = self.sg
+        sub = sg.SubGraphT()
+        sub.tensors, sub.operators = self.tensors, self.ops
+        sub.inputs, sub.outputs, sub.name = [0], [output], "main"
+        model = sg.ModelT()
+        model.version = 3
+        model.description = description
+        model.subgraphs = [sub]
+        model.buffers = []
+        for data in self.buffers:
+            buf = sg.BufferT()
+            buf.data = np.frombuffer(data, np.uint8) if data else None
+            model.buffers.append(buf)
+        model.operatorCodes = []
+        for builtin, custom in self.codes:
+            oc = sg.OperatorCodeT()
+            oc.builtinCode, oc.deprecatedBuiltinCode = builtin, min(builtin, 127)
+            oc.customCode = custom
+            model.operatorCodes.append(oc)
+        fb = flatbuffers.Builder(1024)
+        fb.Finish(model.Pack(fb), file_identifier=b"TFL3")
+        return bytes(fb.Output())
+
     # -- layers ------------------------------------------------------------
     def conv(self, name, x, shape, cout, k=1, stride=1, act="NONE"):
         sg, rng = self.sg, self.rng
@@ -242,7 +269,6 @@ class _Graph:
 def build_model(seed: int = 0, width: float = 1.0, depth: int = len(BLOCKS),
                 tail_bias=(0.0, 0.0)) -> bytes:
     """The flatbuffer bytes of the synthetic model (deterministic)."""
-    import flatbuffers
     from tensorflow.lite.python import schema_py_generated as sg
 
     n_strided = sum(b[5] == 2 for b in BLOCKS)
@@ -296,28 +322,8 @@ def build_model(seed: int = 0, width: float = 1.0, depth: int = len(BLOCKS),
     g.op("Convolution2DTransposeBias", [x, wt, b], [y],
          custom=struct.pack("<iii", 1, 2, 2))
 
-    sub = sg.SubGraphT()
-    sub.tensors, sub.operators = g.tensors, g.ops
-    sub.inputs, sub.outputs, sub.name = [0], [y], "main"
-    model = sg.ModelT()
-    model.version = 3
-    model.description = (f"backscrub synthetic segm_lite-shaped model, "
-                         f"seed={seed} width={width} depth={depth}")
-    model.subgraphs = [sub]
-    model.buffers = []
-    for data in g.buffers:
-        buf = sg.BufferT()
-        buf.data = np.frombuffer(data, np.uint8) if data else None
-        model.buffers.append(buf)
-    model.operatorCodes = []
-    for builtin, custom in g.codes:
-        oc = sg.OperatorCodeT()
-        oc.builtinCode, oc.deprecatedBuiltinCode = builtin, min(builtin, 127)
-        oc.customCode = custom
-        model.operatorCodes.append(oc)
-    fb = flatbuffers.Builder(1024)
-    fb.Finish(model.Pack(fb), file_identifier=b"TFL3")
-    return bytes(fb.Output())
+    return g.pack(y, f"backscrub synthetic segm_lite-shaped model, seed={seed} "
+                     f"width={width} depth={depth}")
 
 
 def calibrate_tail_bias(path: str, frame) -> float:

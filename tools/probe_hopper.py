@@ -235,6 +235,50 @@ def copy_cases(device="cuda"):
     return out
 
 
+# P5 beyond the probe shape, for the concat's two paths: name -> (a's
+# shape, b's shape, the vector path on 16-byte-aligned tensors)
+CAT_SHAPES = {
+    "P5 original": ((C, HW), (C, HW), True),
+    "P5 unequal heights": ((3, HW), (5, HW), True),
+    "P5 n=7": ((3, 7), (2, 7), False),                   # 21 and 14 floats
+    "P5 b partial vector": ((4, 5), (3, 5), False),       # 20 and 15 floats
+    "P5 a empty": ((0, HW), (C, HW), True),
+    "P5 b empty": ((C, HW), (0, HW), True),
+    "P5 one vector each": ((1, 4), (1, 4), True),
+    "P5 past a CTA": ((1, 2056), (3, 2056), True),        # partial last CTAs
+    "P5 large": ((256, HW), (128, HW), True),
+}
+# the kernels' profiler names on each path
+CAT_KERNELS = {True: "::concat_kernel", False: "::concat_scalar_kernel"}
+
+
+def cat_cases(device="cuda"):
+    """(name, kernel call, plain call, vector path) of P5 at each of
+    CAT_SHAPES on seeded inputs, and at the probe shape with ``a`` and
+    then ``b`` a view 4 bytes off a 16-byte boundary (the scalar path;
+    the output is allocated aligned)."""
+    import torch
+    from backscrub_tpu_torch import _build
+    from backscrub_tpu_torch.ops import probe_kernels as pk
+
+    dev = _build.resolve_device(device)
+    shapes = dict(CAT_SHAPES)
+    for which in ("a", "b"):
+        shapes[f"P5 original, {which} off 16 bytes"] = \
+            CAT_SHAPES["P5 original"][:2] + (False,)
+    out = []
+    for seed, (name, (sa, sb, vec)) in enumerate(shapes.items()):
+        rng = np.random.default_rng(seed)
+        xs = []
+        for which, shape in (("a", sa), ("b", sb)):
+            flat = torch.from_numpy(rng.random(int(np.prod(shape)) + 1, np.float32)).to(dev)
+            view = f"{which} off" in name
+            xs.append((flat[1:] if view else flat[:-1]).view(shape))
+        out.append((name, functools.partial(pk.concat, *xs),
+                    functools.partial(pk.concat_plain, *xs), vec))
+    return out
+
+
 def launched_kernels(fn, calls=10, attempts=5) -> List[str]:
     """The names of the CUDA kernels that ``fn`` launches, by the profiler
     over ``calls`` calls in one window (the profiler leaves out a window's

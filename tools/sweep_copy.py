@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Sweep the strided copy of P6 and P7 (``strided_copy_kernel`` in
-``backscrub_tpu_torch/csrc/probes.cu``) on one CUDA card.
+``backscrub_tpu_torch/csrc/probes.cu``) and P5's two-source copy on its
+body (``concat_kernel``) on one CUDA card.
 
 Each variant is a copy of ``probes.cu`` alone, written to a temporary
 directory with ``CP_NT`` (threads a CTA: 64, 128, 256) and ``CP_LOADS``
@@ -20,12 +21,16 @@ issues ``cp.async.bulk`` shared -> global.  The ``shfl`` design
 (``SHFL_KERNEL``, swapped in for S = 2, P6) makes each of a warp's loads
 512 contiguous bytes and trades lanes x and z by warp shuffles before the
 16-byte stores, where the tree's kernel loads the two vectors behind a
-thread's output (a warp's load spans 1 KB, half of each sector).  Every variant runs
-``tools/probe_hopper.py``'s copy cases, bit-identical to the plain twins
-and on the kernel its shape picks (by the profiler's kernel name), then
-P6 and P7 on the original's inputs are timed by ``chip_smoke.device_ms``,
-warm (inputs in L2) and cold (a 128 MB buffer overwritten before each
-launch), the variants in turns: in order, then in reverse.
+thread's output (a warp's load spans 1 KB, half of each sector).  The
+``concat`` design is the tree's source, timed on P5: at 128 threads and
+``CP_LOADS`` 2, 4 and 8 the probe's 30720 output vectors take 120, 60 and
+30 CTAs, so it reads how a copy's time moves with its CTA count.  Every
+variant runs ``tools/probe_hopper.py``'s copy cases (``cat_cases`` for
+``concat``), bit-identical to the plain twins and on the kernel its shape
+picks (by the profiler's kernel name), then P6 and P7 (P5 for ``concat``)
+on the original's inputs are timed by ``chip_smoke.device_ms``, warm
+(inputs in L2) and cold (a 128 MB buffer overwritten before each launch),
+the variants in turns: in order, then in reverse.
 
 Usage (from the repository root, on a machine with a CUDA card)::
 
@@ -35,7 +40,7 @@ Usage (from the repository root, on a machine with a CUDA card)::
 profiler's windows per process few).
 
 Prints the card's name and power limit, a line a variant and turn, and
-the variants ranked by their mean warm time (P6 + P7); exits 1 if a
+the variants ranked by their mean warm time (P6 + P7, or P5); exits 1 if a
 variant is off or without CUDA.
 """
 
@@ -50,7 +55,7 @@ import tempfile
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 THREADS = (64, 128, 256)
 LOADS = (2, 4, 8)
-DESIGNS = ("register", "register-nofence", "register-volatile", "shfl", "tma")
+DESIGNS = ("register", "register-nofence", "register-volatile", "shfl", "tma", "concat")
 
 # P7's vector path through the TMA, put in front of copy_vec
 TMA_KERNEL = r'''
@@ -148,7 +153,7 @@ __device__ __forceinline__ float4 ld4v_if(const float* p, bool pred) {
 }
 
 '''
-_KERNEL = "template <int S>\n__global__ void __launch_bounds__(CP_NT)\nstrided_copy_kernel("
+_KERNEL = "template <int S>\n__device__ __forceinline__ void copy_vectors("
 _LOAD = "in[k][s] = ld4_if("
 
 
@@ -161,8 +166,8 @@ def variant_source(text: str, design: str, nt: int, loads: int) -> str:
             raise RuntimeError(f"probes.cu does not define {name} once")
         text = pattern.sub(f"constexpr int {name} = {value};", text)
     if design == "register-nofence":
-        start = text.index("strided_copy_kernel(const float4*")
-        end = text.index("strided_copy_scalar_kernel(", start)
+        start = text.index("copy_vectors(const float4*")
+        end = text.index("strided_copy_kernel(", start)
         if text[start:end].count(_FENCE) != 1:
             raise RuntimeError("probes.cu's copy fence is not where the sweep expects")
         text = text[:start] + text[start:end].replace(_FENCE, "") + text[end:]
@@ -214,6 +219,8 @@ def kernel_name(design: str, probe: str, vec: bool) -> str:
     """The profiler name of the kernel a variant launches for ``probe`` on
     the vector (``vec``) or the scalar path."""
     import probe_hopper
+    if probe == "P5":
+        return probe_hopper.CAT_KERNELS[vec]
     if vec and design == "tma" and probe == "P7":
         return "::copy_tma_kernel"
     if vec and design == "shfl" and probe == "P6":
@@ -243,16 +250,18 @@ def main(argv) -> int:
     print(smi.stdout.strip().splitlines()[0])
     a = probe_hopper.inputs()
     x2, x3 = torch.from_numpy(a["x2"]).cuda(), torch.from_numpy(a["x3"]).cuda()
-    timed = {"P6": functools.partial(pk.lane_stride2, x2),
-             "P7": functools.partial(pk.reshape_flat, x3)}
+    copies = {"P6": functools.partial(pk.lane_stride2, x2),
+              "P7": functools.partial(pk.reshape_flat, x3)}
+    concat = {"P5": functools.partial(pk.concat, x2, x2)}
     variants = [(d, nt, loads) for d in designs for nt in THREADS for loads in LOADS]
-    cases = probe_hopper.copy_cases("cuda")
+    copy_cases, cat_cases = probe_hopper.copy_cases("cuda"), probe_hopper.cat_cases("cuda")
     bad, warm = 0, {v: [] for v in variants}
     with tempfile.TemporaryDirectory() as tmp, torch.no_grad():
         libs = build_all(variants, tmp)
         for v in variants:
             _build._Lib.handle = libs[v]
             off = []
+            cases = cat_cases if v[0] == "concat" else copy_cases
             for name, kernel, plain, vec in cases:
                 names = probe_hopper.launched_kernels(kernel)
                 want = kernel_name(v[0], name[:2], vec)
@@ -260,7 +269,7 @@ def main(argv) -> int:
                     off.append(name)
             bad += bool(off)
             try:
-                sass = f"LDGs by S {loads_first_in_sass(sass_functions(libs[v].path))}, each " \
+                sass = f"LDGs by probe {loads_first_in_sass(sass_functions(libs[v].path))}, each " \
                        f"before the first STG"
             except AssertionError as e:
                 sass = str(e)
@@ -270,16 +279,17 @@ def main(argv) -> int:
         for turn, v in enumerate(variants + variants[::-1]):
             _build._Lib.handle = libs[v]
             t = {}
-            for p, fn in timed.items():
+            for p, fn in (concat if v[0] == "concat" else copies).items():
                 k = kernel_name(v[0], p, True)
                 t[p] = (device_ms(fn, kernel=k) * 1e3, device_ms(fn, cold=k) * 1e3)
-            warm[v].append(t["P6"][0] + t["P7"][0])
+            warm[v].append(sum(w for w, _ in t.values()))
             print(f"turn {turn} " + "{} {} x {}".format(*v) + ": device us a launch, "
                   + ", ".join(f"{p} warm {w:.3f} cold {c:.3f}" for p, (w, c) in t.items()))
         _build._Lib.handle = None
     for v in sorted(variants, key=lambda v: sum(warm[v])):
-        print("rank {} {} x {}: P6 + P7 warm {:.3f} us (mean of {} turns)".format(
-            *v, sum(warm[v]) / len(warm[v]), len(warm[v])))
+        print("rank {} {} x {}: {} warm {:.3f} us (mean of {} turns)".format(
+            *v, "P5" if v[0] == "concat" else "P6 + P7", sum(warm[v]) / len(warm[v]),
+            len(warm[v])))
     return 1 if bad else 0
 
 
