@@ -51,7 +51,7 @@ from ..ops.megakernel import (body_plan_continuation_for, body_plan_for,
 from ..ops.misc import resize_matrix
 from .decode import decode_val, ema_update
 from .geometry import RoiGeometry
-from .image import _bilateral_taps, bilateral_planes, blur_matrix, box_blur, resize_bilinear
+from .image import _bilateral_taps, bilateral_planes, blur_matrix, box_blur
 
 
 @dataclasses.dataclass
@@ -322,15 +322,26 @@ def fold_blur_tensors(geo: RoiGeometry, device):
 
 def post_footprint(ema_pixels: torch.Tensor, geo: RoiGeometry, mats) -> torch.Tensor:
     """The frame pixels (H, W) bool that the EMA pixels ``ema_pixels``
-    (oh, ow) bool reach through the fold-blur post (``mats`` from
-    :func:`fold_blur_tensors`; both matrices are non-negative and zero
-    outside each tap's support): where two EMAs differ only at those
-    pixels, their masks differ only inside it."""
+    (oh, ow) bool reach through the post: where two EMAs differ only at
+    those pixels, their masks differ only inside it.  ``mats`` from
+    :func:`fold_blur_tensors`: the fold-blur matrices, both non-negative
+    and zero outside each tap's support; or None, the two-stage post of a
+    crop under 64 px, whose footprint is taken stage by stage: the ROI
+    pixels whose bilinear taps include a marked pixel (the round after the
+    upscale changes no pixel outside them), then the box blur's reach of
+    2 px around those, reflected at the ROI's border."""
     o, r = geo.out_roi, geo.roi
-    ah, aw = mats
     ind = ema_pixels[o.y:o.y + o.h, o.x:o.x + o.w].float()
+    if mats is None:
+        rh, rw = (sum(upscale_taps(n, m, ind.device)) for n, m in ((o.h, r.h), (o.w, r.w)))
+        bh, bw = (torch.from_numpy(blur_matrix(n, 5)).to(ind.device) for n in (r.h, r.w))
+        up = (torch.matmul(torch.matmul(rh, ind), rw.T) > 0).float()
+        reach = torch.matmul(torch.matmul(bh, up), bw.T) > 0
+    else:
+        ah, aw = mats
+        reach = torch.matmul(torch.matmul(ah, ind), aw.T) > 0
     foot = torch.zeros((geo.frame_h, geo.frame_w), dtype=torch.bool, device=ema_pixels.device)
-    foot[r.y:r.y + r.h, r.x:r.x + r.w] = torch.matmul(torch.matmul(ah, ind), aw.T) > 0
+    foot[r.y:r.y + r.h, r.x:r.x + r.w] = reach
     return foot
 
 
@@ -347,9 +358,30 @@ def postprocess_mask(ema_u8: torch.Tensor, geo: RoiGeometry, mats=None) -> torch
     if min(o.h, o.w) >= 64:
         return fold_blur_post(ema_u8, geo, *(mats or fold_blur_tensors(geo, ema_u8.device)))
     small = ema_u8[o.y:o.y + o.h, o.x:o.x + o.w].float()
-    up = torch.round(resize_bilinear(small[..., None], geo.roi.h, geo.roi.w))
-    m = torch.clamp(torch.round(box_blur(up, 5)[..., 0]), 0, 255).to(torch.uint8)
+    rh0, rh1 = upscale_taps(o.h, geo.roi.h, small.device)
+    rw0, rw1 = upscale_taps(o.w, geo.roi.w, small.device)
+    y = rh0 @ small + rh1 @ small
+    up = torch.round(y @ rw0.T + y @ rw1.T)
+    m = torch.clamp(torch.round(box_blur(up[..., None], 5)[..., 0]), 0, 255).to(torch.uint8)
     return pad_to_frame(m, geo)
+
+
+@functools.lru_cache(maxsize=32)
+def upscale_taps(n_in: int, n_out: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two-stage post's bilinear upscale (half-pixel centres), (n_out,
+    n_in) f32 on ``device``, split into two matrices: each row's first
+    nonzero tap and its second.  ``a0 @ x + a1 @ x`` rounds each output as
+    the f32 sum of its two rounded products, whatever the matmul's
+    summation order or fused multiply-adds; that is the reference's
+    contraction, bit for bit, so an upscaled value at an x.5 tie (EMA
+    values meet such ties) rounds as it does there.  Cached: callers only
+    read the tensors."""
+    a = resize_matrix(n_in, n_out, False, True)
+    taps = np.zeros((2,) + a.shape, np.float32)
+    for r in range(n_out):
+        nz = np.nonzero(a[r])[0]
+        taps[np.arange(len(nz)), r, nz] = a[r, nz]
+    return tuple(torch.from_numpy(t).to(device) for t in taps)
 
 
 def body_plans(model, info: EdgeInfo, mega: Optional[bool] = None, cont: bool = False):

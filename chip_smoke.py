@@ -92,7 +92,7 @@ Usage (from the repository root, on a machine with a CUDA card)::
    selfie-shaped model: the fused path with YUYV out at 640x480 and
    1280x720 (K1 at the 256x256 canvas, K2 on its 128-wide body, the
    threshold tail, K3) and the classic path with NV12 out at 640x480 (K5,
-   the executor, the threshold decode, K4), each SELFIE_FRAMES frames with
+   the executor, the threshold decode, K4), each FAMILY_FRAMES frames with
    every kernel of the path launched once a frame (counted frame by
    frame), held against the plain path under the decode flip rule
    (|logit - logit(0.65)| <= 1e-3) and the tolerance invariant; K1 and K2
@@ -100,7 +100,20 @@ Usage (from the repository root, on a machine with a CUDA card)::
    bounds, K2's phases by the device clock, host-clock ms/frame, device
    busy a frame and the idle share; the numbers on a ``selfie:`` line
    before the last two;
-12. prints one JSON line with every kernel's numbers (launches from the
+12. segm_full (Meet full) on the committed synthetic 144x256 model, on the
+   same terms: fused YUYV at 640x480 (a letterboxed canvas) and 1280x720
+   (K1 at the 144x256 canvas, K2 on its 128-wide segm body, the
+   two-channel tail, K3), fused NV12 at 640x480 (K4 in place of K3) and
+   classic NV12 (K5, the executor, K4), the margin out1 - out0; a
+   ``segm_full:`` line;
+13. BodyPix on the committed synthetic 257x257 MobileNetV1 model: fused
+   YUYV at both sizes through K1, K2' alone (the prefix plan: the spec
+   turns the continuation off), the graph executor over the dilated 33x33
+   remainder (its device time and operations a call), the threshold
+   decode on the logit, the two-stage post (upscale, round, box blur) and
+   K3; classic NV12 and the staged MaskGen with hooks at 640x480 (K5 at
+   257x257), the margin the logit less 0.65; a ``bodypix:`` line;
+14. prints one JSON line with every kernel's numbers (launches from the
    run of the path it serves, errors and times measured here, and the
    bound: the larger of the bytes it must move over 3.35 TB/s and its
    operations over the peak of their type, 67 TFLOP/s f32 or 989 TFLOP/s
@@ -167,11 +180,15 @@ CLASSIC_SIZE, CLASSIC_FRAMES, STAGED_FRAMES = (640, 480), 30, 10
 FUSED_420_FRAMES = 10      # the fused segm path with NV12 out
 L2_FLUSH_BYTES = 128 << 20  # overwritten before each cold launch: over twice the 50 MB L2
 VARIANT_FRAMES = 5         # classic I420 and flipped runs
-# the default family's synthetic model (mlkit selfie: 256x256 in, one
-# channel out, threshold decode); frames a fused YUYV run a size and of the
-# classic NV12 run; frames of the profiled window
+# the other families' synthetic models: mlkit selfie (the default: 256x256
+# in, one channel out, threshold decode), segm_full (144x256 in, two
+# channels out) and BodyPix (257x257 in, a 33x33 logit out, threshold
+# decode); frames a family's fused or classic run, frames of the profiled
+# window
 SELFIE = os.path.join(REPO, "tests", "data", "selfie_synth_mlkit_256x256.tflite")
-SELFIE_FRAMES, SELFIE_WINDOW = 30, 20
+SEGM_FULL = os.path.join(REPO, "tests", "data", "segm_synth_full_144x256.tflite")
+BODYPIX = os.path.join(REPO, "tests", "data", "body-pix_synth_050_8_257.tflite")
+FAMILY_FRAMES, FAMILY_WINDOW = 30, 20
 # the H100 SXM's published peaks (HBM3 bytes/s, f32 FLOP/s outside the
 # tensor cores, dense bf16 FLOP/s on them) for the kernels' bounds
 HBM_BPS, F32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
@@ -1072,24 +1089,24 @@ def fused_420_phase():
     return launches, ms
 
 
-def staged_maskgen(calls):
-    """The staged deeplab MaskGen at DEEPLAB_SIZE on the card, its hooks
-    appending to ``calls``."""
+def staged_maskgen(calls, path=DEEPLAB, tag="deeplab"):
+    """The staged MaskGen of ``path`` (a 257x257 model) at DEEPLAB_SIZE on
+    the card, its hooks appending to ``calls``."""
     from backscrub_tpu_torch.pipeline.maskgen import MaskGen
     w, h = DEEPLAB_SIZE
-    mg = MaskGen(DEEPLAB, w, h, fused=False, device="cuda",
+    mg = MaskGen(path, w, h, fused=False, device="cuda",
                  onprep=lambda: calls.append("prep"), oninfer=lambda: calls.append("infer"),
                  onmask=lambda: calls.append("mask"))
     if mg.edge is not None or tuple(mg.model.input_shape[1:3]) != (257, 257):
-        raise AssertionError("the staged deeplab MaskGen is not the classic 257x257 path")
+        raise AssertionError(f"the staged {tag} MaskGen is not the classic 257x257 path")
     return mg
 
 
-def staged_phase(mg, calls):
+def staged_phase(mg, calls, tag="deeplab", margin=_person_margin):
     """STAGED_FRAMES frames of the staged MaskGen ``mg`` (fused=False,
-    stage hooks appending to ``calls``) on the deeplab model: one K5 launch
-    a frame, hooks in order, masks against the plain path under the deeplab
-    flip rule."""
+    stage hooks appending to ``calls``): one K5 launch a frame, hooks in
+    order, masks against the plain path under the decode flip rule
+    (``margin`` of the model output; deeplab's person margin by default)."""
     import torch
     from backscrub_tpu_torch.pipeline.decode import decode_val, ema_update
     from backscrub_tpu_torch.pipeline.edge import post_footprint, postprocess_mask
@@ -1113,7 +1130,7 @@ def staged_phase(mg, calls):
         raise AssertionError(f"staged launch counts {launches}")
     if calls != ["prep", "infer", "mask"] * n:
         raise AssertionError(f"stage hooks fired as {calls[:6]}...")
-    ema = torch.full(mg.ema_shape, 255, dtype=torch.uint8, device="cuda")
+    ema = torch.full(mg.ema_shape, 255, dtype=torch.uint8, device=mg.device)
     ever = torch.zeros_like(ema, dtype=torch.bool)
     flips, flip_margin, fracs = 0, 0.0, []
     with torch.no_grad():
@@ -1121,24 +1138,24 @@ def staged_phase(mg, calls):
             logits = mg._infer(_plain_input(mg, f))
             ema = ema_update(ema, decode_val(logits, mg.spec))
             rm = postprocess_mask(ema, mg.geo, mg.post_mats)
-            k, m = _flip_rule(ema_k, ema, _person_margin(logits), ever)
+            k, m = _flip_rule(ema_k, ema, margin(logits), ever)
             flips, flip_margin = flips + k, max(flip_margin, m)
             foot = post_footprint(ema_k != ema, mg.geo, mg.post_mats)
-            fracs.append(_held_bytes([(mask, rm)], "staged path", [foot]))
-    print(f"staged deeplab {w}x{h}: {n} frames, {ms:.4f} ms/frame (host clock, synchronized), "
+            fracs.append(_held_bytes([(mask, rm)], f"staged {tag} path", [foot]))
+    print(f"staged {tag} {w}x{h}: {n} frames, {ms:.4f} ms/frame (host clock, synchronized), "
           f"launches {launches}, hooks in order, decode flips {flips} (largest |margin| "
           f"{flip_margin:.3g}), mask bytes differing mean {100 * np.mean(fracs):.4f}% max "
           f"{100 * max(fracs):.4f}%, none off by more than 1 outside the flips' footprint")
     if float(np.mean(fracs)) > MEAN_TOL:
-        raise AssertionError("staged masks outside the tolerance invariant")
-    return launches, ms
+        raise AssertionError(f"staged {tag} masks outside the tolerance invariant")
+    return dict(ms_per_frame=ms, flips=flips, flip_margin=flip_margin)
 
 
 def _window(step, frames, n):
-    """Device busy (ms) a frame over a profiled window of ``n`` steps: the
-    profiler's device time (kernels, copies) summed, the window opened by
-    an uncounted ``torch.cuda._sleep`` (the profiler leaves out a window's
-    first kernel)."""
+    """A profiled window of ``n`` steps, opened by an uncounted
+    ``torch.cuda._sleep`` (the profiler leaves out a window's first
+    kernel): (device busy ms a frame, the profiler's device time (kernels,
+    copies) summed; device operations a frame; {name: device us a frame})."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1148,38 +1165,108 @@ def _window(step, frames, n):
         for i in range(n):
             step(frames[i % len(frames)])
         torch.cuda.synchronize()
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key)
-    return busy / 1e3 / n
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key]
+    busy = sum(e.self_device_time_total for e in ev)
+    return (busy / 1e3 / n, sum(e.count for e in ev) / n,
+            {e.key: e.self_device_time_total / n for e in ev})
 
 
-def selfie_fused(w, h):
-    """The default family's fused path at one frame size: FramePipeline on
-    the synthetic mlkit selfie model with YUYV out.  K1 and K2 against
-    their plain versions on the first frame (allclose, K2 one launch,
-    two runs bit-identical), their and K3's device times and bounds, K2's
-    phases by the device clock; then SELFIE_FRAMES frames from a fresh EMA,
-    one K1, one K2 (``bs_body_mega``) and one K3 launch a frame and no K4
-    or K5 (counted frame by frame), held against the plain path under the
-    decode flip rule and the tolerance invariant; host-clock ms/frame,
-    device busy a frame and the idle share."""
+def _kernel_us(by_name, name):
+    """Device us a frame of the kernels whose name holds ``name``."""
+    return sum(t for k, t in by_name.items() if name in k)
+
+
+def _logit_margin(out):
+    """The selfie decode's margin on the model's probability (H, W, 1): its
+    logit less logit(0.65), float64 (the decision flips at 0)."""
+    import torch
+    p = out[..., 0].double()
+    return torch.log(p / (1 - p)) - float(np.log(0.65 / 0.35))
+
+
+def _threshold_margin(out):
+    """BodyPix's decode margin on the model's logit (H, W, 1): less 0.65."""
+    return out[..., 0] - 0.65
+
+
+def _two_channel_margin(out):
+    """The two-channel decode's margin (H, W, 2): out1 - out0."""
+    return out[..., 1] - out[..., 0]
+
+
+def _edge_plain(e, frame, ema, margin):
+    """The fused path's mask chain on the plain versions: (the decode's
+    margin a pixel, new EMA); the tail's value less its threshold, or front
+    only ``margin`` of the model output."""
+    from backscrub_tpu_torch.pipeline.decode import decode_val, ema_update
+    body = e.body(e.front(frame, plain=True), plain=True)
+    if e.info.tail_ok:
+        body = body.reshape(body.shape[0], -1)
+        return e.tail_logits(body) - e.info.tail_threshold, e.tail(body, ema)
+    out = body.permute(1, 2, 0)
+    return margin(out), ema_update(ema, decode_val(out, e.spec))
+
+
+def _nv12_footprint(foot):
+    """A frame's pixel footprint (H, W) as the bytes of its NV12 (3H/2, W):
+    the Y plane a pixel, the chroma rows a 2x2 block."""
+    import torch
+    h, w = foot.shape
+    uv = foot.reshape(h // 2, 2, w // 2, 2).any(3).any(1)
+    return torch.cat([foot, uv[..., None].expand(h // 2, w // 2, 2).reshape(h // 2, w)])
+
+
+def device_kernels(fn, n=20, warmup=3):
+    """(device ms a call, device operations a call) of ``fn`` over a
+    profiled window of ``n`` calls (``_window``'s)."""
+    for _ in range(warmup):
+        fn()
+    busy, ops, _ = _window(lambda _: fn(), [None], n)
+    return busy, ops
+
+
+def family_fused(tag, path, w, h, fmt="yuyv", margin=None):
+    """A model family's fused path at one frame size: FramePipeline on
+    ``path`` with ``fmt`` out (YUYV: K3, else K4).  The body is one plan:
+    the full span (K2, the tail after it) or the prefix (K2', the graph
+    executor over the rest, the decode by ``margin`` of the model output).
+    K1 and the plan against their plain versions on the first frame
+    (allclose, the plan one launch, two runs bit-identical), their and the
+    pack's device times and bounds, the plan's phases by the device clock,
+    the executor remainder's device time and operations a call; then
+    FAMILY_FRAMES frames from a fresh EMA, one K1, one plan (``bs_body_mega``)
+    and one pack launch a frame and no other kernel of the port's (counted
+    frame by frame), held against the plain path under the decode flip
+    rule and the tolerance invariant; host-clock ms/frame, device busy and
+    operations a frame, the pack's device time in the pipeline and the
+    idle share."""
     import torch
     from backscrub_tpu_torch.ops.megakernel import body_launch
-    from backscrub_tpu_torch.ops.pack_kernels import blend_pack_yuyv, blend_pack_yuyv_plain
+    from backscrub_tpu_torch.ops.pack_kernels import (blend_pack_420, blend_pack_420_plain,
+                                                      blend_pack_yuyv, blend_pack_yuyv_plain)
     from backscrub_tpu_torch.pipeline.edge import front_fused, front_plain, post_footprint
     from backscrub_tpu_torch.pipeline.frame import FramePipeline, PipelineConfig
     from make_synth_segm import moving_frames
 
-    pipe = FramePipeline(SELFIE, PipelineConfig(width=w, height=h), device="cuda")
+    pipe = FramePipeline(path, PipelineConfig(width=w, height=h, output_format=fmt),
+                         device="cuda")
     e = pipe.maskgen.edge
-    if e is None or e.body_plan is None or e.info.tail_kind != "threshold":
-        raise AssertionError("the selfie model did not take the fused path with one body "
-                             "plan and the threshold tail")
-    plan, n = e.body_plan, SELFIE_FRAMES
+    if e is None or (e.body_plan is None) == (e.prefix_plan is None) or e.cont_plan is not None:
+        raise AssertionError(f"{tag} did not take the fused path with one body plan")
+    plan, n, yuyv = e.body_plan or e.prefix_plan, FAMILY_FRAMES, fmt == "yuyv"
     frames = [torch.from_numpy(f).cuda() for f in moving_frames(w, h, n)]
     bg = torch.from_numpy(np.random.default_rng(4).integers(
         0, 256, (h, w, 3), np.uint8)).cuda()
-    r = {}
+
+    def pack(f, mask):
+        return blend_pack_yuyv(f, bg, mask) if yuyv else blend_pack_420(f, bg, mask, fmt)
+
+    def pack_plain(f, mask):
+        return (blend_pack_yuyv_plain(f, bg, mask) if yuyv
+                else blend_pack_420_plain(f, bg, mask, fmt))
+
+    r = dict(plan="K2" if e.body_plan is not None else "K2'")
     with torch.no_grad():
         canvas, kw = e.canvas(frames[0]), e.front_kwargs()
         k1 = front_fused(canvas, e.front_params, **kw)
@@ -1192,11 +1279,11 @@ def selfie_fused(w, h):
         p2 = plan.run_plain(x)
         torch.cuda.synchronize()
         if dict(body_launch.by_kernel - before) != {"bs_body_mega": 2}:
-            raise AssertionError("the selfie K2 did not run as one bs_body_mega launch a run")
+            raise AssertionError(f"the {tag} body did not run as one bs_body_mega launch a run")
         torch.testing.assert_close(k2, p2, atol=ATOL, rtol=RTOL)
         if not torch.equal(k2, k2b):
-            raise AssertionError("two selfie K2 runs differ")
-        mask0 = e.postprocess(e.tail(p2, pipe.maskgen.ema))
+            raise AssertionError(f"two {tag} body runs differ")
+        mask0 = e.postprocess(_edge_plain(e, frames[0], pipe.maskgen.ema, margin)[1])
         phases = np.median(np.array([plan.phase_ns(x) for _ in range(10)]), axis=0)
         r.update(
             front_err=float((k1 - p1).abs().max()), body_err=float((k2 - p2).abs().max()),
@@ -1204,13 +1291,19 @@ def selfie_fused(w, h):
             front_bound_us=bound(*front_work(kw, k1.shape[0]))[0] * 1e3,
             body_us=device_ms(lambda: plan.run_cuda(x)) * 1e3,
             body_bound_us=bound(*plan.work())[0] * 1e3,
-            pack_us=device_ms(lambda: blend_pack_yuyv(frames[0], bg, mask0)) * 1e3,
-            pack_bound_us=bound(9 * h * w, 30 * h * w)[0] * 1e3,
+            pack_us=device_ms(lambda: pack(frames[0], mask0)) * 1e3,
+            pack_bound_us=bound(*((9 * h * w, 30 * h * w) if yuyv
+                                  else (17 * h * w // 2, 35 * h * w)))[0] * 1e3,
             phases=plan.mega.phases, table_ops=len(plan.mega.ops),
             phase_us=[round(float(t) / 1e3, 3) for t in phases])
+        if e.rest is not None:
+            m = plan.out_meta
+            rest_in = p2.reshape(m.c, m.rows, m.w).permute(1, 2, 0)[None]
+            rest_ms, r["rest_ops"] = device_kernels(lambda: e.rest(rest_in))
+            r["rest_us"] = rest_ms * 1e3
     for f in frames[:5]:                 # warm-up
         pipe.step(f, bg)
-    want = dict(front=1, body=1, pack=1, pack_420=0, bilateral=0)
+    want = dict(front=1, body=1, pack=int(yuyv), pack_420=int(not yuyv), bilateral=0)
 
     def drive():
         pipe.reset()
@@ -1223,7 +1316,7 @@ def selfie_fused(w, h):
             outs.append(out + (pipe.maskgen.ema.clone(),))
             counts = _counts()
             if counts != want or dict(body_launch.by_kernel) != {"bs_body_mega": 1}:
-                raise AssertionError(f"selfie fused launch counts a frame {counts} "
+                raise AssertionError(f"{tag} fused {fmt} launch counts a frame {counts} "
                                      f"{dict(body_launch.by_kernel)}, expected {want}")
         torch.cuda.synchronize()
         return outs
@@ -1235,75 +1328,103 @@ def selfie_fused(w, h):
         pipe.step(f, bg)
     torch.cuda.synchronize()
     r["ms_per_frame"] = (time.perf_counter() - t0) * 1e3 / n
-    r["busy_ms_per_frame"] = _window(lambda f: pipe.step(f, bg), frames, SELFIE_WINDOW)
-    r["idle_share"] = 1 - r["busy_ms_per_frame"] / r["ms_per_frame"]
+    busy, ops, by_name = _window(lambda f: pipe.step(f, bg), frames, FAMILY_WINDOW)
+    r.update(busy_ms_per_frame=busy, ops_per_frame=ops,
+             idle_share=1 - busy / r["ms_per_frame"],
+             pack_pipeline_us=_kernel_us(by_name, "blend_pack_yuyv_kernel" if yuyv
+                                         else "blend_pack_420_kernel"))
     outs = drive()
     ema = torch.full(pipe.maskgen.ema_shape, 255, dtype=torch.uint8, device=pipe.device)
     ever = torch.zeros_like(ema, dtype=torch.bool)
     fracs, flips, flip_margin = [], 0, 0.0
     with torch.no_grad():
-        for f, (yuyv, mask, ema_k) in zip(frames, outs):
-            if yuyv.shape != (h, 2 * w) or mask.shape != (h, w):
-                raise AssertionError(f"output shapes {yuyv.shape} {mask.shape}")
-            body = e.body(e.front(f, plain=True), plain=True)
-            body = body.reshape(body.shape[0], -1)
-            margin = e.tail_logits(body) - e.info.tail_threshold
-            ema = e.tail(body, ema)
-            k, m = _flip_rule(ema_k, ema, margin, ever)
-            flips, flip_margin = flips + k, max(flip_margin, m)
+        for f, (out, mask, ema_k) in zip(frames, outs):
+            if out.shape != pack_plain(f, mask).shape or mask.shape != (h, w):
+                raise AssertionError(f"output shapes {out.shape} {mask.shape}")
+            mrg, ema = _edge_plain(e, f, ema, margin)
+            k, mm = _flip_rule(ema_k, ema, mrg, ever)
+            flips, flip_margin = flips + k, max(flip_margin, mm)
             rm = e.postprocess(ema)
             foot = post_footprint(ema_k != ema, e.geo, e.post_mats)
-            fracs.append(_held_bytes([(yuyv, blend_pack_yuyv_plain(f, bg, rm)), (mask, rm)],
-                                     "selfie fused path", [_yuyv_footprint(foot), foot]))
+            fracs.append(_held_bytes([(out, pack_plain(f, rm)), (mask, rm)],
+                                     f"{tag} fused path",
+                                     [_yuyv_footprint(foot) if yuyv else _nv12_footprint(foot),
+                                      foot]))
     if float(np.mean(fracs)) > MEAN_TOL:
-        raise AssertionError(f"selfie: {100 * np.mean(fracs):.4f}% of bytes differ on average")
+        raise AssertionError(f"{tag}: {100 * np.mean(fracs):.4f}% of bytes differ on average")
     person = float((outs[-1][1] < 128).float().mean())
     if not 0.01 < person < 0.99:
-        raise AssertionError(f"degenerate selfie mask: person fraction {person}")
+        raise AssertionError(f"degenerate {tag} mask: person fraction {person}")
     r.update(flips=flips, flip_margin=flip_margin, mean_diff=float(np.mean(fracs)),
              max_diff=max(fracs), person=person)
-    print(f"selfie fused yuyv {w}x{h}: K1 {r['front_us']:.3f} us (bound "
-          f"{r['front_bound_us']:.3f}), K2 {r['body_us']:.2f} us in {r['phases']} phases "
-          f"(bound {r['body_bound_us']:.3f}), K3 {r['pack_us']:.3f} us (bound "
-          f"{r['pack_bound_us']:.3f}); K1/K2 max_abs_err {r['front_err']:.3g} / "
-          f"{r['body_err']:.3g}; {n} frames, {r['ms_per_frame']:.4f} ms/frame (host clock), "
-          f"device busy {r['busy_ms_per_frame']:.4f} ms/frame, idle share "
-          f"{r['idle_share']:.3f}; one K1, K2, K3 launch a frame; vs plain path: decode flips "
-          f"{flips} (largest |margin| {flip_margin:.3g}), differing bytes mean "
-          f"{100 * r['mean_diff']:.4f}% max {100 * r['max_diff']:.4f}%, person fraction "
-          f"{person:.3f}")
-    print(f"selfie K2 {w}x{h} phases by the device clock (median of 10 runs, us): "
+    pk = "K3" if yuyv else "K4"
+    rest = (f", executor remainder {r['rest_us']:.2f} us in {r['rest_ops']:.0f} device "
+            f"operations a call" if "rest_us" in r else "")
+    print(f"{tag} fused {fmt} {w}x{h}: K1 {r['front_us']:.3f} us (bound "
+          f"{r['front_bound_us']:.3f}), {r['plan']} {r['body_us']:.2f} us in {r['phases']} "
+          f"phases (bound {r['body_bound_us']:.3f}){rest}, {pk} {r['pack_us']:.3f} us alone "
+          f"(bound {r['pack_bound_us']:.3f}), {r['pack_pipeline_us']:.3f} in the pipeline; "
+          f"K1/{r['plan']} max_abs_err {r['front_err']:.3g} / {r['body_err']:.3g}; {n} frames, "
+          f"{r['ms_per_frame']:.4f} ms/frame (host clock), device busy "
+          f"{r['busy_ms_per_frame']:.4f} ms/frame in {r['ops_per_frame']:.1f} device "
+          f"operations, idle share {r['idle_share']:.3f}; one K1, {r['plan']}, {pk} launch a "
+          f"frame; vs plain path: decode flips {flips} (largest |margin| {flip_margin:.3g}), "
+          f"differing bytes mean {100 * r['mean_diff']:.4f}% max {100 * r['max_diff']:.4f}%, "
+          f"person fraction {person:.3f}")
+    print(f"{tag} {r['plan']} {w}x{h} phases by the device clock (median of 10 runs, us): "
           f"{r['phase_us']}")
     return r
 
 
-def selfie_classic():
-    """The selfie model's classic path at CLASSIC_SIZE with NV12 out (the
+def family_classic(tag, path, margin):
+    """A model family's classic path at CLASSIC_SIZE with NV12 out (the
     path the C ABI's staged MaskGen takes when hooks are set): K5 at the
-    256x256 canvas, the graph executor, the threshold decode, K4.
-    SELFIE_FRAMES frames, one K5 and one K4 launch a frame and no K1, K2
+    model's canvas, the graph executor, the decode, the post, K4.
+    FAMILY_FRAMES frames, one K5 and one K4 launch a frame and no K1, K2
     or K3 (counted frame by frame), held against the plain path (K5's and
-    K4's plain versions) under the decode flip rule (the margin the logit
-    of the model's probability less logit(0.65)) and the tolerance
-    invariant."""
+    K4's plain versions) under the decode flip rule (``margin`` of the
+    model output) and the tolerance invariant; K5 against its plain
+    version at the model's canvas, K5's and K4's device times alone and
+    in the pipeline beside their bounds, host-clock ms/frame, device busy
+    and operations a frame and the idle share."""
     import torch
-    from backscrub_tpu_torch.ops.pack_kernels import blend_pack_420_plain
+    from backscrub_tpu_torch.ops.image_kernels import bilateral5
+    from backscrub_tpu_torch.ops.pack_kernels import blend_pack_420, blend_pack_420_plain
     from backscrub_tpu_torch.pipeline.edge import post_footprint
+    from backscrub_tpu_torch.pipeline.image import bilateral5 as bilateral5_plain
     from backscrub_tpu_torch.pipeline.frame import FramePipeline, PipelineConfig
     from make_synth_segm import moving_frames
 
     w, h = CLASSIC_SIZE
-    n = SELFIE_FRAMES
-    pipe = FramePipeline(SELFIE, PipelineConfig(width=w, height=h, edge_fused=False,
-                                                output_format="nv12"), device="cuda")
+    n = FAMILY_FRAMES
+    pipe = FramePipeline(path, PipelineConfig(width=w, height=h, edge_fused=False,
+                                              output_format="nv12"), device="cuda")
     mg = pipe.maskgen
-    if mg.edge is not None or tuple(mg.model.input_shape[1:3]) != (256, 256):
-        raise AssertionError("the selfie classic path is not the 256x256 classic stages")
+    if mg.edge is not None:
+        raise AssertionError(f"the {tag} classic path took the fused edge path")
     frames = [torch.from_numpy(f).cuda() for f in moving_frames(w, h, n)]
     bg = torch.from_numpy(np.random.default_rng(4).integers(
         0, 256, (h, w, 3), np.uint8)).cuda()
+    with torch.no_grad():
+        canvas = _canvas(mg, frames[0])
+        k5, p5 = bilateral5(canvas), bilateral5_plain(canvas)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(k5, p5, atol=ATOL, rtol=RTOL)
+        if float((torch.round(k5) - torch.round(p5)).abs().max()) > 1:
+            raise AssertionError(f"K5 at the {tag} canvas: a rounded byte off by more than 1")
+        mask0 = mg._decode_post(mg._infer(_plain_input(mg, frames[0])), mg.ema)[0]
+        px = canvas.numel() // 3
+        r = dict(k5_err=float((k5 - p5).abs().max()),
+                 k5_us=device_ms(lambda: bilateral5(canvas)) * 1e3,
+                 k5_bound_us=bound(24 * px, BILATERAL_OPS * px)[0] * 1e3,
+                 k4_us=device_ms(lambda: blend_pack_420(frames[0], bg, mask0, "nv12")) * 1e3,
+                 k4_bound_us=bound(17 * h * w // 2, 35 * h * w)[0] * 1e3)
     for f in frames[:3]:
         pipe.step(f, bg)
+    busy, ops, by_name = _window(lambda f: pipe.step(f, bg), frames, FAMILY_WINDOW)
+    r.update(busy_ms_per_frame=busy, ops_per_frame=ops,
+             k5_pipeline_us=_kernel_us(by_name, "bilateral_kernel"),
+             k4_pipeline_us=_kernel_us(by_name, "blend_pack_420_kernel"))
     pipe.reset()
     torch.cuda.synchronize()
     want = dict(front=0, body=0, pack=0, pack_420=1, bilateral=1)
@@ -1313,50 +1434,81 @@ def selfie_classic():
         _zero_counts()
         outs.append(pipe.step(f, bg) + (mg.ema.clone(),))
         if _counts() != want:
-            raise AssertionError(f"selfie classic launch counts a frame {_counts()}, "
+            raise AssertionError(f"{tag} classic launch counts a frame {_counts()}, "
                                  f"expected {want}")
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / n
-    thr = np.log(mg.spec.threshold / (1 - mg.spec.threshold))
     ema = torch.full(mg.ema_shape, 255, dtype=torch.uint8, device=mg.device)
     ever = torch.zeros_like(ema, dtype=torch.bool)
     fracs, flips, flip_margin = [], 0, 0.0
     with torch.no_grad():
         for f, (out, mask, ema_k) in zip(frames, outs):
-            prob = mg._infer(_plain_input(mg, f))
-            rm, ema = mg._decode_post(prob, ema)
-            p = prob[..., 0].double()
-            k, m = _flip_rule(ema_k, ema, torch.log(p / (1 - p)) - thr, ever)
+            y = mg._infer(_plain_input(mg, f))
+            rm, ema = mg._decode_post(y, ema)
+            k, m = _flip_rule(ema_k, ema, margin(y), ever)
             flips, flip_margin = flips + k, max(flip_margin, m)
             foot = post_footprint(ema_k != ema, mg.geo, mg.post_mats)
             ro = blend_pack_420_plain(f, bg, rm, "nv12")
             if out.shape != ro.shape or out.dtype != torch.uint8:
                 raise AssertionError(f"output shape {tuple(out.shape)} {out.dtype}")
-            # NV12: the Y plane per pixel, the chroma rows per 2x2 block
-            uv = foot.reshape(h // 2, 2, w // 2, 2).any(3).any(1)
-            foot_nv12 = torch.cat([foot, uv[..., None].expand(h // 2, w // 2, 2)
-                                   .reshape(h // 2, w)])
-            fracs.append(_held_bytes([(out, ro), (mask, rm)], "selfie classic path",
-                                     [foot_nv12, foot]))
+            fracs.append(_held_bytes([(out, ro), (mask, rm)], f"{tag} classic path",
+                                     [_nv12_footprint(foot), foot]))
     if float(np.mean(fracs)) > MEAN_TOL:
-        raise AssertionError(f"selfie classic: {100 * np.mean(fracs):.4f}% of bytes differ "
+        raise AssertionError(f"{tag} classic: {100 * np.mean(fracs):.4f}% of bytes differ "
                              f"on average")
     person = float((outs[-1][1] < 128).float().mean())
     if not 0.01 < person < 0.99:
-        raise AssertionError(f"degenerate selfie mask: person fraction {person}")
-    print(f"selfie classic nv12 {w}x{h}: {n} frames, {ms:.4f} ms/frame (host clock), one K5 "
-          f"and one K4 launch a frame; vs plain path: decode flips {flips} (largest |margin| "
-          f"{flip_margin:.3g}), differing bytes mean {100 * np.mean(fracs):.4f}% max "
-          f"{100 * max(fracs):.4f}%, person fraction {person:.3f}")
-    return dict(ms_per_frame=ms, flips=flips, flip_margin=flip_margin)
+        raise AssertionError(f"degenerate {tag} mask: person fraction {person}")
+    r.update(ms_per_frame=ms, idle_share=1 - r["busy_ms_per_frame"] / ms, flips=flips,
+             flip_margin=flip_margin)
+    print(f"{tag} classic nv12 {w}x{h}: K5 at the {canvas.shape[0]}x{canvas.shape[1]} canvas "
+          f"{r['k5_us']:.3f} us alone (bound {r['k5_bound_us']:.3f}, max_abs_err "
+          f"{r['k5_err']:.3g}), {r['k5_pipeline_us']:.3f} in the pipeline; K4 {r['k4_us']:.3f} "
+          f"us alone (bound {r['k4_bound_us']:.3f}), {r['k4_pipeline_us']:.3f} in the pipeline; "
+          f"{n} frames, {ms:.4f} ms/frame (host clock), device busy "
+          f"{r['busy_ms_per_frame']:.4f} ms/frame in {r['ops_per_frame']:.1f} device "
+          f"operations, idle share {r['idle_share']:.3f}; one K5 and one K4 launch a frame; "
+          f"vs plain path: decode flips {flips} (largest |margin| {flip_margin:.3g}), "
+          f"differing bytes mean {100 * np.mean(fracs):.4f}% max {100 * max(fracs):.4f}%, "
+          f"person fraction {person:.3f}")
+    return r
 
 
 def selfie_phase():
     """The default family (mlkit selfie, synthetic) through K1, K2, the
     threshold tail and K3 at both frame sizes, then its classic NV12 path.
     Returns the numbers by run."""
-    res = {f"fused {w}x{h}": selfie_fused(w, h) for w, h in SIZES}
-    res["classic nv12 {}x{}".format(*CLASSIC_SIZE)] = selfie_classic()
+    res = {f"fused {w}x{h}": family_fused("selfie", SELFIE, w, h) for w, h in SIZES}
+    res["classic nv12 {}x{}".format(*CLASSIC_SIZE)] = family_classic("selfie", SELFIE,
+                                                                     _logit_margin)
+    return res
+
+
+def segm_full_phase():
+    """segm_full (Meet full, synthetic, 144x256) through K1, K2, the
+    two-channel tail and K3 at both frame sizes, K4 in place of K3 at
+    640x480 (fused NV12), then its classic NV12 path.  Returns the numbers
+    by run."""
+    res = {f"fused yuyv {w}x{h}": family_fused("segm_full", SEGM_FULL, w, h) for w, h in SIZES}
+    size = "{}x{}".format(*CLASSIC_SIZE)
+    res[f"fused nv12 {size}"] = family_fused("segm_full", SEGM_FULL, *CLASSIC_SIZE, fmt="nv12")
+    res[f"classic nv12 {size}"] = family_classic("segm_full", SEGM_FULL, _two_channel_margin)
+    return res
+
+
+def bodypix_phase():
+    """BodyPix (synthetic, 257x257 in, 33x33 logit out) through K1, K2'
+    alone, the executor over the dilated remainder, the threshold decode,
+    the two-stage post and K3 at both frame sizes; then its classic NV12
+    path and its staged MaskGen with hooks at 640x480.  Returns the numbers
+    by run."""
+    res = {f"fused yuyv {w}x{h}": family_fused("bodypix", BODYPIX, w, h,
+                                               margin=_threshold_margin) for w, h in SIZES}
+    size = "{}x{}".format(*CLASSIC_SIZE)
+    res[f"classic nv12 {size}"] = family_classic("bodypix", BODYPIX, _threshold_margin)
+    calls = []
+    mg = staged_maskgen(calls, BODYPIX, "bodypix")
+    res[f"staged {size}"] = staged_phase(mg, calls, "bodypix", _threshold_margin)
     return res
 
 
@@ -1579,6 +1731,12 @@ def main() -> int:
     t0 = time.perf_counter()
     selfie = selfie_phase()
     print(f"selfie phase: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    segm_full = segm_full_phase()
+    print(f"segm_full phase: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    bodypix = bodypix_phase()
+    print(f"bodypix phase: {time.perf_counter() - t0:.2f} s")
     main_size = SIZES[0]
     # launches: each kernel's count from the run of the path it serves
     launches = dict(runs[main_size][0], body_prefix=dl_launches["body_prefix"],
@@ -1635,8 +1793,9 @@ def main() -> int:
                                          "main_path_launches") if k in results[name]}}
         for name, (src, rep) in meta.items()]}
     print(f"chip_smoke phases: {time.perf_counter() - t_start:.2f} s")
-    print("selfie: " + json.dumps({k: {n: v for n, v in r.items() if n != "phase_us"}
-                                   for k, r in selfie.items()}))
+    for tag, res in (("selfie", selfie), ("segm_full", segm_full), ("bodypix", bodypix)):
+        print(f"{tag}: " + json.dumps({k: {n: v for n, v in r.items() if n != "phase_us"}
+                                       for k, r in res.items()}))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

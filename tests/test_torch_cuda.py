@@ -33,6 +33,8 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 FULL = ROOT / "tests" / "data" / "segm_synth_lite_96x160.tflite"
 DEEPLAB = ROOT / "tests" / "data" / "deeplab_synth_257.tflite"
 SELFIE = ROOT / "tests" / "data" / "selfie_synth_mlkit_256x256.tflite"
+SEGM_FULL = ROOT / "tests" / "data" / "segm_synth_full_144x256.tflite"
+BODYPIX = ROOT / "tests" / "data" / "body-pix_synth_050_8_257.tflite"
 
 pytestmark = pytest.mark.cuda
 
@@ -501,6 +503,143 @@ def test_selfie_classic_nv12_pipeline_launches_and_matches_plain(cuda_device):
             foot = tedge.post_footprint(mg.ema != ema, mg.geo, mg.post_mats)
             assert int(torch.where(foot, 0, (mask.int() - rm.int()).abs()).max()) <= 1
             assert out.shape == blend_pack_420_plain(f, bg, rm).shape
+
+
+def _family_front_and_body(path, w, h, device):
+    """K1 and the family's one body plan (K2, or K2' alone) against their
+    plain versions on a frame: allclose(2e-3, 1e-3), the plan one
+    bs_body_mega launch a run, two runs bit-identical.  Returns the edge
+    path."""
+    pipe = FramePipeline(str(path), PipelineConfig(width=w, height=h), device=device)
+    e = pipe.maskgen.edge
+    plan = e.body_plan or e.prefix_plan
+    assert e.cont_plan is None and plan.launches_per_run == 1
+    frame = torch.from_numpy(_frame(w, h)).to(device)
+    with torch.no_grad():
+        canvas, kw = e.canvas(frame), e.front_kwargs()
+        k1 = tedge.front_fused(canvas, e.front_params, **kw)
+        torch.testing.assert_close(k1, tedge.front_plain(canvas, e.front_params, **kw),
+                                   atol=2e-3, rtol=1e-3)
+        x = k1.reshape(k1.shape[0], -1)
+        before = dict(body_launch.by_kernel)
+        got = plan.run_cuda(x).clone()
+        again = plan.run_cuda(x)
+        torch.cuda.synchronize()
+    assert body_launch.by_kernel["bs_body_mega"] == before.get("bs_body_mega", 0) + 2
+    torch.testing.assert_close(got, plan.run_plain(x), atol=2e-3, rtol=1e-3)
+    assert torch.equal(got, again)
+    return e
+
+
+def _family_fused_matches_plain(path, device, margin, n=3):
+    """``n`` frames of a family's fused path at 640x480, YUYV out: one K1,
+    one body plan and one K3 launch a frame, no K4 or K5; against the plain
+    path under the decode flip rule (``margin`` of the model output where
+    there is no fused tail), no byte off by more than 1 outside the flips'
+    post footprint."""
+    from backscrub_tpu_torch.pipeline.decode import decode_val, ema_update
+    w, h = 640, 480
+    pipe = FramePipeline(str(path), PipelineConfig(width=w, height=h), device=device)
+    e = pipe.maskgen.edge
+    frames = [torch.from_numpy(f).to(device) for f in _frames(w, h, n)]
+    bg = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 256, (h, w, 3), np.uint8)).to(device)
+    counters = (tedge.front_fused, body_launch, blend_pack_yuyv, blend_pack_420, bilateral5)
+    ema = pipe.maskgen.ema.clone()
+    ever = torch.zeros_like(ema, dtype=torch.bool)
+    fracs = []
+    with torch.no_grad():
+        for f in frames:
+            before = [c.launches for c in counters]
+            out, mask = pipe.step(f, bg)
+            assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 1, 0, 0]
+            body = e.body(e.front(f, plain=True), plain=True)
+            if e.info.tail_ok:
+                body = body.reshape(body.shape[0], -1)
+                m = e.tail_logits(body) - e.info.tail_threshold
+                ema = e.tail(body, ema)
+            else:
+                y = body.permute(1, 2, 0)
+                m = margin(y)
+                ema = ema_update(ema, decode_val(y, e.spec))
+            _near_tie_flips(pipe.maskgen.ema, ema, m, ever)
+            rm = e.postprocess(ema)
+            foot = tedge.post_footprint(pipe.maskgen.ema != ema, e.geo, e.post_mats)
+            foot_yuyv = foot.reshape(h, w // 2, 2).any(-1)[..., None].expand(h, w // 2, 4)
+            for a, b, ft in ((out, blend_pack_yuyv_plain(f, bg, rm),
+                              foot_yuyv.reshape(h, 2 * w)), (mask, rm, foot)):
+                assert a.shape == b.shape
+                assert int(torch.where(ft, 0, (a.int() - b.int()).abs()).max()) <= 1
+                fracs.append(float((a != b).float().mean()))
+    assert max(fracs) <= 0.02 and float(np.mean(fracs)) <= 0.002
+    assert 0.01 < float((mask < 128).float().mean()) < 0.99
+
+
+def _family_classic_matches_plain(path, device, margin, n=3):
+    """``n`` frames of a family's classic path at 640x480 with NV12 out:
+    one K5 and one K4 launch a frame, no K1/K2/K3; the masks against the
+    plain path under the decode flip rule (``margin`` of the model
+    output)."""
+    w, h = 640, 480
+    pipe = FramePipeline(str(path), PipelineConfig(width=w, height=h, edge_fused=False,
+                                                   output_format="nv12"), device=device)
+    mg = pipe.maskgen
+    frames = [torch.from_numpy(f).to(device) for f in _frames(w, h, n)]
+    bg = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 256, (h, w, 3), np.uint8)).to(device)
+    counters = (bilateral5, blend_pack_420, tedge.front_fused, body_launch, blend_pack_yuyv)
+    ema = mg.ema.clone()
+    ever = torch.zeros_like(ema, dtype=torch.bool)
+    with torch.no_grad():
+        for f in frames:
+            before = [c.launches for c in counters]
+            out, mask = pipe.step(f, bg)
+            assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 0, 0, 0]
+            y = mg._infer(plain_input(mg, f))
+            rm, ema = mg._decode_post(y, ema)
+            _near_tie_flips(mg.ema, ema, margin(y), ever)
+            foot = tedge.post_footprint(mg.ema != ema, mg.geo, mg.post_mats)
+            assert int(torch.where(foot, 0, (mask.int() - rm.int()).abs()).max()) <= 1
+            assert out.shape == blend_pack_420_plain(f, bg, rm).shape
+
+
+@pytest.mark.parametrize("w,h", [(640, 480), (1280, 720)])
+def test_segm_full_front_and_body_match_plain(cuda_device, w, h):
+    """segm_full's K1 (144x256 canvas -> 16x72x128) and K2 (its segm body
+    on a 128-wide first stage, one launch) against their plain versions."""
+    e = _family_front_and_body(SEGM_FULL, w, h, cuda_device)
+    assert e.body_plan is not None and e.info.tail_kind == "two_channel"
+
+
+def test_segm_full_fused_pipeline_launches_and_matches_plain(cuda_device):
+    """segm_full's fused path: K1, K2, the two-channel tail, K3."""
+    _family_fused_matches_plain(SEGM_FULL, cuda_device, None)
+
+
+def test_segm_full_classic_nv12_pipeline_launches_and_matches_plain(cuda_device):
+    """segm_full's classic path: K5 at 144x256, the executor, K4."""
+    _family_classic_matches_plain(SEGM_FULL, cuda_device, lambda y: y[..., 1] - y[..., 0])
+
+
+@pytest.mark.parametrize("w,h", [(640, 480), (1280, 720)])
+def test_bodypix_front_and_prefix_match_plain(cuda_device, w, h):
+    """BodyPix's K1 (257x257 canvas -> 16x129x129, RELU6) and K2' alone
+    (its MobileNetV1 prefix to 33x33, one launch) against their plain
+    versions; the executor takes the rest."""
+    e = _family_front_and_body(BODYPIX, w, h, cuda_device)
+    assert e.prefix_plan is not None and e.rest is not None and e.post_mats is None
+
+
+def test_bodypix_fused_pipeline_launches_and_matches_plain(cuda_device):
+    """BodyPix's fused path: K1, K2', the executor remainder, the threshold
+    decode on the logit, the two-stage post, K3."""
+    _family_fused_matches_plain(BODYPIX, cuda_device, lambda y: y[..., 0] - 0.65)
+
+
+def test_bodypix_classic_nv12_pipeline_launches_and_matches_plain(cuda_device):
+    """BodyPix's classic path: K5 at 257x257, the executor, the threshold
+    decode, the two-stage post, K4."""
+    _family_classic_matches_plain(BODYPIX, cuda_device, lambda y: y[..., 0] - 0.65)
 
 
 def test_staged_maskgen_on_card(cuda_device):

@@ -233,7 +233,9 @@ class _Bars:
 
     def __init__(self, shape):
         self.ever = np.zeros(shape, bool)
-        self.fracs, self.off_ties, self.flips = [], [], 0
+        # differing bytes a frame: the share off the post's ties, and how
+        # many lie neither at a tie nor in a flip's footprint
+        self.fracs, self.off_ties, self.elsewhere, self.flips = [], [], [], 0
 
     def ema(self, got, ref, margin):
         got, ref = np.asarray(got), np.asarray(ref)
@@ -243,18 +245,23 @@ class _Bars:
         self.flips += int(flipped.sum())
         assert np.array_equal(got[~self.ever], ref[~self.ever])
 
-    def bytes(self, pairs):
+    def bytes(self, pairs, feet=None):
         """((port, reference), ties) of one frame: u8 pairs, each with its
-        bytes at the post's ties (bool, the pair's shape)."""
-        for (a, b), t in pairs:
+        bytes at the post's ties (bool, the pair's shape).  ``feet``, where
+        given, a bool array a pair: the bytes that the frame's decode flips
+        reach through the post, where a byte may be off by more than 1."""
+        for ((a, b), t), f in zip(pairs, feet or [None] * len(pairs)):
             a, b = np.asarray(a), np.asarray(b)
             assert a.shape == b.shape == t.shape and a.dtype == b.dtype == np.uint8
-            assert int(np.abs(a.astype(int) - b.astype(int)).max()) <= 1
+            d = np.abs(a.astype(int) - b.astype(int))
+            assert int((d if f is None else np.where(f, 0, d)).max()) <= 1
         d = np.concatenate([(np.asarray(a) != np.asarray(b)).ravel() for (a, b), _ in pairs])
         t = np.concatenate([t.ravel() for _, t in pairs])
+        f = np.concatenate([g.ravel() for g in feet]) if feet else np.zeros_like(d)
         assert d.mean() <= FRAME_TOL
         self.fracs.append(float(d.mean()))
         self.off_ties.append(float((d & ~t).mean()))
+        self.elsewhere.append(int((d & ~t & ~f).sum()))
 
     def check(self):
         assert float(np.mean(self.off_ties)) <= MEAN_TOL

@@ -1,10 +1,12 @@
-"""Write a segm_lite-shaped synthetic ``.tflite`` model from a seed.
+"""Write a segm_lite- or segm_full-shaped synthetic ``.tflite`` model from a seed.
 
 The bundled Google Meet models are not part of the repository, so the
 PyTorch port (``backscrub_tpu_torch``) and its tests run on a model built
 here instead.  It keeps what the pipeline depends on:
 
-- the shapes: 1x96x160x3 f32 in, 1x96x160x2 out (two-channel decode);
+- the shapes: 1xHxWx3 f32 in, 1xHxWx2 out (two-channel decode), at
+  segm_lite's 96x160 (the default) or segm_full's 144x256 (``--size``;
+  SURVEY.md 2.2: the full model has "the identical op mix" at that size);
 - the op kinds of segm_lite (SURVEY.md 2.2): node 0 is a 3x3/s2 SAME
   CONV_2D 3->16 followed by HARD_SWISH; 1x1 convs, depthwise 3x3/5x5 at
   stride 1 and 2, squeeze-excite blocks (AVERAGE_POOL_2D ->
@@ -14,9 +16,11 @@ here instead.  It keeps what the pipeline depends on:
 - weights stored f16 behind DEQUANTIZE nodes, as the Meet files store them.
 
 The encoder follows MobileNetV3-small (Howard et al. 2019, "Searching for
-MobileNetV3", Table 2) down to 6x10, with its published widths 16, 24, 40,
-48, 96 and expansions 72/88/96/240/120/144/288.  Weights are drawn from
-``numpy.random.default_rng(seed)``.  The tail bias is calibrated so that
+MobileNetV3", Table 2) down to 1/16 of the input (6x10 at 96x160, 9x16 at
+144x256), with its published widths 16, 24, 40, 48, 96 and expansions
+72/88/96/240/120/144/288; the decoder's three 2x stages climb back to 1/2
+and the tail to the input size, so H and W must be multiples of 16.
+Weights are drawn from ``numpy.random.default_rng(seed)``.  The tail bias is calibrated so that
 the first frame of ``moving_frames`` decodes to a mix of person and
 background pixels (a mask that is all one value makes parity tests
 vacuous); the calibration runs the JAX reference package.
@@ -24,7 +28,11 @@ vacuous); the calibration runs the JAX reference package.
 Usage::
 
     python tools/make_synth_segm.py tests/data/segm_synth_lite_96x160.tflite
+    python tools/make_synth_segm.py tests/data/segm_synth_full_144x256.tflite --size 144x256
     python tools/make_synth_segm.py out.tflite --width 0.5 --depth 4
+
+The file name must contain ``segm_`` and none of ``body-pix`` or
+``deeplab``: ``spec_for_model`` picks the family by name.
 """
 
 from __future__ import annotations
@@ -36,7 +44,9 @@ import sys
 
 import numpy as np
 
-IN_H, IN_W = 96, 160
+IN_H, IN_W = 96, 160            # segm_lite's input, the default size
+# the published models of this shape, by input size (the model's description)
+SIZES = {(96, 160): "segm_lite", (144, 256): "segm_full"}
 
 # MobileNetV3-small bnecks (Table 2) down to the 6x10 stage:
 # (kernel, expansion, out, squeeze-excite, activation, stride)
@@ -267,9 +277,14 @@ class _Graph:
 
 
 def build_model(seed: int = 0, width: float = 1.0, depth: int = len(BLOCKS),
-                tail_bias=(0.0, 0.0)) -> bytes:
-    """The flatbuffer bytes of the synthetic model (deterministic)."""
+                tail_bias=(0.0, 0.0), size=(IN_H, IN_W)) -> bytes:
+    """The flatbuffer bytes of the synthetic model (deterministic) with
+    input and output ``size`` (H, W), both multiples of 16."""
     from tensorflow.lite.python import schema_py_generated as sg
+
+    in_h, in_w = size
+    if in_h % 16 or in_w % 16:
+        raise ValueError(f"size {in_h}x{in_w}: H and W must be multiples of 16")
 
     n_strided = sum(b[5] == 2 for b in BLOCKS)
     if depth < n_strided:
@@ -282,8 +297,8 @@ def build_model(seed: int = 0, width: float = 1.0, depth: int = len(BLOCKS),
     rng = np.random.default_rng(seed)
     g = _Graph(sg, rng)
 
-    x = g.tensor("input", (1, IN_H, IN_W, 3))
-    x, shape = g.conv("stem", x, (IN_H, IN_W, 3), _div8(STEM * width), 3, 2)
+    x = g.tensor("input", (1, in_h, in_w, 3))
+    x, shape = g.conv("stem", x, (in_h, in_w, 3), _div8(STEM * width), 3, 2)
     x = g.act("stem", x, shape, "HARD_SWISH")
     skips = {shape[:2]: (x, shape)}
     for i, (k, exp, out, se, act, stride) in enumerate(keep):
@@ -318,18 +333,20 @@ def build_model(seed: int = 0, width: float = 1.0, depth: int = len(BLOCKS),
     wt = g.weight("tail/w", rng.standard_normal((2, 2, 2, k_in))
                   * np.sqrt(1.0 / k_in))
     b = g.weight("tail/b", np.asarray(tail_bias, np.float32))
-    y = g.tensor("output", (1, IN_H, IN_W, 2))
+    y = g.tensor("output", (1, in_h, in_w, 2))
     g.op("Convolution2DTransposeBias", [x, wt, b], [y],
          custom=struct.pack("<iii", 1, 2, 2))
 
-    return g.pack(y, f"backscrub synthetic segm_lite-shaped model, seed={seed} "
+    shaped = SIZES.get((in_h, in_w), f"segm {in_h}x{in_w}")
+    return g.pack(y, f"backscrub synthetic {shaped}-shaped model, seed={seed} "
                      f"width={width} depth={depth}")
 
 
-def calibrate_tail_bias(path: str, frame) -> float:
+def calibrate_tail_bias(path: str, frame, size=(IN_H, IN_W)) -> float:
     """Median channel difference (out1 - out0) over the model-output ROI
     for ``frame`` under the model's zero tail bias, through the JAX
-    reference's classic preprocess + graph executor."""
+    reference's classic preprocess + graph executor; ``size`` is the
+    model's (H, W)."""
     from backscrub_tpu.graph.executor import load_model
     from backscrub_tpu.models.specs import spec_for_model
     from backscrub_tpu.pipeline.geometry import compute_roi
@@ -337,7 +354,7 @@ def calibrate_tail_bias(path: str, frame) -> float:
 
     model = load_model(path)
     h, w = frame.shape[:2]
-    geo = compute_roi(w, h, IN_W, IN_H, IN_W, IN_H)
+    geo = compute_roi(w, h, size[1], size[0], size[1], size[0])
     x = preprocess(frame, geo, spec_for_model(path))
     out = np.asarray(model(x[None]))[0]
     o = geo.out_roi
@@ -346,29 +363,39 @@ def calibrate_tail_bias(path: str, frame) -> float:
 
 
 def write_model(path: str, seed: int = 0, width: float = 1.0,
-                depth: int = len(BLOCKS)) -> str:
-    """Write the calibrated model to ``path`` (two passes: zero tail bias,
-    then the bias that centres frame 0's channel difference)."""
+                depth: int = len(BLOCKS), size=(IN_H, IN_W)) -> str:
+    """Write the calibrated model of input ``size`` (H, W) to ``path`` (two
+    passes: zero tail bias, then the bias that centres frame 0's channel
+    difference)."""
     with open(path, "wb") as f:
-        f.write(build_model(seed, width, depth))
+        f.write(build_model(seed, width, depth, size=size))
     frame = moving_frames(320, 240, 1)[0]
-    med = np.float16(calibrate_tail_bias(path, frame))
+    med = np.float16(calibrate_tail_bias(path, frame, size))
     with open(path, "wb") as f:
-        f.write(build_model(seed, width, depth, tail_bias=(0.0, -med)))
+        f.write(build_model(seed, width, depth, tail_bias=(0.0, -med), size=size))
     return path
+
+
+def parse_size(text: str):
+    """``"144x256"`` -> (144, 256): H x W."""
+    h, _, w = text.lower().partition("x")
+    return int(h), int(w)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("out", help="output .tflite path (name it segm_*)")
+    ap.add_argument("out", help="output .tflite path (its name must contain 'segm_')")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--width", type=float, default=1.0,
                     help="channel multiplier (MobileNet rounding to 8)")
     ap.add_argument("--depth", type=int, default=len(BLOCKS),
                     help="encoder blocks kept (strided ones always stay)")
+    ap.add_argument("--size", type=parse_size, default=(IN_H, IN_W),
+                    help=f"input HxW, multiples of 16 (default {IN_H}x{IN_W}; "
+                         "segm_full: 144x256)")
     a = ap.parse_args(argv)
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    print(write_model(a.out, a.seed, a.width, a.depth))
+    print(write_model(a.out, a.seed, a.width, a.depth, a.size))
 
 
 if __name__ == "__main__":

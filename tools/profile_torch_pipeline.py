@@ -17,8 +17,10 @@ then prints:
 
 ``--classic`` runs the classic stages (``edge_fused=False``: preprocess
 with K5, the graph executor), ``--output-format`` picks yuyv, nv12, i420
-or bgr, and ``--staged`` profiles ``MaskGen(fused=False).process`` (the
-staged libbackscrub API, masks only) instead of the pipeline.
+or bgr, ``--edge-cont on|off`` overrides the spec's choice of the flat
+continuation plan (K2'') after a prefix (e.g. BodyPix's, off by default),
+and ``--staged`` profiles ``MaskGen(fused=False).process`` (the staged
+libbackscrub API, masks only) instead of the pipeline.
 
 Usage::
 
@@ -26,6 +28,8 @@ Usage::
     python tools/profile_torch_pipeline.py --model tests/data/deeplab_synth_257.tflite
     python tools/profile_torch_pipeline.py --classic --output-format nv12
     python tools/profile_torch_pipeline.py --staged --model tests/data/deeplab_synth_257.tflite
+    python tools/profile_torch_pipeline.py --model tests/data/body-pix_synth_050_8_257.tflite \
+        --edge-cont on
 """
 
 from __future__ import annotations
@@ -78,6 +82,8 @@ def main(argv=None) -> int:
     ap.add_argument("--classic", action="store_true")
     ap.add_argument("--staged", action="store_true")
     ap.add_argument("--output-format", default="yuyv")
+    ap.add_argument("--edge-cont", choices=("on", "off"), default=None,
+                    help="the flat continuation after a prefix plan (default: the spec's)")
     a = ap.parse_args(argv)
 
     import torch
@@ -102,6 +108,7 @@ def main(argv=None) -> int:
     else:
         pipe = FramePipeline(a.model, PipelineConfig(
             width=w, height=h, edge_fused=False if a.classic else None,
+            edge_cont=None if a.edge_cont is None else a.edge_cont == "on",
             output_format=a.output_format))
         step, edge = (lambda f: pipe.step(f, bg)), pipe.maskgen.edge
         what = f"{'classic' if edge is None else 'fused'} {a.output_format}"
