@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import re
 import sys
 
 
@@ -68,37 +69,66 @@ def spec_for_model(model_path: str) -> ModelSpec:
 
 
 def _package_root() -> str:
+    """Directory holding the package: the Python analog of the reference's
+    "relative to current binary location" step."""
     return os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def _model_candidates(name: str) -> list:
-    """The model search roots of resolve_path (app/deepseg.cc:306-345)."""
+def search_candidates(provided: str, type_: str) -> list:
+    """The ordered candidate list for steps 2-5 of :func:`resolve_path`;
+    ``type_`` is "models" or "backgrounds"."""
     candidates = []
+    # 2. $BACKSCRUB_PATH prefixes (colon separated), "<prefix>/<type>/<name>"
+    #    (app/deepseg.cc:306-314), then the flat "<prefix>/<name>"
     for b in os.environ.get("BACKSCRUB_PATH", "").split(":"):
         if b:
-            candidates += [os.path.join(b, "models", name), os.path.join(b, name)]
+            candidates += [os.path.join(b, type_, provided), os.path.join(b, provided)]
+    # 3. XDG data location (deepseg.cc:316-320)
     xdg = os.environ.get("XDG_DATA_HOME") or os.path.expanduser("~/.local/share")
-    candidates.append(os.path.join(xdg, "backscrub", "models", name))
+    candidates.append(os.path.join(xdg, "backscrub", type_, provided))
+    # 4. install prefix (deepseg.cc:321-324): the Python environment's
     prefix = os.environ.get("BACKSCRUB_INSTALL_PREFIX", sys.prefix)
-    candidates.append(os.path.join(prefix, "share", "backscrub", "models", name))
+    candidates.append(os.path.join(prefix, "share", "backscrub", type_, provided))
+    # 5. relative to the package (deepseg.cc:326-345): an installed
+    #    share/backscrub/<type>/ tree, then the source tree's <type>/
     root = _package_root()
-    candidates.append(os.path.join(root, "share", "backscrub", "models", name))
-    candidates.append(os.path.join(root, "models", name))
-    for b in os.environ.get("BACKSCRUB_TPU_MODELS", "").split(":"):
-        if b:
-            candidates.append(os.path.join(b, name))
+    candidates.append(os.path.join(root, "share", "backscrub", type_, provided))
+    candidates.append(os.path.join(root, type_, provided))
+    # extra roots, opt-in by environment
+    extra = os.environ.get("BACKSCRUB_TPU_MODELS" if type_ == "models"
+                           else "BACKSCRUB_TPU_BACKGROUNDS", "")
+    candidates += [os.path.join(b, provided) for b in extra.split(":") if b]
     return candidates
 
 
+# a URI scheme of at least two characters, so a drive letter is no scheme
+# (deepseg.cc:295-298)
+_URI_RE = re.compile(r"^[A-Za-z][A-Za-z0-9+\-.]{1,}:")
+
+
+def resolve_path(provided: str, type_: str):
+    """Resource resolution as resolve_path (app/deepseg.cc:292-347):
+    a URI passes through; then the literal path; a name holding a path
+    separator stops there; then :func:`search_candidates`.  None when
+    nothing matches (the caller decides how to fail)."""
+    if _URI_RE.match(provided):
+        return provided
+    if os.path.exists(provided):
+        return provided
+    if os.sep in provided:
+        return None
+    for cand in search_candidates(provided, type_):
+        if os.path.exists(cand):
+            return cand
+    return None
+
+
 def resolve_model_path(name: str) -> str:
-    """A model path as given, or a bare file name searched for under the
-    model roots (app/deepseg.cc:292-347)."""
-    if os.path.exists(name):
-        return name
-    if os.sep not in name:
-        for cand in _model_candidates(name):
-            if os.path.exists(cand):
-                return cand
+    """:func:`resolve_path` with type "models" (the reference's call site,
+    app/deepseg.cc:540); raises where nothing matches."""
+    p = resolve_path(name, "models")
+    if p is not None:
+        return p
     raise FileNotFoundError(
         f"model {name!r} not found; searched literal path, $BACKSCRUB_PATH, "
         f"$XDG_DATA_HOME/backscrub/models, <prefix>/share/backscrub/models, "

@@ -7,9 +7,10 @@ alpha blend -> flip -> resize -> pack.  On CUDA one step runs the mask
 (the fused edge path: K1 and K2 for the segm family, K1, K2' and K2'' for
 deeplab; or the classic stages with K5) and, where the JAX package takes
 its fused pack kernels, the blend + pack kernel (K3 for YUYV, K4 for
-NV12/I420), with the EMA mask carried on the device.  BGR is the only
-ingest format; the options that still raise NotImplementedError name the
-ROADMAP item that brings them.
+NV12/I420), with the EMA mask carried on the device.  Frames arrive as
+BGR or as a camera's raw YUYV, UYVY or NV12 bytes, decoded on the device
+before the mask; the options that still raise NotImplementedError name
+the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -22,15 +23,16 @@ import torch
 
 from ..ops.pack_kernels import blend_pack_420, blend_pack_yuyv
 from .image import (alpha_blend_u8, bgr_to_i420, bgr_to_nv12, desaturate_u8, flip,
-                    gaussian_blur, pixelate_u8, resize_bilinear, rgb_to_yuyv)
+                    gaussian_blur, nv12_to_bgr_u8, pixelate_u8, resize_bilinear,
+                    rgb_to_yuyv, yuyv_to_rgb_u8)
 from .maskgen import ROADMAP_FRAME_OPTIONS, MaskGen
 
 # option -> (value the port serves, what of the ROADMAP item brings the rest)
 _NOT_YET = {
     "mask_refine": ("box", "refine=guided"),
     "mask_morph": ("", "morph"),
-    "input_format": ("bgr", "yuyv/nv12/mjpg ingest"),
 }
+_INPUT_FORMATS = ("bgr", "yuyv", "uyvy", "nv12")
 _OUTPUT_FORMATS = ("yuyv", "nv12", "i420", "bgr")
 
 
@@ -58,7 +60,8 @@ class PipelineConfig:
     correct_colors: bool = False       # True: proper BGR->RGB before the pack
     output_format: str = "yuyv"        # "yuyv" (H, 2W) | "nv12" (3H/2, W) |
                                        # "i420" (3HW/2,) | "bgr" (H, W, 3)
-    input_format: str = "bgr"
+    input_format: str = "bgr"          # "bgr" (H, W, 3) | "yuyv" / "uyvy" (H, 2W)
+                                       # | "nv12" (3H/2, W): raw camera bytes
 
 
 class FramePipeline:
@@ -87,6 +90,17 @@ class FramePipeline:
                 raise NotImplementedError(
                     f"{name}={value!r} is not in the PyTorch port yet: "
                     f"{ROADMAP_FRAME_OPTIONS} ({item})")
+        if config.input_format == "mjpg":
+            raise NotImplementedError(f"input_format='mjpg' is not in the PyTorch port "
+                                      f"yet: {ROADMAP_FRAME_OPTIONS} (MJPG decode)")
+        if config.input_format not in _INPUT_FORMATS:
+            raise ValueError(f"input_format must be one of {_INPUT_FORMATS}, "
+                             f"got {config.input_format!r}")
+        if config.input_format in ("yuyv", "uyvy") and config.width % 2:
+            raise ValueError(f"width={config.width}: 4:2:2 ingest needs an even width")
+        if config.input_format == "nv12" and (config.width % 2 or config.height % 2):
+            raise ValueError(f"capture geometry {config.width}x{config.height}: 4:2:0 "
+                             "(nv12) ingest needs even width and height")
         fmt = config.output_format
         if fmt == "mjpg":
             raise NotImplementedError(f"output_format='mjpg' is not in the PyTorch port "
@@ -119,13 +133,30 @@ class FramePipeline:
         green[..., 1] = 255
         self.green = torch.from_numpy(green).to(self.device)
 
-    def _upload(self, img, name: str) -> torch.Tensor:
+    def _upload(self, img, name: str, fmt: str = "bgr") -> torch.Tensor:
+        """A host array or a tensor already on the device (a staged
+        upload: not copied again) as a contiguous u8 tensor on the device,
+        checked against the shape that ``fmt`` gives the capture geometry."""
         t = torch.as_tensor(img).to(self.device)
-        want = (self.cfg.height, self.cfg.width, 3)
+        h, w = self.cfg.height, self.cfg.width
+        want = {"bgr": (h, w, 3), "yuyv": (h, 2 * w), "uyvy": (h, 2 * w),
+                "nv12": (h * 3 // 2, w)}[fmt]
         if tuple(t.shape) != want or t.dtype != torch.uint8:
             raise ValueError(f"{name}: expected {want} uint8, got "
                              f"{tuple(t.shape)} {t.dtype}")
         return t.contiguous()
+
+    def decode(self, frame: torch.Tensor) -> torch.Tensor:
+        """The uploaded frame as BGR (H, W, 3) u8: raw camera bytes
+        decoded on the device (``backscrub_tpu/pipeline/frame.py:229-234``:
+        BT.601 video range, YUY2 chroma order), BGR as it is."""
+        fmt = self.cfg.input_format
+        if fmt in ("yuyv", "uyvy"):
+            h, w2 = frame.shape
+            return yuyv_to_rgb_u8(frame.reshape(h, w2 // 2, 2), layout=fmt).flip(-1)
+        if fmt == "nv12":
+            return nv12_to_bgr_u8(frame)
+        return frame
 
     def fused_pack_applies(self, flip_h: bool, flip_v: bool) -> bool:
         """The JAX package's gate of the fused pack kernels
@@ -184,7 +215,7 @@ class FramePipeline:
         cfg = self.cfg
         fh = cfg.flip_horizontal if flip_horizontal is None else flip_horizontal
         fv = cfg.flip_vertical if flip_vertical is None else flip_vertical
-        frame = self._upload(frame_bgr_u8, "frame")
+        frame = self.decode(self._upload(frame_bgr_u8, "frame", cfg.input_format))
         if not filter_active:
             mask = torch.full(tuple(frame.shape[:-1]), 255, dtype=torch.uint8,
                               device=self.device)

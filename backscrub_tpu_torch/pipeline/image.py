@@ -12,6 +12,7 @@ masks, u8 in and out of the integer ops.  Reference counterparts:
 - flips (cv::flip)                             app/deepseg.cc:667-673
 - RGB -> YUYV pack (fixed point + interleave)  app/deepseg.cc:87-106
 - BGR -> NV12 / I420 (cv2 COLOR_BGR2YUV_I420, BT.601 video range)
+- YUYV / UYVY / NV12 -> RGB / BGR (camera ingest, cv2 COLOR_YUV2*)
 """
 
 from __future__ import annotations
@@ -285,3 +286,58 @@ def bgr_to_i420(bgr_u8: torch.Tensor) -> torch.Tensor:
     _check_even(h, w, "I420")
     lead = tuple(bgr_u8.shape[:-3])
     return torch.cat([c.reshape(lead + (-1,)) for c in _bt601_yuv420(bgr_u8)], dim=-1)
+
+
+# OpenCV ITUR_BT_601 video-range decode constants (color_yuv: the
+# YUV2RGB_YUY2 path), shift 20
+_BT601_CY, _BT601_CUB, _BT601_CUG = 1220542, 2116026, -409993
+_BT601_CVG, _BT601_CVR, _BT601_SHIFT = -852492, 1673527, 20
+
+
+def _bt601_decode(y: torch.Tensor, ud: torch.Tensor, vd: torch.Tensor):
+    """int32 luma and centred chroma -> (R, G, B) int32, unclamped."""
+    yy = torch.clamp(y - 16, min=0) * _BT601_CY
+    half = 1 << (_BT601_SHIFT - 1)
+    r = (yy + _BT601_CVR * vd + half) >> _BT601_SHIFT
+    g = (yy + _BT601_CUG * ud + _BT601_CVG * vd + half) >> _BT601_SHIFT
+    b = (yy + _BT601_CUB * ud + half) >> _BT601_SHIFT
+    return r, g, b
+
+
+def yuyv_to_rgb_u8(yuyv_u8: torch.Tensor, chroma_order: str = "yuy2",
+                   layout: str = "yuyv") -> torch.Tensor:
+    """Packed 4:2:2 (..., H, W, 2) u8 -> RGB u8 (..., H, W, 3), the
+    capture-side decode (``backscrub_tpu/pipeline/image.py:yuyv_to_rgb_u8``
+    with its default BT.601 convention): ITU-R BT.601 video range,
+    bit-exact with cv::COLOR_YUV2RGB_YUY2, what V4L2 cameras emit.
+    layout="uyvy": the chroma-leading byte order (cv::COLOR_YUV2RGB_UYVY).
+    chroma_order="reference" reads the first chroma byte as V."""
+    q = yuyv_u8.to(torch.int32)
+    h, w = q.shape[-3], q.shape[-2]
+    lead = tuple(q.shape[:-3])
+    quad = q.reshape(lead + (h, w // 2, 4))
+    if layout == "uyvy":
+        c0, y0, c1, y1 = quad.unbind(-1)
+    else:
+        y0, c0, y1, c1 = quad.unbind(-1)
+    u, v = (c1, c0) if chroma_order == "reference" else (c0, c1)
+    y = torch.stack([y0, y1], dim=-1).reshape(lead + (h, w))
+    ud = u.repeat_interleave(2, dim=-1) - 128
+    vd = v.repeat_interleave(2, dim=-1) - 128
+    r, g, b = _bt601_decode(y, ud, vd)
+    return torch.clamp(torch.stack([r, g, b], dim=-1), 0, 255).to(torch.uint8)
+
+
+def nv12_to_bgr_u8(nv12_u8: torch.Tensor) -> torch.Tensor:
+    """NV12 (..., 3H/2, W) u8 -> BGR u8 (..., H, W, 3), bit-exact with
+    cv2.COLOR_YUV2BGR_NV12 (BT.601 video range, chroma replicated over
+    each 2x2 block): the ingest of NV12 cameras."""
+    hh, w = nv12_u8.shape[-2], nv12_u8.shape[-1]
+    h = hh * 2 // 3
+    q = nv12_u8.to(torch.int32)
+    lead = tuple(q.shape[:-2])
+    uv = q[..., h:, :].reshape(lead + (h // 2, w // 2, 2))
+    ud, vd = (uv[..., i].repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1) - 128
+              for i in (0, 1))
+    r, g, b = _bt601_decode(q[..., :h, :], ud, vd)
+    return torch.clamp(torch.stack([b, g, r], dim=-1), 0, 255).to(torch.uint8)

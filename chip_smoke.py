@@ -113,7 +113,18 @@ Usage (from the repository root, on a machine with a CUDA card)::
    decode on the logit, the two-stage post (upscale, round, box blur) and
    K3; classic NV12 and the staged MaskGen with hooks at 640x480 (K5 at
    257x257), the margin the logit less 0.65; a ``bodypix:`` line;
-14. prints one JSON line with every kernel's numbers (launches from the
+14. the program itself: ``backscrub_tpu_torch.cli.main`` in-process on
+   the card (``-c test: --cg 640x480 -m`` the synthetic mlkit model
+   ``--frames 60 -v file:<tmp>.yuv --stats-json``), five times: plain,
+   ``--drain-thread``, ``--staging-force``, ``--staging`` (the probe's
+   decision printed) and ``--sink-format nv12``; each file exactly 60
+   frames and byte-identical to 60 direct ``FramePipeline.step`` calls on
+   the same ``SyntheticSource`` frames from a fresh EMA, and K1, K2 and K3
+   (K4 for NV12) launched exactly once a frame by each run; then fps and
+   stage ms from the stats line, the CLI's host ms/frame beside a bare
+   ``step`` loop's, and the device idle share of a 20-frame profiled
+   window of ``ServingLoop.run``; a ``cli:`` line;
+15. prints one JSON line with every kernel's numbers (launches from the
    run of the path it serves, errors and times measured here, and the
    bound: the larger of the bytes it must move over 3.35 TB/s and its
    operations over the peak of their type, 67 TFLOP/s f32 or 989 TFLOP/s
@@ -189,6 +200,13 @@ SELFIE = os.path.join(REPO, "tests", "data", "selfie_synth_mlkit_256x256.tflite"
 SEGM_FULL = os.path.join(REPO, "tests", "data", "segm_synth_full_144x256.tflite")
 BODYPIX = os.path.join(REPO, "tests", "data", "body-pix_synth_050_8_257.tflite")
 FAMILY_FRAMES, FAMILY_WINDOW = 30, 20
+# the program itself: backscrub_tpu_torch.cli.main at the CLI's default
+# geometry and family, frames a run, frames of the serving loop's profiled
+# window; the serving modes that must change no byte
+CLI_SIZE, CLI_FRAMES, CLI_WINDOW = (640, 480), 60, 20
+CLI_MODES = (("plain", []), ("drain-thread", ["--drain-thread"]),
+             ("staging-force", ["--staging-force"]), ("staging", ["--staging"]),
+             ("nv12", ["--sink-format", "nv12"]))
 # the H100 SXM's published peaks (HBM3 bytes/s, f32 FLOP/s outside the
 # tensor cores, dense bf16 FLOP/s on them) for the kernels' bounds
 HBM_BPS, F32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
@@ -1512,6 +1530,109 @@ def bodypix_phase():
     return res
 
 
+def _serving_window(loop, frames, n):
+    """A profiled window of ``loop.run`` over ``n`` frames (null sink),
+    opened by an uncounted ``torch.cuda._sleep``: (host ms a frame between
+    two synchronizations, device busy ms a frame, the profiler's kernel and
+    copy time summed)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    it = iter(frames[:n])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if loop.run(lambda: next(it, None), lambda a: None) != n:
+            raise AssertionError("the serving loop did not take every frame")
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3 / n
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key)
+    return host, busy / 1e3 / n
+
+
+def cli_phase():
+    """The program on the card: ``cli.main`` in each of CLI_MODES at
+    CLI_SIZE on the default family (synthetic mlkit), every output file
+    byte-identical to direct ``step`` calls and every kernel of the path
+    launched once a frame; then the loop's numbers beside a bare ``step``
+    loop's.  Returns the numbers by run."""
+    import contextlib
+    import io
+    import tempfile
+    import torch
+    from backscrub_tpu_torch import cli
+    from backscrub_tpu_torch.io.streams import SyntheticSource
+    from backscrub_tpu_torch.ops.megakernel import body_launch
+    from backscrub_tpu_torch.pipeline.frame import FramePipeline, PipelineConfig
+    from backscrub_tpu_torch.runtime.serving import ServingLoop
+
+    (w, h), n = CLI_SIZE, CLI_FRAMES
+    src = SyntheticSource(w, h)
+    frames = [src.read() for _ in range(n)]
+    pipes = {fmt: FramePipeline(SELFIE, PipelineConfig(width=w, height=h, output_format=fmt),
+                                device="cuda") for fmt in ("yuyv", "nv12")}
+    golden = {fmt: b"".join(p.step(f)[0].cpu().numpy().tobytes() for f in frames)
+              for fmt, p in pipes.items()}
+    pipe = pipes["yuyv"]
+    pipe.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in frames:
+        pipe.step(f)
+    torch.cuda.synchronize()
+    res = {"bare step loop": {"ms_per_frame": (time.perf_counter() - t0) * 1e3 / n}}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, extra in CLI_MODES:
+            fmt = "nv12" if "nv12" in extra else "yuyv"
+            out, stats = os.path.join(tmp, f"{name}.yuv"), os.path.join(tmp, f"{name}.jsonl")
+            argv = ["-c", "test:", "--cg", f"{w}x{h}", "-m", SELFIE, "--frames", str(n),
+                    "-v", f"file:{out}", "--stats-json", stats, *extra]
+            err = io.StringIO()
+            _zero_counts()
+            body_launch.by_kernel.clear()
+            with contextlib.redirect_stderr(err):
+                rc = cli.main(argv)
+            counts = _counts()
+            sys.stderr.write(err.getvalue())
+            want = dict(front=n, body=n, pack=n * (fmt == "yuyv"),
+                        pack_420=n * (fmt == "nv12"), bilateral=0)
+            if rc != 0 or counts != want or dict(body_launch.by_kernel) != {"bs_body_mega": n}:
+                raise AssertionError(f"cli {name}: rc {rc}, launches {counts} "
+                                     f"{dict(body_launch.by_kernel)}, expected {want}")
+            with open(out, "rb") as fh:
+                data = fh.read()
+            if data != golden[fmt]:
+                raise AssertionError(f"cli {name}: {len(data)} bytes written, not the "
+                                     f"{len(golden[fmt])} bytes of {n} direct steps")
+            with open(stats) as fh:
+                rec = json.loads(fh.read().splitlines()[-1])
+            if not rec.get("final") or rec["frames"] != n:
+                raise AssertionError(f"cli {name}: stats line {rec}")
+            res[name] = dict(rec, ms_per_frame=1e3 / rec["fps"])
+            probe = [ln for ln in err.getvalue().splitlines() if ln.startswith("staging:")]
+            if name == "staging":
+                if len(probe) != 1:
+                    raise AssertionError(f"cli staging: no probe decision printed {probe}")
+                res[name]["probe"] = probe[0]
+    loop = ServingLoop(pipe, depth=3)
+    it = iter(frames[:5])
+    loop.run(lambda: next(it, None), lambda a: None)   # warm-up
+    host, busy = _serving_window(loop, frames, CLI_WINDOW)
+    res["serving window"] = dict(ms_per_frame=host, busy_ms_per_frame=busy,
+                                 idle_share=1 - busy / host)
+    print(f"cli {w}x{h}: {n} frames a run, each file byte-identical to direct steps, one "
+          f"K1, K2 and K3 (K4 for nv12) launch a frame; fps "
+          + ", ".join(f"{k} {res[k]['fps']}" for k, _ in CLI_MODES)
+          + f"; host ms/frame {res['plain']['ms_per_frame']:.4f} (cli) vs "
+          f"{res['bare step loop']['ms_per_frame']:.4f} (bare step loop); serving window "
+          f"{host:.4f} ms/frame, device busy {busy:.4f}, idle share {1 - busy / host:.3f}; "
+          f"{res['staging']['probe']}")
+    return res
+
+
 def device_check():
     """A pipeline built without ``device=`` runs on the card."""
     from backscrub_tpu_torch.pipeline.frame import FramePipeline, PipelineConfig
@@ -1737,6 +1858,9 @@ def main() -> int:
     t0 = time.perf_counter()
     bodypix = bodypix_phase()
     print(f"bodypix phase: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    cli_res = cli_phase()
+    print(f"cli phase: {time.perf_counter() - t0:.2f} s")
     main_size = SIZES[0]
     # launches: each kernel's count from the run of the path it serves
     launches = dict(runs[main_size][0], body_prefix=dl_launches["body_prefix"],
@@ -1793,7 +1917,8 @@ def main() -> int:
                                          "main_path_launches") if k in results[name]}}
         for name, (src, rep) in meta.items()]}
     print(f"chip_smoke phases: {time.perf_counter() - t_start:.2f} s")
-    for tag, res in (("selfie", selfie), ("segm_full", segm_full), ("bodypix", bodypix)):
+    for tag, res in (("selfie", selfie), ("segm_full", segm_full), ("bodypix", bodypix),
+                     ("cli", cli_res)):
         print(f"{tag}: " + json.dumps({k: {n: v for n, v in r.items() if n != "phase_us"}
                                        for k, r in res.items()}))
     print(json.dumps(line))

@@ -166,7 +166,7 @@ def test_not_yet_messages_name_a_roadmap_item():
     by its queue and title, and that item is in ROADMAP.md's queue."""
     msgs = []
     for option in (dict(mask_refine="guided"), dict(mask_morph="open"),
-                   dict(input_format="nv12"), dict(output_format="mjpg")):
+                   dict(input_format="mjpg"), dict(output_format="mjpg")):
         with pytest.raises(NotImplementedError) as e:
             FramePipeline(str(FULL), PipelineConfig(width=640, height=480, **option),
                           device="cpu")

@@ -1024,3 +1024,79 @@ def test_refused_cluster_launch_raises(cuda_device):
     with pytest.raises(RuntimeError, match="cudaError"):
         _build.launch("bs_barrier_bench", 1, 1, 32)
     torch.cuda.synchronize()
+
+
+def _synthetic_frames(w, h, n):
+    from backscrub_tpu_torch.io.streams import SyntheticSource
+    src = SyntheticSource(w, h)
+    return [src.read() for _ in range(n)]
+
+
+def _direct_steps(pipe, frames, bgs):
+    """Sequential ``step`` calls from a fresh EMA, downloaded one by one."""
+    pipe.reset()
+    return [pipe.step(f, b)[0].cpu().numpy() for f, b in zip(frames, bgs)]
+
+
+@pytest.mark.parametrize("fmt", ["yuyv", "nv12"])
+def test_staged_serving_loop_matches_plain(cuda_device, fmt):
+    """The staged ServingLoop (page-locked upload ring, side-stream
+    downloads) writes the plain loop's bytes and the direct steps', on
+    the default family at 640x480; every kernel of the path once a frame."""
+    from backscrub_tpu_torch.runtime.serving import ServingLoop
+    pipe = FramePipeline(str(SELFIE), PipelineConfig(width=640, height=480,
+                                                     output_format=fmt),
+                         device=cuda_device)
+    frames = _synthetic_frames(640, 480, 20)
+    bgs = [np.roll(f, 7, axis=1) for f in frames]
+    golden = _direct_steps(pipe, frames, bgs)
+    pack = blend_pack_yuyv if fmt == "yuyv" else blend_pack_420
+    outs = {}
+    for staged in (False, True):
+        pipe.reset()
+        loop = ServingLoop(pipe, depth=3, staging=staged)
+        assert staged is False or loop.staging.supported
+        before = (tedge.front_fused.launches, body_launch.launches, pack.launches)
+        it, bg_it, got = iter(frames), iter(bgs), []
+        assert loop.run(lambda: next(it, None), got.append,
+                        background=lambda: next(bg_it)) == len(frames)
+        after = (tedge.front_fused.launches, body_launch.launches, pack.launches)
+        assert [a - b for a, b in zip(after, before)] == [len(frames)] * 3
+        outs[staged] = got
+    for g, a, b in zip(golden, outs[False], outs[True]):
+        np.testing.assert_array_equal(a, g)
+        np.testing.assert_array_equal(b, g)
+
+
+def test_staged_ring_300_frames_drain_thread(cuda_device):
+    """300 frames through a depth-3 staged ring with the drain thread, a
+    different background every frame: byte-identical to direct steps (a
+    page-locked slot rewritten before its copy ran, or a result freed
+    before its download, would change frames here)."""
+    from backscrub_tpu_torch.runtime.serving import ServingLoop
+    pipe = FramePipeline(str(FULL), PipelineConfig(width=640, height=480), device=cuda_device)
+    frames = _synthetic_frames(640, 480, 300)
+    bgs = [frames[(i * 37) % 300] for i in range(300)]
+    golden = _direct_steps(pipe, frames, bgs)
+    pipe.reset()
+    loop = ServingLoop(pipe, depth=3, staging=True, drain_thread=True)
+    it, bg_it, got = iter(frames), iter(bgs), []
+    assert loop.run(lambda: next(it, None), got.append, background=lambda: next(bg_it)) == 300
+    assert len(got) == 300
+    for i, (g, o) in enumerate(zip(golden, got)):
+        assert np.array_equal(g, o), f"frame {i} differs"
+
+
+def test_cli_main_on_cuda_matches_direct_steps(cuda_device, tmp_path):
+    """``cli.main`` on the card writes the bytes of direct ``step`` calls
+    on the same SyntheticSource frames, plain and with staging forced."""
+    from backscrub_tpu_torch import cli
+    n = 30
+    frames = _synthetic_frames(640, 480, n)
+    pipe = FramePipeline(str(SELFIE), PipelineConfig(width=640, height=480), device=cuda_device)
+    golden = b"".join(g.tobytes() for g in _direct_steps(pipe, frames, [None] * n))
+    for extra in ([], ["--staging-force", "--drain-thread"]):
+        out = tmp_path / "o.yuv"
+        assert cli.main(["-c", "test:", "-m", str(SELFIE), "--frames", str(n),
+                         "-v", f"file:{out}", *extra]) == 0
+        assert out.read_bytes() == golden, extra

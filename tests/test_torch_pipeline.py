@@ -144,9 +144,9 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("option", [
-    dict(mask_morph="open"), dict(input_format="nv12"),
+    dict(mask_morph="open"), dict(input_format="mjpg"),
     dict(output_format="mjpg"), dict(mask_refine="guided"), dict(mask_morph="erode:5"),
-    dict(input_format="yuyv")])
+    dict(mask_morph="close:3")])
 def test_options_outside_the_slice_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         FramePipeline(str(FULL), PipelineConfig(width=640, height=480, **option),
@@ -166,11 +166,18 @@ def test_green_background_and_reset():
 
 
 def test_import_pulls_in_no_jax_or_tensorflow():
+    """The port's modules, the program's included, import neither JAX,
+    TensorFlow, flatbuffers nor the JAX package, and OpenCV only inside
+    the functions that need it."""
     code = ("import sys, backscrub_tpu_torch.pipeline.frame, "
             "backscrub_tpu_torch.ops.megakernel, backscrub_tpu_torch.graph.executor, "
-            "backscrub_tpu_torch.ops.image_kernels, backscrub_tpu_torch.ops.pack_kernels; "
+            "backscrub_tpu_torch.ops.image_kernels, backscrub_tpu_torch.ops.pack_kernels, "
+            "backscrub_tpu_torch.cli, backscrub_tpu_torch.runtime.serving, "
+            "backscrub_tpu_torch.io.streams, backscrub_tpu_torch.io.staging, "
+            "backscrub_tpu_torch.io.background, backscrub_tpu_torch.io.v4l2, "
+            "backscrub_tpu_torch.utils.debug_ui, backscrub_tpu_torch.utils.timing; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'tensorflow', 'flatbuffers', 'backscrub_tpu')); "
+            "('jax', 'jaxlib', 'tensorflow', 'flatbuffers', 'backscrub_tpu', 'cv2')); "
             "print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
                        capture_output=True, text=True, timeout=120)
