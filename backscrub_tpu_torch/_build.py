@@ -9,6 +9,12 @@ sources, headers and flags, so an edited kernel rebuilds and an unchanged
 one loads the cached file.  Every exported function returns the ``cudaError_t`` of its
 launch; :func:`launch` raises on anything but 0.
 
+:func:`host_library` builds a host C++ library of ``native/`` (the
+baseline-JPEG entropy codec, ``native/bsjpeg.cc``) with the system's
+``c++`` the same way: ``-O3 -shared -fPIC`` and ``-march=native`` where
+the compiler takes it (as ``native/CMakeLists.txt`` builds it), into
+``_build/`` under a hash of the source, its header and the flags.
+
 Nothing here runs at import time: the CPU tests import every module on a
 machine without ``nvcc``.
 """
@@ -27,6 +33,7 @@ import torch
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_HERE, "csrc")
+NATIVE_DIR = os.path.join(os.path.dirname(_HERE), "native")
 BUILD_DIR = os.path.join(_HERE, "_build")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
@@ -51,6 +58,7 @@ SIGNATURES = {
     "bs_probe_copy": (P, P, I, I, P),
     "bs_probe_empty": (P,),
     "bs_probe_touch": (P, P, P),
+    "bs_jpeg_decode": (P, P, P, P, P, P, P, P),
 }
 
 
@@ -139,6 +147,66 @@ def lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _Lib.handle = handle
     return _Lib.handle
+
+
+HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
+
+
+def _cxx() -> str:
+    for cand in ("c++", "g++"):
+        path = shutil.which(cand)
+        if path:
+            return path
+    raise KernelBuildError("no host C++ compiler (c++ or g++) found")
+
+
+def _host_flags(cxx: str) -> tuple:
+    """HOST_FLAGS, with ``-march=native`` where the compiler takes it, and
+    the macros the compiler predefines under them: with ``-march=native``
+    they name this host's instruction sets (``__AVX512F__`` ...), so a
+    library built for one CPU never goes by the same name on another."""
+    r = subprocess.run([cxx, "-march=native", "-x", "c++", "-fsyntax-only", "-"],
+                       input="int main() { return 0; }\n", capture_output=True,
+                       text=True)
+    march = ("-march=native",) if r.returncode == 0 else ()
+    m = subprocess.run([cxx, *march, "-dM", "-E", "-x", "c++", "-"],
+                       input="", capture_output=True, text=True)
+    if m.returncode != 0:
+        raise KernelBuildError(f"{cxx} does not list its target macros:\n"
+                               f"{m.stderr}")
+    return HOST_FLAGS + march, m.stdout
+
+
+def host_library(name: str) -> str:
+    """Build ``native/<name>.cc`` into a shared library in ``_build/`` if
+    none for this source, header, flags and target exists; returns its
+    path.  Raises KernelBuildError with the compiler's output on failure."""
+    src = os.path.join(NATIVE_DIR, f"{name}.cc")
+    hdr = os.path.join(NATIVE_DIR, f"{name}.h")
+    if not os.path.exists(src):
+        raise KernelBuildError(f"no source {src}")
+    cxx = _cxx()
+    flags, target = _host_flags(cxx)
+    h = hashlib.sha256(" ".join((cxx,) + flags).encode())
+    h.update(target.encode())
+    for path in (src, hdr):
+        if os.path.exists(path):
+            with open(path, "rb") as f:
+                h.update(f.read())
+    out = os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [cxx, *flags, "-o", tmp, src]
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    if r.returncode != 0:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise KernelBuildError(f"{name} build failed ({r.returncode}):\n{' '.join(cmd)}\n"
+                               f"{r.stdout}\n{r.stderr}")
+    os.replace(tmp, out)
+    return out
 
 
 def stream() -> int:

@@ -8,8 +8,8 @@ app/deepseg.cc:505-530): -? -d -s -c -v -w -h --cg --vg -f -t -b -m
 auto-add (:536-539), and the JAX CLI's additions for headless use.  The
 frame pipeline runs on the CUDA card (``main(argv, device="cuda")``);
 without one ``main`` prints an error and returns 1.  A flag whose path is
-not in the port yet prints an error naming its ROADMAP item and returns
-1; none is ignored.
+not in the port yet (``--bf16``, ``--int8``) prints an error naming its
+ROADMAP item and returns 1; none is ignored.
 
 Run it as ``python -m backscrub_tpu_torch.cli -c test: -v file:/tmp/o.yuv
 -m tests/data/selfie_synth_mlkit_256x256.tflite --frames 60``.
@@ -23,8 +23,6 @@ import sys
 from typing import List, Optional
 
 import numpy as np
-
-from .pipeline.maskgen import ROADMAP_FRAME_OPTIONS
 
 ROADMAP_BF16 = "ROADMAP queue 1, bf16 mode"
 ROADMAP_LOWERINGS = "ROADMAP queue 1, Remaining lowerings and model loading"
@@ -46,8 +44,8 @@ usage:
 -?            Display this usage information
 -d            Increase debug level
 -s            Show progress bar
--c            Video capture source: /dev/videoN, file:<path>, image, or test:
-              (mjpg: is not in the PyTorch port yet)
+-c            Video capture source: /dev/videoN, file:<path>, image, test:,
+              or mjpg: (synthetic MJPG camera; decoded on the card)
 -v            Virtual camera sink: /dev/videoN, file:<path.mp4|.yuv>, or null:
 -w            DEPRECATED: Specify the video stream width
 -h            DEPRECATED: Specify the video stream height
@@ -61,8 +59,8 @@ usage:
 -p bgblur:<strength>   Blur the video background
 -p bgpixelate:<n>      Mosaic the background with n x n tiles (privacy mode)
 -p bgdesat             Desaturate (grayscale) the background
--p refine:guided       Edge-aware mask refinement (not in the PyTorch port yet)
--p morph:<op>[:k]      Mask morphology (not in the PyTorch port yet)
+-p refine:guided       Edge-aware mask refinement (guided filter on the frame)
+-p morph:<op>[:k]      Mask morphology: erode|dilate|open|close, odd k (default 3)
 -p jpegq:<1-100>       JPEG quality for --sink-format mjpg (default 85)
 -H            Mirror the output horizontally
 -V            Mirror the output vertically
@@ -75,9 +73,10 @@ usage:
               output). A startup probe measures staged vs plain roundtrips
               at the capture geometry and keeps the winner
 --staging-force  Staging without the probe (trust the flag)
---sink-format yuyv|nv12|i420|bgr24   Virtual-camera pixel format
+--sink-format yuyv|nv12|i420|bgr24|mjpg   Virtual-camera pixel format
               (default yuyv; 4:2:0 formats are packed on the card, BT.601,
-              cv2-bit-exact; mjpg is not in the PyTorch port yet)
+              cv2-bit-exact; mjpg encodes on the card, the host only
+              Huffman-packs, bytes as cv2.imencode)
 --stats-json <path>  Append a JSON stats line (fps + per-stage ms) every
               120 frames and at exit, for production monitoring
 --drain-thread  Deliver results to the sink from a dedicated thread so
@@ -231,10 +230,6 @@ def refused(cfg: dict) -> Optional[str]:
     not_yet = [
         (cfg["bf16"], "--bf16", ROADMAP_BF16),
         (cfg["int8"], "--int8", ROADMAP_LOWERINGS),
-        (cfg["mask_refine"] == "guided", "-p refine:guided", ROADMAP_FRAME_OPTIONS),
-        (bool(cfg["mask_morph"]), f"-p morph:{cfg['mask_morph']}", ROADMAP_FRAME_OPTIONS),
-        (cfg["sink_format"] == "mjpg", "--sink-format mjpg", ROADMAP_FRAME_OPTIONS),
-        (cfg["ccam"].startswith("mjpg:"), "-c mjpg:", ROADMAP_FRAME_OPTIONS),
     ]
     for hit, flag, item in not_yet:
         if hit:
@@ -285,9 +280,6 @@ def main(argv: Optional[List[str]] = None, *, device="cuda") -> int:
         print(f"Error: cannot open capture source {cfg['ccam']}: {e}",
               file=sys.stderr)
         return 1
-    except NotImplementedError as e:  # an MJPG camera
-        print(f"Error: {e}", file=sys.stderr)
-        return 1
     # adopt granted geometry, warning like the reference (deepseg.cc:554-561)
     if (source.width, source.height) != (cw, ch):
         print("Warning: capture device geometry changed from requested values.",
@@ -307,19 +299,29 @@ def main(argv: Optional[List[str]] = None, *, device="cuda") -> int:
         source.close()
         return 1
     # native YUYV/UYVY/NV12 cameras upload raw bytes and the card decodes
-    # them (less host->device traffic, no host cvtColor on the critical path)
+    # them (less host->device traffic, no host cvtColor on the critical
+    # path); MJPG cameras upload entropy-decoded coefficients and the card
+    # runs the rest of the decode (bs_jpeg_decode)
     raw_fmt = getattr(source, "raw_format", None)
     raw_ingest = raw_fmt in ("yuyv", "uyvy", "nv12")
+    jpeg_info = getattr(source, "jpeg_info", None)
+    in_fmt = "mjpg" if jpeg_info is not None else raw_fmt if raw_ingest else "bgr"
     pcfg = PipelineConfig(
         width=cw, height=ch, out_width=vw, out_height=vh,
         blur_strength=cfg["blur_strength"],
         bg_pixelate=cfg["bg_pixelate"], bg_desaturate=cfg["bg_desaturate"],
         flip_horizontal=cfg["flip_h"], flip_vertical=cfg["flip_v"],
         use_bilateral=cfg["bilateral"], correct_colors=cfg["correct_colors"],
-        input_format=raw_fmt if raw_ingest else "bgr",
+        mask_refine=cfg["mask_refine"], mask_morph=cfg["mask_morph"],
+        input_format=in_fmt, jpeg_info=jpeg_info,
         output_format="bgr" if cfg["sink_format"] == "bgr24" else cfg["sink_format"],
+        out_jpeg_quality=cfg["jpeg_quality"],
     )
-    pipe = FramePipeline(model_path, pcfg, device=dev)
+    try:
+        pipe = FramePipeline(model_path, pcfg, device=dev)
+    except Exception:
+        source.close()
+        raise
 
     if cfg["debug"]:
         print(f"model: {model_path}\ncapture: {cfg['ccam']} {cw}x{ch}\n"
@@ -336,7 +338,8 @@ def main(argv: Optional[List[str]] = None, *, device="cuda") -> int:
         print("Warning: could not load background image, defaulting to green",
               file=sys.stderr)
 
-    sink = open_sink(cfg["vcam"], vw, vh, out_format=cfg["sink_format"])
+    sink = open_sink(cfg["vcam"], vw, vh, out_format=cfg["sink_format"],
+                     jpeg_info=pipe.out_jpeg_info, jpeg_qtabs=pipe.out_jpeg_qtabs)
     timer = StageTimer()
 
     # debug window + runtime toggles (app/deepseg.cc:724-803)
@@ -345,6 +348,10 @@ def main(argv: Optional[List[str]] = None, *, device="cuda") -> int:
     window = DebugWindow() if cfg["debug"] >= 2 else None
     if window is not None and not window.available:
         print("debug: no display available, HUD disabled", file=sys.stderr)
+    if window is not None and cfg["sink_format"] == "mjpg":
+        print("debug: HUD preview not supported with --sink-format mjpg, "
+              "HUD disabled", file=sys.stderr)
+        window = None
 
     from .runtime.serving import ServingLoop
     use_staging = cfg["staging"]

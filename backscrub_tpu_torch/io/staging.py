@@ -11,11 +11,12 @@ only once the bytes are staged.
 
 :class:`StagingRing` covers both directions:
 
-- ``upload(host)``: the host array is copied into the next page-locked
-  slot of a ring, then ``.to(device, non_blocking=True)`` on the current
-  stream.  A slot is rewritten only after the event recorded behind its
-  last copy has fired: an asynchronous copy reads its source after the
-  call returns.
+- ``upload(host)``: the host array — or every array of an MJPG frame
+  ``(coefs, qtabs)``, three coefficient planes and a table in one slot —
+  is copied into the next page-locked slot of a ring, then
+  ``.to(device, non_blocking=True)`` on the current stream.  A slot is
+  rewritten only after the event recorded behind its last copy has fired:
+  an asynchronous copy reads its source after the call returns.
 - ``to_pinned(dev)``: :func:`start_download`, a copy into fresh page-locked
   memory on a side stream that first waits on the current (compute)
   stream, with an event behind it.  The returned :class:`Download` waits
@@ -87,6 +88,20 @@ def start_download(t: torch.Tensor, stream) -> Download:
     return Download(host, event, t)
 
 
+def _leaves(tree) -> list:
+    """The ndarrays of a (nested) tuple/list, in order."""
+    if isinstance(tree, (tuple, list)):
+        return [a for t in tree for a in _leaves(t)]
+    return [np.asarray(tree)]
+
+
+def _rebuild(tree, it):
+    """``tree`` with each leaf replaced by the next of ``it``."""
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_rebuild(t, it) for t in tree)
+    return next(it)
+
+
 def _torch_dtype(dtype) -> torch.dtype:
     return torch.from_numpy(np.empty(0, dtype)).dtype
 
@@ -97,7 +112,8 @@ class StagingRing:
     ``depth`` bounds how many staged downloads are kept in flight before
     ``drain()`` must consume them (mirrors ServingLoop's result ring).  The
     upload ring holds ``2 * (depth + 1)`` page-locked slots: two uploads a
-    frame (the frame and its background), ``depth + 1`` frames deep.
+    frame (the frame — an MJPG frame's arrays together — and its
+    background), ``depth + 1`` frames deep.
     """
 
     def __init__(self, device="cuda", depth: int = 3):
@@ -112,26 +128,32 @@ class StagingRing:
         self._out: collections.deque = collections.deque()
 
     # -- host -> device -----------------------------------------------------
-    def upload(self, host_array) -> torch.Tensor:
-        """Host ndarray -> device tensor via a page-locked slot."""
+    def upload(self, host):
+        """Host ndarray -> device tensor via a page-locked slot; a tuple or
+        list of ndarrays (nested, as an MJPG frame ``(coefs, qtabs)``) takes
+        one slot for all its arrays and comes back with the same nesting."""
+        leaves = _leaves(host)
         if not self.supported:
-            return torch.as_tensor(np.ascontiguousarray(host_array)).to(self.device)
-        host_array = np.asarray(host_array)
+            dev = [torch.as_tensor(np.ascontiguousarray(a)).to(self.device) for a in leaves]
+            return _rebuild(host, iter(dev))
         i = self._next
         self._next = (i + 1) % len(self._slots)
-        buf, event = self._slots[i]
+        bufs, event = self._slots[i]
         if event is not None:
             event.synchronize()  # the slot's last copy has read it
-        if buf is None or tuple(buf.shape) != host_array.shape \
-                or buf.dtype != _torch_dtype(host_array.dtype):
-            buf = torch.empty(host_array.shape, dtype=_torch_dtype(host_array.dtype),
-                              pin_memory=True)
-        np.copyto(buf.numpy(), host_array)
-        dev = buf.to(self.device, non_blocking=True)
+        if bufs is None or len(bufs) != len(leaves) or any(
+                tuple(b.shape) != a.shape or b.dtype != _torch_dtype(a.dtype)
+                for b, a in zip(bufs, leaves)):
+            bufs = [torch.empty(a.shape, dtype=_torch_dtype(a.dtype), pin_memory=True)
+                    for a in leaves]
+        dev = []
+        for b, a in zip(bufs, leaves):
+            np.copyto(b.numpy(), a)
+            dev.append(b.to(self.device, non_blocking=True))
         event = torch.cuda.Event()
         event.record()
-        self._slots[i] = (buf, event)
-        return dev
+        self._slots[i] = (bufs, event)
+        return _rebuild(host, iter(dev))
 
     # -- device -> host -----------------------------------------------------
     def to_pinned(self, dev_tensor: torch.Tensor) -> Download:

@@ -6,12 +6,15 @@ app/deepseg.cc:543) and one sink (v4l2loopback write, :683).  We keep those
 and add file/URI sources and file/null sinks so the pipeline runs and tests
 headless (no kernel video devices needed).
 
-URI forms for sources:  /dev/video0 | file:video.mp4 | image.png | test:
+URI forms for sources:  /dev/video0 | file:video.mp4 | image.png | test: | mjpg:
 Sinks:                  /dev/video1 | file:out.mp4 | file:out.yuv | null:
 
-MJPG (the ``mjpg:`` source, MJPG cameras, the mjpg sink) is not in the
-port yet: it raises NotImplementedError naming its ROADMAP item.  OpenCV
-is imported only where a file, video or camera fallback needs it.
+MJPG: a camera that grants MJPG, and the synthetic ``mjpg:`` camera, are
+:class:`JpegSource` objects: only the Huffman entropy decode runs on the host
+(``io/jpeg.py``), the rest on the card (``PipelineConfig(input_format=
+"mjpg")``).  The mjpg sink (:class:`JpegPackingSink`) Huffman-packs the
+coefficients the card encodes.  OpenCV is imported only where a file,
+video or camera fallback needs it, or for a camera's non-baseline JPEG.
 """
 
 from __future__ import annotations
@@ -21,13 +24,6 @@ import threading
 from typing import Callable, Optional
 
 import numpy as np
-
-from ..pipeline.maskgen import ROADMAP_FRAME_OPTIONS
-
-
-def _no_mjpg(what: str):
-    return NotImplementedError(f"{what} is not in the PyTorch port yet: "
-                               f"{ROADMAP_FRAME_OPTIONS} (MJPG decode and encode)")
 
 
 class LatestFrameReader:
@@ -110,20 +106,71 @@ class FrameSource:
 
 
 class JpegSource(FrameSource):
-    """The MJPG coefficient source of the JAX package: not ported yet."""
+    """MJPG stream -> coefficient frames for the card's decode.
 
-    def __init__(self, grab_jpeg=None, prefetch: bool = True):
-        raise _no_mjpg("JpegSource (MJPG device decode)")
+    Wraps a ``grab_jpeg()`` callable (camera DQBUF, file reader, ...)
+    returning one JPEG per call, or None at the end.  The Huffman entropy
+    decode runs in a :class:`LatestFrameReader` thread (``prefetch``);
+    ``read()`` returns ``(coefs, qtabs)`` ready for upload, for
+    ``PipelineConfig(input_format="mjpg", jpeg_info=self.jpeg_info)``.
+
+    The first frame is decoded at construction to fix the static geometry
+    (``jpeg_info``) before the pipeline is built, then delivered as the
+    first ``read()``.  A stream the entropy codec does not take raises
+    :class:`~backscrub_tpu_torch.io.jpeg.JpegUnsupported`.
+    """
+
+    def __init__(self, grab_jpeg, prefetch: bool = True):
+        from .jpeg import JpegEntropyDecoder
+        self._grab = grab_jpeg
+        self._dec = JpegEntropyDecoder()
+        first = grab_jpeg()
+        if first is None:
+            raise OSError("MJPG source produced no frames")
+        self._first = self._decode(first)
+        self.jpeg_info = self._dec.info
+        self.width, self.height = self.jpeg_info.width, self.jpeg_info.height
+        self._reader = LatestFrameReader(self._read_sync) if prefetch else None
+
+    def _decode(self, jpg: bytes):
+        coefs, qtabs = self._dec.decode(jpg)
+        # copy: the decoder reuses its buffers, and the serving loop
+        # uploads asynchronously — the next decode must not overwrite
+        # bytes still in flight; the tables as the int32 the card reads
+        return tuple(c.copy() for c in coefs), qtabs.astype(np.int32)
+
+    def _read_sync(self):
+        jpg = self._grab()
+        if jpg is None:
+            return None
+        return self._decode(jpg)
+
+    def read(self):
+        if self._first is not None:
+            f, self._first = self._first, None
+            return f
+        if self._reader is not None:
+            return self._reader.read()
+        return self._read_sync()
+
+    def close(self):
+        if self._reader is not None:
+            self._reader.close()
+            self._reader.join()
 
 
 class CameraSource(FrameSource):
     """V4L2 camera through the native shim (fallback: OpenCV).
 
-    YUYV/UYVY/NV12 cameras hand their raw payload to :meth:`read_raw`,
-    uploaded verbatim and decoded on the device
-    (``PipelineConfig.input_format``); :meth:`read` decodes to BGR on the
-    host.  A camera that grants MJPG raises NotImplementedError: its
-    device decode is not in the port yet.
+    A camera that grants MJPG is read through a :class:`JpegSource`
+    (``jpeg_info`` set, ``read()`` yields ``(coefs, qtabs)`` for
+    ``PipelineConfig(input_format="mjpg")``): only the entropy decode runs
+    on the host.  Its stream decodes on the host (cv2.imdecode, in a
+    :class:`LatestFrameReader` thread) only where it is not baseline JPEG
+    (progressive, arithmetic, 12-bit, CMYK), with a note on stderr; without
+    OpenCV that raises.  YUYV/UYVY/NV12 cameras hand their raw payload to
+    :meth:`read_raw`, uploaded verbatim and decoded on the device;
+    :meth:`read` decodes those to BGR on the host.
     """
 
     def __init__(self, device: str, width: int, height: int, pixfmt: str = ""):
@@ -145,9 +192,25 @@ class CameraSource(FrameSource):
             self.width = int(cap.get(cv2.CAP_PROP_FRAME_WIDTH))
             self.height = int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT))
             self._native = False
+        self.jpeg_info = None
+        self._jpeg: Optional[JpegSource] = None
+        self._reader: Optional[LatestFrameReader] = None
         if self._native and self.cap.pixelformat in ("MJPG", "JPEG"):
-            self.cap.close()
-            raise _no_mjpg(f"an MJPG camera ({device} granted {self.cap.pixelformat})")
+            from .jpeg import JpegUnsupported
+            try:
+                self._jpeg = JpegSource(self._grab_jpeg)
+                self.jpeg_info = self._jpeg.jpeg_info
+            except JpegUnsupported as e:
+                import cv2  # noqa: F401  (the host decode needs OpenCV: raise here without it)
+                print(f"MJPG stream of {device} is not baseline JPEG ({e}); decoding it "
+                      "on the host", file=sys.stderr)
+                self._reader = LatestFrameReader(self.cap.grab_bgr)
+            except BaseException:
+                self.cap.close()
+                raise
+
+    def _grab_jpeg(self):
+        return self.cap.grab_raw().tobytes()
 
     @property
     def raw_format(self):
@@ -159,6 +222,10 @@ class CameraSource(FrameSource):
                 "NV12": "nv12"}.get(self.cap.pixelformat)
 
     def read(self):
+        if self._jpeg is not None:
+            return self._jpeg.read()
+        if self._reader is not None:
+            return self._reader.read()
         if self._native:
             return self.cap.grab_bgr()
         ok, frame = self.cap.read()
@@ -178,7 +245,13 @@ class CameraSource(FrameSource):
         return raw.reshape(shape).copy()
 
     def close(self):
+        readers = [r for r in (self._reader, self._jpeg and self._jpeg._reader) if r]
+        for r in readers:
+            r.close()
+        # closing the device unblocks a reader thread stuck in grab
         self.cap.close() if self._native else self.cap.release()
+        for r in readers:
+            r.join()
 
 
 class FileSource(FrameSource):
@@ -248,11 +321,40 @@ class SyntheticSource(FrameSource):
         return (self._rows + np.tile(shift, self.width)).reshape(self.height, self.width, 3)
 
 
+class SyntheticJpegCamera:
+    """The ``mjpg:`` camera's frames: the moving test pattern JPEG-encoded
+    at quality 90, 4:2:0, by the port's encoder (``pipeline/jpeg_enc.py``,
+    on the CPU) and the host packer — byte for byte what
+    ``cv2.imencode`` writes for the JAX package's ``mjpg:`` camera, with no
+    OpenCV."""
+
+    QUALITY = 90
+
+    def __init__(self, width: int, height: int):
+        import torch
+        from ..pipeline.jpeg_enc import stream_qtabs
+        from .jpeg import JpegHuffmanEncoder, make_info
+        self.pattern = SyntheticSource(width, height)
+        self.info = make_info(width, height)
+        qt = stream_qtabs(self.QUALITY)
+        self._qtabs = torch.from_numpy(qt.astype(np.int32))
+        self._packer = JpegHuffmanEncoder(self.info, qt)
+
+    def __call__(self) -> bytes:
+        import torch
+        from ..pipeline.jpeg_enc import encode_jpeg_coefs
+        with torch.no_grad():
+            coefs = encode_jpeg_coefs(torch.from_numpy(self.pattern.read()), self._qtabs,
+                                      self.info)
+        return self._packer.encode([c.numpy() for c in coefs])
+
+
 def open_source(uri: str, width: int, height: int, pixfmt: str = "") -> FrameSource:
     if uri.startswith("test:"):
         return SyntheticSource(width or 640, height or 480)
     if uri.startswith("mjpg:"):
-        raise _no_mjpg("the mjpg: source")
+        # synthetic MJPG camera: drives the card's decode headless
+        return JpegSource(SyntheticJpegCamera(width or 640, height or 480))
     if uri.startswith("/dev/"):
         return CameraSource(uri, width, height, pixfmt)
     if uri.startswith("file:"):
@@ -352,10 +454,27 @@ class FileFrameSink(FrameSink):
 
 
 class JpegPackingSink(FrameSink):
-    """The MJPG sink of the JAX package: not ported yet."""
+    """MJPG sink: takes the pipeline's coefficient tuples
+    (``PipelineConfig(output_format="mjpg")``), Huffman-packs them
+    (``io/jpeg.py:JpegHuffmanEncoder``, the only host work) and hands the
+    JPEG bytes to ``write_bytes`` (a raw file appender or an MJPG
+    v4l2loopback writer; concatenated JPEGs are the MJPEG stream format)."""
 
-    def __init__(self, jpeg_info=None, qtabs=None, write_bytes=None, close=None):
-        raise _no_mjpg("JpegPackingSink (MJPG device encode)")
+    def __init__(self, jpeg_info, qtabs, write_bytes, close=None):
+        from .jpeg import JpegHuffmanEncoder
+        self._enc = JpegHuffmanEncoder(jpeg_info, qtabs)
+        self._write = write_bytes
+        self._close = close
+        self.last_jpeg: Optional[bytes] = None
+
+    def write_yuyv(self, coefs):  # the pipeline's output rides the generic slot
+        jpg = self._enc.encode(coefs)
+        self.last_jpeg = jpg
+        self._write(jpg)
+
+    def close(self):
+        if self._close:
+            self._close()
 
 
 class NullFrameSink(FrameSink):
@@ -370,11 +489,21 @@ class NullFrameSink(FrameSink):
 
 
 def open_sink(uri: str, width: int, height: int, fps: float = 30.0,
-              out_format: str = "yuyv") -> FrameSink:
-    if out_format == "mjpg":
-        raise _no_mjpg("the mjpg sink format")
+              out_format: str = "yuyv", jpeg_info=None, jpeg_qtabs=None) -> FrameSink:
     if uri.startswith("null:"):
         return NullFrameSink()
+    if out_format == "mjpg":
+        if jpeg_info is None or jpeg_qtabs is None:
+            raise ValueError("mjpg sink needs jpeg_info/jpeg_qtabs "
+                             "(FramePipeline.out_jpeg_info/out_jpeg_qtabs)")
+        if uri.startswith("/dev/"):
+            from .v4l2 import LoopbackSink
+            lb = LoopbackSink(uri, width, height, pixel_format="MJPG")
+            return JpegPackingSink(jpeg_info, jpeg_qtabs, lb.write_bytes, lb.close)
+        if uri.startswith("file:"):
+            uri = uri[5:]
+        f = open(uri, "wb")
+        return JpegPackingSink(jpeg_info, jpeg_qtabs, f.write, f.close)
     if uri.startswith("/dev/"):
         return LoopbackFrameSink(uri, width, height, out_format=out_format)
     if uri.startswith("file:"):

@@ -1093,14 +1093,13 @@ def _compiles(plan: BodyPlan) -> bool:
     return True
 
 
-def _cut_back(model, info, start: int, end: int, in_tid: int, build, min_nodes: int,
-              body_output_crosses: bool = False):
-    """Cut nodes[start:end] back, one node at a time while at least
-    ``min_nodes`` remain, until exactly one tensor it produces (``in_tid``
-    included) is read after it and ``build(end, tid)`` does not raise
-    Unsupported; with ``body_output_crosses``, the body output counts as
-    read when the span reaches the body's end.  Returns (plan, end, tid)
-    or None."""
+def _cuts(model, info, start: int, end: int, in_tid: int, min_nodes: int,
+          body_output_crosses: bool = False):
+    """The ends of nodes[start:end], longest first while at least
+    ``min_nodes`` remain, where exactly one tensor it produces (``in_tid``
+    included) is read after it; with ``body_output_crosses``, the body
+    output counts as read when the span reaches the body's end.  Yields
+    (end, that tensor's id)."""
     nodes = model.graph.nodes
     produced = {in_tid}
     for n in nodes[start:end]:
@@ -1110,27 +1109,25 @@ def _cut_back(model, info, start: int, end: int, in_tid: int, build, min_nodes: 
         if body_output_crosses and end == info.body_end and info.body_out_tensor in produced:
             crossing.add(info.body_out_tensor)
         if len(crossing) == 1:
-            tid = crossing.pop()
-            try:
-                return build(end, tid), end, tid
-            except Unsupported:
-                pass
+            yield end, crossing.pop()
         end -= 1
         produced.difference_update(nodes[end].outputs)
+
+
+def _first_plan(cuts, build):
+    """(plan, end, tid) at the first of ``cuts`` where ``build(end, tid)``
+    does not raise Unsupported, or None."""
+    for end, tid in cuts:
+        try:
+            return build(end, tid), end, tid
+        except Unsupported:
+            pass
     return None
 
 
-def body_plan_prefix_for(model, info, *, min_nodes: int = 4):
-    """K2': a BodyPlan over the longest qualifying prefix of a front-only
-    family's body span (``body_mega_prefix_for``), or None.
-
-    The span runs from the body start up to the first node whose output
-    has c >= 96 at rows <= 33 (the regime the continuation takes), cut
-    back until exactly one tensor produced before the cut (the span input
-    included) is read after it.  Returns (plan compiled, cut node index,
-    cut tensor id)."""
-    if not info.front_ok:
-        return None
+def _prefix_span(model, info):
+    """From the body start up to the first node whose output has c >= 96 at
+    rows <= 33 (the regime the continuation takes): (start, end)."""
     g = model.graph
     start = end = info.body_start
     for i in range(start, info.body_end):
@@ -1140,9 +1137,32 @@ def body_plan_prefix_for(model, info, *, min_nodes: int = 4):
                 or (s[3] >= 96 and s[1] <= 33):
             break
         end = i + 1
-    found = _cut_back(model, info, start, end, info.body_in_tensor,
-                      lambda e, tid: BodyPlan(model, start, e, info.body_in_tensor, tid,
-                                              allow_spaced_output=True), min_nodes)
+    return start, end
+
+
+# body_plan_prefix_for's answer where no cut of the prefix span has one
+# tensor crossing it: the reference then runs the whole body after the
+# front through its lowerings (the segm family with a post option, whose
+# decoder reads the span input and an early skip past every cut)
+NO_CUT = "no cut"
+
+
+def body_plan_prefix_for(model, info, *, min_nodes: int = 4):
+    """K2': a BodyPlan over the longest qualifying prefix of a front-only
+    family's body span (``body_mega_prefix_for``), None where the plan at
+    every cut fails, or :data:`NO_CUT`.
+
+    The span is :func:`_prefix_span`'s, cut back until exactly one tensor
+    produced before the cut (the span input included) is read after it.
+    Returns (plan compiled, cut node index, cut tensor id)."""
+    if not info.front_ok:
+        return None
+    start, end = _prefix_span(model, info)
+    cuts = list(_cuts(model, info, start, end, info.body_in_tensor, min_nodes))
+    if not cuts:
+        return NO_CUT
+    found = _first_plan(cuts, lambda e, tid: BodyPlan(model, start, e, info.body_in_tensor,
+                                                      tid, allow_spaced_output=True))
     return found if found is not None and _compiles(found[0]) else None
 
 
@@ -1166,7 +1186,7 @@ def body_plan_continuation_for(model, info, start: int, in_tid: int, *,
         if node.kind not in SUPPORTED or s is None or len(s) != 4:
             break
         end = i + 1
-    found = _cut_back(model, info, start, end, in_tid,
-                      lambda e, tid: BodyPlan(model, start, e, in_tid, tid, flat=True),
-                      min_nodes, body_output_crosses=True)
+    found = _first_plan(_cuts(model, info, start, end, in_tid, min_nodes,
+                              body_output_crosses=True),
+                        lambda e, tid: BodyPlan(model, start, e, in_tid, tid, flat=True))
     return found if found is not None and _compiles(found[0]) else None

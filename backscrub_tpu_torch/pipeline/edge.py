@@ -47,11 +47,13 @@ from .. import _build
 from ..graph.executor import span_fn
 from ..ops.common import apply_activation
 from ..ops.megakernel import (body_plan_continuation_for, body_plan_for,
-                              body_plan_prefix_for)
+                              body_plan_prefix_for, NO_CUT)
 from ..ops.misc import resize_matrix
 from .decode import decode_val, ema_update
 from .geometry import RoiGeometry
-from .image import _bilateral_taps, bilateral_planes, blur_matrix, box_blur
+from .image import (_bilateral_taps, apply_mask_morph, bilateral_planes, blur_matrix,
+                    box_blur, box_blur_u8_exact, guided_filter, resize_bilinear,
+                    resize_bilinear_u8_exact)
 
 
 @dataclasses.dataclass
@@ -160,14 +162,20 @@ def detect_edge(model, spec) -> Optional[EdgeInfo]:
     return info
 
 
-def edge_applicable(model, spec, geo: Optional[RoiGeometry] = None) -> Optional[EdgeInfo]:
-    """Gate of the fused path: the pattern matches, and the tail also needs
-    an output crop fine enough for fold-blur (min crop dim >= 64).  The
-    slice serves the default post only (box refine, float, no morph)."""
+def edge_applicable(model, spec, geo: Optional[RoiGeometry] = None, *,
+                    refine: str = "box", u8_exact: bool = False,
+                    morph: str = "") -> Optional[EdgeInfo]:
+    """Gate of the fused path (``backscrub_tpu/pipeline/edge.py:
+    edge_applicable``): the front applies whenever the pattern matches; the
+    tail also needs the default post (box refine, float post, no morph)
+    and an output crop fine enough for fold-blur (min crop dim >= 64).
+    With the tail off the body span runs to the graph's end and the
+    model's own decode rule follows it."""
     info = detect_edge(model, spec)
     if info is None:
         return None
-    if info.tail_ok and geo is not None and min(geo.out_roi.h, geo.out_roi.w) < 64:
+    if info.tail_ok and (refine != "box" or u8_exact or morph or (
+            geo is not None and min(geo.out_roi.h, geo.out_roi.w) < 64)):
         info.tail_ok = False
         info.body_end = len(model.graph.nodes)
         info.body_out_tensor = model.graph.outputs[0]
@@ -300,13 +308,11 @@ def pad_to_frame(m: torch.Tensor, geo: RoiGeometry) -> torch.Tensor:
                  value=255)
 
 
-def fold_blur_post(ema: torch.Tensor, geo: RoiGeometry, ah: torch.Tensor,
+def fold_blur_post(small: torch.Tensor, geo: RoiGeometry, ah: torch.Tensor,
                    aw: torch.Tensor) -> torch.Tensor:
-    """EMA (oh, ow) u8 -> full-frame mask: crop the output ROI, then
-    ``ah @ crop @ aw.T`` (upscale + 5x5 box blur), round, embed."""
-    o = geo.out_roi
-    small = ema[o.y:o.y + o.h, o.x:o.x + o.w].float()
-    y = torch.matmul(torch.matmul(ah, small), aw.T)
+    """The cropped EMA (o.h, o.w) u8 -> full-frame mask: ``ah @ crop @
+    aw.T`` (upscale + 5x5 box blur), round, embed."""
+    y = torch.matmul(torch.matmul(ah, small.float()), aw.T)
     return pad_to_frame(torch.clamp(torch.round(y), 0, 255).to(torch.uint8), geo)
 
 
@@ -345,21 +351,57 @@ def post_footprint(ema_pixels: torch.Tensor, geo: RoiGeometry, mats) -> torch.Te
     return foot
 
 
-def postprocess_mask(ema_u8: torch.Tensor, geo: RoiGeometry, mats=None) -> torch.Tensor:
-    """EMA (oh, ow) u8 -> full-frame mask (H, W) u8: crop the model-output
-    ROI, upscale to the frame ROI, 5x5 box blur, embed in 255.
+# the guided refinement's radius at frame resolution (the JAX package's
+# default: IoU against the box-blur path ~0.96 on real frames)
+GUIDED_RADIUS = 4
 
-    A crop of at least 64 px both ways runs blur∘upscale as one matrix per
-    axis (fold-blur; ``mats`` from :func:`fold_blur_tensors`, built here
-    when not given); a coarser one runs the two stages with a round
-    between them, as the reference's u8 path quantizes.
+
+def postprocess_mask(ema_u8: torch.Tensor, geo: RoiGeometry, mats=None, *,
+                     u8_exact: bool = False, refine: str = "box", frame_bgr=None,
+                     morph: str = "") -> torch.Tensor:
+    """EMA (oh, ow) u8 -> full-frame mask (H, W) u8
+    (``backscrub_tpu/pipeline/maskgen.py:postprocess_mask``): crop the
+    model-output ROI, then ``morph`` (``apply_mask_morph``) at model
+    resolution, then one of:
+
+    - ``refine="guided"`` (``frame_bgr`` the guide): bilinear upscale to
+      the frame ROI, then the guided filter over the frame's BT.601 luma,
+      radius GUIDED_RADIUS;
+    - ``u8_exact``: upscale and 5x5 box blur in OpenCV's u8 fixed point,
+      byte for byte the reference binary's post;
+    - the default: a crop of at least 64 px both ways runs blur∘upscale as
+      one matrix per axis (fold-blur; ``mats`` from
+      :func:`fold_blur_tensors`, built here when not given); a coarser one
+      runs the two stages with a round between them, as the reference's u8
+      path quantizes.
+
+    Outside the ROI the mask is 255.  Guided refinement and u8_exact
+    contradict each other (ValueError), as in the JAX package.
     """
-    o = geo.out_roi
+    o, r = geo.out_roi, geo.roi
+    small = ema_u8[o.y:o.y + o.h, o.x:o.x + o.w]
+    if morph:
+        small = apply_mask_morph(small, morph)
+    if refine == "guided":
+        if u8_exact:
+            raise ValueError("refine='guided' and u8_exact byte parity are contradictory: "
+                             "guided refinement intentionally deviates from the reference "
+                             "binary's box-blur path — request one or the other")
+        if frame_bgr is None:
+            raise ValueError("refine='guided' needs the camera frame as guide")
+        up = resize_bilinear(small.float()[..., None], r.h, r.w)[..., 0] / 255.0
+        roi = frame_bgr[r.y:r.y + r.h, r.x:r.x + r.w, :].float()
+        luma = (roi[..., 2] * 0.299 + roi[..., 1] * 0.587 + roi[..., 0] * 0.114) / 255.0
+        q = guided_filter(luma, up, radius=GUIDED_RADIUS, eps=1e-3)
+        return pad_to_frame(torch.clamp(torch.round(q * 255.0), 0, 255).to(torch.uint8), geo)
+    if u8_exact:
+        up8 = resize_bilinear_u8_exact(small[..., None], r.h, r.w)
+        return pad_to_frame(box_blur_u8_exact(up8, 5)[..., 0], geo)
     if min(o.h, o.w) >= 64:
-        return fold_blur_post(ema_u8, geo, *(mats or fold_blur_tensors(geo, ema_u8.device)))
-    small = ema_u8[o.y:o.y + o.h, o.x:o.x + o.w].float()
-    rh0, rh1 = upscale_taps(o.h, geo.roi.h, small.device)
-    rw0, rw1 = upscale_taps(o.w, geo.roi.w, small.device)
+        return fold_blur_post(small, geo, *(mats or fold_blur_tensors(geo, ema_u8.device)))
+    small = small.float()
+    rh0, rh1 = upscale_taps(o.h, r.h, small.device)
+    rw0, rw1 = upscale_taps(o.w, r.w, small.device)
     y = rh0 @ small + rh1 @ small
     up = torch.round(y @ rw0.T + y @ rw1.T)
     m = torch.clamp(torch.round(box_blur(up[..., None], 5)[..., 0]), 0, 255).to(torch.uint8)
@@ -392,7 +434,11 @@ def body_plans(model, info: EdgeInfo, mega: Optional[bool] = None, cont: bool = 
     (K2') and, with ``cont``, the continuation plan (K2''); ``mega=True``
     demands the full span, as in the reference.  A span left to the
     executor runs plain PyTorch, so a missing plan is no fused path at all
-    rather than the executor in its place."""
+    rather than the executor in its place, with one exception that is the
+    reference's own route: a front-only span with no cut that one tensor
+    crosses (``NO_CUT``; the segm family with a post option) has no
+    prefix plan there either, and the executor runs the whole body after
+    K1."""
     start, tid = info.body_start, info.body_in_tensor
     if mega is False:
         return [], start, tid
@@ -402,6 +448,8 @@ def body_plans(model, info: EdgeInfo, mega: Optional[bool] = None, cont: bool = 
     if mega:
         return None
     r = body_plan_prefix_for(model, info)
+    if r is NO_CUT:
+        return [], start, tid
     if r is None:
         return None
     plans, start, tid = [r[0]], r[1], r[2]
@@ -425,12 +473,16 @@ class EdgeFused:
     otherwise).  The body runs the plans of :func:`body_plans` (given as
     ``plans``, or found here) and the graph executor over the nodes they
     leave; a plan the switches call for that does not build raises
-    ValueError.
+    ValueError.  ``post_options`` are :func:`postprocess_mask`'s
+    ``refine``, ``morph`` and ``u8_exact`` (the caller's dict, e.g.
+    ``MaskGen.post_options``); ``info`` then comes from
+    :func:`edge_applicable` given the same options.
     """
 
     def __init__(self, model, geo: RoiGeometry, spec, info: EdgeInfo, *,
                  use_bilateral: bool = True, device="cuda",
-                 mega: Optional[bool] = None, cont: bool = False, plans=None):
+                 mega: Optional[bool] = None, cont: bool = False, plans=None,
+                 post_options: Optional[dict] = None):
         if not info.front_ok:
             raise ValueError("the PyTorch edge path needs the fused front")
         if plans is None:
@@ -442,6 +494,7 @@ class EdgeFused:
                              "the classic path serves this model")
         self.model, self.geo, self.spec, self.info = model, geo, spec, info
         self.use_bilateral = use_bilateral
+        self.post_options = post_options or {}
         dev = _build.resolve_device(device)
         hp = model.host_params
         ih, iw = model.input_shape[1:3]
@@ -538,9 +591,11 @@ class EdgeFused:
         val = torch.where(self.tail_logits(body_out) > self.info.tail_threshold, 0, 255)
         return (val.to(torch.uint8) & 0xE0) | (ema >> 3)
 
-    def postprocess(self, ema: torch.Tensor) -> torch.Tensor:
-        """EMA (oh, ow) u8 -> full-frame mask (H, W) u8."""
-        return postprocess_mask(ema, self.geo, self.post_mats)
+    def postprocess(self, ema: torch.Tensor, frame: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """EMA (oh, ow) u8 -> full-frame mask (H, W) u8 with the post
+        options; ``frame`` is the guide of ``refine="guided"``."""
+        return postprocess_mask(ema, self.geo, self.post_mats, frame_bgr=frame,
+                                **self.post_options)
 
     def step_mask(self, frame: torch.Tensor, ema: torch.Tensor, plain: bool = False,
                   gemm: str = "f32"):
@@ -551,4 +606,4 @@ class EdgeFused:
             new_ema = self.tail(out.reshape(out.shape[0], -1), ema)
         else:
             new_ema = ema_update(ema, decode_val(out.permute(1, 2, 0), self.spec))
-        return self.postprocess(new_ema), new_ema
+        return self.postprocess(new_ema, frame), new_ema

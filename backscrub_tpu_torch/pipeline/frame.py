@@ -5,12 +5,14 @@ Replaces the reference's main-loop hot path (``app/deepseg.cc:627-690``):
 mask -> background (explicit, green, or the camera frame with effects) ->
 alpha blend -> flip -> resize -> pack.  On CUDA one step runs the mask
 (the fused edge path: K1 and K2 for the segm family, K1, K2' and K2'' for
-deeplab; or the classic stages with K5) and, where the JAX package takes
-its fused pack kernels, the blend + pack kernel (K3 for YUYV, K4 for
-NV12/I420), with the EMA mask carried on the device.  Frames arrive as
-BGR or as a camera's raw YUYV, UYVY or NV12 bytes, decoded on the device
-before the mask; the options that still raise NotImplementedError name
-the ROADMAP item that brings them.
+deeplab, K1 and the executor for the segm family with a post option; or
+the classic stages with K5) and, where the JAX package takes its fused
+pack kernels, the blend + pack kernel (K3 for YUYV, K4 for NV12/I420),
+with the EMA mask carried on the device.  Frames arrive as BGR, as a
+camera's raw YUYV, UYVY or NV12 bytes, or as an MJPG camera's JPEG
+coefficients (``bs_jpeg_decode``), decoded on the device before the mask;
+with ``output_format="mjpg"`` the step returns the quantized coefficients
+of the composite (``pipeline/jpeg_enc.py``) for the host's Huffman pack.
 """
 
 from __future__ import annotations
@@ -21,19 +23,19 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..io.jpeg import make_info
+from ..ops.jpeg_kernels import decode_jpeg_bgr
 from ..ops.pack_kernels import blend_pack_420, blend_pack_yuyv
 from .image import (alpha_blend_u8, bgr_to_i420, bgr_to_nv12, desaturate_u8, flip,
                     gaussian_blur, nv12_to_bgr_u8, pixelate_u8, resize_bilinear,
                     rgb_to_yuyv, yuyv_to_rgb_u8)
-from .maskgen import ROADMAP_FRAME_OPTIONS, MaskGen
+from .jpeg_enc import encode_jpeg_coefs, stream_qtabs
+from .maskgen import MaskGen
 
-# option -> (value the port serves, what of the ROADMAP item brings the rest)
-_NOT_YET = {
-    "mask_refine": ("box", "refine=guided"),
-    "mask_morph": ("", "morph"),
-}
-_INPUT_FORMATS = ("bgr", "yuyv", "uyvy", "nv12")
-_OUTPUT_FORMATS = ("yuyv", "nv12", "i420", "bgr")
+_INPUT_FORMATS = ("bgr", "yuyv", "uyvy", "nv12", "mjpg")
+_OUTPUT_FORMATS = ("yuyv", "nv12", "i420", "bgr", "mjpg")
+_JPEG_SAMPLING = {"420": ((2, 2), (1, 1), (1, 1)), "422": ((2, 1), (1, 1), (1, 1)),
+                  "444": ((1, 1), (1, 1), (1, 1))}
 
 
 @dataclasses.dataclass
@@ -48,8 +50,8 @@ class PipelineConfig:
     flip_horizontal: bool = False
     flip_vertical: bool = False
     use_bilateral: bool = True
-    mask_refine: str = "box"
-    mask_morph: str = ""
+    mask_refine: str = "box"           # "box" | "guided" (-p refine:guided)
+    mask_morph: str = ""               # -p morph:<erode|dilate|open|close>[:k]
     edge_fused: Optional[bool] = None  # None: fused edge path when the model
                                        # matches; False: classic stages
     edge_mega: Optional[bool] = None   # body plans (K2 / K2'); False: the
@@ -59,9 +61,17 @@ class PipelineConfig:
     chroma_order: str = "reference"    # or "yuy2" for spec-correct output
     correct_colors: bool = False       # True: proper BGR->RGB before the pack
     output_format: str = "yuyv"        # "yuyv" (H, 2W) | "nv12" (3H/2, W) |
-                                       # "i420" (3HW/2,) | "bgr" (H, W, 3)
+                                       # "i420" (3HW/2,) | "bgr" (H, W, 3) |
+                                       # "mjpg": JPEG coefficients, a tuple of
+                                       # (bh, bw, 64) int16 in zigzag order
+    out_jpeg_quality: int = 85         # output_format="mjpg": libjpeg quality
+    out_jpeg_sampling: str = "420"     # and chroma sampling (420|422|444)
     input_format: str = "bgr"          # "bgr" (H, W, 3) | "yuyv" / "uyvy" (H, 2W)
-                                       # | "nv12" (3H/2, W): raw camera bytes
+                                       # | "nv12" (3H/2, W): raw camera bytes |
+                                       # "mjpg": (coefs, qtabs) from the host
+                                       # entropy decoder (io/jpeg.py)
+    jpeg_info: Optional[object] = None  # io.jpeg.JpegInfo, required for
+                                        # input_format="mjpg" (fixed a stream)
 
 
 class FramePipeline:
@@ -84,15 +94,6 @@ class FramePipeline:
     """
 
     def __init__(self, model: str, config: PipelineConfig, *, device="cuda"):
-        for name, (served, item) in _NOT_YET.items():
-            value = getattr(config, name)
-            if value != served:
-                raise NotImplementedError(
-                    f"{name}={value!r} is not in the PyTorch port yet: "
-                    f"{ROADMAP_FRAME_OPTIONS} ({item})")
-        if config.input_format == "mjpg":
-            raise NotImplementedError(f"input_format='mjpg' is not in the PyTorch port "
-                                      f"yet: {ROADMAP_FRAME_OPTIONS} (MJPG decode)")
         if config.input_format not in _INPUT_FORMATS:
             raise ValueError(f"input_format must be one of {_INPUT_FORMATS}, "
                              f"got {config.input_format!r}")
@@ -101,10 +102,15 @@ class FramePipeline:
         if config.input_format == "nv12" and (config.width % 2 or config.height % 2):
             raise ValueError(f"capture geometry {config.width}x{config.height}: 4:2:0 "
                              "(nv12) ingest needs even width and height")
+        if config.input_format == "mjpg":
+            info = config.jpeg_info
+            if info is None:
+                raise ValueError("input_format='mjpg' needs jpeg_info "
+                                 "(io.jpeg.parse_header of the first frame)")
+            if (info.width, info.height) != (config.width, config.height):
+                raise ValueError(f"MJPG stream is {info.width}x{info.height} but capture "
+                                 f"geometry is {config.width}x{config.height}")
         fmt = config.output_format
-        if fmt == "mjpg":
-            raise NotImplementedError(f"output_format='mjpg' is not in the PyTorch port "
-                                      f"yet: {ROADMAP_FRAME_OPTIONS} (MJPG encode)")
         if fmt not in _OUTPUT_FORMATS:
             raise ValueError(f"output_format must be one of {_OUTPUT_FORMATS}, got {fmt!r}")
         ow = config.out_width or config.width
@@ -120,23 +126,37 @@ class FramePipeline:
                 if a % 2 or b % 2:
                     raise ValueError(f"{label} geometry {a}x{b}: 4:2:0 output ({fmt}) "
                                      "needs even width and height")
+        self.out_jpeg_info = self.out_jpeg_qtabs = None
+        if fmt == "mjpg":
+            if config.out_jpeg_sampling not in _JPEG_SAMPLING:
+                raise ValueError(f"out_jpeg_sampling must be one of {tuple(_JPEG_SAMPLING)}, "
+                                 f"got {config.out_jpeg_sampling!r}")
+            self.out_jpeg_info = make_info(ow, oh, _JPEG_SAMPLING[config.out_jpeg_sampling])
+            self.out_jpeg_qtabs = stream_qtabs(config.out_jpeg_quality)
         self.cfg = config
         self.out_geo = (oh, ow)
         self.maskgen = MaskGen(model, config.width, config.height,
                                device=device, use_bilateral=config.use_bilateral,
+                               refine=config.mask_refine, morph=config.mask_morph,
                                edge_fused=config.edge_fused,
                                edge_mega=config.edge_mega,
                                edge_cont=config.edge_cont)
         self.device = self.maskgen.device
+        self._out_qtabs = (None if self.out_jpeg_qtabs is None else
+                           torch.from_numpy(self.out_jpeg_qtabs.astype(np.int32)).to(self.device))
         self.geo = self.maskgen.geo
         green = np.zeros((config.height, config.width, 3), np.uint8)
         green[..., 1] = 255
         self.green = torch.from_numpy(green).to(self.device)
 
-    def _upload(self, img, name: str, fmt: str = "bgr") -> torch.Tensor:
+    def _upload(self, img, name: str, fmt: str = "bgr"):
         """A host array or a tensor already on the device (a staged
         upload: not copied again) as a contiguous u8 tensor on the device,
-        checked against the shape that ``fmt`` gives the capture geometry."""
+        checked against the shape that ``fmt`` gives the capture geometry;
+        an MJPG frame ``(coefs, qtabs)`` as (int16 tensors a component,
+        int32 tables)."""
+        if fmt == "mjpg":
+            return self._upload_jpeg(img)
         t = torch.as_tensor(img).to(self.device)
         h, w = self.cfg.height, self.cfg.width
         want = {"bgr": (h, w, 3), "yuyv": (h, 2 * w), "uyvy": (h, 2 * w),
@@ -146,11 +166,30 @@ class FramePipeline:
                              f"{tuple(t.shape)} {t.dtype}")
         return t.contiguous()
 
-    def decode(self, frame: torch.Tensor) -> torch.Tensor:
+    def _upload_jpeg(self, frame):
+        info = self.cfg.jpeg_info
+        coefs, qtabs = frame
+        coefs = [torch.as_tensor(c).to(self.device) for c in coefs[:info.ncomp]]
+        for c, t in enumerate(coefs):
+            if tuple(t.shape) != info.blocks[c] + (64,) or t.dtype != torch.int16:
+                raise ValueError(f"MJPG component {c}: expected {info.blocks[c] + (64,)} "
+                                 f"int16, got {tuple(t.shape)} {t.dtype}")
+        if not isinstance(qtabs, torch.Tensor):  # the decoder's u16 tables
+            qtabs = torch.from_numpy(np.asarray(qtabs, np.int32))
+        q = qtabs.to(self.device, torch.int32)
+        if tuple(q.shape) != (info.ncomp, 64):
+            raise ValueError(f"MJPG quant tables: expected {(info.ncomp, 64)}, "
+                             f"got {tuple(q.shape)}")
+        return [t.contiguous() for t in coefs], q.contiguous()
+
+    def decode(self, frame) -> torch.Tensor:
         """The uploaded frame as BGR (H, W, 3) u8: raw camera bytes
-        decoded on the device (``backscrub_tpu/pipeline/frame.py:229-234``:
-        BT.601 video range, YUY2 chroma order), BGR as it is."""
+        decoded on the device (``backscrub_tpu/pipeline/frame.py:229-244``:
+        BT.601 video range, YUY2 chroma order; MJPG coefficients through
+        ``bs_jpeg_decode``, bit-exact vs cv2.imdecode), BGR as it is."""
         fmt = self.cfg.input_format
+        if fmt == "mjpg":
+            return decode_jpeg_bgr(frame[0], frame[1], self.cfg.jpeg_info)
         if fmt in ("yuyv", "uyvy"):
             h, w2 = frame.shape
             return yuyv_to_rgb_u8(frame.reshape(h, w2 // 2, 2), layout=fmt).flip(-1)
@@ -185,9 +224,10 @@ class FramePipeline:
                              0, 255).to(torch.uint8)
         return bg.contiguous()
 
-    def finish(self, comp: torch.Tensor, flip_h: bool, flip_v: bool) -> torch.Tensor:
+    def finish(self, comp: torch.Tensor, flip_h: bool, flip_v: bool):
         """Composite (H, W, 3) BGR u8 -> output bytes (``frame.py:201-227``):
-        flip, resize to the output geometry, convert."""
+        flip, resize to the output geometry, convert; for "mjpg" the tuple
+        of quantized coefficients a component (zigzag order)."""
         cfg = self.cfg
         comp = flip(comp, flip_h, flip_v)
         oh, ow = self.out_geo
@@ -197,6 +237,8 @@ class FramePipeline:
         fmt = cfg.output_format
         if fmt == "bgr":
             return comp
+        if fmt == "mjpg":
+            return tuple(encode_jpeg_coefs(comp, self._out_qtabs, self.out_jpeg_info))
         if fmt == "nv12":
             return bgr_to_nv12(comp)
         if fmt == "i420":
@@ -208,10 +250,11 @@ class FramePipeline:
     @torch.no_grad()
     def step(self, frame_bgr_u8, background_bgr_u8=None, *, flip_horizontal=None,
              flip_vertical=None, filter_active: bool = True):
-        """Process one frame.  ``flip_horizontal`` / ``flip_vertical``
-        override the config for this step; ``filter_active=False`` passes
-        the frame through (mask all 255, the EMA untouched), as the
-        reference's 's' key does."""
+        """Process one frame (for input_format="mjpg" the ``(coefs, qtabs)``
+        of the host entropy decoder).  ``flip_horizontal`` /
+        ``flip_vertical`` override the config for this step;
+        ``filter_active=False`` passes the frame through (mask all 255, the
+        EMA untouched), as the reference's 's' key does."""
         cfg = self.cfg
         fh = cfg.flip_horizontal if flip_horizontal is None else flip_horizontal
         fv = cfg.flip_vertical if flip_vertical is None else flip_vertical

@@ -7,6 +7,9 @@ masks, u8 in and out of the integer ops.  Reference counterparts:
 - resize (cv::resize INTER_LINEAR)            lib/libbackscrub.cc:289,368
 - bilateral filter d=5 sigma=100,100           lib/libbackscrub.cc:297
 - 5x5 box blur (cv::blur)                      lib/libbackscrub.cc:371
+- the same two in OpenCV's u8 fixed point (u8_exact post), bit-exact
+- guided filter (the refine:guided mask option)
+- erode / dilate (cv2, rect kernel; the morph: mask option), bit-exact
 - Gaussian background blur                     app/deepseg.cc:658
 - alpha blend (integer, /255)                  app/deepseg.cc:108-134
 - flips (cv::flip)                             app/deepseg.cc:667-673
@@ -31,6 +34,77 @@ def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     if tuple(x.shape[-3:-1]) == (out_h, out_w):
         return x
     return resize_bilinear_nhwc(x, out_h, out_w, half_pixel_centers=True)
+
+
+def _cv2_linear_taps(in_size: int, out_size: int):
+    """OpenCV INTER_LINEAR tap positions and coefficients in fixed point
+    (x2048), as imgproc/resize.cpp: fx in float32 from the double scale,
+    floor/frac split, each tap rounded to the 11-bit grid with cvRound
+    (ties to even).  Indices may be -1 or in_size: callers clamp them at
+    the sample site, keeping the coefficients, as OpenCV clamps pointers."""
+    dst = np.arange(out_size, dtype=np.float64)
+    fx = ((dst + 0.5) * (in_size / out_size) - 0.5).astype(np.float32)
+    sx = np.floor(fx).astype(np.int64)
+    fx = fx.astype(np.float64) - sx
+    c1 = np.rint(fx * 2048.0).astype(np.int32)
+    return sx, 2048 - c1, c1
+
+
+def _index(idx: np.ndarray, n: int, device) -> torch.Tensor:
+    return torch.from_numpy(np.clip(idx, 0, n - 1).astype(np.int64)).to(device)
+
+
+def resize_bilinear_u8_exact(x_u8: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """cv2.resize(..., INTER_LINEAR) on (..., H, W, C) u8, bit-exact with
+    OpenCV's fixed-point path (``backscrub_tpu/pipeline/image.py:66``):
+    the horizontal pass sums each output's two taps in int32 (exact), the
+    vertical pass rounds tap-wise as OpenCV's vector code does,
+    ``(((r0>>4)*b0)>>16) + (((r1>>4)*b1)>>16) + 2) >> 2``.  Taps are
+    gathered, so the same code runs on any device (int32 has no matmul on
+    the card)."""
+    h, w = x_u8.shape[-3], x_u8.shape[-2]
+    if (h, w) == (out_h, out_w):
+        return x_u8
+    dev = x_u8.device
+    sx, c0x, c1x = _cv2_linear_taps(w, out_w)
+    x = x_u8.to(torch.int32)
+    c0 = torch.from_numpy(c0x[:, None]).to(dev)
+    c1 = torch.from_numpy(c1x[:, None]).to(dev)
+    acc = (x.index_select(-2, _index(sx, w, dev)) * c0
+           + x.index_select(-2, _index(sx + 1, w, dev)) * c1)   # <= 255*2048
+    sy, b0, b1 = _cv2_linear_taps(h, out_h)
+    r0 = acc.index_select(-3, _index(sy, h, dev)) >> 4
+    r1 = acc.index_select(-3, _index(sy + 1, h, dev)) >> 4
+    b0 = torch.from_numpy(b0[:, None, None]).to(dev)
+    b1 = torch.from_numpy(b1[:, None, None]).to(dev)
+    out = (((r0 * b0) >> 16) + ((r1 * b1) >> 16) + 2) >> 2
+    return torch.clamp(out, 0, 255).to(torch.uint8)
+
+
+def _reflect101_index(n: int, r: int, device) -> torch.Tensor:
+    """Source index of each position of a reflect-101 pad of ``r``."""
+    i = np.abs(np.arange(-r, n + r))
+    i = np.where(i > n - 1, 2 * (n - 1) - i, i)
+    return torch.from_numpy(i.astype(np.int64)).to(device)
+
+
+def box_blur_u8_exact(x_u8: torch.Tensor, ksize: int = 5) -> torch.Tensor:
+    """cv2.blur on (..., H, W, C) u8, bit-exact: integer window sums with
+    a reflect-101 border, scaled by 1/k^2 in f32 and rounded half to even
+    (cvRound); the sum is integral, so the f32 product is never within
+    rounding error of a tie."""
+    r = ksize // 2
+    h, w = x_u8.shape[-3], x_u8.shape[-2]
+    xp = x_u8.to(torch.int32).index_select(-3, _reflect101_index(h, r, x_u8.device))
+    xp = xp.index_select(-2, _reflect101_index(w, r, x_u8.device))
+    acc = 0
+    for i in range(ksize):
+        acc = acc + xp[..., i:i + h, :, :]
+    acc2 = 0
+    for j in range(ksize):
+        acc2 = acc2 + acc[..., :, j:j + w, :]
+    scale = torch.tensor(1.0 / (ksize * ksize), dtype=torch.float32, device=x_u8.device)
+    return torch.clamp(torch.round(acc2.float() * scale), 0, 255).to(torch.uint8)
 
 
 def _bilateral_taps(d: int = 5, sigma_space: float = 100.0):
@@ -117,6 +191,77 @@ def blur_matrix(size: int, ksize: int = 5) -> np.ndarray:
                 i = 2 * (size - 1) - i
             m[o, max(0, min(i, size - 1))] += 1.0 / ksize
     return m.astype(np.float32)
+
+
+def guided_filter(guide: torch.Tensor, src: torch.Tensor, radius: int = 8,
+                  eps: float = 1e-3) -> torch.Tensor:
+    """He et al.'s guided filter: refine ``src`` (..., H, W) with the edges
+    of ``guide`` (..., H, W), both float in [0, 1]; the means are box blurs
+    of 2r+1 with a reflect-101 border (``backscrub_tpu/pipeline/image.py:
+    guided_filter``)."""
+    k = 2 * radius + 1
+
+    def mean(x):
+        return box_blur(x[..., None], k)[..., 0]
+
+    m_i = mean(guide)
+    m_p = mean(src)
+    corr_i = mean(guide * guide)
+    corr_ip = mean(guide * src)
+    var_i = corr_i - m_i * m_i
+    cov_ip = corr_ip - m_i * m_p
+    a = cov_ip / (var_i + eps)
+    b = m_p - a * m_i
+    return mean(a) * guide + mean(b)
+
+
+def _morph_u8(x_u8: torch.Tensor, k: int, reduce, init: int) -> torch.Tensor:
+    """k x k rect-kernel min/max of (..., H, W) u8, the border padded with
+    ``init`` (a value that never wins), as two 1-D passes (exact: a rect
+    window's min is the min of its rows' mins)."""
+    if k < 1 or k % 2 == 0:
+        raise ValueError(f"morphology kernel must be odd and >= 1, got {k}")
+    r = (k - 1) // 2
+    h, w = x_u8.shape[-2], x_u8.shape[-1]
+    rows = torch.full(tuple(x_u8.shape[:-2]) + (r, w), init, dtype=x_u8.dtype,
+                      device=x_u8.device)
+    xp = torch.cat([rows, x_u8, rows], dim=-2)
+    acc = xp[..., 0:h, :]
+    for i in range(1, k):
+        acc = reduce(acc, xp[..., i:i + h, :])
+    cols = torch.full(tuple(acc.shape[:-1]) + (r,), init, dtype=acc.dtype, device=acc.device)
+    xp = torch.cat([cols, acc, cols], dim=-1)
+    out = xp[..., 0:w]
+    for j in range(1, k):
+        out = reduce(out, xp[..., j:j + w])
+    return out
+
+
+def erode_u8(x_u8: torch.Tensor, k: int = 3) -> torch.Tensor:
+    """cv2.erode, bit-exact: k x k rect min filter, cv2's default border
+    (+inf) as padding that never wins; (..., H, W) u8, odd k."""
+    return _morph_u8(x_u8, k, torch.minimum, 255)
+
+
+def dilate_u8(x_u8: torch.Tensor, k: int = 3) -> torch.Tensor:
+    """cv2.dilate, bit-exact: k x k rect max filter, -inf border."""
+    return _morph_u8(x_u8, k, torch.maximum, 0)
+
+
+def apply_mask_morph(mask_u8: torch.Tensor, spec: str) -> torch.Tensor:
+    """``morph:<erode|dilate|open|close>[:k]`` (k default 3) on the PERSON
+    region of a (..., H, W) u8 mask.  Masks are 0 = person, so eroding the
+    person is a max filter of the bytes and dilating it a min filter;
+    open and close compose them (``backscrub_tpu/pipeline/image.py:
+    apply_mask_morph``)."""
+    parts = spec.split(":")
+    k = int(parts[1]) if len(parts) > 1 and parts[1] else 3
+    seq = {"erode": "D", "dilate": "E", "open": "DE", "close": "ED"}.get(parts[0])
+    if seq is None:
+        raise ValueError(f"morph op must be erode|dilate|open|close, got {parts[0]!r}")
+    for s in seq:  # D = dilate the mask bytes (erodes the person), E = erode
+        mask_u8 = dilate_u8(mask_u8, k) if s == "D" else erode_u8(mask_u8, k)
+    return mask_u8
 
 
 _SMALL_GAUSSIAN = {

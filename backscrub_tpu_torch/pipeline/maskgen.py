@@ -14,6 +14,7 @@ area outside the aspect-ratio ROI is always 255.
 
 from __future__ import annotations
 
+import os
 from typing import Callable, Optional
 
 import numpy as np
@@ -71,6 +72,15 @@ class MaskGen:
     edge path has no stage boundaries).  ``ondebug(msg)`` receives debug
     text.
 
+    The post options follow the JAX constructor: ``u8_exact_post`` (None:
+    the ``BACKSCRUB_U8_EXACT`` environment default, "1"/"true"/"on", so
+    fixed-signature callers can opt in), ``refine`` ("box" or "guided")
+    and ``morph`` ("<erode|dilate|open|close>[:k]"), validated here.  Any
+    of them turns the fused tail off (``edge_applicable``): the body span
+    then runs to the graph's end (on the segm family K1 and the graph
+    executor, the JAX route) and the model's decode rule, the EMA and
+    ``postprocess_mask`` with the options follow it.
+
     ``edge_fused``: None picks the fused edge path when the model's front
     matches its pattern and every BodyPlan the switches call for builds
     (the main paths: K1 + K2, or K1 + K2' + K2'' on CUDA), and the classic
@@ -84,6 +94,9 @@ class MaskGen:
     def __init__(self, model: str, width: int, height: int, *,
                  device="cuda", use_bilateral: bool = True,
                  fused: bool = True,
+                 u8_exact_post: Optional[bool] = None,
+                 refine: str = "box",
+                 morph: str = "",
                  edge_fused: Optional[bool] = None,
                  edge_mega: Optional[bool] = None,
                  edge_cont: Optional[bool] = None,
@@ -107,9 +120,19 @@ class MaskGen:
                 f"{self.spec.decode!r} expects {want}")
         self.geo = compute_roi(width, height, iw, ih, ow, oh)
         self.use_bilateral = use_bilateral
+        if u8_exact_post is None:
+            u8_exact_post = os.environ.get("BACKSCRUB_U8_EXACT", "").lower() in ("1", "true", "on")
+        if refine not in ("box", "guided"):
+            raise ValueError(f"refine must be 'box' or 'guided', got {refine!r}")
+        if morph and morph.split(":")[0] not in ("erode", "dilate", "open", "close"):
+            raise ValueError(f"morph op must be erode|dilate|open|close, got "
+                             f"{morph.split(':')[0]!r}")
+        self.u8_exact_post = u8_exact_post
+        self.post_options = dict(u8_exact=u8_exact_post, refine=refine, morph=morph)
         self.edge = None
         if fused and edge_fused is not False:
-            info = edge_applicable(self.model, self.spec, self.geo)
+            info = edge_applicable(self.model, self.spec, self.geo, refine=refine,
+                                   u8_exact=u8_exact_post, morph=morph)
             cont = self.spec.edge_cont if edge_cont is None else edge_cont
             plans = (body_plans(self.model, info, edge_mega, cont)
                      if info is not None and info.front_ok else None)
@@ -117,7 +140,7 @@ class MaskGen:
                 self.edge = EdgeFused(
                     self.model, self.geo, self.spec, info,
                     use_bilateral=use_bilateral, device=self.device, mega=edge_mega,
-                    cont=cont, plans=plans)
+                    cont=cont, plans=plans, post_options=self.post_options)
             elif edge_fused or edge_mega:
                 raise ValueError(f"edge_fused={edge_fused}, edge_mega={edge_mega}: the "
                                  "model/geometry does not match the fusable edge "
@@ -149,10 +172,13 @@ class MaskGen:
         """Stage 2: model input -> model output (oh, ow, C)."""
         return self.model(x[None])[0]
 
-    def _decode_post(self, out: torch.Tensor, ema: torch.Tensor):
-        """Stage 3: model output + EMA -> (mask (H, W) u8, new EMA)."""
+    def _decode_post(self, out: torch.Tensor, ema: torch.Tensor,
+                     frame: Optional[torch.Tensor] = None):
+        """Stage 3: model output + EMA -> (mask (H, W) u8, new EMA);
+        ``frame`` guides ``refine="guided"``."""
         new_ema = ema_update(ema, decode_val(out, self.spec))
-        return postprocess_mask(new_ema, self.geo, self.post_mats), new_ema
+        return postprocess_mask(new_ema, self.geo, self.post_mats, frame_bgr=frame,
+                                **self.post_options), new_ema
 
     def step(self, frame: torch.Tensor):
         """(H, W, 3) u8 frame on the device -> mask; advances the EMA.  A
@@ -166,7 +192,7 @@ class MaskGen:
         out = self._infer(x)
         if self.oninfer:
             self.oninfer()
-        mask, self.ema = self._decode_post(out, self.ema)
+        mask, self.ema = self._decode_post(out, self.ema, frame)
         return mask
 
     @torch.no_grad()
@@ -189,28 +215,26 @@ class MaskGen:
         return self.process(frame).cpu().numpy().tobytes()
 
 
-# the ROADMAP item, by its queue and title (a re-anchor may renumber
-# items), that brings the options the port does not serve yet
-ROADMAP_FRAME_OPTIONS = "ROADMAP queue 1, Frame options and formats"
-
-
 def parse_capi_options(options: str) -> dict:
-    """The ``bs_maskgen_new_ex`` options string as MaskGen kwargs:
-    comma-separated tokens of the CLI's ``-p`` namespace.  ``no-bilateral``
-    skips the bilateral prefilter; ``u8exact``, ``refine:`` and ``morph:``
-    are not in the port yet and raise NotImplementedError; unknown tokens
+    """The ``bs_maskgen_new_ex`` options string as MaskGen kwargs
+    (``backscrub_tpu/pipeline/maskgen.py:parse_capi_options``):
+    comma-separated tokens of the CLI's ``-p`` namespace —
+    ``refine:guided``, ``morph:<erode|dilate|open|close>[:k]``, ``u8exact``
+    (byte-exact OpenCV u8 post stages) and ``no-bilateral``.  Unknown tokens
     raise ValueError."""
     kw = {}
     for tok in filter(None, (t.strip() for t in (options or "").split(","))):
-        if tok == "no-bilateral":
+        if tok == "u8exact":
+            kw["u8_exact_post"] = True
+        elif tok == "no-bilateral":
             kw["use_bilateral"] = False
-        elif tok == "u8exact" or tok.startswith(("refine:", "morph:")):
-            raise NotImplementedError(f"maskgen option {tok!r} is not in the PyTorch "
-                                      f"port yet: {ROADMAP_FRAME_OPTIONS}")
+        elif tok.startswith("refine:"):
+            kw["refine"] = tok.split(":", 1)[1]
+        elif tok.startswith("morph:"):
+            kw["morph"] = tok.split(":", 1)[1]
         else:
-            raise ValueError(f"unknown maskgen option {tok!r}; supported: no-bilateral "
-                             f"(refine:guided, morph:<op>[:k] and u8exact: "
-                             f"{ROADMAP_FRAME_OPTIONS})")
+            raise ValueError(f"unknown maskgen option {tok!r}; supported: refine:guided, "
+                             "morph:<erode|dilate|open|close>[:k], u8exact, no-bilateral")
     return kw
 
 

@@ -24,7 +24,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..io.staging import Download, StagingRing, start_download
+from ..io.staging import StagingRing, start_download
 from ..pipeline.frame import FramePipeline
 
 
@@ -90,23 +90,30 @@ class ServingLoop:
             raise e
 
     @staticmethod
-    def _materialize(out: Download) -> np.ndarray:
-        """Wait for a result's download; the host array it returns is the
-        sink's to keep."""
+    def _materialize(out):
+        """Wait for a result's download; the host array it returns (a tuple
+        of them for an MJPG coefficient output) is the sink's to keep."""
+        if isinstance(out, tuple):
+            return tuple(d.wait() for d in out)
         return out.wait()
 
     def _drain_one(self, sink: Callable[[np.ndarray], None]):
         sink(self._materialize(self._ring.popleft()))
 
     def submit(self, frame, background=None, **step_kwargs):
-        """Dispatch one frame; starts its download immediately."""
+        """Dispatch one frame (an MJPG frame: ``(coefs, qtabs)``, every
+        array of it staged); starts its download immediately — every
+        coefficient array of an MJPG output."""
         if self.staging is not None:
-            if isinstance(frame, np.ndarray):
+            if isinstance(frame, (np.ndarray, tuple)):
                 frame = self.staging.upload(frame)
             if isinstance(background, np.ndarray):
                 background = self.staging.upload(background)
         out, _mask = self.pipe.step(frame, background, **step_kwargs)
-        self._ring.append(start_download(out, self._d2h))
+        if isinstance(out, tuple):
+            self._ring.append(tuple(start_download(o, self._d2h) for o in out))
+        else:
+            self._ring.append(start_download(out, self._d2h))
 
     def ready(self) -> bool:
         return len(self._ring) > self.depth

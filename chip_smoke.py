@@ -124,7 +124,29 @@ Usage (from the repository root, on a machine with a CUDA card)::
    stage ms from the stats line, the CLI's host ms/frame beside a bare
    ``step`` loop's, and the device idle share of a 20-frame profiled
    window of ``ServingLoop.run``; a ``cli:`` line;
-15. prints one JSON line with every kernel's numbers (launches from the
+15. MJPG (``mjpg_phase``): ``bs_jpeg_decode`` (``csrc/jpeg.cu``: the
+   decode after the host's entropy decode, two kernels a call) byte-equal
+   to its plain twin on every committed JPEG (``tests/data/mjpg_*``:
+   4:2:0 at 640x480; 4:2:2, 4:4:4, 4:4:0, 4:1:1 and grayscale at 64x48)
+   and to their committed cv2.imdecode sha256s, and on the synthetic
+   camera's JPEGs at 640x480 and 1280x720, its device time warm and cold
+   beside its bound (coefficients in, BGR out) and the plain twin's device
+   time and operations; the encoder (PyTorch ops on the card, the host's
+   Huffman pack) against the committed cv2.imencode sha256s, its device
+   time and operations a frame; ``backscrub-torch -c mjpg:`` in-process on
+   the mlkit model, YUYV out at 640x480 and ``--sink-format mjpg`` at
+   640x480 and 1280x720, each file byte-identical to direct steps on the
+   same JPEGs, one decode call, K1 and K2 a frame (K3 with YUYV out); then
+   fps and stage ms of ``-c test:``, MJPG ingest (pre-encoded JPEGs) and
+   YUYV ingest (a fake raw camera), twice in turns; an ``mjpg:`` line;
+16. the post options (``options_phase``): ``refine:guided``,
+   ``morph:open:3`` and ``u8exact`` on segm_lite and mlkit at 640x480,
+   fused: K1, the graph executor over the body (the JAX route: no body
+   plan), the post with the option, K3, counted frame by frame, held to
+   the plain route under the decode flip rule and the tolerance invariant
+   outside the flips' footprint through the option's post; device busy a
+   frame beside the fused tail's; an ``options:`` line;
+17. prints one JSON line with every kernel's numbers (launches from the
    run of the path it serves, errors and times measured here, and the
    bound: the larger of the bytes it must move over 3.35 TB/s and its
    operations over the peak of their type, 67 TFLOP/s f32 or 989 TFLOP/s
@@ -204,6 +226,15 @@ FAMILY_FRAMES, FAMILY_WINDOW = 30, 20
 # geometry and family, frames a run, frames of the serving loop's profiled
 # window; the serving modes that must change no byte
 CLI_SIZE, CLI_FRAMES, CLI_WINDOW = (640, 480), 60, 20
+MJPG_DATA = os.path.join(REPO, "tests", "data")
+MJPG_CLI = (((640, 480), 20), ((1280, 720), 10))   # -c mjpg: --sink-format mjpg runs
+MJPG_FPS_FRAMES = 60       # the fps runs: -c test:, MJPG and YUYV ingest at 640x480
+# (option, PipelineConfig fields, environment): u8exact is the
+# BACKSCRUB_U8_EXACT default, as the CLI and the C ABI take it
+OPTIONS = (("refine:guided", dict(mask_refine="guided"), {}),
+           ("morph:open:3", dict(mask_morph="open:3"), {}),
+           ("u8exact", {}, {"BACKSCRUB_U8_EXACT": "1"}))
+OPTION_FRAMES = 10
 CLI_MODES = (("plain", []), ("drain-thread", ["--drain-thread"]),
              ("staging-force", ["--staging-force"]), ("staging", ["--staging"]),
              ("nv12", ["--sink-format", "nv12"]))
@@ -792,11 +823,12 @@ def deeplab_phase():
 def _counters():
     """Every kernel's launch counter: name -> (object holding ``launches``)."""
     from backscrub_tpu_torch.ops.image_kernels import bilateral5
+    from backscrub_tpu_torch.ops.jpeg_kernels import decode_jpeg_bgr
     from backscrub_tpu_torch.ops.megakernel import body_launch
     from backscrub_tpu_torch.ops.pack_kernels import blend_pack_420, blend_pack_yuyv
     from backscrub_tpu_torch.pipeline.edge import front_fused
     return dict(front=front_fused, body=body_launch, pack=blend_pack_yuyv,
-                pack_420=blend_pack_420, bilateral=bilateral5)
+                pack_420=blend_pack_420, bilateral=bilateral5, jpeg_decode=decode_jpeg_bgr)
 
 
 def _zero_counts():
@@ -975,7 +1007,7 @@ def classic_phase(pipe):
     t0 = time.perf_counter()
     launches, _ = drive(frames, keep=False)
     ms = (time.perf_counter() - t0) * 1e3 / n
-    want = dict(front=0, body=0, pack=0, pack_420=n, bilateral=n)
+    want = dict(front=0, body=0, pack=0, pack_420=n, bilateral=n, jpeg_decode=0)
     if launches != want:
         raise AssertionError(f"classic launch counts {launches}, expected {want}")
     counts, outs = drive(frames, keep=True)
@@ -1053,7 +1085,7 @@ def fused_420_phase():
         0, 256, (h, w, 3), np.uint8)).cuda()
     for f in frames[:3]:                 # warm-up
         pipe.step(f, bg)
-    want = dict(front=1, body=1, pack=0, pack_420=1, bilateral=0)
+    want = dict(front=1, body=1, pack=0, pack_420=1, bilateral=0, jpeg_decode=0)
 
     def drive(frs):
         """Frames from a fresh EMA, the launch counts checked frame by
@@ -1144,7 +1176,7 @@ def staged_phase(mg, calls, tag="deeplab", margin=_person_margin):
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / n
     launches = _counts()
-    if launches != dict(front=0, body=0, pack=0, pack_420=0, bilateral=n):
+    if launches != dict(front=0, body=0, pack=0, pack_420=0, bilateral=n, jpeg_decode=0):
         raise AssertionError(f"staged launch counts {launches}")
     if calls != ["prep", "infer", "mask"] * n:
         raise AssertionError(f"stage hooks fired as {calls[:6]}...")
@@ -1321,7 +1353,8 @@ def family_fused(tag, path, w, h, fmt="yuyv", margin=None):
             r["rest_us"] = rest_ms * 1e3
     for f in frames[:5]:                 # warm-up
         pipe.step(f, bg)
-    want = dict(front=1, body=1, pack=int(yuyv), pack_420=int(not yuyv), bilateral=0)
+    want = dict(front=1, body=1, pack=int(yuyv), pack_420=int(not yuyv), bilateral=0,
+                jpeg_decode=0)
 
     def drive():
         pipe.reset()
@@ -1445,7 +1478,7 @@ def family_classic(tag, path, margin):
              k4_pipeline_us=_kernel_us(by_name, "blend_pack_420_kernel"))
     pipe.reset()
     torch.cuda.synchronize()
-    want = dict(front=0, body=0, pack=0, pack_420=1, bilateral=1)
+    want = dict(front=0, body=0, pack=0, pack_420=1, bilateral=1, jpeg_decode=0)
     outs = []
     t0 = time.perf_counter()
     for f in frames:
@@ -1598,7 +1631,7 @@ def cli_phase():
             counts = _counts()
             sys.stderr.write(err.getvalue())
             want = dict(front=n, body=n, pack=n * (fmt == "yuyv"),
-                        pack_420=n * (fmt == "nv12"), bilateral=0)
+                        pack_420=n * (fmt == "nv12"), bilateral=0, jpeg_decode=0)
             if rc != 0 or counts != want or dict(body_launch.by_kernel) != {"bs_body_mega": n}:
                 raise AssertionError(f"cli {name}: rc {rc}, launches {counts} "
                                      f"{dict(body_launch.by_kernel)}, expected {want}")
@@ -1630,6 +1663,347 @@ def cli_phase():
           f"{res['bare step loop']['ms_per_frame']:.4f} (bare step loop); serving window "
           f"{host:.4f} ms/frame, device busy {busy:.4f}, idle share {1 - busy / host:.3f}; "
           f"{res['staging']['probe']}")
+    return res
+
+
+def _sha(t) -> str:
+    import hashlib
+    return hashlib.sha256(t.cpu().numpy().tobytes() if hasattr(t, "cpu") else t).hexdigest()
+
+
+def _cli_run(argv, want, n):
+    """``cli.main(argv)`` in-process from zeroed counts: its stderr, the
+    launch counts checked against ``want`` and ``bs_body_mega`` n times."""
+    import contextlib
+    import io
+    from backscrub_tpu_torch import cli
+    from backscrub_tpu_torch.ops.megakernel import body_launch
+    err = io.StringIO()
+    _zero_counts()
+    body_launch.by_kernel.clear()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    counts = _counts()
+    sys.stderr.write(err.getvalue())
+    if rc != 0 or counts != want or dict(body_launch.by_kernel) != {"bs_body_mega": n}:
+        raise AssertionError(f"cli {argv}: rc {rc}, launches {counts} "
+                             f"{dict(body_launch.by_kernel)}, expected {want}")
+    return err.getvalue()
+
+
+def mjpg_phase():
+    """The MJPG path on the card.  ``bs_jpeg_decode`` byte-equal to its plain
+    twin on every committed JPEG (4:2:0 at 640x480, 4:2:2, 4:4:4, 4:4:0,
+    4:1:1 and grayscale at 64x48) and to their committed cv2.imdecode
+    hashes, and on the synthetic camera's JPEGs at 640x480 and 1280x720;
+    its device time warm and cold against its bound, the plain twin's
+    device time and operations.  The encoder (PyTorch ops on the card + the
+    host packer) against the committed cv2.imencode hashes, its device
+    time and operations a frame.  ``backscrub-torch -c mjpg:`` on the mlkit
+    model, in-process: YUYV out at 640x480 and MJPG out at both sizes, each
+    file byte-identical to direct steps on the same JPEGs, one decode call,
+    K1 and K2 a frame (and K3 with YUYV out).  Then fps and stages of
+    ``-c test:`` (BGR), MJPG ingest (pre-encoded JPEGs, entropy-decoded in
+    the loop) and YUYV ingest (a fake raw camera) in turns.  Returns the
+    kernel's numbers, its launches on the MJPG path and the numbers by run."""
+    import functools
+    import tempfile
+    import torch
+    from backscrub_tpu_torch.io import streams
+    from backscrub_tpu_torch.io.jpeg import JpegEntropyDecoder, JpegHuffmanEncoder, make_info
+    from backscrub_tpu_torch.ops.jpeg_kernels import decode_jpeg_bgr, decode_jpeg_bgr_plain
+    from backscrub_tpu_torch.pipeline.frame import FramePipeline, PipelineConfig
+    from backscrub_tpu_torch.pipeline.image import rgb_to_yuyv
+    from backscrub_tpu_torch.pipeline.jpeg_enc import encode_jpeg_coefs, stream_qtabs
+    from make_synth_mjpg import JSON, encode_input, split
+
+    def on_card(coefs, q):
+        return ([torch.from_numpy(c).cuda() for c in coefs],
+                torch.from_numpy(np.asarray(q, np.int32)).cuda())
+
+    with open(os.path.join(MJPG_DATA, JSON)) as fh:
+        meta = json.load(fh)
+    checked = []
+    for name, frames in meta["frames"].items():
+        with open(os.path.join(MJPG_DATA, name), "rb") as fh:
+            data = fh.read()
+        for jpg, f in zip(split(data, frames), frames):
+            dec = JpegEntropyDecoder()
+            ct, qt = on_card(*dec.decode(jpg))
+            k = decode_jpeg_bgr(ct, qt, dec.info)
+            if not torch.equal(k, decode_jpeg_bgr_plain(ct, qt, dec.info)) \
+                    or _sha(k) != f["decoded_sha256"]:
+                raise AssertionError(f"bs_jpeg_decode on {name} ({f['sampling']}) differs from "
+                                     "its plain twin or cv2.imdecode's committed hash")
+            checked.append(f"{f['sampling']} {f['width']}x{f['height']}")
+    for e in meta["encodes"]:
+        info = make_info(e["width"], e["height"], {
+            "420": ((2, 2), (1, 1), (1, 1)), "422": ((2, 1), (1, 1), (1, 1)),
+            "444": ((1, 1), (1, 1), (1, 1))}[e["sampling"]])
+        qt = stream_qtabs(e["quality"])
+        coefs = encode_jpeg_coefs(torch.from_numpy(encode_input(e["width"], e["height"],
+                                                                e["seed"])).cuda(),
+                                  torch.from_numpy(qt.astype(np.int32)).cuda(), info)
+        if _sha(JpegHuffmanEncoder(info, qt).encode([c.cpu().numpy() for c in coefs])) \
+                != e["sha256"]:
+            raise AssertionError(f"the encoder on the card is not cv2.imencode's bytes ({e})")
+    print(f"mjpg: bs_jpeg_decode byte-equal to its plain twin and to cv2.imdecode's committed "
+          f"hashes on {len(checked)} JPEGs ({', '.join(checked)}); the encoder on the card "
+          f"writes cv2.imencode's committed bytes for {len(meta['encodes'])} inputs")
+
+    res, kern = {}, {}
+    with torch.no_grad():
+        for w, h in SIZES:
+            dec = JpegEntropyDecoder()
+            coefs, q = dec.decode(streams.SyntheticJpegCamera(w, h)())
+            ct, qt = on_card(coefs, q)
+            info = dec.info
+            k = decode_jpeg_bgr(ct, qt, info)
+            if not torch.equal(k, decode_jpeg_bgr_plain(ct, qt, info)):
+                raise AssertionError(f"bs_jpeg_decode differs from its plain twin at {w}x{h}")
+            nbytes = sum(c.nbytes for c in coefs) + 3 * w * h
+            # ~22 integer operations a coefficient a pass (two passes), ~30 a pixel
+            ops = 44 * sum(c.size for c in coefs) + 30 * w * h
+            call = functools.partial(decode_jpeg_bgr, ct, qt, info)
+            plain = functools.partial(decode_jpeg_bgr_plain, ct, qt, info)
+            plain_dev, plain_ops = device_kernels(plain)
+            r = dict(max_abs_err=0.0, ms=timed(call), plain_ms=timed(plain),
+                     device_ms=device_ms(call),
+                     device_ms_cold=sum(device_ms(call, cold=kn)
+                                        for kn in ("idct_kernel", "color_kernel")),
+                     idct_us=device_ms(call, kernel="idct_kernel") * 1e3,
+                     color_us=device_ms(call, kernel="color_kernel") * 1e3,
+                     plain_device_ms=plain_dev, plain_ops=plain_ops,
+                     bound=bound(nbytes, ops), library_ms=None)
+            kern[f"{w}x{h}"] = r
+            comp = k
+            enc_q = torch.from_numpy(stream_qtabs(85).astype(np.int32)).cuda()
+            out_info = make_info(w, h)
+            enc_dev, enc_ops = device_kernels(lambda: encode_jpeg_coefs(comp, enc_q, out_info))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                encode_jpeg_coefs(comp, enc_q, out_info)
+            torch.cuda.synchronize()
+            res[f"encode {w}x{h}"] = dict(device_ms=enc_dev, ops=enc_ops,
+                                          host_ms=(time.perf_counter() - t0) * 1e3 / 20)
+            print(f"mjpg decode {w}x{h}: bs_jpeg_decode {r['device_ms'] * 1e3:.3f} us device "
+                  f"(idct {r['idct_us']:.3f} + color {r['color_us']:.3f}; cold "
+                  f"{r['device_ms_cold'] * 1e3:.3f}), bound {r['bound'][0] * 1e3:.3f} us "
+                  f"({r['bound'][1]}, {nbytes / 1e6:.3f} MB); events {r['ms'][0]:.4f} ms a call "
+                  f"vs plain {r['plain_ms'][0]:.4f}; plain twin {plain_dev * 1e3:.2f} us device "
+                  f"in {plain_ops:.0f} operations; encode {enc_dev * 1e3:.2f} us device in "
+                  f"{enc_ops:.0f} operations, {res[f'encode {w}x{h}']['host_ms']:.3f} ms host a "
+                  f"frame")
+
+    # the program: -c mjpg: decoded in the loop's thread, so every JPEG is
+    # a frame and the files are deterministic
+    real_src = streams.JpegSource
+    streams.JpegSource = functools.partial(real_src, prefetch=False)
+    launches = 0
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            runs = [((640, 480), 20, "yuyv")] + [(size, n, "mjpg") for size, n in MJPG_CLI]
+            for (w, h), n, sink in runs:
+                cam, dec = streams.SyntheticJpegCamera(w, h), JpegEntropyDecoder()
+                frames = []
+                for _ in range(n):
+                    coefs, q = dec.decode(cam())
+                    frames.append((tuple(c.copy() for c in coefs), q))
+                pipe = FramePipeline(SELFIE, PipelineConfig(
+                    width=w, height=h, input_format="mjpg", jpeg_info=dec.info,
+                    output_format=sink), device="cuda")
+                if sink == "mjpg":
+                    enc = JpegHuffmanEncoder(pipe.out_jpeg_info, pipe.out_jpeg_qtabs)
+                    golden = b"".join(enc.encode([c.cpu().numpy() for c in pipe.step(f)[0]])
+                                      for f in frames)
+                else:
+                    golden = b"".join(pipe.step(f)[0].cpu().numpy().tobytes() for f in frames)
+                del pipe
+                out = os.path.join(tmp, "o.yuv" if sink == "yuyv" else "o.mjpg")
+                stats = os.path.join(tmp, "s.jsonl")
+                argv = ["-c", "mjpg:", "--cg", f"{w}x{h}", "-m", SELFIE, "--frames", str(n),
+                        "-v", f"file:{out}", "--stats-json", stats]
+                if sink == "mjpg":
+                    argv += ["--sink-format", "mjpg"]
+                want = dict(front=n, body=n, pack=n * (sink == "yuyv"), pack_420=0, bilateral=0,
+                            jpeg_decode=n)
+                _cli_run(argv, want, n)
+                if sink == "yuyv":
+                    launches = n
+                with open(out, "rb") as fh:
+                    if fh.read() != golden:
+                        raise AssertionError(f"cli -c mjpg: {w}x{h} {sink}: not the bytes of "
+                                             f"{n} direct steps")
+                with open(stats) as fh:
+                    rec = json.loads(fh.read().splitlines()[-1])
+                res[f"cli mjpg {w}x{h} {sink}"] = dict(rec, ms_per_frame=1e3 / rec["fps"])
+            # fps in turns: BGR, MJPG ingest, YUYV ingest, BGR, MJPG, YUYV
+            w, h = CLI_SIZE
+            n = MJPG_FPS_FRAMES
+            pattern = streams.SyntheticSource(w, h)
+            bgr = [pattern.read() for _ in range(n)]
+            cam = streams.SyntheticJpegCamera(w, h)
+            jpgs = [cam() for _ in range(n)]
+            yuyv = [rgb_to_yuyv(torch.from_numpy(f).flip(-1), "yuy2").reshape(h, 2 * w).numpy()
+                    for f in bgr]
+
+            class RawCamera:
+                width, height, raw_format = w, h, "yuyv"
+
+                def __init__(self):
+                    self.i = 0
+
+                def read_raw(self):
+                    self.i += 1
+                    return yuyv[(self.i - 1) % n]
+
+                def close(self):
+                    pass
+
+            def open_source(uri, *a, **k):
+                if uri.startswith("mjpg:"):
+                    it = iter(jpgs)
+                    return streams.JpegSource(lambda: next(it, None))
+                if uri == "/dev/video-yuyv":
+                    return RawCamera()
+                return real_open(uri, *a, **k)
+
+            real_open = streams.open_source
+            streams.open_source = open_source
+            try:
+                for rnd in range(2):
+                    for tag, cam_uri, extra in (("bgr", "test:", {}), ("mjpg", "mjpg:",
+                                                                       dict(jpeg_decode=n)),
+                                                ("yuyv", "/dev/video-yuyv", {})):
+                        stats = os.path.join(tmp, f"fps-{tag}.jsonl")
+                        argv = ["-c", cam_uri, "--cg", f"{w}x{h}", "-m", SELFIE, "--frames",
+                                str(n), "-v", f"file:{os.path.join(tmp, 'f.yuv')}",
+                                "--stats-json", stats]
+                        want = dict(front=n, body=n, pack=n, pack_420=0, bilateral=0,
+                                    jpeg_decode=0)
+                        want.update(extra)
+                        _cli_run(argv, want, n)
+                        with open(stats) as fh:
+                            rec = json.loads(fh.read().splitlines()[-1])
+                        res.setdefault(f"fps {tag}", []).append(
+                            {k: rec[k] for k in rec if k in ("fps", "grab_ms", "dispatch_ms",
+                                                            "sink_ms")})
+            finally:
+                streams.open_source = real_open
+    finally:
+        streams.JpegSource = real_src
+    print(f"mjpg cli: -c mjpg: files byte-identical to direct steps "
+          f"({', '.join(k for k in res if k.startswith('cli'))}), one bs_jpeg_decode call, K1 "
+          f"and K2 a frame; fps in turns " + "; ".join(
+              f"{t} " + " / ".join(f"{r['fps']:.2f}" for r in res[f'fps {t}'])
+              for t in ("bgr", "mjpg", "yuyv")))
+    return kern, launches, res
+
+
+def _option_footprint(ema_pixels, geo, cfg):
+    """The frame pixels that the EMA pixels ``ema_pixels`` reach through the
+    post with ``cfg``'s options: the morphology's reach at model
+    resolution, then the two-stage post's footprint (bilinear taps, 5x5
+    blur; it covers the u8 post's and guided's upscale), then for guided
+    the filter's reach at frame resolution (two box means of its radius)."""
+    import torch
+    import torch.nn.functional as F
+    from backscrub_tpu_torch.pipeline.edge import GUIDED_RADIUS, post_footprint
+    m = ema_pixels.float()
+    if cfg.mask_morph:
+        op, *k = cfg.mask_morph.split(":")
+        reach = (int(k[0]) if k and k[0] else 3) // 2 * (2 if op in ("open", "close") else 1)
+        m = F.max_pool2d(m[None, None], 2 * reach + 1, 1, reach)[0, 0]
+    foot = post_footprint(m > 0, geo, None)
+    if cfg.mask_refine == "guided":
+        r = 2 * GUIDED_RADIUS
+        foot = F.max_pool2d(foot.float()[None, None], 2 * r + 1, 1, r)[0, 0] > 0
+    return foot
+
+
+def options_phase():
+    """The post options on the card: ``refine:guided``, ``morph:open:3`` and
+    ``u8exact`` on segm_lite and mlkit, fused, at 640x480.  Each takes the
+    JAX package's route — K1, the graph executor over the body (no body
+    plan), the decode, the post with the option — and K3; OPTION_FRAMES
+    frames from a fresh EMA, the launches counted frame by frame, held to
+    the plain route (K1's plain version) under the decode flip rule and
+    the tolerance invariant outside the flips' footprint through the
+    option's post.  Device busy a frame beside the default route's (the
+    fused tail) and the kernels each step launched.  Returns the numbers by
+    run."""
+    import torch
+    from backscrub_tpu_torch.ops.megakernel import body_launch
+    from backscrub_tpu_torch.ops.pack_kernels import blend_pack_yuyv_plain
+    from backscrub_tpu_torch.pipeline.frame import FramePipeline, PipelineConfig
+    from make_synth_segm import moving_frames
+
+    w, h = 640, 480
+    frames = [torch.from_numpy(f).cuda() for f in moving_frames(w, h, OPTION_FRAMES)]
+    res = {}
+    for tag, path, margin in (("segm_lite", MODEL, _two_channel_margin),
+                              ("mlkit", SELFIE, _logit_margin)):
+        base = FramePipeline(path, PipelineConfig(width=w, height=h), device="cuda")
+        for f in frames[:3]:
+            base.step(f)
+        busy, ops, _ = _window(lambda f: base.step(f), frames, OPTION_FRAMES)
+        res[f"{tag} fused tail"] = dict(busy_ms_per_frame=busy, ops_per_frame=ops)
+        del base
+        for name, opts, env in OPTIONS:
+            cfg = PipelineConfig(width=w, height=h, **opts)
+            saved = {k: os.environ.get(k) for k in env}
+            os.environ.update(env)
+            try:
+                pipe = FramePipeline(path, cfg, device="cuda")
+            finally:
+                for k, v in saved.items():
+                    if v is None:
+                        os.environ.pop(k, None)
+                    else:
+                        os.environ[k] = v
+            e = pipe.maskgen.edge
+            if e is None or e.plans or e.info.tail_ok or e.rest is None:
+                raise AssertionError(f"{tag} {name}: not the JAX route (K1, the executor)")
+            for f in frames[:3]:
+                pipe.step(f)
+            busy, ops, _ = _window(lambda f: pipe.step(f), frames, OPTION_FRAMES)
+            pipe.reset()
+            want = dict(front=1, body=0, pack=1, pack_420=0, bilateral=0, jpeg_decode=0)
+            ema = pipe.maskgen.ema.clone()
+            ever = torch.zeros_like(ema, dtype=torch.bool)
+            fracs, flips, worst = [], 0, 0.0
+            green = pipe.green
+            with torch.no_grad():
+                for f in frames:
+                    _zero_counts()
+                    body_launch.by_kernel.clear()
+                    out, mask = pipe.step(f)
+                    counts = _counts()
+                    if counts != want or body_launch.by_kernel:
+                        raise AssertionError(f"{tag} {name}: launches {counts} "
+                                             f"{dict(body_launch.by_kernel)}, expected {want}")
+                    mrg, ema = _edge_plain(e, f, ema, margin)
+                    k, mm = _flip_rule(pipe.maskgen.ema, ema, mrg, ever)
+                    flips, worst = flips + k, max(worst, mm)
+                    rm = e.postprocess(ema, f)
+                    foot = _option_footprint(pipe.maskgen.ema != ema, e.geo, cfg)
+                    fracs.append(_held_bytes([(out, blend_pack_yuyv_plain(f, green, rm)),
+                                              (mask, rm)], f"{tag} {name}",
+                                             [_yuyv_footprint(foot), foot]))
+            if float(np.mean(fracs)) > MEAN_TOL:
+                raise AssertionError(f"{tag} {name}: {100 * np.mean(fracs):.4f}% of bytes "
+                                     "differ on average")
+            res[f"{tag} {name}"] = dict(busy_ms_per_frame=busy, ops_per_frame=ops, flips=flips,
+                                        flip_margin=worst, mean_diff=float(np.mean(fracs)))
+            print(f"options {tag} {name} {w}x{h}: kernels a frame K1 (bs_front) + K3 "
+                  f"(blend_pack_yuyv), no body plan (the executor runs the body: "
+                  f"{ops:.0f} device operations a frame in all); device busy {busy:.4f} "
+                  f"ms/frame against the fused tail's "
+                  f"{res[f'{tag} fused tail']['busy_ms_per_frame']:.4f}; vs the plain route: "
+                  f"decode flips {flips} (largest |margin| {worst:.3g}), differing bytes mean "
+                  f"{100 * float(np.mean(fracs)):.4f}%")
+            del pipe
     return res
 
 
@@ -1861,15 +2235,21 @@ def main() -> int:
     t0 = time.perf_counter()
     cli_res = cli_phase()
     print(f"cli phase: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    jpeg_kernel, jpeg_launches, mjpg = mjpg_phase()
+    print(f"mjpg phase: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    options = options_phase()
+    print(f"options phase: {time.perf_counter() - t0:.2f} s")
     main_size = SIZES[0]
     # launches: each kernel's count from the run of the path it serves
     launches = dict(runs[main_size][0], body_prefix=dl_launches["body_prefix"],
                     body_cont=dl_launches["body_cont"], gemm=dl_launches["gemm"],
                     pack_420=fused_420_launches["pack_420"],
-                    bilateral=classic_launches["bilateral"])
+                    bilateral=classic_launches["bilateral"], jpeg_decode=jpeg_launches)
     results = dict(kernels[main_size], body_prefix=dl_kernels["body_prefix"],
                    body_cont=dl_kernels["body_cont"], gemm=dl_kernels["gemm"],
-                   bilateral=k5["segm 96x160"])
+                   bilateral=k5["segm 96x160"], jpeg_decode=jpeg_kernel["640x480"])
     meta = {
         "front": ("backscrub_tpu_torch/csrc/front.cu", "backscrub_tpu/pipeline/edge.py:424"),
         "body": ("backscrub_tpu_torch/csrc/body_mega.cu",
@@ -1888,6 +2268,9 @@ def main() -> int:
                      "backscrub_tpu/ops/pallas_kernels.py:242"),
         "bilateral": ("backscrub_tpu_torch/csrc/bilateral.cu",
                       "backscrub_tpu/ops/pallas_kernels.py:71"),
+        "jpeg_decode": ("backscrub_tpu_torch/csrc/jpeg.cu",
+                        "no pallas_call: backscrub_tpu/pipeline/jpeg.py:207 (decode_jpeg_bgr, "
+                        "jnp that XLA fuses into the frame program)"),
     }
     # P1-P7: launches from the probe path (probe_phase checked that the
     # pipelines launched none: main_path_launches); each kernel's first
@@ -1909,18 +2292,20 @@ def main() -> int:
          "plain_ms": results[name]["plain_ms"][0],
          "bound_ms": results[name]["bound"][0],
          "bound_by": results[name]["bound"][1],
-         "library_ms": results[name]["library_ms"][0] if "library_ms" in results[name]
-         else None,
+         "library_ms": results[name]["library_ms"][0]
+         if results[name].get("library_ms") is not None else None,
          **{k: results[name][k] for k in ("device_ms", "device_ms_cold", "b2b_ms",
-                                         "library_device_ms",
+                                         "library_device_ms", "plain_device_ms",
                                          "library_b2b_ms", "precision_gap",
                                          "main_path_launches") if k in results[name]}}
         for name, (src, rep) in meta.items()]}
     print(f"chip_smoke phases: {time.perf_counter() - t_start:.2f} s")
     for tag, res in (("selfie", selfie), ("segm_full", segm_full), ("bodypix", bodypix),
-                     ("cli", cli_res)):
+                     ("cli", cli_res), ("options", options)):
         print(f"{tag}: " + json.dumps({k: {n: v for n, v in r.items() if n != "phase_us"}
                                        for k, r in res.items()}))
+    print("mjpg: " + json.dumps(dict(mjpg, decode={k: {n: v for n, v in r.items()}
+                                                   for k, r in jpeg_kernel.items()})))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -155,26 +155,23 @@ def test_capi_surface():
     assert tmaskgen.bs_tensorflow_version() == f"torch-{torch.__version__}"
     assert tmaskgen.parse_capi_options(" , ") == {}
     for tok in ("u8exact", "refine:guided", "morph:open:3"):
-        with pytest.raises(NotImplementedError, match="queue 1, Frame options and formats"):
-            tmaskgen.parse_capi_options(f"no-bilateral,{tok}")
+        got = tmaskgen.parse_capi_options(f"no-bilateral,{tok}")
+        assert got == jmaskgen.parse_capi_options(f"no-bilateral,{tok}")
+        opt = tmaskgen.bs_maskgen_new(FULL, w, h, device="cpu", edge_fused=False, **got)
+        ref = jmaskgen.MaskGen(FULL, w, h, edge_fused=False, **got)
+        _invariant([(opt.process(f).numpy(), np.asarray(ref.process(f))) for f in (f0, f1)])
     with pytest.raises(ValueError, match="unknown maskgen option"):
         tmaskgen.parse_capi_options("bogus")
 
 
 def test_not_yet_messages_name_a_roadmap_item():
-    """Every option the port does not serve yet raises naming a ROADMAP item
-    by its queue and title, and that item is in ROADMAP.md's queue."""
-    msgs = []
-    for option in (dict(mask_refine="guided"), dict(mask_morph="open"),
-                   dict(input_format="mjpg"), dict(output_format="mjpg")):
-        with pytest.raises(NotImplementedError) as e:
-            FramePipeline(str(FULL), PipelineConfig(width=640, height=480, **option),
-                          device="cpu")
-        msgs.append(str(e.value))
-    for tok in ("u8exact", "refine:guided", "morph:open:3"):
-        with pytest.raises(NotImplementedError) as e:
-            tmaskgen.parse_capi_options(tok)
-        msgs.append(str(e.value))
+    """Every flag the port does not serve yet (``--bf16``, ``--int8``) is
+    refused naming a ROADMAP item by its queue and title, and that item is
+    in ROADMAP.md's queue."""
+    from backscrub_tpu_torch import cli
+    msgs = [cli.refused(cli.parse_args([flag])) for flag in ("--bf16", "--int8")]
+    assert cli.refused(cli.parse_args(["-p", "refine:guided", "--sink-format", "mjpg",
+                                       "-c", "mjpg:", "-p", "morph:open"])) is None
     roadmap = (ROOT / "ROADMAP.md").read_text()
     for msg in msgs:
         m = re.search(r"ROADMAP queue (\d+), ([^(]+?)(?: \(|$)", msg)

@@ -252,12 +252,82 @@ def test_raw_yuv_file_sink(tmp_path):
     assert (tmp_path / "o.raw").stat().st_size == 72 * 64
 
 
-@pytest.mark.parametrize("make", [
-    lambda: open_source("mjpg:", 64, 48), lambda: open_sink("null:", 64, 48, out_format="mjpg"),
-    lambda: streams.JpegSource(lambda: b""), lambda: streams.JpegPackingSink()])
-def test_mjpg_io_not_yet(make):
-    with pytest.raises(NotImplementedError, match="Frame options and formats"):
-        make()
+@pytest.fixture
+def jax_streams():
+    """The JAX package's streams, its entropy codec the library the port
+    builds (no CMake build needed)."""
+    from backscrub_tpu_torch import _build
+    os.environ.setdefault("BSJPEG_LIB", _build.host_library("bsjpeg"))
+    from backscrub_tpu.io import streams as jstreams
+    return jstreams
+
+
+def _mjpg_source(mod, jstreams):
+    """``open_source("mjpg:", 64, 48)``: the first frame (decoded at
+    construction, so deterministic) and the geometry match the JAX
+    source's."""
+    ours, theirs = mod.open_source("mjpg:", 64, 48), jstreams.open_source("mjpg:", 64, 48)
+    try:
+        assert ours.jpeg_info.__dict__ == theirs.jpeg_info.__dict__
+        (c1, q1), (c2, q2) = ours.read(), theirs.read()
+        assert all(np.array_equal(a, b) for a, b in zip(c1, c2)) and np.array_equal(q1, q2)
+    finally:
+        ours.close()
+        theirs.close()
+
+
+def _mjpg_sink(mod, jstreams, tmp_path):
+    """``open_sink(..., out_format="mjpg")``: null: counts frames as the
+    JAX sink does; a file sink packs the bytes the JAX sink packs."""
+    from backscrub_tpu_torch.io.jpeg import make_info
+    from backscrub_tpu_torch.pipeline.jpeg_enc import encode_jpeg_coefs, stream_qtabs
+    assert type(mod.open_sink("null:", 64, 48, out_format="mjpg")).__name__ == \
+        type(jstreams.open_sink("null:", 64, 48, out_format="mjpg")).__name__ == "NullFrameSink"
+    info, qt = make_info(64, 48), stream_qtabs(85)
+    img = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (48, 64, 3), np.uint8))
+    coefs = tuple(c.numpy() for c in encode_jpeg_coefs(img, torch.from_numpy(
+        qt.astype(np.int32)), info))
+    for m, name in ((mod, "t.mjpg"), (jstreams, "j.mjpg")):
+        sink = m.open_sink(f"file:{tmp_path / name}", 64, 48, out_format="mjpg",
+                           jpeg_info=info, jpeg_qtabs=qt)
+        sink.write_yuyv(coefs)
+        sink.close()
+    assert (tmp_path / "t.mjpg").read_bytes() == (tmp_path / "j.mjpg").read_bytes()
+
+
+def _empty_jpeg(mod, jstreams):
+    """A grab that returns no bytes raises the JAX source's ValueError."""
+    errs = []
+    for m in (mod, jstreams):
+        with pytest.raises(ValueError) as e:
+            m.JpegSource(lambda: b"")
+        errs.append(str(e.value))
+    assert errs[0] == errs[1]
+
+
+def _packing_sink(mod, jstreams):
+    """JpegPackingSink takes the JAX sink's arguments and writes its bytes."""
+    from backscrub_tpu_torch.io.jpeg import make_info
+    from backscrub_tpu_torch.pipeline.jpeg_enc import stream_qtabs
+    for m in (mod, jstreams):
+        with pytest.raises(TypeError):
+            m.JpegPackingSink()
+    info, qt = make_info(16, 16), stream_qtabs(50)
+    coefs = tuple(np.zeros(b + (64,), np.int16) for b in info.blocks)
+    got = []
+    for m in (mod, jstreams):
+        out = []
+        m.JpegPackingSink(info, qt, out.append).write_yuyv(coefs)
+        got.append(out)
+    assert got[0] == got[1] and len(got[0]) == 1
+
+
+@pytest.mark.parametrize("make", [_mjpg_source, _mjpg_sink, _empty_jpeg, _packing_sink])
+def test_mjpg_io_not_yet(make, jax_streams, tmp_path):
+    """The MJPG sources and sinks that raised NotImplementedError before
+    the port served them, each against the JAX package's."""
+    kw = {"tmp_path": tmp_path} if make is _mjpg_sink else {}
+    make(streams, jax_streams, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -537,13 +607,31 @@ def _roadmap_titles():
 
 
 class _FakeMjpgCapture:
-    """A V4L2 capture that granted MJPG."""
+    """A V4L2 capture that granted MJPG: the test pattern, JPEG-encoded at
+    quality 90, one frame a grab."""
 
     def __init__(self, device, width=0, height=0, pixfmt=""):
         self.width, self.height, self.pixelformat = width, height, "MJPG"
+        self._pattern = SyntheticSource(width, height)
+
+    def grab_raw(self):
+        ok, enc = cv2.imencode(".jpg", self._pattern.read(), [cv2.IMWRITE_JPEG_QUALITY, 90])
+        return enc.reshape(-1)
 
     def close(self):
         pass
+
+
+def _jpeg_frames(stream: bytes):
+    """The coefficient arrays of each JPEG of a concatenated MJPEG stream
+    (entropy-coded data never holds an EOI marker)."""
+    from backscrub_tpu_torch.io.jpeg import JpegEntropyDecoder
+    dec = JpegEntropyDecoder()
+    out = []
+    for part in stream.split(b"\xff\xd9")[:-1]:
+        coefs, q = dec.decode(part + b"\xff\xd9")
+        out.append([c.copy() for c in coefs])
+    return out
 
 
 @pytest.mark.parametrize("extra,title", [
@@ -555,13 +643,53 @@ class _FakeMjpgCapture:
     (["-c", "mjpg:"], "Frame options and formats"),
     (["-c", "/dev/video0"], "Frame options and formats")])
 def test_cli_refuses_what_the_port_lacks(tmp_path, capsys, monkeypatch, extra, title):
+    """``--bf16`` and ``--int8`` still refuse, naming their ROADMAP items;
+    the options of "Frame options and formats", refused before the port
+    served them, now run and write the JAX CLI's frames: YUYV files under
+    the tolerance invariant, MJPG streams with at most 2% of each frame's
+    blocks differing.  The JAX CLI runs its fused route (its Pallas kernels
+    in interpret mode), the route it takes on its device and the port's on
+    every device: its classic route on the CPU can flip a near-tie decode
+    of a JPEG frame the fused route does not.  The MJPG sources decode in
+    the loop's thread (no prefetch), so both programs take every frame;
+    the camera is a fake V4L2 capture that grants MJPG."""
+    import functools
+    from backscrub_tpu.io import streams as jstreams
+    from backscrub_tpu.io import v4l2 as jv4l2
+    from backscrub_tpu.pipeline import frame as jframe
+    from backscrub_tpu_torch import _build
     from backscrub_tpu_torch.io import v4l2
     monkeypatch.setattr(v4l2, "V4L2Capture", _FakeMjpgCapture)
+    monkeypatch.setattr(jv4l2, "V4L2Capture", _FakeMjpgCapture)
     out = tmp_path / "o.yuv"
-    assert cli.main(_argv(out, *extra), device="cpu") == 1
-    err = capsys.readouterr().err
-    assert f"ROADMAP queue 1, {title}" in err and title in _roadmap_titles()
-    assert not out.exists()
+    if title != "Frame options and formats":
+        assert cli.main(_argv(out, *extra), device="cpu") == 1
+        err = capsys.readouterr().err
+        assert f"ROADMAP queue 1, {title}" in err and title in _roadmap_titles()
+        assert not out.exists()
+        return
+    monkeypatch.setenv("BSJPEG_LIB", _build.host_library("bsjpeg"))
+    for mod in (streams, jstreams):
+        monkeypatch.setattr(mod, "JpegSource", functools.partial(mod.JpegSource, prefetch=False))
+    monkeypatch.setattr(jframe, "PipelineConfig", functools.partial(
+        JaxConfig, edge_interpret=True, pack_interpret=True))
+    if extra[0] == "-c":
+        argv = lambda o: ["-c", extra[1], "--cg", f"{CW}x{CH}", "-m", MODEL,  # noqa: E731
+                          "--frames", str(N), "-v", f"file:{o}"]
+    else:
+        argv = lambda o: _argv(o, *extra)  # noqa: E731
+    assert jcli.main(argv(tmp_path / "j.yuv")) == 0
+    assert cli.main(argv(tmp_path / "t.yuv"), device="cpu") == 0
+    j, t = (tmp_path / "j.yuv").read_bytes(), (tmp_path / "t.yuv").read_bytes()
+    if "mjpg" in extra and extra[0] == "--sink-format":
+        jf, tf = _jpeg_frames(j), _jpeg_frames(t)
+        assert len(jf) == len(tf) == N
+        for a, b in zip(tf, jf):
+            for x, y in zip(a, b):
+                assert (x != y).any(axis=-1).mean() <= FRAME_TOL
+    else:
+        assert len(t) == len(j) == N * CW * CH * 2
+        _held(np.frombuffer(t, np.uint8), np.frombuffer(j, np.uint8), CW * CH * 2)
 
 
 def test_cli_without_cuda_returns_1(tmp_path, capsys, monkeypatch):

@@ -1100,3 +1100,226 @@ def test_cli_main_on_cuda_matches_direct_steps(cuda_device, tmp_path):
         assert cli.main(["-c", "test:", "-m", str(SELFIE), "--frames", str(n),
                          "-v", f"file:{out}", *extra]) == 0
         assert out.read_bytes() == golden, extra
+
+
+# ---------------------------------------------------------------------------
+# the MJPG decode kernel (bs_jpeg_decode) and the encode on the card
+
+_JPEG_META = ROOT / "tests" / "data" / "mjpg_synth.json"
+# (sampling factors, ncomp) of every decode method: 4:2:0, 4:2:2, 4:4:4,
+# 4:4:0 (h1v2), 4:1:1 (replication), grayscale
+JPEG_SAMPLINGS = {"420": ((2, 2), (1, 1), (1, 1)), "422": ((2, 1), (1, 1), (1, 1)),
+                  "444": ((1, 1), (1, 1), (1, 1)), "440": ((1, 2), (1, 1), (1, 1)),
+                  "411": ((4, 1), (1, 1), (1, 1)), "gray": ((1, 1),)}
+
+
+def random_coefficients(info, seed, device):
+    """Seeded coefficient arrays and int32 quant tables for ``info``: the
+    dequantized values span the 8-bit baseline range."""
+    rng = np.random.default_rng(seed)
+    coefs = [torch.from_numpy(rng.integers(-40, 41, (bh, bw, 64)).astype(np.int16)).to(device)
+             for bh, bw in info.blocks]
+    q = torch.from_numpy(rng.integers(1, 50, (info.ncomp, 64)).astype(np.int32)).to(device)
+    return coefs, q
+
+
+@pytest.mark.parametrize("size,sampling", [((640, 480), "420"), ((1280, 720), "420")] + [
+    ((64, 48), s) for s in JPEG_SAMPLINGS] + [((63, 47), s) for s in JPEG_SAMPLINGS])
+def test_jpeg_decode_matches_plain(cuda_device, size, sampling):
+    """bs_jpeg_decode byte-identical to its plain version, one call a decode."""
+    from backscrub_tpu_torch.io.jpeg import make_info
+    from backscrub_tpu_torch.ops.jpeg_kernels import decode_jpeg_bgr, decode_jpeg_bgr_plain
+    sf = JPEG_SAMPLINGS[sampling]
+    info = make_info(*size, sf, ncomp=len(sf))
+    coefs, q = random_coefficients(info, sum(size), cuda_device)
+    before = decode_jpeg_bgr.launches
+    got = decode_jpeg_bgr(coefs, q, info)
+    torch.cuda.synchronize()
+    assert decode_jpeg_bgr.launches == before + 1
+    want = decode_jpeg_bgr_plain(coefs, q, info)
+    assert got.shape == (size[1], size[0], 3) and torch.equal(got, want)
+
+
+def test_jpeg_decode_wraps_like_plain(cuda_device):
+    """Coefficients and tables no valid stream holds overflow the IDCT's
+    int32: the kernel's unsigned butterfly wraps as the plain version's
+    int32 tensors do, byte for byte."""
+    from backscrub_tpu_torch.io.jpeg import make_info
+    from backscrub_tpu_torch.ops.jpeg_kernels import decode_jpeg_bgr, decode_jpeg_bgr_plain
+    info = make_info(48, 32, JPEG_SAMPLINGS["420"])
+    rng = np.random.default_rng(11)
+    coefs = [torch.from_numpy(rng.integers(-32768, 32768, (bh, bw, 64)).astype(np.int16))
+             .to(cuda_device) for bh, bw in info.blocks]
+    q = torch.from_numpy(rng.integers(1, 65536, (3, 64)).astype(np.int32)).to(cuda_device)
+    assert torch.equal(decode_jpeg_bgr(coefs, q, info), decode_jpeg_bgr_plain(coefs, q, info))
+
+
+def test_jpeg_decode_fixtures_match_opencv(cuda_device):
+    """Every committed JPEG, entropy-decoded on the host and decoded by the
+    kernel, hashes to its committed cv2.imdecode sha256."""
+    import hashlib
+    import json
+    from backscrub_tpu_torch.io.jpeg import JpegEntropyDecoder
+    from backscrub_tpu_torch.ops.jpeg_kernels import decode_jpeg_bgr
+    meta = json.loads(_JPEG_META.read_text())
+    n = 0
+    for name, frames in meta["frames"].items():
+        data = (ROOT / "tests" / "data" / name).read_bytes()
+        for f in frames:
+            dec = JpegEntropyDecoder()
+            coefs, q = dec.decode(data[f["offset"]:f["offset"] + f["length"]])
+            out = decode_jpeg_bgr([torch.from_numpy(c).to(cuda_device) for c in coefs],
+                                  torch.from_numpy(q.astype(np.int32)).to(cuda_device), dec.info)
+            got = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
+            assert got == f["decoded_sha256"], (name, f["sampling"])
+            n += 1
+    assert n == 8
+
+
+def test_jpeg_encode_on_card_matches_opencv(cuda_device):
+    """The encoder's PyTorch ops on the card plus the host packer write the
+    committed cv2.imencode bytes."""
+    import hashlib
+    import json
+    sys.path.insert(0, str(ROOT / "tools"))
+    from make_synth_mjpg import encode_input
+    from backscrub_tpu_torch.io.jpeg import JpegHuffmanEncoder, make_info
+    from backscrub_tpu_torch.pipeline.jpeg_enc import encode_jpeg_coefs, stream_qtabs
+    for e in json.loads(_JPEG_META.read_text())["encodes"]:
+        img = torch.from_numpy(encode_input(e["width"], e["height"], e["seed"])).to(cuda_device)
+        info = make_info(e["width"], e["height"], JPEG_SAMPLINGS[e["sampling"]])
+        qt = stream_qtabs(e["quality"])
+        coefs = encode_jpeg_coefs(img, torch.from_numpy(qt.astype(np.int32)).to(cuda_device), info)
+        assert all(c.device.type == "cuda" for c in coefs)
+        jpg = JpegHuffmanEncoder(info, qt).encode([c.cpu().numpy() for c in coefs])
+        assert hashlib.sha256(jpg).hexdigest() == e["sha256"], e
+
+
+def test_jpeg_decode_refuses_bad_inputs(cuda_device):
+    from backscrub_tpu_torch.io.jpeg import make_info
+    from backscrub_tpu_torch.ops.jpeg_kernels import decode_jpeg_bgr
+    info = make_info(64, 48)
+    coefs, q = random_coefficients(info, 0, cuda_device)
+    with pytest.raises(ValueError):
+        decode_jpeg_bgr([c.int() for c in coefs], q, info)
+    with pytest.raises(ValueError):
+        decode_jpeg_bgr(coefs, q.to(torch.int16), info)
+    with pytest.raises(ValueError):
+        decode_jpeg_bgr(coefs[:2], q, info)
+    bad = make_info(64, 48, ((3, 2), (2, 2), (1, 1)))
+    with pytest.raises(ValueError):
+        decode_jpeg_bgr(random_coefficients(bad, 0, cuda_device)[0], q, bad)
+
+
+def _fixture_jpeg_frames():
+    """The committed 640x480 MJPG frames as (coefs, qtabs) and their info."""
+    import json
+    from backscrub_tpu_torch.io.jpeg import JpegEntropyDecoder
+    frames = json.loads(_JPEG_META.read_text())["frames"]["mjpg_synth_640x480.mjpg"]
+    data = (ROOT / "tests" / "data" / "mjpg_synth_640x480.mjpg").read_bytes()
+    dec, out = JpegEntropyDecoder(), []
+    for f in frames:
+        coefs, q = dec.decode(data[f["offset"]:f["offset"] + f["length"]])
+        out.append((tuple(c.copy() for c in coefs), q.astype(np.int32)))
+    return out, dec.info
+
+
+def test_mjpg_pipeline_on_card_is_the_bgr_pipeline(cuda_device):
+    """MJPG in on the card: one bs_jpeg_decode call, K1, K2 and K3 a frame,
+    and byte for byte the BGR pipeline on the plainly decoded frames."""
+    from backscrub_tpu_torch.ops.jpeg_kernels import decode_jpeg_bgr, decode_jpeg_bgr_plain
+    frames, info = _fixture_jpeg_frames()
+    m = FramePipeline(str(FULL), PipelineConfig(width=640, height=480, input_format="mjpg",
+                                                jpeg_info=info), device=cuda_device)
+    b = FramePipeline(str(FULL), PipelineConfig(width=640, height=480), device=cuda_device)
+    counters = (decode_jpeg_bgr, tedge.front_fused, body_launch, blend_pack_yuyv)
+    for coefs, q in frames:
+        before = [c.launches for c in counters]
+        out, mask = m.step((coefs, q))
+        assert [c.launches - x for c, x in zip(counters, before)] == [1, 1, 1, 1]
+        bgr = decode_jpeg_bgr_plain([torch.from_numpy(c) for c in coefs], torch.from_numpy(q),
+                                    info)
+        bout, bmask = b.step(bgr)
+        assert torch.equal(out, bout) and torch.equal(mask, bmask)
+
+
+def test_mjpg_output_on_card_is_the_encode_of_the_bgr_output(cuda_device):
+    """MJPG out on the card: the coefficients are the encode of the BGR
+    pipeline's output, and the packed stream what OpenCV would write for it
+    (the encoder's bytes are held to OpenCV's by the committed hashes)."""
+    from backscrub_tpu_torch.pipeline.jpeg_enc import encode_jpeg_coefs
+    m = FramePipeline(str(SELFIE), PipelineConfig(width=640, height=480, output_format="mjpg",
+                                                  out_jpeg_quality=80), device=cuda_device)
+    b = FramePipeline(str(SELFIE), PipelineConfig(width=640, height=480, output_format="bgr"),
+                      device=cuda_device)
+    q = torch.from_numpy(m.out_jpeg_qtabs.astype(np.int32)).to(cuda_device)
+    for f in _synthetic_frames(640, 480, 3):
+        out, _ = m.step(f)
+        bout, _ = b.step(f)
+        want = encode_jpeg_coefs(bout, q, m.out_jpeg_info)
+        assert len(out) == 3 and all(torch.equal(x, y) for x, y in zip(out, want))
+
+
+@pytest.mark.parametrize("path", [FULL, SELFIE])
+@pytest.mark.parametrize("option", ["refine:guided", "morph:open:3", "u8exact"])
+def test_post_options_on_card_match_plain(cuda_device, monkeypatch, path, option):
+    """A post option on the card takes the JAX route: K1, then the graph
+    executor over the body (no body plan), the decode, the post with the
+    option, K3; each frame's mask against the plain route from the same
+    EMA under the tolerance invariant.  u8exact comes from the
+    BACKSCRUB_U8_EXACT environment default, as the C ABI and the CLI set it."""
+    opts = {"refine:guided": dict(mask_refine="guided"),
+            "morph:open:3": dict(mask_morph="open:3"), "u8exact": {}}[option]
+    if option == "u8exact":
+        monkeypatch.setenv("BACKSCRUB_U8_EXACT", "1")
+    pipe = FramePipeline(str(path), PipelineConfig(width=640, height=480, **opts),
+                         device=cuda_device)
+    e = pipe.maskgen.edge
+    assert e is not None and e.plans == [] and not e.info.tail_ok
+    counters = (tedge.front_fused, body_launch, blend_pack_yuyv)
+    fracs = []
+    with torch.no_grad():
+        for f in _frames(640, 480, 3):
+            ft = torch.from_numpy(f).to(cuda_device)
+            ema = pipe.maskgen.ema.clone()
+            before = [c.launches for c in counters]
+            out, mask = pipe.step(ft)
+            assert [c.launches - x for c, x in zip(counters, before)] == [1, 0, 1]
+            rm, _ = e.step_mask(ft, ema, plain=True)
+            assert int((mask.int() - rm.int()).abs().max()) <= 1
+            fracs.append(float((mask != rm).float().mean()))
+    assert max(fracs) <= 0.02 and float(np.mean(fracs)) <= 0.002
+
+
+def test_mjpg_serving_and_cli_on_card_match_direct_steps(cuda_device, tmp_path, monkeypatch):
+    """MJPG in and out through the staged serving loop with the drain
+    thread, and ``backscrub-torch -c mjpg: --sink-format mjpg`` (the
+    synthetic camera decoded in the loop's thread), write the bytes of
+    direct steps on the same JPEGs."""
+    import functools
+    from backscrub_tpu_torch import cli
+    from backscrub_tpu_torch.io import streams
+    from backscrub_tpu_torch.io.jpeg import JpegEntropyDecoder, JpegHuffmanEncoder
+    from backscrub_tpu_torch.runtime.serving import ServingLoop
+    n = 12
+    cam, dec = streams.SyntheticJpegCamera(640, 480), JpegEntropyDecoder()
+    frames = []
+    for _ in range(n):
+        coefs, q = dec.decode(cam())
+        frames.append((tuple(c.copy() for c in coefs), q.astype(np.int32)))
+    pipe = FramePipeline(str(SELFIE), PipelineConfig(width=640, height=480, input_format="mjpg",
+                                                     jpeg_info=dec.info, output_format="mjpg"),
+                         device=cuda_device)
+    enc = JpegHuffmanEncoder(pipe.out_jpeg_info, pipe.out_jpeg_qtabs)
+    golden = [enc.encode([c.cpu().numpy() for c in pipe.step(f)[0]]) for f in frames]
+    pipe.reset()
+    loop = ServingLoop(pipe, depth=3, staging=True, drain_thread=True)
+    it, got = iter(frames), []
+    assert loop.run(lambda: next(it, None), lambda a: got.append(enc.encode(a))) == n
+    assert got == golden
+    monkeypatch.setattr(streams, "JpegSource", functools.partial(streams.JpegSource,
+                                                                 prefetch=False))
+    out = tmp_path / "o.mjpg"
+    assert cli.main(["-c", "mjpg:", "--cg", "640x480", "-m", str(SELFIE), "--frames", str(n),
+                     "--sink-format", "mjpg", "-v", f"file:{out}"]) == 0
+    assert out.read_bytes() == b"".join(golden)

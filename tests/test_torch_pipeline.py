@@ -148,9 +148,36 @@ def test_entry_points_default_to_cuda(monkeypatch):
     dict(output_format="mjpg"), dict(mask_refine="guided"), dict(mask_morph="erode:5"),
     dict(mask_morph="close:3")])
 def test_options_outside_the_slice_raise(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FramePipeline(str(FULL), PipelineConfig(width=640, height=480, **option),
-                      device="cpu")
+    """The options that raised NotImplementedError before the port served
+    them now run: one 640x480 frame of each through the fused route (K1's
+    plain version, then the body plan or, with a post option, the graph
+    executor) against the JAX fused route in interpret mode, output and
+    mask under the tolerance invariant (MJPG coefficients: at most 2% of
+    the blocks differ)."""
+    import cv2
+    from backscrub_tpu_torch.io.jpeg import JpegEntropyDecoder
+    w, h = 640, 480
+    frame = _tools().moving_frames(w, h, 1)[0]
+    bg = np.random.default_rng(5).integers(0, 256, (h, w, 3), np.uint8)
+    x = frame
+    if option.get("input_format") == "mjpg":
+        dec = JpegEntropyDecoder()
+        coefs, q = dec.decode(cv2.imencode(".jpg", frame)[1].tobytes())
+        option, x = dict(option, jpeg_info=dec.info), (tuple(c.copy() for c in coefs), q)
+    port = FramePipeline(str(FULL), PipelineConfig(width=w, height=h, **option), device="cpu")
+    ref = JaxPipeline(str(FULL), JaxConfig(width=w, height=h, edge_interpret=True,
+                                           pack_interpret=True, **option))
+    assert port.maskgen.edge is not None
+    out, mask = port.step(x, bg)
+    jout, jmask = ref.step(x, bg)
+    inv = _Invariant()
+    if isinstance(out, tuple):
+        for a, b in zip(out, jout):
+            assert (a.numpy() != np.asarray(b)).any(axis=-1).mean() <= FRAME_TOL
+    else:
+        inv.add(out.numpy(), jout)
+    inv.add(mask.numpy(), jmask)
+    inv.check()
 
 
 def test_green_background_and_reset():
@@ -175,6 +202,8 @@ def test_import_pulls_in_no_jax_or_tensorflow():
             "backscrub_tpu_torch.cli, backscrub_tpu_torch.runtime.serving, "
             "backscrub_tpu_torch.io.streams, backscrub_tpu_torch.io.staging, "
             "backscrub_tpu_torch.io.background, backscrub_tpu_torch.io.v4l2, "
+            "backscrub_tpu_torch.io.jpeg, backscrub_tpu_torch.ops.jpeg_kernels, "
+            "backscrub_tpu_torch.pipeline.jpeg, backscrub_tpu_torch.pipeline.jpeg_enc, "
             "backscrub_tpu_torch.utils.debug_ui, backscrub_tpu_torch.utils.timing; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'tensorflow', 'flatbuffers', 'backscrub_tpu', 'cv2')); "
@@ -186,13 +215,16 @@ def test_import_pulls_in_no_jax_or_tensorflow():
 
 def test_coarse_crop_two_stage_post_matches_jax_classic():
     """A 100x640 portrait frame letterboxes to a 15-px-wide output crop:
-    no fused tail (the port runs the classic stages) and the two-stage
-    upscale + box-blur post instead of fold-blur."""
+    no fused tail and the two-stage upscale + box-blur post instead of
+    fold-blur.  The body has no cut that one tensor crosses, so the port
+    takes the JAX package's route there: K1 (its plain version here), then
+    the graph executor over the whole body; held to the JAX classic path."""
     from backscrub_tpu.pipeline.maskgen import MaskGen as JaxMaskGen
     from backscrub_tpu_torch.pipeline.maskgen import MaskGen
     port = MaskGen(str(FULL), 100, 640, device="cpu")
     ref = JaxMaskGen(str(FULL), 100, 640, edge_fused=False)
-    assert port.edge is None and min(port.geo.out_roi.w, port.geo.out_roi.h) < 64
+    assert port.edge is not None and not port.edge.info.tail_ok and port.edge.plans == []
+    assert min(port.geo.out_roi.w, port.geo.out_roi.h) < 64
     inv = _Invariant()
     for f in _tools().moving_frames(100, 640, 3):
         inv.add(port.process(f).numpy(), np.asarray(ref.process(f)))

@@ -239,3 +239,49 @@ def test_probe_staging_reports_and_decides():
     pr = probe_staging(W, H, frames=4, device="cpu")
     assert pr["plain_ms"] > 0
     assert pr["supported"] is False and pr["use_staging"] is False
+
+
+def _jpeg_frames(n):
+    """(coefs, qtabs) frames of n seeded JPEGs (the port's encoder and
+    host packer, quality 90) and their stream geometry."""
+    from backscrub_tpu_torch.io.jpeg import JpegEntropyDecoder, JpegHuffmanEncoder, make_info
+    from backscrub_tpu_torch.pipeline.jpeg_enc import encode_jpeg_coefs, stream_qtabs
+    info, qt = make_info(W, H), stream_qtabs(90)
+    enc, dec = JpegHuffmanEncoder(info, qt), JpegEntropyDecoder()
+    out = []
+    for f in _frames(n):
+        coefs = encode_jpeg_coefs(torch.from_numpy(f), torch.from_numpy(qt.astype(np.int32)),
+                                  info)
+        c, q = dec.decode(enc.encode([x.numpy() for x in coefs]))
+        out.append((tuple(x.copy() for x in c), q))
+    return out, dec.info
+
+
+@pytest.mark.parametrize("drain_thread,staging", [(False, False), (True, True)])
+def test_serving_loop_mjpg_in_and_out_matches_steps(drain_thread, staging):
+    """MJPG coefficient frames in and coefficient tuples out through the
+    loop: every array of a frame staged (one ring slot), every array of a
+    result downloaded, and the results those of sequential steps."""
+    frames, info = _jpeg_frames(5)
+    cfg = PipelineConfig(width=W, height=H, input_format="mjpg", jpeg_info=info,
+                         output_format="mjpg")
+    p = FramePipeline(str(MODEL), cfg, device="cpu")
+    golden = [tuple(c.numpy().copy() for c in p.step(f)[0]) for f in frames]
+    p.reset()
+    loop = ServingLoop(p, depth=2, staging=staging, drain_thread=drain_thread)
+    it, got = iter(frames), []
+    assert loop.run(lambda: next(it, None), got.append) == len(frames)
+    assert len(got) == len(golden)
+    for a, b in zip(got, golden):
+        assert isinstance(a, tuple) and len(a) == 3
+        assert all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def test_staging_ring_uploads_a_frame_tuple_in_one_slot():
+    ring = StagingRing("cpu", depth=1)
+    frames, _ = _jpeg_frames(1)
+    coefs, q = frames[0]
+    dev = ring.upload((coefs, q))
+    assert isinstance(dev, tuple) and isinstance(dev[0], tuple) and len(dev[0]) == 3
+    assert all(np.array_equal(d.numpy(), c) for d, c in zip(dev[0], coefs))
+    assert np.array_equal(dev[1].numpy(), q)
