@@ -5,11 +5,12 @@ Flag-compatible with the reference app (usage text at
 app/deepseg.cc:505-530): -? -d -s -c -v -w -h --cg --vg -f -t -b -m
 -p bgblur:<n> -H -V, same defaults (-c /dev/video0, -v /dev/video1,
 640x480, MLKit selfie model, app/deepseg.cc:362-376), same /dev/ prefix
-auto-add (:536-539), and the JAX CLI's additions for headless use.  The
-frame pipeline runs on the CUDA card (``main(argv, device="cuda")``);
-without one ``main`` prints an error and returns 1.  A flag whose path is
-not in the port yet (``--bf16``, ``--int8``) prints an error naming its
-ROADMAP item and returns 1; none is ignored.
+auto-add (:536-539), and the JAX CLI's additions for headless use, every
+one of them served: ``--bf16`` runs the CNN in bfloat16 with one-pass bf16
+dots (``compute_dtype=torch.bfloat16, precision="default"``), ``--int8``
+loads per-channel int8 kernels (the classic stages).  The frame pipeline
+runs on the CUDA card (``main(argv, device="cuda")``); without one
+``main`` prints an error and returns 1.
 
 Run it as ``python -m backscrub_tpu_torch.cli -c test: -v file:/tmp/o.yuv
 -m tests/data/selfie_synth_mlkit_256x256.tflite --frames 60``.
@@ -23,9 +24,6 @@ import sys
 from typing import List, Optional
 
 import numpy as np
-
-ROADMAP_BF16 = "ROADMAP queue 1, bf16 mode"
-ROADMAP_LOWERINGS = "ROADMAP queue 1, Remaining lowerings and model loading"
 
 
 def parse_geometry(s: str):
@@ -65,8 +63,8 @@ usage:
 -H            Mirror the output horizontally
 -V            Mirror the output vertically
 --frames N    Process N frames then exit (0 = run forever)
---bf16        Run the CNN in bfloat16 (not in the PyTorch port yet)
---int8        Quantize conv/dense weights (not in the PyTorch port yet)
+--bf16        Run the CNN in bfloat16, its dots one bf16 pass
+--int8        Quantize conv kernels to per-channel int8 (the classic stages)
 --no-bilateral  Skip the bilateral prefilter
 --correct-colors  Use spec-correct YUYV (the reference feeds BGR to RGB2YUV)
 --staging     Upload frames through page-locked host buffers (byte-identical
@@ -224,19 +222,6 @@ def parse_args(argv: List[str]) -> Optional[dict]:
     return cfg
 
 
-def refused(cfg: dict) -> Optional[str]:
-    """Why the port cannot serve ``cfg`` yet, naming the ROADMAP item that
-    brings it; None when it can."""
-    not_yet = [
-        (cfg["bf16"], "--bf16", ROADMAP_BF16),
-        (cfg["int8"], "--int8", ROADMAP_LOWERINGS),
-    ]
-    for hit, flag, item in not_yet:
-        if hit:
-            return f"{flag} is not in the PyTorch port yet: {item}"
-    return None
-
-
 def main(argv: Optional[List[str]] = None, *, device="cuda") -> int:
     """Run the CLI; ``device`` is the torch device the pipeline runs on
     (tests pass "cpu")."""
@@ -249,10 +234,6 @@ def main(argv: Optional[List[str]] = None, *, device="cuda") -> int:
         return 1
     if cfg is None:
         print(USAGE, file=sys.stderr)
-        return 1
-    why = refused(cfg)
-    if why:
-        print(f"Error: {why}", file=sys.stderr)
         return 1
 
     import torch
@@ -318,7 +299,10 @@ def main(argv: Optional[List[str]] = None, *, device="cuda") -> int:
         out_jpeg_quality=cfg["jpeg_quality"],
     )
     try:
-        pipe = FramePipeline(model_path, pcfg, device=dev)
+        pipe = FramePipeline(model_path, pcfg, device=dev,
+                             compute_dtype=torch.bfloat16 if cfg["bf16"] else torch.float32,
+                             precision="default" if cfg["bf16"] else None,
+                             quantize="int8" if cfg["int8"] else None)
     except Exception:
         source.close()
         raise

@@ -1,4 +1,4 @@
-// bs_gemm: the flat continuation's (K2'') bf16x3 tensor-core 1x1 conv as a
+// bs_gemm: the flat continuation's (K2'') tensor-core 1x1 conv as a
 // standalone kernel for Hopper (sm_90a), the per-shape probe of the GEMM
 // tile that the persistent kernel runs as its OP_GEMM (gemm_tc.cuh holds
 // the tile for both; body_mega.cu runs the deeplab tables).
@@ -9,7 +9,8 @@
 // Replaces, as the table's GEMM op does, the MXU dots of the TPU kernel
 // backscrub_tpu/ops/megakernel.py:BodyMega in its flat mode
 // (body_mega_continuation_for): (co, ci) @ (ci, rows*33) emulating XLA's
-// HIGH precision as three bf16 passes (megakernel.py:501-515).
+// HIGH precision as three bf16 passes (megakernel.py:501-515), or in the
+// bf16 mode its DEFAULT precision as one (``terms``).
 //
 // The regime's GEMMs are small (M = co 16-480, K = ci 16-512, N = 1089):
 // 1.3 GFLOP a deeplab frame in 29 of them, so latency and grid fill, not
@@ -38,12 +39,12 @@ constexpr int NT = 128;     // four warps a CTA
 // y = act(W x + b) over the K range [kb, kb + kchunk) of blockIdx.z
 // (kb = blockIdx.z * kchunk); with ``part`` the raw sums go to part[z]
 // instead (split K).  whi/wlo (M, Kp) bf16; x (K, N), y (M, N) f32.
-template <int BM, int BN, int WARPS_M>
+template <int BM, int BN, int WARPS_M, int TERMS>
 __global__ void __launch_bounds__(NT)
 gemm_tc_kernel(const __nv_bfloat16* whi, const __nv_bfloat16* wlo, const float* b,
                const float* x, float* y, float* part, int M, int K, int Kp, int N, int act,
                int kchunk) {
-  using T = gemm_tc::Tile<BM, BN, WARPS_M, 4 / WARPS_M, 1>;
+  using T = gemm_tc::Tile<BM, BN, WARPS_M, 4 / WARPS_M, 1, TERMS>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int kb = blockIdx.z * kchunk;
   const gemm_tc::Epilogue ep{b, act, nullptr, 0, y,
@@ -63,20 +64,20 @@ __global__ void splitk_sum_kernel(const float* __restrict__ part, const float* _
   y[idx] = activate(s + b[idx / N], act);
 }
 
-template <int BM, int BN, int WARPS_M>
+template <int BM, int BN, int WARPS_M, int TERMS>
 int launch_gemm(const void* whi, const void* wlo, const void* b, const void* x, void* y,
                 void* part, int M, int K, int Kp, int N, int act, int split, int kchunk,
                 cudaStream_t stream) {
-  constexpr int smem = gemm_tc::Tile<BM, BN, WARPS_M, 4 / WARPS_M, 1>::SMEM_BYTES;
+  constexpr int smem = gemm_tc::Tile<BM, BN, WARPS_M, 4 / WARPS_M, 1, TERMS>::SMEM_BYTES;
   static bool ready = false;   // the attribute, once per process and instantiation
   if (!ready) {
-    cudaError_t e = cudaFuncSetAttribute(gemm_tc_kernel<BM, BN, WARPS_M>,
+    cudaError_t e = cudaFuncSetAttribute(gemm_tc_kernel<BM, BN, WARPS_M, TERMS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
     ready = true;
   }
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, split);
-  gemm_tc_kernel<BM, BN, WARPS_M><<<grid, NT, smem, stream>>>(
+  gemm_tc_kernel<BM, BN, WARPS_M, TERMS><<<grid, NT, smem, stream>>>(
       (const __nv_bfloat16*)whi, (const __nv_bfloat16*)wlo, (const float*)b,
       (const float*)x, (float*)y, split > 1 ? (float*)part : nullptr, M, K, Kp, N, act,
       kchunk);
@@ -88,26 +89,37 @@ int launch_gemm(const void* whi, const void* wlo, const void* b, const void* x, 
   return (int)cudaGetLastError();
 }
 
+template <int TERMS>
+int launch_tile(int tile, const void* whi, const void* wlo, const void* b, const void* x,
+                void* y, void* part, int co, int ci, int kp, int L, int act, int split,
+                int kchunk, cudaStream_t s) {
+  switch (tile) {
+    case 0: return launch_gemm<64, 64, 2, TERMS>(whi, wlo, b, x, y, part, co, ci, kp, L, act, split, kchunk, s);
+    case 1: return launch_gemm<32, 64, 2, TERMS>(whi, wlo, b, x, y, part, co, ci, kp, L, act, split, kchunk, s);
+    case 2: return launch_gemm<32, 32, 2, TERMS>(whi, wlo, b, x, y, part, co, ci, kp, L, act, split, kchunk, s);
+    case 3: return launch_gemm<16, 32, 1, TERMS>(whi, wlo, b, x, y, part, co, ci, kp, L, act, split, kchunk, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // tile: 0 = 64x64, 1 = 32x64, 2 = 32x32, 3 = 16x32 (megakernel.py:_GEMM_TILES);
 // split > 1: ``part`` holds split * co * L floats and kchunk (a multiple of
-// 16) is each split's K range
+// 16) is each split's K range; terms: 3 = the bf16x3 split (whi and wlo), 1 =
+// one bf16 pass (whi alone; wlo may be null)
 int bs_gemm(const void* whi, const void* wlo, const void* b, const void* x, void* y,
             void* part, int co, int ci, int kp, int L, int act, int tile, int split,
-            int kchunk, void* stream) {
-  if (split < 1 || kchunk % 16 || (split > 1 && part == nullptr) || kp % 8)
+            int kchunk, int terms, void* stream) {
+  if (split < 1 || kchunk % 16 || (split > 1 && part == nullptr) || kp % 8 ||
+      (terms != 1 && terms != 3) || (terms == 3 && wlo == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (tile) {
-    case 0: return launch_gemm<64, 64, 2>(whi, wlo, b, x, y, part, co, ci, kp, L, act, split, kchunk, s);
-    case 1: return launch_gemm<32, 64, 2>(whi, wlo, b, x, y, part, co, ci, kp, L, act, split, kchunk, s);
-    case 2: return launch_gemm<32, 32, 2>(whi, wlo, b, x, y, part, co, ci, kp, L, act, split, kchunk, s);
-    case 3: return launch_gemm<16, 32, 1>(whi, wlo, b, x, y, part, co, ci, kp, L, act, split, kchunk, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (terms == 3)
+    return launch_tile<3>(tile, whi, wlo, b, x, y, part, co, ci, kp, L, act, split, kchunk, s);
+  return launch_tile<1>(tile, whi, wlo, b, x, y, part, co, ci, kp, L, act, split, kchunk, s);
 }
 
 }  // extern "C"

@@ -55,6 +55,17 @@
 // thread an element.  Every sum has a fixed order (xor-butterfly warp
 // sums, fixed block trees), so two runs give the same bits.
 //
+// The bf16 mode (BF16 = 1, the plan's dots "bf16"): every dot of the JAX
+// plan (the 1x1 convs, the pooled-vector FCs, the SE block's two FCs) at
+// the reference's DEFAULT precision, as its interpret mode computes it:
+// both operands rounded to the nearest bf16, products summed in f32.  The
+// weights come rounded in the arena (MegaTable); the kernel rounds the
+// activation operand, once where it is staged in shared memory (conv_op,
+// after the SE gate's multiply; convw_op) or as it is read (the FCs), and
+// the GEMM runs its one-term tile.  Depthwise, pool, elementwise, resize
+// and copy ops do not change.  The mode is the kernel's template
+// parameter: the f32 instantiation (BF16 = 0) is the code without it.
+//
 // Bound: latency.  segm's 31 MFLOP and 1.6 MB of compulsory traffic are
 // well under a microsecond of the card's f32 or HBM rate, deeplab's 1.4
 // GFLOP (1.3 of it in the GEMMs, three bf16 passes) a few microseconds;
@@ -104,6 +115,16 @@ __device__ __forceinline__ const float* operand(const Args& a, int off) {
 
 __device__ __forceinline__ float ld(const float* p) { return __ldcg(p); }
 
+// the bf16 mode's dot operand: v rounded to the nearest bf16 (ties to
+// even), as f32; the f32 mode's: v
+template <int BF16>
+__device__ __forceinline__ float dot_in(float v) {
+  if constexpr (BF16 != 0)
+    return __bfloat162float(__float2bfloat16_rn(v));
+  else
+    return v;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -114,7 +135,8 @@ __device__ __forceinline__ float warp_sum(float v) {
 // transposed (ci, co), staged in shared memory like in and out (a thread
 // an output, conflict-free).  Fewer outputs than threads: the K range is
 // cut into G groups whose partial sums (``part``, NT floats) add up in
-// group order.
+// group order.  ``in`` enters the dot as dot_in<BF16>.
+template <int BF16>
 __device__ void fc_shared(const float* wt, const float* b, const float* in, float* out,
                           float* part, int ci, int co, int act) {
   const int G = co >= NT ? 1 : NT / co, kc = (ci + G - 1) / G;
@@ -122,7 +144,7 @@ __device__ void fc_shared(const float* wt, const float* b, const float* in, floa
     const int g = t / co, o = t % co, k1 = min(ci, (g + 1) * kc);
     float s = 0.0f;
 #pragma unroll 16
-    for (int k = g * kc; k < k1; ++k) s = fmaf(wt[(size_t)k * co + o], in[k], s);
+    for (int k = g * kc; k < k1; ++k) s = fmaf(wt[(size_t)k * co + o], dot_in<BF16>(in[k]), s);
     if (G == 1)
       out[o] = activate(s + b[o], act);
     else
@@ -141,6 +163,7 @@ __device__ void fc_shared(const float* wt, const float* b, const float* in, floa
 // vector (written by the depthwise op before) -> FC1 -> FC2.  Both FCs'
 // transposed weights (contiguous in the arena, 16-byte aligned) land in
 // ``sw`` by one burst of 16-byte cp.async, so the CTA waits for L2 once.
+template <int BF16>
 __device__ void se_gate(const Args& a, const int* d, float* sw, float* sg, float* sh,
                         float* part) {
   const int C = d[F_C], hid = d[F_HID], n4 = (C * hid + 3) / 4;
@@ -155,8 +178,8 @@ __device__ void se_gate(const Args& a, const int* d, float* sw, float* sg, float
   for (int c = threadIdx.x; c < C; c += NT) sg[c] = ld(pooled + c);
   cp_async_wait<0>();
   __syncthreads();
-  fc_shared(w1, a.ar + d[F_B1], sg, sh, part, C, hid, d[F_ACT1]);
-  fc_shared(w2, a.ar + d[F_B2], sh, sg, part, hid, C, d[F_ACTG]);
+  fc_shared<BF16>(w1, a.ar + d[F_B1], sg, sh, part, C, hid, d[F_ACT1]);
+  fc_shared<BF16>(w2, a.ar + d[F_B2], sh, sg, part, hid, C, d[F_ACTG]);
 }
 
 // y = act2(act(W x' + b) + r): x' = x, or x * gate by channel (the SE
@@ -166,7 +189,9 @@ __device__ void se_gate(const Args& a, const int* d, float* sw, float* sg, float
 // thread in each of G = NT / (TM * TN) thread groups that split K; the
 // groups' sums add up in group order.  W and X for up to CK of K land in
 // shared memory by one burst of cp.async.  The SE gate is computed first,
-// once a CTA, its weights in the same shared memory.
+// once a CTA, its weights in the same shared memory.  BF16: the staged x,
+// gated, is rounded in place once, before the sums read it.
+template <int BF16>
 __device__ void conv_op(const Args& a, const int* d, float* sm) {
   const int M = d[F_CO], K = d[F_C], L = d[F_N];
   const int TM = d[F_TM], TN = d[F_TN], T = TM * TN, G = NT / T;
@@ -180,7 +205,7 @@ __device__ void conv_op(const Args& a, const int* d, float* sm) {
   float* sg = sm + max(kcap * (TM + 1 + TN), gate ? 8 * ((K * d[F_HID] + 3) / 4) : 0);
   float* sh = sg + SE_MAX_C;           // FC1's output
   float* part = sh + SE_MAX_C;         // NT floats: FC and K-group partial sums
-  if (gate) se_gate(a, d, sm, sg, sh, part);
+  if (gate) se_gate<BF16>(a, d, sm, sg, sh, part);
   const float* x = operand(a, d[F_IN]);
   const float* w = a.ar + d[F_W];
   const float* b = a.ar + d[F_B];
@@ -206,10 +231,19 @@ __device__ void conv_op(const Args& a, const int* d, float* sm) {
       cp_async_commit();
       cp_async_wait<0>();
       __syncthreads();
+      if constexpr (BF16 != 0) {
+        for (int e = threadIdx.x; e < kc * TN; e += NT)
+          sx[e] = dot_in<BF16>(sx[e] * (gate ? sg[k0 + e / TN] : 1.0f));
+        __syncthreads();
+      }
       const int kq = (kc + G - 1) / G, ke = min(kc, (grp + 1) * kq);
 #pragma unroll 4
       for (int k = grp * kq; k < ke; ++k) {
-        float v = sx[k * TN + ni] * (gate ? sg[k0 + k] : 1.0f);
+        float v;
+        if constexpr (BF16 != 0)
+          v = sx[k * TN + ni];
+        else
+          v = sx[k * TN + ni] * (gate ? sg[k0 + k] : 1.0f);
         acc = fmaf(sw[k * (TM + 1) + mi], v, acc);
       }
       __syncthreads();
@@ -235,6 +269,8 @@ __device__ void conv_op(const Args& a, const int* d, float* sm) {
 // stages W (co, ci) and those columns of x in shared memory by one burst of
 // cp.async, and computes all of their outputs, a thread a (column, every
 // G-th row) with G = NT / columns; each output's K sum in order, f32 FFMA
+// (BF16: the staged columns rounded in place first)
+template <int BF16>
 __device__ void convw_op(const Args& a, const int* d, float* sm) {
   const int M = d[F_CO], K = d[F_C], L = d[F_N], cols = d[F_TN];
   const float* x = operand(a, d[F_IN]);
@@ -255,6 +291,13 @@ __device__ void convw_op(const Args& a, const int* d, float* sm) {
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
+    if constexpr (BF16 != 0) {
+      for (int e = threadIdx.x; e < K * nc; e += NT) {
+        float* v = sx + (e / nc) * cols + e % nc;
+        *v = dot_in<BF16>(*v);
+      }
+      __syncthreads();
+    }
     if ((int)threadIdx.x < G * nc) {
       const int n = threadIdx.x % nc;
       for (int m = threadIdx.x / nc; m < M; m += G) {
@@ -273,13 +316,14 @@ __device__ void convw_op(const Args& a, const int* d, float* sm) {
 
 // the flat continuation's spatial 1x1 conv on the tensor cores: y =
 // act2(act(W x + b) + r) with W split into bf16 hi/lo on the host (the
-// arena holds W_hi at F_W and W_lo at F_W1, (co, F_KP) bf16 each), x (ci,
-// L) from the workspace, r the optional residual.  The CTA's 256 threads
-// run one gemm_tc tile at a time (F_TILE: megakernel.py:_MEGA_GEMM_TILES),
-// the tiles of the op spread over the grid.
-template <int BM, int BN, int WARPS_M, int WARPS_N, int KG>
+// arena holds W_hi at F_W and W_lo at F_W1, (co, F_KP) bf16 each; W_hi
+// alone in the bf16 mode, whose tile has TERMS = 1), x (ci, L) from the
+// workspace, r the optional residual.  The CTA's 256 threads run one
+// gemm_tc tile at a time (F_TILE: megakernel.py:_MEGA_GEMM_TILES), the
+// tiles of the op spread over the grid.
+template <int BM, int BN, int WARPS_M, int WARPS_N, int KG, int TERMS>
 __device__ void gemm_tiles(const Args& a, const int* d, unsigned char* sm) {
-  using T = gemm_tc::Tile<BM, BN, WARPS_M, WARPS_N, KG>;
+  using T = gemm_tc::Tile<BM, BN, WARPS_M, WARPS_N, KG, TERMS>;
   static_assert(T::NT == NT, "a table GEMM tile takes the whole CTA");
   const int M = d[F_CO], K = d[F_C], N = d[F_N], Kp = d[F_KP];
   const int tn = (N + BN - 1) / BN, tiles = ((M + BM - 1) / BM) * tn;
@@ -294,21 +338,24 @@ __device__ void gemm_tiles(const Args& a, const int* d, unsigned char* sm) {
   }
 }
 
+template <int BF16>
 __device__ void gemm_op(const Args& a, const int* d, float* sm) {
+  constexpr int TERMS = BF16 != 0 ? 1 : 3;
   unsigned char* s = reinterpret_cast<unsigned char*>(sm);
   switch (d[F_TILE]) {
-    case 0: gemm_tiles<128, 64, 4, 2, 1>(a, d, s); break;
-    case 1: gemm_tiles<64, 64, 2, 2, 2>(a, d, s); break;
-    case 2: gemm_tiles<32, 64, 2, 2, 2>(a, d, s); break;
-    case 3: gemm_tiles<32, 32, 2, 2, 2>(a, d, s); break;
-    case 4: gemm_tiles<16, 32, 1, 4, 2>(a, d, s); break;
+    case 0: gemm_tiles<128, 64, 4, 2, 1, TERMS>(a, d, s); break;
+    case 1: gemm_tiles<64, 64, 2, 2, 2, TERMS>(a, d, s); break;
+    case 2: gemm_tiles<32, 64, 2, 2, 2, TERMS>(a, d, s); break;
+    case 3: gemm_tiles<32, 32, 2, 2, 2, TERMS>(a, d, s); break;
+    case 4: gemm_tiles<16, 32, 1, 4, 2, TERMS>(a, d, s); break;
     default: break;
   }
 }
 
 // a pooled-vector FC: y[o] = act(W x + b), one warp an output; with F_BN
 // (the 1 -> N broadcast that follows it) the warp writes y[o] across N
-// columns, y[o * N + l]
+// columns, y[o * N + l]; x enters the dot as dot_in<BF16>
+template <int BF16>
 __device__ void fc_op(const Args& a, const int* d) {
   const int ci = d[F_C], co = d[F_CO], bn = d[F_BN];
   const float* x = operand(a, d[F_IN]);
@@ -319,7 +366,7 @@ __device__ void fc_op(const Args& a, const int* d) {
   for (int o = blockIdx.x * NW + (threadIdx.x >> 5); o < co; o += gridDim.x * NW) {
     float s = 0.0f;
 #pragma unroll 4
-    for (int k = lane; k < ci; k += 32) s = fmaf(w[(size_t)o * ci + k], ld(x + k), s);
+    for (int k = lane; k < ci; k += 32) s = fmaf(w[(size_t)o * ci + k], dot_in<BF16>(ld(x + k)), s);
     s = warp_sum(s);
     const float v = activate(s + b[o], d[F_ACT]);
     if (bn == 0) {
@@ -579,7 +626,8 @@ __device__ __forceinline__ unsigned long long globaltimer() {
 // working memory follows it.  With ``stamps`` (a measurement run), CTA 0
 // writes the device's nanosecond clock after the start barrier and after
 // each phase's barrier (one more barrier ends the last phase): phases + 1
-// stamps
+// stamps.  BF16: the table's dot mode (0 f32 dots and bf16x3 GEMMs, 1 bf16)
+template <int BF16>
 __global__ void __launch_bounds__(NT)
 body_mega_kernel(const float* x, float* ws, const float* arena, const int* table,
                  int n_ops, unsigned long long* stamps) {
@@ -599,15 +647,15 @@ body_mega_kernel(const float* x, float* ws, const float* arena, const int* table
   for (int i = 0; i < n_ops; ++i) {
     const int* sd = tab + i * DESC;
     switch (sd[F_CODE]) {
-      case OP_CONV: conv_op(a, sd, sm); break;
-      case OP_FC: fc_op(a, sd); break;
+      case OP_CONV: conv_op<BF16>(a, sd, sm); break;
+      case OP_FC: fc_op<BF16>(a, sd); break;
       case OP_DW: dw_op(a, sd, sm); break;
       case OP_GPOOL: gpool_op(a, sd); break;
       case OP_ELT: elt_op(a, sd); break;
       case OP_RESIZE: resize_op(a, sd); break;
       case OP_COPY: copy_op(a, sd); break;
-      case OP_GEMM: gemm_op(a, sd, sm); break;
-      case OP_CONVW: convw_op(a, sd, sm); break;
+      case OP_GEMM: gemm_op<BF16>(a, sd, sm); break;
+      case OP_CONVW: convw_op<BF16>(a, sd, sm); break;
       default: break;
     }
     __syncthreads();   // the next op reuses the working memory
@@ -655,13 +703,17 @@ extern "C" {
 
 // one run of the op table: ``n_ops`` descriptors of DESC int32 at
 // ``table``, operands in ``ws`` (and ``x``), weights in ``arena``;
-// ``smem`` dynamic shared bytes a CTA (MegaTable.smem_bytes); ``stamps``
-// null, or phases + 1 uint64 for the phase clock (a measurement run)
+// ``smem`` dynamic shared bytes a CTA (MegaTable.smem_bytes); ``dots`` the
+// table's dot mode (0 f32 / bf16x3, 1 bf16: megakernel.py:_DOTS_KERNEL);
+// ``stamps`` null, or phases + 1 uint64 for the phase clock (a
+// measurement run)
 int bs_body_mega(const void* x, void* ws, const void* arena, const void* table, int n_ops,
-                 int smem, void* stamps, void* stream) {
-  return launch_resident<0>(body_mega_kernel, 0, smem, (cudaStream_t)stream,
-                            (const float*)x, (float*)ws, (const float*)arena,
-                            (const int*)table, n_ops, (unsigned long long*)stamps);
+                 int smem, int dots, void* stamps, void* stream) {
+  if (dots != 0 && dots != 1) return (int)cudaErrorInvalidValue;
+  auto* kern = dots ? &body_mega_kernel<1> : &body_mega_kernel<0>;
+  return launch_resident<0>(kern, 0, smem, (cudaStream_t)stream, (const float*)x, (float*)ws,
+                            (const float*)arena, (const int*)table, n_ops,
+                            (unsigned long long*)stamps);
 }
 
 // ``iters`` phase barriers in one launch: barrier 0, a cooperative grid of

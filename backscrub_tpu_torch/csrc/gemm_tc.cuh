@@ -1,4 +1,4 @@
-// The bf16x3 tensor-core GEMM tile of the flat continuation (K2''), shared
+// The tensor-core GEMM tile of the flat continuation (K2''), shared
 // by the standalone bs_gemm (body_flat.cu, the per-shape probe) and the
 // persistent kernel's OP_GEMM (body_mega.cu, the deeplab table).
 //
@@ -24,6 +24,11 @@
 // The warps tile BM x BN as WARPS_M x WARPS_N; with KG = 2 two groups of
 // them take the two k16 steps of each slice and add their sums in a fixed
 // order before the epilogue, so two runs give the same bits.
+//
+// TERMS = 1 is the bf16 mode's one pass (the reference's DEFAULT: both
+// operands rounded to bf16, products summed in f32): the hi.hi term alone.
+// It stages no W_lo (half the ring's weight traffic) and keeps no cross
+// term accumulators.  TERMS = 3 is the split above.
 
 #pragma once
 
@@ -50,6 +55,13 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, const uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// two f32 values (k, k+1) rounded to a packed bf16 pair (the one-term B
+// fragment)
+__device__ __forceinline__ uint32_t round2(float v0, float v1) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v0)) |
+         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v1)) << 16);
+}
+
 // the reference's split of two f32 values (k, k+1) into packed bf16 pairs
 __device__ __forceinline__ void split2(float v0, float v1, uint32_t& hi, uint32_t& lo) {
   __nv_bfloat16 h0 = __float2bfloat16_rn(v0), h1 = __float2bfloat16_rn(v1);
@@ -72,28 +84,32 @@ struct Epilogue {
   float* part;
 };
 
-template <int BM, int BN, int WARPS_M, int WARPS_N, int KG>
+template <int BM, int BN, int WARPS_M, int WARPS_N, int KG, int TERMS = 3>
 struct Tile {
+  static_assert(TERMS == 1 || TERMS == 3, "one pass or the bf16x3 split");
+  static constexpr int WH = TERMS == 3 ? 2 : 1;            // W tiles a stage: hi, lo
   static constexpr int NT = 32 * WARPS_M * WARPS_N * KG;   // threads
   static constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;
   static constexpr int MF = WM / 16, NF = WN / 8;          // m16n8 tiles a warp
   static constexpr int XS = BN + 4;                        // f32 row stride of an x slice
   static constexpr int XCH = BN / 4 + 1;                   // its 16-byte chunks a row
-  static constexpr int RING = STAGES * (2 * BM * WS * 2 + BK * XS * 4);
+  static constexpr int RING = STAGES * (WH * BM * WS * 2 + BK * XS * 4);
   static constexpr int SMEM_BYTES = RING;                  // the KG sums reuse the ring
   static_assert(MF >= 1 && NF >= 1 && WM % 16 == 0 && WN % 8 == 0, "warp tile");
   static_assert(BK % (16 * KG) == 0, "the K groups take turns at a slice's k16 steps");
-  static_assert(KG == 1 || (NT / KG) * MF * NF * 8 * 4 <= RING, "K-group sums fit the ring");
+  static_assert(KG == 1 || (NT / KG) * MF * NF * 4 * WH * 4 <= RING,
+                "K-group sums fit the ring");
 
   // The tile at (m0, n0) over K range [kb, kend_w) of W (x rows past
   // kend_x load as zeros), into ``ep``.  All NT threads call it; it leaves
   // no copy in flight, and the ring may be reused after a __syncthreads().
+  // ``wlo`` is not read with TERMS = 1.
   __device__ static void run(unsigned char* smem, const __nv_bfloat16* whi,
                              const __nv_bfloat16* wlo, const float* x, int M, int Kp, int N,
                              int m0, int n0, int kb, int kend_w, int kend_x,
                              const Epilogue& ep) {
-    __nv_bfloat16* sw = reinterpret_cast<__nv_bfloat16*>(smem);          // [STAGES][2][BM][WS]
-    float* sx = reinterpret_cast<float*>(smem + STAGES * 2 * BM * WS * 2);  // [STAGES][BK][XS]
+    __nv_bfloat16* sw = reinterpret_cast<__nv_bfloat16*>(smem);          // [STAGES][WH][BM][WS]
+    float* sx = reinterpret_cast<float*>(smem + STAGES * WH * BM * WS * 2);  // [STAGES][BK][XS]
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int g = lane >> 2, t = lane & 3;
     const int kgrp = warp / (WARPS_M * WARPS_N), wq = warp % (WARPS_M * WARPS_N);
@@ -106,13 +122,13 @@ struct Tile {
 
     auto load = [&](int stage, int k0) {
       constexpr int WCH = BM * (BK / 8);          // 16-byte chunks of one W tile
-      for (int e = tid; e < 2 * WCH; e += NT) {
+      for (int e = tid; e < WH * WCH; e += NT) {
         int which = e / WCH, r = e % WCH;
         int row = r / (BK / 8), ch = r % (BK / 8);
         int gm = m0 + row, gk = k0 + ch * 8;
         bool ok = gm < M && gk < kend_w;
         const __nv_bfloat16* base = which ? wlo : whi;
-        cp_async16(sw + ((stage * 2 + which) * BM + row) * WS + ch * 8,
+        cp_async16(sw + ((stage * WH + which) * BM + row) * WS + ch * 8,
                    base + (ok ? (size_t)gm * Kp + gk : 0), ok);
       }
       for (int e = tid; e < BK * XCH; e += NT) {
@@ -145,8 +161,8 @@ struct Tile {
       cp_async_commit();
 
       const int st = it % STAGES;
-      const __nv_bfloat16* ah_s = sw + (st * 2 + 0) * BM * WS;
-      const __nv_bfloat16* al_s = sw + (st * 2 + 1) * BM * WS;
+      const __nv_bfloat16* ah_s = sw + (st * WH + 0) * BM * WS;
+      const __nv_bfloat16* al_s = sw + (st * WH + 1) * BM * WS;   // read with TERMS = 3
       const float* xs = sx + st * BK * XS;
       const unsigned xk0 = xw + (unsigned)(kb + it * BK) * (unsigned)N;
 #pragma unroll
@@ -160,10 +176,12 @@ struct Tile {
           ah[i][1] = *reinterpret_cast<const uint32_t*>(ah_s + (r + 8) * WS + c);
           ah[i][2] = *reinterpret_cast<const uint32_t*>(ah_s + r * WS + c + 8);
           ah[i][3] = *reinterpret_cast<const uint32_t*>(ah_s + (r + 8) * WS + c + 8);
-          al[i][0] = *reinterpret_cast<const uint32_t*>(al_s + r * WS + c);
-          al[i][1] = *reinterpret_cast<const uint32_t*>(al_s + (r + 8) * WS + c);
-          al[i][2] = *reinterpret_cast<const uint32_t*>(al_s + r * WS + c + 8);
-          al[i][3] = *reinterpret_cast<const uint32_t*>(al_s + (r + 8) * WS + c + 8);
+          if constexpr (TERMS == 3) {
+            al[i][0] = *reinterpret_cast<const uint32_t*>(al_s + r * WS + c);
+            al[i][1] = *reinterpret_cast<const uint32_t*>(al_s + (r + 8) * WS + c);
+            al[i][2] = *reinterpret_cast<const uint32_t*>(al_s + r * WS + c + 8);
+            al[i][3] = *reinterpret_cast<const uint32_t*>(al_s + (r + 8) * WS + c + 8);
+          }
         }
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
@@ -173,7 +191,10 @@ struct Tile {
 #pragma unroll
           for (int j = 0; j < NF; ++j) {
             int col = wn * WN + j * 8 + g;
-            split2(r0[col], r1[col], bh[j][h], bl[j][h]);
+            if constexpr (TERMS == 3)
+              split2(r0[col], r1[col], bh[j][h], bl[j][h]);
+            else
+              bh[j][h] = round2(r0[col], r1[col]);
           }
         }
 #pragma unroll
@@ -181,8 +202,10 @@ struct Tile {
 #pragma unroll
           for (int j = 0; j < NF; ++j) {
             mma_bf16(acc[i][j], ah[i], bh[j]);
-            mma_bf16(cor[i][j], ah[i], bl[j]);
-            mma_bf16(cor[i][j], al[i], bh[j]);
+            if constexpr (TERMS == 3) {
+              mma_bf16(cor[i][j], ah[i], bl[j]);
+              mma_bf16(cor[i][j], al[i], bh[j]);
+            }
           }
       }
     }
@@ -191,7 +214,7 @@ struct Tile {
     if constexpr (KG > 1) {
       // group 1 hands its sums to group 0 through the ring (value v of
       // thread l at red[v * NT / KG + l]: a warp's lanes on consecutive
-      // banks): acc0 + acc1, cor0 + cor1, in that order
+      // banks): acc0 + acc1, cor0 + cor1 (TERMS = 3), in that order
       constexpr int LANES = NT / KG;
       float* red = reinterpret_cast<float*>(smem) + wq * 32 + lane;
       __syncthreads();
@@ -202,8 +225,8 @@ struct Tile {
           for (int j = 0; j < NF; ++j)
 #pragma unroll
             for (int q = 0; q < 4; ++q) {
-              red[(((i * NF + j) * 4 + q) * 2) * LANES] = acc[i][j][q];
-              red[(((i * NF + j) * 4 + q) * 2 + 1) * LANES] = cor[i][j][q];
+              red[(((i * NF + j) * 4 + q) * WH) * LANES] = acc[i][j][q];
+              if constexpr (TERMS == 3) red[(((i * NF + j) * 4 + q) * 2 + 1) * LANES] = cor[i][j][q];
             }
       }
       __syncthreads();
@@ -214,13 +237,13 @@ struct Tile {
           for (int j = 0; j < NF; ++j)
 #pragma unroll
             for (int q = 0; q < 4; ++q) {
-              acc[i][j][q] += red[(((i * NF + j) * 4 + q) * 2) * LANES];
-              cor[i][j][q] += red[(((i * NF + j) * 4 + q) * 2 + 1) * LANES];
+              acc[i][j][q] += red[(((i * NF + j) * 4 + q) * WH) * LANES];
+              if constexpr (TERMS == 3) cor[i][j][q] += red[(((i * NF + j) * 4 + q) * 2 + 1) * LANES];
             }
       }
     }
 
-    // the epilogue: the sums v = hi.hi + cross terms go to a BM x BN tile in
+    // the epilogue: the sums v = hi.hi (+ cross terms) go to a BM x BN tile in
     // the ring, then every thread takes PER of its elements row by row (a
     // warp on consecutive columns: whole sectors stored, the residual read
     // coalesced), GROUP at a time with their bias and residual loads issued
@@ -239,7 +262,7 @@ struct Tile {
 #pragma unroll
           for (int q = 0; q < 4; ++q)
             tile[(wm * WM + i * 16 + g + (q >= 2 ? 8 : 0)) * TS + wn * WN + j * 8 + 2 * t +
-                 (q & 1)] = acc[i][j][q] + cor[i][j][q];
+                 (q & 1)] = TERMS == 3 ? acc[i][j][q] + cor[i][j][q] : acc[i][j][q];
     }
     __syncthreads();
     const float* b = ep.b;

@@ -7,6 +7,14 @@ in a flat dict under the JAX executor's prepared keys (``t{i}`` for plain
 constants, ``t{i}@hwio`` / ``@dw`` / ``@ko`` / ``@tconv`` for the layout
 variants), so :func:`params_from_jax` maps the JAX model's parameters onto
 this one key for key.
+
+The precision modes follow the JAX executor: ``compute_dtype`` (f32 or
+bf16) is the dtype of every stored float weight and of the values between
+ops; ``quantize="int8"`` stores the large conv kernels as per-channel int8
+with an f32 ``__scale`` companion (``quant/ptq.py``), dequantized into the
+compute dtype at use.  The ``host_params`` copy stays f32 numpy: in bf16
+mode it holds the bf16-rounded values, as the JAX package's bf16 store
+reads in f32, so the fused path's kernels take the same weights.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ from torch import nn
 
 from ..tflite.ir import GraphIR
 from ..ops.common import get_lowering
+from ..quant.ptq import boundary_keys, dequantize, quantize_params
 # imported for their lowering registrations
 from ..ops import conv as _conv, elementwise as _ew, misc as _misc, pool as _pool  # noqa: F401
 
@@ -27,13 +36,20 @@ from ..ops import conv as _conv, elementwise as _ew, misc as _misc, pool as _poo
 class LoweringCtx:
     """Per-run state handed to op lowerings: ``env`` maps tensor ids to
     values; ``get_const`` serves weights from ``params`` under their
-    (variant) key, preparing the numpy layout on first sight."""
+    (variant) key, preparing the numpy layout on first sight, in
+    ``compute_dtype``; an int8 kernel dequantized once into ``dequantized``
+    (the model's, kept across runs: key -> (int8 tensor, its dequantized
+    value))."""
 
     def __init__(self, graph: GraphIR, params: Dict[str, torch.Tensor],
-                 prepared: Optional[Dict[str, np.ndarray]] = None):
+                 prepared: Optional[Dict[str, np.ndarray]] = None,
+                 compute_dtype: torch.dtype = torch.float32,
+                 dequantized: Optional[Dict[str, tuple]] = None):
         self.graph = graph
         self.params = params
         self.prepared = prepared    # build-time store, None once built
+        self.compute_dtype = compute_dtype
+        self.dequantized = {} if dequantized is None else dequantized
         self.env: Dict[int, torch.Tensor] = {}
 
     def get(self, idx: int) -> torch.Tensor:
@@ -55,9 +71,20 @@ class LoweringCtx:
             if np.issubdtype(arr.dtype, np.floating):
                 arr = arr.astype(np.float32)   # f16 payloads widen exactly
             arr = np.ascontiguousarray(arr)
+            t = torch.from_numpy(arr)
+            if t.is_floating_point() and self.compute_dtype != torch.float32:
+                t = t.to(self.compute_dtype)   # bf16 rounds each float once
+                arr = t.float().numpy()
             self.prepared[key] = arr
-            self.params[key] = torch.from_numpy(arr)
-        return self.params[key]
+            self.params[key] = t
+        val = self.params[key]
+        scale = self.params.get(key + "__scale")
+        if scale is not None and not val.is_floating_point():
+            hit = self.dequantized.get(key)
+            if hit is None or hit[0] is not val:    # new, or the parameters were replaced
+                hit = self.dequantized[key] = (val, dequantize(val, scale, self.compute_dtype))
+            return hit[1]
+        return val
 
     def const_value(self, idx: int) -> np.ndarray:
         t = self.graph.tensor(idx)
@@ -72,8 +99,11 @@ class LoweringCtx:
 def fold_constants(graph: GraphIR) -> GraphIR:
     """Propagate constants through DEQUANTIZE/RESHAPE nodes (the f16 Meet
     and MLKit files wrap every weight in a DEQUANTIZE node); the f16 payload
-    widens to f32 exactly when the parameter is prepared."""
+    widens to f32 exactly when the parameter is prepared.  ``aliases`` maps
+    each folded output to the tensor holding its payload, as in the JAX
+    executor (``quant.ptq.boundary_keys`` reads it)."""
     nodes: List = []
+    aliases = dict(graph.aliases)
     for node in graph.nodes:
         if node.kind in ("DEQUANTIZE", "RESHAPE") and graph.tensor(node.inputs[0]).is_constant:
             t_in, t_out = graph.tensor(node.inputs[0]), graph.tensor(node.outputs[0])
@@ -83,14 +113,16 @@ def fold_constants(graph: GraphIR) -> GraphIR:
                 shape = (node.options.get("new_shape")
                          or graph.tensor(node.inputs[1]).data.reshape(-1))
                 t_out.data = t_in.data.reshape([int(s) for s in shape])
+            aliases[t_out.index] = aliases.get(t_in.index, t_in.index)
             continue
         nodes.append(node)
-    return dataclasses.replace(graph, nodes=nodes)
+    return dataclasses.replace(graph, nodes=nodes, aliases=aliases)
 
 
 def run_nodes(graph: GraphIR, params, nodes, inputs: Dict[int, torch.Tensor],
-              prepared=None) -> LoweringCtx:
-    ctx = LoweringCtx(graph, params, prepared)
+              prepared=None, compute_dtype: torch.dtype = torch.float32,
+              dequantized=None) -> LoweringCtx:
+    ctx = LoweringCtx(graph, params, prepared, compute_dtype, dequantized)
     for idx, x in inputs.items():
         ctx.set(idx, x)
     for node in nodes:
@@ -101,66 +133,97 @@ def run_nodes(graph: GraphIR, params, nodes, inputs: Dict[int, torch.Tensor],
 class CompiledModel(nn.Module):
     """A TFLite graph run eagerly on NHWC float tensors.
 
-    ``forward(x)`` maps (N, H, W, C) float input to the model output, as the
-    JAX ``CompiledModel`` does.  ``params`` holds the prepared weights (on
-    the module's device); ``host_params`` their numpy copy.
+    ``forward(x)`` maps (N, H, W, C) float input to the model output in
+    ``compute_dtype``, as the JAX ``CompiledModel`` does.  ``params`` holds
+    the prepared weights (on the module's device); ``host_params`` their
+    numpy copy; ``quantize_mode`` is None or "int8"; ``dequantized`` the
+    int8 kernels in ``compute_dtype``, each made at its first use and kept.
     """
 
     def __init__(self, graph: GraphIR, params: Dict[str, torch.Tensor],
-                 host_params: Dict[str, np.ndarray]):
+                 host_params: Dict[str, np.ndarray],
+                 compute_dtype: torch.dtype = torch.float32,
+                 quantize_mode: Optional[str] = None):
         super().__init__()
         self.graph = graph
         self.params = params
         self.host_params = host_params
+        self.compute_dtype = compute_dtype
+        self.quantize_mode = quantize_mode
+        self.dequantized: Dict[str, tuple] = {}
         self.input_shape = tuple(graph.tensor(graph.inputs[0]).shape)
         self.output_shape = tuple(graph.tensor(graph.outputs[0]).shape)
 
     def _apply(self, fn, recurse=True):
         # the parameter dict follows .to(device) like registered buffers
         self.params = {k: fn(v) for k, v in self.params.items()}
+        self.dequantized = {}
         return super()._apply(fn, recurse)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         g = self.graph
-        ctx = run_nodes(g, self.params, g.nodes, {g.inputs[0]: x.float()})
+        ctx = run_nodes(g, self.params, g.nodes, {g.inputs[0]: x.to(self.compute_dtype)},
+                        compute_dtype=self.compute_dtype, dequantized=self.dequantized)
         return ctx.get(g.outputs[0])
 
 
 def span_fn(model: CompiledModel, start: int, end: int, in_tensor: int,
             out_tensor: int) -> Callable[[torch.Tensor], torch.Tensor]:
     """fn(x) running nodes[start:end] of the folded graph on ``in_tensor``
-    and returning ``out_tensor`` (``pipeline/edge.py:_make_span_fn``)."""
-    nodes = model.graph.nodes[start:end]
+    and returning ``out_tensor`` (``pipeline/edge.py:_make_span_fn``), both
+    in the model's compute dtype."""
+    nodes, cd = model.graph.nodes[start:end], model.compute_dtype
 
     def run(x: torch.Tensor) -> torch.Tensor:
-        ctx = run_nodes(model.graph, model.params, nodes, {in_tensor: x.float()})
+        ctx = run_nodes(model.graph, model.params, nodes, {in_tensor: x.to(cd)},
+                        compute_dtype=cd, dequantized=model.dequantized)
         return ctx.get(out_tensor)
 
     return run
 
 
-def build_model(graph: GraphIR) -> CompiledModel:
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def build_model(graph: GraphIR, compute_dtype: torch.dtype = torch.float32,
+                quantize: Optional[str] = None) -> CompiledModel:
     """Fold constants and prepare every weight with one run on zeros (the
-    counterpart of the JAX executor's ``eval_shape`` pass)."""
+    counterpart of the JAX executor's ``eval_shape`` pass), in
+    ``compute_dtype`` (torch.float32 or torch.bfloat16); ``quantize="int8"``
+    then quantizes the prepared kernels (``quant.ptq.quantize_params``, the
+    first and last two nodes' inputs excluded)."""
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, got {compute_dtype}")
+    if quantize not in (None, "int8"):
+        raise ValueError(f"quantize must be None or 'int8', got {quantize!r}")
     graph = fold_constants(graph)
     params: Dict[str, torch.Tensor] = {}
     prepared: Dict[str, np.ndarray] = {}
-    x = torch.zeros(graph.tensor(graph.inputs[0]).shape, dtype=torch.float32)
+    x = torch.zeros(graph.tensor(graph.inputs[0]).shape, dtype=compute_dtype)
     with torch.no_grad():
-        run_nodes(graph, params, graph.nodes, {graph.inputs[0]: x}, prepared)
-    return CompiledModel(graph, params, prepared)
+        run_nodes(graph, params, graph.nodes, {graph.inputs[0]: x}, prepared, compute_dtype)
+    if quantize == "int8":
+        qparams, scales = quantize_params(prepared, exclude=boundary_keys(graph))
+        for k, s in scales.items():
+            prepared[k], prepared[k + "__scale"] = qparams[k], s
+            params[k], params[k + "__scale"] = torch.from_numpy(qparams[k]), torch.from_numpy(s)
+    return CompiledModel(graph, params, prepared, compute_dtype, quantize)
 
 
-def load_model(path: str, device="cuda") -> CompiledModel:
+def load_model(path: str, device="cuda", *, compute_dtype: torch.dtype = torch.float32,
+               quantize: Optional[str] = None) -> CompiledModel:
     """Path -> CompiledModel on ``device`` (the card unless the caller asks
-    for the CPU; raises where CUDA is asked for and absent)."""
+    for the CPU; raises where CUDA is asked for and absent), in
+    ``compute_dtype``, its kernels int8 with ``quantize="int8"``."""
     from .._build import resolve_device
     from ..tflite.loader import load_tflite
     dev = resolve_device(device)
-    return build_model(load_tflite(path)).to(dev)
+    return build_model(load_tflite(path), compute_dtype, quantize).to(dev)
 
 
 def params_from_jax(params: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """The JAX ``CompiledModel.params`` / ``host_params`` as the port's
-    parameter dict: same keys and layouts, widened to f32."""
-    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in params.items()}
+    parameter dict: same keys and layouts; floats widened to f32 (a bf16
+    store exactly), int8 kernels kept int8 beside their f32 ``__scale``."""
+    return {k: torch.from_numpy(np.array(v, np.int8 if np.asarray(v).dtype == np.int8
+                                         else np.float32)) for k, v in params.items()}

@@ -3,12 +3,13 @@
 The reference sniffs the model "type" from the filename
 (``lib/libbackscrub.cc:116-130``) and hardcodes normalization per type
 (``:132-148``) and decode rules (``:317-361``).  A :class:`ModelSpec`
-carries both as data, and which families take the flat continuation
-(K2'', ``edge_cont``).  The JAX spec's MXU precision is not a field
-here: the plans' plain versions and the classic path compute f32, and
-the flat continuation's GEMM (K2'') computes bf16x3, the deeplab
-family's HIGH precision (``backscrub_tpu/models/specs.py:59-61``), on the
-card and in ``BodyPlan.run_plain(gemm="bf16x3")``.
+carries both as data, which families take the flat continuation (K2'',
+``edge_cont``), and the body's default precision (``mxu_precision``, the
+JAX spec's field): "highest", "high" or "default", the string the port's
+``MaskGen(precision=None)`` resolves to.  "default" is the bf16 mode's
+one-pass bf16 dots (``ops/megakernel.py:dots_for``); "highest" and "high"
+run the plans' dots in f32 except the flat continuation's GEMM (K2''),
+which computes bf16x3, the reference's HIGH split, at both.
 """
 
 from __future__ import annotations
@@ -28,6 +29,9 @@ class ModelSpec:
     threshold: float = 0.65        # for decode == "threshold" (libbackscrub.cc:338)
     person_class: int = 15         # PASCAL-VOC "person" for deeplab (libbackscrub.cc:154-159)
     num_classes: int = 21          # expected output channels for argmax decodes
+    # the body's precision where the caller gives none: "high" for the
+    # FLOP-heavy 257x257 families, "highest" for the others (the JAX spec's)
+    mxu_precision: str = "highest"
     # the fused edge path runs the flat continuation (K2'') after the
     # prefix cut when the caller does not choose (edge_cont=None); the
     # JAX spec's per-family choice: deeplab on, bodypix off
@@ -41,9 +45,9 @@ class ModelSpec:
 
 _SPECS = {
     "deeplab": ModelSpec("deeplab", scale=1 / 127.5, offset=-1.0,
-                         decode="argmax_person", edge_cont=True),
+                         decode="argmax_person", mxu_precision="high", edge_cont=True),
     "bodypix": ModelSpec("bodypix", scale=1 / 255.0, offset=0.0,
-                         decode="threshold"),
+                         decode="threshold", mxu_precision="high"),
     "meet": ModelSpec("meet", scale=1 / 255.0, offset=0.0, decode="two_channel"),
     "selfie": ModelSpec("selfie", scale=1 / 255.0, offset=0.0, decode="threshold"),
     "multiclass": ModelSpec("multiclass", scale=1 / 255.0, offset=0.0,

@@ -30,9 +30,25 @@ def get_lowering(kind: str) -> Callable:
                                   f"PyTorch port yet") from None
 
 
+# 1/6 rounded to bf16: a JAX scalar takes its array's dtype, so in bf16
+# the reference multiplies by this value, not by f32(1/6)
+_SIXTH_BF16 = 0.1669921875
+
+
 def hard_swish(x: torch.Tensor) -> torch.Tensor:
-    """TFLite HARD_SWISH: x * relu6(x + 3) / 6."""
-    return x * torch.clamp(x + 3.0, 0.0, 6.0) * (1.0 / 6.0)
+    """TFLite HARD_SWISH: x * relu6(x + 3) / 6, each op rounded to x's
+    dtype as in the JAX lowering."""
+    sixth = _SIXTH_BF16 if x.dtype == torch.bfloat16 else 1.0 / 6.0
+    return x * torch.clamp(x + 3.0, 0.0, 6.0) * sixth
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """LOGISTIC.  In bf16 as the JAX package computes ``jax.nn.sigmoid``
+    there, 1 / (1 + exp(-x)) with every op rounded to bf16; else
+    ``torch.sigmoid``."""
+    if x.dtype == torch.bfloat16:
+        return 1.0 / (1.0 + torch.exp(-x))
+    return torch.sigmoid(x)
 
 
 def apply_activation(x: torch.Tensor, activation) -> torch.Tensor:
@@ -50,7 +66,7 @@ def apply_activation(x: torch.Tensor, activation) -> torch.Tensor:
     if activation == "HARD_SWISH":
         return hard_swish(x)
     if activation == "LOGISTIC":
-        return torch.sigmoid(x)
+        return sigmoid(x)
     raise NotImplementedError(f"fused activation {activation!r}")
 
 

@@ -4,7 +4,9 @@ the MediaPipe custom op ``Convolution2DTransposeBias``.
 Weights are kept in the JAX executor's prepared layouts (``t{i}@hwio``,
 ``@dw``, ``@ko``, ``@tconv``), so one parameter dict serves both packages;
 each lowering turns them into PyTorch's OIHW at the call.  SAME padding is
-TFLite's (leading side gets the smaller half), applied with ``F.pad``.
+TFLite's (leading side gets the smaller half), applied with ``F.pad``.  In
+bf16 every lowering runs in bf16 and rounds where the JAX lowering does:
+once, after the bias (its dots sum in f32 to ``preferred_element_type``).
 
 The transposed conv reproduces ``lib/transpose_conv_bias.cc:80-111``
 (scatter accumulate) with the SAME shape math of ``:171-181``:
@@ -86,10 +88,14 @@ def fully_connected(ctx, node):
                       variant="ko")                         # (O,K) -> (K,O)
     o = node.options
     lead = tuple(x.shape[:-1])
-    y = x.reshape(-1, x.shape[-1]) @ w
+    x2 = x.reshape(-1, x.shape[-1])
     b = _bias(ctx, node)
-    if b is not None:
-        y = y + b
+    if b is not None and x.dtype == torch.bfloat16:
+        y = torch.addmm(b, x2, w)      # one rounding after the bias, as JAX's f32 sum
+    else:
+        y = x2 @ w
+        if b is not None:
+            y = y + b
     y = apply_activation(y, o.get("activation"))
     shape = lead + (w.shape[1],) if o.get("keep_num_dims", False) \
         else (y.shape[0], w.shape[1])
@@ -117,9 +123,13 @@ def conv2d_transpose_bias(ctx, node):
     pad = o.get("padding", "SAME")
     oh, lh = transpose_conv_crop(x.shape[1], wf.shape[0], sh, pad)
     ow, lw = transpose_conv_crop(x.shape[2], wf.shape[1], sw, pad)
-    y = F.conv_transpose2d(_nchw(x), wt, stride=(sh, sw))
-    y = y[:, :, lh:lh + oh, lw:lw + ow]
     b = _bias(ctx, node)
-    if b is not None:
-        y = y + b[None, :, None, None]
+    if b is not None and x.dtype == torch.bfloat16:
+        # one rounding after the bias, as the JAX lowering's f32 sum
+        y = F.conv_transpose2d(_nchw(x), wt, b, stride=(sh, sw))[:, :, lh:lh + oh, lw:lw + ow]
+    else:
+        y = F.conv_transpose2d(_nchw(x), wt, stride=(sh, sw))
+        y = y[:, :, lh:lh + oh, lw:lw + ow]
+        if b is not None:
+            y = y + b[None, :, None, None]
     ctx.set(node.outputs[0], _nhwc(y))

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from .common import apply_activation, hard_swish, register
+from .common import apply_activation, hard_swish, register, sigmoid
 
 
 def _binary(ctx, node, fn):
@@ -49,7 +49,7 @@ def relu6(ctx, node):
 
 @register("LOGISTIC")
 def logistic(ctx, node):
-    _unary(ctx, node, torch.sigmoid)
+    _unary(ctx, node, sigmoid)
 
 
 @register("HARD_SWISH")
@@ -59,6 +59,6 @@ def hard_swish_op(ctx, node):
 
 @register("DEQUANTIZE")
 def dequantize(ctx, node):
-    """f16 -> f32 cast.  Constant inputs are folded at load
+    """f16 -> the compute dtype.  Constant inputs are folded at load
     (graph/executor.py fold_constants); this handles activations."""
-    _unary(ctx, node, lambda x: x.to(torch.float32))
+    _unary(ctx, node, lambda x: x.to(ctx.compute_dtype))

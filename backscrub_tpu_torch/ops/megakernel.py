@@ -23,6 +23,14 @@ flat plan's spatial 1x1 convs run in it as the bf16x3 tensor-core GEMM
 Launches are counted in ``body_launch.launches``, ``body_launch.by_kernel``
 and the plan's own ``launches``; the table ops they ran, by kind, in
 ``body_launch.table_ops``.
+
+A plan's ``dots`` is the arithmetic of its 1x1 convs and FCs (the dots of
+the JAX plan): "f32" (HIGHEST), "bf16x3" (a flat plan's GEMMs at HIGH, the
+split on the tensor cores; its other dots f32) or "bf16" (DEFAULT, the
+bf16 mode: both operands of every dot rounded to bf16, products summed in
+f32, as the JAX kernel's interpret mode rounds them).  Depthwise, pool,
+elementwise and resize ops are f32 in every mode.  :func:`dots_for` maps a
+precision to it; ``run_plain(x, gemm=plan.dots)`` is the kernel's twin.
 """
 
 from __future__ import annotations
@@ -51,6 +59,30 @@ _ACT_CODES = {"NONE": 0, "RELU": 1, "RELU6": 2, "HARD_SWISH": 3, "LOGISTIC": 4}
 
 class Unsupported(Exception):
     pass
+
+
+# the body's precisions (models/specs.py:ModelSpec.mxu_precision) and the
+# plans' dot modes; the kernel's instantiation a mode runs (csrc/body_mega.cu
+# body_mega_kernel<BF16>: 0 = f32 FFMA dots and bf16x3 GEMMs, 1 = bf16)
+PRECISIONS = ("highest", "high", "default")
+DOTS = ("f32", "bf16x3", "bf16")
+_DOTS_KERNEL = {"f32": 0, "bf16x3": 0, "bf16": 1}
+
+
+def dots_for(precision: str, flat: bool) -> str:
+    """The dot mode of a plan at ``precision``: "default" is one bf16 pass
+    ("bf16"); "highest" and "high" are f32 dots, but a flat plan's (K2'')
+    GEMMs, which compute the bf16x3 split at both."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
+    if precision == "default":
+        return "bf16"
+    return "bf16x3" if flat else "f32"
+
+
+def bf16_round(a: torch.Tensor) -> torch.Tensor:
+    """``a`` rounded to the nearest bf16 (ties to even), as f32."""
+    return a.to(torch.bfloat16).float()
 
 
 @dataclasses.dataclass
@@ -125,8 +157,10 @@ _MEGA_GEMM_TILES = ((128, 64), (64, 64), (32, 64), (32, 32), (16, 32))
 _MAX_SMEM = 232448
 
 
-def _gemm_ring_bytes(bm: int, bn: int) -> int:
-    return 3 * (2 * bm * 40 * 2 + 32 * (bn + 4) * 4)
+def _gemm_ring_bytes(bm: int, bn: int, halves: int = 2) -> int:
+    """The ring of a (bm, bn) tile: ``halves`` W tiles (hi and lo; hi alone
+    in the one-term GEMM) and one x slice a stage."""
+    return 3 * (halves * bm * 40 * 2 + 32 * (bn + 4) * 4)
 
 
 # the standalone GEMM's CTA tiles (csrc/body_flat.cu, bs_gemm's ``tile``)
@@ -145,7 +179,11 @@ class BodyPlan:
     ``flat``: the reference's dense-layout mode (the continuation): no
     stride-2 depthwise, no geometry-changing resize, every spatial tensor
     keeps the input's shape, and 1x1 convs on spatial tensors run as the
-    bf16x3 tensor-core GEMM (the table's ``gemm`` op).
+    tensor-core GEMM (the table's ``gemm`` op).
+    ``dots``: the 1x1 convs' and FCs' arithmetic (module docstring): "f32"
+    or "bf16" on a plan that is not flat (None: "f32"), "bf16x3" or
+    "bf16" on a flat one (None: "bf16x3").  A quantized model has no plan
+    (Unsupported), as in the reference.
 
     :meth:`compile_mega` (``body_plan_for``, ``body_plan_prefix_for`` and
     ``body_plan_continuation_for`` call it) compiles the plan into a
@@ -154,11 +192,20 @@ class BodyPlan:
     """
 
     def __init__(self, model, start: int, end: int, in_tid: int, out_tid: int,
-                 *, allow_spaced_output: bool = False, flat: bool = False):
+                 *, allow_spaced_output: bool = False, flat: bool = False,
+                 dots: Optional[str] = None):
+        allowed = ("bf16x3", "bf16") if flat else ("f32", "bf16")
+        dots = dots or allowed[0]
+        if dots not in allowed:
+            raise ValueError(f"a {'flat' if flat else 'non-flat'} plan's dots are one of "
+                             f"{allowed}, got {dots!r}")
+        if getattr(model, "quantize_mode", None):
+            # host_params hold int8 kernels whose scales the plan would skip
+            raise Unsupported(f"quantized model ({model.quantize_mode})")
         g = model.graph
         hp = model.host_params
         self.in_tid, self.out_tid = in_tid, out_tid
-        self.flat = flat
+        self.flat, self.dots = flat, dots
         s = tuple(g.tensor(in_tid).shape)
         if len(s) != 4 or s[0] != 1:
             raise Unsupported(f"tensor {in_tid} shape {s}")
@@ -428,8 +475,8 @@ class BodyPlan:
     # -- execution -----------------------------------------------------------
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        if x.device.type == "cpu":
-            return self.run_plain(x)
+        if x.device.type == "cpu":     # a bf16 plan's dots one bf16 pass, else f32
+            return self.run_plain(x, "bf16" if self.dots == "bf16" else "f32")
         if x.device.type == "cuda":
             return self.run_cuda(x)
         raise ValueError(f"BodyPlan runs on cpu or cuda, not {x.device}")
@@ -441,11 +488,13 @@ class BodyPlan:
     def run_plain(self, x: torch.Tensor, gemm: str = "f32") -> torch.Tensor:
         """The plan in plain PyTorch on (C, H*W) tensors (any device).
         ``gemm="bf16x3"`` runs a flat plan's spatial 1x1 convs, the ops its
-        table runs as ``gemm`` ops, as :func:`conv1x1_bf16x3_plain`: the
-        kernel's own arithmetic.  Every other op, and every op of the
-        default ``"f32"``, is f32."""
-        if gemm not in ("f32", "bf16x3"):
-            raise ValueError(f"gemm must be 'f32' or 'bf16x3', got {gemm!r}")
+        table runs as ``gemm`` ops, as :func:`conv1x1_bf16x3_plain`;
+        ``gemm="bf16"`` runs every 1x1 conv and FC, spatial or on a pooled
+        vector, as :func:`conv1x1_bf16_plain`: each the kernel's own
+        arithmetic in that mode (``gemm=self.dots``).  Every other op, and
+        every op of the default ``"f32"``, is f32."""
+        if gemm not in DOTS:
+            raise ValueError(f"gemm must be one of {DOTS}, got {gemm!r}")
         split = gemm == "bf16x3" and self.flat
         ws = self._weights_on(x.device)
         env = {self.in_tid: x.float().reshape(self._shape(self.in_tid))}
@@ -453,7 +502,8 @@ class BodyPlan:
             op = p[0]
             if op == "conv1x1":
                 _, tin, tout, wi, bi, act = p
-                conv = (conv1x1_bf16x3_plain if split and not self.meta[tin].vec
+                conv = (conv1x1_bf16_plain if gemm == "bf16"
+                        else conv1x1_bf16x3_plain if split and not self.meta[tin].vec
                         else conv1x1_plain)
                 env[tout] = conv(ws[wi], ws[bi], env[tin], act)
             elif op == "dw":
@@ -516,8 +566,30 @@ class BodyPlan:
         _build.launch("bs_body_mega", *args, stamps.data_ptr())
         return torch.diff(stamps).tolist()
 
-    def _mega_args(self, x: torch.Tensor):
-        """(workspace, the launch's arguments up to the stamps)."""
+    def rows_on_card(self, x: torch.Tensor):
+        """A check of the kernel op by op on the card: for each phase, the
+        table's rows up to its end as one ``bs_body_mega`` launch (not
+        counted in ``body_launch``) into a NaN workspace, and the phase's
+        rows by :func:`walk_phase` from the previous launch's workspace, the
+        kernel's own inputs.  Yields (phase, kind, kernel values, plain
+        values, control) for each range a row wrote; the control is the
+        plain row with the dots' activations unrounded (a bf16 table's bar
+        must tell them apart).  Synchronizes."""
+        snap = torch.full((self._total,), float("nan"), device=x.device)
+        for k, (_, end) in enumerate(self.mega.phase_rows()):
+            buf, args = self._mega_args(x, end)
+            buf.fill_(float("nan"))
+            _build.launch("bs_body_mega", *args, None)
+            want, wrote = walk_phase(self, x, snap, k)
+            ctl = walk_phase(self, x, snap, k, round_dots=False)[0]
+            torch.cuda.synchronize(x.device)
+            for kind, a, b in wrote:
+                yield k, kind, buf[a:b], want[a:b], ctl[a:b]
+            snap = buf
+
+    def _mega_args(self, x: torch.Tensor, n_ops: Optional[int] = None):
+        """(workspace, the launch's arguments up to the stamps); ``n_ops``
+        runs the table's first rows alone (a check run)."""
         if self.mega is None:
             raise RuntimeError("BodyPlan.run_cuda: the plan has no op table "
                                "(compile_mega first)")
@@ -526,13 +598,25 @@ class BodyPlan:
         buf = torch.empty(self._total, dtype=torch.float32, device=x.device)
         arena, table = self.mega.on(x.device)
         return buf, (x.data_ptr(), buf.data_ptr(), arena.data_ptr(), table.data_ptr(),
-                     len(self.mega.ops), self.mega.smem_bytes)
+                     len(self.mega.ops) if n_ops is None else n_ops, self.mega.smem_bytes,
+                     _DOTS_KERNEL[self.dots])
 
 
 def conv1x1_plain(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
                   act: str = "NONE") -> torch.Tensor:
     """act(w @ x + b) in plain PyTorch (any device)."""
     return apply_activation(w @ x + b[:, None], act)
+
+
+def conv1x1_bf16_plain(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
+                       act: str = "NONE") -> torch.Tensor:
+    """The bf16 mode's dot in plain PyTorch (any device): act(bf16(w) @
+    bf16(x) + b), both operands rounded to bf16 and multiplied and summed
+    in f32 (the products are exact), the reference's DEFAULT precision as
+    its interpret mode computes it (``backscrub_tpu/ops/megakernel.py:
+    487-518``); the GEMM's one-term arithmetic.  ``w`` may carry columns
+    past x's rows (padding)."""
+    return apply_activation(bf16_round(w[:, :x.shape[0]]) @ bf16_round(x) + b[:, None], act)
 
 
 def _bf16_split(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -591,27 +675,33 @@ def gemm_config(co: int, ci: int, L: int, sms: int) -> Tuple[int, int, int]:
     return len(_GEMM_TILES) - 1, split, 16 * n16
 
 
-def _gemm(launch, whi, wlo, b_ptr, x_ptr, y_ptr, co, ci, L, act, device) -> None:
+def _gemm(launch, whi, wlo, b_ptr, x_ptr, y_ptr, co, ci, L, act, device, terms) -> None:
     """One ``bs_gemm`` launch through ``launch``, with the split-K
-    partials' buffer when the shape's config splits K."""
+    partials' buffer when the shape's config splits K; ``wlo`` None for
+    the one-term GEMM."""
     tile, split, kchunk = gemm_config(co, ci, L, _build.sm_count(device))
     part = (torch.empty(split * co * L, dtype=torch.float32, device=device)
             if split > 1 else None)
-    launch("bs_gemm", whi.data_ptr(), wlo.data_ptr(), b_ptr, x_ptr, y_ptr,
-           None if part is None else part.data_ptr(), co, ci, whi.shape[1], L,
-           _ACT_CODES[act], tile, split, kchunk)
+    launch("bs_gemm", whi.data_ptr(), None if wlo is None else wlo.data_ptr(), b_ptr, x_ptr,
+           y_ptr, None if part is None else part.data_ptr(), co, ci, whi.shape[1], L,
+           _ACT_CODES[act], tile, split, kchunk, terms)
 
 
 def conv1x1_gemm(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
-                 act: str = "NONE", split=None) -> torch.Tensor:
+                 act: str = "NONE", split=None, terms: int = 3) -> torch.Tensor:
     """The K2'' 1x1 conv alone: act(w @ x + b) for w (co, ci), b (co,) and
     x (ci, L) f32.  On CUDA tensors ``bs_gemm`` (``csrc/body_flat.cu``,
-    counted in ``body_launch``): the table's bf16x3 tensor-core GEMM tile
+    counted in ``body_launch``): the table's tensor-core GEMM tile
     (``csrc/gemm_tc.cuh``) as a standalone kernel, the per-shape probe of
-    that code, its weight split ``split`` = :func:`split_bf16` (w) given or
-    made here; on CPU tensors :func:`conv1x1_plain`."""
+    that code.  ``terms=3``: the bf16x3 split, its weight split ``split`` =
+    :func:`split_bf16` (w) given or made here; ``terms=1``: the bf16
+    mode's one pass (hi.hi), ``split`` then (hi, None).  On CPU tensors
+    :func:`conv1x1_plain` (three terms) or :func:`conv1x1_bf16_plain`
+    (one)."""
+    if terms not in (1, 3):
+        raise ValueError(f"terms must be 1 or 3, got {terms}")
     if x.device.type == "cpu":
-        return conv1x1_plain(w, b, x, act)
+        return (conv1x1_plain if terms == 3 else conv1x1_bf16_plain)(w, b, x, act)
     co, ci = w.shape
     _build.check_cuda(w, "gemm weights", torch.float32)
     _build.check_cuda(b, "gemm bias", torch.float32, (co,))
@@ -619,11 +709,14 @@ def conv1x1_gemm(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
     if x.ndim != 2 or x.shape[0] != ci:
         raise ValueError(f"gemm input: expected ({ci}, L), got {tuple(x.shape)}")
     hi, lo = split_bf16(w) if split is None else split
+    if terms == 1:
+        lo = None
     for t, name in ((hi, "gemm weights hi"), (lo, "gemm weights lo")):
-        _build.check_cuda(t, name, torch.bfloat16, (co, ci + (-ci % 8)))
+        if t is not None:
+            _build.check_cuda(t, name, torch.bfloat16, (co, ci + (-ci % 8)))
     y = torch.empty((co, x.shape[1]), dtype=torch.float32, device=x.device)
     _gemm(body_launch, hi, lo, b.data_ptr(), x.data_ptr(), y.data_ptr(), co, ci,
-          x.shape[1], act, x.device)
+          x.shape[1], act, x.device, terms)
     return y
 
 
@@ -668,11 +761,13 @@ class MegaTable:
     into bf16 hi and lo, two bf16 to a float); ``phases``: the number of
     phases, each but the last ending in a barrier (``sync``);
     ``smem_bytes``: the dynamic shared memory a CTA needs; ``kinds``: the
-    ops by kind.  Raises Unsupported where an op does not fit the kernel's
-    shared memory.
+    ops by kind; ``dots``: the plan's.  Raises Unsupported where an op does
+    not fit the kernel's shared memory.  With ``dots="bf16"`` the arena
+    holds every dot weight (1x1 convs, FCs, the SE FCs) rounded to bf16,
+    and a ``gemm`` op's hi half alone; the kernel rounds the activations.
 
     Each plan op becomes one table op (a flat plan's spatial 1x1 conv the
-    ``gemm`` op, the bf16x3 tensor-core GEMM; another spatial 1x1 conv over
+    ``gemm`` op, the tensor-core GEMM; another spatial 1x1 conv over
     at least _CONVW_MIN_COLS columns a CTA the column-wise ``convw``, else
     the tiled ``conv``), then these fusions, which keep the JAX plan's
     arithmetic but its summation order, merge ops:
@@ -692,7 +787,7 @@ class MegaTable:
     by level."""
 
     def __init__(self, plan: BodyPlan):
-        self._plan = plan
+        self._plan, self.dots = plan, plan.dots
         ops = self._ops()
         while self._fuse_act(ops) or self._fuse_residual(ops) or self._fuse_se(ops) \
                 or self._fuse_bcast(ops):
@@ -938,24 +1033,30 @@ class MegaTable:
         plan = self._plan
         chunks, where, pos = [], {}, 0
 
-        def arena(wi, form=""):
+        bf16 = self.dots == "bf16"
+
+        def arena(wi, form="", dot=False):
             """Weight ``wi``'s float offset: as it is, transposed ("T"), or
             its bf16 hi or lo half ("hi", "lo": :func:`split_bf16`, rows
-            padded to a multiple of 8, two bf16 to a float); each chunk
-            16-byte aligned."""
+            padded to a multiple of 8, two bf16 to a float); a ``dot``
+            operand rounded to bf16 in the bf16 mode; each chunk 16-byte
+            aligned."""
             nonlocal pos
-            if (wi, form) not in where:
+            key = (wi, form, dot and bf16)
+            if key not in where:
                 a = np.asarray(plan.weights[wi], np.float32)
+                if dot and bf16:
+                    a = bf16_round(torch.from_numpy(a)).numpy()
                 if form == "T":
                     a = a.T
                 elif form:
                     half = split_bf16(torch.from_numpy(a))[form == "lo"]
                     a = half.view(torch.int16).numpy().view(np.float32)
                 a = a.ravel()
-                where[wi, form] = pos
+                where[key] = pos
                 chunks.append(np.pad(a, (0, -a.size % 4)))
                 pos += chunks[-1].size
-            return where[wi, form]
+            return where[key]
 
         def off(t):
             return -1 if t == plan.in_tid else plan._offsets[t]
@@ -972,15 +1073,15 @@ class MegaTable:
                               and self.ops[i + 1]["level"] != m["level"]))
             k = m["kind"]
             if k in ("conv", "convw", "fc"):
-                r.update(w=arena(m["w"]), b=arena(m["b"]), co=plan.weights[m["w"]].shape[0],
-                         bn=m.get("bn") or 0)
+                r.update(w=arena(m["w"], dot=True), b=arena(m["b"]),
+                         co=plan.weights[m["w"]].shape[0], bn=m.get("bn") or 0)
                 if m["res"] is not None:
                     r.update(res=1, aux=off(m["res"]))
                 if m["se"] is not None:      # the FC weights transposed, (ci, co)
                     se = m["se"]
                     r.update(gate=1, pout=off(se["pout"]), hid=se["hid"],
-                             w1=arena(se["w1"], "T"), b1=arena(se["b1"]),
-                             act1=_ACT_CODES[se["act1"]], w2=arena(se["w2"], "T"),
+                             w1=arena(se["w1"], "T", dot=True), b1=arena(se["b1"]),
+                             act1=_ACT_CODES[se["act1"]], w2=arena(se["w2"], "T", dot=True),
                              b2=arena(se["b2"]), actg=_ACT_CODES[se["actg"]])
                 if k == "conv":           # the tile or the SE weights, then the SE vectors
                     co, L = r["co"], r["n"]
@@ -995,13 +1096,15 @@ class MegaTable:
                     cols = -(-r["n"] // _MEGA_CTAS)
                     r.update(tn=cols)
                     smem = max(smem, 4 * (r["co"] * sm.c + sm.c * cols))
-            elif k == "gemm":            # W's bf16 halves, the tile a round fills
+            elif k == "gemm":            # W's bf16 halves (hi alone: bf16), the tile a round fills
                 co = plan.weights[m["w"]].shape[0]
-                r.update(w=arena(m["w"], "hi"), w1=arena(m["w"], "lo"), b=arena(m["b"]),
-                         co=co, kp=sm.c + (-sm.c % 8), tile=_gemm_tile(co, r["n"]))
+                r.update(w=arena(m["w"], "hi"), w1=0 if bf16 else arena(m["w"], "lo"),
+                         b=arena(m["b"]), co=co, kp=sm.c + (-sm.c % 8),
+                         tile=_gemm_tile(co, r["n"]))
                 if m["res"] is not None:
                     r.update(res=1, aux=off(m["res"]))
-                smem = max(smem, _gemm_ring_bytes(*_MEGA_GEMM_TILES[r["tile"]]))
+                smem = max(smem, _gemm_ring_bytes(*_MEGA_GEMM_TILES[r["tile"]],
+                                                  1 if bf16 else 2))
             elif k in ("dw", "resize"):
                 om = plan.meta[m["out"]]
                 r.update(h=sm.rows, wd=sm.w, oh=om.rows, ow=om.w, c=om.c)
@@ -1042,6 +1145,128 @@ class MegaTable:
         if self.smem_bytes > _MAX_SMEM:
             raise Unsupported(f"table needs {self.smem_bytes} B of shared memory a CTA")
 
+    def phase_rows(self) -> List[Tuple[int, int]]:
+        """Each phase's rows of ``table`` as [start, end) indices."""
+        ends = [i + 1 for i in np.flatnonzero(self.table[:, MEGA_FIELDS.index("sync")])]
+        return list(zip([0] + ends, ends + [len(self.table)]))
+
+
+_FIELD = {f: i for i, f in enumerate(MEGA_FIELDS)}
+_CODE_KINDS = {v: k for k, v in MEGA_CODES.items()}
+_ELT_KINDS = {v: k for k, v in MEGA_ELT.items()}
+_ACT_NAMES = {v: k for k, v in _ACT_CODES.items()}
+
+
+def walk_phase(plan: BodyPlan, x: torch.Tensor, snap: torch.Tensor, phase: int,
+               round_dots: bool = True) -> Tuple[torch.Tensor, List[Tuple[str, int, int]]]:
+    """Phase ``phase`` (0-based) of ``plan.mega``'s table in plain PyTorch,
+    row by row as ``csrc/body_mega.cu`` runs it, on ``x``'s device: every
+    row reads the span input ``x`` and ``snap``, the workspace as the phase
+    began, never a row of its own phase.  Returns (the workspace after the
+    phase, each row's (kind, start, end) float ranges written).  A bf16
+    table's dots take its arena's rounded weights and the activation
+    operand rounded to bf16 (left as it is with ``round_dots=False``, a
+    control), its ``gemm`` rows one bf16 pass on the arena's hi half; a
+    bf16x3 table's ``gemm`` rows are :func:`conv1x1_bf16x3_plain` on both
+    halves."""
+    mt, dev = plan.mega, x.device
+    bf16 = mt.dots == "bf16"
+    rnd = bf16_round if bf16 and round_dots else (lambda t: t)
+    ar = mt.on(dev)[0] if dev.type == "cuda" else torch.from_numpy(mt.arena)
+    ws, xf, wrote = snap.clone(), x.reshape(-1), []
+
+    def rd(off, n):
+        return (xf if off < 0 else snap[off:])[:n]
+
+    def arr(off, *shape):
+        return ar[off:off + int(np.prod(shape))].reshape(shape)
+
+    start, end = mt.phase_rows()[phase]
+    for row in mt.table[start:end]:
+        d = {f: int(row[i]) for f, i in _FIELD.items()}
+        kind, act, act2 = _CODE_KINDS[d["code"]], _ACT_NAMES[d["act"]], _ACT_NAMES[d["act2"]]
+        c, n = d["c"], d["n"]
+        inv = float(np.int32(d["pinv"]).view(np.float32))
+        if kind == "gemm":      # W's bf16 hi and lo, rows padded to kp, two to a float
+            co, kp = d["co"], d["kp"]
+            split = [ar[d[f]:d[f] + co * kp // 2].view(torch.bfloat16).reshape(co, kp)
+                     for f in (("w",) if bf16 else ("w", "w1"))]
+            xi = rd(d["in"], c * n).reshape(c, n)
+            if bf16:            # hi alone: the one-term GEMM
+                y = apply_activation(split[0][:, :c].float() @ rnd(xi)
+                                     + arr(d["b"], co)[:, None], act)
+            else:
+                y = conv1x1_bf16x3_plain(None, arr(d["b"], co), xi, act, split=split)
+            if d["res"]:
+                y = apply_activation(y + rd(d["aux"], co * n).reshape(co, n), act2)
+        elif kind in ("conv", "convw", "fc"):
+            co = d["co"]
+            xi = rd(d["in"], c * n).reshape(c, n)
+            if d["gate"]:       # the FC weights are stored transposed
+                hid = d["hid"]
+                pool = rd(d["pout"], c)[:, None]
+                h = apply_activation(arr(d["w1"], c, hid).T @ rnd(pool)
+                                     + arr(d["b1"], hid)[:, None], _ACT_NAMES[d["act1"]])
+                gate = apply_activation(arr(d["w2"], hid, c).T @ rnd(h)
+                                        + arr(d["b2"], c)[:, None], _ACT_NAMES[d["actg"]])
+                xi = xi * gate
+            y = apply_activation(arr(d["w"], co, c) @ rnd(xi) + arr(d["b"], co)[:, None], act)
+            if d["bn"]:         # the broadcast that followed the pooled FC
+                y = y.expand(co, d["bn"])
+            if d["res"]:
+                y = apply_activation(y + rd(d["aux"], co * n).reshape(co, n), act2)
+        elif kind == "dw":
+            H, W, OH, OW = d["h"], d["wd"], d["oh"], d["ow"]
+            fh, fw, s, dil = d["fh"], d["fw"], d["s"], d["d"]
+            rh = max(0, (OH - 1) * s + (fh - 1) * dil + 1 - H - d["ph"])
+            rw = max(0, (OW - 1) * s + (fw - 1) * dil + 1 - W - d["pw"])
+            xi = F.pad(rd(d["in"], c * H * W).reshape(1, c, H, W), (d["pw"], rw, d["ph"], rh))
+            y = F.conv2d(xi, arr(d["w"], c, 1, fh, fw), arr(d["b"], c), stride=s,
+                         dilation=dil, groups=c)[0, :, :OH, :OW]
+            y = apply_activation(y, act)
+            if d["pool"]:       # one CTA holds the whole channel
+                pooled = apply_activation(y.reshape(c, -1).sum(dim=1) * inv,
+                                          _ACT_NAMES[d["pact"]])
+                ws[d["pout"]:d["pout"] + c] = pooled
+                wrote.append(("pool", d["pout"], d["pout"] + c))
+        elif kind == "gpool":
+            y = apply_activation(rd(d["in"], c * n).reshape(c, n).sum(dim=1) * inv, act)
+        elif kind == "elt":
+            op = _ELT_KINDS[d["elt"]]
+            if op == "bcast":
+                v = rd(d["in"], c)[:, None].expand(c, n)
+            else:
+                v = rd(d["in"], c * n).reshape(c, n)
+            if op in ("ADD", "MUL"):
+                u = rd(d["aux"], c if d["bvec"] else c * n).reshape(c, 1 if d["bvec"] else n)
+                v = v + u if op == "ADD" else v * u
+            y = apply_activation(v, act)
+        elif kind == "resize":
+            H, W, OH, OW = d["h"], d["wd"], d["oh"], d["ow"]
+            ah = torch.zeros(OH, H, device=dev).scatter_add_(1, arr(d["w"], OH, 2).long(),
+                                                             arr(d["b"], OH, 2))
+            aw = torch.zeros(OW, W, device=dev).scatter_add_(1, arr(d["w1"], OW, 2).long(),
+                                                             arr(d["w2"], OW, 2))
+            y = torch.einsum("chw,pw->chp", rd(d["in"], c * H * W).reshape(c, H, W), aw)
+            y = torch.einsum("oh,chp->cop", ah, y)
+        else:
+            y = rd(d["in"], n)
+        y = y.reshape(-1)
+        ws[d["out"]:d["out"] + y.numel()] = y
+        wrote.append((kind, d["out"], d["out"] + y.numel()))
+    return ws, wrote
+
+
+def walk_table(plan: BodyPlan, x: torch.Tensor) -> torch.Tensor:
+    """``plan.mega``'s whole table by :func:`walk_phase` from a NaN
+    workspace (a row that read what no earlier phase wrote gives NaN);
+    returns the span's output (C, H*W)."""
+    ws = torch.full((plan._total,), float("nan"), device=x.device)
+    for k in range(plan.mega.phases):
+        ws = walk_phase(plan, x, ws, k)[0]
+    o = plan._offsets[plan.out_tid]
+    return ws[o:o + plan.out_meta.size].reshape(plan.out_meta.c, -1)
+
 
 def _gemm_tile(co: int, L: int) -> int:
     """The table GEMM's tile for a (co, L) output: the smallest of
@@ -1063,17 +1288,19 @@ def _f32_bits(v: float) -> int:
     return int(np.float32(v).view(np.int32))
 
 
-def body_plan_for(model, info) -> Optional[BodyPlan]:
+def body_plan_for(model, info, precision: str = "highest") -> Optional[BodyPlan]:
     """A BodyPlan for the edge span if the graph qualifies, else None
-    (``body_mega_for``): both fused edge layers must be present, and the
-    output must be the tail's (K, oh/2, ow/2) input.  The plan comes
-    compiled for the persistent kernel (:meth:`BodyPlan.compile_mega`); a
-    table that does not compile is no plan."""
+    (``body_mega_for``): both fused edge layers must be present, the model
+    unquantized, and the output the tail's (K, oh/2, ow/2) input; its dots
+    :func:`dots_for` ``precision``.  The plan comes compiled for the
+    persistent kernel (:meth:`BodyPlan.compile_mega`); a table that does
+    not compile is no plan."""
     if not (info.front_ok and info.tail_ok):
         return None
     try:
         plan = BodyPlan(model, info.body_start, info.body_end,
-                        info.body_in_tensor, info.body_out_tensor)
+                        info.body_in_tensor, info.body_out_tensor,
+                        dots=dots_for(precision, False))
     except Unsupported:
         return None
     oh, ow = model.output_shape[1:3]
@@ -1147,29 +1374,33 @@ def _prefix_span(model, info):
 NO_CUT = "no cut"
 
 
-def body_plan_prefix_for(model, info, *, min_nodes: int = 4):
+def body_plan_prefix_for(model, info, *, min_nodes: int = 4, precision: str = "highest"):
     """K2': a BodyPlan over the longest qualifying prefix of a front-only
     family's body span (``body_mega_prefix_for``), None where the plan at
-    every cut fails, or :data:`NO_CUT`.
+    every cut fails (a quantized model's always), or :data:`NO_CUT`.
 
     The span is :func:`_prefix_span`'s, cut back until exactly one tensor
-    produced before the cut (the span input included) is read after it.
-    Returns (plan compiled, cut node index, cut tensor id)."""
+    produced before the cut (the span input included) is read after it;
+    its dots :func:`dots_for` ``precision``.  Returns (plan compiled, cut
+    node index, cut tensor id)."""
     if not info.front_ok:
         return None
     start, end = _prefix_span(model, info)
     cuts = list(_cuts(model, info, start, end, info.body_in_tensor, min_nodes))
     if not cuts:
         return NO_CUT
+    dots = dots_for(precision, False)
     found = _first_plan(cuts, lambda e, tid: BodyPlan(model, start, e, info.body_in_tensor,
-                                                      tid, allow_spaced_output=True))
+                                                      tid, allow_spaced_output=True,
+                                                      dots=dots))
     return found if found is not None and _compiles(found[0]) else None
 
 
 def body_plan_continuation_for(model, info, start: int, in_tid: int, *,
-                               min_nodes: int = 4):
+                               min_nodes: int = 4, precision: str = "highest"):
     """K2'': one flat BodyPlan over the body after the prefix cut
-    (``body_mega_continuation_for``), or None.
+    (``body_mega_continuation_for``), its dots :func:`dots_for`
+    ``precision``, or None.
 
     The same search as the reference's first link: the longest run of
     supported 4-D nodes from ``start``, cut back until one tensor crosses
@@ -1186,7 +1417,9 @@ def body_plan_continuation_for(model, info, start: int, in_tid: int, *,
         if node.kind not in SUPPORTED or s is None or len(s) != 4:
             break
         end = i + 1
+    dots = dots_for(precision, True)
     found = _first_plan(_cuts(model, info, start, end, in_tid, min_nodes,
                               body_output_crosses=True),
-                        lambda e, tid: BodyPlan(model, start, e, in_tid, tid, flat=True))
+                        lambda e, tid: BodyPlan(model, start, e, in_tid, tid, flat=True,
+                                                dots=dots))
     return found if found is not None and _compiles(found[0]) else None

@@ -71,9 +71,12 @@ def _resize_matrix_on(in_size: int, out_size: int, align_corners: bool,
 def resize_bilinear_nhwc(x, out_h: int, out_w: int, align_corners: bool = False,
                          half_pixel_centers: bool = False):
     """Separable bilinear resize of a (..., H, W, C) float tensor: rows,
-    then columns, each an f32 interpolation-matrix contraction."""
-    ah = _resize_matrix_on(x.shape[-3], out_h, align_corners, half_pixel_centers, x.device)
-    aw = _resize_matrix_on(x.shape[-2], out_w, align_corners, half_pixel_centers, x.device)
+    then columns, each an interpolation-matrix contraction in x's dtype
+    (the JAX lowering's matrices are x.dtype too)."""
+    ah = _resize_matrix_on(x.shape[-3], out_h, align_corners, half_pixel_centers,
+                           x.device).to(x.dtype)
+    aw = _resize_matrix_on(x.shape[-2], out_w, align_corners, half_pixel_centers,
+                           x.device).to(x.dtype)
     y = torch.einsum("oh,...hwc->...owc", ah, x)
     return torch.einsum("pw,...owc->...opc", aw, y)
 

@@ -26,6 +26,13 @@ the body between (counterpart of ``backscrub_tpu/pipeline/edge.py``).
   per axis (fold-blur), matrices built in float64; a crop under 64 px
   runs the two stages with a round between them.
 
+Precision: the plans' dots follow ``precision`` (``megakernel.dots_for``;
+"default", the bf16 mode, rounds their operands to bf16); the executor
+remainder runs in the model's compute dtype and the decode reads it as
+f32.  K1, the canvas resize, the tail and the post stay f32 in every mode
+(the JAX package asks DEFAULT of the last three in bf16 mode, which its
+CPU runs in f32).  A quantized model has no fused path.
+
 The TPU-only layouts (quadrant planes, rowpad, chw store, the VMEM
 limits) have no counterpart.  Reference behaviour: the preprocess chain
 ``lib/libbackscrub.cc:279-298``, decode ``:317-361``, upscale+blur
@@ -164,13 +171,16 @@ def detect_edge(model, spec) -> Optional[EdgeInfo]:
 
 def edge_applicable(model, spec, geo: Optional[RoiGeometry] = None, *,
                     refine: str = "box", u8_exact: bool = False,
-                    morph: str = "") -> Optional[EdgeInfo]:
+                    morph: str = "", quantize: Optional[str] = None) -> Optional[EdgeInfo]:
     """Gate of the fused path (``backscrub_tpu/pipeline/edge.py:
-    edge_applicable``): the front applies whenever the pattern matches; the
-    tail also needs the default post (box refine, float post, no morph)
-    and an output crop fine enough for fold-blur (min crop dim >= 64).
-    With the tail off the body span runs to the graph's end and the
-    model's own decode rule follows it."""
+    edge_applicable``): None for a quantized model (``quantize`` set), whose
+    int8 kernels the fused path would not dequantize; else the front
+    applies whenever the pattern matches; the tail also needs the default
+    post (box refine, float post, no morph) and an output crop fine enough
+    for fold-blur (min crop dim >= 64).  With the tail off the body span
+    runs to the graph's end and the model's own decode rule follows it."""
+    if quantize:
+        return None
     info = detect_edge(model, spec)
     if info is None:
         return None
@@ -426,10 +436,13 @@ def upscale_taps(n_in: int, n_out: int, device) -> Tuple[torch.Tensor, torch.Ten
     return tuple(torch.from_numpy(t).to(device) for t in taps)
 
 
-def body_plans(model, info: EdgeInfo, mega: Optional[bool] = None, cont: bool = False):
+def body_plans(model, info: EdgeInfo, mega: Optional[bool] = None, cont: bool = False,
+               precision: str = "highest"):
     """The BodyPlans of the body span and where the graph executor takes
     over: (plans, start node, start tensor), or None where a plan the
-    switches call for does not build.  ``mega=False``: no plan.  With both
+    switches call for does not build (always for a quantized model).  The
+    plans' dots are ``megakernel.dots_for(precision, flat)``.
+    ``mega=False``: no plan.  With both
     edge layers: the full-span plan (K2).  Front only: the prefix plan
     (K2') and, with ``cont``, the continuation plan (K2''); ``mega=True``
     demands the full span, as in the reference.  A span left to the
@@ -440,21 +453,23 @@ def body_plans(model, info: EdgeInfo, mega: Optional[bool] = None, cont: bool = 
     prefix plan there either, and the executor runs the whole body after
     K1."""
     start, tid = info.body_start, info.body_in_tensor
+    if getattr(model, "quantize_mode", None):
+        return None
     if mega is False:
         return [], start, tid
     if info.tail_ok:
-        plan = body_plan_for(model, info)
+        plan = body_plan_for(model, info, precision)
         return None if plan is None else ([plan], info.body_end, info.body_out_tensor)
     if mega:
         return None
-    r = body_plan_prefix_for(model, info)
+    r = body_plan_prefix_for(model, info, precision=precision)
     if r is NO_CUT:
         return [], start, tid
     if r is None:
         return None
     plans, start, tid = [r[0]], r[1], r[2]
     if cont:
-        rc = body_plan_continuation_for(model, info, start, tid)
+        rc = body_plan_continuation_for(model, info, start, tid, precision=precision)
         if rc is None:
             return None
         plans.append(rc[0])
@@ -476,17 +491,19 @@ class EdgeFused:
     ValueError.  ``post_options`` are :func:`postprocess_mask`'s
     ``refine``, ``morph`` and ``u8_exact`` (the caller's dict, e.g.
     ``MaskGen.post_options``); ``info`` then comes from
-    :func:`edge_applicable` given the same options.
+    :func:`edge_applicable` given the same options.  ``precision`` ("highest",
+    "high" or "default"; None: ``spec.mxu_precision``) sets the plans' dots.
     """
 
     def __init__(self, model, geo: RoiGeometry, spec, info: EdgeInfo, *,
                  use_bilateral: bool = True, device="cuda",
                  mega: Optional[bool] = None, cont: bool = False, plans=None,
-                 post_options: Optional[dict] = None):
+                 post_options: Optional[dict] = None, precision: Optional[str] = None):
         if not info.front_ok:
             raise ValueError("the PyTorch edge path needs the fused front")
+        self.precision = spec.mxu_precision if precision is None else precision
         if plans is None:
-            plans = body_plans(model, info, mega, cont)
+            plans = body_plans(model, info, mega, cont, self.precision)
         if plans is None:
             raise ValueError(f"the body span does not fit the BodyPlans that mega={mega}, "
                              f"cont={cont} call for (K2 needs both fused edge layers; "
@@ -566,8 +583,9 @@ class EdgeFused:
     def body(self, h: torch.Tensor, plain: bool = False, gemm: str = "f32") -> torch.Tensor:
         """(C, oh, ow) -> the body output (C_out, H_out, W_out): the tail's
         input, or front only the model output in channel-major order.
-        ``plain`` runs the plans' plain versions on any device, their flat
-        GEMMs in ``gemm`` precision (``BodyPlan.run_plain``)."""
+        ``plain`` runs the plans' plain versions on any device, their dots
+        in ``gemm`` arithmetic (``BodyPlan.run_plain``: "bf16x3" the flat
+        GEMMs' split, "bf16" every dot one bf16 pass)."""
         for plan in self.plans:
             m = plan.out_meta
             x = h.reshape(h.shape[0], -1)
@@ -600,10 +618,10 @@ class EdgeFused:
     def step_mask(self, frame: torch.Tensor, ema: torch.Tensor, plain: bool = False,
                   gemm: str = "f32"):
         """``plain`` runs every kernel's plain version (on any device), the
-        flat GEMMs in ``gemm`` precision."""
+        plans' dots in ``gemm`` arithmetic (:meth:`body`)."""
         out = self.body(self.front(frame, plain), plain, gemm)
         if self.info.tail_ok:
             new_ema = self.tail(out.reshape(out.shape[0], -1), ema)
         else:
-            new_ema = ema_update(ema, decode_val(out.permute(1, 2, 0), self.spec))
+            new_ema = ema_update(ema, decode_val(out.permute(1, 2, 0).float(), self.spec))
         return self.postprocess(new_ema, frame), new_ema

@@ -77,7 +77,8 @@ class PipelineConfig:
 class FramePipeline:
     """End-to-end per-frame step with carried EMA state on ``device`` (the
     card unless the caller asks for the CPU; raises where CUDA is asked
-    for and absent).
+    for and absent).  ``compute_dtype``, ``precision`` and ``quantize`` go
+    to :class:`MaskGen` (the bf16 and int8 modes).
 
     ``step(frame_bgr_u8, background_bgr_u8=None)`` -> (packed output,
     mask (H, W) u8) as tensors on the device.  No background means green,
@@ -93,7 +94,9 @@ class FramePipeline:
     semantics for those options, not a fallback.
     """
 
-    def __init__(self, model: str, config: PipelineConfig, *, device="cuda"):
+    def __init__(self, model: str, config: PipelineConfig, *, device="cuda",
+                 compute_dtype: torch.dtype = torch.float32, precision: Optional[str] = None,
+                 quantize: Optional[str] = None):
         if config.input_format not in _INPUT_FORMATS:
             raise ValueError(f"input_format must be one of {_INPUT_FORMATS}, "
                              f"got {config.input_format!r}")
@@ -136,12 +139,15 @@ class FramePipeline:
         self.cfg = config
         self.out_geo = (oh, ow)
         self.maskgen = MaskGen(model, config.width, config.height,
-                               device=device, use_bilateral=config.use_bilateral,
+                               device=device, compute_dtype=compute_dtype,
+                               precision=precision, quantize=quantize,
+                               use_bilateral=config.use_bilateral,
                                refine=config.mask_refine, morph=config.mask_morph,
                                edge_fused=config.edge_fused,
                                edge_mega=config.edge_mega,
                                edge_cont=config.edge_cont)
         self.device = self.maskgen.device
+        self.precision = self.maskgen.precision   # the spec's default resolved
         self._out_qtabs = (None if self.out_jpeg_qtabs is None else
                            torch.from_numpy(self.out_jpeg_qtabs.astype(np.int32)).to(self.device))
         self.geo = self.maskgen.geo

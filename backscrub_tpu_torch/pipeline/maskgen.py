@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from .._build import resolve_device
 from ..graph.executor import CompiledModel, load_model
 from ..models.specs import ModelSpec, resolve_model_path, spec_for_model
+from ..ops.megakernel import PRECISIONS
 from ..ops.image_kernels import bilateral5
 from .decode import decode_val, ema_update
 from .edge import EdgeFused, body_plans, edge_applicable, fold_blur_tensors, postprocess_mask
@@ -89,10 +90,22 @@ class MaskGen:
     :class:`EdgeFused` as ``mega`` and ``cont`` (``edge_cont=None`` takes
     the spec's ``edge_cont``); ``edge_mega=True`` raises where the
     full-span plan does not build.
+
+    The precision modes follow the JAX constructor: ``compute_dtype``
+    (torch.float32 or torch.bfloat16) is the graph executor's
+    (``load_model``); ``precision`` ("highest", "high" or "default"; None
+    takes ``spec.mxu_precision`` and :attr:`precision` holds the result)
+    sets the body plans' dots, "default" one bf16 pass (the bf16 mode:
+    ``compute_dtype=torch.bfloat16, precision="default"``);
+    ``quantize="int8"`` loads per-channel int8 kernels, which the fused
+    path refuses: such a model runs the classic stages, and
+    ``edge_fused=True`` raises.
     """
 
     def __init__(self, model: str, width: int, height: int, *,
-                 device="cuda", use_bilateral: bool = True,
+                 device="cuda", compute_dtype: torch.dtype = torch.float32,
+                 precision: Optional[str] = None, quantize: Optional[str] = None,
+                 use_bilateral: bool = True,
                  fused: bool = True,
                  u8_exact_post: Optional[bool] = None,
                  refine: str = "box",
@@ -109,7 +122,11 @@ class MaskGen:
         self.onprep, self.oninfer, self.onmask, self.ondebug = onprep, oninfer, onmask, ondebug
         self.model_path = resolve_model_path(model)
         self.spec = spec_for_model(self.model_path)
-        self.model: CompiledModel = load_model(self.model_path, self.device)
+        self.precision = self.spec.mxu_precision if precision is None else precision
+        if self.precision not in PRECISIONS:
+            raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
+        self.model: CompiledModel = load_model(self.model_path, self.device,
+                                               compute_dtype=compute_dtype, quantize=quantize)
         ih, iw = self.model.input_shape[1:3]
         oh, ow = self.model.output_shape[1:3]
         want = self.spec.expected_channels()
@@ -132,20 +149,21 @@ class MaskGen:
         self.edge = None
         if fused and edge_fused is not False:
             info = edge_applicable(self.model, self.spec, self.geo, refine=refine,
-                                   u8_exact=u8_exact_post, morph=morph)
+                                   u8_exact=u8_exact_post, morph=morph, quantize=quantize)
             cont = self.spec.edge_cont if edge_cont is None else edge_cont
-            plans = (body_plans(self.model, info, edge_mega, cont)
+            plans = (body_plans(self.model, info, edge_mega, cont, self.precision)
                      if info is not None and info.front_ok else None)
             if plans is not None:
                 self.edge = EdgeFused(
                     self.model, self.geo, self.spec, info,
                     use_bilateral=use_bilateral, device=self.device, mega=edge_mega,
-                    cont=cont, plans=plans, post_options=self.post_options)
+                    cont=cont, plans=plans, post_options=self.post_options,
+                    precision=self.precision)
             elif edge_fused or edge_mega:
                 raise ValueError(f"edge_fused={edge_fused}, edge_mega={edge_mega}: the "
                                  "model/geometry does not match the fusable edge "
-                                 "pattern, or its body does not fit the BodyPlans "
-                                 "these switches call for")
+                                 "pattern, its body does not fit the BodyPlans "
+                                 "these switches call for, or the model is quantized")
         self.post_mats = (self.edge.post_mats if self.edge is not None
                           else fold_blur_tensors(self.geo, self.device))
         self.ema_shape = (oh, ow)
@@ -176,7 +194,7 @@ class MaskGen:
                      frame: Optional[torch.Tensor] = None):
         """Stage 3: model output + EMA -> (mask (H, W) u8, new EMA);
         ``frame`` guides ``refine="guided"``."""
-        new_ema = ema_update(ema, decode_val(out, self.spec))
+        new_ema = ema_update(ema, decode_val(out.float(), self.spec))
         return postprocess_mask(new_ema, self.geo, self.post_mats, frame_bgr=frame,
                                 **self.post_options), new_ema
 

@@ -146,7 +146,14 @@ Usage (from the repository root, on a machine with a CUDA card)::
    the plain route under the decode flip rule and the tolerance invariant
    outside the flips' footprint through the option's post; device busy a
    frame beside the fused tail's; an ``options:`` line;
-17. prints one JSON line with every kernel's numbers (launches from the
+17. the precision modes (``precision_phase``): every family's bf16 fused
+   path, each bf16 plan (``body_mega_kernel<1>``, K2'' with the one-term
+   GEMM) held op by op on the kernel's own inputs at allclose(2e-3, 1e-3)
+   with a control that must miss it, the frames against the plain bf16
+   path with the f32 path as the control, device busy in both; the
+   one-term GEMM alone; every family's int8 classic path; ``backscrub-torch
+   --bf16`` and ``--int8``; a ``precision:`` line;
+18. prints one JSON line with every kernel's numbers (launches from the
    run of the path it serves, errors and times measured here, and the
    bound: the larger of the bytes it must move over 3.35 TB/s and its
    operations over the peak of their type, 67 TFLOP/s f32 or 989 TFLOP/s
@@ -235,6 +242,13 @@ OPTIONS = (("refine:guided", dict(mask_refine="guided"), {}),
            ("morph:open:3", dict(mask_morph="open:3"), {}),
            ("u8exact", {}, {"BACKSCRUB_U8_EXACT": "1"}))
 OPTION_FRAMES = 10
+# the precision modes (precision_phase): frames a family's bf16 run and
+# profiled window; CONTROL_SHARE, the largest share of the f32 path's
+# reading (the control: a port that ignored bf16) that a bf16 reading
+# against the plain bf16 path may reach; MIN_CELLS, the decode cells the
+# bf16 effect must span for a mask IoU to resolve it
+# (tests/test_torch_precision_masks.py)
+PRECISION_FRAMES, CONTROL_SHARE, MIN_CELLS = 10, 0.85, 10
 CLI_MODES = (("plain", []), ("drain-thread", ["--drain-thread"]),
              ("staging-force", ["--staging-force"]), ("staging", ["--staging"]),
              ("nv12", ["--sink-format", "nv12"]))
@@ -912,20 +926,26 @@ def _held_bytes(pairs, what, foot=None):
     return frac
 
 
-def _flip_rule(ema_k, ema, margin, ever_flipped):
+def _flip_margin(ema_k, ema, margin):
+    """The largest |margin| at a pixel whose decode bits (5-7) differ
+    between ``ema_k`` and ``ema`` (0 where none do), and those pixels."""
+    flipped = (ema_k >> 5) != (ema >> 5)
+    return (float(margin[flipped].abs().max()) if flipped.any() else 0.0), flipped
+
+
+def _flip_rule(ema_k, ema, margin, ever_flipped, tie=TIE):
     """The decode flip rule on one frame: ``ema_k`` the kernel path's EMA,
     ``ema`` the plain path's, ``margin`` the plain path's decode value less
     its threshold a pixel (the decision flips at 0).  Every pixel whose
-    decode bits (5-7) differ must sit at |margin| <= TIE, and the EMAs must
-    be equal wherever no decode has flipped (``ever_flipped``, updated in
-    place).  Returns (flips, largest |margin| of a flip)."""
+    decode bits (5-7) differ must sit at |margin| <= ``tie``, and the EMAs
+    must be equal wherever no decode has flipped (``ever_flipped``, updated
+    in place).  Returns (flips, largest |margin| of a flip)."""
     import torch
-    flipped = (ema_k >> 5) != (ema >> 5)
+    worst, flipped = _flip_margin(ema_k, ema, margin)
     ever_flipped |= flipped
     if not torch.equal(ema_k[~ever_flipped], ema[~ever_flipped]):
         raise AssertionError("the EMAs differ at a pixel whose decode never flipped")
-    worst = float(margin[flipped].abs().max()) if flipped.any() else 0.0
-    if worst > TIE:
+    if worst > tie:
         raise AssertionError(f"a decode flip at |margin| {worst:.3g} is not a near-tie")
     return int(flipped.sum()), worst
 
@@ -1427,7 +1447,7 @@ def family_fused(tag, path, w, h, fmt="yuyv", margin=None):
     return r
 
 
-def family_classic(tag, path, margin):
+def family_classic(tag, path, margin, **mode):
     """A model family's classic path at CLASSIC_SIZE with NV12 out (the
     path the C ABI's staged MaskGen takes when hooks are set): K5 at the
     model's canvas, the graph executor, the decode, the post, K4.
@@ -1437,7 +1457,8 @@ def family_classic(tag, path, margin):
     model output) and the tolerance invariant; K5 against its plain
     version at the model's canvas, K5's and K4's device times alone and
     in the pipeline beside their bounds, host-clock ms/frame, device busy
-    and operations a frame and the idle share."""
+    and operations a frame and the idle share.  ``mode``: the pipeline's
+    precision arguments (``quantize="int8"``)."""
     import torch
     from backscrub_tpu_torch.ops.image_kernels import bilateral5
     from backscrub_tpu_torch.ops.pack_kernels import blend_pack_420, blend_pack_420_plain
@@ -1449,7 +1470,7 @@ def family_classic(tag, path, margin):
     w, h = CLASSIC_SIZE
     n = FAMILY_FRAMES
     pipe = FramePipeline(path, PipelineConfig(width=w, height=h, edge_fused=False,
-                                              output_format="nv12"), device="cuda")
+                                              output_format="nv12"), device="cuda", **mode)
     mg = pipe.maskgen
     if mg.edge is not None:
         raise AssertionError(f"the {tag} classic path took the fused edge path")
@@ -2007,6 +2028,343 @@ def options_phase():
     return res
 
 
+def bf16_work(plan):
+    """(bytes, f32 ops, bf16 ops) of a bf16 plan: its work() with the dots'
+    multiply-adds (1x1 convs and FCs, operands bf16) at the bf16 rate."""
+    nbytes, flops = plan.work()
+    mm = sum(2 * plan.weights[p[3]].size * (1 if plan.meta[p[1]].vec
+                                            else plan.meta[p[1]].rows * plan.meta[p[1]].w)
+             for p in plan.plan if p[0] == "conv1x1")
+    return nbytes, flops - mm, mm
+
+
+def _plan_bf16(plan, x, tag):
+    """A bf16 plan's one launch on ``x``: two runs bit-identical, and the
+    kernel held op by op (``BodyPlan.rows_on_card``: each phase's rows run
+    on the kernel's own workspace of the phase before, against
+    ``walk_phase``'s plain rows on it) at allclose(ATOL, RTOL), where only
+    the summation order differs.  The control, the plain rows with the
+    dots' activations left unrounded, must miss that bar on some row, so
+    the check tells a kernel that skipped the rounding.  The whole span
+    against ``run_plain(x, "bf16")`` is printed beside what the bf16 dots
+    move the twin, not held: the rounding of every dot operand turns the
+    two summation orders' f32 ulps into bf16 ulps that the ops after carry
+    on (tests/test_torch_precision.py).  Returns the kernels-line numbers
+    and the kernel's output."""
+    import torch
+    k, k2 = plan.run_cuda(x).clone(), plan.run_cuda(x)
+    p = plan.run_plain(x, "bf16")
+    p32 = plan.run_plain(x, "bf16x3" if plan.flat else "f32")
+    torch.cuda.synchronize()
+    if not torch.equal(k, k2):
+        raise AssertionError(f"{tag}: two bf16 runs differ")
+    rows = off = 0
+    worst = ctl_worst = 0.0
+    for phase, kind, got, want, ctl in plan.rows_on_card(x):
+        rows += 1
+        err = float((got - want).abs().max())
+        if not torch.allclose(got, want, atol=ATOL, rtol=RTOL):
+            raise AssertionError(f"{tag}: a {kind} row of phase {phase} is {err:.3g} from its "
+                                 f"plain row on the kernel's inputs")
+        worst = max(worst, err)
+        off += not torch.allclose(ctl, want, atol=ATOL, rtol=RTOL)
+        ctl_worst = max(ctl_worst, float((ctl - want).abs().max()))
+    if not off:
+        raise AssertionError(f"{tag}: the rows with unrounded activations meet the bar too")
+    dist, effect = (k - p).abs(), (p - p32).abs()
+    r = dict(max_abs_err=worst, rows_held=rows, control_rows_off=off, control_max_err=ctl_worst,
+             e2e_max_abs_err=float(dist.max()), e2e_mean_abs_err=float(dist.mean()),
+             effect_mean=float(effect.mean()), effect_max=float(effect.max()),
+             ms=timed(lambda: plan.run_cuda(x)), plain_ms=timed(lambda: plan.run_plain(x, "bf16")),
+             device_ms=device_ms(lambda: plan.run_cuda(x)), bound=bound(*bf16_work(plan)),
+             phases=plan.mega.phases)
+    print(f"kernel {tag} bf16: {r['phases']} phases, device {r['device_ms'] * 1e3:.2f} us (bound "
+          f"{r['bound'][0] * 1e3:.3f} us, {r['bound'][1]}); op by op: {rows} rows within "
+          f"allclose({ATOL:g}, {RTOL:g}) of their plain rows, max_abs_err {worst:.3g}; the "
+          f"control (activations unrounded) off the bar on {off} rows, max {ctl_worst:.3g}; "
+          f"the span against run_plain(gemm='bf16') {r['e2e_max_abs_err']:.3g} max, "
+          f"{r['e2e_mean_abs_err']:.3g} mean (the bf16 dots move the twin "
+          f"{r['effect_max']:.3g} max, {r['effect_mean']:.3g} mean)")
+    return r, k
+
+
+def _iou(a, b):
+    a, b = a < 128, b < 128
+    return float((a & b).sum()) / max(float((a | b).sum()), 1.0)
+
+
+def precision_family(tag, path, margin):
+    """A family's bf16 mode fused at 640x480 (``compute_dtype=bfloat16,
+    precision="default"``): each plan's bf16 table held op by op
+    (``_plan_bf16``); PRECISION_FRAMES frames from a fresh EMA with one K1,
+    one ``bs_body_mega`` a plan and one K3 launch a frame (counted frame by
+    frame), held against the plain path in the same arithmetic
+    (``step_mask(plain=True, gemm="bf16")``, its EMA its own) with the f32
+    path on the same frames as the control, the reading of a port that
+    ignored bf16; every bf16 reading at most CONTROL_SHARE of the
+    control's (tests/test_torch_precision_masks.py's bars, the port's plain
+    path in the JAX package's place):
+    - where the body runs wholly in the plans, the decode flip rule with
+      the near-tie at CONTROL_SHARE of the largest |margin| at which the
+      f32 path's decode differs from the plain path's (the EMAs equal
+      wherever no decode flipped, no mask byte off by more than 1 outside
+      the flips' footprint; bf16 flips are many, so the tolerance
+      invariant's shares are not held inside it);
+    - where the executor runs a bf16 span, the last mask's IoU at least
+      1 - CONTROL_SHARE (1 - J), J the f32 path's IoU against the plain
+      path, where that effect spans at least MIN_CELLS decode cells; else
+      (BodyPix's 33x33 decode grid) the decode input's mean distance from
+      the plain path at most CONTROL_SHARE of the f32 path's, every frame.
+    The bf16 path's IoU against the f32 path is at least J - 0.01.  Device
+    busy a frame in bf16 beside f32, the executor remainder's device time
+    in both.  Returns (numbers, the plans' kernels-line numbers, launches
+    by counter and table op)."""
+    import torch
+    from backscrub_tpu_torch.ops.megakernel import body_launch
+    from backscrub_tpu_torch.pipeline.decode import decode_val, ema_update
+    from backscrub_tpu_torch.pipeline.edge import post_footprint
+    from backscrub_tpu_torch.pipeline.frame import FramePipeline, PipelineConfig
+    from make_synth_segm import moving_frames
+
+    w, h = CLASSIC_SIZE
+    n = PRECISION_FRAMES
+    frames = [torch.from_numpy(f).cuda() for f in moving_frames(w, h, n)]
+    cfg = PipelineConfig(width=w, height=h)
+    p32 = FramePipeline(path, cfg, device="cuda")
+    p16 = FramePipeline(path, cfg, device="cuda", compute_dtype=torch.bfloat16,
+                        precision="default")
+    e, e32 = p16.maskgen.edge, p32.maskgen.edge
+    if e is None or not e.plans or any(p.dots != "bf16" for p in e.plans):
+        raise AssertionError(f"{tag} bf16 did not take the fused path with bf16 plans")
+    res, kern = dict(plans=[p.mega.phases for p in e.plans]), {}
+    with torch.no_grad():
+        x = e.front(frames[0]).reshape(e.plans[0].in_meta.c, -1)
+        for plan, name in zip(e.plans, ("body_prefix", "body_cont") if len(e.plans) == 2
+                              else ("body" if e.info.tail_ok else "body_prefix",)):
+            kern[name], x = _plan_bf16(plan, x, f"{tag} {name}")
+        if e.rest is not None:
+            m = e.plans[-1].out_meta
+            rest_in = x.reshape(m.c, m.rows, m.w).permute(1, 2, 0)[None]
+            res["rest_bf16_us"], res["rest_bf16_ops"] = (
+                v * f for v, f in zip(device_kernels(lambda: e.rest(rest_in)), (1e3, 1)))
+            res["rest_f32_us"], res["rest_f32_ops"] = (
+                v * f for v, f in zip(device_kernels(lambda: e32.rest(rest_in.float())), (1e3, 1)))
+    for p in (p32, p16):
+        for f in frames[:3]:
+            p.step(f)
+    res["busy_f32_ms_per_frame"], res["ops_f32_per_frame"], _ = _window(p32.step, frames, n)
+    res["busy_bf16_ms_per_frame"], res["ops_bf16_per_frame"], _ = _window(p16.step, frames, n)
+    p16.reset()
+    p32.reset()
+    want = dict(front=1, body=len(e.plans), pack=1, pack_420=0, bilateral=0, jpeg_decode=0)
+    launches = collections.Counter()
+    table_ops = collections.Counter()
+    ema = torch.full(p16.maskgen.ema_shape, 255, dtype=torch.uint8, device=p16.device)
+    kernels_only = e.rest is None
+    seq, ratios = [], []
+    with torch.no_grad():
+        for f in frames:
+            _zero_counts()
+            body_launch.by_kernel.clear()
+            body_launch.table_ops.clear()
+            _, mask = p16.step(f)
+            counts = _counts()
+            if counts != want or dict(body_launch.by_kernel) != {"bs_body_mega": len(e.plans)}:
+                raise AssertionError(f"{tag} bf16 launches a frame {counts} "
+                                     f"{dict(body_launch.by_kernel)}, expected {want}")
+            launches.update(counts)
+            table_ops.update(body_launch.table_ops)
+            _, mask32 = p32.step(f)
+            ema_prev = ema
+            body = e.body(e.front(f, plain=True), plain=True, gemm="bf16")
+            if e.info.tail_ok:
+                body = body.reshape(body.shape[0], -1)
+                mrg, ema = e.tail_logits(body) - e.info.tail_threshold, e.tail(body, ema_prev)
+            else:
+                out = body.permute(1, 2, 0).float()
+                mrg, ema = margin(out), ema_update(ema_prev, decode_val(out, e.spec))
+                k_out, f32_out = (g.body(g.front(f)).float() for g in (e, e32))
+                ratios.append(float((k_out - body.float()).abs().mean())
+                              / float((f32_out - body.float()).abs().mean()))
+            seq.append((p16.maskgen.ema.clone(), p32.maskgen.ema.clone(), ema, mrg, mask,
+                        e.postprocess(ema, f)))
+    J = _iou(seq[-1][5], mask32)
+    iou = _iou(mask, seq[-1][5])
+    res.update(iou_plain=iou, J=J, iou_f32=_iou(mask, mask32), launches=dict(launches),
+               table_ops=dict(table_ops))
+    if kernels_only:
+        control = max(_flip_margin(e32k, ep, mrg)[0] for _, e32k, ep, mrg, _, _ in seq)
+        tie = CONTROL_SHARE * control
+        ever = torch.zeros_like(ema, dtype=torch.bool)
+        flips, worst, off_foot = 0, 0.0, []
+        for ek, _, ep, mrg, mk, mp in seq:
+            k, mm = _flip_rule(ek, ep, mrg, ever, tie)
+            flips, worst = flips + k, max(worst, mm)
+            foot = post_footprint(ek != ep, e.geo, e.post_mats)
+            d = torch.where(foot, 0, (mk.int() - mp.int()).abs())
+            if int(d.max()) > 1:
+                raise AssertionError(f"{tag} bf16: a mask byte off by {int(d.max())} "
+                                     "outside the flips' footprint")
+            off_foot.append(float((d > 0).float().mean()))
+        res.update(flips=flips, flip_margin=worst, control_flip_margin=control, tie=tie,
+                   off_footprint_diff=max(off_foot))
+        check = (f"decode flips {flips} at |margin| <= {worst:.3g}, the near-tie "
+                 f"{tie:.3g} ({CONTROL_SHARE:g} x the f32 path's flips' {control:.3g}), mask "
+                 f"bytes differing outside their footprint at most "
+                 f"{100 * res['off_footprint_diff']:.3f}% a frame")
+    else:
+        cells = int(((seq[-1][1] >> 7) != (seq[-1][2] >> 7)).sum())
+        bar = 1 - CONTROL_SHARE * (1 - J)
+        res.update(cells=cells, iou_bar=bar, decode_ratio=max(ratios))
+        if cells >= MIN_CELLS and iou < bar:
+            raise AssertionError(f"{tag} bf16: mask IoU {iou:.4f} against the plain path, under "
+                                 f"{bar:.4f} (J {J:.4f})")
+        if cells < MIN_CELLS and max(ratios) > CONTROL_SHARE:
+            raise AssertionError(f"{tag} bf16: the decode input {max(ratios):.3g} of the f32 "
+                                 f"path's distance from the plain path")
+        check = (f"mask IoU {iou:.4f}, bar {bar:.4f} (J {J:.4f}, the bf16 effect {cells} "
+                 f"decode cells: " + ("held" if cells >= MIN_CELLS else "read") + "); decode "
+                 f"input at most {max(ratios):.3g} of the f32 path's distance ("
+                 + ("read" if cells >= MIN_CELLS else "held") + ")")
+    if res["iou_f32"] < J - 0.01:
+        raise AssertionError(f"{tag} bf16: IoU {res['iou_f32']:.4f} against f32, J {J:.4f}")
+    rest = (f"; executor remainder {res['rest_bf16_us']:.2f} us in bf16 vs "
+            f"{res['rest_f32_us']:.2f} us in f32 ({res['rest_bf16_ops']:.0f} / "
+            f"{res['rest_f32_ops']:.0f} operations)" if "rest_bf16_us" in res else "")
+    print(f"precision {tag} fused {w}x{h}: device busy {res['busy_bf16_ms_per_frame']:.4f} "
+          f"ms/frame in bf16 vs {res['busy_f32_ms_per_frame']:.4f} in f32 "
+          f"({res['ops_bf16_per_frame']:.1f} / {res['ops_f32_per_frame']:.1f} operations){rest}; "
+          f"{n} frames, launches {dict(launches)}; vs the bf16 plain path: {check}; IoU "
+          f"against f32 {res['iou_f32']:.4f}")
+    return res, kern
+
+
+def gemm_bf16_phase(cont, dev):
+    """The one-term GEMM alone (``bs_gemm`` with terms=1) at the ASPP shape
+    of the deeplab continuation: against conv1x1_bf16_plain (GEMM_REL
+    relative: one dot, the summation order alone), two runs bit-identical;
+    its device time beside the three-term tile's and torch.addmm's on bf16
+    operands (f32 out).  Returns the kernels-line numbers."""
+    import torch
+    from backscrub_tpu_torch.ops.megakernel import (conv1x1_bf16_plain, conv1x1_gemm,
+                                                    split_bf16)
+    ws = cont._weights_on(dev)
+    p = max((p for p in gemm_ops(cont)), key=lambda p: cont.weights[p[3]].size)
+    _, tin, _, wi, bi, act = p
+    gw, gb = ws[wi], ws[bi]
+    co, ci = gw.shape
+    L = cont.meta[tin].rows * cont.meta[tin].w
+    gx = torch.from_numpy(np.random.default_rng(6).uniform(0, 2, (ci, L)).astype(
+        np.float32)).to(dev)
+    sp = split_bf16(gw)
+    one = (sp[0], None)
+    with torch.no_grad():
+        k, k2 = (conv1x1_gemm(gw, gb, gx, split=one, terms=1) for _ in range(2))
+        pb = conv1x1_bf16_plain(gw, gb, gx)
+        torch.cuda.synchronize()
+        rel = float((k - pb).abs().max() / pb.abs().max())
+        if rel > GEMM_REL or not torch.equal(k, k2):
+            raise AssertionError(f"one-term GEMM {co}x{ci}: {rel:.3g} from its twin, or runs differ")
+        wb, xb, bb = gw.bfloat16(), gx.bfloat16(), gb.bfloat16()[:, None]
+        kp = ci + (-ci % 8)
+        r = dict(max_abs_err=float((k - pb).abs().max()), rel_err=rel,
+                 ms=timed(lambda: conv1x1_gemm(gw, gb, gx, split=one, terms=1)),
+                 plain_ms=timed(lambda: conv1x1_bf16_plain(gw, gb, gx)),
+                 device_ms=device_ms(lambda: conv1x1_gemm(gw, gb, gx, split=one, terms=1)),
+                 three_term_device_ms=device_ms(lambda: conv1x1_gemm(gw, gb, gx, split=sp)),
+                 library_ms=timed(lambda: torch.addmm(bb, wb, xb)),
+                 library_device_ms=device_ms(lambda: torch.addmm(bb, wb, xb)),
+                 bound=bound(4 * (ci * L + co + co * L) + 2 * co * kp, 0, 2 * co * ci * L))
+    print(f"gemm bf16 {co}x{ci} by {ci}x{L}: one term {r['device_ms'] * 1e3:.3f} us, three terms "
+          f"{r['three_term_device_ms'] * 1e3:.3f} us, torch.addmm on bf16 operands "
+          f"{r['library_device_ms'] * 1e3:.3f} us; bound {r['bound'][0] * 1e3:.3f} us "
+          f"({r['bound'][1]}); vs conv1x1_bf16_plain {rel:.3g} relative")
+    return r
+
+
+def precision_cli():
+    """``backscrub-torch`` in-process on the card at CLI_SIZE on the default
+    family (mlkit): plain, ``--bf16`` and ``--int8``, CLI_FRAMES frames each,
+    each file byte-identical to direct ``FramePipeline.step`` calls in the
+    same mode on the same frames, each kernel of its route launched once a
+    frame (``--bf16``: K1, K2, K3; ``--int8``: the classic stages, K5 and
+    K3); fps and stage ms from the stats line.  Returns them by mode."""
+    import contextlib
+    import io
+    import tempfile
+    import torch
+    from backscrub_tpu_torch import cli
+    from backscrub_tpu_torch.io.streams import SyntheticSource
+    from backscrub_tpu_torch.ops.megakernel import body_launch
+    from backscrub_tpu_torch.pipeline.frame import FramePipeline, PipelineConfig
+
+    (w, h), n = CLI_SIZE, CLI_FRAMES
+    src = SyntheticSource(w, h)
+    frames = [src.read() for _ in range(n)]
+    modes = (("plain", [], {}, dict(front=n, body=n, pack=n, bilateral=0)),
+             ("bf16", ["--bf16"], dict(compute_dtype=torch.bfloat16, precision="default"),
+              dict(front=n, body=n, pack=n, bilateral=0)),
+             ("int8", ["--int8"], dict(quantize="int8"), dict(front=0, body=0, pack=n, bilateral=n)))
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, flags, kw, want in modes:
+            pipe = FramePipeline(SELFIE, PipelineConfig(width=w, height=h), device="cuda", **kw)
+            golden = b"".join(pipe.step(f)[0].cpu().numpy().tobytes() for f in frames)
+            del pipe
+            out, stats = os.path.join(tmp, f"{name}.yuv"), os.path.join(tmp, f"{name}.jsonl")
+            argv = ["-c", "test:", "--cg", f"{w}x{h}", "-m", SELFIE, "--frames", str(n),
+                    "-v", f"file:{out}", "--stats-json", stats, *flags]
+            err = io.StringIO()
+            _zero_counts()
+            body_launch.by_kernel.clear()
+            with contextlib.redirect_stderr(err):
+                rc = cli.main(argv)
+            counts = {k: v for k, v in _counts().items() if k in want}
+            sys.stderr.write(err.getvalue())
+            if rc != 0 or counts != want:
+                raise AssertionError(f"cli {name}: rc {rc}, launches {counts}, expected {want}")
+            with open(out, "rb") as fh:
+                if fh.read() != golden:
+                    raise AssertionError(f"cli {name}: not the bytes of {n} direct steps")
+            with open(stats) as fh:
+                rec = json.loads(fh.read().splitlines()[-1])
+            res[name] = dict(rec, ms_per_frame=1e3 / rec["fps"])
+    print(f"precision cli {w}x{h} mlkit, {n} frames a run, each byte-identical to direct steps "
+          f"in its mode: fps " + ", ".join(f"{k} {v['fps']}" for k, v in res.items()))
+    return res
+
+
+def precision_phase():
+    """The bf16 and int8 modes on the card: every family's bf16 fused path
+    (``precision_family``), the one-term GEMM alone, every family's int8
+    classic path against its plain version (``family_classic`` with
+    ``quantize="int8"``), and the program with ``--bf16`` and ``--int8``.
+    Returns (numbers, kernels-line numbers by name, launches by name)."""
+    families = (("segm_lite", MODEL, _two_channel_margin),
+                ("segm_full", SEGM_FULL, _two_channel_margin), ("mlkit", SELFIE, _logit_margin),
+                ("deeplab", DEEPLAB, _person_margin), ("bodypix", BODYPIX, _threshold_margin))
+    res, kern, launches = {}, {}, {}
+    for tag, path, margin in families:
+        res[f"{tag} bf16"], k = precision_family(tag, path, margin)
+        if tag == "segm_lite":
+            kern["body_bf16"] = k["body"]
+            launches["body_bf16"] = res[f"{tag} bf16"]["launches"]["body"]
+        if tag == "deeplab":
+            kern["body_prefix_bf16"], kern["body_cont_bf16"] = k["body_prefix"], k["body_cont"]
+            launches["body_prefix_bf16"] = launches["body_cont_bf16"] = PRECISION_FRAMES
+            launches["gemm_bf16"] = res[f"{tag} bf16"]["table_ops"]["gemm"]
+    import torch
+    from backscrub_tpu_torch.pipeline.frame import FramePipeline, PipelineConfig
+    p16 = FramePipeline(DEEPLAB, PipelineConfig(width=640, height=480), device="cuda",
+                        compute_dtype=torch.bfloat16, precision="default")
+    kern["gemm_bf16"] = gemm_bf16_phase(p16.maskgen.edge.cont_plan, p16.device)
+    for tag, path, margin in families:
+        res[f"{tag} int8 classic"] = family_classic(f"{tag} int8", path, margin,
+                                                    quantize="int8")
+    res["cli"] = precision_cli()
+    return res, kern, launches
+
+
 def device_check():
     """A pipeline built without ``device=`` runs on the card."""
     from backscrub_tpu_torch.pipeline.frame import FramePipeline, PipelineConfig
@@ -2241,15 +2599,20 @@ def main() -> int:
     t0 = time.perf_counter()
     options = options_phase()
     print(f"options phase: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    precision, prec_kernels, prec_launches = precision_phase()
+    print(f"precision phase: {time.perf_counter() - t0:.2f} s")
     main_size = SIZES[0]
     # launches: each kernel's count from the run of the path it serves
     launches = dict(runs[main_size][0], body_prefix=dl_launches["body_prefix"],
                     body_cont=dl_launches["body_cont"], gemm=dl_launches["gemm"],
                     pack_420=fused_420_launches["pack_420"],
-                    bilateral=classic_launches["bilateral"], jpeg_decode=jpeg_launches)
+                    bilateral=classic_launches["bilateral"], jpeg_decode=jpeg_launches,
+                    **prec_launches)
     results = dict(kernels[main_size], body_prefix=dl_kernels["body_prefix"],
                    body_cont=dl_kernels["body_cont"], gemm=dl_kernels["gemm"],
-                   bilateral=k5["segm 96x160"], jpeg_decode=jpeg_kernel["640x480"])
+                   bilateral=k5["segm 96x160"], jpeg_decode=jpeg_kernel["640x480"],
+                   **prec_kernels)
     meta = {
         "front": ("backscrub_tpu_torch/csrc/front.cu", "backscrub_tpu/pipeline/edge.py:424"),
         "body": ("backscrub_tpu_torch/csrc/body_mega.cu",
@@ -2271,6 +2634,20 @@ def main() -> int:
         "jpeg_decode": ("backscrub_tpu_torch/csrc/jpeg.cu",
                         "no pallas_call: backscrub_tpu/pipeline/jpeg.py:207 (decode_jpeg_bgr, "
                         "jnp that XLA fuses into the frame program)"),
+        # the bf16 mode's instantiations: launches from the bf16 runs of
+        # precision_phase (segm_lite's K2; deeplab's K2', K2'' and their GEMM
+        # table ops), the GEMM's other numbers the one-term tile alone
+        "body_bf16": ("backscrub_tpu_torch/csrc/body_mega.cu",
+                      "backscrub_tpu/ops/megakernel.py:660 (BodyMega, full span, DEFAULT: "
+                      "one-pass bf16 dots)"),
+        "body_prefix_bf16": ("backscrub_tpu_torch/csrc/body_mega.cu",
+                             "backscrub_tpu/ops/megakernel.py:712 (BodyMega, prefix mode, "
+                             "DEFAULT)"),
+        "body_cont_bf16": ("backscrub_tpu_torch/csrc/body_mega.cu",
+                           "backscrub_tpu/ops/megakernel.py:794 (BodyMega flat=True, DEFAULT)"),
+        "gemm_bf16": ("backscrub_tpu_torch/csrc/gemm_tc.cuh",
+                      "backscrub_tpu/ops/megakernel.py:516 (BodyMega flat=True, the DEFAULT "
+                      "dots of the continuation chain)"),
     }
     # P1-P7: launches from the probe path (probe_phase checked that the
     # pipelines launched none: main_path_launches); each kernel's first
@@ -2297,11 +2674,13 @@ def main() -> int:
          **{k: results[name][k] for k in ("device_ms", "device_ms_cold", "b2b_ms",
                                          "library_device_ms", "plain_device_ms",
                                          "library_b2b_ms", "precision_gap",
-                                         "main_path_launches") if k in results[name]}}
+                                         "main_path_launches", "mean_abs_err",
+                                         "three_term_device_ms", "rows_held",
+                                         "control_rows_off") if k in results[name]}}
         for name, (src, rep) in meta.items()]}
     print(f"chip_smoke phases: {time.perf_counter() - t_start:.2f} s")
     for tag, res in (("selfie", selfie), ("segm_full", segm_full), ("bodypix", bodypix),
-                     ("cli", cli_res), ("options", options)):
+                     ("cli", cli_res), ("options", options), ("precision", precision)):
         print(f"{tag}: " + json.dumps({k: {n: v for n, v in r.items() if n != "phase_us"}
                                        for k, r in res.items()}))
     print("mjpg: " + json.dumps(dict(mjpg, decode={k: {n: v for n, v in r.items()}

@@ -1,14 +1,18 @@
 """The persistent body kernel's op table and the GEMM's bf16x3 arithmetic,
 on the CPU, against the port's plain versions and the JAX package.
 
-- The op table: a walker here executes ``MegaTable``'s rows and weight
-  arena with PyTorch ops, phase by phase (an op reads the workspace as it
+- The op table: the walker (``megakernel.walk_phase``, which the card's
+  checks share) executes ``MegaTable``'s rows and weight arena with
+  PyTorch ops, phase by phase (an op reads the workspace as it
   stood when its phase began, NaN where nothing was written), so a row
   that read a tensor of its own phase would go wrong.  It must equal
   ``BodyPlan.run_plain`` (atol 1e-5: the same operations, fused) and the
   JAX ``BodyMega`` in interpret mode (allclose(2e-3, 1e-3), the body bar).
   It runs the deeplab tables too (tests/test_torch_deeplab.py), their
-  ``gemm`` ops as ``conv1x1_bf16x3_plain`` on the arena's bf16 halves.
+  ``gemm`` ops as ``conv1x1_bf16x3_plain`` on the arena's bf16 halves, and
+  the bf16 tables (``dots="bf16"``, tests/test_torch_precision.py): every
+  dot's activation operand rounded to bf16 (the arena holds the weights
+  rounded), the ``gemm`` ops one bf16 pass on the arena's hi half.
 - The split: ``conv1x1_bf16x3_plain`` against the reference's HIGH split
   (``backscrub_tpu/ops/megakernel.py:501-515``) through
   ``jax.lax.dot_general`` on the CPU, relative error <= 1e-5.
@@ -21,7 +25,6 @@ import pathlib
 import numpy as np
 import pytest
 import torch
-import torch.nn.functional as F
 
 import jax
 import jax.numpy as jnp
@@ -33,11 +36,10 @@ from backscrub_tpu.pipeline import edge as jedge
 from backscrub_tpu.pipeline.geometry import compute_roi
 from backscrub_tpu_torch.graph.executor import build_model, load_model
 from backscrub_tpu_torch.models.specs import spec_for_model
-from backscrub_tpu_torch.ops.common import apply_activation
-from backscrub_tpu_torch.ops.megakernel import (_ACT_CODES, _GEMM_TILES, MEGA_CODES,
-                                                MEGA_ELT, MEGA_FIELDS, BodyPlan,
+from backscrub_tpu_torch.ops.megakernel import (_GEMM_TILES, MEGA_FIELDS, BodyPlan,
                                                 body_plan_for, conv1x1_bf16x3_plain,
-                                                conv1x1_plain, gemm_config, split_bf16)
+                                                conv1x1_plain, gemm_config, split_bf16,
+                                                walk_table)
 from backscrub_tpu_torch.pipeline import edge as tedge
 from backscrub_tpu_torch.tflite import ir
 
@@ -51,96 +53,12 @@ DEEPLAB_GEMMS = [(16, 96), (21, 256), (32, 96), (32, 192), (48, 192), (48, 288),
                  (256, 512), (288, 48), (480, 80)]
 
 _F = {f: i for i, f in enumerate(MEGA_FIELDS)}
-_ACTS = {v: k for k, v in _ACT_CODES.items()}
-_CODES = {v: k for k, v in MEGA_CODES.items()}
-_ELTS = {v: k for k, v in MEGA_ELT.items()}
 
 
 def walk(plan, x):
-    """Run ``plan.mega``'s table on the CPU; returns (output, phases)."""
-    mt = plan.mega
-    ar = torch.from_numpy(mt.arena)
-    ws = torch.full((plan._total,), float("nan"))
-    snap, phases = ws.clone(), 1
-    xf = x.reshape(-1)
-
-    def rd(off, n):
-        return (xf if off < 0 else snap[off:])[:n]
-
-    def arr(off, *shape):
-        return ar[off:off + int(np.prod(shape))].reshape(shape)
-
-    for row in mt.table:
-        d = {f: int(row[i]) for f, i in _F.items()}
-        kind, act, act2 = _CODES[d["code"]], _ACTS[d["act"]], _ACTS[d["act2"]]
-        c, n = d["c"], d["n"]
-        inv = float(np.int32(d["pinv"]).view(np.float32))
-        if kind == "gemm":      # W's bf16 hi and lo, rows padded to kp, two to a float
-            co, kp = d["co"], d["kp"]
-            split = [ar[d[f]:d[f] + co * kp // 2].view(torch.bfloat16).reshape(co, kp)
-                     for f in ("w", "w1")]
-            y = conv1x1_bf16x3_plain(None, arr(d["b"], co), rd(d["in"], c * n).reshape(c, n),
-                                     act, split=split)
-            if d["res"]:
-                y = apply_activation(y + rd(d["aux"], co * n).reshape(co, n), act2)
-        elif kind in ("conv", "convw", "fc"):
-            co = d["co"]
-            xi = rd(d["in"], c * n).reshape(c, n)
-            if d["gate"]:       # the FC weights are stored transposed
-                hid = d["hid"]
-                pool = rd(d["pout"], c)[:, None]
-                h = apply_activation(arr(d["w1"], c, hid).T @ pool
-                                     + arr(d["b1"], hid)[:, None], _ACTS[d["act1"]])
-                gate = apply_activation(arr(d["w2"], hid, c).T @ h
-                                        + arr(d["b2"], c)[:, None], _ACTS[d["actg"]])
-                xi = xi * gate
-            y = apply_activation(arr(d["w"], co, c) @ xi + arr(d["b"], co)[:, None], act)
-            if d["bn"]:         # the broadcast that followed the pooled FC
-                y = y.expand(co, d["bn"])
-            if d["res"]:
-                y = apply_activation(y + rd(d["aux"], co * n).reshape(co, n), act2)
-        elif kind == "dw":
-            H, W, OH, OW = d["h"], d["wd"], d["oh"], d["ow"]
-            fh, fw, s, dil = d["fh"], d["fw"], d["s"], d["d"]
-            rh = max(0, (OH - 1) * s + (fh - 1) * dil + 1 - H - d["ph"])
-            rw = max(0, (OW - 1) * s + (fw - 1) * dil + 1 - W - d["pw"])
-            xi = F.pad(rd(d["in"], c * H * W).reshape(1, c, H, W), (d["pw"], rw, d["ph"], rh))
-            y = F.conv2d(xi, arr(d["w"], c, 1, fh, fw), arr(d["b"], c), stride=s,
-                         dilation=dil, groups=c)[0, :, :OH, :OW]
-            y = apply_activation(y, act)
-            if d["pool"]:
-                assert d["band"] == OH          # one CTA holds the whole channel
-                pooled = apply_activation(y.reshape(c, -1).sum(dim=1) * inv,
-                                          _ACTS[d["pact"]])
-                ws[d["pout"]:d["pout"] + c] = pooled
-        elif kind == "gpool":
-            y = apply_activation(rd(d["in"], c * n).reshape(c, n).sum(dim=1) * inv, act)
-        elif kind == "elt":
-            op = _ELTS[d["elt"]]
-            if op == "bcast":
-                v = rd(d["in"], c)[:, None].expand(c, n)
-            else:
-                v = rd(d["in"], c * n).reshape(c, n)
-            if op in ("ADD", "MUL"):
-                u = rd(d["aux"], c if d["bvec"] else c * n).reshape(c, 1 if d["bvec"] else n)
-                v = v + u if op == "ADD" else v * u
-            y = apply_activation(v, act)
-        elif kind == "resize":
-            H, W, OH, OW = d["h"], d["wd"], d["oh"], d["ow"]
-            ah = torch.zeros(OH, H).scatter_add_(1, arr(d["w"], OH, 2).long(),
-                                                 arr(d["b"], OH, 2))
-            aw = torch.zeros(OW, W).scatter_add_(1, arr(d["w1"], OW, 2).long(),
-                                                 arr(d["w2"], OW, 2))
-            y = torch.einsum("chw,pw->chp", rd(d["in"], c * H * W).reshape(c, H, W), aw)
-            y = torch.einsum("oh,chp->cop", ah, y)
-        else:
-            y = rd(d["in"], n)
-        y = y.reshape(-1)
-        ws[d["out"]:d["out"] + y.numel()] = y
-        if d["sync"]:
-            snap, phases = ws.clone(), phases + 1
-    o = plan._offsets[plan.out_tid]
-    return ws[o:o + plan.out_meta.size].reshape(plan.out_meta.c, -1), phases
+    """Run ``plan.mega``'s table on the CPU (``megakernel.walk_table``, phase
+    by phase from a NaN workspace); returns (output, phases)."""
+    return walk_table(plan, x), len(plan.mega.phase_rows())
 
 
 @pytest.fixture(scope="module")
@@ -246,14 +164,18 @@ def test_flat_span_table_walker_matches_plain():
 
 def test_run_plain_gemm_precision(span):
     """gemm="bf16x3" changes a flat plan's spatial 1x1 convs only: a
-    non-flat plan (span_graph, its FC included) gives the f32 bits, and
-    an unknown precision raises."""
+    non-flat plan (span_graph, its FC included) gives the f32 bits; "bf16"
+    changes every plan's dots, FC included (one bf16 pass: within the
+    operands' rounding of f32); an unknown precision raises."""
     plan = span[0]
     x = torch.from_numpy(np.random.default_rng(2).standard_normal((8, 144)).astype(
         np.float32))
     assert torch.equal(plan.run_plain(x, gemm="bf16x3"), plan.run_plain(x))
+    one = plan.run_plain(x, gemm="bf16")
+    assert not torch.equal(one, plan.run_plain(x))
+    torch.testing.assert_close(one, plan.run_plain(x), atol=0.05, rtol=0.02)
     with pytest.raises(ValueError, match="gemm"):
-        plan.run_plain(x, gemm="bf16")
+        plan.run_plain(x, gemm="fp8")
     g, out = flat_graph(ir)
     flat = BodyPlan(build_model(g), 0, len(g.nodes), 0, out, flat=True)
     xf = torch.from_numpy(np.random.default_rng(3).standard_normal((16, 1089)).astype(

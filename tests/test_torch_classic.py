@@ -164,21 +164,27 @@ def test_capi_surface():
         tmaskgen.parse_capi_options("bogus")
 
 
-def test_not_yet_messages_name_a_roadmap_item():
-    """Every flag the port does not serve yet (``--bf16``, ``--int8``) is
-    refused naming a ROADMAP item by its queue and title, and that item is
-    in ROADMAP.md's queue."""
+def test_not_yet_messages_name_a_roadmap_item(tmp_path):
+    """No flag of the JAX CLI is refused any more: ``parse_args`` takes
+    ``--bf16`` and ``--int8`` with the frame options as the JAX one does,
+    the CLI has no refusal left (``refused`` and its ROADMAP constants are
+    gone), the program serves both modes (two frames with each), and
+    ROADMAP.md's queue 1 no longer lists the bf16 mode as to port."""
+    import backscrub_tpu.cli as jcli
     from backscrub_tpu_torch import cli
-    msgs = [cli.refused(cli.parse_args([flag])) for flag in ("--bf16", "--int8")]
-    assert cli.refused(cli.parse_args(["-p", "refine:guided", "--sink-format", "mjpg",
-                                       "-c", "mjpg:", "-p", "morph:open"])) is None
+    argv = ["--bf16", "--int8", "-p", "refine:guided", "--sink-format", "mjpg", "-c", "mjpg:",
+            "-p", "morph:open"]
+    assert cli.parse_args(argv) == jcli.parse_args(argv)
+    assert not hasattr(cli, "refused") and not [n for n in vars(cli) if n.startswith("ROADMAP")]
+    for flag in ("--bf16", "--int8"):
+        out = tmp_path / f"{flag[2:]}.yuv"
+        assert cli.main(["-c", "test:", "--cg", "64x48", "-m", FULL, "--frames", "2",
+                         "-v", f"file:{out}", flag], device="cpu") == 0
+        assert out.stat().st_size == 2 * 64 * 48 * 2
     roadmap = (ROOT / "ROADMAP.md").read_text()
-    for msg in msgs:
-        m = re.search(r"ROADMAP queue (\d+), ([^(]+?)(?: \(|$)", msg)
-        assert m, f"no ROADMAP item named in {msg!r}"
-        queue = roadmap.split(f"### Queue {m.group(1)} ")[1].split("\n### ")[0]
-        assert re.search(rf"^\d+\. \*\*{re.escape(m.group(2))}\.\*\*", queue, re.M), \
-            f"ROADMAP queue {m.group(1)} has no item {m.group(2)!r}"
+    queue = roadmap.split("### Queue 1 ")[1].split("\n### ")[0]
+    titles = re.findall(r"^\d+\. \*\*(.+?)\.\*\*", queue, re.M)
+    assert titles and "bf16 mode" not in titles
 
 
 def test_classic_nv12_pipeline_matches_jax():

@@ -14,7 +14,6 @@ over the sequence).  Raw ingest decoders are bit for bit the JAX ones.
 import json
 import os
 import pathlib
-import re
 import signal
 import sys
 
@@ -50,6 +49,9 @@ from conftest import background_image_path, background_video_path
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 MODEL = str(ROOT / "tests" / "data" / "segm_synth_lite_96x160.tflite")
 FRAME_TOL, MEAN_TOL = 0.02, 0.002
+# --bf16: the port's differing bytes from the JAX bf16 file, at most this
+# share of the JAX bf16 file's from the JAX f32 one
+BF16_SHARE = 0.5
 CW, CH, N = 128, 96, 8
 
 
@@ -600,12 +602,6 @@ def test_cli_serving_modes_change_no_byte(tmp_path, capsys):
         assert "HUD disabled" in errs["hud"]
 
 
-def _roadmap_titles():
-    text = (ROOT / "ROADMAP.md").read_text()
-    queue = text.split("### Queue 1 ")[1].split("\n### ")[0]
-    return re.findall(r"^\d+\. \*\*(.+?)\.\*\*", queue, re.M)
-
-
 class _FakeMjpgCapture:
     """A V4L2 capture that granted MJPG: the test pattern, JPEG-encoded at
     quality 90, one frame a grab."""
@@ -643,16 +639,24 @@ def _jpeg_frames(stream: bytes):
     (["-c", "mjpg:"], "Frame options and formats"),
     (["-c", "/dev/video0"], "Frame options and formats")])
 def test_cli_refuses_what_the_port_lacks(tmp_path, capsys, monkeypatch, extra, title):
-    """``--bf16`` and ``--int8`` still refuse, naming their ROADMAP items;
-    the options of "Frame options and formats", refused before the port
-    served them, now run and write the JAX CLI's frames: YUYV files under
-    the tolerance invariant, MJPG streams with at most 2% of each frame's
-    blocks differing.  The JAX CLI runs its fused route (its Pallas kernels
-    in interpret mode), the route it takes on its device and the port's on
-    every device: its classic route on the CPU can flip a near-tie decode
-    of a JPEG frame the fused route does not.  The MJPG sources decode in
-    the loop's thread (no prefetch), so both programs take every frame;
-    the camera is a fake V4L2 capture that grants MJPG."""
+    """Every flag the port refused before it served it now runs and writes
+    the JAX CLI's frames (each case keeps the ROADMAP title it was refused
+    under as its label): the options of "Frame options and formats" and
+    ``--int8`` (the classic stages in both programs) YUYV files under the
+    tolerance invariant, MJPG streams with at most 2% of each frame's
+    blocks differing; ``--bf16`` (one-pass bf16 dots, a bf16 executor) on
+    the relative bar of tests/test_torch_precision_masks.py: in every
+    frame no more bytes differ from the JAX CLI's ``--bf16`` file than
+    that file differs from the JAX CLI's f32 file, plus 0.5% of the frame,
+    and over the file at most BF16_SHARE = 0.5 as many (0.25 here), which
+    the port's f32 run, the control, misses (1.0: a port that ignored bf16
+    writes the JAX f32 bytes).  The JAX CLI runs its fused route (its
+    Pallas kernels in interpret mode), the route it takes on its device
+    and the port's on every device: its classic route on the CPU can flip
+    a near-tie decode of a JPEG frame the fused route does not.  The MJPG
+    sources decode in the loop's thread (no prefetch), so both programs
+    take every frame; the camera is a fake V4L2 capture that grants
+    MJPG."""
     import functools
     from backscrub_tpu.io import streams as jstreams
     from backscrub_tpu.io import v4l2 as jv4l2
@@ -661,13 +665,6 @@ def test_cli_refuses_what_the_port_lacks(tmp_path, capsys, monkeypatch, extra, t
     from backscrub_tpu_torch.io import v4l2
     monkeypatch.setattr(v4l2, "V4L2Capture", _FakeMjpgCapture)
     monkeypatch.setattr(jv4l2, "V4L2Capture", _FakeMjpgCapture)
-    out = tmp_path / "o.yuv"
-    if title != "Frame options and formats":
-        assert cli.main(_argv(out, *extra), device="cpu") == 1
-        err = capsys.readouterr().err
-        assert f"ROADMAP queue 1, {title}" in err and title in _roadmap_titles()
-        assert not out.exists()
-        return
     monkeypatch.setenv("BSJPEG_LIB", _build.host_library("bsjpeg"))
     for mod in (streams, jstreams):
         monkeypatch.setattr(mod, "JpegSource", functools.partial(mod.JpegSource, prefetch=False))
@@ -687,6 +684,16 @@ def test_cli_refuses_what_the_port_lacks(tmp_path, capsys, monkeypatch, extra, t
         for a, b in zip(tf, jf):
             for x, y in zip(a, b):
                 assert (x != y).any(axis=-1).mean() <= FRAME_TOL
+    elif extra == ["--bf16"]:
+        assert jcli.main(_argv(tmp_path / "f.yuv")) == 0
+        assert cli.main(_argv(tmp_path / "c.yuv"), device="cpu") == 0
+        f32, ctl = (tmp_path / "f.yuv").read_bytes(), (tmp_path / "c.yuv").read_bytes()
+        assert len(t) == len(j) == len(f32) == len(ctl) == N * CW * CH * 2
+        tb, jb, jf, cb = (np.frombuffer(d, np.uint8).reshape(N, -1) for d in (t, j, f32, ctl))
+        port, effect = (tb != jb).mean(axis=1), (jb != jf).mean(axis=1)
+        assert (port <= effect + 0.005).all() and effect.mean() > 0
+        assert port.mean() <= BF16_SHARE * effect.mean(), (port, effect)
+        assert (cb != jb).mean() > BF16_SHARE * effect.mean()     # the control misses it
     else:
         assert len(t) == len(j) == N * CW * CH * 2
         _held(np.frombuffer(t, np.uint8), np.frombuffer(j, np.uint8), CW * CH * 2)

@@ -18,7 +18,7 @@ import torch
 
 from backscrub_tpu_torch import _build
 from backscrub_tpu_torch.graph.executor import build_model
-from backscrub_tpu_torch.ops.megakernel import (BodyPlan, body_launch,
+from backscrub_tpu_torch.ops.megakernel import (BodyPlan, body_launch, conv1x1_bf16_plain,
                                                 conv1x1_bf16x3_plain, conv1x1_gemm,
                                                 conv1x1_plain, split_bf16)
 from backscrub_tpu_torch.ops.image_kernels import bilateral5
@@ -750,7 +750,7 @@ def test_refused_launches_raise(cuda_device):
     ws = torch.empty(plan._total, device=cuda_device)
     with pytest.raises(RuntimeError, match="bs_body_mega launch failed"):
         _build.launch("bs_body_mega", x.data_ptr(), ws.data_ptr(), arena.data_ptr(),
-                      table.data_ptr(), len(plan.mega.ops), 300 * 1024, None)
+                      table.data_ptr(), len(plan.mega.ops), 300 * 1024, 0, None)
     with pytest.raises(RuntimeError, match="bs_barrier_bench launch failed"):
         _build.launch("bs_barrier_bench", 1, 1, 64)
     _build.launch("bs_barrier_bench", 10, 0, 0)      # the grid the table runs on
@@ -1323,3 +1323,73 @@ def test_mjpg_serving_and_cli_on_card_match_direct_steps(cuda_device, tmp_path, 
     assert cli.main(["-c", "mjpg:", "--cg", "640x480", "-m", str(SELFIE), "--frames", str(n),
                      "--sink-format", "mjpg", "-v", f"file:{out}"]) == 0
     assert out.read_bytes() == b"".join(golden)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 mode: body_mega_kernel<1> and the one-term GEMM
+
+
+@pytest.mark.parametrize("path", [FULL, SELFIE, DEEPLAB, BODYPIX])
+def test_bf16_tables_match_plain(cuda_device, path):
+    """Each bf16 plan of a family's fused path (``precision="default"``) as
+    one launch, two runs bit-identical, and held op by op
+    (``BodyPlan.rows_on_card``: each phase's rows on the kernel's own
+    workspace of the phase before against ``walk_phase``'s plain rows) at
+    allclose(2e-3, 1e-3); the control, those rows with the dots'
+    activations unrounded, misses the bar on some row of every plan
+    (tests/test_torch_precision.py says why the whole span is not held at
+    that bar)."""
+    mg = MaskGen(str(path), 640, 480, device="cuda", compute_dtype=torch.bfloat16,
+                 precision="default")
+    e = mg.edge
+    assert e is not None and all(p.dots == "bf16" for p in e.plans)
+    frame = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 256, (480, 640, 3), np.uint8)).cuda()
+    with torch.no_grad():
+        x = e.front(frame).reshape(e.plans[0].in_meta.c, -1)
+        for plan in e.plans:
+            k, k2 = plan.run_cuda(x).clone(), plan.run_cuda(x)
+            torch.cuda.synchronize()
+            assert torch.equal(k, k2)
+            off = 0
+            for phase, kind, got, want, ctl in plan.rows_on_card(x):
+                torch.testing.assert_close(got, want, atol=2e-3, rtol=1e-3,
+                                           msg=f"a {kind} row of phase {phase}")
+                off += not torch.allclose(ctl, want, atol=2e-3, rtol=1e-3)
+            assert off > 0
+            x = k
+
+
+@pytest.mark.parametrize("co,ci", [(16, 96), (256, 512), (480, 80), (21, 256)])
+def test_gemm_one_term_matches_plain(cuda_device, co, ci):
+    """``bs_gemm`` with terms=1 against ``conv1x1_bf16_plain`` (relative
+    1e-5, the summation order alone), bit-identical twice, and not the
+    three-term result."""
+    g = torch.Generator().manual_seed(co + ci)
+    w = (torch.randn(co, ci, generator=g) / ci ** 0.5).cuda()
+    b = torch.randn(co, generator=g).cuda()
+    x = (torch.rand(ci, 1089, generator=g) * 2).cuda()
+    hi, _ = split_bf16(w)
+    k, k2 = (conv1x1_gemm(w, b, x, split=(hi, None), terms=1) for _ in range(2))
+    p = conv1x1_bf16_plain(w, b, x)
+    torch.cuda.synchronize()
+    assert torch.equal(k, k2)
+    assert float((k - p).abs().max() / p.abs().max()) <= 1e-5
+    assert not torch.equal(k, conv1x1_gemm(w, b, x))
+
+
+def test_cli_bf16_and_int8_on_cuda(cuda_device, tmp_path):
+    """``backscrub-torch --bf16`` and ``--int8`` on the card write the bytes
+    of direct steps in their modes."""
+    from backscrub_tpu_torch import cli
+    from backscrub_tpu_torch.io.streams import SyntheticSource
+    n = 5
+    for flags, kw in ((["--bf16"], dict(compute_dtype=torch.bfloat16, precision="default")),
+                      (["--int8"], dict(quantize="int8"))):
+        src = SyntheticSource(640, 480)
+        pipe = FramePipeline(str(SELFIE), PipelineConfig(width=640, height=480), **kw)
+        want = b"".join(pipe.step(src.read())[0].cpu().numpy().tobytes() for _ in range(n))
+        out = tmp_path / f"{flags[0][2:]}.yuv"
+        assert cli.main(["-c", "test:", "--cg", "640x480", "-m", str(SELFIE), "--frames",
+                         str(n), "-v", f"file:{out}", *flags]) == 0
+        assert out.read_bytes() == want

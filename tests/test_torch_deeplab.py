@@ -421,8 +421,8 @@ def test_continuation_that_fails_a_flat_guard_takes_the_classic_path(monkeypatch
     Without cont the prefix plan still fuses."""
     from backscrub_tpu_torch.pipeline import maskgen as tmaskgen
 
-    def planted(path, device="cpu"):
-        m = load_model(path, device)
+    def planted(path, device="cpu", **mode):
+        m = load_model(path, device, **mode)
         node = m.graph.nodes[14]
         assert node.kind == "DEPTHWISE_CONV_2D" and node.options["stride_h"] == 1
         node.options.update(stride_h=2, stride_w=2)

@@ -102,8 +102,8 @@ def test_body_that_fails_a_plan_guard_takes_the_classic_path(models, monkeypatch
     classic stages, which match the port's plain graph run."""
     from backscrub_tpu_torch.pipeline import maskgen as tmaskgen
 
-    def planted(path, device="cpu"):
-        m = load_model(path, device)
+    def planted(path, device="cpu", **mode):
+        m = load_model(path, device, **mode)
         next(n for n in m.graph.nodes[2:] if n.kind == "HARD_SWISH").op = "LOGISTIC"
         return m
 
