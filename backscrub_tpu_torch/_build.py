@@ -38,16 +38,16 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
-P, I = ctypes.c_void_p, ctypes.c_int
+P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 F32 = ctypes.c_float
 # exported symbol -> argument types (pointers and the stream as void*)
 SIGNATURES = {
     "bs_blend_pack_yuyv": (P, P, P, P, I, I, I, I, P),
-    "bs_blend_pack_420": (P, P, P, P, I, I, I, P),
+    "bs_blend_pack_420": (P, P, P, P, I, I, I, I, P),
     "bs_bilateral": (P, P, P, I, I, I, F32, P),
-    "bs_front": (P, P, P, I, I, I, I, I, I, I, I, F32, F32, F32, I, I, I, I, P),
+    "bs_front": (P, P, P, I, I, I, I, I, I, I, I, I, F32, F32, F32, I, I, I, I, P),
     "bs_gemm": (P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P),
-    "bs_body_mega": (P, P, P, P, I, I, I, P, P),
+    "bs_body_mega": (P, P, P, P, I, I, I, I, L, L, P, P),
     "bs_barrier_bench": (I, I, I, P),
     "bs_probe_dw9": (P, P, I, I, I, I, I, I, P),
     "bs_probe_dot": (P, P, P, I, I, P),

@@ -21,7 +21,10 @@
 // thread past the vectors takes (the per-pair path).  A call whose
 // pointers are not 4-byte aligned (a view of a frame may start anywhere)
 // runs every pair on the per-pair path, in the same kernel.  The TPU row
-// tiling has no counterpart: any H and any even W work.
+// tiling has no counterpart: any H and any even W work.  A stream batch
+// (S, H, W, 3) is S * H rows of the same flat pairs (a pair never crosses
+// a frame either), so one launch packs it, each frame's bytes those of a
+// one-frame launch.
 
 // K4 replaces backscrub_tpu/ops/pallas_kernels.py:blend_pack_420
 // (_blend_420_kernel): the same blend, then OpenCV's BT.601 video-range
@@ -48,6 +51,13 @@
 // kernel.  The TPU kernel computed chroma at full height and the wrapper
 // dropped the odd rows outside the kernel (Mosaic cannot lower a strided
 // row subsample); here the kernel computes only the samples it writes.
+// A stream batch is one launch: blockIdx.y is the frame, whose Y-then-chroma
+// block (3HW/2 bytes) and inputs lie at that frame's offsets, so each
+// frame's layout and bytes are those of a one-frame launch (the JAX
+// wrapper folds the frames into rows and builds each frame's layout with a
+// concatenate, backscrub_tpu/pipeline/frame.py:306-312).  The frames'
+// offsets are multiples of 4 bytes when W % 4 == 0, so the vector path's
+// condition is the first frame's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -147,7 +157,10 @@ blend_pack_420_kernel(const uint8_t* __restrict__ fr, const uint8_t* __restrict_
                       const uint8_t* __restrict__ mask, uint8_t* __restrict__ out, int h,
                       int w, int nvec, int nblk) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  uint8_t* chroma = out + (long long)h * w;
+  const long long img = blockIdx.y, hw_px = (long long)h * w;
+  fr += 3 * img * hw_px, bg += 3 * img * hw_px, mask += img * hw_px;
+  out += img * (hw_px + hw_px / 2);
+  uint8_t* chroma = out + hw_px;
   const int hw = w / 2;
   if (t < nvec) {
     const int per_row = w / 4, row = t / per_row, col = (t - row * per_row) * 4;
@@ -216,15 +229,15 @@ blend_pack_420_kernel(const uint8_t* __restrict__ fr, const uint8_t* __restrict_
 
 template <bool I420>
 int launch_420(const uint8_t* fr, const uint8_t* bg, const uint8_t* mask, uint8_t* out,
-               int h, int w, cudaStream_t s) {
+               int n, int h, int w, cudaStream_t s) {
   const long long blocks4 = (long long)(h / 2) * (w / 2);
-  if (blocks4 > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (blocks4 > 0x7fffffffLL || n > 65535) return (int)cudaErrorInvalidValue;
   const bool vec =
       ((uintptr_t)fr | (uintptr_t)bg | (uintptr_t)mask | (uintptr_t)out) % 4 == 0 && w % 4 == 0;
   const long long nvec = vec ? (long long)h * (w / 4) : 0;
   const long long nblk = vec ? 0 : blocks4;
   const long long ctas = (nvec + nblk + PACK420_THREADS - 1) / PACK420_THREADS;
-  blend_pack_420_kernel<I420><<<(unsigned)ctas, PACK420_THREADS, 0, s>>>(
+  blend_pack_420_kernel<I420><<<dim3((unsigned)ctas, n), PACK420_THREADS, 0, s>>>(
       fr, bg, mask, out, h, w, (int)nvec, (int)nblk);
   return (int)cudaGetLastError();
 }
@@ -244,22 +257,23 @@ int launch_yuyv(const uint8_t* fr, const uint8_t* bg, const uint8_t* mask, uint3
 
 }  // namespace
 
-// fr, bg: (H, W, 3) u8; mask: (H, W) u8; H and W even; out: 3HW/2 bytes,
-// NV12 ((3H/2, W): Y rows, then [U, V] rows) or, with i420, I420 (the Y,
-// U and V planes one after the other).
+// fr, bg: (N, H, W, 3) u8; mask: (N, H, W) u8; H and W even; out: N
+// frames of 3HW/2 bytes, each NV12 ((3H/2, W): Y rows, then [U, V] rows)
+// or, with i420, I420 (the Y, U and V planes one after the other).
 extern "C" int bs_blend_pack_420(const void* fr, const void* bg,
-                                 const void* mask, void* out, int h, int w,
+                                 const void* mask, void* out, int n, int h, int w,
                                  int i420, void* stream) {
   if (h % 2 || w % 2) return (int)cudaErrorInvalidValue;
-  if (h <= 0 || w <= 0) return 0;
+  if (n <= 0 || h <= 0 || w <= 0) return 0;
   const uint8_t *f = (const uint8_t*)fr, *g = (const uint8_t*)bg, *m = (const uint8_t*)mask;
   uint8_t* o = (uint8_t*)out;
   cudaStream_t s = (cudaStream_t)stream;
-  return i420 ? launch_420<true>(f, g, m, o, h, w, s) : launch_420<false>(f, g, m, o, h, w, s);
+  return i420 ? launch_420<true>(f, g, m, o, n, h, w, s)
+              : launch_420<false>(f, g, m, o, n, h, w, s);
 }
 
 // fr, bg: (H, W, 3) u8; mask: (H, W) u8; W even; out: (H, 2W) u8 (4-byte
-// aligned).  The colour and chroma orders are template arguments: no
+// aligned); a stream batch of N frames is H = N * (a frame's rows).  The colour and chroma orders are template arguments: no
 // selects per pixel.
 extern "C" int bs_blend_pack_yuyv(const void* fr, const void* bg,
                                   const void* mask, void* out, int h, int w,

@@ -73,6 +73,21 @@
 // deeplab), each an L2 round trip or two plus a grid barrier (~1.1 us).
 // So every phase puts all of its loads in flight at once (cp.async bursts,
 // or the GEMM's ring) rather than in dependent chains.
+//
+// A stream batch (backscrub_tpu/ops/megakernel.py:BodyMega.__call__ flattens
+// leading axes into grid=(n,)): one launch runs the table over N inputs,
+// each image its own copy of the workspace (a per-image stride), sharing
+// the table, the arena and the phase barriers, so a batch pays the chain
+// of phases once, not once a frame.  Every op loops over (image, item)
+// where it looped over items (elementwise, resize and copy ops take the
+// images in turn, each spread over the grid as one image is, which spares
+// a 64-bit divide an element): a work item (a conv or GEMM tile, a column
+// chunk, a depthwise (channels, band) item, an FC or pool output, an
+// element) reads and writes one image's operands and computes exactly what
+// it computes in a one-image launch, whichever CTA takes it, so each image
+// gets the bits of its own launch.  Tiles, bands and splits stay those of
+// one image (MegaTable picks them from the per-image shapes); an SE conv
+// recomputes its gate whenever its CTA moves to another image.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -106,6 +121,16 @@ struct Args {
   const float* x;     // the span input (offset -1)
   float* ws;          // the workspace
   const float* ar;    // the weight arena
+  int n;              // images in the batch
+  long long xs, wss;  // floats between images: the input's, the workspace's
+
+  // image ``i``'s operands
+  __device__ __forceinline__ Args at(int i) const {
+    return Args{x + i * xs, ws + i * wss, ar, 1, xs, wss};
+  }
+  // the image of work item ``it`` of a batch of ``per`` items an image
+  // (no divide in a one-image launch)
+  __device__ __forceinline__ int img(int it, int per) const { return n == 1 ? 0 : it / per; }
 };
 
 // an operand offset: -1 is the span input, else a workspace float offset
@@ -196,7 +221,7 @@ __device__ void conv_op(const Args& a, const int* d, float* sm) {
   const int M = d[F_CO], K = d[F_C], L = d[F_N];
   const int TM = d[F_TM], TN = d[F_TN], T = TM * TN, G = NT / T;
   const int tn = (L + TN - 1) / TN, tiles = ((M + TM - 1) / TM) * tn;
-  if ((int)blockIdx.x >= tiles) return;
+  if ((int)blockIdx.x >= a.n * tiles) return;
   const int kcap = min(K, CK);
   const bool gate = d[F_GATE] != 0;
   float* sw = sm;                      // [kcap][TM + 1], W transposed
@@ -205,15 +230,22 @@ __device__ void conv_op(const Args& a, const int* d, float* sm) {
   float* sg = sm + max(kcap * (TM + 1 + TN), gate ? 8 * ((K * d[F_HID] + 3) / 4) : 0);
   float* sh = sg + SE_MAX_C;           // FC1's output
   float* part = sh + SE_MAX_C;         // NT floats: FC and K-group partial sums
-  if (gate) se_gate<BF16>(a, d, sm, sg, sh, part);
-  const float* x = operand(a, d[F_IN]);
   const float* w = a.ar + d[F_W];
   const float* b = a.ar + d[F_B];
-  const float* r = d[F_RES] ? operand(a, d[F_AUX]) : nullptr;
-  float* y = a.ws + d[F_OUT];
   const int act = d[F_ACT], act2 = d[F_ACT2];
   const int grp = threadIdx.x / T, mi = (threadIdx.x % T) / TN, ni = threadIdx.x % TN;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+  int gated = -1;                      // the image whose gate sg holds
+  for (int it = blockIdx.x; it < a.n * tiles; it += gridDim.x) {
+    const int img = a.img(it, tiles), tile = it - img * tiles;
+    const Args ai = a.at(img);
+    if (gate && img != gated) {
+      __syncthreads();                 // the last tile's sums no longer read sg
+      se_gate<BF16>(ai, d, sm, sg, sh, part);
+      gated = img;
+    }
+    const float* x = operand(ai, d[F_IN]);
+    const float* r = d[F_RES] ? operand(ai, d[F_AUX]) : nullptr;
+    float* y = ai.ws + d[F_OUT];
     const int m0 = (tile / tn) * TM, n0 = (tile % tn) * TN;
     float acc = 0.0f;
     for (int k0 = 0; k0 < K; k0 += CK) {
@@ -273,16 +305,19 @@ __device__ void conv_op(const Args& a, const int* d, float* sm) {
 template <int BF16>
 __device__ void convw_op(const Args& a, const int* d, float* sm) {
   const int M = d[F_CO], K = d[F_C], L = d[F_N], cols = d[F_TN];
-  const float* x = operand(a, d[F_IN]);
+  const int chunks = (L + cols - 1) / cols;
   const float* w = a.ar + d[F_W];
   const float* b = a.ar + d[F_B];
-  const float* r = d[F_RES] ? operand(a, d[F_AUX]) : nullptr;
-  float* y = a.ws + d[F_OUT];
   const int act = d[F_ACT], act2 = d[F_ACT2];
   float* sw = sm;                      // [M][K]
   float* sx = sw + M * K;              // [K][cols]
   for (int e = threadIdx.x; e < M * K; e += NT) cp_async4(sw + e, w + e, true);
-  for (int n0 = blockIdx.x * cols; n0 < L; n0 += gridDim.x * cols) {
+  for (int it = blockIdx.x; it < a.n * chunks; it += gridDim.x) {
+    const int img = a.img(it, chunks), n0 = (it - img * chunks) * cols;
+    const Args ai = a.at(img);
+    const float* x = operand(ai, d[F_IN]);
+    const float* r = d[F_RES] ? operand(ai, d[F_AUX]) : nullptr;
+    float* y = ai.ws + d[F_OUT];
     const int nc = min(cols, L - n0), G = max(1, NT / nc);
     for (int e = threadIdx.x; e < K * nc; e += NT) {
       int k = e / nc, n = e % nc;
@@ -329,11 +364,14 @@ __device__ void gemm_tiles(const Args& a, const int* d, unsigned char* sm) {
   const int tn = (N + BN - 1) / BN, tiles = ((M + BM - 1) / BM) * tn;
   const auto* whi = reinterpret_cast<const __nv_bfloat16*>(a.ar + d[F_W]);
   const auto* wlo = reinterpret_cast<const __nv_bfloat16*>(a.ar + d[F_W1]);
-  const gemm_tc::Epilogue ep{a.ar + d[F_B], d[F_ACT], d[F_RES] ? operand(a, d[F_AUX]) : nullptr,
-                             d[F_ACT2], a.ws + d[F_OUT], nullptr};
-  const float* x = operand(a, d[F_IN]);
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    T::run(sm, whi, wlo, x, M, Kp, N, (tile / tn) * BM, (tile % tn) * BN, 0, Kp, K, ep);
+  for (int it = blockIdx.x; it < a.n * tiles; it += gridDim.x) {
+    const int img = a.img(it, tiles), tile = it - img * tiles;
+    const Args ai = a.at(img);
+    const gemm_tc::Epilogue ep{ai.ar + d[F_B], d[F_ACT],
+                               d[F_RES] ? operand(ai, d[F_AUX]) : nullptr, d[F_ACT2],
+                               ai.ws + d[F_OUT], nullptr};
+    T::run(sm, whi, wlo, operand(ai, d[F_IN]), M, Kp, N, (tile / tn) * BM, (tile % tn) * BN,
+           0, Kp, K, ep);
     __syncthreads();   // the next tile refills the ring
   }
 }
@@ -358,12 +396,14 @@ __device__ void gemm_op(const Args& a, const int* d, float* sm) {
 template <int BF16>
 __device__ void fc_op(const Args& a, const int* d) {
   const int ci = d[F_C], co = d[F_CO], bn = d[F_BN];
-  const float* x = operand(a, d[F_IN]);
   const float* w = a.ar + d[F_W];
   const float* b = a.ar + d[F_B];
-  float* y = a.ws + d[F_OUT];
   const int lane = threadIdx.x & 31;
-  for (int o = blockIdx.x * NW + (threadIdx.x >> 5); o < co; o += gridDim.x * NW) {
+  for (int it = blockIdx.x * NW + (threadIdx.x >> 5); it < a.n * co; it += gridDim.x * NW) {
+    const int img = a.img(it, co), o = it - img * co;
+    const Args ai = a.at(img);
+    const float* x = operand(ai, d[F_IN]);
+    float* y = ai.ws + d[F_OUT];
     float s = 0.0f;
 #pragma unroll 4
     for (int k = lane; k < ci; k += 32) s = fmaf(w[(size_t)o * ci + k], dot_in<BF16>(ld(x + k)), s);
@@ -380,11 +420,13 @@ __device__ void fc_op(const Args& a, const int* d) {
 // global average pool: y[c] = act(sum_l x[c, l] * inv), one warp a channel
 __device__ void gpool_op(const Args& a, const int* d) {
   const int C = d[F_C], L = d[F_N];
-  const float* x = operand(a, d[F_IN]);
-  float* y = a.ws + d[F_OUT];
   const float inv = __int_as_float(d[F_PINV]);
   const int lane = threadIdx.x & 31;
-  for (int c = blockIdx.x * NW + (threadIdx.x >> 5); c < C; c += gridDim.x * NW) {
+  for (int it = blockIdx.x * NW + (threadIdx.x >> 5); it < a.n * C; it += gridDim.x * NW) {
+    const int img = a.img(it, C), c = it - img * C;
+    const Args ai = a.at(img);
+    const float* x = operand(ai, d[F_IN]);
+    float* y = ai.ws + d[F_OUT];
     float s = 0.0f;
 #pragma unroll 4
     for (int l = lane; l < L; l += 32) s += ld(x + (size_t)c * L + l);
@@ -473,13 +515,15 @@ __device__ void dw_op(const Args& a, const int* d, float* sm) {
   const int groups = (C + cpi - 1) / cpi, RW = R * W, RWP = ((RW + 3) & ~3) + 8;
   const int NCH = RW / 4 + 2;          // 16-byte chunks of a run, at most
   const bool pool = d[F_POOL] != 0;
-  const float* x = operand(a, d[F_IN]);
   const float* w = a.ar + d[F_W];
   const float* b = a.ar + d[F_B];
-  float* y = a.ws + d[F_OUT];
   float* win = sm;                     // [cpi][RWP]: the item's input windows
   float* red = win + cpi * RWP;        // NT floats: the pool's block sum
-  for (int item = blockIdx.x; item < groups * nb; item += gridDim.x) {
+  for (int it = blockIdx.x; it < a.n * groups * nb; it += gridDim.x) {
+    const int img = a.img(it, groups * nb), item = it - img * (groups * nb);
+    const Args ai = a.at(img);
+    const float* x = operand(ai, d[F_IN]);
+    float* y = ai.ws + d[F_OUT];
     const int c0 = (item / nb) * cpi, nc = min(cpi, C - c0);
     const int oh0 = (item % nb) * band, i0 = oh0 * s - ph;
     for (int e = threadIdx.x; e < nc * NCH; e += NT) {
@@ -542,7 +586,7 @@ __device__ void dw_op(const Args& a, const int* d, float* sm) {
         __syncthreads();
       }
       if (threadIdx.x == 0)
-        a.ws[d[F_POUT] + c] = activate(red[0] * __int_as_float(d[F_PINV]), d[F_PACT]);
+        ai.ws[d[F_POUT] + c] = activate(red[0] * __int_as_float(d[F_PINV]), d[F_PACT]);
       __syncthreads();
     }
     __syncthreads();
@@ -553,18 +597,21 @@ __device__ void dw_op(const Args& a, const int* d, float* sm) {
 // vector with bvec), 3 the broadcast of the (C, 1) vector a over L
 __device__ void elt_op(const Args& a, const int* d) {
   const int C = d[F_C], L = d[F_N], op = d[F_ELT], bvec = d[F_BVEC], act = d[F_ACT];
-  const float* x = operand(a, d[F_IN]);
-  const float* u = op == 1 || op == 2 ? operand(a, d[F_AUX]) : nullptr;
-  float* y = a.ws + d[F_OUT];
   const long long n = (long long)C * L;
-  for (long long i = (long long)blockIdx.x * NT + threadIdx.x; i < n;
-       i += (long long)gridDim.x * NT) {
-    float v = ld(x + (op == 3 ? i / L : i));
-    if (op == 1 || op == 2) {
-      float o = ld(u + (bvec ? i / L : i));
-      v = op == 1 ? v + o : v * o;
+  for (int img = 0; img < a.n; ++img) {
+    const Args ai = a.at(img);
+    const float* x = operand(ai, d[F_IN]);
+    const float* u = op == 1 || op == 2 ? operand(ai, d[F_AUX]) : nullptr;
+    float* y = ai.ws + d[F_OUT];
+    for (long long i = (long long)blockIdx.x * NT + threadIdx.x; i < n;
+         i += (long long)gridDim.x * NT) {
+      float v = ld(x + (op == 3 ? i / L : i));
+      if (op == 1 || op == 2) {
+        float o = ld(u + (bvec ? i / L : i));
+        v = op == 1 ? v + o : v * o;
+      }
+      y[i] = activate(v, act);
     }
-    y[i] = activate(v, act);
   }
 }
 
@@ -572,36 +619,42 @@ __device__ void elt_op(const Args& a, const int* d) {
 // sums; the tap indices are stored in the arena as floats
 __device__ void resize_op(const Args& a, const int* d) {
   const int C = d[F_C], H = d[F_H], W = d[F_WD], OH = d[F_OH], OW = d[F_OW];
-  const float* x = operand(a, d[F_IN]);
   const float* ridx = a.ar + d[F_W];
   const float* rw = a.ar + d[F_B];
   const float* cidx = a.ar + d[F_W1];
   const float* cw = a.ar + d[F_W2];
-  float* y = a.ws + d[F_OUT];
   const long long n = (long long)C * OH * OW;
-  for (long long i = (long long)blockIdx.x * NT + threadIdx.x; i < n;
-       i += (long long)gridDim.x * NT) {
-    int oj = (int)(i % OW), oi = (int)((i / OW) % OH), c = (int)(i / ((long long)OW * OH));
-    const float* xc = x + (size_t)c * H * W;
-    int j0 = (int)cidx[2 * oj], j1 = (int)cidx[2 * oj + 1];
-    float w0 = cw[2 * oj], w1 = cw[2 * oj + 1];
-    float acc = 0.0f;
-    for (int t = 0; t < 2; ++t) {
-      const float* row = xc + (size_t)ridx[2 * oi + t] * W;
-      float colv = __fadd_rn(__fmul_rn(ld(row + j0), w0), __fmul_rn(ld(row + j1), w1));
-      acc = __fadd_rn(acc, __fmul_rn(colv, rw[2 * oi + t]));
+  for (int img = 0; img < a.n; ++img) {
+    const Args ai = a.at(img);
+    const float* x = operand(ai, d[F_IN]);
+    float* y = ai.ws + d[F_OUT];
+    for (long long i = (long long)blockIdx.x * NT + threadIdx.x; i < n;
+         i += (long long)gridDim.x * NT) {
+      int oj = (int)(i % OW), oi = (int)((i / OW) % OH), c = (int)(i / ((long long)OW * OH));
+      const float* xc = x + (size_t)c * H * W;
+      int j0 = (int)cidx[2 * oj], j1 = (int)cidx[2 * oj + 1];
+      float w0 = cw[2 * oj], w1 = cw[2 * oj + 1];
+      float acc = 0.0f;
+      for (int t = 0; t < 2; ++t) {
+        const float* row = xc + (size_t)ridx[2 * oi + t] * W;
+        float colv = __fadd_rn(__fmul_rn(ld(row + j0), w0), __fmul_rn(ld(row + j1), w1));
+        acc = __fadd_rn(acc, __fmul_rn(colv, rw[2 * oi + t]));
+      }
+      y[i] = acc;
     }
-    y[i] = acc;
   }
 }
 
 __device__ void copy_op(const Args& a, const int* d) {
-  const float* x = operand(a, d[F_IN]);
-  float* y = a.ws + d[F_OUT];
   const long long n = d[F_N];
-  for (long long i = (long long)blockIdx.x * NT + threadIdx.x; i < n;
-       i += (long long)gridDim.x * NT)
-    y[i] = ld(x + i);
+  for (int img = 0; img < a.n; ++img) {
+    const Args ai = a.at(img);
+    const float* x = operand(ai, d[F_IN]);
+    float* y = ai.ws + d[F_OUT];
+    for (long long i = (long long)blockIdx.x * NT + threadIdx.x; i < n;
+         i += (long long)gridDim.x * NT)
+      y[i] = ld(x + i);
+  }
 }
 
 // BARRIER: 0 = cooperative grid of one CTA an SM, grid.sync() (the phase
@@ -630,11 +683,12 @@ __device__ __forceinline__ unsigned long long globaltimer() {
 template <int BF16>
 __global__ void __launch_bounds__(NT)
 body_mega_kernel(const float* x, float* ws, const float* arena, const int* table,
-                 int n_ops, unsigned long long* stamps) {
+                 int n_ops, int n_img, long long x_stride, long long ws_stride,
+                 unsigned long long* stamps) {
   extern __shared__ __align__(16) float smem[];
   int* tab = reinterpret_cast<int*>(smem);
   float* sm = smem + n_ops * DESC;
-  const Args a{x, ws, arena};
+  const Args a{x, ws, arena, n_img, x_stride, ws_stride};
   for (int e = threadIdx.x; e < n_ops * DESC / 4; e += NT)
     cp_async16(tab + 4 * e, table + 4 * e, true);
   cp_async_commit();
@@ -701,19 +755,21 @@ int launch_resident(void (*kern)(Args_...), int cluster, int smem, cudaStream_t 
 
 extern "C" {
 
-// one run of the op table: ``n_ops`` descriptors of DESC int32 at
-// ``table``, operands in ``ws`` (and ``x``), weights in ``arena``;
+// one run of the op table over ``n_img`` images: ``n_ops`` descriptors of
+// DESC int32 at ``table``, image i's operands in ``ws + i * ws_stride``
+// (and ``x + i * x_stride``), weights in ``arena``;
 // ``smem`` dynamic shared bytes a CTA (MegaTable.smem_bytes); ``dots`` the
 // table's dot mode (0 f32 / bf16x3, 1 bf16: megakernel.py:_DOTS_KERNEL);
 // ``stamps`` null, or phases + 1 uint64 for the phase clock (a
 // measurement run)
 int bs_body_mega(const void* x, void* ws, const void* arena, const void* table, int n_ops,
-                 int smem, int dots, void* stamps, void* stream) {
-  if (dots != 0 && dots != 1) return (int)cudaErrorInvalidValue;
+                 int smem, int dots, int n_img, long long x_stride, long long ws_stride,
+                 void* stamps, void* stream) {
+  if ((dots != 0 && dots != 1) || n_img < 1) return (int)cudaErrorInvalidValue;
   auto* kern = dots ? &body_mega_kernel<1> : &body_mega_kernel<0>;
   return launch_resident<0>(kern, 0, smem, (cudaStream_t)stream, (const float*)x, (float*)ws,
-                            (const float*)arena, (const int*)table, n_ops,
-                            (unsigned long long*)stamps);
+                            (const float*)arena, (const int*)table, n_ops, n_img, x_stride,
+                            ws_stride, (unsigned long long*)stamps);
 }
 
 // ``iters`` phase barriers in one launch: barrier 0, a cooperative grid of

@@ -37,6 +37,16 @@
 //     weights: a broadcast), CHUNK independent accumulators at a time
 //     (4, or 2 with 8 groups: Cout = 16 over 8 groups is 2 a thread), the
 //     CHUNK weights of a tap in one vector load where Cout allows.
+// A stream batch of N canvases (N, 3, H+4, W+4) is one launch: the canvas
+// index is blockIdx.z, the grid's x and y the one-canvas grid of the tile
+// that pipeline/edge.py:front_tile picks for ONE canvas.  Folding the
+// canvases into the tile count instead would buy nothing (the grid has
+// room for 65535 canvases) and would make the tile choice and each CTA's
+// position depend on N; this way a CTA computes exactly the outputs, from
+// exactly the window, of the same CTA of a one-canvas launch, so a batch
+// gives each canvas the bits of its own launch.  At 48x80 a canvas is 120
+// CTAs: a batch of 8 fills the 132 SMs about seven times, where one canvas
+// leaves 12 of them idle.
 //
 // Numerics follow the JAX expression sequence: rintf (not roundf) for
 // jnp.round; the bilateral is csrc/bilateral.cuh's (shared with K5: expf,
@@ -132,6 +142,8 @@ front_kernel(const float* __restrict__ canvas, const float* __restrict__ params,
              float* __restrict__ out, int H, int W, int oh, int ow, int cout,
              int pad_lo_h, int pad_lo_w, int use_bilateral, float inv2sc,
              float scale, float offset, int act) {
+  canvas += (long long)blockIdx.z * 3 * (H + 4) * (W + 4);
+  out += (long long)blockIdx.z * cout * oh * ow;
   constexpr int NT = front_threads(TH, TW, G);
   constexpr int NH = 2 * TH + 1, NW = 2 * TW + 1;  // normalized pixels
   constexpr int PH = NH + 4, PW = NW + 4;          // canvas pixels
@@ -210,10 +222,11 @@ front_kernel(const float* __restrict__ canvas, const float* __restrict__ params,
 }
 
 template <int TH, int TW, int G>
-int launch_front(const float* canvas, const float* params, float* out, int H, int W,
-                 int oh, int ow, int cout, int pad_lo_h, int pad_lo_w, int use_bilateral,
-                 float inv2sc, float scale, float offset, int act, cudaStream_t s) {
-  dim3 grid((ow + TW - 1) / TW, (oh + TH - 1) / TH);
+int launch_front(const float* canvas, const float* params, float* out, int n, int H,
+                 int W, int oh, int ow, int cout, int pad_lo_h, int pad_lo_w,
+                 int use_bilateral, float inv2sc, float scale, float offset, int act,
+                 cudaStream_t s) {
+  dim3 grid((ow + TW - 1) / TW, (oh + TH - 1) / TH, n);
   front_kernel<TH, TW, G><<<grid, front_threads(TH, TW, G), 0, s>>>(
       canvas, params, out, H, W, oh, ow, cout, pad_lo_h, pad_lo_w, use_bilateral, inv2sc,
       scale, offset, act);
@@ -222,24 +235,25 @@ int launch_front(const float* canvas, const float* params, float* out, int H, in
 
 }  // namespace
 
-// canvas: (3, H+4, W+4) f32, reflect-101 padded by 2, rounded, planes in
-// the weights' input-channel order; params: (28*cout + 13) f32 device
-// array (taps x cout, bias, bilateral space weights); out: (cout, oh, ow).
+// canvas: (n, 3, H+4, W+4) f32, reflect-101 padded by 2, rounded, planes
+// in the weights' input-channel order; params: (28*cout + 13) f32 device
+// array (taps x cout, bias, bilateral space weights); out: (n, cout, oh,
+// ow).
 // act: 0 NONE, 1 RELU6, 2 HARD_SWISH.  th, tw, g: the tile, output rows,
 // output columns and channel groups a CTA (pipeline/edge.py:FRONT_TILES):
 // (4, 8, 8) or (4, 16, 4).
-extern "C" int bs_front(const void* canvas, const void* params, void* out,
+extern "C" int bs_front(const void* canvas, const void* params, void* out, int n,
                         int H, int W, int oh, int ow, int cout, int pad_lo_h,
                         int pad_lo_w, int use_bilateral, float inv2sc,
                         float scale, float offset, int act, int th, int tw, int g,
                         void* stream) {
-  if (cout < 1 || cout > MAX_COUT) return (int)cudaErrorInvalidValue;
+  if (cout < 1 || cout > MAX_COUT || n < 1 || n > 65535) return (int)cudaErrorInvalidValue;
   const float* c = (const float*)canvas;
   const float* p = (const float*)params;
   float* o = (float*)out;
   cudaStream_t s = (cudaStream_t)stream;
 #define BS_FRONT(TH, TW, G)                                                               \
-  launch_front<TH, TW, G>(c, p, o, H, W, oh, ow, cout, pad_lo_h, pad_lo_w, use_bilateral, \
+  launch_front<TH, TW, G>(c, p, o, n, H, W, oh, ow, cout, pad_lo_h, pad_lo_w, use_bilateral, \
                           inv2sc, scale, offset, act, s)
   if (th == 4 && tw == 8 && g == 8) return BS_FRONT(4, 8, 8);
   if (th == 4 && tw == 16 && g == 4) return BS_FRONT(4, 16, 4);

@@ -14,8 +14,10 @@ reason to exist on Hopper: every tensor is a plain (C, H*W) f32 array.
 The lane-spacing bookkeeping survives only inside the guards, so that the
 port accepts exactly the spans the JAX package accepts.
 
-``BodyPlan(x)`` on a CPU tensor runs :meth:`BodyPlan.run_plain`; on a CUDA
+``BodyPlan(x)`` takes one input (C, H*W) or a stream batch (S, C, H*W).
+On a CPU tensor it runs :meth:`BodyPlan.run_plain`; on a CUDA
 tensor :meth:`BodyPlan.run_cuda` launches the plan as ONE persistent kernel
+for the whole batch
 (``bs_body_mega``, walking the :class:`MegaTable` that ``body_plan_for``,
 ``body_plan_prefix_for`` and ``body_plan_continuation_for`` compile); the
 flat plan's spatial 1x1 convs run in it as the bf16x3 tensor-core GEMM
@@ -475,6 +477,7 @@ class BodyPlan:
     # -- execution -----------------------------------------------------------
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        """The span on (C, H*W) or a stream batch (S, C, H*W)."""
         if x.device.type == "cpu":     # a bf16 plan's dots one bf16 pass, else f32
             return self.run_plain(x, "bf16" if self.dots == "bf16" else "f32")
         if x.device.type == "cuda":
@@ -492,9 +495,12 @@ class BodyPlan:
         ``gemm="bf16"`` runs every 1x1 conv and FC, spatial or on a pooled
         vector, as :func:`conv1x1_bf16_plain`: each the kernel's own
         arithmetic in that mode (``gemm=self.dots``).  Every other op, and
-        every op of the default ``"f32"``, is f32."""
+        every op of the default ``"f32"``, is f32.  A stream batch (S, C,
+        H*W) runs image by image, each image's bits those of its own call."""
         if gemm not in DOTS:
             raise ValueError(f"gemm must be one of {DOTS}, got {gemm!r}")
+        if x.dim() == 3:
+            return torch.stack([self.run_plain(xi, gemm) for xi in x])
         split = gemm == "bf16x3" and self.flat
         ws = self._weights_on(x.device)
         env = {self.in_tid: x.float().reshape(self._shape(self.in_tid))}
@@ -548,13 +554,23 @@ class BodyPlan:
 
     def run_cuda(self, x: torch.Tensor) -> torch.Tensor:
         """The plan on the card as one ``bs_body_mega`` launch on the
-        current stream, into one workspace; the result is a view of the
-        workspace."""
+        current stream over the input or the whole stream batch, into one
+        workspace (one image after another at ``ws_stride`` floats); the
+        result is a view of the workspace, for a batch (S, C, H*W) with its
+        images ``ws_stride`` floats apart."""
         buf, args = self._mega_args(x)
         body_launch("bs_body_mega", *args, None, table_ops=self.mega.kinds)
         self.launches += 1
-        o = self._offsets[self.out_tid]
-        return buf[o:o + self.out_meta.size].view(self._shape(self.out_tid))
+        o, shape = self._offsets[self.out_tid], self._shape(self.out_tid)
+        if x.dim() == 2:
+            return buf[o:o + self.out_meta.size].view(shape)
+        return buf.view(x.shape[0], -1)[:, o:o + self.out_meta.size].unflatten(1, shape)
+
+    @property
+    def ws_stride(self) -> int:
+        """Floats between two images' workspaces: the plan's, rounded up
+        to 256 bytes."""
+        return -(-self._total // 64) * 64
 
     def phase_ns(self, x: torch.Tensor) -> List[int]:
         """A measurement run on the card: one ``bs_body_mega`` launch (not
@@ -588,18 +604,24 @@ class BodyPlan:
             snap = buf
 
     def _mega_args(self, x: torch.Tensor, n_ops: Optional[int] = None):
-        """(workspace, the launch's arguments up to the stamps); ``n_ops``
-        runs the table's first rows alone (a check run)."""
+        """(workspace, the launch's arguments up to the stamps) for x (C,
+        H*W) or a batch (S, C, H*W) whose images are each contiguous, at
+        any stride; ``n_ops`` runs the table's first rows alone (a check
+        run)."""
         if self.mega is None:
             raise RuntimeError("BodyPlan.run_cuda: the plan has no op table "
                                "(compile_mega first)")
-        _build.check_cuda(x, "body input", torch.float32,
-                          (self.in_meta.c, self.in_meta.rows * self.in_meta.w))
-        buf = torch.empty(self._total, dtype=torch.float32, device=x.device)
+        shape = (self.in_meta.c, self.in_meta.rows * self.in_meta.w)
+        if x.dim() == 3 and x.shape[0] < 1:
+            raise ValueError("body input: an empty stream batch")
+        img = x if x.dim() == 2 else x[0]
+        _build.check_cuda(img, "body input", torch.float32, shape)
+        n, x_stride = (1, img.numel()) if x.dim() == 2 else (x.shape[0], x.stride(0))
+        buf = torch.empty(n * self.ws_stride, dtype=torch.float32, device=x.device)
         arena, table = self.mega.on(x.device)
         return buf, (x.data_ptr(), buf.data_ptr(), arena.data_ptr(), table.data_ptr(),
                      len(self.mega.ops) if n_ops is None else n_ops, self.mega.smem_bytes,
-                     _DOTS_KERNEL[self.dots])
+                     _DOTS_KERNEL[self.dots], n, x_stride, self.ws_stride)
 
 
 def conv1x1_plain(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
@@ -1000,7 +1022,10 @@ class MegaTable:
         the grid barrier, so a later tensor may take a block from the phase
         after its last read on: the lowest offset free over the tensor's
         first phase.  A dead tensor's block is reused, and the continuation's
-        workspace stays in L2."""
+        workspace stays in L2.  A stream batch holds one such workspace an
+        image (:attr:`BodyPlan.ws_stride` floats apart), so S of them share
+        the 50 MB L2: at S = 8 deeplab's prefix and continuation take 38.3
+        and 39.0 MB (``chip_smoke.py``'s multi-stream phase prints them)."""
         plan, home = self._plan, self._plan._home
         root = {t: home[t][0] if t in home else t for t in plan.meta}
         span: Dict[int, List[int]] = {}
@@ -1260,7 +1285,11 @@ def walk_phase(plan: BodyPlan, x: torch.Tensor, snap: torch.Tensor, phase: int,
 def walk_table(plan: BodyPlan, x: torch.Tensor) -> torch.Tensor:
     """``plan.mega``'s whole table by :func:`walk_phase` from a NaN
     workspace (a row that read what no earlier phase wrote gives NaN);
-    returns the span's output (C, H*W)."""
+    returns the span's output (C, H*W), or for a stream batch (S, C, H*W)
+    each image's, image by image, as the kernel runs each image's rows on
+    that image's workspace alone."""
+    if x.dim() == 3:
+        return torch.stack([walk_table(plan, xi) for xi in x])
     ws = torch.full((plan._total,), float("nan"), device=x.device)
     for k in range(plan.mega.phases):
         ws = walk_phase(plan, x, ws, k)[0]

@@ -26,6 +26,11 @@ the body between (counterpart of ``backscrub_tpu/pipeline/edge.py``).
   per axis (fold-blur), matrices built in float64; a crop under 64 px
   runs the two stages with a round between them.
 
+Every stage takes a stream batch too, as the JAX stages do with their
+leading axes: frames (S, H, W, 3) and EMAs (S, oh, ow) make S canvases in
+one K1 launch, one launch of each body plan over the S inputs, the
+executor remainder at batch S, and the tail and the post over (S, ...).
+
 Precision: the plans' dots follow ``precision`` (``megakernel.dots_for``;
 "default", the bf16 mode, rounds their operands to bf16); the executor
 remainder runs in the model's compute dtype and the decode reads it as
@@ -238,7 +243,16 @@ def front_plain(canvas: torch.Tensor, params: torch.Tensor, *, H: int, W: int,
                 oh: int, ow: int, pad_lo_h: int, pad_lo_w: int,
                 use_bilateral: bool, scale: float, offset: float,
                 activation: str) -> torch.Tensor:
-    """Plain PyTorch version of K1: canvas (3, H+4, W+4) -> (Cout, oh, ow)."""
+    """Plain PyTorch version of K1: canvas (3, H+4, W+4) -> (Cout, oh, ow),
+    or a stream batch (..., 3, H+4, W+4) -> (..., Cout, oh, ow) canvas by
+    canvas (each canvas's bits those of its own call)."""
+    if canvas.dim() > 3:
+        kw = dict(H=H, W=W, oh=oh, ow=ow, pad_lo_h=pad_lo_h, pad_lo_w=pad_lo_w,
+                  use_bilateral=use_bilateral, scale=scale, offset=offset,
+                  activation=activation)
+        flat = canvas.reshape((-1,) + tuple(canvas.shape[-3:]))
+        y = torch.stack([front_plain(c, params, **kw) for c in flat])
+        return y.reshape(tuple(canvas.shape[:-3]) + tuple(y.shape[1:]))
     cout = (params.numel() - 13) // 28
     if use_bilateral:
         v = torch.round(bilateral_planes(canvas, H, W))
@@ -276,7 +290,9 @@ def front_fused(canvas: torch.Tensor, params: torch.Tensor, *, H: int, W: int,
                 use_bilateral: bool, scale: float, offset: float,
                 activation: str) -> torch.Tensor:
     """K1 on CUDA tensors (``front_fused.launches`` counts launches), the
-    plain version on CPU tensors; the tile is :func:`front_tile`'s."""
+    plain version on CPU tensors; the tile is :func:`front_tile`'s for one
+    canvas.  A stream batch of canvases (..., 3, H+4, W+4) is one launch,
+    -> (..., Cout, oh, ow)."""
     kw = dict(H=H, W=W, oh=oh, ow=ow, pad_lo_h=pad_lo_h, pad_lo_w=pad_lo_w,
               use_bilateral=use_bilateral, scale=scale, offset=offset,
               activation=activation)
@@ -285,11 +301,12 @@ def front_fused(canvas: torch.Tensor, params: torch.Tensor, *, H: int, W: int,
     cout = (params.numel() - 13) // 28
     if cout > 64:
         raise ValueError(f"the front kernel takes at most 64 output channels, got {cout}")
-    _build.check_cuda(canvas, "canvas", torch.float32, (3, H + 4, W + 4))
+    lead = tuple(canvas.shape[:-3])
+    _build.check_cuda(canvas, "canvas", torch.float32, lead + (3, H + 4, W + 4))
     _build.check_cuda(params, "front params", torch.float32, (28 * cout + 13,))
-    out = torch.empty((cout, oh, ow), dtype=torch.float32, device=canvas.device)
+    out = torch.empty(lead + (cout, oh, ow), dtype=torch.float32, device=canvas.device)
     _build.launch("bs_front", canvas.data_ptr(), params.data_ptr(), out.data_ptr(),
-                  H, W, oh, ow, cout, pad_lo_h, pad_lo_w, int(use_bilateral),
+                  math.prod(lead), H, W, oh, ow, cout, pad_lo_h, pad_lo_w, int(use_bilateral),
                   -0.5 / _SIGMA ** 2, scale, offset, _FRONT_ACT[activation],
                   *front_tile(oh, ow, _build.sm_count(canvas.device)))
     front_fused.launches += 1
@@ -369,7 +386,7 @@ GUIDED_RADIUS = 4
 def postprocess_mask(ema_u8: torch.Tensor, geo: RoiGeometry, mats=None, *,
                      u8_exact: bool = False, refine: str = "box", frame_bgr=None,
                      morph: str = "") -> torch.Tensor:
-    """EMA (oh, ow) u8 -> full-frame mask (H, W) u8
+    """EMA (..., oh, ow) u8 -> full-frame mask (..., H, W) u8
     (``backscrub_tpu/pipeline/maskgen.py:postprocess_mask``): crop the
     model-output ROI, then ``morph`` (``apply_mask_morph``) at model
     resolution, then one of:
@@ -389,7 +406,7 @@ def postprocess_mask(ema_u8: torch.Tensor, geo: RoiGeometry, mats=None, *,
     contradict each other (ValueError), as in the JAX package.
     """
     o, r = geo.out_roi, geo.roi
-    small = ema_u8[o.y:o.y + o.h, o.x:o.x + o.w]
+    small = ema_u8[..., o.y:o.y + o.h, o.x:o.x + o.w]
     if morph:
         small = apply_mask_morph(small, morph)
     if refine == "guided":
@@ -400,7 +417,7 @@ def postprocess_mask(ema_u8: torch.Tensor, geo: RoiGeometry, mats=None, *,
         if frame_bgr is None:
             raise ValueError("refine='guided' needs the camera frame as guide")
         up = resize_bilinear(small.float()[..., None], r.h, r.w)[..., 0] / 255.0
-        roi = frame_bgr[r.y:r.y + r.h, r.x:r.x + r.w, :].float()
+        roi = frame_bgr[..., r.y:r.y + r.h, r.x:r.x + r.w, :].float()
         luma = (roi[..., 2] * 0.299 + roi[..., 1] * 0.587 + roi[..., 0] * 0.114) / 255.0
         q = guided_filter(luma, up, radius=GUIDED_RADIUS, eps=1e-3)
         return pad_to_frame(torch.clamp(torch.round(q * 255.0), 0, 255).to(torch.uint8), geo)
@@ -557,10 +574,10 @@ class EdgeFused:
         self.xh, self.xw = oh2 // 2, ow2 // 2
 
     def canvas(self, frame_bgr_u8: torch.Tensor) -> torch.Tensor:
-        """(H, W, 3) u8 -> the rounded, padded model canvas (3, ih+4, iw+4)
-        f32, planes in BGR order."""
+        """(..., H, W, 3) u8 -> the rounded, padded model canvas (..., 3,
+        ih+4, iw+4) f32, planes in BGR order."""
         r = self.geo.roi
-        roi = frame_bgr_u8[r.y:r.y + r.h, r.x:r.x + r.w, :].float().permute(2, 0, 1)
+        roi = frame_bgr_u8[..., r.y:r.y + r.h, r.x:r.x + r.w, :].float().movedim(-1, -3)
         z = torch.matmul(torch.matmul(self.front_ah, roi), self.front_aw.T)
         return torch.round(z).contiguous()
 
@@ -575,53 +592,64 @@ class EdgeFused:
                     activation=info.front_activation)
 
     def front(self, frame_bgr_u8: torch.Tensor, plain: bool = False) -> torch.Tensor:
-        """(H, W, 3) u8 -> body input (Cout, oh, ow) f32; ``plain`` runs K1's
-        plain version on any device."""
+        """(..., H, W, 3) u8 -> body input (..., Cout, oh, ow) f32; ``plain``
+        runs K1's plain version on any device."""
         fn = front_plain if plain else front_fused
         return fn(self.canvas(frame_bgr_u8), self.front_params, **self.front_kwargs())
 
     def body(self, h: torch.Tensor, plain: bool = False, gemm: str = "f32") -> torch.Tensor:
-        """(C, oh, ow) -> the body output (C_out, H_out, W_out): the tail's
-        input, or front only the model output in channel-major order.
-        ``plain`` runs the plans' plain versions on any device, their dots
-        in ``gemm`` arithmetic (``BodyPlan.run_plain``: "bf16x3" the flat
-        GEMMs' split, "bf16" every dot one bf16 pass)."""
+        """(..., C, oh, ow) -> the body output (..., C_out, H_out, W_out):
+        the tail's input, or front only the model output in channel-major
+        order.  ``plain`` runs the plans' plain versions on any device,
+        their dots in ``gemm`` arithmetic (``BodyPlan.run_plain``: "bf16x3"
+        the flat GEMMs' split, "bf16" every dot one bf16 pass).  A stream
+        batch runs each plan as one launch and the executor remainder at
+        batch S."""
+        lead = tuple(h.shape[:-3])
         for plan in self.plans:
             m = plan.out_meta
-            x = h.reshape(h.shape[0], -1)
-            h = (plan.run_plain(x, gemm) if plain else plan(x)).reshape(m.c, m.rows, m.w)
+            x = h.reshape(lead + (h.shape[-3], -1))
+            h = (plan.run_plain(x, gemm) if plain else plan(x)).reshape(lead + (m.c, m.rows, m.w))
         if self.rest is not None:
-            h = self.rest(h.permute(1, 2, 0)[None])[0].permute(2, 0, 1)
+            hb = h.reshape((-1,) + tuple(h.shape[-3:])).permute(0, 2, 3, 1)
+            y = self.rest(hb).permute(0, 3, 1, 2)
+            h = y.reshape(lead + tuple(y.shape[1:]))
         return h
 
     def tail_logits(self, body_out: torch.Tensor) -> torch.Tensor:
-        """Body output (K, xh*xw) -> the value the decode compares with
-        ``info.tail_threshold``, (2xh, 2xw): one phase dot (two_channel:
-        out1 - out0; threshold: the logit before the model's LOGISTIC)."""
+        """Body output (..., K, xh*xw) -> the value the decode compares with
+        ``info.tail_threshold``, (..., 2xh, 2xw): one phase dot
+        (two_channel: out1 - out0; threshold: the logit before the model's
+        LOGISTIC)."""
+        lead = tuple(body_out.shape[:-2])
         dq = self.tail_wd @ body_out + self.tail_bd[:, None]
         # phase (a, b) at (i, j) is mask pixel (2i+a, 2j+b)
-        dq = dq.reshape(2, 2, self.xh, self.xw).permute(2, 0, 3, 1)
-        return dq.reshape(2 * self.xh, 2 * self.xw)
+        dq = dq.reshape(lead + (2, 2, self.xh, self.xw))
+        dq = dq.permute(*range(len(lead)), -2, -4, -1, -3)
+        return dq.reshape(lead + (2 * self.xh, 2 * self.xw))
 
     def tail(self, body_out: torch.Tensor, ema: torch.Tensor) -> torch.Tensor:
-        """Body output (K, xh*xw) + EMA (2xh, 2xw) u8 -> new EMA: the phase
-        dot, decode and the bit trick of lib/libbackscrub.cc:330,342-357."""
+        """Body output (..., K, xh*xw) + EMA (..., 2xh, 2xw) u8 -> new EMA:
+        the phase dot, decode and the bit trick of
+        lib/libbackscrub.cc:330,342-357."""
         val = torch.where(self.tail_logits(body_out) > self.info.tail_threshold, 0, 255)
         return (val.to(torch.uint8) & 0xE0) | (ema >> 3)
 
     def postprocess(self, ema: torch.Tensor, frame: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """EMA (oh, ow) u8 -> full-frame mask (H, W) u8 with the post
-        options; ``frame`` is the guide of ``refine="guided"``."""
+        """EMA (..., oh, ow) u8 -> full-frame mask (..., H, W) u8 with the
+        post options; ``frame`` is the guide of ``refine="guided"``."""
         return postprocess_mask(ema, self.geo, self.post_mats, frame_bgr=frame,
                                 **self.post_options)
 
     def step_mask(self, frame: torch.Tensor, ema: torch.Tensor, plain: bool = False,
                   gemm: str = "f32"):
-        """``plain`` runs every kernel's plain version (on any device), the
-        plans' dots in ``gemm`` arithmetic (:meth:`body`)."""
+        """A frame (H, W, 3) u8 and its EMA, or a stream batch (S, H, W, 3)
+        and the EMAs (S, oh, ow) -> (mask(s), new EMA(s)).  ``plain`` runs
+        every kernel's plain version (on any device), the plans' dots in
+        ``gemm`` arithmetic (:meth:`body`)."""
         out = self.body(self.front(frame, plain), plain, gemm)
         if self.info.tail_ok:
-            new_ema = self.tail(out.reshape(out.shape[0], -1), ema)
+            new_ema = self.tail(out.flatten(-2), ema)
         else:
-            new_ema = ema_update(ema, decode_val(out.permute(1, 2, 0).float(), self.spec))
+            new_ema = ema_update(ema, decode_val(out.movedim(-3, -1).float(), self.spec))
         return self.postprocess(new_ema, frame), new_ema

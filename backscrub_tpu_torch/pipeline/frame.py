@@ -13,6 +13,9 @@ camera's raw YUYV, UYVY or NV12 bytes, or as an MJPG camera's JPEG
 coefficients (``bs_jpeg_decode``), decoded on the device before the mask;
 with ``output_format="mjpg"`` the step returns the quantized coefficients
 of the composite (``pipeline/jpeg_enc.py``) for the host's Huffman pack.
+:meth:`FramePipeline.step_batch` runs the same step over a stream batch,
+each kernel launched once for the batch, the EMAs carried by the caller
+(``parallel/streams.py``).
 """
 
 from __future__ import annotations
@@ -155,50 +158,59 @@ class FramePipeline:
         green[..., 1] = 255
         self.green = torch.from_numpy(green).to(self.device)
 
-    def _upload(self, img, name: str, fmt: str = "bgr"):
+    def _upload(self, img, name: str, fmt: str = "bgr", n: Optional[int] = None):
         """A host array or a tensor already on the device (a staged
         upload: not copied again) as a contiguous u8 tensor on the device,
-        checked against the shape that ``fmt`` gives the capture geometry;
-        an MJPG frame ``(coefs, qtabs)`` as (int16 tensors a component,
-        int32 tables)."""
+        checked against the shape that ``fmt`` gives the capture geometry,
+        with a leading axis of ``n`` frames where ``n`` is given; an MJPG
+        frame ``(coefs, qtabs)`` as (int16 tensors a component, int32
+        tables)."""
         if fmt == "mjpg":
-            return self._upload_jpeg(img)
+            return self._upload_jpeg(img, n)
         t = torch.as_tensor(img).to(self.device)
         h, w = self.cfg.height, self.cfg.width
         want = {"bgr": (h, w, 3), "yuyv": (h, 2 * w), "uyvy": (h, 2 * w),
                 "nv12": (h * 3 // 2, w)}[fmt]
+        want = want if n is None else (n,) + want
         if tuple(t.shape) != want or t.dtype != torch.uint8:
             raise ValueError(f"{name}: expected {want} uint8, got "
                              f"{tuple(t.shape)} {t.dtype}")
         return t.contiguous()
 
-    def _upload_jpeg(self, frame):
+    def _upload_jpeg(self, frame, n: Optional[int] = None):
         info = self.cfg.jpeg_info
+        lead = () if n is None else (n,)
         coefs, qtabs = frame
         coefs = [torch.as_tensor(c).to(self.device) for c in coefs[:info.ncomp]]
         for c, t in enumerate(coefs):
-            if tuple(t.shape) != info.blocks[c] + (64,) or t.dtype != torch.int16:
-                raise ValueError(f"MJPG component {c}: expected {info.blocks[c] + (64,)} "
-                                 f"int16, got {tuple(t.shape)} {t.dtype}")
+            if tuple(t.shape) != lead + info.blocks[c] + (64,) or t.dtype != torch.int16:
+                raise ValueError(f"MJPG component {c}: expected "
+                                 f"{lead + info.blocks[c] + (64,)} int16, got "
+                                 f"{tuple(t.shape)} {t.dtype}")
         if not isinstance(qtabs, torch.Tensor):  # the decoder's u16 tables
             qtabs = torch.from_numpy(np.asarray(qtabs, np.int32))
         q = qtabs.to(self.device, torch.int32)
-        if tuple(q.shape) != (info.ncomp, 64):
-            raise ValueError(f"MJPG quant tables: expected {(info.ncomp, 64)}, "
+        if tuple(q.shape) != lead + (info.ncomp, 64):
+            raise ValueError(f"MJPG quant tables: expected {lead + (info.ncomp, 64)}, "
                              f"got {tuple(q.shape)}")
         return [t.contiguous() for t in coefs], q.contiguous()
 
     def decode(self, frame) -> torch.Tensor:
-        """The uploaded frame as BGR (H, W, 3) u8: raw camera bytes
-        decoded on the device (``backscrub_tpu/pipeline/frame.py:229-244``:
-        BT.601 video range, YUY2 chroma order; MJPG coefficients through
-        ``bs_jpeg_decode``, bit-exact vs cv2.imdecode), BGR as it is."""
+        """The uploaded frame as BGR (H, W, 3) u8, or a stream batch as
+        (S, H, W, 3): raw camera bytes decoded on the device
+        (``backscrub_tpu/pipeline/frame.py:229-244``: BT.601 video range,
+        YUY2 chroma order; MJPG coefficients through ``bs_jpeg_decode``,
+        bit-exact vs cv2.imdecode, one call a stream), BGR as it is."""
         fmt = self.cfg.input_format
         if fmt == "mjpg":
-            return decode_jpeg_bgr(frame[0], frame[1], self.cfg.jpeg_info)
+            coefs, q = frame
+            if q.dim() == 2:
+                return decode_jpeg_bgr(coefs, q, self.cfg.jpeg_info)
+            return torch.stack([decode_jpeg_bgr([c[s] for c in coefs], q[s],
+                                                self.cfg.jpeg_info) for s in range(q.shape[0])])
         if fmt in ("yuyv", "uyvy"):
-            h, w2 = frame.shape
-            return yuyv_to_rgb_u8(frame.reshape(h, w2 // 2, 2), layout=fmt).flip(-1)
+            pairs = tuple(frame.shape[:-1]) + (frame.shape[-1] // 2, 2)
+            return yuyv_to_rgb_u8(frame.reshape(pairs), layout=fmt).flip(-1)
         if fmt == "nv12":
             return nv12_to_bgr_u8(frame)
         return frame
@@ -272,12 +284,44 @@ class FramePipeline:
         mask = self.maskgen.step(frame).contiguous()
         bg = self.background(frame, None if background_bgr_u8 is None
                              else self._upload(background_bgr_u8, "background"))
+        return self._output(frame, bg, mask, fh, fv), mask
+
+    def _output(self, frame, bg, mask, fh: bool, fv: bool):
+        """Frame(s), background(s) and mask(s) -> the output bytes: K3 or
+        K4 where the JAX package's gate holds, else blend and ``finish``."""
+        cfg = self.cfg
         if self.fused_pack_applies(fh, fv):
             if cfg.output_format == "yuyv":
                 return blend_pack_yuyv(frame, bg, mask, chroma_order=cfg.chroma_order,
-                                       correct_colors=cfg.correct_colors), mask
-            return blend_pack_420(frame, bg, mask, layout=cfg.output_format), mask
-        return self.finish(alpha_blend_u8(bg, frame, mask), fh, fv), mask
+                                       correct_colors=cfg.correct_colors)
+            return blend_pack_420(frame, bg, mask, layout=cfg.output_format)
+        return self.finish(alpha_blend_u8(bg, frame, mask), fh, fv)
+
+    @torch.no_grad()
+    def step_batch(self, frames, backgrounds, ema: torch.Tensor):
+        """One step of a stream batch, the JAX package's batched compose
+        (``backscrub_tpu/pipeline/frame.py:194-330`` with ``active=True``):
+        ``frames`` (S, H, W, 3) BGR, (S, H, 2W) YUYV/UYVY, (S, 3H/2, W) NV12
+        or, for "mjpg", (coefficient arrays (S, bh, bw, 64) a component,
+        tables (S, ncomp, 64)); ``backgrounds`` (S, H, W, 3) BGR or None
+        (green, or the frames with a background effect on); ``ema`` the
+        streams' EMAs (S, oh, ow) u8 on the device.  Returns (outputs,
+        masks (S, H, W), new EMAs): outputs (S, ...) in the output format,
+        for "mjpg" a tuple of (S, bh, bw, 64) coefficients a component.
+        Each kernel of the step runs once for the batch (K1, each body plan
+        and K3 or K4; K5 on the classic stages); the MJPG decode once a
+        stream.  The config's flips apply."""
+        cfg = self.cfg
+        n = ema.shape[0]
+        frame = self.decode(self._upload(frames, "frames", cfg.input_format, n))
+        masks, new_ema = self.maskgen.masks(frame, ema)
+        masks = masks.contiguous()
+        bg = self.background(frame, None if backgrounds is None
+                             else self._upload(backgrounds, "backgrounds", "bgr", n))
+        if bg.dim() < frame.dim():
+            bg = bg.expand(frame.shape).contiguous()
+        out = self._output(frame, bg, masks, cfg.flip_horizontal, cfg.flip_vertical)
+        return out, masks, new_ema
 
     def reset(self):
         self.maskgen.reset()

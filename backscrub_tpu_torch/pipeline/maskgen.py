@@ -46,7 +46,10 @@ def preprocess(frame_bgr_u8: torch.Tensor, geo: RoiGeometry, spec: ModelSpec,
 
     The bilateral is K5 (``ops/image_kernels.py``) on a CUDA frame and its
     plain version on a CPU frame, as the JAX package takes its Pallas
-    kernel on the TPU (``maskgen.py:91-93``)."""
+    kernel on the TPU (``maskgen.py:91-93``); then :func:`normalize`.  The
+    resize is one f32 contraction an axis; at an exact x.5 tie its rounding
+    may differ from the JAX one, which XLA:CPU sums with or without a fused
+    multiply-add depending on the shape (ROADMAP queue 3)."""
     r = geo.roi
     roi = frame_bgr_u8[..., r.y:r.y + r.h, r.x:r.x + r.w, :].float()
     small = torch.round(resize_bilinear(roi, geo.in_roi.h, geo.in_roi.w))
@@ -56,7 +59,16 @@ def preprocess(frame_bgr_u8: torch.Tensor, geo: RoiGeometry, spec: ModelSpec,
     rgb = canvas.flip(-1)  # BGR -> RGB (libbackscrub.cc:290)
     if use_bilateral:
         rgb = torch.round(bilateral5(rgb.contiguous()))
-    return rgb * spec.scale + spec.offset
+    return normalize(rgb, spec)
+
+
+def normalize(rgb: torch.Tensor, spec: ModelSpec) -> torch.Tensor:
+    """u8-valued f32 pixels -> model input, ``x * scale + offset`` as one
+    fused multiply-add, as the JAX program rounds it on the CPU: exact in
+    f64 (an 8-bit value times a 24-bit scale, plus the offset), then
+    rounded once to f32."""
+    scale, offset = float(np.float32(spec.scale)), float(np.float32(spec.offset))
+    return (rgb.double() * scale + offset).float()
 
 
 class MaskGen:
@@ -183,17 +195,22 @@ class MaskGen:
                               device=self.device)
 
     def _pre(self, frame: torch.Tensor) -> torch.Tensor:
-        """Stage 1: (H, W, 3) u8 frame -> model input (ih, iw, 3) f32."""
+        """Stage 1: (..., H, W, 3) u8 frame(s) -> model input (..., ih, iw,
+        3) f32."""
         return preprocess(frame, self.geo, self.spec, self.use_bilateral)
 
     def _infer(self, x: torch.Tensor) -> torch.Tensor:
-        """Stage 2: model input -> model output (oh, ow, C)."""
-        return self.model(x[None])[0]
+        """Stage 2: model input -> model output (oh, ow, C); a stream batch
+        (S, ih, iw, 3) runs the graph at batch S -> (S, oh, ow, C).  A graph
+        pinned to batch 1 (a RESHAPE to a fixed shape) fails there, as the
+        JAX package's batched classic path does."""
+        return self.model(x[None])[0] if x.dim() == 3 else self.model(x)
 
     def _decode_post(self, out: torch.Tensor, ema: torch.Tensor,
                      frame: Optional[torch.Tensor] = None):
-        """Stage 3: model output + EMA -> (mask (H, W) u8, new EMA);
-        ``frame`` guides ``refine="guided"``."""
+        """Stage 3: model output + EMA -> (mask (H, W) u8, new EMA), or over
+        a stream batch's leading axis; ``frame`` guides
+        ``refine="guided"``."""
         new_ema = ema_update(ema, decode_val(out.float(), self.spec))
         return postprocess_mask(new_ema, self.geo, self.post_mats, frame_bgr=frame,
                                 **self.post_options), new_ema
@@ -212,6 +229,17 @@ class MaskGen:
             self.oninfer()
         mask, self.ema = self._decode_post(out, self.ema, frame)
         return mask
+
+    def masks(self, frames: torch.Tensor, ema: torch.Tensor):
+        """A stream batch of frames (S, H, W, 3) u8 on the device and their
+        EMAs (S, oh, ow) -> (masks (S, H, W) u8, new EMAs), the EMAs left
+        to the caller and no hook fired: the fused edge path over the batch
+        (one launch of each kernel), or the classic stages over it, as the
+        JAX package composes them (``backscrub_tpu/pipeline/frame.py:
+        258-266``)."""
+        if self.edge is not None:
+            return self.edge.step_mask(frames, ema)
+        return self._decode_post(self._infer(self._pre(frames)), ema, frames)
 
     @torch.no_grad()
     def process(self, frame_bgr_u8) -> torch.Tensor:

@@ -153,7 +153,29 @@ Usage (from the repository root, on a machine with a CUDA card)::
    path with the f32 path as the control, device busy in both; the
    one-term GEMM alone; every family's int8 classic path; ``backscrub-torch
    --bf16`` and ``--int8``; a ``precision:`` line;
-18. prints one JSON line with every kernel's numbers (launches from the
+18. multi-stream serving (``multistream_phase``): K1 (segm_lite, mlkit,
+   deeplab), K2 (segm_lite, mlkit), K2' and K2'' (deeplab, f32 and bf16
+   tables), K3 and K4 over stream batches of 4 and 8 at 640x480, each one
+   launch a batch, each image bit-identical to its own launch, the batch
+   against the plain version at the single-frame bars, device us a batch
+   and a frame cold (L2 flushed) beside the bound a batch, and warm
+   (L2-resident), the plans' workspace bytes; ``MultiStreamPipeline`` on
+   mlkit and deeplab, 4 streams for 30 ticks (one K1, one launch of each
+   plan and one K3 a tick, counted from zero) against solo
+   ``FramePipeline`` steps under the decode flip rule (deeplab's limit
+   MS_DEEPLAB_TIE) and the tolerance invariant, deeplab also with its
+   canvas and executor remainder image by image (no flip) and with a
+   planted fault (bf16 dots) that the limit must catch;
+   ``MultiStreamServer`` (pull) deliveries byte-identical to direct steps
+   at 1, 2, 4 and 8 streams, then fps per card (median and range of five
+   windows of 2 s) and a profiled window's host ms, device busy and idle
+   share a tick; ``MultiGeometryServer`` over mlkit 640x480, segm_lite 1280x720 and
+   an ``mjpg:`` stream, byte-identical to direct steps of each bucket;
+   ``cli_multi.main`` with three ``test:`` streams to files, byte-identical
+   to direct steps, K1, K2 and K3 once a tick a bucket; a ``multistream:``
+   line, and each batched kernel's numbers under ``batched`` in the
+   kernels line;
+19. prints one JSON line with every kernel's numbers (launches from the
    run of the path it serves, errors and times measured here, and the
    bound: the larger of the bytes it must move over 3.35 TB/s and its
    operations over the peak of their type, 67 TFLOP/s f32 or 989 TFLOP/s
@@ -179,6 +201,7 @@ before printing any result.
 
 import collections
 import dataclasses
+import itertools
 import json
 import os
 import re
@@ -196,6 +219,10 @@ FRAMES = 50
 DEEPLAB = os.path.join(REPO, "tests", "data", "deeplab_synth_257.tflite")
 DEEPLAB_SIZE, DEEPLAB_FRAMES = (640, 480), 30
 PERSON, TIE = 15, 1e-3      # deeplab's person class; a near-tie decode margin
+# deeplab's batch-vs-solo flip limit (multistream_pipelines): above the
+# sound batch's largest flip |margin| (6.08e-3 on an H100), below a planted
+# fault's (one-pass bf16 dots: 0.507), both read by that phase
+MS_DEEPLAB_TIE = 0.02
 ATOL, RTOL = 2e-3, 1e-3
 # K2'' against its plain version in its own arithmetic (bf16x3 GEMMs).  The
 # split rounds each GEMM input's low half to bf16, so a one-ulp difference
@@ -866,7 +893,8 @@ def _plain_input(mg, frame):
     model input."""
     import torch
     from backscrub_tpu_torch.pipeline.image import bilateral5 as bilateral5_plain
-    return torch.round(bilateral5_plain(_canvas(mg, frame))) * mg.spec.scale + mg.spec.offset
+    from backscrub_tpu_torch.pipeline.maskgen import normalize
+    return normalize(torch.round(bilateral5_plain(_canvas(mg, frame))), mg.spec)
 
 
 def bilateral_phase(segm, deeplab):
@@ -2365,6 +2393,565 @@ def precision_phase():
     return res, kern, launches
 
 
+# the multi-stream phase: stream batches of MS_BATCHES through K1-K4 at
+# MS_SIZE; MultiStreamPipeline at MS_STREAMS streams for MS_TICKS ticks
+# against solo steps; the servers; fps per card at MS_FPS_STREAMS, the
+# median of MS_FPS_WINDOWS windows of at least MS_FPS_SECONDS each, with a
+# profiled window of MS_WINDOW ticks each;
+# cli_multi for MS_CLI_FRAMES frames
+MS_SIZE, MS_BATCHES, MS_STREAMS, MS_TICKS = (640, 480), (4, 8), 4, 30
+MS_FPS_STREAMS, MS_WINDOW, MS_CLI_FRAMES = (1, 2, 4, 8), 20, 10
+MS_FPS_WINDOWS, MS_FPS_SECONDS = 5, 2.0
+
+
+def _stream_frames(w, h, streams, n):
+    """n ticks of ``streams`` streams' frames, (n, streams, h, w, 3) u8:
+    stream s the moving sequence of seed s."""
+    from make_synth_segm import moving_frames
+    return np.stack([moving_frames(w, h, n, seed=s) for s in range(streams)], axis=1)
+
+
+def _batch_held(tag, run, plain, S, counter, work, hold, cold):
+    """One kernel over a stream batch of S: ``run(None)`` the batch,
+    ``run(s)`` image s alone.  One launch a batch (``counter()``: the
+    launches so far), each image bit-identical to its own launch, the batch
+    against ``plain()``: byte-equal (``hold`` "equal"), allclose (``hold``
+    the atol/rtol dict), or its distance printed (``hold`` None); the
+    device time a batch cold (``cold`` the kernel's profiler name: the L2
+    flushed before each launch, as a fresh tick's frames come from HBM)
+    beside the bound a batch (``work``: one image's (bytes, f32 ops[, bf16
+    ops]), times S), and warm (the same inputs again, L2-resident).
+    Returns (the numbers, the batch's result)."""
+    import torch
+    c0 = counter()
+    k = run(None)
+    if counter() - c0 != 1:
+        raise AssertionError(f"{tag} S={S}: {counter() - c0} launches for one batch")
+    for s in range(S):
+        if not torch.equal(k[s], run(s)):
+            raise AssertionError(f"{tag} S={S}: image {s} differs from its one-image launch")
+    p = plain()
+    torch.cuda.synchronize()
+    if hold == "equal" and not torch.equal(k, p):
+        raise AssertionError(f"{tag} S={S}: the batch differs from its plain version")
+    if isinstance(hold, dict):
+        torch.testing.assert_close(k, p, **hold)
+    dev = device_ms(lambda: run(None), n=30)
+    dev_cold = device_ms(lambda: run(None), n=30, cold=cold)
+    b = bound(*(S * v for v in work))
+    r = dict(max_abs_err=float((k.float() - p.float()).abs().max()),
+             device_us_cold=dev_cold * 1e3, device_us_frame_cold=dev_cold * 1e3 / S,
+             device_us=dev * 1e3, device_us_frame=dev * 1e3 / S, bound_us=b[0] * 1e3,
+             bound_by=b[1])
+    print(f"batch {tag} S={S}: one launch, each image bit-identical to its own launch, "
+          f"max_abs_err {r['max_abs_err']:.3g} vs plain"
+          + (" (printed: the single launches are held op by op)" if hold is None else "")
+          + f"; device cold {r['device_us_cold']:.2f} us a batch, "
+          f"{r['device_us_frame_cold']:.2f} a frame, bound {r['bound_us']:.3f} us a batch "
+          f"({b[1]}); warm (L2-resident) {r['device_us']:.2f} us a batch, "
+          f"{r['device_us_frame']:.2f} a frame")
+    return r, k
+
+
+def multistream_kernels(frames):
+    """K1 (segm_lite, mlkit, deeplab), K2 (segm_lite, mlkit), K2' and K2''
+    (deeplab, f32 and bf16 tables), K3 and K4 over stream batches of
+    MS_BATCHES at MS_SIZE (``_batch_held``): the single-frame bars (K1, K2,
+    K2' allclose(ATOL, RTOL); K2'' against run_plain(gemm="bf16x3") at
+    MATCHED_ATOL/RTOL; K3 and K4 byte-equal; the bf16 tables, whose single
+    launches precision_phase holds op by op, by each image's bit identity
+    to them, the distance to run_plain(gemm="bf16") printed); the plans'
+    workspace bytes a batch.  Returns {kernel key: {S: numbers}}."""
+    import torch
+    from backscrub_tpu_torch.ops.megakernel import body_launch
+    from backscrub_tpu_torch.ops.pack_kernels import (blend_pack_420, blend_pack_420_plain,
+                                                      blend_pack_yuyv, blend_pack_yuyv_plain)
+    from backscrub_tpu_torch.pipeline.edge import front_fused, front_plain
+    from backscrub_tpu_torch.pipeline.frame import FramePipeline, PipelineConfig
+
+    w, h = MS_SIZE
+    cfg = PipelineConfig(width=w, height=h)
+    pipes = {"segm_lite": FramePipeline(MODEL, cfg, device="cuda"),
+             "mlkit": FramePipeline(SELFIE, cfg, device="cuda"),
+             "deeplab": FramePipeline(DEEPLAB, cfg, device="cuda"),
+             "deeplab_bf16": FramePipeline(DEEPLAB, cfg, device="cuda",
+                                           compute_dtype=torch.bfloat16, precision="default")}
+    out = collections.defaultdict(dict)
+    rng = np.random.default_rng(9)
+    with torch.no_grad():
+        for S in MS_BATCHES:
+            fr = torch.from_numpy(frames[0, :S]).cuda()
+            for tag, pipe in pipes.items():
+                e = pipe.maskgen.edge
+                canvas, kw = e.canvas(fr), e.front_kwargs()
+                cout = (e.front_params.numel() - 13) // 28
+                r, x = _batch_held(
+                    f"K1 {tag}",
+                    lambda s: front_fused(canvas if s is None else canvas[s], e.front_params,
+                                          **kw),
+                    lambda: front_plain(canvas, e.front_params, **kw), S,
+                    lambda: front_fused.launches, front_work(kw, cout),
+                    dict(atol=ATOL, rtol=RTOL), "front_kernel")
+                if tag != "deeplab_bf16":
+                    out["front" if tag == "segm_lite" else f"front {tag}"][S] = r
+                x = x.reshape(S, x.shape[1], -1)
+                for plan in e.plans:
+                    name = "body" if plan is e.body_plan else (
+                        "body_prefix" if plan is e.prefix_plan else "body_cont")
+                    gemm = {"f32": "f32", "bf16x3": "bf16x3", "bf16": "bf16"}[plan.dots]
+                    hold, work = dict(atol=ATOL, rtol=RTOL), plan.work()
+                    if gemm == "bf16x3":
+                        hold, work = dict(atol=MATCHED_ATOL, rtol=MATCHED_RTOL), cont_work(plan)
+                    elif gemm == "bf16":
+                        name, hold, work = name + "_bf16", None, bf16_work(plan)
+                    xin = x
+                    r, x = _batch_held(
+                        f"{name} {tag}", lambda s: plan(xin if s is None else xin[s]),
+                        lambda: plan.run_plain(xin, gemm), S,
+                        lambda: body_launch.by_kernel["bs_body_mega"], work, hold,
+                        "body_mega_kernel")
+                    r.update(workspace_bytes=4 * S * plan.ws_stride, phases=plan.mega.phases)
+                    out[name if tag != "mlkit" else f"{name} {tag}"][S] = r
+            fb, bg = (torch.from_numpy(rng.integers(0, 256, (S, h, w, 3), np.uint8)).cuda()
+                      for _ in range(2))
+            mask = torch.from_numpy(rng.integers(0, 256, (S, h, w), np.uint8)).cuda()
+            mask[:, : h // 4] = 0
+            mask[:, h // 4: h // 2] = 255
+
+            def sel(s):
+                return (fb, bg, mask) if s is None else (fb[s], bg[s], mask[s])
+
+            out["pack"][S], _ = _batch_held(
+                "K3", lambda s: blend_pack_yuyv(*sel(s)),
+                lambda: blend_pack_yuyv_plain(fb, bg, mask), S,
+                lambda: blend_pack_yuyv.launches, (9 * h * w, 30 * h * w), "equal",
+                "blend_pack_yuyv_kernel")
+            for layout in ("nv12", "i420"):
+                r, _ = _batch_held(
+                    f"K4 {layout}", lambda s: blend_pack_420(*sel(s), layout),
+                    lambda: blend_pack_420_plain(fb, bg, mask, layout), S,
+                    lambda: blend_pack_420.launches, (17 * h * w // 2, 35 * h * w), "equal",
+                    "blend_pack_420_kernel")
+                if layout == "nv12":
+                    out["pack_420"][S] = r
+    return out
+
+
+def _ms_sources(frames, streams):
+    """Pull sources over ``frames`` (n, streams, h, w, 3): stream s's
+    frames in order, then None."""
+    its = [iter(frames[:, s]) for s in range(streams)]
+    return [lambda it=it: next(it, None) for it in its]
+
+
+def _ms_cycle(frames, streams):
+    """Pull sources that never end: stream s's frames of ``frames`` (n,
+    streams, h, w, 3) over and over."""
+    its = [itertools.cycle(frames[:, s]) for s in range(streams)]
+    return [lambda it=it: next(it) for it in its]
+
+
+def _stage_split(e, fr, ema):
+    """Where a stream batch departs from one-frame runs: for each stage of
+    the edge path that is no kernel (the canvas contraction, the executor
+    remainder, the tail, the post), the elements that differ between the
+    stage over the batch and over its frames one by one, each fed the same
+    batched inputs (the kernels' images are bit-identical to their own
+    launches: ``multistream_kernels``)."""
+    import torch
+    from backscrub_tpu_torch.pipeline.decode import decode_val, ema_update
+    from backscrub_tpu_torch.pipeline.edge import front_fused
+    S, res = fr.shape[0], {}
+
+    def split(name, fn, *xs):
+        b = fn(*xs)
+        res[name] = sum(int((b[s] != fn(*(x[s:s + 1] for x in xs))[0]).sum())
+                        for s in range(S))
+        return b
+
+    with torch.no_grad():
+        h = front_fused(split("canvas", e.canvas, fr), e.front_params, **e.front_kwargs())
+        for plan in e.plans:
+            m = plan.out_meta
+            h = plan(h.reshape(S, h.shape[-3], -1)).reshape(S, m.c, m.rows, m.w)
+        if e.rest is not None:
+            h = split("rest", lambda x: e.rest(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2), h)
+        if e.info.tail_ok:
+            new = split("tail", lambda x, m: e.tail(x.flatten(-2), m), h, ema)
+        else:
+            new = ema_update(ema, decode_val(h.movedim(-3, -1).float(), e.spec))
+        split("post", e.postprocess, new)
+    return res
+
+
+def _ms_run(ms, frames, bg):
+    """MS_TICKS ticks of ``ms`` from fresh EMAs: (outputs, masks, EMAs) a
+    tick."""
+    S = ms.n_streams
+    ms.reset()
+    outs = []
+    for k in range(MS_TICKS):
+        out, masks = ms.step(frames[k, :S], bg)
+        outs.append((out, masks, ms.ema.clone()))
+    return outs
+
+
+def _solo_refs(path, cfg, frames, bg, margin):
+    """Solo FramePipeline steps of each of MS_STREAMS streams over
+    MS_TICKS ticks from fresh EMAs: for each tick and stream (output, mask,
+    EMA, the plain path's decode margin)."""
+    import torch
+    from backscrub_tpu_torch.pipeline.frame import FramePipeline
+    S = MS_STREAMS
+    solos = [FramePipeline(path, cfg, device="cuda") for _ in range(S)]
+    e = solos[0].maskgen.edge
+    refs = []
+    with torch.no_grad():
+        for k in range(MS_TICKS):
+            row = []
+            for s in range(S):
+                f = torch.from_numpy(frames[k, s]).cuda()
+                prev = solos[s].maskgen.ema
+                so, sm = solos[s].step(f, bg[s])
+                row.append((so, sm, solos[s].maskgen.ema.clone(),
+                            _edge_plain(e, f, prev, margin)[0]))
+            refs.append(row)
+    return e, refs
+
+
+def _against_solo(tag, outs, refs, e, tie):
+    """A batched run's ticks against the solo references: the decode flip
+    rule at ``tie`` and the tolerance invariant outside the flips' post
+    footprint.  Returns (flips, largest |margin| of a flip, differing
+    bytes, each frame's differing share)."""
+    import torch
+    from backscrub_tpu_torch.pipeline.edge import post_footprint
+    ever = [torch.zeros_like(refs[0][s][2], dtype=torch.bool) for s in range(MS_STREAMS)]
+    fracs, diff_bytes, flips, worst = [], 0, 0, 0.0
+    for (out, masks, ema_b), row in zip(outs, refs):
+        for s, (so, sm, ema_s, mrg) in enumerate(row):
+            kf, mm = _flip_rule(ema_b[s], ema_s, mrg, ever[s], tie=tie)
+            flips, worst = flips + kf, max(worst, mm)
+            foot = post_footprint(ema_b[s] != ema_s, e.geo, e.post_mats)
+            pairs = [(out[s], so), (masks[s], sm)]
+            fracs.append(_held_bytes(pairs, f"multistream {tag} stream {s}",
+                                     [_yuyv_footprint(foot), foot]))
+            diff_bytes += sum(int((a != b).sum()) for a, b in pairs)
+    return flips, worst, diff_bytes, fracs
+
+
+def _image_by_image(e):
+    """Make the edge path ``e`` run its canvas contraction and executor
+    remainder image by image (a diagnostic: the stages that a batch
+    computes otherwise than one frame, ``_stage_split``)."""
+    import torch
+    canvas, rest = e.canvas, e.rest
+    e.canvas = lambda f: torch.stack([canvas(fi) for fi in f]) if f.dim() == 4 else canvas(f)
+    e.rest = lambda x: torch.cat([rest(x[i:i + 1]) for i in range(x.shape[0])])
+
+
+def multistream_pipelines(frames):
+    """MultiStreamPipeline on mlkit and deeplab at MS_SIZE, MS_STREAMS
+    streams for MS_TICKS ticks from fresh EMAs (stream s the moving
+    sequence of seed s): one K1, one launch of each body plan and one K3 a
+    tick (counted from zero over the run), against solo FramePipeline steps
+    of each stream under the decode flip rule (the solo path's plain
+    margin) and the tolerance invariant outside the flips' post footprint;
+    the differing bytes printed, and ``_stage_split`` on the first tick.
+    mlkit's flips are held to the near-tie TIE, deeplab's to
+    MS_DEEPLAB_TIE.  For deeplab two more batched runs on the same frames:
+    with the canvas and the executor remainder image by image
+    (``_image_by_image``), whose EMAs must equal the solo ones on every
+    tick (no flip: the batch-size-dependent library algorithms of those two
+    stages are the flips' cause); and a planted fault, the batch's dots in
+    one bf16 pass (``compute_dtype=bfloat16, precision="default"``), whose
+    largest flip |margin| must exceed MS_DEEPLAB_TIE (the limit catches
+    it).  Returns {family: numbers}."""
+    import torch
+    from backscrub_tpu_torch.ops.megakernel import body_launch
+    from backscrub_tpu_torch.parallel.streams import MultiStreamPipeline
+    from backscrub_tpu_torch.pipeline.frame import PipelineConfig
+
+    w, h = MS_SIZE
+    S, n = MS_STREAMS, MS_TICKS
+    cfg = PipelineConfig(width=w, height=h)
+    bg = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 256, (S, h, w, 3), np.uint8)).cuda()
+    res = {}
+    for tag, path, margin, tie in (("mlkit", SELFIE, None, TIE),
+                                   ("deeplab", DEEPLAB, _person_margin, MS_DEEPLAB_TIE)):
+        ms = MultiStreamPipeline(path, cfg, S, device="cuda")
+        ms.step(frames[0, :S], bg)        # warm-up
+        plans = len(ms.pipe.maskgen.edge.plans)
+        torch.cuda.synchronize()
+        _zero_counts()
+        body_launch.by_kernel.clear()
+        with torch.no_grad():
+            outs = _ms_run(ms, frames, bg)
+        counts = _counts()
+        want = dict(front=n, body=n * plans, pack=n, pack_420=0, bilateral=0, jpeg_decode=0)
+        if counts != want or dict(body_launch.by_kernel) != {"bs_body_mega": n * plans}:
+            raise AssertionError(f"multistream {tag}: launches {counts} "
+                                 f"{dict(body_launch.by_kernel)}, expected {want}")
+        split = _stage_split(ms.pipe.maskgen.edge, torch.from_numpy(frames[0, :S]).cuda(),
+                             outs[0][2])
+        e, refs = _solo_refs(path, cfg, frames, bg, margin)
+        with torch.no_grad():
+            flips, flip_margin, diff_bytes, fracs = _against_solo(tag, outs, refs, e, tie)
+        if float(np.mean(fracs)) > MEAN_TOL:
+            raise AssertionError(f"multistream {tag}: {100 * np.mean(fracs):.4f}% of bytes "
+                                 "differ on average")
+        res[tag] = dict(streams=S, ticks=n, flips=flips, flip_margin=flip_margin, tie=tie,
+                        differing_bytes=diff_bytes, mean_diff=float(np.mean(fracs)),
+                        max_diff=max(fracs), stage_split=split)
+        print(f"multistream {tag} {w}x{h}: {S} streams x {n} ticks, one K1, {plans} "
+              f"bs_body_mega and one K3 launch a tick; against solo steps: decode flips "
+              f"{flips} (largest |margin| {flip_margin:.3g}, limit {tie:.3g}), {diff_bytes} "
+              f"bytes differ (mean {100 * res[tag]['mean_diff']:.4f}%, max "
+              f"{100 * res[tag]['max_diff']:.4f}% of a frame's); elements a batch's non-kernel "
+              f"stages give otherwise than one-frame runs on the same inputs (first tick): "
+              f"{split}")
+        if margin is None:
+            continue
+        _image_by_image(ms.pipe.maskgen.edge)
+        with torch.no_grad():
+            outs = _ms_run(ms, frames, bg)
+            ema_off = sum(int((ema_b[s] != row[s][2]).sum())
+                          for (_, _, ema_b), row in zip(outs, refs) for s in range(S))
+            if ema_off:
+                raise AssertionError(f"multistream {tag}: with the canvas and the remainder "
+                                     f"image by image, {ema_off} EMA bytes differ from solo "
+                                     "steps")
+            by_image = _against_solo(tag, outs, refs, e, 0.0)
+        bad = MultiStreamPipeline(path, cfg, S, device="cuda", compute_dtype=torch.bfloat16,
+                                  precision="default")
+        with torch.no_grad():
+            outs = _ms_run(bad, frames, bg)
+            planted = max(_flip_margin(ema_b[s], row[s][2], row[s][3])[0]
+                          for (_, _, ema_b), row in zip(outs, refs) for s in range(S))
+        if planted <= tie:
+            raise AssertionError(f"multistream {tag}: the planted fault's flips reach only "
+                                 f"|margin| {planted:.3g}, within the limit {tie:.3g}")
+        res[tag].update(image_by_image_flips=by_image[0], image_by_image_bytes=by_image[2],
+                        planted_flip_margin=planted)
+        print(f"multistream {tag}: with the canvas and the executor remainder image by "
+              f"image, every EMA equals the solo steps' (0 flips), {by_image[2]} bytes "
+              f"differ; planted fault (the batch's dots one bf16 pass): flips reach |margin| "
+              f"{planted:.3g}, over the limit {tie:.3g}")
+    return res
+
+
+def _server_window(server, ticks):
+    """A profiled window of ``ticks`` ticks of ``server`` (opened by an
+    uncounted ``torch.cuda._sleep``): (host ms a tick between two
+    synchronizations, device busy ms a tick)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ticks):
+            if not server.tick():
+                raise AssertionError("a server ran out of frames in its profiled window")
+        server.finish()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3 / ticks
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key)
+    return host, busy / 1e3 / ticks
+
+
+def multistream_servers(frames):
+    """MultiStreamServer (pull) on mlkit fused YUYV at MS_SIZE with S of
+    MS_FPS_STREAMS: deliveries byte-identical to direct steps of the same
+    batches; then fps per card (every stream's deliveries into counting
+    sinks, the streams cycling over their frames): the median and range of
+    MS_FPS_WINDOWS windows of at least MS_FPS_SECONDS each, and host ms,
+    device busy and the idle share of a MS_WINDOW-tick profiled window.
+    Returns {S: numbers}."""
+    import torch
+    from backscrub_tpu_torch.parallel.streams import MultiStreamPipeline
+    from backscrub_tpu_torch.pipeline.frame import PipelineConfig
+    from backscrub_tpu_torch.runtime.multistream import MultiStreamServer
+
+    w, h = MS_SIZE
+    cfg = PipelineConfig(width=w, height=h)
+    res = {}
+    for S in MS_FPS_STREAMS:
+        n = MS_TICKS
+        direct = MultiStreamPipeline(SELFIE, cfg, S, device="cuda")
+        want = [[] for _ in range(S)]
+        for k in range(n):
+            out = direct.step(frames[k, :S])[0].cpu().numpy()
+            for s in range(S):
+                want[s].append(out[s].tobytes())
+        got = [[] for _ in range(S)]
+        server = MultiStreamServer(MultiStreamPipeline(SELFIE, cfg, S, device="cuda"),
+                                   _ms_sources(frames[:n], S),
+                                   [lambda a, g=g: g.append(a.tobytes()) for g in got])
+        if server.run() != n or got != want:
+            raise AssertionError(f"MultiStreamServer S={S}: deliveries differ from direct steps")
+        delivered = [0]
+
+        def count(_a):
+            delivered[0] += 1
+
+        server = MultiStreamServer(MultiStreamPipeline(SELFIE, cfg, S, device="cuda"),
+                                   _ms_cycle(frames, S), [count] * S)
+        server.ms.step(frames[0, :S])     # warm-up
+        server.ms.reset()
+        fps, ms_tick = [], []
+        for _ in range(MS_FPS_WINDOWS):
+            torch.cuda.synchronize()
+            d0, ticks, t0 = delivered[0], 0, time.perf_counter()
+            while time.perf_counter() - t0 < MS_FPS_SECONDS:
+                if not server.tick():
+                    raise AssertionError(f"S={S}: a cycling source ran out")
+                ticks += 1
+            server.finish()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            if delivered[0] - d0 != S * ticks:
+                raise AssertionError(f"S={S}: {ticks} ticks, {delivered[0] - d0} deliveries")
+            fps.append(S * ticks / dt)
+            ms_tick.append(dt * 1e3 / ticks)
+        host, busy = _server_window(server, MS_WINDOW)
+        res[S] = dict(fps=float(np.median(fps)), fps_min=min(fps), fps_max=max(fps),
+                      fps_windows=fps, ms_per_tick=float(np.median(ms_tick)),
+                      window_ms_per_tick=host, busy_ms_per_tick=busy,
+                      idle_share=1 - busy / host)
+        print(f"MultiStreamServer mlkit {w}x{h} S={S}: {n} ticks byte-identical to direct "
+              f"steps; fps per card median {res[S]['fps']:.2f} [{min(fps):.2f}, "
+              f"{max(fps):.2f}] over {MS_FPS_WINDOWS} windows of {MS_FPS_SECONDS:g} s "
+              f"({res[S]['ms_per_tick']:.4f} ms a tick); profiled window of {MS_WINDOW} "
+              f"ticks: host {host:.4f} ms a tick, device busy {busy:.4f} ms a tick, idle "
+              f"share {res[S]['idle_share']:.3f}")
+    return res
+
+
+def multistream_geometries():
+    """MultiGeometryServer with a 640x480 mlkit stream, a 1280x720
+    segm_lite stream and an ``mjpg:`` stream (the synthetic MJPG camera at
+    640x480 on mlkit): three buckets, each stream's deliveries
+    byte-identical to direct steps of a one-stream MultiStreamPipeline on
+    the frames its source gave."""
+    from backscrub_tpu_torch.io.streams import JpegSource, SyntheticJpegCamera, SyntheticSource
+    from backscrub_tpu_torch.parallel.streams import MultiStreamPipeline
+    from backscrub_tpu_torch.pipeline.frame import PipelineConfig
+    from backscrub_tpu_torch.runtime.multistream import MultiGeometryServer
+
+    n = 5
+    jpeg = JpegSource(SyntheticJpegCamera(640, 480))
+    specs = [(SyntheticSource(640, 480), 640, 480, None, SELFIE),
+             (SyntheticSource(1280, 720), 1280, 720, None, MODEL),
+             (jpeg, 640, 480, jpeg.jpeg_info, SELFIE)]
+    fed = [[] for _ in specs]
+    got = [[] for _ in specs]
+
+    def source(src, k):
+        def read():
+            f = src.read()
+            fed[k].append((tuple(c.copy() for c in f[0]), np.array(f[1]))
+                          if isinstance(f, tuple) else f.copy())
+            return f
+        return read
+
+    streams = [(source(src, k), got[k].append, w, h, None, info, model)
+               for k, (src, w, h, info, model) in enumerate(specs)]
+    server = MultiGeometryServer(SELFIE, PipelineConfig(width=0, height=0), streams,
+                                 device="cuda")
+    if server.n_groups != 3 or server.run(frames=n) != n:
+        raise AssertionError("MultiGeometryServer: not three buckets of n ticks")
+    jpeg.close()
+    for k, (_, w, h, info, model) in enumerate(specs):
+        cfg = PipelineConfig(width=w, height=h, input_format="mjpg" if info else "bgr",
+                             jpeg_info=info)
+        direct = MultiStreamPipeline(model, cfg, 1, device="cuda")
+        for i in range(n):
+            f = fed[k][i]
+            batch = (tuple(c[None] for c in f[0]), np.asarray(f[1])[None]) if info else f[None]
+            want = direct.step(batch)[0][0].cpu().numpy()
+            if not np.array_equal(got[k][i], want):
+                raise AssertionError(f"MultiGeometryServer stream {k} tick {i} differs from "
+                                     "direct steps")
+    print(f"MultiGeometryServer: mlkit 640x480, segm_lite 1280x720 and mjpg: 640x480 in "
+          f"{server.n_groups} buckets, {n} ticks, every delivery byte-identical to direct "
+          f"steps of its bucket")
+
+
+def multistream_cli():
+    """``cli_multi.main`` in-process: three ``test:`` streams (two at
+    640x480, one at 1280x720, the mlkit model) to ``file:`` sinks for
+    MS_CLI_FRAMES frames, counted from zero: each file exactly the frames'
+    bytes of direct steps of its bucket, and K1, K2 and K3 launched once a
+    tick a bucket."""
+    import contextlib
+    import io
+    import tempfile
+    from backscrub_tpu_torch import cli_multi
+    from backscrub_tpu_torch.io.streams import SyntheticSource
+    from backscrub_tpu_torch.ops.megakernel import body_launch
+    from backscrub_tpu_torch.parallel.streams import MultiStreamPipeline
+    from backscrub_tpu_torch.pipeline.frame import PipelineConfig
+
+    n = MS_CLI_FRAMES
+    geos = ((640, 480), (640, 480), (1280, 720))
+    with tempfile.TemporaryDirectory() as tmp:
+        files = [os.path.join(tmp, f"s{k}.yuv") for k in range(len(geos))]
+        argv = ["-m", SELFIE, "--frames", str(n)]
+        for (w, h), f in zip(geos, files):
+            argv += ["--stream", f"src=test:,sink=file:{f},geo={w}x{h}"]
+        err = io.StringIO()
+        _zero_counts()
+        body_launch.by_kernel.clear()
+        with contextlib.redirect_stderr(err):
+            rc = cli_multi.main(argv)
+        counts = _counts()
+        sys.stderr.write(err.getvalue())
+        want = dict(front=2 * n, body=2 * n, pack=2 * n, pack_420=0, bilateral=0,
+                    jpeg_decode=0)
+        if rc != 0 or counts != want or dict(body_launch.by_kernel) != {"bs_body_mega": 2 * n}:
+            raise AssertionError(f"cli_multi: rc {rc}, launches {counts} "
+                                 f"{dict(body_launch.by_kernel)}, expected {want}")
+        data = []
+        for f in files:
+            with open(f, "rb") as fh:
+                data.append(fh.read())
+    for (w, h), members in (((640, 480), (0, 1)), ((1280, 720), (2,))):
+        ms = MultiStreamPipeline(SELFIE, PipelineConfig(width=w, height=h), len(members),
+                                 device="cuda")
+        srcs = [SyntheticSource(w, h) for _ in members]
+        outs = [ms.step(np.stack([s.read() for s in srcs]))[0].cpu().numpy()
+                for _ in range(n)]
+        for j, k in enumerate(members):
+            want = b"".join(o[j].tobytes() for o in outs)
+            if data[k] != want:
+                raise AssertionError(f"cli_multi stream {k}: {len(data[k])} bytes, not the "
+                                     f"{len(want)} of {n} direct steps of its bucket")
+    print(f"cli_multi: 3 test: streams in 2 buckets, {n} frames each, every file "
+          f"byte-identical to direct steps of its bucket, K1, K2 and K3 once a tick a bucket")
+
+
+def multistream_phase():
+    """The multi-stream slice on the card: ``multistream_kernels``,
+    ``multistream_pipelines``, ``multistream_servers``,
+    ``multistream_geometries`` and ``multistream_cli``.  Returns (the
+    batched kernel numbers, the ``multistream:`` line's numbers)."""
+    w, h = MS_SIZE
+    frames = _stream_frames(w, h, max(MS_FPS_STREAMS + MS_BATCHES + (MS_STREAMS,)), MS_TICKS)
+    batched = multistream_kernels(frames)
+    line = dict(pipelines=multistream_pipelines(frames),
+                fps_per_card={f"S={S}": r for S, r in multistream_servers(frames).items()})
+    multistream_geometries()
+    multistream_cli()
+    line["kernels"] = {k: {f"S={S}": {n: v for n, v in r.items()}
+                           for S, r in by_s.items()} for k, by_s in batched.items()}
+    return batched, line
+
+
 def device_check():
     """A pipeline built without ``device=`` runs on the card."""
     from backscrub_tpu_torch.pipeline.frame import FramePipeline, PipelineConfig
@@ -2602,6 +3189,9 @@ def main() -> int:
     t0 = time.perf_counter()
     precision, prec_kernels, prec_launches = precision_phase()
     print(f"precision phase: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    batched, multistream = multistream_phase()
+    print(f"multistream phase: {time.perf_counter() - t0:.2f} s")
     main_size = SIZES[0]
     # launches: each kernel's count from the run of the path it serves
     launches = dict(runs[main_size][0], body_prefix=dl_launches["body_prefix"],
@@ -2649,6 +3239,10 @@ def main() -> int:
                       "backscrub_tpu/ops/megakernel.py:516 (BodyMega flat=True, the DEFAULT "
                       "dots of the continuation chain)"),
     }
+    # the stream batches' numbers (multistream_phase) beside each kernel's
+    for name, by_s in batched.items():
+        if name in results:
+            results[name]["batched"] = {f"S={S}": r for S, r in by_s.items()}
     # P1-P7: launches from the probe path (probe_phase checked that the
     # pipelines launched none: main_path_launches); each kernel's first
     # run, so P3 at DEFAULT, the original's first precision
@@ -2676,7 +3270,8 @@ def main() -> int:
                                          "library_b2b_ms", "precision_gap",
                                          "main_path_launches", "mean_abs_err",
                                          "three_term_device_ms", "rows_held",
-                                         "control_rows_off") if k in results[name]}}
+                                         "control_rows_off", "batched")
+            if k in results[name]}}
         for name, (src, rep) in meta.items()]}
     print(f"chip_smoke phases: {time.perf_counter() - t_start:.2f} s")
     for tag, res in (("selfie", selfie), ("segm_full", segm_full), ("bodypix", bodypix),
@@ -2685,6 +3280,7 @@ def main() -> int:
                                        for k, r in res.items()}))
     print("mjpg: " + json.dumps(dict(mjpg, decode={k: {n: v for n, v in r.items()}
                                                    for k, r in jpeg_kernel.items()})))
+    print("multistream: " + json.dumps(multistream))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,7 +27,7 @@ from backscrub_tpu_torch.ops.pack_kernels import (blend_pack_420, blend_pack_420
 from backscrub_tpu_torch.pipeline import edge as tedge
 from backscrub_tpu_torch.pipeline.frame import FramePipeline, PipelineConfig
 from backscrub_tpu_torch.pipeline.image import bilateral5 as bilateral5_plain
-from backscrub_tpu_torch.pipeline.maskgen import MaskGen, preprocess
+from backscrub_tpu_torch.pipeline.maskgen import MaskGen, normalize, preprocess
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FULL = ROOT / "tests" / "data" / "segm_synth_lite_96x160.tflite"
@@ -45,7 +45,7 @@ def plain_input(mg, frame):
     then the plain version, rounding and the spec's normalization."""
     canvas = preprocess(frame, mg.geo, dataclasses.replace(mg.spec, scale=1.0, offset=0.0),
                         use_bilateral=False)
-    return torch.round(bilateral5_plain(canvas.contiguous())) * mg.spec.scale + mg.spec.offset
+    return normalize(torch.round(bilateral5_plain(canvas.contiguous())), mg.spec)
 
 
 @pytest.fixture
@@ -750,7 +750,8 @@ def test_refused_launches_raise(cuda_device):
     ws = torch.empty(plan._total, device=cuda_device)
     with pytest.raises(RuntimeError, match="bs_body_mega launch failed"):
         _build.launch("bs_body_mega", x.data_ptr(), ws.data_ptr(), arena.data_ptr(),
-                      table.data_ptr(), len(plan.mega.ops), 300 * 1024, 0, None)
+                      table.data_ptr(), len(plan.mega.ops), 300 * 1024, 0, 1, x.numel(),
+                      plan.ws_stride, None)
     with pytest.raises(RuntimeError, match="bs_barrier_bench launch failed"):
         _build.launch("bs_barrier_bench", 1, 1, 64)
     _build.launch("bs_barrier_bench", 10, 0, 0)      # the grid the table runs on
@@ -1393,3 +1394,59 @@ def test_cli_bf16_and_int8_on_cuda(cuda_device, tmp_path):
         assert cli.main(["-c", "test:", "--cg", "640x480", "-m", str(SELFIE), "--frames",
                          str(n), "-v", f"file:{out}", *flags]) == 0
         assert out.read_bytes() == want
+
+
+@pytest.mark.parametrize("path", [FULL, SELFIE, DEEPLAB])
+def test_stream_batch_is_one_launch_of_each_kernel(cuda_device, path):
+    """A stream batch of three 640x480 frames: K1, each body plan, K3 and
+    K4 one launch a batch each, every image bit-identical to its own
+    launch."""
+    from backscrub_tpu_torch.ops.pack_kernels import blend_pack_420, blend_pack_yuyv
+    pipe = FramePipeline(str(path), PipelineConfig(width=640, height=480), device=cuda_device)
+    e, S = pipe.maskgen.edge, 3
+    rng = np.random.default_rng(2)
+    fr, bg = (torch.from_numpy(rng.integers(0, 256, (S, 480, 640, 3), np.uint8))
+              .to(cuda_device) for _ in range(2))
+    mask = torch.from_numpy(rng.integers(0, 256, (S, 480, 640), np.uint8)).to(cuda_device)
+
+    def one_launch(counter, fn, *args):
+        before = counter()
+        out = fn(*args)
+        assert counter() == before + 1
+        for s in range(S):
+            assert torch.equal(out[s], fn(*(a[s] if torch.is_tensor(a) else a for a in args)))
+        return out
+
+    with torch.no_grad():
+        canvas = e.canvas(fr)
+        x = one_launch(lambda: tedge.front_fused.launches,
+                       lambda c: tedge.front_fused(c, e.front_params, **e.front_kwargs()), canvas)
+        x = x.reshape(S, x.shape[1], -1)
+        for plan in e.plans:
+            x = one_launch(lambda: body_launch.by_kernel["bs_body_mega"], plan, x)
+        one_launch(lambda: blend_pack_yuyv.launches, blend_pack_yuyv, fr, bg, mask)
+        one_launch(lambda: blend_pack_420.launches, blend_pack_420, fr, bg, mask, "nv12")
+
+
+def test_multistream_server_on_card_is_direct_steps(cuda_device):
+    """MultiStreamServer (pull) on the card delivers the bytes of direct
+    batched steps, one K1, one K2 and one K3 launch a tick."""
+    from backscrub_tpu_torch.parallel.streams import MultiStreamPipeline
+    from backscrub_tpu_torch.runtime.multistream import MultiStreamServer
+    cfg, S, n = PipelineConfig(width=320, height=240), 3, 4
+    rng = np.random.default_rng(3)
+    frames = rng.integers(0, 256, (n, S, 240, 320, 3), np.uint8)
+    direct = MultiStreamPipeline(str(FULL), cfg, S, device=cuda_device)
+    want = [direct.step(frames[k])[0].cpu().numpy() for k in range(n)]
+    got = [[] for _ in range(S)]
+    its = [iter(frames[:, s]) for s in range(S)]
+    server = MultiStreamServer(MultiStreamPipeline(str(FULL), cfg, S, device=cuda_device),
+                               [lambda it=it: next(it, None) for it in its],
+                               [g.append for g in got])
+    before = (tedge.front_fused.launches, body_launch.by_kernel["bs_body_mega"])
+    assert server.run() == n
+    assert (tedge.front_fused.launches - before[0],
+            body_launch.by_kernel["bs_body_mega"] - before[1]) == (n, n)
+    for s in range(S):
+        for k in range(n):
+            np.testing.assert_array_equal(got[s][k], want[k][s])

@@ -41,8 +41,9 @@ Tolerances:
   differ to twice the largest distance between the two models' outputs:
   the classic preprocess rounds a resize value at an exact x.5 tie either
   way in f32 too (deeplab, frame 2: 12 inputs one u8 step apart, the
-  logits up to 0.022; ROADMAP queue 3), and the test checks that inputs
-  differ by one step or not at all; no mask byte off by more than 1 outside
+  logits up to 0.022; every other input is equal bit for bit; ROADMAP
+  queue 3), and the test checks that inputs differ by one step or not at
+  all; no mask byte off by more than 1 outside
   the flips' post footprint, at most 2% of a frame's bytes and, off the
   post's exact x.5 ties, 0.2% of the sequence's differing
   (tests/test_torch_selfie.py ``_Bars``).
