@@ -9,11 +9,16 @@ sources, headers and flags, so an edited kernel rebuilds and an unchanged
 one loads the cached file.  Every exported function returns the ``cudaError_t`` of its
 launch; :func:`launch` raises on anything but 0.
 
-:func:`host_library` builds a host C++ library of ``native/`` (the
-baseline-JPEG entropy codec, ``native/bsjpeg.cc``) with the system's
-``c++`` the same way: ``-O3 -shared -fPIC`` and ``-march=native`` where
-the compiler takes it (as ``native/CMakeLists.txt`` builds it), into
-``_build/`` under a hash of the source, its header and the flags.
+:func:`host_library` builds a host C++ library (by default of
+``native/``: the baseline-JPEG entropy codec, ``native/bsjpeg.cc``) with
+the system's ``c++`` the same way: ``-O3 -shared -fPIC`` and
+``-march=native`` where the compiler takes it (as
+``native/CMakeLists.txt`` builds it), into ``_build/`` under a hash of
+the source, its header and the flags.  :func:`capi_library` builds the
+port's C ABI (``backscrub_tpu_torch/native/bs_capi.cc``, an embedded
+CPython), :func:`native_program` the pure-C++ consumer
+(``native/demo.cc`` and ``native/bsio.cc``) linked against it; both take
+the embedding flags from ``sysconfig`` (:func:`python_embed`).
 
 Nothing here runs at import time: the CPU tests import every module on a
 machine without ``nvcc``.
@@ -27,6 +32,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sysconfig
 import time
 
 import torch
@@ -34,6 +40,7 @@ import torch
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_HERE, "csrc")
 NATIVE_DIR = os.path.join(os.path.dirname(_HERE), "native")
+CAPI_SRC = os.path.join(_HERE, "native", "bs_capi.cc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
@@ -149,7 +156,7 @@ def lib() -> ctypes.CDLL:
     return _Lib.handle
 
 
-HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
+HOST_FLAGS = ("-std=c++17", "-O3", "-fPIC")
 
 
 def _cxx() -> str:
@@ -177,36 +184,95 @@ def _host_flags(cxx: str) -> tuple:
     return HOST_FLAGS + march, m.stdout
 
 
-def host_library(name: str) -> str:
-    """Build ``native/<name>.cc`` into a shared library in ``_build/`` if
-    none for this source, header, flags and target exists; returns its
-    path.  Raises KernelBuildError with the compiler's output on failure."""
-    src = os.path.join(NATIVE_DIR, f"{name}.cc")
-    hdr = os.path.join(NATIVE_DIR, f"{name}.h")
-    if not os.path.exists(src):
-        raise KernelBuildError(f"no source {src}")
+def _host_build(out_stem: str, suffix: str, srcs, hashed, flags, tail=()) -> str:
+    """``c++ flags -o _build/<out_stem>_<hash><suffix> srcs tail`` unless
+    that file exists; the hash covers the compiler, the flags, the tail,
+    the compiler's target macros and every file in ``srcs`` and ``hashed``
+    (headers, libraries linked in) that exists.  Returns the path."""
+    for src in srcs:
+        if not os.path.exists(src):
+            raise KernelBuildError(f"no source {src}")
     cxx = _cxx()
-    flags, target = _host_flags(cxx)
-    h = hashlib.sha256(" ".join((cxx,) + flags).encode())
+    base, target = _host_flags(cxx)
+    flags = tuple(base) + tuple(flags)
+    h = hashlib.sha256(" ".join((cxx,) + flags + tuple(tail)).encode())
     h.update(target.encode())
-    for path in (src, hdr):
+    for path in (*srcs, *hashed):
         if os.path.exists(path):
             with open(path, "rb") as f:
                 h.update(f.read())
-    out = os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
+    out = os.path.join(BUILD_DIR, f"{out_stem}_{h.hexdigest()[:16]}{suffix}")
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [cxx, *flags, "-o", tmp, src]
+    cmd = [cxx, *flags, "-o", tmp, *srcs, *tail]
     r = subprocess.run(cmd, capture_output=True, text=True)
     if r.returncode != 0:
         if os.path.exists(tmp):
             os.remove(tmp)
-        raise KernelBuildError(f"{name} build failed ({r.returncode}):\n{' '.join(cmd)}\n"
-                               f"{r.stdout}\n{r.stderr}")
+        raise KernelBuildError(f"{out_stem} build failed ({r.returncode}):\n"
+                               f"{' '.join(cmd)}\n{r.stdout}\n{r.stderr}")
     os.replace(tmp, out)
     return out
+
+
+def host_library(source: str, extra_flags=(), link=(), headers=()) -> str:
+    """Build a host C++ source into a shared library in ``_build/`` if
+    none for this source, its header (``<stem>.h`` beside it) and
+    ``headers``, the flags and the target exists; returns its path.
+    ``source`` is a path to a ``.cc`` file or the name of one under
+    ``native/`` (``"bsjpeg"``); the library is ``lib<stem>_<hash>.so``.
+    Raises KernelBuildError with the compiler's output on failure."""
+    src = source if source.endswith(".cc") else os.path.join(NATIVE_DIR, f"{source}.cc")
+    stem = os.path.splitext(os.path.basename(src))[0]
+    return _host_build(f"lib{stem}", ".so", [src], [src[:-3] + ".h", *headers],
+                       ("-shared", *extra_flags), link)
+
+
+def python_embed() -> dict:
+    """The flags that embed this interpreter, from ``sysconfig``:
+    ``include`` (compile), ``shim`` (the shared library's link: the shared
+    ``libpython`` with an rpath where the interpreter is itself that
+    library, else nothing, so that a shim loaded into a statically linked
+    interpreter takes that interpreter's symbols and carries no second
+    one) and ``program`` (an executable's link: the shared ``libpython``
+    with an rpath, or the static archive in ``LIBPL`` whole, with its
+    symbols exported for the interpreter's extension modules)."""
+    cfg = sysconfig.get_config_var
+    inc = (f"-I{cfg('INCLUDEPY')}",)
+    if cfg("Py_ENABLE_SHARED"):
+        libdir = cfg("LIBDIR")
+        lib = (os.path.join(libdir, cfg("LDLIBRARY")), f"-Wl,-rpath,{libdir}")
+        return dict(include=inc, shim=lib, program=lib)
+    archive = os.path.join(cfg("LIBPL"), cfg("LIBRARY"))
+    libs = tuple(f"{cfg('LIBS') or ''} {cfg('SYSLIBS') or ''}".split())
+    return dict(include=inc, shim=(), program=("-Wl,--export-dynamic", "-Wl,--whole-archive",
+                                               archive, "-Wl,--no-whole-archive", *libs))
+
+
+def capi_library() -> str:
+    """The port's C ABI, ``libbs_capi_<hash>.so``: the ``native/backscrub.h``
+    symbols over ``backscrub_tpu_torch`` (``native/bs_capi.cc`` of this
+    package), built at first use."""
+    emb = python_embed()
+    return host_library(CAPI_SRC, (*emb["include"], f"-I{NATIVE_DIR}"), emb["shim"],
+                        headers=(os.path.join(NATIVE_DIR, "backscrub.h"),))
+
+
+def native_program() -> str:
+    """``native/demo.cc`` and ``native/bsio.cc`` (the pure-C++ consumer
+    and its V4L2 shim, as they are) linked against :func:`capi_library`
+    into the executable ``backscrub_native_torch_<hash>``, built at first
+    use.  It embeds this interpreter: run it with the port and its
+    site-packages on ``PYTHONPATH``."""
+    shim = capi_library()
+    emb = python_embed()
+    srcs = [os.path.join(NATIVE_DIR, n) for n in ("demo.cc", "bsio.cc")]
+    return _host_build("backscrub_native_torch", "", srcs,
+                       [os.path.join(NATIVE_DIR, "backscrub.h"), shim],
+                       (f"-I{NATIVE_DIR}",),
+                       (shim, f"-Wl,-rpath,{os.path.dirname(shim)}", *emb["program"]))
 
 
 def stream() -> int:

@@ -437,8 +437,9 @@ def postprocess_mask(ema_u8: torch.Tensor, geo: RoiGeometry, mats=None, *,
 
 @functools.lru_cache(maxsize=32)
 def upscale_taps(n_in: int, n_out: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The two-stage post's bilinear upscale (half-pixel centres), (n_out,
-    n_in) f32 on ``device``, split into two matrices: each row's first
+    """A bilinear resize (half-pixel centres; the two-stage post's upscale,
+    the classic preprocess), (n_out, n_in) f32 on ``device``, split into
+    two matrices: each row's first
     nonzero tap and its second.  ``a0 @ x + a1 @ x`` rounds each output as
     the f32 sum of its two rounded products, whatever the matmul's
     summation order or fused multiply-adds; that is the reference's

@@ -27,9 +27,9 @@ from ..models.specs import ModelSpec, resolve_model_path, spec_for_model
 from ..ops.megakernel import PRECISIONS
 from ..ops.image_kernels import bilateral5
 from .decode import decode_val, ema_update
-from .edge import EdgeFused, body_plans, edge_applicable, fold_blur_tensors, postprocess_mask
+from .edge import (EdgeFused, body_plans, edge_applicable, fold_blur_tensors, postprocess_mask,
+                   upscale_taps)
 from .geometry import RoiGeometry, compute_roi
-from .image import resize_bilinear
 
 
 def set_precision_policy() -> None:
@@ -40,6 +40,42 @@ def set_precision_policy() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
+# The preprocess resize's passes, (axis, rows in, rows out), that XLA:CPU
+# sums as a chain of fused multiply-adds over the contraction index in
+# blocks of 512 (the second tap fused onto the first's rounded product);
+# it sums every other pass it was measured on as the two rounded products
+# added (deeplab's 480 -> 257 and 720 -> 257 both ways).  Measured, not
+# read from XLA's code: ROADMAP queue 3.
+FMA_PASSES = frozenset({("rows", 480, 144), ("cols", 640, 192)})
+FMA_BLOCK = 512
+
+
+def resize_two_tap(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """cv::resize INTER_LINEAR (half-pixel centres) on (..., H, W, C) f32,
+    rows then columns, each output the sum of its two taps rounded as the
+    JAX package's contraction rounds it on the CPU: the two rounded
+    products added, or, on a pass of ``FMA_PASSES`` whose taps lie in one
+    block of ``FMA_BLOCK``, the second product fused onto the first's
+    rounded one (exact in f64, then rounded once).  A matrix of one tap a
+    row gives each product rounded once, whatever the matmul's order."""
+    for axis, eq, n_out in (("rows", "oh,...hwc->...owc", out_h),
+                            ("cols", "pw,...owc->...opc", out_w)):
+        n_in = x.shape[-3] if axis == "rows" else x.shape[-2]
+        if n_in == n_out:
+            continue
+        a0, a1 = upscale_taps(n_in, n_out, x.device)
+        p0 = torch.einsum(eq, a0, x)
+        two = p0 + torch.einsum(eq, a1, x)
+        if (axis, n_in, n_out) in FMA_PASSES:
+            fma = (torch.einsum(eq, a1.double(), x.double()) + p0.double()).float()
+            i0, i1 = ((a != 0).float().argmax(1) for a in (a0, a1))
+            one_block = i0 // FMA_BLOCK == i1 // FMA_BLOCK
+            shape = (n_out, 1, 1) if axis == "rows" else (n_out, 1)
+            two = torch.where(one_block.reshape(shape), fma, two)
+        x = two
+    return x
+
+
 def preprocess(frame_bgr_u8: torch.Tensor, geo: RoiGeometry, spec: ModelSpec,
                use_bilateral: bool = True) -> torch.Tensor:
     """Frame (..., H, W, 3) BGR u8 -> model input (..., in_h, in_w, 3) f32.
@@ -47,12 +83,10 @@ def preprocess(frame_bgr_u8: torch.Tensor, geo: RoiGeometry, spec: ModelSpec,
     The bilateral is K5 (``ops/image_kernels.py``) on a CUDA frame and its
     plain version on a CPU frame, as the JAX package takes its Pallas
     kernel on the TPU (``maskgen.py:91-93``); then :func:`normalize`.  The
-    resize is one f32 contraction an axis; at an exact x.5 tie its rounding
-    may differ from the JAX one, which XLA:CPU sums with or without a fused
-    multiply-add depending on the shape (ROADMAP queue 3)."""
+    resize is :func:`resize_two_tap`."""
     r = geo.roi
     roi = frame_bgr_u8[..., r.y:r.y + r.h, r.x:r.x + r.w, :].float()
-    small = torch.round(resize_bilinear(roi, geo.in_roi.h, geo.in_roi.w))
+    small = torch.round(resize_two_tap(roi, geo.in_roi.h, geo.in_roi.w))
     ix, iy = geo.in_roi.x, geo.in_roi.y
     canvas = F.pad(small, (0, 0, ix, geo.model_in_w - ix - geo.in_roi.w,
                            iy, geo.model_in_h - iy - geo.in_roi.h))
@@ -282,6 +316,63 @@ def parse_capi_options(options: str) -> dict:
             raise ValueError(f"unknown maskgen option {tok!r}; supported: refine:guided, "
                              "morph:<erode|dilate|open|close>[:k], u8exact, no-bilateral")
     return kw
+
+
+def _c_stage_callback(addr: int, ctx_addr: int) -> Callable[[], None]:
+    """A raw C function pointer ``void (*)(void *)`` as a Python callable
+    bound to the caller's opaque context pointer: the stage-hook shape of
+    ``lib/libbackscrub.h:24-30``."""
+    import ctypes
+    fn = ctypes.CFUNCTYPE(None, ctypes.c_void_p)(addr)
+    ctx = ctypes.c_void_p(ctx_addr)
+    return lambda: fn(ctx)
+
+
+def _c_debug_callback(addr: int, ctx_addr: int) -> Callable[[str], None]:
+    """``void (*)(void *, const char *)`` (the ondebug seam,
+    ``lib/libbackscrub.h:22-23``) as a Python callable."""
+    import ctypes
+    fn = ctypes.CFUNCTYPE(None, ctypes.c_void_p, ctypes.c_char_p)(addr)
+    ctx = ctypes.c_void_p(ctx_addr)
+    return lambda msg: fn(ctx, str(msg).encode("utf-8", "replace"))
+
+
+DEVICE_ENV = "BACKSCRUB_TORCH_DEVICE"
+
+
+def capi_device() -> str:
+    """The C ABI's device: ``BACKSCRUB_TORCH_DEVICE``, ``cuda`` (the
+    default) or ``cpu``.  Anything else raises, as does ``cuda`` where CUDA
+    is absent (``resolve_device``): a C host never gets a silent CPU run."""
+    dev = os.environ.get(DEVICE_ENV, "") or "cuda"
+    if dev not in ("cuda", "cpu"):
+        raise ValueError(f"{DEVICE_ENV}={dev!r}: expected cuda or cpu")
+    return dev
+
+
+def maskgen_for_capi(model: str, width: int, height: int, options: str = "",
+                     ondebug_addr: int = 0, onprep_addr: int = 0,
+                     oninfer_addr: int = 0, onmask_addr: int = 0,
+                     caller_ctx_addr: int = 0) -> MaskGen:
+    """The factory of the C ABI (``backscrub_tpu_torch/native/bs_capi.cc``;
+    ``backscrub_tpu/pipeline/maskgen.py:maskgen_for_capi``).
+
+    Takes the consumer's raw callback pointers (0 = NULL).  A non-null
+    ``onprep`` or ``oninfer`` selects the staged mode (``fused=False``), so
+    all three hooks fire a frame in the reference order
+    (``lib/libbackscrub.cc:303,311,363``); with only ``onmask`` and
+    ``ondebug`` set the fused edge path is kept.  ``options`` goes through
+    :func:`parse_capi_options`; the device comes from :func:`capi_device`.
+    """
+    kw = parse_capi_options(options)
+    for key, addr in (("onprep", onprep_addr), ("oninfer", oninfer_addr),
+                      ("onmask", onmask_addr)):
+        if addr:
+            kw[key] = _c_stage_callback(addr, caller_ctx_addr)
+    if ondebug_addr:
+        kw["ondebug"] = _c_debug_callback(ondebug_addr, caller_ctx_addr)
+    return MaskGen(model, width, height, device=capi_device(),
+                   fused=not (onprep_addr or oninfer_addr), **kw)
 
 
 # C-style aliases of the reference API (lib/libbackscrub.h:13-39)

@@ -175,7 +175,31 @@ Usage (from the repository root, on a machine with a CUDA card)::
    to direct steps, K1, K2 and K3 once a tick a bucket; a ``multistream:``
    line, and each batched kernel's numbers under ``batched`` in the
    kernels line;
-19. prints one JSON line with every kernel's numbers (launches from the
+19. the C ABI (``capi_phase``; ``backscrub_tpu_torch/native/bs_capi.cc``,
+   built by ``_build.capi_library``) on the synthetic segm_lite model at
+   640x480, 60 ``SyntheticSource`` frames: the shim by ctypes in this
+   interpreter with ``BACKSCRUB_TORCH_DEVICE`` unset (the card), fused
+   (``onmask`` only: one K1 and one K2 launch a frame, no K5, ``onmask``
+   once a frame) and staged (every hook: K5 once a frame, no K1 or K2, the
+   hooks in the order prep, infer, mask), each byte-identical to an
+   in-process ``MaskGen`` on the same frames; NULL with an ``ondebug``
+   message for an unknown option, a missing model and
+   ``BACKSCRUB_TORCH_DEVICE=bogus``; the native consumer
+   (``_build.native_program``: ``native/demo.cc`` and ``native/bsio.cc``
+   linked against the shim) as a subprocess on the same frames from a raw
+   BGR file (``--cg 640x480 -n 60 -H``), its masks byte-equal to the fused C
+   path's and its YUYV to the port's plain composite of them
+   (``alpha_blend_u8``, ``flip``, ``rgb_to_yuyv`` with the reference chroma
+   order over green), its fps from its ``-d`` lines; ``entry()``'s step
+   over four frames, the EMA carried, byte-identical to
+   ``FramePipeline.step`` in one K1, K2 and K3 launch a call;
+   host ms a frame of the C loop and of ``MaskGen.process`` in turns of at
+   least 2 s, five alternating C/process pairs (the C overhead their
+   median difference, beside each kind's spread), then ``process_bytes``
+   twice; a ``capi:`` line,
+   and the C path's launches as ``capi_launches`` of K1, K2 and K5 in the
+   kernels line;
+20. prints one JSON line with every kernel's numbers (launches from the
    run of the path it serves, errors and times measured here, and the
    bound: the larger of the bytes it must move over 3.35 TB/s and its
    operations over the peak of their type, 67 TFLOP/s f32 or 989 TFLOP/s
@@ -2952,6 +2976,274 @@ def multistream_phase():
     return batched, line
 
 
+CAPI_SIZE, CAPI_FRAMES = (640, 480), 60   # the C ABI phase: segm_lite, SyntheticSource
+CAPI_TIMEOUT = 300                        # the demo's subprocess, startup included
+CAPI_WINDOW_S, CAPI_PAIRS = 2.0, 5        # each timed turn's least window; C/process pairs
+
+
+def _capi_lib():
+    """The port's C ABI (``_build.capi_library``) loaded by ctypes into this
+    interpreter, its argument types set."""
+    import ctypes
+    from backscrub_tpu_torch import _build
+    lib = ctypes.CDLL(_build.capi_library())
+    P, S = ctypes.c_void_p, ctypes.c_size_t
+    lib.bs_tensorflow_version.restype = ctypes.c_char_p
+    lib.bs_maskgen_new_ex.restype = P
+    lib.bs_maskgen_new_ex.argtypes = [ctypes.c_char_p, S, S, S, ctypes.c_char_p] + [P] * 5
+    lib.bs_maskgen_process.restype = ctypes.c_bool
+    lib.bs_maskgen_process.argtypes = [P, P, P]
+    lib.bs_maskgen_delete.argtypes = [P]
+    return lib
+
+
+def _capi_run(lib, frames, options=b"", hooks=(None, None, None), ondebug=None,
+              window_s=0.0):
+    """A context on the synthetic segm_lite model at CAPI_SIZE, every frame
+    through ``bs_maskgen_process`` (the frames over and over until
+    ``window_s`` has passed, at least once), then deleted: (the first
+    pass's masks (n, H, W) u8, host ms a frame of the process loop)."""
+    import ctypes
+    (w, h), n = CAPI_SIZE, len(frames)
+    ptr = (lambda f: ctypes.cast(f, ctypes.c_void_p) if f is not None else None)
+    ctx = lib.bs_maskgen_new_ex(MODEL.encode(), 2, w, h, options, ptr(ondebug),
+                                *map(ptr, hooks), None)
+    if not ctx:
+        raise AssertionError(f"bs_maskgen_new_ex({options!r}) returned NULL")
+    masks, spare = np.zeros((n, h, w), np.uint8), np.zeros((h, w), np.uint8)
+    done = 0
+    t0 = time.perf_counter()
+    while True:
+        for i, f in enumerate(frames):
+            dst = masks[i] if done < n else spare
+            if not lib.bs_maskgen_process(ctx, f.ctypes.data, dst.ctypes.data):
+                raise AssertionError(f"bs_maskgen_process failed at frame {done}")
+            done += 1
+        if time.perf_counter() - t0 >= window_s:
+            break
+    ms = (time.perf_counter() - t0) * 1e3 / done
+    lib.bs_maskgen_delete(ctx)
+    return masks, ms
+
+
+def _maskgen_loop(frames, as_bytes=False, window_s=0.0, **kw):
+    """An in-process ``MaskGen`` on the card over ``frames`` (over and over
+    until ``window_s`` has passed, at least once): (the first pass's masks,
+    host ms a frame of the loop, ended by a synchronization).  ``as_bytes``
+    calls ``process_bytes``, the C ABI's own entry, in place of
+    ``process``."""
+    import torch
+    from backscrub_tpu_torch.pipeline.maskgen import MaskGen
+    (w, h), n = CAPI_SIZE, len(frames)
+    mg = MaskGen(MODEL, w, h, device="cuda", **kw)
+    call = ((lambda f: mg.process_bytes(f.tobytes(), h, w)) if as_bytes else mg.process)
+    out, done = [], 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while True:
+        for f in frames:
+            m = call(f)
+            if done < n:
+                out.append(m)
+            done += 1
+        if time.perf_counter() - t0 >= window_s:
+            break
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / done
+    if as_bytes:
+        return np.stack([np.frombuffer(b, np.uint8).reshape(h, w) for b in out]), ms
+    return torch.stack(out).cpu().numpy(), ms
+
+
+def _capi_counts(what, want, body):
+    counts = _counts()
+    from backscrub_tpu_torch.ops.megakernel import body_launch
+    by_kernel = dict(body_launch.by_kernel)
+    if counts != want or by_kernel != body:
+        raise AssertionError(f"capi {what}: launches {counts} {by_kernel}, expected {want} "
+                             f"{body}")
+    return counts
+
+
+def capi_phase():
+    """The C ABI on the card (``backscrub_tpu_torch/native/bs_capi.cc``): the
+    shim by ctypes in this interpreter, fused (K1 and K2 a frame, ``onmask``
+    a frame) and staged (K5 a frame, the hooks in the reference order), each
+    byte-identical to an in-process ``MaskGen`` on the same frames; NULL with
+    an ``ondebug`` message for an unknown option, a missing model and an
+    unknown ``BACKSCRUB_TORCH_DEVICE``; the native consumer
+    (``native/demo.cc`` linked against the shim) as a subprocess on the same
+    frames from a raw BGR file, its masks byte-equal to the fused C path's
+    and its YUYV to the plain composite of those masks; ``entry()`` over
+    four frames byte-identical to ``FramePipeline.step`` in one K1, K2 and
+    K3 launch a call; and
+    host ms a frame of the C loop against ``MaskGen.process`` in turns of at
+    least CAPI_WINDOW_S, CAPI_PAIRS alternating C/process pairs, then
+    ``process_bytes`` twice.  Returns (the
+    ``capi:`` line's numbers, the C path's launches by kernel)."""
+    import ctypes
+    import site
+    import tempfile
+    import torch
+    from backscrub_tpu_torch import _build
+    from backscrub_tpu_torch.entry import entry
+    from backscrub_tpu_torch.io.streams import SyntheticSource
+    from backscrub_tpu_torch.ops.megakernel import body_launch
+    from backscrub_tpu_torch.pipeline.frame import FramePipeline, PipelineConfig
+    from backscrub_tpu_torch.pipeline.image import alpha_blend_u8, flip, rgb_to_yuyv
+
+    (w, h), n = CAPI_SIZE, CAPI_FRAMES
+    os.environ.pop("BACKSCRUB_TORCH_DEVICE", None)   # the C ABI's default: the card
+    t0 = time.perf_counter()
+    lib = _capi_lib()
+    build_s = time.perf_counter() - t0
+    version = lib.bs_tensorflow_version().decode()
+    if version != f"torch-{torch.__version__}":
+        raise AssertionError(f"bs_tensorflow_version: {version}")
+    src = SyntheticSource(w, h)
+    frames = [np.ascontiguousarray(src.read()) for _ in range(n)]
+    res = {"version": version, "shim_build_s": build_s}
+    CB = ctypes.CFUNCTYPE(None, ctypes.c_void_p)
+    DBG = ctypes.CFUNCTYPE(None, ctypes.c_void_p, ctypes.c_char_p)
+
+    # (a) fused: onmask (and ondebug) only
+    want_fused, _ = _maskgen_loop(frames)
+    fired = collections.Counter()
+    onmask = CB(lambda _c: fired.update(["mask"]))
+    _zero_counts()
+    body_launch.by_kernel.clear()
+    fused, _ = _capi_run(lib, frames, hooks=(None, None, onmask))
+    launches = _capi_counts("fused", dict(front=n, body=n, pack=0, pack_420=0, bilateral=0,
+                                          jpeg_decode=0), {"bs_body_mega": n})
+    if dict(fired) != {"mask": n} or not np.array_equal(fused, want_fused):
+        raise AssertionError(f"capi fused: hooks {dict(fired)}, masks "
+                             f"{int((fused != want_fused).sum())} bytes off MaskGen's")
+
+    # (b) staged: every stage hook, in the reference order
+    want_staged, _ = _maskgen_loop(frames, fused=False)
+    order = []
+    hooks = tuple(CB(lambda _c, k=k: order.append(k)) for k in ("prep", "infer", "mask"))
+    _zero_counts()
+    body_launch.by_kernel.clear()
+    staged, _ = _capi_run(lib, frames, hooks=hooks)
+    launches["bilateral"] = _capi_counts(
+        "staged", dict(front=0, body=0, pack=0, pack_420=0, bilateral=n, jpeg_decode=0),
+        {})["bilateral"]
+    if order != ["prep", "infer", "mask"] * n or not np.array_equal(staged, want_staged):
+        raise AssertionError(f"capi staged: hooks {order[:6]}... ({len(order)}), masks "
+                             f"{int((staged != want_staged).sum())} bytes off MaskGen's")
+
+    # (c) failures come back as NULL with an ondebug message
+    for what, model, options, env, want in (
+            ("unknown option", MODEL, b"bogus:1", None, b"unknown maskgen option"),
+            ("missing model", "/no/such/model.tflite", b"", None, b"not found"),
+            ("unknown device", MODEL, b"", "bogus", b"BACKSCRUB_TORCH_DEVICE")):
+        msgs = []
+        ondebug = DBG(lambda _c, m: msgs.append(m))
+        if env:
+            os.environ["BACKSCRUB_TORCH_DEVICE"] = env
+        try:
+            ctx = lib.bs_maskgen_new_ex(model.encode(), 2, w, h, options,
+                                        ctypes.cast(ondebug, ctypes.c_void_p),
+                                        None, None, None, None)
+        finally:
+            os.environ.pop("BACKSCRUB_TORCH_DEVICE", None)
+        if ctx or not any(want in m for m in msgs):
+            raise AssertionError(f"capi {what}: context {ctx}, ondebug {msgs}")
+
+    # (d) the native consumer on the same frames, from a raw BGR file
+    t0 = time.perf_counter()
+    demo = _build.native_program()
+    res["demo_build_s"] = time.perf_counter() - t0
+    env = dict(os.environ, PYTHONPATH=":".join([REPO] + site.getsitepackages()))
+    with tempfile.TemporaryDirectory() as tmp:
+        src_path, out, dump = (os.path.join(tmp, f) for f in ("in.bgr", "out.yuyv", "m.raw"))
+        with open(src_path, "wb") as fh:
+            for f in frames:
+                fh.write(f.tobytes())
+        t0 = time.perf_counter()
+        r = subprocess.run([demo, "--cg", f"{w}x{h}", "-n", str(n), "-H", "-c", src_path,
+                            "-v", out, "--dump-mask", dump, "-m", MODEL, "-d"],
+                           env=env, capture_output=True, text=True, timeout=CAPI_TIMEOUT)
+        res["demo_wall_s"] = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise AssertionError(f"demo exit {r.returncode}: {r.stderr[-3000:]}")
+        yuyv = np.fromfile(out, np.uint8)
+        dmasks = np.fromfile(dump, np.uint8)
+    if dmasks.size != n * h * w or not np.array_equal(dmasks.reshape(n, h, w), fused):
+        raise AssertionError("demo masks: not byte-equal to the fused C path's")
+    green = torch.zeros((h, w, 3), dtype=torch.uint8)
+    green[..., 1] = 255
+    for i, f in enumerate(frames):
+        comp = flip(alpha_blend_u8(green, torch.from_numpy(f), torch.from_numpy(fused[i])),
+                    horizontal=True)
+        want = rgb_to_yuyv(comp, chroma_order="reference").numpy().tobytes()
+        if yuyv[i * h * w * 2:(i + 1) * h * w * 2].tobytes() != want:
+            raise AssertionError(f"demo YUYV frame {i}: not the plain composite's bytes")
+    fps = [float(ln.rsplit(None, 2)[-2]) for ln in r.stderr.splitlines()
+           if ln.startswith("frame ")]
+    stages = collections.defaultdict(list)
+    for ln in r.stderr.splitlines():
+        if ln.startswith("frame "):
+            parts = ln.split()
+            for k in ("grab", "mask", "post", "sink"):
+                stages[k].append(int(parts[parts.index(k) + 1]) / 1e6)
+    warm = slice(10, None)   # the first frames build and warm the plans
+    res["demo"] = dict(frames=n, fps_median=float(np.median(fps[warm])),
+                       fps_min=float(np.min(fps[warm])), fps_max=float(np.max(fps[warm])),
+                       **{f"{k}_ms_median": float(np.median(v[warm])) for k, v in stages.items()})
+
+    # (e) the flagship entry on its example frame and three more, the EMA
+    # carried: one K1, K2 and K3 launch a call, FramePipeline.step's bytes
+    fn, (frame, bg, ema) = entry(MODEL, device="cuda")
+    pipe = FramePipeline(MODEL, PipelineConfig(width=640, height=480), device="cuda")
+    for k, f in enumerate([frame] + [torch.from_numpy(x).cuda() for x in frames[:3]]):
+        want_out, want_mask = pipe.step(f, bg)
+        _zero_counts()
+        body_launch.by_kernel.clear()
+        out, mask, ema = fn(f, bg, ema)
+        _capi_counts("entry", dict(front=1, body=1, pack=1, pack_420=0, bilateral=0,
+                                   jpeg_decode=0), {"bs_body_mega": 1})
+        if not (torch.equal(out, want_out) and torch.equal(mask, want_mask)
+                and torch.equal(ema, pipe.maskgen.ema)):
+            raise AssertionError(f"entry() call {k}: not byte-identical to FramePipeline.step")
+
+    # (f) host ms a frame in turns of at least CAPI_WINDOW_S each: CAPI_PAIRS
+    # C/process pairs in alternating order (C P, P C, C P, ...), then
+    # process_bytes twice
+    kinds = [k for i in range(CAPI_PAIRS) for k in (("c", "process"), ("process", "c"))[i % 2]]
+    turns = []
+    for kind in kinds + ["process_bytes", "process_bytes"]:
+        if kind == "c":
+            m, ms = _capi_run(lib, frames, window_s=CAPI_WINDOW_S)
+        else:
+            m, ms = _maskgen_loop(frames, as_bytes=kind == "process_bytes",
+                                  window_s=CAPI_WINDOW_S)
+        if not np.array_equal(m, fused):
+            raise AssertionError(f"capi timing turn {kind}: masks differ")
+        turns.append((kind, ms))
+    res["window_s"] = CAPI_WINDOW_S
+    res["turns_ms_per_frame"] = [[k, ms] for k, ms in turns]
+    by = collections.defaultdict(list)
+    for k, ms in turns:
+        by[k].append(ms)
+    # each C turn less the process turn of its pair
+    over = [c - p for c, p in zip(by["c"], by["process"])]
+    res["c_overhead_ms_per_frame"] = over
+    res["c_overhead_ms_median"] = float(np.median(over))
+    res["process_ms_spread"] = max(by["process"]) - min(by["process"])
+    res["c_ms_spread"] = max(by["c"]) - min(by["c"])
+    print(f"capi {w}x{h}: {version}; fused C path {n} frames byte-identical to MaskGen, "
+          f"launches {launches}; staged byte-identical, hooks in order; NULL + ondebug for "
+          f"3 faults; demo masks and YUYV byte-equal, median {res['demo']['fps_median']:.1f} "
+          f"fps; entry() = FramePipeline.step in one K1/K2/K3; ms/frame in turns of "
+          f">= {CAPI_WINDOW_S} s " + ", ".join(f"{k} {ms:.4f}" for k, ms in turns)
+          + f"; C overhead median {res['c_overhead_ms_median']:.4f} ms/frame over "
+          f"{CAPI_PAIRS} pairs (process turns' spread {res['process_ms_spread']:.4f}, "
+          f"C turns' {res['c_ms_spread']:.4f})")
+    return res, launches
+
+
 def device_check():
     """A pipeline built without ``device=`` runs on the card."""
     from backscrub_tpu_torch.pipeline.frame import FramePipeline, PipelineConfig
@@ -3192,6 +3484,9 @@ def main() -> int:
     t0 = time.perf_counter()
     batched, multistream = multistream_phase()
     print(f"multistream phase: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    capi, capi_launches = capi_phase()
+    print(f"capi phase: {time.perf_counter() - t0:.2f} s")
     main_size = SIZES[0]
     # launches: each kernel's count from the run of the path it serves
     launches = dict(runs[main_size][0], body_prefix=dl_launches["body_prefix"],
@@ -3239,6 +3534,10 @@ def main() -> int:
                       "backscrub_tpu/ops/megakernel.py:516 (BodyMega flat=True, the DEFAULT "
                       "dots of the continuation chain)"),
     }
+    # the C ABI's launches (capi_phase): K1 and K2 fused, K5 staged
+    for name, count in capi_launches.items():
+        if count:
+            results[name]["capi_launches"] = count
     # the stream batches' numbers (multistream_phase) beside each kernel's
     for name, by_s in batched.items():
         if name in results:
@@ -3270,7 +3569,7 @@ def main() -> int:
                                          "library_b2b_ms", "precision_gap",
                                          "main_path_launches", "mean_abs_err",
                                          "three_term_device_ms", "rows_held",
-                                         "control_rows_off", "batched")
+                                         "control_rows_off", "batched", "capi_launches")
             if k in results[name]}}
         for name, (src, rep) in meta.items()]}
     print(f"chip_smoke phases: {time.perf_counter() - t_start:.2f} s")
@@ -3281,6 +3580,7 @@ def main() -> int:
     print("mjpg: " + json.dumps(dict(mjpg, decode={k: {n: v for n, v in r.items()}
                                                    for k, r in jpeg_kernel.items()})))
     print("multistream: " + json.dumps(multistream))
+    print("capi: " + json.dumps(capi))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

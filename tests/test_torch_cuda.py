@@ -1450,3 +1450,62 @@ def test_multistream_server_on_card_is_direct_steps(cuda_device):
     for s in range(S):
         for k in range(n):
             np.testing.assert_array_equal(got[s][k], want[k][s])
+
+
+# ---------------------------------------------------------------------------
+# the C ABI and the flagship entry on the card
+
+
+@pytest.mark.parametrize("staged", [False, True])
+def test_capi_on_card_is_maskgen(cuda_device, monkeypatch, staged):
+    """The C ABI by ctypes with BACKSCRUB_TORCH_DEVICE unset runs on the
+    card: fused, one K1 and one K2 launch a frame and no K5; staged (a stage
+    hook set), one K5 a frame and no K1 or K2; the masks byte-identical to
+    an in-process MaskGen on the card."""
+    import ctypes
+    monkeypatch.delenv("BACKSCRUB_TORCH_DEVICE", raising=False)
+    lib = ctypes.CDLL(_build.capi_library())
+    lib.bs_maskgen_new.restype = ctypes.c_void_p
+    lib.bs_maskgen_new.argtypes = [ctypes.c_char_p] + [ctypes.c_size_t] * 3 + [ctypes.c_void_p] * 5
+    lib.bs_maskgen_process.restype = ctypes.c_bool
+    lib.bs_maskgen_process.argtypes = [ctypes.c_void_p] * 3
+    lib.bs_maskgen_delete.argtypes = [ctypes.c_void_p]
+    n, (w, h) = 5, (640, 480)
+    frames = [np.ascontiguousarray(f) for f in _synthetic_frames(w, h, n)]
+    ref = MaskGen(str(FULL), w, h, device=cuda_device, fused=not staged)
+    want = [ref.process(f).cpu().numpy() for f in frames]
+    hook = ctypes.CFUNCTYPE(None, ctypes.c_void_p)(lambda _c: None)
+    hooks = [ctypes.cast(hook, ctypes.c_void_p) if staged else None, None, None]
+    ctx = lib.bs_maskgen_new(str(FULL).encode(), 2, w, h, None, *hooks, None)
+    assert ctx
+    before = (tedge.front_fused.launches, body_launch.by_kernel["bs_body_mega"],
+              bilateral5.launches)
+    for f, m in zip(frames, want):
+        got = np.zeros((h, w), np.uint8)
+        assert lib.bs_maskgen_process(ctx, f.ctypes.data, got.ctypes.data)
+        assert np.array_equal(got, m)
+    lib.bs_maskgen_delete(ctx)
+    after = (tedge.front_fused.launches, body_launch.by_kernel["bs_body_mega"],
+             bilateral5.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == ((0, 0, n) if staged else (n, n, 0))
+
+
+def test_entry_on_card_is_frame_pipeline_step(cuda_device):
+    """``entry()``'s step on the card (``pipe.step_batch`` on a batch of
+    one) over its example frame and three synthetic ones, the EMA carried:
+    FramePipeline.step's bytes, one K1, one K2 and one K3 launch a call."""
+    from backscrub_tpu_torch.entry import entry
+    fn, (frame, bg, ema) = entry(str(FULL))
+    assert all(a.device.type == "cuda" for a in (frame, bg, ema))
+    pipe = FramePipeline(str(FULL), PipelineConfig(width=640, height=480), device=cuda_device)
+    for f in [frame] + [torch.from_numpy(np.ascontiguousarray(x)).cuda()
+                        for x in _synthetic_frames(640, 480, 3)]:
+        want_out, want_mask = pipe.step(f, bg)
+        before = (tedge.front_fused.launches, body_launch.by_kernel["bs_body_mega"],
+                  blend_pack_yuyv.launches)
+        out, mask, ema = fn(f, bg, ema)
+        after = (tedge.front_fused.launches, body_launch.by_kernel["bs_body_mega"],
+                 blend_pack_yuyv.launches)
+        assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 1)
+        assert torch.equal(out, want_out) and torch.equal(mask, want_mask)
+        assert torch.equal(ema, pipe.maskgen.ema)

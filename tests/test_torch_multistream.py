@@ -21,8 +21,8 @@ Bars:
   byte-equal (on CPU tensors every stage is the same plain arithmetic).
 - The servers' deliveries: byte-equal to solo steps where the JAX tests
   hold bit identity, else the tolerance invariant, as there.
-- The classic preprocess (ROADMAP queue 3): deeplab's model inputs at
-  640x480 equal the JAX package's bit for bit off the resize's x.5 ties.
+- The classic preprocess: the model inputs equal the JAX package's bit
+  for bit, the resize's x.5 ties included (ROADMAP queue 3).
 """
 
 import pathlib
@@ -341,12 +341,12 @@ def _share(a, b):
 def test_preprocess_matches_jax_off_the_resize_ties():
     """The classic preprocess of the first four ``SyntheticSource`` frames
     at 640x480 gives deeplab's model inputs (scale 1/127.5, offset -1) bit
-    for bit as the JAX package's, ``x * scale + offset`` rounded once as
+    for bit as the JAX package's: ``x * scale + offset`` rounded once as
     XLA's fused multiply-add rounds it (before, 1 ulp off at about 127k
-    inputs a frame), except where the resize meets an exact x.5 tie: the
-    second frame's 12 inputs, one u8 step apart (ROADMAP queue 3: XLA:CPU
-    sums the 2-tap rows with or without a fused multiply-add by shape, so no
-    one PyTorch contraction matches it at every tie)."""
+    inputs a frame), and the resize's exact x.5 ties rounded as XLA:CPU
+    sums deeplab's 2-tap rows, two rounded products added
+    (``maskgen.resize_two_tap``; before, the second frame's 12 inputs were
+    one u8 step apart, ROADMAP queue 3)."""
     port = MaskGen(DEEPLAB, 640, 480, device="cpu", edge_fused=False)
     ref = JaxMaskGen(DEEPLAB, 640, 480, edge_fused=False)
     src = SyntheticSource(640, 480)
@@ -356,10 +356,28 @@ def test_preprocess_matches_jax_off_the_resize_ties():
         with torch.no_grad():
             x = port._pre(torch.from_numpy(f)).numpy()
         jx = np.asarray(ref._pre(jnp.asarray(f)))
-        steps = np.abs(x.astype(np.float64) - jx) / port.spec.scale
-        assert np.all((steps == 0) | (np.abs(steps - 1) < 1e-3))
-        apart.append(int((steps > 0).sum()))
-    assert apart == [0, 12, 0, 0], apart
+        apart.append(int((x != jx).sum()))
+    assert apart == [0, 0, 0, 0], apart
+
+
+@pytest.mark.parametrize("path,w,h", [(FULL, 640, 480), (FULL, 1280, 720),
+                                      (DEEPLAB, 1280, 720), (MLKIT, 640, 480)],
+                         ids=["segm_full-640x480", "segm_full-1280x720",
+                              "deeplab-1280x720", "mlkit-640x480"])
+def test_preprocess_resize_ties_match_jax(path, w, h):
+    """The classic preprocess on six ``SyntheticSource`` frames, bit for bit
+    the JAX package's, over a stream batch of two as well: segm_full at
+    640x480 runs both passes of ``maskgen.FMA_PASSES`` (its 640 -> 192
+    columns with one row's taps across the block of 512), the others the
+    two rounded products."""
+    port = MaskGen(path, w, h, device="cpu", edge_fused=False)
+    ref = JaxMaskGen(path, w, h, edge_fused=False)
+    src = SyntheticSource(w, h)
+    frames = np.stack([src.read() for _ in range(6)])
+    for f in list(frames) + [frames[1:3]]:
+        with torch.no_grad():
+            x = port._pre(torch.from_numpy(f)).numpy()
+        np.testing.assert_array_equal(x, np.asarray(ref._pre(jnp.asarray(f))))
 
 
 # ---------------------------------------------------------------------------
