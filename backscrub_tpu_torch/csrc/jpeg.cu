@@ -28,8 +28,8 @@
 // Bound: bytes.  The coefficients in (128 B a block) and the BGR bytes out
 // (3 a pixel): 0.92 + 0.92 MB at 640x480 4:2:0, 0.55 us at 3.35 TB/s;
 // 2.76 + 2.76 MB at 1280x720, 1.65 us.  The planes (1 B a sample) go out
-// and back in through the 50 MB L2.  A simple kernel first: making it fast
-// is ROADMAP queue 1 item 11.
+// and back in through the 50 MB L2.  A simple kernel first; the MJPG
+// encode, which has no kernel yet, is ROADMAP's held lead 3.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

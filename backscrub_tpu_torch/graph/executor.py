@@ -39,17 +39,23 @@ class LoweringCtx:
     (variant) key, preparing the numpy layout on first sight, in
     ``compute_dtype``; an int8 kernel dequantized once into ``dequantized``
     (the model's, kept across runs: key -> (int8 tensor, its dequantized
-    value))."""
+    value)).  ``weight_meta`` gets, for each key prepared here, how to map
+    the parameter back into the file (``tflite/export.py``): its tensor
+    index, the payload dtype (f16 for a folded DEQUANTIZE output) and the
+    inverse of the layout transform, in the order the keys are prepared
+    (the JAX executor's ``weight_meta``)."""
 
     def __init__(self, graph: GraphIR, params: Dict[str, torch.Tensor],
                  prepared: Optional[Dict[str, np.ndarray]] = None,
                  compute_dtype: torch.dtype = torch.float32,
-                 dequantized: Optional[Dict[str, tuple]] = None):
+                 dequantized: Optional[Dict[str, tuple]] = None,
+                 weight_meta: Optional[Dict[str, dict]] = None):
         self.graph = graph
         self.params = params
         self.prepared = prepared    # build-time store, None once built
         self.compute_dtype = compute_dtype
         self.dequantized = {} if dequantized is None else dequantized
+        self.weight_meta = {} if weight_meta is None else weight_meta
         self.env: Dict[int, torch.Tensor] = {}
 
     def get(self, idx: int) -> torch.Tensor:
@@ -60,12 +66,13 @@ class LoweringCtx:
         raise KeyError(f"tensor {self.graph.tensor(idx)!r} referenced before definition")
 
     def get_const(self, idx: int, prepare: Optional[Callable] = None,
-                  variant: str = "") -> torch.Tensor:
+                  variant: str = "", inverse: Optional[Callable] = None) -> torch.Tensor:
         key = f"t{idx}" + (f"@{variant}" if variant else "")
         if key not in self.params:
             if self.prepared is None:
                 raise KeyError(f"parameter {key} was not prepared at build time")
             arr = self.graph.tensor(idx).data
+            self.weight_meta[key] = dict(tensor_index=idx, inverse=inverse, dtype=arr.dtype)
             if prepare is not None:
                 arr = prepare(arr)
             if np.issubdtype(arr.dtype, np.floating):
@@ -121,8 +128,8 @@ def fold_constants(graph: GraphIR) -> GraphIR:
 
 def run_nodes(graph: GraphIR, params, nodes, inputs: Dict[int, torch.Tensor],
               prepared=None, compute_dtype: torch.dtype = torch.float32,
-              dequantized=None) -> LoweringCtx:
-    ctx = LoweringCtx(graph, params, prepared, compute_dtype, dequantized)
+              dequantized=None, weight_meta=None) -> LoweringCtx:
+    ctx = LoweringCtx(graph, params, prepared, compute_dtype, dequantized, weight_meta)
     for idx, x in inputs.items():
         ctx.set(idx, x)
     for node in nodes:
@@ -134,22 +141,28 @@ class CompiledModel(nn.Module):
     """A TFLite graph run eagerly on NHWC float tensors.
 
     ``forward(x)`` maps (N, H, W, C) float input to the model output in
-    ``compute_dtype``, as the JAX ``CompiledModel`` does.  ``params`` holds
+    ``compute_dtype``, as the JAX ``CompiledModel`` does; ``raw_fn(params,
+    x)`` runs it on a caller's parameter dict (every key of ``params``),
+    the functional form that training differentiates.  ``params`` holds
     the prepared weights (on the module's device); ``host_params`` their
-    numpy copy; ``quantize_mode`` is None or "int8"; ``dequantized`` the
-    int8 kernels in ``compute_dtype``, each made at its first use and kept.
+    numpy copy; ``weight_meta`` each key's way back into the file
+    (:class:`LoweringCtx`); ``quantize_mode`` is None or "int8";
+    ``dequantized`` the int8 kernels in ``compute_dtype``, each made at its
+    first use and kept.
     """
 
     def __init__(self, graph: GraphIR, params: Dict[str, torch.Tensor],
                  host_params: Dict[str, np.ndarray],
                  compute_dtype: torch.dtype = torch.float32,
-                 quantize_mode: Optional[str] = None):
+                 quantize_mode: Optional[str] = None,
+                 weight_meta: Optional[Dict[str, dict]] = None):
         super().__init__()
         self.graph = graph
         self.params = params
         self.host_params = host_params
         self.compute_dtype = compute_dtype
         self.quantize_mode = quantize_mode
+        self.weight_meta = {} if weight_meta is None else weight_meta
         self.dequantized: Dict[str, tuple] = {}
         self.input_shape = tuple(graph.tensor(graph.inputs[0]).shape)
         self.output_shape = tuple(graph.tensor(graph.outputs[0]).shape)
@@ -161,9 +174,13 @@ class CompiledModel(nn.Module):
         return super()._apply(fn, recurse)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.raw_fn(self.params, x, self.dequantized)
+
+    def raw_fn(self, params: Dict[str, torch.Tensor], x: torch.Tensor,
+               dequantized: Optional[Dict[str, tuple]] = None) -> torch.Tensor:
         g = self.graph
-        ctx = run_nodes(g, self.params, g.nodes, {g.inputs[0]: x.to(self.compute_dtype)},
-                        compute_dtype=self.compute_dtype, dequantized=self.dequantized)
+        ctx = run_nodes(g, params, g.nodes, {g.inputs[0]: x.to(self.compute_dtype)},
+                        compute_dtype=self.compute_dtype, dequantized=dequantized)
         return ctx.get(g.outputs[0])
 
 
@@ -199,15 +216,17 @@ def build_model(graph: GraphIR, compute_dtype: torch.dtype = torch.float32,
     graph = fold_constants(graph)
     params: Dict[str, torch.Tensor] = {}
     prepared: Dict[str, np.ndarray] = {}
+    weight_meta: Dict[str, dict] = {}
     x = torch.zeros(graph.tensor(graph.inputs[0]).shape, dtype=compute_dtype)
     with torch.no_grad():
-        run_nodes(graph, params, graph.nodes, {graph.inputs[0]: x}, prepared, compute_dtype)
+        run_nodes(graph, params, graph.nodes, {graph.inputs[0]: x}, prepared, compute_dtype,
+                  weight_meta=weight_meta)
     if quantize == "int8":
         qparams, scales = quantize_params(prepared, exclude=boundary_keys(graph))
         for k, s in scales.items():
             prepared[k], prepared[k + "__scale"] = qparams[k], s
             params[k], params[k + "__scale"] = torch.from_numpy(qparams[k]), torch.from_numpy(s)
-    return CompiledModel(graph, params, prepared, compute_dtype, quantize)
+    return CompiledModel(graph, params, prepared, compute_dtype, quantize, weight_meta)
 
 
 def load_model(path: str, device="cuda", *, compute_dtype: torch.dtype = torch.float32,

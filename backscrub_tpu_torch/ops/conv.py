@@ -60,7 +60,8 @@ def _bias(ctx, node):
 def conv2d(ctx, node):
     o = node.options
     w = ctx.get_const(node.inputs[1], lambda a: np.transpose(a, (1, 2, 3, 0)),
-                      variant="hwio")                       # OHWI -> HWIO
+                      variant="hwio",                       # OHWI -> HWIO
+                      inverse=lambda a: np.transpose(a, (3, 0, 1, 2)))
     ctx.set(node.outputs[0], conv2d_nhwc(
         ctx.get(node.inputs[0]), w, _bias(ctx, node),
         (o["stride_h"], o["stride_w"]), o["padding"],
@@ -74,7 +75,7 @@ def depthwise_conv2d(ctx, node):
     # TFLite (1, fh, fw, C*M) -> (fh, fw, 1, C*M); output channel c*M+m
     # reads input channel c, as a grouped conv with groups = C
     w = ctx.get_const(node.inputs[1], lambda a: np.transpose(a, (1, 2, 0, 3)),
-                      variant="dw")
+                      variant="dw", inverse=lambda a: np.transpose(a, (2, 0, 1, 3)))
     ctx.set(node.outputs[0], conv2d_nhwc(
         x, w, _bias(ctx, node), (o["stride_h"], o["stride_w"]), o["padding"],
         (o.get("dilation_h", 1), o.get("dilation_w", 1)), o.get("activation"),
@@ -85,7 +86,8 @@ def depthwise_conv2d(ctx, node):
 def fully_connected(ctx, node):
     x = ctx.get(node.inputs[0])
     w = ctx.get_const(node.inputs[1], lambda a: np.transpose(a, (1, 0)),
-                      variant="ko")                         # (O,K) -> (K,O)
+                      variant="ko",                         # (O,K) -> (K,O)
+                      inverse=lambda a: np.transpose(a, (1, 0)))
     o = node.options
     lead = tuple(x.shape[:-1])
     x2 = x.reshape(-1, x.shape[-1])
@@ -117,7 +119,8 @@ def conv2d_transpose_bias(ctx, node):
     # W_ohwi[o, fh-1-h, fw-1-w, i]; conv_transpose2d wants (I, O, fh, fw)
     wf = ctx.get_const(node.inputs[1],
                        lambda a: np.transpose(a[:, ::-1, ::-1, :], (1, 2, 3, 0)),
-                       variant="tconv")
+                       variant="tconv",
+                       inverse=lambda a: np.transpose(a, (3, 0, 1, 2))[:, ::-1, ::-1, :])
     wt = torch.flip(wf, (0, 1)).permute(2, 3, 0, 1)
     sh, sw = o["stride_h"], o["stride_w"]
     pad = o.get("padding", "SAME")

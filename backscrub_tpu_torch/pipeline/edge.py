@@ -29,7 +29,9 @@ the body between (counterpart of ``backscrub_tpu/pipeline/edge.py``).
 Every stage takes a stream batch too, as the JAX stages do with their
 leading axes: frames (S, H, W, 3) and EMAs (S, oh, ow) make S canvases in
 one K1 launch, one launch of each body plan over the S inputs, the
-executor remainder at batch S, and the tail and the post over (S, ...).
+executor remainder at batch S and the tail over (S, ...); the fold-blur
+post takes its products image by image, so that each stream's mask is
+its solo step's (:func:`fold_blur_post`).
 
 Precision: the plans' dots follow ``precision`` (``megakernel.dots_for``;
 "default", the bf16 mode, rounds their operands to bf16); the executor
@@ -338,8 +340,16 @@ def pad_to_frame(m: torch.Tensor, geo: RoiGeometry) -> torch.Tensor:
 def fold_blur_post(small: torch.Tensor, geo: RoiGeometry, ah: torch.Tensor,
                    aw: torch.Tensor) -> torch.Tensor:
     """The cropped EMA (o.h, o.w) u8 -> full-frame mask: ``ah @ crop @
-    aw.T`` (upscale + 5x5 box blur), round, embed."""
-    y = torch.matmul(torch.matmul(ah, small.float()), aw.T)
+    aw.T`` (upscale + 5x5 box blur), round, embed.  A stream batch (...,
+    o.h, o.w) takes its products image by image, each the one-frame call:
+    the library GEMM picks its kernel, and with it the summation order, by
+    the rows it is given, so a product over S images (S·o.w rows) rounds
+    otherwise than one image's (on an H100, mask bytes 1 apart in mlkit's
+    4-stream batch: ``chip_smoke.py`` ``_stage_trace``), and a stream's
+    mask would depend on the batch it rides in."""
+    imgs = small.reshape((-1,) + tuple(small.shape[-2:])).float()
+    y = torch.stack([torch.matmul(torch.matmul(ah, m), aw.T) for m in imgs])
+    y = y.reshape(tuple(small.shape[:-2]) + tuple(y.shape[-2:]))
     return pad_to_frame(torch.clamp(torch.round(y), 0, 255).to(torch.uint8), geo)
 
 

@@ -7,7 +7,7 @@ fixed-point RGB->YCbCr, chroma downsampling, the islow forward DCT,
 quantisation and the zigzag gather — and only the bit-serial Huffman pack
 stays on the host (``native/bsjpeg.cc`` ``bsjpeg_encode_zz``, wrapped by
 ``io/jpeg.py:JpegHuffmanEncoder``).  It runs with ``--sink-format mjpg``
-only; it has no kernel of its own yet (ROADMAP queue 1 item 11).
+only; it has no kernel of its own yet (ROADMAP, held lead 3).
 
 Numerics reproduce libjpeg's encoder exactly (jccolor.c rgb_ycc_convert,
 jcsample.c h2v2/h2v1_downsample, jfdctint.c jpeg_fdct_islow, jcdctmgr.c

@@ -2,7 +2,8 @@
 
 A copy of ``backscrub_tpu/tflite/ir.py`` (numpy dataclasses only): the
 port cannot import the JAX package, whose ``__init__`` loads JAX.  The
-loader (``tflite/loader.py``) fills it and the graph executor
+loader (``tflite/loader.py``) fills it, with each tensor's payload span in
+the file, which ``tflite/export.py`` patches; the graph executor
 (``graph/executor.py``) runs it op by op in PyTorch.
 """
 
@@ -37,6 +38,10 @@ class TensorIR:
     shape: Tuple[int, ...]
     dtype: np.dtype
     data: Optional[np.ndarray] = None  # None for activations
+    # where the payload lies in the file (tflite/loader.py), for export to
+    # patch a copy in place: byte offset and length, None / 0 without one
+    buffer_offset: Optional[int] = None
+    buffer_size: int = 0
 
     @property
     def is_constant(self) -> bool:

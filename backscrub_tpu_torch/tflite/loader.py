@@ -106,14 +106,19 @@ class _Table:
         p = self._indirect(slot)
         return None if p is None else _Table(self.buf, p)
 
-    def vector(self, slot: int, dtype) -> Optional[np.ndarray]:
+    def span(self, slot: int, itemsize: int = 1) -> Optional[tuple]:
+        """(byte offset, element count) of the vector in field ``slot``."""
         p = self._indirect(slot)
         if p is None:
             return None
         n = _read(self.buf, "<I", p)
+        _check(self.buf, p + 4, n * itemsize)
+        return p + 4, n
+
+    def vector(self, slot: int, dtype) -> Optional[np.ndarray]:
         dt = np.dtype(dtype).newbyteorder("<")
-        _check(self.buf, p + 4, n * dt.itemsize)
-        return np.frombuffer(self.buf, dt, n, p + 4)
+        span = self.span(slot, dt.itemsize)
+        return None if span is None else np.frombuffer(self.buf, dt, span[1], span[0])
 
     def tables(self, slot: int) -> List["_Table"]:
         offs = self.vector(slot, np.uint32)
@@ -226,6 +231,12 @@ def load_tflite(path: str) -> GraphIR:
     return load_tflite_bytes(buf, name=path)
 
 
+def subgraph_count(buf: bytes) -> int:
+    """The number of subgraphs in a ``.tflite`` file's bytes."""
+    buf = bytes(buf)
+    return len(_Table(buf, _read(buf, "<I", 0)).tables(2))
+
+
 def load_tflite_bytes(buf: bytes, name: str = "<bytes>") -> GraphIR:
     buf = bytes(buf)
     model = _Table(buf, _read(buf, "<I", 0))
@@ -267,21 +278,23 @@ def _load_subgraph(g: _Table, buffers: List[_Table], codes, name: str,
         shape_v = t.vector(0, np.int32)
         shape = tuple(int(s) for s in shape_v) if shape_v is not None else ()
         dtype = TENSOR_TYPE_TO_NP.get(t.scalar(1, "<b"), np.float32)
-        data = None
+        data, span = None, None
         bidx = t.scalar(2, "<I")
         if bidx > 0:
             if bidx >= len(buffers):
                 raise ValueError(f"tensor {ti} names buffer {bidx} of "
                                  f"{len(buffers)}")
-            raw = buffers[bidx].vector(0, np.uint8)
-            if raw is not None and len(raw):
-                data = np.frombuffer(raw.tobytes(), dtype=dtype)
+            span = buffers[bidx].span(0)
+            if span is not None and span[1]:
+                data = np.frombuffer(buffers[bidx].vector(0, np.uint8).tobytes(), dtype=dtype)
                 if shape:
                     data = data.reshape(shape)
                 data = _dequantize(t, data)
                 dtype = data.dtype.type
         tensors.append(TensorIR(index=ti, name=t.string(3) or f"t{ti}",
-                                shape=shape, dtype=dtype, data=data))
+                                shape=shape, dtype=dtype, data=data,
+                                buffer_offset=span[0] if span and span[1] else None,
+                                buffer_size=span[1] if span else 0))
 
     nodes: List[NodeIR] = []
     for op in g.tables(3):

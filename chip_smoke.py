@@ -163,9 +163,12 @@ Usage (from the repository root, on a machine with a CUDA card)::
    mlkit and deeplab, 4 streams for 30 ticks (one K1, one launch of each
    plan and one K3 a tick, counted from zero) against solo
    ``FramePipeline`` steps under the decode flip rule (deeplab's limit
-   MS_DEEPLAB_TIE) and the tolerance invariant, deeplab also with its
-   canvas and executor remainder image by image (no flip) and with a
-   planted fault (bf16 dots) that the limit must catch;
+   MS_DEEPLAB_TIE) and the tolerance invariant, every stage of the edge
+   path traced against its solo form on the batch's own inputs tick by
+   tick (``_stage_trace``), mlkit bit-identical to the solo steps at every
+   stage and byte, both also with the canvas and executor remainder image
+   by image (no flip), deeplab with a planted fault (bf16 dots) that its
+   limit must catch;
    ``MultiStreamServer`` (pull) deliveries byte-identical to direct steps
    at 1, 2, 4 and 8 streams, then fps per card (median and range of five
    windows of 2 s) and a profiled window's host ms, device busy and idle
@@ -199,7 +202,21 @@ Usage (from the repository root, on a machine with a CUDA card)::
    twice; a ``capi:`` line,
    and the C path's launches as ``capi_launches`` of K1, K2 and K5 in the
    kernels line;
-20. prints one JSON line with every kernel's numbers (launches from the
+20. fine-tuning (``train_phase``): seeded moving frames at 640x480
+   labelled by the mlkit teacher's fused ``MaskGen`` (one K1 and one K2
+   launch a frame, the tail), segm_lite distilled on them at its full
+   96x160 input, batch 8, TRAIN_STEPS Adam steps on the card and the same
+   steps from the same parameters on the CPU through the same port code
+   (losses rtol 1e-4, parameters within 2·lr·n, every loss finite, the
+   last below the first), a checkpoint written before the last step and
+   resumed to the same last loss, the tuned weights exported to a
+   ``.tflite`` that the port's loader reads back as their f16 rounding,
+   served through ``family_fused`` (one K1, K2 and K3 launch a frame, the
+   flip rule and the tolerance invariant against the plain path); host ms
+   and device ms a train step beside the card's name and power limit, the
+   phase's seconds; a ``train:`` line, and the phase's launches as
+   ``train_launches`` of K1, K2 and K3 in the kernels line;
+21. prints one JSON line with every kernel's numbers (launches from the
    run of the path it serves, errors and times measured here, and the
    bound: the larger of the bytes it must move over 3.35 TB/s and its
    operations over the peak of their type, 67 TFLOP/s f32 or 989 TFLOP/s
@@ -375,11 +392,12 @@ def device_ms(fn, n=100, warmup=3, attempts=3, cold=None, kernel=None):
     a name, a buffer of L2_FLUSH_BYTES is overwritten before each call (so
     the inputs come from HBM) and only the kernels whose name holds
     ``cold`` are summed, divided by their count.  The profiler leaves out
-    the first kernel of a window (99 of 100 launches were counted on an
-    H100), so each window opens with a short ``torch.cuda._sleep`` kernel
-    that nothing sums.  A window that records no device events at all, or
-    (with a name) under ``n - 1`` of the named kernel, is measured again,
-    up to ``attempts`` windows."""
+    the first kernels of a window (99 of 100 launches were counted on an
+    H100; 28 of 30 cold K1 launches in three windows running, in another
+    call), so each window opens with three short ``torch.cuda._sleep``
+    kernels that nothing sums.  A window that records no device events at
+    all, or (with a name) under ``n - 1`` of the named kernel, is measured
+    again, up to ``attempts`` windows."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -391,7 +409,8 @@ def device_ms(fn, n=100, warmup=3, attempts=3, cold=None, kernel=None):
     for _ in range(attempts):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(1000)
+            for _ in range(3):
+                torch.cuda._sleep(1000)
             for i in range(n):
                 if cold:
                     flush.fill_(i)
@@ -2575,37 +2594,63 @@ def _ms_cycle(frames, streams):
     return [lambda it=it: next(it) for it in its]
 
 
-def _stage_split(e, fr, ema):
-    """Where a stream batch departs from one-frame runs: for each stage of
-    the edge path that is no kernel (the canvas contraction, the executor
-    remainder, the tail, the post), the elements that differ between the
-    stage over the batch and over its frames one by one, each fed the same
-    batched inputs (the kernels' images are bit-identical to their own
-    launches: ``multistream_kernels``)."""
+def _stage_trace(e, frames):
+    """Where a stream batch departs from solo steps: MS_TICKS ticks of the
+    edge path ``e`` over ``frames`` (n, S, H, W, 3) from fresh EMAs, each
+    stage fed the batch's own inputs (the frames, the previous stage's
+    batch output, the batch's EMA) and run over the batch and then image by
+    image in a solo step's form (no batch axis, as ``FramePipeline.step``
+    calls it).  Returns, per stage (the canvas contraction, K1, each body
+    plan, the executor remainder, the tail's new EMA or the decode, the
+    post: K3's mask input), the elements that differ, summed over every
+    tick and image; and, where the post is the fold-blur one, the same
+    count for its products taken as one GEMM over the batch's rows (the
+    formulation ``edge.fold_blur_post`` had before it went image by image:
+    a control, printed, not held)."""
     import torch
     from backscrub_tpu_torch.pipeline.decode import decode_val, ema_update
-    from backscrub_tpu_torch.pipeline.edge import front_fused
-    S, res = fr.shape[0], {}
+    from backscrub_tpu_torch.pipeline.edge import front_fused, pad_to_frame
+    S, res, kw = frames.shape[1], {}, e.front_kwargs()
+    one_gemm = 0
 
     def split(name, fn, *xs):
         b = fn(*xs)
-        res[name] = sum(int((b[s] != fn(*(x[s:s + 1] for x in xs))[0]).sum())
-                        for s in range(S))
+        res[name] = res.get(name, 0) + sum(int((b[s] != fn(*(x[s] for x in xs))).sum())
+                                           for s in range(S))
         return b
 
+    def plan_stage(plan):
+        m = plan.out_meta
+        return lambda x: plan(x.reshape(x.shape[:-2] + (-1,))).reshape(
+            x.shape[:-3] + (m.c, m.rows, m.w))
+
+    def rest(x):
+        y = e.rest(x.reshape((-1,) + tuple(x.shape[-3:])).permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+        return y.reshape(tuple(x.shape[:-3]) + tuple(y.shape[1:]))
+
+    ema = torch.full((S,) + tuple(e.model.output_shape[1:3]), 255, dtype=torch.uint8,
+                     device="cuda")
     with torch.no_grad():
-        h = front_fused(split("canvas", e.canvas, fr), e.front_params, **e.front_kwargs())
-        for plan in e.plans:
-            m = plan.out_meta
-            h = plan(h.reshape(S, h.shape[-3], -1)).reshape(S, m.c, m.rows, m.w)
-        if e.rest is not None:
-            h = split("rest", lambda x: e.rest(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2), h)
-        if e.info.tail_ok:
-            new = split("tail", lambda x, m: e.tail(x.flatten(-2), m), h, ema)
-        else:
-            new = ema_update(ema, decode_val(h.movedim(-3, -1).float(), e.spec))
-        split("post", e.postprocess, new)
-    return res
+        for k in range(MS_TICKS):
+            fr = torch.from_numpy(frames[k, :S]).cuda()
+            h = split("K1", lambda c: front_fused(c, e.front_params, **kw),
+                      split("canvas", e.canvas, fr))
+            for i, plan in enumerate(e.plans):
+                h = split(f"plan {i}", plan_stage(plan), h)
+            if e.rest is not None:
+                h = split("rest", rest, h)
+            if e.info.tail_ok:
+                ema = split("tail", lambda x, m: e.tail(x.flatten(-2), m), h, ema)
+            else:
+                ema = split("decode", lambda x, m: ema_update(
+                    m, decode_val(x.movedim(-3, -1).float(), e.spec)), h, ema)
+            split("post", e.postprocess, ema)
+            if e.post_mats is not None:
+                ah, aw = e.post_mats
+                y = torch.matmul(torch.matmul(ah, ema.float()), aw.T)
+                one = pad_to_frame(torch.clamp(torch.round(y), 0, 255).to(torch.uint8), e.geo)
+                one_gemm += sum(int((one[s] != e.postprocess(ema[s])).sum()) for s in range(S))
+    return res, (one_gemm if e.post_mats is not None else None)
 
 
 def _ms_run(ms, frames, bg):
@@ -2667,11 +2712,12 @@ def _against_solo(tag, outs, refs, e, tie):
 def _image_by_image(e):
     """Make the edge path ``e`` run its canvas contraction and executor
     remainder image by image (a diagnostic: the stages that a batch
-    computes otherwise than one frame, ``_stage_split``)."""
+    computes otherwise than one frame, ``_stage_trace``)."""
     import torch
     canvas, rest = e.canvas, e.rest
     e.canvas = lambda f: torch.stack([canvas(fi) for fi in f]) if f.dim() == 4 else canvas(f)
-    e.rest = lambda x: torch.cat([rest(x[i:i + 1]) for i in range(x.shape[0])])
+    if rest is not None:
+        e.rest = lambda x: torch.cat([rest(x[i:i + 1]) for i in range(x.shape[0])])
 
 
 def multistream_pipelines(frames):
@@ -2681,16 +2727,20 @@ def multistream_pipelines(frames):
     tick (counted from zero over the run), against solo FramePipeline steps
     of each stream under the decode flip rule (the solo path's plain
     margin) and the tolerance invariant outside the flips' post footprint;
-    the differing bytes printed, and ``_stage_split`` on the first tick.
-    mlkit's flips are held to the near-tie TIE, deeplab's to
-    MS_DEEPLAB_TIE.  For deeplab two more batched runs on the same frames:
+    the differing bytes printed, and ``_stage_trace`` over every tick.
+    mlkit must equal the solo steps bit for bit, at every stage and in
+    every output byte (its fold-blur post takes a batch's products image by
+    image, ``edge.fold_blur_post``); deeplab's flips are held to
+    MS_DEEPLAB_TIE.  Then for both another batched run on the same frames
     with the canvas and the executor remainder image by image
     (``_image_by_image``), whose EMAs must equal the solo ones on every
     tick (no flip: the batch-size-dependent library algorithms of those two
-    stages are the flips' cause); and a planted fault, the batch's dots in
-    one bf16 pass (``compute_dtype=bfloat16, precision="default"``), whose
-    largest flip |margin| must exceed MS_DEEPLAB_TIE (the limit catches
-    it).  Returns {family: numbers}."""
+    stages are deeplab's flips' cause), mlkit's bytes too; and for deeplab
+    a planted fault, the batch's dots in one bf16 pass
+    (``compute_dtype=bfloat16, precision="default"``), whose largest flip
+    |margin| must exceed MS_DEEPLAB_TIE (the limit catches it).  Returns
+    {family: numbers}.
+    """
     import torch
     from backscrub_tpu_torch.ops.megakernel import body_launch
     from backscrub_tpu_torch.parallel.streams import MultiStreamPipeline
@@ -2717,8 +2767,7 @@ def multistream_pipelines(frames):
         if counts != want or dict(body_launch.by_kernel) != {"bs_body_mega": n * plans}:
             raise AssertionError(f"multistream {tag}: launches {counts} "
                                  f"{dict(body_launch.by_kernel)}, expected {want}")
-        split = _stage_split(ms.pipe.maskgen.edge, torch.from_numpy(frames[0, :S]).cuda(),
-                             outs[0][2])
+        trace, one_gemm = _stage_trace(ms.pipe.maskgen.edge, frames)
         e, refs = _solo_refs(path, cfg, frames, bg, margin)
         with torch.no_grad():
             flips, flip_margin, diff_bytes, fracs = _against_solo(tag, outs, refs, e, tie)
@@ -2727,16 +2776,18 @@ def multistream_pipelines(frames):
                                  "differ on average")
         res[tag] = dict(streams=S, ticks=n, flips=flips, flip_margin=flip_margin, tie=tie,
                         differing_bytes=diff_bytes, mean_diff=float(np.mean(fracs)),
-                        max_diff=max(fracs), stage_split=split)
+                        max_diff=max(fracs), stage_trace=trace, post_one_gemm=one_gemm)
         print(f"multistream {tag} {w}x{h}: {S} streams x {n} ticks, one K1, {plans} "
               f"bs_body_mega and one K3 launch a tick; against solo steps: decode flips "
               f"{flips} (largest |margin| {flip_margin:.3g}, limit {tie:.3g}), {diff_bytes} "
               f"bytes differ (mean {100 * res[tag]['mean_diff']:.4f}%, max "
-              f"{100 * res[tag]['max_diff']:.4f}% of a frame's); elements a batch's non-kernel "
-              f"stages give otherwise than one-frame runs on the same inputs (first tick): "
-              f"{split}")
-        if margin is None:
-            continue
+              f"{100 * res[tag]['max_diff']:.4f}% of a frame's); elements each stage gives "
+              f"otherwise over the batch than in a solo step on the same inputs, all ticks: "
+              f"{trace}" + ("" if one_gemm is None else f"; the post as one GEMM over the "
+                            f"batch's rows (control): {one_gemm}"))
+        if tag == "mlkit" and (flips or diff_bytes or any(trace.values())):
+            raise AssertionError(f"multistream mlkit: the stream batch departs from solo "
+                                 f"steps: {flips} flips, {diff_bytes} bytes, stages {trace}")
         _image_by_image(ms.pipe.maskgen.edge)
         with torch.no_grad():
             outs = _ms_run(ms, frames, bg)
@@ -2747,6 +2798,14 @@ def multistream_pipelines(frames):
                                      f"image by image, {ema_off} EMA bytes differ from solo "
                                      "steps")
             by_image = _against_solo(tag, outs, refs, e, 0.0)
+        if tag == "mlkit" and by_image[2]:
+            raise AssertionError(f"multistream mlkit: with the canvas image by image, "
+                                 f"{by_image[2]} bytes differ from solo steps")
+        res[tag].update(image_by_image_flips=by_image[0], image_by_image_bytes=by_image[2])
+        print(f"multistream {tag}: with the canvas and the executor remainder image by "
+              f"image, every EMA equals the solo steps' (0 flips), {by_image[2]} bytes differ")
+        if margin is None:
+            continue
         bad = MultiStreamPipeline(path, cfg, S, device="cuda", compute_dtype=torch.bfloat16,
                                   precision="default")
         with torch.no_grad():
@@ -2756,12 +2815,9 @@ def multistream_pipelines(frames):
         if planted <= tie:
             raise AssertionError(f"multistream {tag}: the planted fault's flips reach only "
                                  f"|margin| {planted:.3g}, within the limit {tie:.3g}")
-        res[tag].update(image_by_image_flips=by_image[0], image_by_image_bytes=by_image[2],
-                        planted_flip_margin=planted)
-        print(f"multistream {tag}: with the canvas and the executor remainder image by "
-              f"image, every EMA equals the solo steps' (0 flips), {by_image[2]} bytes "
-              f"differ; planted fault (the batch's dots one bf16 pass): flips reach |margin| "
-              f"{planted:.3g}, over the limit {tie:.3g}")
+        res[tag].update(planted_flip_margin=planted)
+        print(f"multistream {tag}: planted fault (the batch's dots one bf16 pass): flips "
+              f"reach |margin| {planted:.3g}, over the limit {tie:.3g}")
     return res
 
 
@@ -3244,6 +3300,125 @@ def capi_phase():
     return res, launches
 
 
+TRAIN_SIZE, TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = (640, 480), 8, 4, 1e-3
+TRAIN_TIMED = 5            # card steps timed on the host clock and by the profiler
+
+
+def train_phase(smi):
+    """Fine-tuning on the card (the port's ``train/``): TRAIN_BATCH seeded
+    moving frames at TRAIN_SIZE labelled by the mlkit teacher's fused
+    ``MaskGen`` (one K1 and one K2 launch a frame, counted from zero, then
+    the tail), segm_lite distilled on them at its full 96x160 input and
+    published widths, TRAIN_STEPS Adam steps on the card of the batches
+    ``SegmentationData.batches`` draws (flips and jitter) and the same
+    steps from the same parameters on the CPU: every loss finite, the last
+    below the first, the card's losses within rtol 1e-4 of the CPU's and
+    its parameters within 2·lr·n; TF32 off inside ``Trainer``.  A
+    checkpoint written before the last step and resumed by a fresh card
+    Trainer gives the uninterrupted run's last loss.  The tuned weights
+    export to a ``.tflite`` that the port's loader reads back as their f16
+    rounding, served by ``family_fused`` (one K1, K2 and K3 launch a frame,
+    against the plain path).  Then host ms and device ms a train step (a
+    separate Trainer; ``device_ms`` over TRAIN_TIMED steps).  Returns (the
+    numbers, the launches of K1, K2 and K3)."""
+    import tempfile
+    import torch
+    from backscrub_tpu_torch.graph.executor import load_model
+    from backscrub_tpu_torch.models.specs import spec_for_model
+    from backscrub_tpu_torch.pipeline.maskgen import MaskGen
+    from backscrub_tpu_torch.tflite.export import export_params_to_tflite
+    from backscrub_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+    from backscrub_tpu_torch.train.data import SegmentationData
+    from backscrub_tpu_torch.train.trainer import TrainConfig, Trainer
+    from make_synth_segm import moving_frames
+
+    t0 = time.perf_counter()
+    w, h = TRAIN_SIZE
+    spec, cfg = spec_for_model(MODEL), TrainConfig(learning_rate=TRAIN_LR)
+    teacher = MaskGen(SELFIE, w, h, device="cuda")
+    if teacher.edge is None:
+        raise AssertionError("the mlkit teacher did not take the fused path")
+    card, host = load_model(MODEL, "cuda"), load_model(MODEL, "cpu")
+    frames = moving_frames(w, h, TRAIN_BATCH, seed=7)
+    _zero_counts()
+    ds = SegmentationData.self_label(frames, teacher, card, spec)
+    teacher_launches = _counts()
+    want = dict(front=TRAIN_BATCH, body=TRAIN_BATCH, pack=0, pack_420=0, bilateral=0,
+                jpeg_decode=0)
+    if teacher_launches != want:
+        raise AssertionError(f"teacher labels: launches {teacher_launches}, expected {want}")
+    person = float((ds.y > 0.5).mean())
+    if not 0.01 < person < 0.99:
+        raise AssertionError(f"degenerate teacher labels: person share {person}")
+    batches = list(ds.batches(TRAIN_BATCH, rng=np.random.default_rng(0), epochs=TRAIN_STEPS))
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    tg, tc = Trainer(card, spec, config=cfg), Trainer(host, spec, config=cfg)
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("Trainer left TF32 on")
+    ckpt_dir = tempfile.mkdtemp(prefix="bs_train_")
+    ckpt = os.path.join(ckpt_dir, "ck.npz")
+    losses_card, losses_cpu = [], []
+    for i, (x, y) in enumerate(batches):
+        if i == TRAIN_STEPS - 1:
+            save_checkpoint(ckpt, tg.params, tg.opt_state, step=i)
+        losses_card.append(tg.step(x, y))
+        losses_cpu.append(tc.step(x, y))
+    if not np.all(np.isfinite(losses_card)) or not losses_card[-1] < losses_card[0]:
+        raise AssertionError(f"card losses {losses_card}: not finite or not falling")
+    rel = float(np.max(np.abs(np.subtract(losses_card, losses_cpu)) / np.abs(losses_cpu)))
+    if rel > 1e-4:
+        raise AssertionError(f"card losses {losses_card} vs CPU {losses_cpu}: rel {rel:.3g}")
+    worst, off, total = 0.0, 0, 0
+    for k, v in tc.params.items():
+        d = (tg.params[k].detach().cpu() - v.detach()).abs()
+        worst, off, total = max(worst, float(d.max())), off + int((d > 1e-6).sum()), total + d.numel()
+    if worst > 2 * TRAIN_LR * TRAIN_STEPS:
+        raise AssertionError(f"card parameters {worst:.3g} from the CPU's after "
+                             f"{TRAIN_STEPS} steps, over 2·lr·n")
+    resumed = Trainer(card, spec, config=cfg)
+    params, opt, step = load_checkpoint(ckpt, resumed.params, resumed.opt_state)
+    resumed.params, resumed.opt_state = params, opt
+    resumed_loss = resumed.step(*batches[-1])
+    if step != TRAIN_STEPS - 1 or resumed_loss != losses_card[-1]:
+        raise AssertionError(f"resumed at step {step}: loss {resumed_loss!r}, the "
+                             f"uninterrupted run's {losses_card[-1]!r}")
+
+    tuned = os.path.join(ckpt_dir, "segm_tuned_96x160.tflite")
+    written = export_params_to_tflite(MODEL, card, tg.params, tuned)
+    back = load_model(tuned, "cuda")
+    for k, v in tg.params.items():
+        if not torch.equal(back.params[k], v.detach().half().float()):
+            raise AssertionError(f"the exported {k} does not read back as its f16 rounding")
+    served = family_fused("segm tuned", tuned, w, h)   # one K1, K2, K3 a frame, checked
+    shutil.rmtree(ckpt_dir)
+
+    timer = Trainer(card, spec, config=cfg)
+    x, y = batches[0]
+    for _ in range(2):
+        timer.step(x, y)
+    t1 = time.perf_counter()
+    for _ in range(TRAIN_TIMED):
+        timer.step(x, y)
+    step_ms = (time.perf_counter() - t1) * 1e3 / TRAIN_TIMED
+    step_device_ms = device_ms(lambda: timer.step(x, y), n=TRAIN_TIMED, warmup=0)
+    seconds = time.perf_counter() - t0
+    res = dict(card=smi, teacher_launches=teacher_launches, person_share=person,
+               losses_card=losses_card, losses_cpu=losses_cpu, loss_rel_max=rel,
+               param_diff_max=worst, param_share_over_1e6=off / total,
+               resumed_loss=resumed_loss, exported_tensors=written,
+               ms_per_step=step_ms, device_ms_per_step=step_device_ms,
+               idle_share=1 - step_device_ms / step_ms, seconds=seconds,
+               served={k: v for k, v in served.items() if k != "phase_us"})
+    print(f"train ({smi}): teacher labels in one K1 and K2 launch a frame; segm_lite batch "
+          f"{TRAIN_BATCH}, {TRAIN_STEPS} Adam steps: card losses {losses_card}, CPU "
+          f"{losses_cpu} (rel {rel:.3g}), parameters {worst:.3g} apart at most "
+          f"({100 * off / total:.3f}% over 1e-6); resumed loss equal; {written} tensors "
+          f"exported and served; {step_ms:.3f} ms a step (host clock), device busy "
+          f"{step_device_ms:.3f} ms")
+    return res, {k: teacher_launches[k] + FAMILY_FRAMES for k in ("front", "body", "pack")}
+
+
 def device_check():
     """A pipeline built without ``device=`` runs on the card."""
     from backscrub_tpu_torch.pipeline.frame import FramePipeline, PipelineConfig
@@ -3487,6 +3662,8 @@ def main() -> int:
     t0 = time.perf_counter()
     capi, capi_launches = capi_phase()
     print(f"capi phase: {time.perf_counter() - t0:.2f} s")
+    train, train_launches = train_phase(smi.stdout.strip().splitlines()[0])
+    print(f"train phase: {train['seconds']:.2f} s")
     main_size = SIZES[0]
     # launches: each kernel's count from the run of the path it serves
     launches = dict(runs[main_size][0], body_prefix=dl_launches["body_prefix"],
@@ -3538,6 +3715,10 @@ def main() -> int:
     for name, count in capi_launches.items():
         if count:
             results[name]["capi_launches"] = count
+    # the fine-tuning phase's launches: the teacher's K1 and K2, the tuned
+    # model's K1, K2 and K3
+    for name, count in train_launches.items():
+        results[name]["train_launches"] = count
     # the stream batches' numbers (multistream_phase) beside each kernel's
     for name, by_s in batched.items():
         if name in results:
@@ -3569,10 +3750,11 @@ def main() -> int:
                                          "library_b2b_ms", "precision_gap",
                                          "main_path_launches", "mean_abs_err",
                                          "three_term_device_ms", "rows_held",
-                                         "control_rows_off", "batched", "capi_launches")
+                                         "control_rows_off", "batched", "capi_launches",
+                                         "train_launches")
             if k in results[name]}}
         for name, (src, rep) in meta.items()]}
-    print(f"chip_smoke phases: {time.perf_counter() - t_start:.2f} s")
+    print(f"chip_smoke phases: {time.perf_counter() - t_start:.2f} s (the whole script)")
     for tag, res in (("selfie", selfie), ("segm_full", segm_full), ("bodypix", bodypix),
                      ("cli", cli_res), ("options", options), ("precision", precision)):
         print(f"{tag}: " + json.dumps({k: {n: v for n, v in r.items() if n != "phase_us"}
@@ -3581,6 +3763,7 @@ def main() -> int:
                                                    for k, r in jpeg_kernel.items()})))
     print("multistream: " + json.dumps(multistream))
     print("capi: " + json.dumps(capi))
+    print("train: " + json.dumps(train))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1509,3 +1509,40 @@ def test_entry_on_card_is_frame_pipeline_step(cuda_device):
         assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 1)
         assert torch.equal(out, want_out) and torch.equal(mask, want_mask)
         assert torch.equal(ema, pipe.maskgen.ema)
+
+
+def test_train_step_on_card_matches_cpu(cuda_device):
+    """Two Adam steps of segm_lite on the card against the same steps on
+    the CPU from the same parameters (losses rtol 1e-4, parameters within
+    2·lr·n), with TF32 off inside ``Trainer`` even where it was on."""
+    from backscrub_tpu_torch.graph.executor import load_model
+    from backscrub_tpu_torch.models.specs import spec_for_model
+    from backscrub_tpu_torch.train.trainer import TrainConfig, Trainer
+    rng = np.random.default_rng(3)
+    x = rng.random((4, 96, 160, 3), dtype=np.float32)
+    y = (rng.random((4, 96, 160)) > 0.5).astype(np.float32)
+    spec, cfg = spec_for_model(str(FULL)), TrainConfig(learning_rate=1e-3)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    card = Trainer(load_model(str(FULL), "cuda"), spec, config=cfg)
+    assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
+    host = Trainer(load_model(str(FULL), "cpu"), spec, config=cfg)
+    lc = [card.step(x, y) for _ in range(2)]
+    lh = [host.step(x, y) for _ in range(2)]
+    np.testing.assert_allclose(lc, lh, rtol=1e-4)
+    for k, v in host.params.items():
+        assert float((card.params[k].detach().cpu() - v.detach()).abs().max()) <= 2 * 1e-3 * 2, k
+
+
+def test_stream_batch_post_is_solo_post_on_card(cuda_device):
+    """The fold-blur post over a batch of 4 mlkit EMAs at 640x480 equals
+    each EMA's solo post bit for bit on the card (a single GEMM over the
+    batch's rows put mask bytes 1 apart: ROADMAP queue 3)."""
+    from backscrub_tpu_torch.pipeline.geometry import compute_roi
+    geo = compute_roi(640, 480, 256, 256, 256, 256)
+    mats = tedge.fold_blur_tensors(geo, cuda_device)
+    rng = np.random.default_rng(5)
+    for _ in range(5):
+        ema = torch.from_numpy(rng.integers(0, 256, (4, 256, 256), np.uint8)).to(cuda_device)
+        batch = tedge.postprocess_mask(ema, geo, mats)
+        assert torch.equal(batch, torch.stack([tedge.postprocess_mask(e, geo, mats)
+                                               for e in ema]))

@@ -49,6 +49,7 @@ from backscrub_tpu_torch.ops.pack_kernels import (blend_pack_420, blend_pack_420
 from backscrub_tpu_torch.parallel.streams import MultiStreamPipeline
 from backscrub_tpu_torch.pipeline import edge as tedge
 from backscrub_tpu_torch.pipeline.frame import FramePipeline, PipelineConfig
+from backscrub_tpu_torch.pipeline.geometry import compute_roi
 from backscrub_tpu_torch.pipeline.jpeg_enc import encode_jpeg_coefs, stream_qtabs
 from backscrub_tpu_torch.pipeline.maskgen import MaskGen
 from backscrub_tpu_torch.runtime.multistream import MultiGeometryServer, MultiStreamServer
@@ -361,9 +362,10 @@ def test_preprocess_matches_jax_off_the_resize_ties():
 
 
 @pytest.mark.parametrize("path,w,h", [(FULL, 640, 480), (FULL, 1280, 720),
-                                      (DEEPLAB, 1280, 720), (MLKIT, 640, 480)],
+                                      (DEEPLAB, 1280, 720), (MLKIT, 640, 480),
+                                      (MLKIT, 160, 96)],
                          ids=["segm_full-640x480", "segm_full-1280x720",
-                              "deeplab-1280x720", "mlkit-640x480"])
+                              "deeplab-1280x720", "mlkit-640x480", "mlkit-160x96"])
 def test_preprocess_resize_ties_match_jax(path, w, h):
     """The classic preprocess on six ``SyntheticSource`` frames, bit for bit
     the JAX package's, over a stream batch of two as well: segm_full at
@@ -378,6 +380,29 @@ def test_preprocess_resize_ties_match_jax(path, w, h):
         with torch.no_grad():
             x = port._pre(torch.from_numpy(f)).numpy()
         np.testing.assert_array_equal(x, np.asarray(ref._pre(jnp.asarray(f))))
+
+
+def test_stream_batch_post_takes_one_frame_products(monkeypatch):
+    """mlkit's stream batch against solo steps (ROADMAP queue 3): on an
+    H100 the fold-blur post over a batch of 4 EMAs, one GEMM of 4·o.w rows,
+    rounded mask bytes otherwise than each stream's own product (the
+    library picks its GEMM kernel by the rows it is given; every earlier
+    stage was bit-identical: ``chip_smoke.py`` ``_stage_trace``).  The post
+    now takes a batch's products image by image: every matmul of the batch
+    has the operand shapes of the one-frame call, and the masks are the
+    solo masks bit for bit."""
+    geo = compute_roi(640, 480, 256, 256, 256, 256)        # mlkit at 640x480
+    mats = tedge.fold_blur_tensors(geo, "cpu")
+    ema = torch.from_numpy(np.random.default_rng(9).integers(0, 256, (4, 256, 256), np.uint8))
+    shapes, matmul = [], torch.matmul
+    monkeypatch.setattr(torch, "matmul",
+                        lambda a, b: shapes.append((tuple(a.shape), tuple(b.shape))) or matmul(a, b))
+    solo = torch.stack([tedge.postprocess_mask(e, geo, mats) for e in ema])
+    solo_shapes, _ = set(shapes), shapes.clear()
+    batch = tedge.postprocess_mask(ema, geo, mats)
+    assert len(shapes) == 8 and set(shapes) == solo_shapes == {((480, 256), (256, 256)),
+                                                               ((480, 256), (256, 480))}
+    assert torch.equal(batch, solo)
 
 
 # ---------------------------------------------------------------------------
