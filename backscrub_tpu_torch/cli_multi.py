@@ -1,12 +1,13 @@
 """Multi-camera CLI on the PyTorch port: N capture -> virtual-camera
-streams in one process on one card (counterpart of
-``backscrub_tpu/cli_multi.py``; installed as ``backscrub-multi-torch``).
+streams in one process on one card, or over a mesh of devices
+(counterpart of ``backscrub_tpu/cli_multi.py``; installed as
+``backscrub-multi-torch``).
 
 The reference needs one ``backscrub`` process a camera
 (app/deepseg.cc:627-804).  Here every stream rides the batched steps of
 :class:`MultiGeometryServer`: streams bucket by (model, geometry), each
 bucket one batched step a tick (one launch of each kernel for all of its
-streams), all on one card.
+streams of a device).
 
 Usage:
   python -m backscrub_tpu_torch.cli_multi [-m MODEL] [-b BACKGROUND] [-d]
@@ -20,8 +21,16 @@ Stream spec keys: ``src`` (URI: /dev/videoN | file:PATH | test: | mjpg:),
 ``model`` (a .tflite name or path; overrides the shared -m).  Backgrounds
 are static stills here.  ``--bf16`` runs every bucket's CNN in bfloat16
 with one-pass bf16 dots, as the port's ``cli.py`` does.  ``--data-axis N``
-with N > 1 asks for several cards, which the port does not serve yet
-(ROADMAP queue 1 item 8): it is refused.
+with N > 1 serves over ``make_mesh(min(N, devices))`` (``parallel/mesh.py``:
+the JAX split, so N = 2 gives a (1, 2) mesh), devices being the cards, or
+N on the CPU: where that is above 1 the CLI spawns its ranks itself
+(``run_world``, one process a device), and each rank runs this CLI over the
+same streams, serving its slots of each bucket.  Rank 0 opens each source
+once to learn its geometry and closes it; then a source opens at its first
+read, and a sink at its first frame, on the one rank that reads and
+delivers that stream (a camera streams to one opener).  NCCL puts no two
+ranks on one card, so on a one-card machine the mesh is (1, 1), in this
+process.
 """
 
 from __future__ import annotations
@@ -96,10 +105,6 @@ def parse_args(argv: List[str]) -> Optional[dict]:
         i += 1
     if not cfg["streams"]:
         raise ValueError("need at least one --stream")
-    if cfg["data_axis"] > 1:
-        raise ValueError(f"--data-axis {cfg['data_axis']}: the port serves one card; "
-                         "serving across cards is ROADMAP queue 1 item 8 (multi-device, "
-                         "on torch.distributed)")
     return cfg
 
 
@@ -119,6 +124,73 @@ def _load_background(name: Optional[str], w: int, h: int):
     return cv2.resize(img, (w, h))
 
 
+class _FirstReadSource:
+    """A source opened at its first read: on a mesh only the rank that
+    reads a stream opens its source.  ``geometry`` is (width, height,
+    jpeg_info) as rank 0's probe found it; the open must give it again."""
+
+    def __init__(self, uri: str, width: int, height: int, geometry: tuple):
+        self.uri, self._ask = uri, (width, height)
+        self.width, self.height, self.jpeg_info = geometry
+        self._src = None
+
+    def read(self):
+        if self._src is None:
+            from .io.streams import open_source
+            self._src = open_source(self.uri, *self._ask)
+            got = (self._src.width, self._src.height, getattr(self._src, "jpeg_info", None))
+            if got != (self.width, self.height, self.jpeg_info):
+                raise OSError(f"{self.uri}: opened as {got[:2]}, probed as "
+                              f"{(self.width, self.height)}")
+        return self._src.read()
+
+    def close(self) -> None:
+        if self._src is not None:
+            self._src.close()
+
+
+def _probe(streams: List[dict]) -> tuple:
+    """On rank 0 of the world: open each stream's source, note its
+    (width, height, jpeg_info), close it.  Every rank gets the list, or
+    the error that stopped it (a collective: every rank calls it)."""
+    import torch.distributed as dist
+    from .io.streams import open_source
+    box = [None]
+    if dist.get_rank() == 0:
+        geos = []
+        try:
+            for s in streams:
+                src = open_source(s["src"], *s["geo"])
+                try:
+                    geos.append((src.width, src.height, getattr(src, "jpeg_info", None)))
+                finally:
+                    src.close()
+            box[0] = (geos, None)
+        except OSError as e:
+            box[0] = (None, str(e))
+    dist.broadcast_object_list(box, 0)
+    return box[0]
+
+
+class _FirstWriteSink:
+    """A sink opened at its first frame: on a mesh only the rank that
+    delivers a stream opens its sink."""
+
+    def __init__(self, uri: str, width: int, height: int):
+        self.uri, self.width, self.height = uri, width, height
+        self._sink = None
+
+    def write_yuyv(self, frame) -> None:
+        if self._sink is None:
+            from .io.streams import open_sink
+            self._sink = open_sink(self.uri, self.width, self.height)
+        self._sink.write_yuyv(frame)
+
+    def close(self) -> None:
+        if self._sink is not None:
+            self._sink.close()
+
+
 def main(argv: Optional[List[str]] = None, *, device="cuda") -> int:
     """Run the CLI; ``device`` is the torch device the buckets run on
     (tests pass "cpu")."""
@@ -133,13 +205,31 @@ def main(argv: Optional[List[str]] = None, *, device="cuda") -> int:
         print(USAGE, file=sys.stderr)
         return 1
 
-    import torch
     from . import _build
     try:
         dev = _build.resolve_device(device)
     except RuntimeError as e:
         print(f"Error: {e}", file=sys.stderr)
         return 1
+    if cfg["data_axis"] > 1:
+        from .parallel.mesh import run_world
+        return run_world(_serve_rank, cfg["data_axis"], dev, cfg, dev.type)
+    return _serve(cfg, dev, None)
+
+
+def _serve_rank(cfg: dict, dev_type: str) -> int:
+    """One rank of a ``--data-axis`` world: the CLI over the world's mesh."""
+    import torch.distributed as dist
+    from .parallel.mesh import make_mesh
+    mesh = make_mesh(dist.get_world_size(), device=dev_type)
+    return _serve(cfg, mesh.device, mesh)
+
+
+def _serve(cfg: dict, dev, mesh) -> int:
+    """Serve ``cfg``'s streams on ``dev``, or over ``mesh`` (then every
+    rank runs this with the same streams; rank 0 speaks)."""
+    import torch
+    import torch.distributed
     from .io.streams import open_sink, open_source
     from .models.specs import resolve_model_path
     from .pipeline.frame import PipelineConfig
@@ -153,15 +243,24 @@ def main(argv: Optional[List[str]] = None, *, device="cuda") -> int:
         print(f"Error: {e}", file=sys.stderr)
         return 1
 
+    first = mesh is None or torch.distributed.get_rank() == 0
+    if mesh is not None:
+        geos, err = _probe(cfg["streams"])
+        if err is not None:
+            if first:
+                print(f"Error: {err}", file=sys.stderr)
+            return 1
     sources, sinks, streams = [], [], []
     try:
-        for s, smodel in zip(cfg["streams"], models):
+        for i, (s, smodel) in enumerate(zip(cfg["streams"], models)):
             w, h = s["geo"]
-            src = open_source(s["src"], w, h)
+            src = (open_source(s["src"], w, h) if mesh is None
+                   else _FirstReadSource(s["src"], w, h, geos[i]))
             sources.append(src)
-            sink = open_sink(s["sink"], src.width, src.height)
+            sink = (open_sink(s["sink"], src.width, src.height) if mesh is None
+                    else _FirstWriteSink(s["sink"], src.width, src.height))
             sinks.append(sink)
-            if (src.width, src.height) != (w, h):
+            if (src.width, src.height) != (w, h) and first:
                 print("Warning: capture device geometry changed from requested values.",
                       file=sys.stderr)
                 w, h = src.width, src.height
@@ -179,15 +278,16 @@ def main(argv: Optional[List[str]] = None, *, device="cuda") -> int:
         return 1
 
     server = MultiGeometryServer(
-        model_path, PipelineConfig(width=0, height=0), streams, device=dev,
+        model_path, PipelineConfig(width=0, height=0), streams, mesh, device=dev,
         threaded=cfg["threaded"], depth=cfg["depth"],
         stall_timeout=cfg["stall_timeout"] if cfg["threaded"] else None,
         compute_dtype=torch.bfloat16 if cfg["bf16"] else torch.float32,
         precision="default" if cfg["bf16"] else None)   # None: the family's default
-    if cfg["debug"]:
+    if cfg["debug"] and first:
         name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+        shape = mesh.shape if mesh is not None else {"data": 1, "model": 1}
         print(f"model: {model_path}\nstreams: {len(streams)} in {server.n_groups} "
-              f"(model, geometry) bucket(s) on {dev} {name}", file=sys.stderr)
+              f"(model, geometry) bucket(s) on {dev} {name}, mesh {shape}", file=sys.stderr)
 
     t0 = time.perf_counter()
     try:
@@ -200,7 +300,7 @@ def main(argv: Optional[List[str]] = None, *, device="cuda") -> int:
         for k in sinks:
             k.close()
     dt = time.perf_counter() - t0
-    if ticks >= 0:
+    if ticks >= 0 and first:
         print(f"served {ticks} ticks x {len(streams)} streams "
               f"({ticks * len(streams) / max(dt, 1e-9):.1f} aggregate fps)", file=sys.stderr)
     return 0

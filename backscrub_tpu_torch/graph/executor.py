@@ -43,20 +43,31 @@ class LoweringCtx:
     the parameter back into the file (``tflite/export.py``): its tensor
     index, the payload dtype (f16 for a folded DEQUANTIZE output) and the
     inverse of the layout transform, in the order the keys are prepared
-    (the JAX executor's ``weight_meta``)."""
+    (the JAX executor's ``weight_meta``).
+
+    On a mesh, ``tp`` is the run's ``parallel.sharding.TensorParallel``
+    and ``params`` hold this rank's slices: ``get_const`` gathers a
+    sharded parameter whole unless the lowering asks for its ``local``
+    slice (tp's column split); in the spatial mode ``rows`` maps each
+    row-sharded activation to its whole row count and ``halo`` holds the
+    rows a convolution's input takes from its neighbours
+    (:meth:`conv_input`)."""
 
     def __init__(self, graph: GraphIR, params: Dict[str, torch.Tensor],
                  prepared: Optional[Dict[str, np.ndarray]] = None,
                  compute_dtype: torch.dtype = torch.float32,
                  dequantized: Optional[Dict[str, tuple]] = None,
-                 weight_meta: Optional[Dict[str, dict]] = None):
+                 weight_meta: Optional[Dict[str, dict]] = None, tp=None):
         self.graph = graph
         self.params = params
         self.prepared = prepared    # build-time store, None once built
         self.compute_dtype = compute_dtype
         self.dequantized = {} if dequantized is None else dequantized
         self.weight_meta = {} if weight_meta is None else weight_meta
+        self.tp = tp
         self.env: Dict[int, torch.Tensor] = {}
+        self.rows: Dict[int, int] = {}
+        self.halo: Dict[int, torch.Tensor] = {}
 
     def get(self, idx: int) -> torch.Tensor:
         if idx in self.env:
@@ -65,9 +76,27 @@ class LoweringCtx:
             return self.get_const(idx)
         raise KeyError(f"tensor {self.graph.tensor(idx)!r} referenced before definition")
 
+    @staticmethod
+    def key(idx: int, variant: str = "") -> str:
+        return f"t{idx}" + (f"@{variant}" if variant else "")
+
+    def column(self, idx: int, variant: str = "") -> bool:
+        """Whether the op whose kernel is ``idx`` (in ``variant``'s layout)
+        computes only this rank's output channels (tp's column split)."""
+        return self.tp is not None and self.tp.column(self.key(idx, variant))
+
+    def conv_input(self, idx: int):
+        """A convolution's input and the rows of SAME padding it still
+        needs: (the tensor, None), or in the spatial mode (the rows its
+        output rows read, zeros for the padding, (0, 0))."""
+        if idx in self.halo:
+            return self.halo[idx], (0, 0)
+        return self.get(idx), None
+
     def get_const(self, idx: int, prepare: Optional[Callable] = None,
-                  variant: str = "", inverse: Optional[Callable] = None) -> torch.Tensor:
-        key = f"t{idx}" + (f"@{variant}" if variant else "")
+                  variant: str = "", inverse: Optional[Callable] = None,
+                  local: bool = False) -> torch.Tensor:
+        key = self.key(idx, variant)
         if key not in self.params:
             if self.prepared is None:
                 raise KeyError(f"parameter {key} was not prepared at build time")
@@ -91,6 +120,8 @@ class LoweringCtx:
             if hit is None or hit[0] is not val:    # new, or the parameters were replaced
                 hit = self.dequantized[key] = (val, dequantize(val, scale, self.compute_dtype))
             return hit[1]
+        if self.tp is not None and not local and self.tp.sharded(key):
+            return self.tp.whole(val, key)
         return val
 
     def const_value(self, idx: int) -> np.ndarray:
@@ -128,12 +159,18 @@ def fold_constants(graph: GraphIR) -> GraphIR:
 
 def run_nodes(graph: GraphIR, params, nodes, inputs: Dict[int, torch.Tensor],
               prepared=None, compute_dtype: torch.dtype = torch.float32,
-              dequantized=None, weight_meta=None) -> LoweringCtx:
-    ctx = LoweringCtx(graph, params, prepared, compute_dtype, dequantized, weight_meta)
+              dequantized=None, weight_meta=None, tp=None) -> LoweringCtx:
+    ctx = LoweringCtx(graph, params, prepared, compute_dtype, dequantized, weight_meta, tp)
     for idx, x in inputs.items():
         ctx.set(idx, x)
+        if tp is not None:
+            tp.enter(ctx, idx)
+    spatial = tp is not None and tp.spatial
     for node in nodes:
-        get_lowering(node.kind)(ctx, node)
+        if spatial:
+            tp.run_node(ctx, node, get_lowering(node.kind))
+        else:
+            get_lowering(node.kind)(ctx, node)
     return ctx
 
 
@@ -143,7 +180,11 @@ class CompiledModel(nn.Module):
     ``forward(x)`` maps (N, H, W, C) float input to the model output in
     ``compute_dtype``, as the JAX ``CompiledModel`` does; ``raw_fn(params,
     x)`` runs it on a caller's parameter dict (every key of ``params``),
-    the functional form that training differentiates.  ``params`` holds
+    the functional form that training differentiates; with ``tp`` (a
+    ``parallel.sharding.TensorParallel``) ``params`` are this rank's
+    slices and the run is tensor-parallel over the mesh's "model" axis,
+    returning in its spatial mode this rank's rows of the output.
+    ``params`` holds
     the prepared weights (on the module's device); ``host_params`` their
     numpy copy; ``weight_meta`` each key's way back into the file
     (:class:`LoweringCtx`); ``quantize_mode`` is None or "int8";
@@ -177,10 +218,12 @@ class CompiledModel(nn.Module):
         return self.raw_fn(self.params, x, self.dequantized)
 
     def raw_fn(self, params: Dict[str, torch.Tensor], x: torch.Tensor,
-               dequantized: Optional[Dict[str, tuple]] = None) -> torch.Tensor:
+               dequantized: Optional[Dict[str, tuple]] = None, tp=None) -> torch.Tensor:
         g = self.graph
         ctx = run_nodes(g, params, g.nodes, {g.inputs[0]: x.to(self.compute_dtype)},
-                        compute_dtype=self.compute_dtype, dequantized=dequantized)
+                        compute_dtype=self.compute_dtype, dequantized=dequantized, tp=tp)
+        if tp is not None:
+            return tp.leave(ctx, g.outputs[0])
         return ctx.get(g.outputs[0])
 
 

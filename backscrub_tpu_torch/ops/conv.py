@@ -12,6 +12,13 @@ The transposed conv reproduces ``lib/transpose_conv_bias.cc:80-111``
 (scatter accumulate) with the SAME shape math of ``:171-181``:
 ``pad_total = max(0, f - (in-1) % s - 1)``, leading crop ``pad_total // 2``,
 ``out = s*(in-1) + f - pad_total``.
+
+On a mesh's "model" axis (``parallel/sharding.py``), each of the four
+lowerings computes in the tp mode only this rank's output channels from
+its slice of the kernel and bias (``ctx.column``; depthwise also takes only
+its own input channels) and gathers the result; in the spatial mode a
+convolution's input may arrive as the rows its output rows read
+(``ctx.conv_input``), with SAME padding left only along W.
 """
 
 from __future__ import annotations
@@ -39,68 +46,90 @@ def _same_pad(x, fh, fw, sh, sw, dh=1, dw=1):
 
 
 def conv2d_nhwc(x, w_hwio, bias, stride, padding, dilation=(1, 1),
-                activation="NONE", groups=1):
-    """NHWC conv with an HWIO kernel (HW1C for depthwise, ``groups`` = C)."""
+                activation="NONE", groups=1, pad_h=None):
+    """NHWC conv with an HWIO kernel (HW1C for depthwise, ``groups`` = C);
+    ``pad_h`` (lo, hi) overrides SAME's row padding."""
     xc = _nchw(x)
     fh, fw = w_hwio.shape[:2]
-    if padding == "SAME":
+    if padding == "SAME" and pad_h is None:
         xc = _same_pad(xc, fh, fw, stride[0], stride[1], *dilation)
+    elif padding == "SAME":
+        pw = tflite_same_padding(xc.shape[3], fw, stride[1], dilation[1])
+        xc = F.pad(xc, (pw[0], pw[1]) + tuple(pad_h))
     y = F.conv2d(xc, w_hwio.permute(3, 2, 0, 1), bias, stride=stride,
                  dilation=dilation, groups=groups)
     return apply_activation(_nhwc(y), activation)
 
 
-def _bias(ctx, node):
+def _bias(ctx, node, local=False):
     if len(node.inputs) > 2 and node.inputs[2] >= 0:
-        return ctx.get_const(node.inputs[2])
+        return ctx.get_const(node.inputs[2], local=local)
     return None
+
+
+def _column_out(ctx, cols, y):
+    """The op's output: this rank's channels gathered whole in tp's column
+    split, else as computed."""
+    return ctx.tp.gather_channels(y) if cols else y
 
 
 @register("CONV_2D")
 def conv2d(ctx, node):
     o = node.options
+    cols = ctx.column(node.inputs[1], "hwio")
     w = ctx.get_const(node.inputs[1], lambda a: np.transpose(a, (1, 2, 3, 0)),
                       variant="hwio",                       # OHWI -> HWIO
-                      inverse=lambda a: np.transpose(a, (3, 0, 1, 2)))
-    ctx.set(node.outputs[0], conv2d_nhwc(
-        ctx.get(node.inputs[0]), w, _bias(ctx, node),
-        (o["stride_h"], o["stride_w"]), o["padding"],
-        (o.get("dilation_h", 1), o.get("dilation_w", 1)), o.get("activation")))
+                      inverse=lambda a: np.transpose(a, (3, 0, 1, 2)), local=cols)
+    x, pad_h = ctx.conv_input(node.inputs[0])
+    if cols:
+        x = ctx.tp.copy_in(x)
+    ctx.set(node.outputs[0], _column_out(ctx, cols, conv2d_nhwc(
+        x, w, _bias(ctx, node, cols), (o["stride_h"], o["stride_w"]), o["padding"],
+        (o.get("dilation_h", 1), o.get("dilation_w", 1)), o.get("activation"),
+        pad_h=pad_h)))
 
 
 @register("DEPTHWISE_CONV_2D")
 def depthwise_conv2d(ctx, node):
-    x = ctx.get(node.inputs[0])
+    x, pad_h = ctx.conv_input(node.inputs[0])
     o = node.options
+    # a column split takes its own input channels: a channel multiplier of 1
+    cols = (ctx.column(node.inputs[1], "dw")
+            and ctx.graph.tensor(node.inputs[1]).shape[-1] == x.shape[-1])
     # TFLite (1, fh, fw, C*M) -> (fh, fw, 1, C*M); output channel c*M+m
     # reads input channel c, as a grouped conv with groups = C
     w = ctx.get_const(node.inputs[1], lambda a: np.transpose(a, (1, 2, 0, 3)),
-                      variant="dw", inverse=lambda a: np.transpose(a, (2, 0, 1, 3)))
-    ctx.set(node.outputs[0], conv2d_nhwc(
-        x, w, _bias(ctx, node), (o["stride_h"], o["stride_w"]), o["padding"],
+                      variant="dw", inverse=lambda a: np.transpose(a, (2, 0, 1, 3)), local=cols)
+    if cols:
+        x = ctx.tp.own_channels(ctx.tp.copy_in(x))
+    ctx.set(node.outputs[0], _column_out(ctx, cols, conv2d_nhwc(
+        x, w, _bias(ctx, node, cols), (o["stride_h"], o["stride_w"]), o["padding"],
         (o.get("dilation_h", 1), o.get("dilation_w", 1)), o.get("activation"),
-        groups=x.shape[-1]))
+        groups=x.shape[-1], pad_h=pad_h)))
 
 
 @register("FULLY_CONNECTED")
 def fully_connected(ctx, node):
     x = ctx.get(node.inputs[0])
+    cols = ctx.column(node.inputs[1], "ko")
     w = ctx.get_const(node.inputs[1], lambda a: np.transpose(a, (1, 0)),
                       variant="ko",                         # (O,K) -> (K,O)
-                      inverse=lambda a: np.transpose(a, (1, 0)))
+                      inverse=lambda a: np.transpose(a, (1, 0)), local=cols)
     o = node.options
     lead = tuple(x.shape[:-1])
     x2 = x.reshape(-1, x.shape[-1])
-    b = _bias(ctx, node)
+    if cols:
+        x2 = ctx.tp.copy_in(x2)
+    b = _bias(ctx, node, cols)
     if b is not None and x.dtype == torch.bfloat16:
         y = torch.addmm(b, x2, w)      # one rounding after the bias, as JAX's f32 sum
     else:
         y = x2 @ w
         if b is not None:
             y = y + b
-    y = apply_activation(y, o.get("activation"))
-    shape = lead + (w.shape[1],) if o.get("keep_num_dims", False) \
-        else (y.shape[0], w.shape[1])
+    y = _column_out(ctx, cols, apply_activation(y, o.get("activation")))
+    shape = lead + (y.shape[1],) if o.get("keep_num_dims", False) \
+        else (y.shape[0], y.shape[1])
     ctx.set(node.outputs[0], y.reshape(shape))
 
 
@@ -115,18 +144,22 @@ def transpose_conv_crop(in_size: int, filter_size: int, stride: int, padding: st
 def conv2d_transpose_bias(ctx, node):
     x = ctx.get(node.inputs[0])
     o = node.options
+    cols = ctx.column(node.inputs[1], "tconv")
     # stored as the JAX executor's flipped HWIO: Wf[h, w, i, o] =
     # W_ohwi[o, fh-1-h, fw-1-w, i]; conv_transpose2d wants (I, O, fh, fw)
     wf = ctx.get_const(node.inputs[1],
                        lambda a: np.transpose(a[:, ::-1, ::-1, :], (1, 2, 3, 0)),
                        variant="tconv",
-                       inverse=lambda a: np.transpose(a, (3, 0, 1, 2))[:, ::-1, ::-1, :])
+                       inverse=lambda a: np.transpose(a, (3, 0, 1, 2))[:, ::-1, ::-1, :],
+                       local=cols)
+    if cols:
+        x = ctx.tp.copy_in(x)
     wt = torch.flip(wf, (0, 1)).permute(2, 3, 0, 1)
     sh, sw = o["stride_h"], o["stride_w"]
     pad = o.get("padding", "SAME")
     oh, lh = transpose_conv_crop(x.shape[1], wf.shape[0], sh, pad)
     ow, lw = transpose_conv_crop(x.shape[2], wf.shape[1], sw, pad)
-    b = _bias(ctx, node)
+    b = _bias(ctx, node, cols)
     if b is not None and x.dtype == torch.bfloat16:
         # one rounding after the bias, as the JAX lowering's f32 sum
         y = F.conv_transpose2d(_nchw(x), wt, b, stride=(sh, sw))[:, :, lh:lh + oh, lw:lw + ow]
@@ -135,4 +168,4 @@ def conv2d_transpose_bias(ctx, node):
         y = y[:, :, lh:lh + oh, lw:lw + ow]
         if b is not None:
             y = y + b[None, :, None, None]
-    ctx.set(node.outputs[0], _nhwc(y))
+    ctx.set(node.outputs[0], _column_out(ctx, cols, _nhwc(y)))

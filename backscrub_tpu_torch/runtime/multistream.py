@@ -2,7 +2,8 @@
 (counterpart of ``backscrub_tpu/runtime/multistream.py``).
 
 The reference serves one camera per process (app/deepseg.cc main loop).
-Here S streams share one card: each tick gathers one frame a stream into
+Here S streams share one card, or a mesh's "data" axis (below): each
+tick gathers one frame a stream into
 the (S, H, W, 3) batch (or the stream batch of the pipeline's
 ``input_format``), runs :class:`..parallel.streams.MultiStreamPipeline`'s
 step (one launch of each kernel for the whole batch), and fans the
@@ -29,6 +30,19 @@ keeps riding the batch (the batch's shape is fixed) and its sink stops
 receiving.  The server stops when every stream is done, the frame budget
 is reached, or, threaded, no stream produced a frame for
 ``stall_timeout`` seconds.
+
+On a mesh (the pipeline's ``mesh``), every rank builds the same server
+from the same stream list, SPMD: ``attach`` and ``detach`` are called on
+every rank alike, between ticks.  A rank gathers, steps and delivers only
+its own slots (``MultiStreamPipeline.slots``).  The model ranks of a data
+slice compute the same rows: the one at "model" coordinate 0 calls the
+slots' sources and sinks, and gives the others each tick's frames and
+flags by a broadcast over "model" (so a camera is read by one process).
+The ranks agree each tick, by one all-reduce over the mesh, whether any
+slot is live and any frame fresh, and in ``run`` whether the stall timeout
+passed, so every rank steps the same ticks and stops together.  Both
+collectives move host values over gloo (``Mesh.host_group``), so they
+never wait on the card's queue and the result ring keeps its overlap.
 """
 
 from __future__ import annotations
@@ -42,9 +56,11 @@ from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..io.staging import start_download
-from ..parallel.streams import MultiStreamPipeline
+from ..parallel.mesh import agree
+from ..parallel.streams import MultiStreamPipeline, take_rows
 
 
 class _Reader:
@@ -101,8 +117,9 @@ class MultiStreamServer:
     ``depth``: results in flight.
 
     Fewer sources than slots: the tail slots are padding, riding the batch
-    and never delivering.  Membership is elastic: :meth:`attach` occupies a
-    free slot at run time and :meth:`detach` frees one; the slot's EMA
+    and never delivering (``MultiGeometryServer`` rounds a batch up to a
+    mesh's data axis this way).  Membership is elastic: :meth:`attach`
+    occupies a free slot at run time and :meth:`detach` frees one; the slot's EMA
     resets to a fresh pipeline's, and a generation count a slot keeps the
     ring from handing a previous occupant's results to a new sink.
     """
@@ -121,6 +138,10 @@ class MultiStreamServer:
             raise ValueError("depth must be >= 1")
         self.ms = ms
         S = ms.n_streams
+        self._own = ms.slots       # the slots this rank gathers, steps and delivers
+        # this rank calls its slots' sources and sinks (model coordinate 0)
+        self._lead = ms.mesh is None or ms.mesh.coord("model") == 0
+        self._peers = ms.mesh is not None and ms.mesh.shape["model"] > 1
         pad = S - len(sources)
         self.sources = list(sources) + [None] * pad   # None: a free slot
         self.sinks = list(sinks) + [None] * pad
@@ -155,8 +176,7 @@ class MultiStreamServer:
         self.backgrounds = backgrounds
         self._bg_host: Optional[np.ndarray] = None   # for attach-time edits
         if backgrounds is not None and not callable(backgrounds):
-            self._bg_host = self._pad_batch(np.asarray(backgrounds)).copy()
-            self.backgrounds = self._on_card(self._bg_host)
+            self._set_bg_host(self._pad_batch(np.asarray(backgrounds)).copy())
         self._d2h = torch.cuda.Stream(ms.device) if ms.device.type == "cuda" else None
         self._ring: collections.deque = collections.deque()
         # pop + deliver under one lock, so two drainers (a tick racing a
@@ -165,6 +185,16 @@ class MultiStreamServer:
 
     def _on_card(self, host: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(host)).to(self.ms.device)
+
+    def _local(self, batch):
+        """This rank's rows of a whole-batch array (all of it off a mesh)."""
+        return batch if self.ms.mesh is None else take_rows(batch, self.ms.rows)
+
+    def _set_bg_host(self, host: np.ndarray) -> None:
+        """Static backgrounds of every slot: kept on the host for
+        attach-time edits, this rank's rows uploaded once."""
+        self._bg_host = host
+        self.backgrounds = self._on_card(self._local(host))
 
     def _store(self, s: int, frame) -> None:
         """Write one stream's frame into batch slot s (shape checked)."""
@@ -185,9 +215,17 @@ class MultiStreamServer:
         self._frames[s] = frame
 
     # -- one gather: fill self._frames, return per-stream "fresh" flags ----
+    def live_slots(self) -> List[bool]:
+        """Each slot's liveness (attached and its source not ended), as
+        the rank that serves it sees it (agreed over the mesh)."""
+        own = set(self._own)
+        return list(agree(self.ms.mesh, *(self._live[s] and s in own
+                                          for s in range(self.ms.n_streams))))
+
     def _gather_pull(self) -> List[bool]:
         fresh = [False] * self.ms.n_streams
-        for s, src in enumerate(self.sources):
+        for s in self._own:
+            src = self.sources[s]
             if src is None or not self._live[s]:
                 continue
             frame = src()
@@ -212,6 +250,26 @@ class MultiStreamServer:
                 self._live[s] = False
         return fresh
 
+    def _share(self, fresh: List[bool]) -> None:
+        """From the lead to the other model ranks of its data slice, by
+        broadcasts over "model" on the host: the slots' live, ever and
+        fresh flags, and where a frame is fresh, the slice's frames."""
+        g = self.ms.mesh.host_group("model")
+        src = dist.get_global_rank(g, 0)
+        own = self._own
+        flags = torch.tensor([[self._live[s], self._ever[s], fresh[s]] for s in own],
+                             dtype=torch.uint8)
+        dist.broadcast(flags, src, group=g)
+        for s, (live, ever, new) in zip(own, flags.tolist()):
+            self._live[s], self._ever[s], fresh[s] = bool(live), bool(ever), bool(new)
+        if not any(fresh[s] for s in own):
+            return
+        for arr in ([*self._frames[0], self._frames[1]] if self._mjpg else [self._frames]):
+            rows = np.ascontiguousarray(arr[self.ms.rows])
+            dist.broadcast(torch.from_numpy(rows.reshape(-1).view(np.uint8)), src, group=g)
+            if not self._lead:
+                arr[self.ms.rows] = rows
+
     def _pad_batch(self, b: np.ndarray) -> np.ndarray:
         """A batch of the real streams extended to every slot (padding
         slots get zeros; they never deliver)."""
@@ -223,7 +281,7 @@ class MultiStreamServer:
     def _background_batch(self):
         bgs = self.backgrounds
         if callable(bgs):
-            bgs = self._pad_batch(np.asarray(bgs()))
+            bgs = self._local(self._pad_batch(np.asarray(bgs())))
         return bgs
 
     # -- the result ring ------------------------------------------------------
@@ -244,12 +302,15 @@ class MultiStreamServer:
                     host = tuple(p.wait() for p in pending)
                 else:
                     host = pending.wait()
-                for s, sink in enumerate(self.sinks):
+                if not self._lead:
+                    continue
+                for i, s in enumerate(self._own):
+                    sink = self.sinks[s]
                     # never hand a previous occupant's result to a slot
                     # attached since the dispatch
                     if sink is not None and deliver[s] and gens[s] == self._gen[s]:
-                        sink(tuple(a[s] for a in host) if isinstance(host, tuple)
-                             else host[s])
+                        sink(tuple(a[i] for a in host) if isinstance(host, tuple)
+                             else host[i])
 
     # -- elastic membership ---------------------------------------------------
     def attach(self, source: Callable[[], Optional[np.ndarray]],
@@ -290,8 +351,8 @@ class MultiStreamServer:
                     self._bg_host = np.broadcast_to(
                         green, (self.ms.n_streams,) + green.shape).copy()
                 self._bg_host[s] = background
-                self.backgrounds = self._on_card(self._bg_host)
-            if self.threaded and self._readers is not None:
+                self._set_bg_host(self._bg_host)
+            if self.threaded and self._readers is not None and s in self._own and self._lead:
                 r = _Reader(source)
                 self._readers[s] = r
                 r.thread.start()
@@ -316,7 +377,9 @@ class MultiStreamServer:
     def start(self):
         """Start the reader threads (threaded mode); idempotent."""
         if self.threaded and self._readers is None:
-            self._readers = [_Reader(s) if s is not None else None for s in self.sources]
+            self._readers = [_Reader(src) if src is not None and s in self._own and self._lead
+                             else None
+                             for s, src in enumerate(self.sources)]
             for r in self._readers:
                 if r is not None:
                     r.thread.start()
@@ -327,12 +390,20 @@ class MultiStreamServer:
         stream done with ``keep_alive``), None when every stream is
         done."""
         with self._slots_lock:
-            fresh = self._gather_threaded() if self.threaded else self._gather_pull()
-            if not any(self._live):
+            if not self._lead:
+                fresh = [False] * self.ms.n_streams
+            else:
+                fresh = self._gather_threaded() if self.threaded else self._gather_pull()
+            if self._peers:
+                self._share(fresh)
+            live, new = agree(self.ms.mesh, any(self._live[s] for s in self._own),
+                              any(fresh))
+            if not live:
                 return False if self.keep_alive else None
-            if self.threaded and not any(fresh):
+            if self.threaded and not new:
                 return False
-            out, _masks = self.ms.step(self._frames, self._background_batch())
+            out, _masks = self.ms.step_local(self._local(self._frames),
+                                             self._background_batch())
             # deliver to live streams that have produced frames; in pull
             # mode only fresh ones (a stream at EOF must not repeat its last)
             deliver = [self._live[s] and self._ever[s] and (fresh[s] or self.threaded)
@@ -363,8 +434,8 @@ class MultiStreamServer:
                 if r is False:
                     # nothing new anywhere: yield the core (and the GIL the
                     # reader threads need)
-                    if (self.stall_timeout is not None
-                            and time.monotonic() - last_fresh > self.stall_timeout):
+                    if self.stall_timeout is not None and agree(
+                            self.ms.mesh, time.monotonic() - last_fresh > self.stall_timeout)[0]:
                         break
                     time.sleep(0.001)
                     continue
@@ -388,7 +459,9 @@ class _StreamHandle:
 
 class MultiGeometryServer:
     """Serve streams of different geometries, models and JPEG samplings on
-    one card.
+    one card, or over ``mesh``'s "data" axis (each bucket's batch rounded
+    up to it, the padding slots never delivering; SPMD as
+    :class:`MultiStreamServer` on a mesh).
 
     A batch needs one shape, so streams bucket by (model, width, height,
     JPEG sampling); each bucket is a :class:`MultiStreamServer` over its
@@ -413,7 +486,7 @@ class MultiGeometryServer:
     rows), so the streams' outputs go on as they would have.
     """
 
-    def __init__(self, model: str, config, streams: Sequence[tuple], *,
+    def __init__(self, model: str, config, streams: Sequence[tuple], mesh=None, *,
                  device="cuda", threaded: bool = False, depth: int = 2,
                  stall_timeout: Optional[float] = None, keep_alive: bool = False,
                  **pipe_kwargs):
@@ -425,6 +498,7 @@ class MultiGeometryServer:
             smodel = entry[6] if len(entry) > 6 and entry[6] else model
             key = (smodel, w, h, jinfo.sampling if jinfo is not None else None)
             groups.setdefault(key, (jinfo, []))[1].append((src, sink, bg))
+        self._mesh = mesh
         self._model = model
         self._config = config
         self._device = device
@@ -448,21 +522,21 @@ class MultiGeometryServer:
             if any(m[2] is not None for m in members):
                 green = srv.ms.pipe.green.cpu().numpy()
                 bgs = np.stack([m[2] if m[2] is not None else green for m in members])
-                srv._bg_host = srv._pad_batch(bgs).copy()
-                srv.backgrounds = srv._on_card(srv._bg_host)
+                srv._set_bg_host(srv._pad_batch(bgs).copy())
             self.servers.append(srv)
             self._keys.append(key)
 
     def _build_bucket(self, key: tuple, jinfo, n_slots: int) -> MultiStreamServer:
-        """A bucket for (model, w, h, sampling) with ``n_slots`` slots,
-        every slot free."""
+        """A bucket for (model, w, h, sampling) with ``n_slots`` slots
+        (rounded up to the mesh's data axis), every slot free."""
         smodel, w, h, _sampling = key
         cfg = dataclasses.replace(
             self._config, width=w, height=h, out_width=w, out_height=h,
             input_format="mjpg" if jinfo is not None else self._config.input_format,
             jpeg_info=jinfo if jinfo is not None else self._config.jpeg_info)
-        ms = MultiStreamPipeline(smodel, cfg, max(n_slots, 1), device=self._device,
-                                 **self._pipe_kwargs)
+        d = 1 if self._mesh is None else self._mesh.shape["data"]
+        ms = MultiStreamPipeline(smodel, cfg, -(-max(n_slots, 1) // d) * d, self._mesh,
+                                 device=self._device, **self._pipe_kwargs)
         return MultiStreamServer(ms, [], [], threaded=self._threaded, depth=self._depth,
                                  stall_timeout=self.stall_timeout,
                                  keep_alive=self._keep_alive)
@@ -497,12 +571,13 @@ class MultiGeometryServer:
         else:
             new._frames[:S_old] = old._frames
         new.ms.reset()
-        new.ms.ema[:S_old] = old.ms.ema
+        # a slot keeps its rank and its local row as the batch grows
+        # (parallel/mesh.py stream_slice), so the EMA rows move in place
+        new.ms.ema[:old.ms.ema.shape[0]] = old.ms.ema
         if callable(old.backgrounds):
             new.backgrounds = old.backgrounds
         elif old._bg_host is not None:
-            new._bg_host = new._pad_batch(old._bg_host).copy()
-            new.backgrounds = new._on_card(new._bg_host)
+            new._set_bg_host(new._pad_batch(old._bg_host).copy())
         if old._readers is not None:
             new._readers = list(old._readers) + [None] * (new.ms.n_streams - S_old)
             old._readers = None    # old.finish() must not stop moved readers
@@ -537,7 +612,7 @@ class MultiGeometryServer:
                             occupied = sum(s is not None for s in srv.sources)
                         break
             new = self._build_bucket(key, jpeg_info, occupied + 1 if cur is not None else 1)
-            new.ms.step(new._frames, None)      # warm-up; discarded
+            new.ms.step_local(new._local(new._frames), None)      # warm-up; discarded
             with self._lock:
                 # find the bucket again: it may have freed a slot, grown or
                 # been retired meanwhile
@@ -617,8 +692,8 @@ class MultiGeometryServer:
                 if not any(id(s) not in done for s in servers):
                     break
                 if not dispatched:
-                    if (self.stall_timeout is not None
-                            and time.monotonic() - last_fresh > self.stall_timeout):
+                    if self.stall_timeout is not None and agree(
+                            self._mesh, time.monotonic() - last_fresh > self.stall_timeout)[0]:
                         break
                     time.sleep(0.001)
                     continue

@@ -1,7 +1,9 @@
 """Training checkpoint/resume (counterpart of
 ``backscrub_tpu/train/checkpoint.py``).
 
-A compressed ``.npz`` written atomically (a temp file, then a rename),
+A compressed ``.npz`` written atomically (a temp file, then a rename;
+on a mesh each rank writes the same gathered tensors, each through its
+own temp file),
 under the JAX package's key strings, so a checkpoint crosses between the
 two packages in both directions:
 
@@ -40,7 +42,8 @@ def save_checkpoint(path: str, params: Dict[str, object], opt_state: Optional[di
             payload.update({f"opt/[0]/.{m}/{_leaf(k)}": _host(v)
                             for k, v in opt_state[m].items()})
     payload["meta/step"] = np.asarray(step)
-    tmp = path + ".tmp"
+    # a temp file a process: on a mesh every rank writes the same whole tensors
+    tmp = f"{path}.tmp{os.getpid()}"
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(tmp, "wb") as f:
         np.savez_compressed(f, **payload)

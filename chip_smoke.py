@@ -216,7 +216,23 @@ Usage (from the repository root, on a machine with a CUDA card)::
    and device ms a train step beside the card's name and power limit, the
    phase's seconds; a ``train:`` line, and the phase's launches as
    ``train_launches`` of K1, K2 and K3 in the kernels line;
-21. prints one JSON line with every kernel's numbers (launches from the
+21. the (data, model) mesh (``mesh_phase``): NCCL puts no two ranks on
+   one card, so the world is one rank and the mesh (1, 1), every
+   collective on a group of one; ``python3 chip_smoke.py --mesh-child
+   OUT`` runs in a child process under MESH_TIMEOUT (an NCCL start that
+   hangs fails the phase): ``entry.dryrun_multichip(1)``, then from zeroed
+   counts the mesh's frame path (3 streams at 640x480), a
+   MultiGeometryServer with a BodyPix bucket (K2') and ``cli_multi
+   --data-axis 2`` (three ``test:`` streams to files), each byte-identical
+   to the no-mesh path and K1, K2, K2' and K3 launched as counted; a
+   (1, 1) dp + tp + sp train step against the one-card Trainer (losses
+   rtol 1e-6, parameters within 2·lr·n); host ms a frame-path tick, a
+   MultiStreamServer tick and a train step with and without the mesh, the
+   median and spread of turns of at least MESH_WINDOW_S in alternating
+   pairs, and each one's device busy and idle share over a profiled
+   window; a ``mesh:`` line, and its launches as
+   ``mesh_launches`` of K1, K2, K2' and K3 in the kernels line;
+22. prints one JSON line with every kernel's numbers (launches from the
    run of the path it serves, errors and times measured here, and the
    bound: the larger of the bytes it must move over 3.35 TB/s and its
    operations over the peak of their type, 67 TFLOP/s f32 or 989 TFLOP/s
@@ -384,7 +400,7 @@ def b2b_ms(fn, n=100, warmup=3):
     return a.elapsed_time(b) / n
 
 
-def device_ms(fn, n=100, warmup=3, attempts=3, cold=None, kernel=None):
+def device_ms(fn, n=100, warmup=3, attempts=5, cold=None, kernel=None):
     """Device time (ms) a call of ``fn``: the torch.profiler's sum of the
     card's kernel (and copy) time over ``n`` calls, divided by ``n``.  With
     ``kernel``, a kernel name launched once a call, only the kernels whose
@@ -3419,6 +3435,246 @@ def train_phase(smi):
     return res, {k: teacher_launches[k] + FAMILY_FRAMES for k in ("front", "body", "pack")}
 
 
+MESH_TIMEOUT = 300         # the mesh child's time limit, its start and NCCL's included
+MESH_SIZE, MESH_STREAMS, MESH_TICKS = (640, 480), 3, 10
+MESH_TRAIN_BATCH, MESH_TRAIN_STEPS = 8, 3
+MESH_WINDOW_S, MESH_PAIRS = 2.0, 3     # each timed turn's least window; one-card/mesh pairs
+MESH_PROFILED = dict(tick=40, server=40, step=10)   # calls in a profiled window
+MESH_TOP = 8               # host operations listed a kind, by their own time
+
+
+def mesh_phase(smi):
+    """The (data, model) mesh on the card (``parallel/mesh.py``): NCCL
+    puts no two ranks on one card, so on this machine the world is one
+    rank and the mesh (1, 1); every collective of the path still runs, on
+    groups of one.  ``mesh_child`` runs in a child process under
+    MESH_TIMEOUT, so an NCCL start that hangs fails the phase instead of
+    stalling the script; a child that fails fails the script.  Returns
+    (the numbers, the mesh path's launches of K1, K2, K2' and K3)."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "mesh.json")
+        r = subprocess.run([sys.executable, os.path.abspath(__file__), "--mesh-child", out],
+                           cwd=REPO, capture_output=True, text=True, timeout=MESH_TIMEOUT)
+        sys.stdout.write(r.stdout)
+        if r.returncode != 0:
+            raise AssertionError(f"the mesh child exited {r.returncode}:\n{r.stderr[-4000:]}")
+        with open(out) as f:
+            res = json.load(f)
+    res["card"], res["seconds"] = smi, time.perf_counter() - t0
+    launches = res.pop("launches")
+    t = res["timing"]
+    print(f"mesh ({smi}): the world of one, mesh {res['mesh']}: dryrun, frame path, server "
+          f"and cli_multi --data-axis 2 byte-identical to the no-mesh path; train step losses "
+          f"{res['train']['losses_mesh']} vs one card {res['train']['losses_one']} (rel "
+          f"{res['train']['loss_rel_max']:.3g}), parameters {res['train']['param_diff_max']:.3g}"
+          f" apart; host ms a call, median of {res['pairs']} turns of >= {res['window_s']} s "
+          f"(spread), then a profiled window's device busy ms and idle share: "
+          + "; ".join(f"{k} {v['median_ms']:.4f} ({v['spread_ms']:.4f}), busy "
+                      f"{v['busy_ms']:.4f}, idle {v['idle_share']:.3f}" for k, v in t.items())
+          + f"; launches {launches}")
+    return res, launches
+
+
+def mesh_child(out_path):
+    """The mesh phase's work, in a world of one on NCCL: the dryrun, then
+    the no-mesh references, then the mesh path from zeroed counts (the
+    frame path's MultiStreamPipeline, a MultiGeometryServer of a segm_lite
+    bucket and a BodyPix bucket on K2', and ``cli_multi --data-axis 2``
+    with three ``test:`` streams to files), each byte-identical to its
+    reference; a (1, 1) dp + tp + sp train step against the one-card
+    Trainer (losses rtol 1e-6, parameters within 2·lr·n); host ms a
+    frame-path tick, a server tick and a train step with and without the
+    mesh in alternating turns, and device busy over a profiled window."""
+    import contextlib
+    import io
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from backscrub_tpu_torch import _build, cli_multi
+    from backscrub_tpu_torch.entry import dryrun_multichip
+    from backscrub_tpu_torch.graph.executor import load_model
+    from backscrub_tpu_torch.models.specs import spec_for_model
+    from backscrub_tpu_torch.ops.megakernel import body_launch
+    from backscrub_tpu_torch.parallel.mesh import make_mesh
+    from backscrub_tpu_torch.parallel.streams import MultiStreamPipeline
+    from backscrub_tpu_torch.pipeline.frame import PipelineConfig
+    from backscrub_tpu_torch.runtime.multistream import MultiGeometryServer
+    from backscrub_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    _build.lib()
+    dry = dryrun_multichip(1, device="cuda")
+    mesh = make_mesh(1, device="cuda")
+    w, h = MESH_SIZE
+    S, n = MESH_STREAMS, MESH_TICKS
+    frames = _stream_frames(w, h, S, n)
+    cfg = PipelineConfig(width=w, height=h)
+
+    def server(m):
+        """A segm_lite bucket of two streams and a BodyPix bucket of one,
+        pull mode, n ticks: each stream's deliveries, and the server."""
+        got = [[] for _ in range(S)]
+        its = [iter(frames[:, s]) for s in range(S)]
+        streams = [(lambda it=its[s]: next(it, None), got[s].append, w, h, None, None,
+                    BODYPIX if s == S - 1 else None) for s in range(S)]
+        srv = MultiGeometryServer(MODEL, PipelineConfig(width=0, height=0), streams, m,
+                                  device="cuda")
+        if srv.run(frames=n) != n or srv.n_groups != 2:
+            raise AssertionError("mesh server: not two buckets of n ticks")
+        return [b"".join(a.tobytes() for a in g) for g in got], srv
+
+    def cli(tmp, extra):
+        files = [os.path.join(tmp, f"{extra and 'mesh'}{k}.yuv") for k in range(S)]
+        argv = ["-m", MODEL, "--frames", str(n), *extra]
+        for f in files:
+            argv += ["--stream", f"src=test:,sink=file:{f},geo={w}x{h}"]
+        with contextlib.redirect_stderr(io.StringIO()):
+            if cli_multi.main(argv) != 0:
+                raise AssertionError(f"cli_multi {extra} failed")
+        out = []
+        for f in files:
+            with open(f, "rb") as fh:
+                out.append(fh.read())
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # the references, off the mesh
+        one = MultiStreamPipeline(MODEL, cfg, S, device="cuda")
+        ref_pipe = [tuple(a.cpu().numpy() for a in one.step(f)) for f in frames]
+        ref_server, _ = server(None)
+        ref_cli = cli(tmp, [])
+        # the mesh path, counted from zero
+        _zero_counts()
+        meshed = MultiStreamPipeline(MODEL, cfg, S, mesh)
+        got_pipe = [tuple(a.cpu().numpy() for a in meshed.step(f)) for f in frames]
+        got_server, srv = server(mesh)
+        got_cli = cli(tmp, ["--data-axis", "2"])
+        counts = _counts()
+    bp = srv.servers[[k[0] for k in srv._keys].index(BODYPIX)].ms.pipe.maskgen.edge.prefix_plan
+    launches = dict(front=counts["front"], body=counts["body"] - bp.launches,
+                    body_prefix=bp.launches, pack=counts["pack"])
+    want = dict(front=n + 2 * n + n, body=n + n + n, body_prefix=n, pack=n + 2 * n + n)
+    if launches != want or counts["pack_420"] or counts["bilateral"]:
+        raise AssertionError(f"mesh path launches {counts} ({launches}), expected {want}")
+    for tag, got, ref in (("frame path", got_pipe, ref_pipe), ("server", got_server, ref_server),
+                          ("cli_multi --data-axis 2", got_cli, ref_cli)):
+        for a, b in zip(got, ref):
+            if not all(np.array_equal(x, y) for x, y in zip(a, b)) if isinstance(a, tuple) \
+                    else a != b:
+                raise AssertionError(f"mesh {tag}: not byte-identical to the no-mesh path")
+
+    # the (1, 1) mesh train step, dp + tp + sp, against the one-card Trainer
+    rng = np.random.default_rng(11)
+    x = rng.random((MESH_TRAIN_BATCH, 96, 160, 3), np.float32)
+    y = (rng.random((MESH_TRAIN_BATCH, 96, 160)) > 0.5).astype(np.float32)
+    spec = spec_for_model(MODEL)
+    tcfg = TrainConfig(learning_rate=TRAIN_LR, spatial_shard=True)
+    tm = Trainer(load_model(MODEL, "cuda"), spec, mesh, tcfg)
+    to = Trainer(load_model(MODEL, "cuda"), spec, config=TrainConfig(learning_rate=TRAIN_LR))
+    lm = [tm.step(x, y) for _ in range(MESH_TRAIN_STEPS)]
+    lo = [to.step(x, y) for _ in range(MESH_TRAIN_STEPS)]
+    rel = float(np.max(np.abs(np.subtract(lm, lo)) / np.abs(lo)))
+    pm, po = tm.params, to.params
+    worst = max(float((pm[k] - v.detach()).abs().max()) for k, v in po.items())
+    if rel > 1e-6 or worst > 2 * TRAIN_LR * MESH_TRAIN_STEPS:
+        raise AssertionError(f"mesh train step: losses {lm} vs one card {lo} (rel {rel:.3g}), "
+                             f"parameters {worst:.3g} apart")
+
+    # host ms a call in turns of at least MESH_WINDOW_S, MESH_PAIRS pairs in
+    # alternating order (one card first, then the mesh first, ...): the
+    # frame path's tick (the mesh's also without its gathers, step_local on
+    # its rows), a MultiStreamServer's tick (pull, three endless sources)
+    # and a train step; then a profiled window of each for device busy
+    from backscrub_tpu_torch.parallel.streams import take_rows
+    from backscrub_tpu_torch.runtime.multistream import MultiStreamServer
+
+    def endless(s):
+        it = itertools.cycle(frames[:, s])
+        return lambda: next(it)
+
+    servers = {who: MultiStreamServer(p, [endless(s) for s in range(S)],
+                                      [lambda _o: None] * S)
+               for who, p in (("one", one), ("mesh", meshed))}
+    calls = {("tick", "one"): lambda: one.step(frames[0]),
+             ("tick", "mesh"): lambda: meshed.step(frames[0]),
+             ("tick", "local"): lambda: meshed.step_local(take_rows(frames[0], meshed.rows)),
+             ("server", "one"): servers["one"].tick,
+             ("server", "mesh"): servers["mesh"].tick,
+             ("step", "one"): lambda: to.step(x, y),
+             ("step", "mesh"): lambda: tm.step(x, y)}
+
+    def turn(fn):
+        fn()
+        torch.cuda.synchronize()
+        k, t = 0, time.perf_counter()
+        while time.perf_counter() - t < MESH_WINDOW_S:
+            fn()
+            k += 1
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / k
+
+    turns = collections.defaultdict(list)
+    for i in range(MESH_PAIRS):
+        for what in ("tick", "server", "step"):
+            for who in (("one", "mesh"), ("mesh", "one"))[i % 2]:
+                turns[what, who].append(turn(calls[what, who]))
+                if (what, who) == ("tick", "mesh"):
+                    turns["tick", "local"].append(turn(calls["tick", "local"]))
+
+    def profiled(fn, n):
+        """(host ms, device busy ms) a call over a profiled window of n
+        calls, opened by an uncounted ``torch.cuda._sleep``."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            host = (time.perf_counter() - t) * 1e3 / n
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key)
+        if not busy:
+            raise AssertionError("the profiler saw no device time in the mesh's window")
+        return host, busy / 1e3 / n
+
+    def host_ops(fn, n):
+        """The host's operations by their own time, us a call, over a window
+        of n calls profiled on the host (which slows the host: shares only)."""
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        ev = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+        total = sum(e.self_cpu_time_total for e in ev)
+        return dict(total_us=total / n,
+                    top=[[e.key, e.self_cpu_time_total / n, e.count / n] for e in ev[:MESH_TOP]])
+
+    timing = {}
+    for (what, who), ms in turns.items():
+        host, busy = profiled(calls[what, who], MESH_PROFILED[what])
+        timing[f"{what}_{who}"] = dict(
+            turns_ms=ms, median_ms=float(np.median(ms)), spread_ms=max(ms) - min(ms),
+            profiled_host_ms=host, busy_ms=busy, idle_share=1 - busy / host,
+            host_ops=host_ops(calls[what, who], MESH_PROFILED[what]))
+    for srv in servers.values():
+        srv.finish()
+    res = dict(mesh=dict(mesh.shape), world=dist.get_world_size(), backend=dist.get_backend(),
+               dryrun=dry, launches=launches, ticks=n, streams=S,
+               window_s=MESH_WINDOW_S, pairs=MESH_PAIRS, timing=timing,
+               train=dict(losses_mesh=lm, losses_one=lo, loss_rel_max=rel, param_diff_max=worst,
+                          batch=MESH_TRAIN_BATCH))
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+
+
 def device_check():
     """A pipeline built without ``device=`` runs on the card."""
     from backscrub_tpu_torch.pipeline.frame import FramePipeline, PipelineConfig
@@ -3664,6 +3920,8 @@ def main() -> int:
     print(f"capi phase: {time.perf_counter() - t0:.2f} s")
     train, train_launches = train_phase(smi.stdout.strip().splitlines()[0])
     print(f"train phase: {train['seconds']:.2f} s")
+    mesh, mesh_launches = mesh_phase(smi.stdout.strip().splitlines()[0])
+    print(f"mesh phase: {mesh['seconds']:.2f} s")
     main_size = SIZES[0]
     # launches: each kernel's count from the run of the path it serves
     launches = dict(runs[main_size][0], body_prefix=dl_launches["body_prefix"],
@@ -3719,6 +3977,10 @@ def main() -> int:
     # model's K1, K2 and K3
     for name, count in train_launches.items():
         results[name]["train_launches"] = count
+    # the mesh phase's launches: its frame path, server (K2' the BodyPix
+    # bucket's) and cli_multi --data-axis 2, counted from zero in its child
+    for name, count in mesh_launches.items():
+        results[name]["mesh_launches"] = count
     # the stream batches' numbers (multistream_phase) beside each kernel's
     for name, by_s in batched.items():
         if name in results:
@@ -3751,7 +4013,7 @@ def main() -> int:
                                          "main_path_launches", "mean_abs_err",
                                          "three_term_device_ms", "rows_held",
                                          "control_rows_off", "batched", "capi_launches",
-                                         "train_launches")
+                                         "train_launches", "mesh_launches")
             if k in results[name]}}
         for name, (src, rep) in meta.items()]}
     print(f"chip_smoke phases: {time.perf_counter() - t_start:.2f} s (the whole script)")
@@ -3764,6 +4026,7 @@ def main() -> int:
     print("multistream: " + json.dumps(multistream))
     print("capi: " + json.dumps(capi))
     print("train: " + json.dumps(train))
+    print("mesh: " + json.dumps(mesh))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3772,4 +4035,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-child"]:
+        sys.path.insert(0, REPO)
+        sys.path.insert(0, os.path.join(REPO, "tools"))
+        mesh_child(sys.argv[2])
+        sys.exit(0)
     sys.exit(main())

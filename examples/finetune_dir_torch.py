@@ -5,7 +5,9 @@ PyTorch port (counterpart of ``examples/finetune_dir.py``).
 1. ``SegmentationData.from_dir`` loads matched image/mask pairs (mask 255
    = person),
 2. ``Trainer`` runs augmented mini-batches on the card (``--device cpu``
-   for the CPU),
+   for the CPU; add ``mesh=make_mesh(N)`` from
+   ``backscrub_tpu_torch.parallel.mesh``, in each rank of a world of N,
+   for dp + tp + sp over N devices),
 3. ``Trainer.evaluate`` reports the loss and the deployed decode's mask
    IoU before and after,
 4. the tuned weights export back to a ``.tflite`` that TFLite, both

@@ -2,8 +2,8 @@
 the CPU: its flags and stream specs parse as the JAX package's do; a
 headless run of streams in two geometries and two models writes to each
 ``file:`` sink exactly ``--frames`` frames, byte-equal to direct batched
-steps of its bucket; ``--data-axis`` above 1 is refused with a message
-that names the ROADMAP item; a run without a card fails cleanly."""
+steps of its bucket; ``--data-axis`` parses as the JAX CLI's; a run
+without a card fails cleanly."""
 
 import pathlib
 
@@ -60,14 +60,17 @@ def test_parse_refuses_what_jax_refuses(argv, msg):
         jax_cli_multi.parse_args(argv)
 
 
-def test_data_axis_is_refused_naming_the_roadmap_item(capsys):
+def test_data_axis_parses_as_jax(capsys):
+    """``--data-axis`` is served, no longer refused: it parses as the JAX
+    CLI's, and a data axis of 1 serves on one device with the mesh shape
+    on the debug line (``tests/test_torch_mesh.py`` serves 2 over a gloo
+    world)."""
     argv = ["--data-axis", "2", "--stream", "src=test:,sink=null:,geo=64x48"]
-    with pytest.raises(ValueError, match="ROADMAP queue 1 item 8"):
-        cli_multi.parse_args(argv)
-    assert cli_multi.main(argv, device="cpu") == 1
-    assert "ROADMAP queue 1 item 8" in capsys.readouterr().err
-    # one card is what a data axis of 1 asks for
-    assert cli_multi.parse_args(argv[:1] + ["1"] + argv[2:])["data_axis"] == 1
+    assert cli_multi.parse_args(argv) == jax_cli_multi.parse_args(argv)
+    assert cli_multi.parse_args(argv)["data_axis"] == 2
+    one = ["-m", LITE, "-d", "--frames", "1", "--data-axis", "1"] + argv[2:]
+    assert cli_multi.main(one, device="cpu") == 0
+    assert "mesh {'data': 1, 'model': 1}" in capsys.readouterr().err
 
 
 def _direct(path, w, h, n, frames):

@@ -1546,3 +1546,88 @@ def test_stream_batch_post_is_solo_post_on_card(cuda_device):
         batch = tedge.postprocess_mask(ema, geo, mats)
         assert torch.equal(batch, torch.stack([tedge.postprocess_mask(e, geo, mats)
                                                for e in ema]))
+
+
+@pytest.fixture
+def nccl_mesh(cuda_device):
+    """A (1, 1) mesh in an NCCL world of one (NCCL puts no two ranks on one
+    card), started in this process and torn down after the test."""
+    import torch.distributed as dist
+    from backscrub_tpu_torch.parallel.mesh import make_mesh
+    started = not dist.is_initialized()
+    yield make_mesh(1, device="cuda")
+    if started:
+        dist.destroy_process_group()
+
+
+def test_mesh_stream_batch_on_card_matches_no_mesh(nccl_mesh):
+    """``MultiStreamPipeline`` over the (1, 1) mesh (K1, K2 and K3 on the
+    card, the whole batch gathered over "data" by NCCL) against the same
+    batch off the mesh, byte for byte, over 5 ticks of 3 streams."""
+    from backscrub_tpu_torch.parallel.streams import MultiStreamPipeline
+    cfg = PipelineConfig(width=640, height=480)
+    meshed = MultiStreamPipeline(str(FULL), cfg, 3, nccl_mesh)
+    one = MultiStreamPipeline(str(FULL), cfg, 3, device="cuda")
+    assert meshed.pipe.maskgen.edge is not None
+    rng = np.random.default_rng(4)
+    for _ in range(5):
+        f = rng.integers(0, 256, (3, 480, 640, 3), np.uint8)
+        for a, b in zip(meshed.step(f), one.step(f)):
+            assert torch.equal(a, b)
+    assert torch.equal(meshed.ema, one.ema)
+
+
+def test_mesh_server_on_card_matches_no_mesh(nccl_mesh):
+    """``MultiStreamServer`` over the (1, 1) NCCL mesh, its per-tick flags
+    agreed on the mesh's gloo group of the host (``Mesh.host_group``),
+    against the same server off the mesh: every stream's deliveries byte
+    for byte, 4 ticks of 3 streams in pull mode."""
+    from backscrub_tpu_torch.parallel.streams import MultiStreamPipeline
+    from backscrub_tpu_torch.runtime.multistream import MultiStreamServer
+    assert nccl_mesh.host_group() is not None
+    cfg = PipelineConfig(width=640, height=480)
+    rng = np.random.default_rng(5)
+    frames = rng.integers(0, 256, (3, 4, 480, 640, 3), np.uint8)
+
+    def serve(mesh):
+        got = [[] for _ in range(3)]
+        its = [iter(frames[s]) for s in range(3)]
+        srv = MultiStreamServer(
+            MultiStreamPipeline(str(FULL), cfg, 3, mesh, device="cuda"),
+            [lambda it=it: next(it, None) for it in its], [g.append for g in got])
+        assert srv.run() == 4
+        return [b"".join(a.tobytes() for a in g) for g in got]
+
+    assert serve(nccl_mesh) == serve(None)
+
+
+def test_mesh_train_step_on_card_matches_one_card(nccl_mesh):
+    """A dp + tp + sp ``Trainer`` on the (1, 1) mesh against the one-card
+    Trainer from the same parameters: losses rtol 1e-6, parameters within
+    2·lr·n after 3 steps."""
+    from backscrub_tpu_torch.graph.executor import load_model
+    from backscrub_tpu_torch.models.specs import spec_for_model
+    from backscrub_tpu_torch.train.trainer import TrainConfig, Trainer
+    rng = np.random.default_rng(3)
+    x = rng.random((4, 96, 160, 3), dtype=np.float32)
+    y = (rng.random((4, 96, 160)) > 0.5).astype(np.float32)
+    spec = spec_for_model(str(FULL))
+    meshed = Trainer(load_model(str(FULL), "cuda"), spec, nccl_mesh,
+                     TrainConfig(learning_rate=1e-3, spatial_shard=True))
+    one = Trainer(load_model(str(FULL), "cuda"), spec, config=TrainConfig(learning_rate=1e-3))
+    np.testing.assert_allclose([meshed.step(x, y) for _ in range(3)],
+                               [one.step(x, y) for _ in range(3)], rtol=1e-6)
+    got = meshed.params
+    for k, v in one.params.items():
+        assert float((got[k] - v.detach()).abs().max()) <= 2 * 1e-3 * 3, k
+
+
+def test_mesh_without_cuda_raises(monkeypatch):
+    """CUDA asked for and absent: the mesh and the world raise, with no
+    fall back to the CPU."""
+    from backscrub_tpu_torch.parallel.mesh import make_mesh, run_world
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_mesh(1, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_world(print, 1, "cuda")

@@ -14,6 +14,7 @@ north star's: person IoU >= 0.99 against ``utils/parity.reference_maskgen``
 and no mask byte off by more than 1.
 """
 
+import argparse
 import json
 import os
 import pathlib
@@ -132,9 +133,13 @@ def test_entry_without_the_model_raises():
 
 
 @pytest.mark.parametrize("extra", [["--ticks", "40", "--duration", "0"],
-                                   ["--sigterm", "--duration", "60", "--sigterm-at", "3"]])
+                                   ["--sigterm", "--duration", "60", "--sigterm-at", "3"],
+                                   ["--ticks", "40", "--duration", "0", "--slots", "3"]])
 def test_soak_smoke(tmp_path, extra):
-    """40 ticks; or unbounded until a SIGTERM at 3 s, which drains."""
+    """Over the CPU's (2, 2) mesh of four gloo ranks, each stream checked on
+    the rank that served it: 40 ticks; or unbounded until a SIGTERM to the
+    tool's process at 3 s, which every rank gets and drains; or 40 ticks
+    with 3 slots, rounded up to the data axis."""
     report = tmp_path / "report.json"
     r = subprocess.run([sys.executable, str(ROOT / "tools" / "soak_torch.py"), "--model", LITE,
                         "--device", "cpu", "--churn-every", "10",
@@ -148,6 +153,8 @@ def test_soak_smoke(tmp_path, extra):
     assert rep["identity_checked"] == rep["frames_delivered"]
     assert not (tmp_path / "report.json.partial").exists()
     assert rep["sigterm_drained"] == ("--sigterm" in extra)
+    assert rep["mesh"] == {"data": 2, "model": 2}
+    assert rep["slots"] == (4 if "--slots" in extra else 8)
 
 
 @pytest.mark.parametrize("case", ["clean", "off the ties", "inside the ties"])
@@ -264,7 +271,23 @@ def test_minimal_demo(tmp_path, capsys):
 
 
 def test_serve_multistream_example(capsys):
+    """The example's serving in a world of one, as on a one-card machine."""
     sys.path.insert(0, str(ROOT / "examples"))
     import serve_multistream_torch as serve
-    assert serve.main(["--model", LITE, "--device", "cpu", "3", "2"]) == 0
-    assert "per-stream deliveries [10, 11, 12]" in capsys.readouterr().out
+    from backscrub_tpu_torch.parallel.mesh import run_world
+    args = argparse.Namespace(model=LITE, device="cpu", n_streams=3, frames=2)
+    assert run_world(serve.serve, 1, "cpu", args) == 0
+    out = capsys.readouterr().out
+    assert "mesh {'data': 1, 'model': 1}, serving 3 streams" in out
+    assert "per-stream deliveries [10, 11, 12]" in out
+
+
+def test_serve_multistream_example_on_a_mesh(tmp_path):
+    """The example on the CPU: a (2, 2) mesh of four gloo ranks; 3 streams
+    round up to the data axis, each stream delivered in full by its rank."""
+    r = subprocess.run([sys.executable, str(ROOT / "examples" / "serve_multistream_torch.py"),
+                        "--model", LITE, "--device", "cpu", "3", "2"],
+                       capture_output=True, text=True, timeout=600, env=_env(), cwd=ROOT)
+    assert r.returncode == 0, (r.stdout[-1000:], r.stderr[-2000:])
+    assert "mesh {'data': 2, 'model': 2}, serving 4 streams" in r.stdout
+    assert "per-stream deliveries [10, 11, 12, 10]" in r.stdout

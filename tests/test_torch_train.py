@@ -189,14 +189,41 @@ def test_evaluate_matches_jax(lite, batch):
     np.testing.assert_allclose(got["loss"], ref["loss"], rtol=1e-5)
 
 
-def test_refusals(lite):
-    """A mesh names ROADMAP queue 1 item 8; an int8 model is refused as in
-    the JAX package."""
+@pytest.fixture
+def mesh_of_one():
+    """A (1, 1) mesh in a gloo world of one, started in this process and
+    torn down after the test."""
+    import torch.distributed as dist
+    from backscrub_tpu_torch.parallel.mesh import make_mesh
+    started = not dist.is_initialized()
+    yield make_mesh(1, device="cpu")
+    if started:
+        dist.destroy_process_group()
+
+
+def test_refusals(lite, mesh_of_one):
+    """An int8 model is refused as in the JAX package, on one device and
+    on a mesh."""
     _, tm, spec = lite
-    with pytest.raises(ValueError, match="ROADMAP queue 1 item 8"):
-        Trainer(tm, spec, mesh=object())
+    q = load_model(LITE, "cpu", quantize="int8")
     with pytest.raises(ValueError, match="int8"):
-        Trainer(load_model(LITE, "cpu", quantize="int8"), spec)
+        Trainer(q, spec)
+    with pytest.raises(ValueError, match="int8"):
+        Trainer(q, spec, mesh=mesh_of_one)
+
+
+def test_mesh_of_one_steps_as_one_card(lite, batch, mesh_of_one):
+    """``Trainer(mesh=)`` on a (1, 1) mesh, dp + tp + sp, takes the one-card
+    Trainer's steps: every collective runs on a group of one, so the
+    losses and parameters are equal, and ``evaluate`` reads the same."""
+    _, tm, spec = lite
+    x, y = batch
+    cfg = TrainConfig(learning_rate=LR, spatial_shard=True)
+    one, meshed = Trainer(tm, spec, config=cfg), Trainer(tm, spec, mesh_of_one, cfg)
+    assert [meshed.step(x, y) for _ in range(2)] == [one.step(x, y) for _ in range(2)]
+    for k, v in one.params.items():
+        assert torch.equal(meshed.params[k], v.detach()), k
+    assert meshed.evaluate(x, y) == one.evaluate(x, y)
 
 
 def test_trainer_pins_tf32_off(lite, monkeypatch):

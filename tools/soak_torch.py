@@ -4,8 +4,9 @@ under churn (counterpart of ``tools/soak.py``).
 
 A ``MultiStreamServer`` runs for ``--duration`` seconds (or ``--ticks``)
 while streams attach, die mid-stream (abrupt EOF, like a camera unplug)
-and detach at random; ``--sigterm`` sends this process a SIGTERM halfway
-through (or at ``--sigterm-at`` seconds) and the server drains.  Checked
+and detach at random; ``--sigterm`` sends the tool's process a SIGTERM
+halfway through (or at ``--sigterm-at`` seconds), which reaches every
+rank, and the server drains.  Checked
 throughout:
 
 - **each stream against solo steps**: every delivered frame of every
@@ -33,8 +34,14 @@ throughout:
 
 Writes a JSON report (``--report``, through
 ``utils.artifacts.atomic_json_dump``) and prints it; exits 1 on any
-violation.  Runs on the card unless given ``--device cpu``; it needs no
-mesh: the port's server runs on one card.
+violation.  Runs on the card unless given ``--device cpu``, over a mesh
+of every device, as ``tools/soak.py`` does (``parallel/mesh.py``
+``device_count``: the cards, or four gloo ranks on the CPU): one process a
+device (``run_world``; a world of one in this process), the slots rounded
+up to the data axis.  Every rank runs the
+same churn from the same seed; the server's ticks, the slots' liveness
+and the stop are agreed over the mesh, each rank checks the streams it
+delivered, and rank 0 writes the report of them all.
 
 Usage::
 
@@ -216,26 +223,38 @@ def main(argv=None) -> int:
                     help="ticks between incremental identity sweeps")
     ap.add_argument("--rss-budget-mb", type=float, default=200.0)
     ap.add_argument("--sigterm", action="store_true",
-                    help="send SIGTERM to this process halfway through")
+                    help="send SIGTERM to the tool's process halfway through")
     ap.add_argument("--sigterm-at", type=float, default=0.0,
                     help="with --sigterm: at this many seconds, not duration/2")
     ap.add_argument("--report", default="soak_report.json")
     args = ap.parse_args(argv)
 
+    from backscrub_tpu_torch.parallel.mesh import device_count, run_world
+    return run_world(soak, device_count(args.device), args.device, args)
+
+
+def soak(args) -> int:
+    """One rank's soak over the world's mesh; rank 0's exit code."""
     import torch
+    import torch.distributed as dist
     from backscrub_tpu_torch.models.specs import resolve_model_path
+    from backscrub_tpu_torch.parallel.mesh import agree, make_mesh
     from backscrub_tpu_torch.parallel.streams import MultiStreamPipeline
     from backscrub_tpu_torch.pipeline.frame import FramePipeline, PipelineConfig
     from backscrub_tpu_torch.runtime.multistream import MultiStreamServer
     from backscrub_tpu_torch.utils.artifacts import atomic_json_dump
 
+    stop = threading.Event()
+    signal.signal(signal.SIGTERM, lambda *_: stop.set())
+    mesh = make_mesh(dist.get_world_size(), device=args.device)
     w, h = (int(x) for x in args.geometry.split("x"))
     rng = np.random.default_rng(args.seed)
     path = resolve_model_path(args.model)
     cfg = PipelineConfig(width=w, height=h)
-    S = args.slots
-    ms = MultiStreamPipeline(path, cfg, S, device=args.device)
-    verifier = Verifier(FramePipeline(path, cfg, device=args.device),
+    da = mesh.shape["data"]
+    S = (max(args.slots, da) + da - 1) // da * da
+    ms = MultiStreamPipeline(path, cfg, S, mesh)
+    verifier = Verifier(FramePipeline(path, cfg, device=ms.device),
                         exact=ms.device.type == "cpu")
 
     all_sims = []
@@ -253,11 +272,13 @@ def main(argv=None) -> int:
                                keep_alive=True)
     slot_sim = dict(enumerate(sims))
 
-    stop = threading.Event()
-    signal.signal(signal.SIGTERM, lambda *_: stop.set())
-    if args.sigterm and args.duration:
+    # every rank drains on a SIGTERM from here on; then rank 0 may send one
+    dist.barrier(group=mesh.host_group())
+    if args.sigterm and args.duration and dist.get_rank() == 0:
+        # the process the tool runs in: this one, or the spawned ranks' parent
+        pid = os.getppid() if dist.get_world_size() > 1 else os.getpid()
         t = threading.Timer(args.sigterm_at or args.duration / 2,
-                            lambda: os.kill(os.getpid(), signal.SIGTERM))
+                            lambda: os.kill(pid, signal.SIGTERM))
         t.daemon = True
         t.start()
 
@@ -283,8 +304,9 @@ def main(argv=None) -> int:
     rss0 = None
     ticks = attaches = detaches = deaths = 0
     try:
-        while not stop.is_set():
-            if args.duration and time.monotonic() - t0 > args.duration:
+        while True:
+            if agree(mesh, stop.is_set() or bool(
+                    args.duration and time.monotonic() - t0 > args.duration))[0]:
                 break
             if args.ticks and ticks >= args.ticks:
                 break
@@ -298,10 +320,12 @@ def main(argv=None) -> int:
             if ticks == 20 and rss0 is None:
                 rss0 = rss_mb()   # after the first allocations and the ring's warm-up
 
-            # a reader's death shows as the slot no longer live while attached:
-            # detach it, so that the slot can be used again
+            # a reader's death shows as the slot no longer live while attached
+            # (on whichever rank serves it): detach it, so that the slot can be
+            # used again
+            live = server.live_slots()
             for slot, sim in list(slot_sim.items()):
-                if sim.produced >= sim.lifetime and not server._live[slot]:
+                if not live[slot]:
                     server.detach(slot)
                     deaths += 1
                     del slot_sim[slot]
@@ -332,6 +356,17 @@ def main(argv=None) -> int:
     if growth > args.rss_budget_mb:
         failures.append(f"RSS grew {growth:.0f} MB > budget {args.rss_budget_mb:.0f} MB")
 
+    # every rank's tallies of the streams it served
+    mine = dict(failures=failures, produced=sum(s.produced for s in all_sims),
+                delivered=sum(len(s.delivered) for s in all_sims), checked=checked[0],
+                flip_frames=sum(s.v_diff_frames for s in all_sims),
+                flip_sum=sum(s.v_diff_sum for s in all_sims))
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, mine)
+    if dist.get_rank():
+        return 0
+    failures = [f for r in ranks for f in r["failures"]]
+    checked[0] = sum(r["checked"] for r in ranks)
     dev = ms.device
     report = {
         "ok": not failures,
@@ -339,20 +374,22 @@ def main(argv=None) -> int:
         "duration_s": round(time.monotonic() - t0, 1),
         "ticks": ticks,
         "slots": S,
+        "mesh": mesh.shape,
         "geometry": f"{w}x{h}",
         "model": os.path.basename(path),
         "streams_total": len(all_sims),
         "attaches": attaches,
         "detaches": detaches,
         "reader_deaths": deaths,
-        "frames_produced": sum(s.produced for s in all_sims),
-        "frames_delivered": sum(len(s.delivered) for s in all_sims),
+        # a stream's frames are produced on the lead of its data slice
+        "frames_produced": sum(r["produced"] for r in ranks),
+        "frames_delivered": sum(r["delivered"] for r in ranks),
         "identity_checked": checked[0],
         "identity_bar": ("byte-equal" if verifier.exact else
                          f"byte-equal outside the post's reach of near-tie decodes "
                          f"(|margin| <= {verifier.tie:g}), frame 2%, stream mean 0.2%"),
-        "boundary_flip_frames": sum(s.v_diff_frames for s in all_sims),
-        "boundary_flip_mean_frac": round(sum(s.v_diff_sum for s in all_sims)
+        "boundary_flip_frames": sum(r["flip_frames"] for r in ranks),
+        "boundary_flip_mean_frac": round(sum(r["flip_sum"] for r in ranks)
                                          / max(checked[0], 1), 6),
         "sigterm_drained": bool(args.sigterm and stop.is_set()),
         "rss_warm_mb": round(rss0, 1) if rss0 is not None else None,
