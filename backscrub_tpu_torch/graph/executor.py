@@ -30,7 +30,8 @@ from ..tflite.ir import GraphIR
 from ..ops.common import get_lowering
 from ..quant.ptq import boundary_keys, dequantize, quantize_params
 # imported for their lowering registrations
-from ..ops import conv as _conv, elementwise as _ew, misc as _misc, pool as _pool  # noqa: F401
+from ..ops import (conv as _conv, elementwise as _ew, misc as _misc, pool as _pool,  # noqa: F401
+                   shape_ops as _shape, extended as _ext, control_flow as _cf)
 
 
 class LoweringCtx:
@@ -41,9 +42,20 @@ class LoweringCtx:
     (the model's, kept across runs: key -> (int8 tensor, its dequantized
     value)).  ``weight_meta`` gets, for each key prepared here, how to map
     the parameter back into the file (``tflite/export.py``): its tensor
-    index, the payload dtype (f16 for a folded DEQUANTIZE output) and the
-    inverse of the layout transform, in the order the keys are prepared
-    (the JAX executor's ``weight_meta``).
+    index, its subgraph, the payload dtype (f16 for a folded DEQUANTIZE
+    output) and the inverse of the layout transform, in the order the keys
+    are prepared (the JAX executor's ``weight_meta``).
+
+    Subgraphs (WHILE/IF bodies, ``all_graphs[k]``) run through
+    :meth:`subgraph_fn` with the same parameters; their tensors' keys are
+    ``s<k>t<i>`` (:meth:`key`).  ``static_vals`` holds the values known
+    before the run (constants and folded shape math: SHAPE ->
+    STRIDED_SLICE -> PACK -> RESHAPE chains), which fold to numpy as they
+    do under XLA (:meth:`maybe_static`, :meth:`set_static`,
+    :meth:`const_value`); ``device`` is where such values are placed.
+    In the build pass (``prepared`` given) WHILE runs its cond and body
+    once each and IF both branches, so that every subgraph weight is
+    prepared whatever the data.
 
     On a mesh, ``tp`` is the run's ``parallel.sharding.TensorParallel``
     and ``params`` hold this rank's slices: ``get_const`` gathers a
@@ -57,7 +69,9 @@ class LoweringCtx:
                  prepared: Optional[Dict[str, np.ndarray]] = None,
                  compute_dtype: torch.dtype = torch.float32,
                  dequantized: Optional[Dict[str, tuple]] = None,
-                 weight_meta: Optional[Dict[str, dict]] = None, tp=None):
+                 weight_meta: Optional[Dict[str, dict]] = None, tp=None,
+                 all_graphs: Optional[List[GraphIR]] = None, sub_index: int = 0,
+                 device=None):
         self.graph = graph
         self.params = params
         self.prepared = prepared    # build-time store, None once built
@@ -65,7 +79,11 @@ class LoweringCtx:
         self.dequantized = {} if dequantized is None else dequantized
         self.weight_meta = {} if weight_meta is None else weight_meta
         self.tp = tp
+        self.all_graphs = graph.subgraphs if all_graphs is None else all_graphs
+        self.sub_index = sub_index
+        self.device = device
         self.env: Dict[int, torch.Tensor] = {}
+        self.static_vals: Dict[int, np.ndarray] = {}
         self.rows: Dict[int, int] = {}
         self.halo: Dict[int, torch.Tensor] = {}
 
@@ -76,9 +94,33 @@ class LoweringCtx:
             return self.get_const(idx)
         raise KeyError(f"tensor {self.graph.tensor(idx)!r} referenced before definition")
 
-    @staticmethod
-    def key(idx: int, variant: str = "") -> str:
-        return f"t{idx}" + (f"@{variant}" if variant else "")
+    def key(self, idx: int, variant: str = "") -> str:
+        """A parameter's key: ``t<i>`` in the main graph, ``s<k>t<i>`` in
+        subgraph k, ``@<variant>`` for a layout variant."""
+        base = f"t{idx}" if self.sub_index == 0 else f"s{self.sub_index}t{idx}"
+        return base + (f"@{variant}" if variant else "")
+
+    def subgraph_fn(self, sub_idx: int) -> Callable:
+        """fn(values) -> tuple of outputs running subgraph ``sub_idx`` on
+        a tuple of values (dtypes kept: integer loop counters stay
+        integers), with this run's parameters, stores and mesh."""
+        if self.all_graphs is None:
+            raise ValueError("model has no subgraphs (WHILE/IF need them)")
+        sub = self.all_graphs[sub_idx]
+
+        def run(vals):
+            ctx = LoweringCtx(sub, self.params, self.prepared, self.compute_dtype,
+                              self.dequantized, self.weight_meta, self.tp,
+                              all_graphs=self.all_graphs, sub_index=sub_idx,
+                              device=self.device)
+            vals = vals if isinstance(vals, (tuple, list)) else (vals,)
+            for idx, v in zip(sub.inputs, vals):
+                ctx.env[idx] = v
+            for node in sub.nodes:
+                get_lowering(node.kind)(ctx, node)
+            return tuple(ctx.get(i) for i in sub.outputs)
+
+        return run
 
     def column(self, idx: int, variant: str = "") -> bool:
         """Whether the op whose kernel is ``idx`` (in ``variant``'s layout)
@@ -98,21 +140,28 @@ class LoweringCtx:
                   local: bool = False) -> torch.Tensor:
         key = self.key(idx, variant)
         if key not in self.params:
+            t = self.graph.tensor(idx)
+            if not t.is_constant:
+                # an activation fed to a weight slot (rare): this run's value
+                return self.get(idx)
             if self.prepared is None:
                 raise KeyError(f"parameter {key} was not prepared at build time")
-            arr = self.graph.tensor(idx).data
-            self.weight_meta[key] = dict(tensor_index=idx, inverse=inverse, dtype=arr.dtype)
+            arr = t.data
+            self.weight_meta[key] = dict(tensor_index=idx, inverse=inverse, dtype=arr.dtype,
+                                         subgraph=self.sub_index)
             if prepare is not None:
                 arr = prepare(arr)
             if np.issubdtype(arr.dtype, np.floating):
                 arr = arr.astype(np.float32)   # f16 payloads widen exactly
             arr = np.ascontiguousarray(arr)
+            if not arr.flags.writeable:
+                arr = arr.copy()             # a payload read in place from the file
             t = torch.from_numpy(arr)
             if t.is_floating_point() and self.compute_dtype != torch.float32:
                 t = t.to(self.compute_dtype)   # bf16 rounds each float once
                 arr = t.float().numpy()
             self.prepared[key] = arr
-            self.params[key] = t
+            self.params[key] = t.to(self.device) if self.device is not None else t
         val = self.params[key]
         scale = self.params.get(key + "__scale")
         if scale is not None and not val.is_floating_point():
@@ -125,10 +174,26 @@ class LoweringCtx:
         return val
 
     def const_value(self, idx: int) -> np.ndarray:
+        """A value needed before the run (shapes, axes, paddings): a
+        constant's payload or folded shape math."""
+        if idx in self.static_vals:
+            return self.static_vals[idx]
         t = self.graph.tensor(idx)
         if not t.is_constant:
             raise ValueError(f"tensor {t!r} must be a build-time constant")
         return t.data
+
+    def maybe_static(self, idx: int) -> Optional[np.ndarray]:
+        """The value known before the run, if any (a constant or folded
+        shape math)."""
+        if idx in self.static_vals:
+            return self.static_vals[idx]
+        t = self.graph.tensor(idx)
+        return t.data if t.is_constant else None
+
+    def set_static(self, idx: int, value) -> None:
+        self.static_vals[idx] = np.array(value)
+        self.env[idx] = torch.from_numpy(self.static_vals[idx].copy()).to(self.device)
 
     def set(self, idx: int, val: torch.Tensor):
         self.env[idx] = val
@@ -160,7 +225,9 @@ def fold_constants(graph: GraphIR) -> GraphIR:
 def run_nodes(graph: GraphIR, params, nodes, inputs: Dict[int, torch.Tensor],
               prepared=None, compute_dtype: torch.dtype = torch.float32,
               dequantized=None, weight_meta=None, tp=None) -> LoweringCtx:
-    ctx = LoweringCtx(graph, params, prepared, compute_dtype, dequantized, weight_meta, tp)
+    dev = next(iter(inputs.values())).device if inputs else None
+    ctx = LoweringCtx(graph, params, prepared, compute_dtype, dequantized, weight_meta, tp,
+                      device=dev)
     for idx, x in inputs.items():
         ctx.set(idx, x)
         if tp is not None:
@@ -174,11 +241,23 @@ def run_nodes(graph: GraphIR, params, nodes, inputs: Dict[int, torch.Tensor],
     return ctx
 
 
+def _inputs(graph: GraphIR, x, compute_dtype) -> Dict[int, torch.Tensor]:
+    """The graph inputs from ``x`` (one tensor, or a tuple with one per
+    input): floats in ``compute_dtype``, other dtypes as given."""
+    xs = tuple(x) if isinstance(x, (tuple, list)) else (x,)
+    if len(graph.inputs) != len(xs):
+        raise ValueError(f"graph has {len(graph.inputs)} inputs, got {len(xs)}")
+    return {i: v.to(compute_dtype) if v.is_floating_point() else v
+            for i, v in zip(graph.inputs, xs)}
+
+
 class CompiledModel(nn.Module):
     """A TFLite graph run eagerly on NHWC float tensors.
 
     ``forward(x)`` maps (N, H, W, C) float input to the model output in
-    ``compute_dtype``, as the JAX ``CompiledModel`` does; ``raw_fn(params,
+    ``compute_dtype``, as the JAX ``CompiledModel`` does (a graph with
+    several inputs takes a tuple, one with several outputs returns one,
+    integer inputs keep their dtype); ``raw_fn(params,
     x)`` runs it on a caller's parameter dict (every key of ``params``),
     the functional form that training differentiates; with ``tp`` (a
     ``parallel.sharding.TensorParallel``) ``params`` are this rank's
@@ -217,14 +296,13 @@ class CompiledModel(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.raw_fn(self.params, x, self.dequantized)
 
-    def raw_fn(self, params: Dict[str, torch.Tensor], x: torch.Tensor,
-               dequantized: Optional[Dict[str, tuple]] = None, tp=None) -> torch.Tensor:
+    def raw_fn(self, params: Dict[str, torch.Tensor], x,
+               dequantized: Optional[Dict[str, tuple]] = None, tp=None):
         g = self.graph
-        ctx = run_nodes(g, params, g.nodes, {g.inputs[0]: x.to(self.compute_dtype)},
+        ctx = run_nodes(g, params, g.nodes, _inputs(g, x, self.compute_dtype),
                         compute_dtype=self.compute_dtype, dequantized=dequantized, tp=tp)
-        if tp is not None:
-            return tp.leave(ctx, g.outputs[0])
-        return ctx.get(g.outputs[0])
+        outs = [tp.leave(ctx, i) if tp is not None else ctx.get(i) for i in g.outputs]
+        return outs[0] if len(outs) == 1 else tuple(outs)
 
 
 def span_fn(model: CompiledModel, start: int, end: int, in_tensor: int,
@@ -247,8 +325,9 @@ COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
 def build_model(graph: GraphIR, compute_dtype: torch.dtype = torch.float32,
                 quantize: Optional[str] = None) -> CompiledModel:
-    """Fold constants and prepare every weight with one run on zeros (the
-    counterpart of the JAX executor's ``eval_shape`` pass), in
+    """Fold constants (in every subgraph) and prepare every weight with one
+    run on zeros (the counterpart of the JAX executor's ``eval_shape``
+    pass; control flow runs each subgraph once in it), in
     ``compute_dtype`` (torch.float32 or torch.bfloat16); ``quantize="int8"``
     then quantizes the prepared kernels (``quant.ptq.quantize_params``, the
     first and last two nodes' inputs excluded)."""
@@ -256,13 +335,24 @@ def build_model(graph: GraphIR, compute_dtype: torch.dtype = torch.float32,
         raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, got {compute_dtype}")
     if quantize not in (None, "int8"):
         raise ValueError(f"quantize must be None or 'int8', got {quantize!r}")
-    graph = fold_constants(graph)
+    if graph.subgraphs is not None:
+        # fold every subgraph; index 0 stays the main graph
+        all_graphs = [fold_constants(g) for g in graph.subgraphs]
+        graph = all_graphs[0]
+        graph.subgraphs = all_graphs
+    else:
+        graph = fold_constants(graph)
     params: Dict[str, torch.Tensor] = {}
     prepared: Dict[str, np.ndarray] = {}
     weight_meta: Dict[str, dict] = {}
-    x = torch.zeros(graph.tensor(graph.inputs[0]).shape, dtype=compute_dtype)
+    zeros = {}
+    for i in graph.inputs:
+        t = graph.tensor(i)
+        dt = (compute_dtype if np.issubdtype(t.dtype, np.floating)
+              else torch.from_numpy(np.zeros(0, t.dtype)).dtype)
+        zeros[i] = torch.zeros(t.shape, dtype=dt)
     with torch.no_grad():
-        run_nodes(graph, params, graph.nodes, {graph.inputs[0]: x}, prepared, compute_dtype,
+        run_nodes(graph, params, graph.nodes, zeros, prepared, compute_dtype,
                   weight_meta=weight_meta)
     if quantize == "int8":
         qparams, scales = quantize_params(prepared, exclude=boundary_keys(graph))
@@ -285,7 +375,13 @@ def load_model(path: str, device="cuda", *, compute_dtype: torch.dtype = torch.f
 
 def params_from_jax(params: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """The JAX ``CompiledModel.params`` / ``host_params`` as the port's
-    parameter dict: same keys and layouts; floats widened to f32 (a bf16
-    store exactly), int8 kernels kept int8 beside their f32 ``__scale``."""
-    return {k: torch.from_numpy(np.array(v, np.int8 if np.asarray(v).dtype == np.int8
-                                         else np.float32)) for k, v in params.items()}
+    parameter dict: same keys and layouts (``s<k>t<i>`` for a subgraph's);
+    floats widened to f32 (a bf16 store exactly); int8 kernels beside
+    their f32 ``__scale``, and integer and bool constants, keep their
+    dtype."""
+    out = {}
+    for k, v in params.items():
+        a = np.asarray(v)
+        floating = np.issubdtype(a.dtype, np.floating) or a.dtype.name == "bfloat16"
+        out[k] = torch.from_numpy(np.array(a, np.float32 if floating else a.dtype))
+    return out

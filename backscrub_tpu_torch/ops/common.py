@@ -26,8 +26,17 @@ def get_lowering(kind: str) -> Callable:
     try:
         return _LOWERINGS[kind]
     except KeyError:
-        raise NotImplementedError(f"op {kind!r} has no lowering in the "
-                                  f"PyTorch port yet") from None
+        raise NotImplementedError(f"TFLite op {kind!r} has no lowering; "
+                                  f"supported: {sorted(_LOWERINGS)}") from None
+
+
+def scalar_like(v: float, x: torch.Tensor) -> float:
+    """A Python number as a JAX weak-typed scalar meets ``x``: rounded to
+    bf16 where x is bf16 (PyTorch would compute with the unrounded value),
+    else the number itself."""
+    if x.dtype == torch.bfloat16:
+        return float(torch.tensor(v, dtype=torch.bfloat16))
+    return v
 
 
 # 1/6 rounded to bf16: a JAX scalar takes its array's dtype, so in bf16

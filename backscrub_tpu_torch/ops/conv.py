@@ -1,5 +1,6 @@
-"""Convolution lowerings: CONV_2D, DEPTHWISE_CONV_2D, FULLY_CONNECTED and
-the MediaPipe custom op ``Convolution2DTransposeBias``.
+"""Convolution lowerings: CONV_2D, DEPTHWISE_CONV_2D, FULLY_CONNECTED,
+the builtin TRANSPOSE_CONV and the MediaPipe custom op
+``Convolution2DTransposeBias``.
 
 Weights are kept in the JAX executor's prepared layouts (``t{i}@hwio``,
 ``@dw``, ``@ko``, ``@tconv``), so one parameter dict serves both packages;
@@ -11,9 +12,10 @@ once, after the bias (its dots sum in f32 to ``preferred_element_type``).
 The transposed conv reproduces ``lib/transpose_conv_bias.cc:80-111``
 (scatter accumulate) with the SAME shape math of ``:171-181``:
 ``pad_total = max(0, f - (in-1) % s - 1)``, leading crop ``pad_total // 2``,
-``out = s*(in-1) + f - pad_total``.
+``out = s*(in-1) + f - pad_total``.  The builtin TRANSPOSE_CONV takes its
+output size from its constant input 0 and crops to it the same way.
 
-On a mesh's "model" axis (``parallel/sharding.py``), each of the four
+On a mesh's "model" axis (``parallel/sharding.py``), each of the five
 lowerings computes in the tp mode only this rank's output channels from
 its slice of the kernel and bias (``ctx.column``; depthwise also takes only
 its own input channels) and gathers the result; in the spatial mode a
@@ -140,14 +142,17 @@ def transpose_conv_crop(in_size: int, filter_size: int, stride: int, padding: st
     return stride * (in_size - 1) + filter_size - pad_total, pad_total // 2
 
 
-@register("Convolution2DTransposeBias")
-def conv2d_transpose_bias(ctx, node):
-    x = ctx.get(node.inputs[0])
-    o = node.options
-    cols = ctx.column(node.inputs[1], "tconv")
+def _transpose_conv(ctx, node, x_idx, w_idx, bias_idx, sh, sw, padding, out_hw=None):
+    """The transposed conv of both kinds: ``F.conv_transpose2d``'s whole
+    output (s*(in-1) + f a side) cropped to (out size, leading crop) each
+    way, zeros beyond it where the output is larger, then the bias.  The
+    MediaPipe op's crop follows its SAME shape math; the builtin's output
+    size ``out_hw`` is given."""
+    x = ctx.get(x_idx)
+    cols = ctx.column(w_idx, "tconv")
     # stored as the JAX executor's flipped HWIO: Wf[h, w, i, o] =
     # W_ohwi[o, fh-1-h, fw-1-w, i]; conv_transpose2d wants (I, O, fh, fw)
-    wf = ctx.get_const(node.inputs[1],
+    wf = ctx.get_const(w_idx,
                        lambda a: np.transpose(a[:, ::-1, ::-1, :], (1, 2, 3, 0)),
                        variant="tconv",
                        inverse=lambda a: np.transpose(a, (3, 0, 1, 2))[:, ::-1, ::-1, :],
@@ -155,17 +160,50 @@ def conv2d_transpose_bias(ctx, node):
     if cols:
         x = ctx.tp.copy_in(x)
     wt = torch.flip(wf, (0, 1)).permute(2, 3, 0, 1)
-    sh, sw = o["stride_h"], o["stride_w"]
-    pad = o.get("padding", "SAME")
-    oh, lh = transpose_conv_crop(x.shape[1], wf.shape[0], sh, pad)
-    ow, lw = transpose_conv_crop(x.shape[2], wf.shape[1], sw, pad)
-    b = _bias(ctx, node, cols)
-    if b is not None and x.dtype == torch.bfloat16:
-        # one rounding after the bias, as the JAX lowering's f32 sum
-        y = F.conv_transpose2d(_nchw(x), wt, b, stride=(sh, sw))[:, :, lh:lh + oh, lw:lw + ow]
+    if out_hw is None:
+        (oh, lh), (ow, lw) = (transpose_conv_crop(x.shape[1], wf.shape[0], sh, padding),
+                              transpose_conv_crop(x.shape[2], wf.shape[1], sw, padding))
     else:
-        y = F.conv_transpose2d(_nchw(x), wt, stride=(sh, sw))
-        y = y[:, :, lh:lh + oh, lw:lw + ow]
+        (oh, lh), (ow, lw) = (builtin_transpose_conv_crop(x.shape[1], wf.shape[0], sh, out_hw[0]),
+                              builtin_transpose_conv_crop(x.shape[2], wf.shape[1], sw, out_hw[1]))
+    full_h, full_w = sh * (x.shape[1] - 1) + wf.shape[0], sw * (x.shape[2] - 1) + wf.shape[1]
+    crop = (-lw, ow + lw - full_w, -lh, oh + lh - full_h)   # F.pad crops where < 0
+    b = (ctx.get_const(bias_idx, local=cols)
+         if bias_idx is not None and bias_idx >= 0 else None)
+    if b is not None and x.dtype == torch.bfloat16 and max(crop) <= 0:
+        # one rounding after the bias, as the JAX lowering's f32 sum
+        y = F.pad(F.conv_transpose2d(_nchw(x), wt, b, stride=(sh, sw)), crop)
+    else:
+        y = F.pad(F.conv_transpose2d(_nchw(x), wt, stride=(sh, sw)), crop)
         if b is not None:
             y = y + b[None, :, None, None]
     ctx.set(node.outputs[0], _column_out(ctx, cols, _nhwc(y)))
+
+
+@register("Convolution2DTransposeBias")
+def conv2d_transpose_bias(ctx, node):
+    # inputs: [data, weights, bias]; the MediaPipe SAME shape math
+    o = node.options
+    _transpose_conv(ctx, node, node.inputs[0], node.inputs[1], node.inputs[2],
+                    o["stride_h"], o["stride_w"], o.get("padding", "SAME"))
+
+
+def builtin_transpose_conv_crop(in_size: int, filter_size: int, stride: int,
+                                out_size: int):
+    """(out size, leading crop) of the builtin TRANSPOSE_CONV, whose output
+    size is given: the total scatter padding max(0, (in-1)*s + f - out)
+    (TFLite transpose_conv.cc ComputePadding), its smaller half leading,
+    as ``backscrub_tpu/ops/conv.py:_conv_pads_for_output`` derives it."""
+    return out_size, max(0, (in_size - 1) * stride + filter_size - out_size) // 2
+
+
+@register("TRANSPOSE_CONV")
+def transpose_conv(ctx, node):
+    # inputs: [output_shape (constant), weights (OHWI), data, (bias)]; the
+    # fused activation is not read, as in the JAX loader
+    o = node.options
+    out = ctx.const_value(node.inputs[0]).reshape(-1)
+    _transpose_conv(ctx, node, node.inputs[2], node.inputs[1],
+                    node.inputs[3] if len(node.inputs) > 3 else None,
+                    o["stride_h"], o["stride_w"], o.get("padding", "SAME"),
+                    out_hw=(int(out[1]), int(out[2])))

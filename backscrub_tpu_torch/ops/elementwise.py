@@ -1,11 +1,12 @@
-"""Elementwise lowerings: ADD, SUB, MUL, DIV, RELU, RELU6, HARD_SWISH,
-LOGISTIC, DEQUANTIZE (counterpart of ``backscrub_tpu/ops/elementwise.py``)."""
+"""Elementwise lowerings: ADD, SUB, MUL, DIV, MINIMUM, MAXIMUM, RELU,
+RELU6, RELU_N1_TO_1, TANH, LEAKY_RELU, PRELU, HARD_SWISH, LOGISTIC,
+DEQUANTIZE (counterpart of ``backscrub_tpu/ops/elementwise.py``)."""
 
 from __future__ import annotations
 
 import torch
 
-from .common import apply_activation, hard_swish, register, sigmoid
+from .common import apply_activation, hard_swish, register, scalar_like, sigmoid
 
 
 def _binary(ctx, node, fn):
@@ -33,6 +34,16 @@ def div(ctx, node):
     _binary(ctx, node, torch.div)
 
 
+@register("MINIMUM")
+def minimum(ctx, node):
+    _binary(ctx, node, torch.minimum)
+
+
+@register("MAXIMUM")
+def maximum(ctx, node):
+    _binary(ctx, node, torch.maximum)
+
+
 def _unary(ctx, node, fn):
     ctx.set(node.outputs[0], fn(ctx.get(node.inputs[0])))
 
@@ -45,6 +56,28 @@ def relu(ctx, node):
 @register("RELU6")
 def relu6(ctx, node):
     _unary(ctx, node, lambda x: torch.clamp(x, 0.0, 6.0))
+
+
+@register("RELU_N1_TO_1")
+def relu_n1_to_1(ctx, node):
+    _unary(ctx, node, lambda x: torch.clamp(x, -1.0, 1.0))
+
+
+@register("TANH")
+def tanh(ctx, node):
+    _unary(ctx, node, torch.tanh)
+
+
+@register("LEAKY_RELU")
+def leaky_relu(ctx, node):
+    alpha = node.options.get("alpha", 0.01)
+    _unary(ctx, node, lambda x: torch.where(x >= 0, x, scalar_like(alpha, x) * x))
+
+
+@register("PRELU")
+def prelu(ctx, node):
+    x, alpha = ctx.get(node.inputs[0]), ctx.get(node.inputs[1])
+    ctx.set(node.outputs[0], torch.where(x >= 0, x, alpha * x))
 
 
 @register("LOGISTIC")

@@ -1,4 +1,5 @@
-"""Shape/data-movement lowerings: CONCATENATION, RESHAPE, RESIZE_BILINEAR.
+"""Shape/data-movement lowerings: CONCATENATION, RESHAPE, RESIZE_BILINEAR,
+SOFTMAX, PAD, SQUEEZE, EXPAND_DIMS, ARG_MAX.
 
 RESIZE_BILINEAR is two dense interpolation-matrix contractions
 (separable bilinear), as in ``backscrub_tpu/ops/misc.py``; the matrices
@@ -11,8 +12,9 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from .common import apply_activation, register
+from .common import apply_activation, register, scalar_like
 
 
 @register("CONCATENATION")
@@ -30,6 +32,52 @@ def reshape(ctx, node):
     else:
         shape = ctx.const_value(node.inputs[1]).reshape(-1).tolist()
     ctx.set(node.outputs[0], x.reshape([int(s) for s in shape]))
+
+
+@register("SQUEEZE")
+def squeeze(ctx, node):
+    # the loaders parse no SqueezeOptions: every unit axis goes, as in JAX
+    x = ctx.get(node.inputs[0])
+    dims = node.options.get("squeeze_dims")
+    ctx.set(node.outputs[0], torch.squeeze(x, tuple(dims)) if dims else torch.squeeze(x))
+
+
+@register("EXPAND_DIMS")
+def expand_dims(ctx, node):
+    axis = int(ctx.const_value(node.inputs[1]).reshape(-1)[0])
+    ctx.set(node.outputs[0], torch.unsqueeze(ctx.get(node.inputs[0]), axis))
+
+
+@register("SOFTMAX")
+def softmax(ctx, node):
+    x = ctx.get(node.inputs[0])
+    x = x * scalar_like(node.options.get("beta", 1.0), x)
+    if x.dtype == torch.bfloat16:
+        # jax.nn.softmax op by op: exp(x - max) rounded, its sum in f32
+        # rounded, the quotient rounded
+        u = torch.exp(x - x.amax(-1, keepdim=True))
+        y = u / u.float().sum(-1, keepdim=True).to(x.dtype)
+    else:
+        y = torch.softmax(x, dim=-1)
+    ctx.set(node.outputs[0], y)
+
+
+def pads_arg(pads) -> tuple:
+    """A TFLite (ndim, 2) paddings array as ``F.pad``'s argument (last
+    dimension first)."""
+    return tuple(int(v) for lo_hi in np.asarray(pads)[::-1] for v in lo_hi)
+
+
+@register("PAD")
+def pad(ctx, node):
+    x = ctx.get(node.inputs[0])
+    ctx.set(node.outputs[0], F.pad(x, pads_arg(ctx.const_value(node.inputs[1]))))
+
+
+@register("ARG_MAX")
+def arg_max(ctx, node):
+    axis = int(ctx.const_value(node.inputs[1]).reshape(-1)[0])
+    ctx.set(node.outputs[0], torch.argmax(ctx.get(node.inputs[0]), dim=axis).to(torch.int32))
 
 
 def resize_matrix(in_size: int, out_size: int, align_corners: bool,

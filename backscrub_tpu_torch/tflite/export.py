@@ -8,7 +8,9 @@ both packages and by the reference binary.  Payloads are fixed-size, so
 each one is overwritten in place at the byte span the loader recorded
 (``TensorIR.buffer_offset``/``buffer_size``): no ``flatbuffers`` package
 is needed.  Each parameter is mapped back through the inverse of its
-lowering's layout transform (``CompiledModel.weight_meta``).
+lowering's layout transform, into the subgraph that its
+``CompiledModel.weight_meta`` entry names (WHILE/IF bodies own weights of
+their own).
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import numpy as np
 import torch
 
 from ..graph.executor import CompiledModel
-from .loader import load_tflite_bytes, subgraph_count
+from .loader import load_tflite_bytes
 
 
 def export_params_to_tflite(original_path: str, model: CompiledModel,
@@ -34,20 +36,18 @@ def export_params_to_tflite(original_path: str, model: CompiledModel,
     """
     with open(original_path, "rb") as f:
         buf = bytearray(f.read())
-    n_sub = subgraph_count(buf)
-    if n_sub != 1:
-        raise ValueError(f"{original_path} has {n_sub} subgraphs: the port loads and "
-                         "exports the main one only (ROADMAP queue 1 item 4)")
-    tensors = load_tflite_bytes(buf, original_path).tensors
-    aliases = model.graph.aliases
+    loaded = load_tflite_bytes(buf, original_path)
+    files = loaded.subgraphs or [loaded]            # the tensors' spans, subgraph by subgraph
+    graphs = model.graph.subgraphs or [model.graph]  # the folds' aliases
     host = {k: v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
             for k, v in params.items()}
     n = 0
     for key, meta in model.weight_meta.items():
         if key not in host:
             continue
-        idx = meta["tensor_index"]
-        t = tensors[aliases.get(idx, idx)]   # folded dequant output -> f16 storage
+        sub, idx = meta.get("subgraph", 0), meta["tensor_index"]
+        # a folded dequant output -> its f16 storage, in the parameter's subgraph
+        t = files[sub].tensors[graphs[sub].aliases.get(idx, idx)]
         if t.buffer_offset is None:
             continue
         arr = host[key]

@@ -2,11 +2,13 @@
 
 Counterpart of ``backscrub_tpu/tflite/loader.py`` without TensorFlow or the
 ``flatbuffers`` package: a flatbuffer is read here with ``struct`` and
-numpy only.  It covers the schema subset the five bundled model families
-use: the Model / SubGraph / Tensor / Buffer / Operator / OperatorCode /
-QuantizationParameters tables, the builtin-options union for the ops the
-port lowers, and custom ops (``Convolution2DTransposeBias``).  Other
-builtin ops load with empty options.
+numpy only.  It reads every subgraph (WHILE/IF bodies), the Model /
+SubGraph / Tensor / Buffer / Operator / OperatorCode /
+QuantizationParameters tables, the builtin-options tables that the JAX
+loader parses (their union type numbers and field slots taken from
+TFLite's schema and written down here), and custom ops
+(``Convolution2DTransposeBias``).  Other builtin ops load with empty
+options, as in the JAX loader.
 
 Every read is bounds-checked, so a truncated or corrupted file raises
 ``ValueError`` instead of reading past the buffer.
@@ -175,6 +177,19 @@ def _reshape_opts(t):
         and len(shape) else {}
 
 
+def _flags(**slots):
+    """A parser of bool fields: option name -> slot."""
+    return lambda t: {k: bool(t.scalar(s, "<B")) for k, s in slots.items()}
+
+
+def _ints(**slots):
+    """A parser of int32 fields: option name -> slot."""
+    return lambda t: {k: t.scalar(s, "<i") for k, s in slots.items()}
+
+
+_REDUCER = (27, _flags(keep_dims=0))
+
+
 _OPTIONS = {
     "CONV_2D": (1, _conv_opts),
     "DEPTHWISE_CONV_2D": (2, _dw_opts),
@@ -189,6 +204,28 @@ _OPTIONS = {
         align_corners=bool(t.scalar(2, "<B")),
         half_pixel_centers=bool(t.scalar(3, "<B")))),
     "RESHAPE": (17, _reshape_opts),
+    # the tables the JAX loader reads besides (backscrub_tpu/tflite/loader.py);
+    # like it, no SqueezeOptions and no GeluOptions
+    "MEAN": _REDUCER, "SUM": _REDUCER, "REDUCE_MAX": _REDUCER,
+    "REDUCE_MIN": _REDUCER, "REDUCE_PROD": _REDUCER,
+    "SPACE_TO_DEPTH": (19, _ints(block_size=0)),
+    "DEPTH_TO_SPACE": (94, _ints(block_size=0)),
+    "MIRROR_PAD": (77, lambda t: dict(mode=t.scalar(0, "<b"))),
+    "GATHER": (23, _ints(axis=0)),
+    "RESIZE_NEAREST_NEIGHBOR": (74, _flags(align_corners=0, half_pixel_centers=1)),
+    "LEAKY_RELU": (75, lambda t: dict(alpha=t.scalar(0, "<f", 0.0))),
+    "STRIDED_SLICE": (32, _ints(begin_mask=0, end_mask=1, ellipsis_mask=2,
+                                new_axis_mask=3, shrink_axis_mask=4)),
+    "PACK": (59, _ints(axis=1, values_count=0)),
+    "UNPACK": (64, _ints(axis=1, num=0)),
+    "WHILE": (93, _ints(cond_subgraph=0, body_subgraph=1)),
+    "IF": (92, _ints(then_subgraph=0, else_subgraph=1)),
+    "BATCH_MATMUL": (101, _flags(adj_x=0, adj_y=1)),
+    "CUMSUM": (102, _flags(exclusive=0, reverse=1)),
+    "ONE_HOT": (61, _ints(axis=0)),
+    "TRANSPOSE_CONV": (49, lambda t: dict(padding=PADDING_NAMES[t.scalar(0, "<b")],
+                                          stride_h=t.scalar(2, "<i"),
+                                          stride_w=t.scalar(1, "<i"))),
 }
 # ADD/SUB/MUL/DIV: the fused activation is field 0 of each options table;
 # a missing table still means "no activation"
@@ -224,11 +261,13 @@ def _parse_custom_options(custom_code: str, data: Optional[bytes]) -> Dict[str, 
     return dict(raw=bytes(data) if data else b"")
 
 
-def load_tflite(path: str) -> GraphIR:
-    """Load the main subgraph of a ``.tflite`` file into a :class:`GraphIR`."""
+def load_tflite(path: str, subgraph: int = 0) -> GraphIR:
+    """Load a ``.tflite`` file into a :class:`GraphIR`: subgraph
+    ``subgraph``; the main graph (0) of a file with several carries them
+    all in ``.subgraphs`` (WHILE/IF bodies reference them by index)."""
     with open(path, "rb") as f:
         buf = f.read()
-    return load_tflite_bytes(buf, name=path)
+    return load_tflite_bytes(buf, name=path, subgraph=subgraph)
 
 
 def subgraph_count(buf: bytes) -> int:
@@ -237,7 +276,11 @@ def subgraph_count(buf: bytes) -> int:
     return len(_Table(buf, _read(buf, "<I", 0)).tables(2))
 
 
-def load_tflite_bytes(buf: bytes, name: str = "<bytes>") -> GraphIR:
+def load_tflite_bytes(buf: bytes, name: str = "<bytes>", subgraph: int = 0) -> GraphIR:
+    """Parse the flatbuffer once; loading the main graph of a file with
+    several subgraphs builds them all from the same parse, index 0 the
+    main graph itself, the others named ``<name>#<i>`` where they have no
+    name of their own."""
     buf = bytes(buf)
     model = _Table(buf, _read(buf, "<I", 0))
     codes: List[Dict[str, Any]] = []
@@ -248,10 +291,14 @@ def load_tflite_bytes(buf: bytes, name: str = "<bytes>") -> GraphIR:
         codes.append({"name": BUILTIN_OPS.get(code, f"UNKNOWN_{code}"),
                       "custom": oc.string(1)})
     subs = model.tables(2)
-    if not subs:
-        raise ValueError(f"{name}: the model has no subgraph")
-    return _load_subgraph(subs[0], model.tables(4), codes, name,
-                          model.string(3) or "")
+    if not 0 <= subgraph < len(subs):
+        raise ValueError(f"{name}: no subgraph {subgraph} (the model has {len(subs)})")
+    buffers, desc = model.tables(4), model.string(3) or ""
+    gir = _load_subgraph(subs[subgraph], buffers, codes, name, desc)
+    if subgraph == 0 and len(subs) > 1:
+        gir.subgraphs = [gir] + [_load_subgraph(subs[i], buffers, codes, f"{name}#{i}", desc)
+                                 for i in range(1, len(subs))]
+    return gir
 
 
 def _dequantize(t: _Table, data: np.ndarray) -> np.ndarray:

@@ -232,7 +232,28 @@ Usage (from the repository root, on a machine with a CUDA card)::
    pairs, and each one's device busy and idle share over a profiled
    window; a ``mesh:`` line, and its launches as
    ``mesh_launches`` of K1, K2, K2' and K3 in the kernels line;
-22. prints one JSON line with every kernel's numbers (launches from the
+22. a model of the user's own (``byo_phase``): the op-coverage graph
+   (``tests/data/ops_synth_coverage.tflite``: every op kind TF's converter
+   emits of the lowerings no bundled family uses, a WHILE and an IF whose
+   subgraphs own weights) through the port's loader on the card, held to
+   its committed golden (the JAX executor's output on the CPU: f32 within
+   1e-5 + 1e-5·|ref|, integers and bools exactly), its op histogram, the
+   WHILE's trip count and the largest error printed; the converted U-Net
+   (``tests/data/unet_synth_256x256.tflite``, the "unknown" spec) through
+   ``FramePipeline`` at 640x480 for FAMILY_FRAMES frames three times, fused
+   with YUYV out (K1, the graph executor over the whole body: no body
+   plan, K3), fused with NV12 out (K4) and classic with YUYV out (K5, the
+   executor, K3), every frame's launches counted, K1 or K5 against its
+   plain version, the frames held to the plain path under the decode flip
+   rule and the tolerance invariant, host ms/frame over a clean loop and
+   device busy a frame (the family runs' own checks: ``family_fused`` with
+   no body plan, ``family_classic`` with YUYV out); ``backscrub-torch -m <unet>`` over BYO_CLI_FRAMES ``test:``
+   frames byte-equal to direct steps; the coverage model's parameters
+   (its subgraphs' weights included) exported on the card, reloaded and
+   rerun bit-identical; a line before each check, a ``byo:`` line, and
+   the U-Net runs' launches as ``byo_launches`` of K1, K3, K4 and K5 in
+   the kernels line;
+23. prints one JSON line with every kernel's numbers (launches from the
    run of the path it serves, errors and times measured here, and the
    bound: the larger of the bytes it must move over 3.35 TB/s and its
    operations over the peak of their type, 67 TFLOP/s f32 or 989 TFLOP/s
@@ -313,6 +334,15 @@ SELFIE = os.path.join(REPO, "tests", "data", "selfie_synth_mlkit_256x256.tflite"
 SEGM_FULL = os.path.join(REPO, "tests", "data", "segm_synth_full_144x256.tflite")
 BODYPIX = os.path.join(REPO, "tests", "data", "body-pix_synth_050_8_257.tflite")
 FAMILY_FRAMES, FAMILY_WINDOW = 30, 20
+# a model of the user's own (byo_phase): the converted U-Net, the
+# op-coverage graph and its golden outputs (tools/make_synth_{unet,coverage}.py);
+# frames of each U-Net run and of the CLI run; the coverage bars (f32
+# within COVERAGE_ATOL + COVERAGE_RTOL * |ref|, integers and bools exactly)
+UNET = os.path.join(REPO, "tests", "data", "unet_synth_256x256.tflite")
+COVERAGE = os.path.join(REPO, "tests", "data", "ops_synth_coverage.tflite")
+COVERAGE_GOLDEN = os.path.join(REPO, "tests", "data", "ops_synth_coverage.npz")
+BYO_CLI_FRAMES = 10
+COVERAGE_ATOL = COVERAGE_RTOL = 1e-5
 # the program itself: backscrub_tpu_torch.cli.main at the CLI's default
 # geometry and family, frames a run, frames of the serving loop's profiled
 # window; the serving modes that must change no byte
@@ -1383,11 +1413,41 @@ def device_kernels(fn, n=20, warmup=3):
     return busy, ops
 
 
-def family_fused(tag, path, w, h, fmt="yuyv", margin=None):
+def _plan_checks(tag, r, plan, k1):
+    """The fused path's body plan on K1's output ``k1``: one bs_body_mega
+    launch a run, against its plain version (allclose), two runs
+    bit-identical; its device time, bound and phases by the device clock
+    into ``r``.  Returns the executor remainder's input (1, rows, w, c)."""
+    import torch
+    from backscrub_tpu_torch.ops.megakernel import body_launch
+    with torch.no_grad():
+        x = k1.reshape(k1.shape[0], -1)
+        before = collections.Counter(body_launch.by_kernel)
+        k2, k2b = plan.run_cuda(x).clone(), plan.run_cuda(x)
+        p2 = plan.run_plain(x)
+        torch.cuda.synchronize()
+        if dict(body_launch.by_kernel - before) != {"bs_body_mega": 2}:
+            raise AssertionError(f"the {tag} body did not run as one bs_body_mega launch a run")
+        torch.testing.assert_close(k2, p2, atol=ATOL, rtol=RTOL)
+        if not torch.equal(k2, k2b):
+            raise AssertionError(f"two {tag} body runs differ")
+        phases = np.median(np.array([plan.phase_ns(x) for _ in range(10)]), axis=0)
+        r.update(body_err=float((k2 - p2).abs().max()),
+                 body_us=device_ms(lambda: plan.run_cuda(x)) * 1e3,
+                 body_bound_us=bound(*plan.work())[0] * 1e3,
+                 phases=plan.mega.phases, table_ops=len(plan.mega.ops),
+                 phase_us=[round(float(t) / 1e3, 3) for t in phases])
+    m = plan.out_meta
+    return p2.reshape(m.c, m.rows, m.w).permute(1, 2, 0)[None]
+
+
+def family_fused(tag, path, w, h, fmt="yuyv", margin=None, body_plan=True):
     """A model family's fused path at one frame size: FramePipeline on
     ``path`` with ``fmt`` out (YUYV: K3, else K4).  The body is one plan:
     the full span (K2, the tail after it) or the prefix (K2', the graph
-    executor over the rest, the decode by ``margin`` of the model output).
+    executor over the rest, the decode by ``margin`` of the model output);
+    with ``body_plan`` False, a model that no plan compiles for (a model
+    of the user's own): the graph executor over the whole body after K1.
     K1 and the plan against their plain versions on the first frame
     (allclose, the plan one launch, two runs bit-identical), their and the
     pack's device times and bounds, the plan's phases by the device clock,
@@ -1397,7 +1457,7 @@ def family_fused(tag, path, w, h, fmt="yuyv", margin=None):
     frame by frame), held against the plain path under the decode flip
     rule and the tolerance invariant; host-clock ms/frame, device busy and
     operations a frame, the pack's device time in the pipeline and the
-    idle share."""
+    idle share; the launches by kernel over the counted frames."""
     import torch
     from backscrub_tpu_torch.ops.megakernel import body_launch
     from backscrub_tpu_torch.ops.pack_kernels import (blend_pack_420, blend_pack_420_plain,
@@ -1409,7 +1469,10 @@ def family_fused(tag, path, w, h, fmt="yuyv", margin=None):
     pipe = FramePipeline(path, PipelineConfig(width=w, height=h, output_format=fmt),
                          device="cuda")
     e = pipe.maskgen.edge
-    if e is None or (e.body_plan is None) == (e.prefix_plan is None) or e.cont_plan is not None:
+    if not body_plan:
+        if e is None or e.plans or e.rest is None or e.info.tail_ok:
+            raise AssertionError(f"{tag} did not take K1 and the executor over the body")
+    elif e is None or (e.body_plan is None) == (e.prefix_plan is None) or e.cont_plan is not None:
         raise AssertionError(f"{tag} did not take the fused path with one body plan")
     plan, n, yuyv = e.body_plan or e.prefix_plan, FAMILY_FRAMES, fmt == "yuyv"
     frames = [torch.from_numpy(f).cuda() for f in moving_frames(w, h, n)]
@@ -1423,45 +1486,34 @@ def family_fused(tag, path, w, h, fmt="yuyv", margin=None):
         return (blend_pack_yuyv_plain(f, bg, mask) if yuyv
                 else blend_pack_420_plain(f, bg, mask, fmt))
 
-    r = dict(plan="K2" if e.body_plan is not None else "K2'")
+    r = dict(plan="K2" if e.body_plan is not None else "K2'" if plan else "executor")
     with torch.no_grad():
         canvas, kw = e.canvas(frames[0]), e.front_kwargs()
         k1 = front_fused(canvas, e.front_params, **kw)
         p1 = front_plain(canvas, e.front_params, **kw)
         torch.cuda.synchronize()
         torch.testing.assert_close(k1, p1, atol=ATOL, rtol=RTOL)
-        x = k1.reshape(k1.shape[0], -1)
-        before = collections.Counter(body_launch.by_kernel)
-        k2, k2b = plan.run_cuda(x).clone(), plan.run_cuda(x)
-        p2 = plan.run_plain(x)
-        torch.cuda.synchronize()
-        if dict(body_launch.by_kernel - before) != {"bs_body_mega": 2}:
-            raise AssertionError(f"the {tag} body did not run as one bs_body_mega launch a run")
-        torch.testing.assert_close(k2, p2, atol=ATOL, rtol=RTOL)
-        if not torch.equal(k2, k2b):
-            raise AssertionError(f"two {tag} body runs differ")
+        r.update(front_err=float((k1 - p1).abs().max()),
+                 front_us=device_ms(lambda: front_fused(canvas, e.front_params, **kw)) * 1e3,
+                 front_bound_us=bound(*front_work(kw, k1.shape[0]))[0] * 1e3)
+    if plan is not None:
+        rest_in = _plan_checks(tag, r, plan, k1)
+    else:
+        rest_in = p1.permute(1, 2, 0)[None]
+    with torch.no_grad():
         mask0 = e.postprocess(_edge_plain(e, frames[0], pipe.maskgen.ema, margin)[1])
-        phases = np.median(np.array([plan.phase_ns(x) for _ in range(10)]), axis=0)
-        r.update(
-            front_err=float((k1 - p1).abs().max()), body_err=float((k2 - p2).abs().max()),
-            front_us=device_ms(lambda: front_fused(canvas, e.front_params, **kw)) * 1e3,
-            front_bound_us=bound(*front_work(kw, k1.shape[0]))[0] * 1e3,
-            body_us=device_ms(lambda: plan.run_cuda(x)) * 1e3,
-            body_bound_us=bound(*plan.work())[0] * 1e3,
-            pack_us=device_ms(lambda: pack(frames[0], mask0)) * 1e3,
-            pack_bound_us=bound(*((9 * h * w, 30 * h * w) if yuyv
-                                  else (17 * h * w // 2, 35 * h * w)))[0] * 1e3,
-            phases=plan.mega.phases, table_ops=len(plan.mega.ops),
-            phase_us=[round(float(t) / 1e3, 3) for t in phases])
+        r.update(pack_us=device_ms(lambda: pack(frames[0], mask0)) * 1e3,
+                 pack_bound_us=bound(*((9 * h * w, 30 * h * w) if yuyv
+                                       else (17 * h * w // 2, 35 * h * w)))[0] * 1e3)
         if e.rest is not None:
-            m = plan.out_meta
-            rest_in = p2.reshape(m.c, m.rows, m.w).permute(1, 2, 0)[None]
             rest_ms, r["rest_ops"] = device_kernels(lambda: e.rest(rest_in))
             r["rest_us"] = rest_ms * 1e3
     for f in frames[:5]:                 # warm-up
         pipe.step(f, bg)
-    want = dict(front=1, body=1, pack=int(yuyv), pack_420=int(not yuyv), bilateral=0,
-                jpeg_decode=0)
+    want = dict(front=1, body=int(plan is not None), pack=int(yuyv), pack_420=int(not yuyv),
+                bilateral=0, jpeg_decode=0)
+    want_body = {"bs_body_mega": 1} if plan is not None else {}
+    total = collections.Counter()
 
     def drive():
         pipe.reset()
@@ -1473,9 +1525,10 @@ def family_fused(tag, path, w, h, fmt="yuyv", margin=None):
             out = pipe.step(f, bg)
             outs.append(out + (pipe.maskgen.ema.clone(),))
             counts = _counts()
-            if counts != want or dict(body_launch.by_kernel) != {"bs_body_mega": 1}:
+            if counts != want or dict(body_launch.by_kernel) != want_body:
                 raise AssertionError(f"{tag} fused {fmt} launch counts a frame {counts} "
                                      f"{dict(body_launch.by_kernel)}, expected {want}")
+            total.update(counts)
         torch.cuda.synchronize()
         return outs
 
@@ -1514,56 +1567,73 @@ def family_fused(tag, path, w, h, fmt="yuyv", margin=None):
     if not 0.01 < person < 0.99:
         raise AssertionError(f"degenerate {tag} mask: person fraction {person}")
     r.update(flips=flips, flip_margin=flip_margin, mean_diff=float(np.mean(fracs)),
-             max_diff=max(fracs), person=person)
+             max_diff=max(fracs), person=person, launches=dict(total))
     pk = "K3" if yuyv else "K4"
-    rest = (f", executor remainder {r['rest_us']:.2f} us in {r['rest_ops']:.0f} device "
-            f"operations a call" if "rest_us" in r else "")
+    rest = (f", executor {'remainder' if plan else 'body'} {r['rest_us']:.2f} us in "
+            f"{r['rest_ops']:.0f} device operations a call" if "rest_us" in r else "")
+    body = (f", {r['plan']} {r['body_us']:.2f} us in {r['phases']} phases (bound "
+            f"{r['body_bound_us']:.3f})" if plan else "")
+    errs = (f"K1/{r['plan']} max_abs_err {r['front_err']:.3g} / {r['body_err']:.3g}" if plan
+            else f"K1 max_abs_err {r['front_err']:.3g}")
     print(f"{tag} fused {fmt} {w}x{h}: K1 {r['front_us']:.3f} us (bound "
-          f"{r['front_bound_us']:.3f}), {r['plan']} {r['body_us']:.2f} us in {r['phases']} "
-          f"phases (bound {r['body_bound_us']:.3f}){rest}, {pk} {r['pack_us']:.3f} us alone "
+          f"{r['front_bound_us']:.3f}){body}{rest}, {pk} {r['pack_us']:.3f} us alone "
           f"(bound {r['pack_bound_us']:.3f}), {r['pack_pipeline_us']:.3f} in the pipeline; "
-          f"K1/{r['plan']} max_abs_err {r['front_err']:.3g} / {r['body_err']:.3g}; {n} frames, "
+          f"{errs}; {n} frames, "
           f"{r['ms_per_frame']:.4f} ms/frame (host clock), device busy "
           f"{r['busy_ms_per_frame']:.4f} ms/frame in {r['ops_per_frame']:.1f} device "
-          f"operations, idle share {r['idle_share']:.3f}; one K1, {r['plan']}, {pk} launch a "
+          f"operations, idle share {r['idle_share']:.3f}; one K1, "
+          f"{r['plan'] + ', ' if plan else ''}{pk} launch a "
           f"frame; vs plain path: decode flips {flips} (largest |margin| {flip_margin:.3g}), "
           f"differing bytes mean {100 * r['mean_diff']:.4f}% max {100 * r['max_diff']:.4f}%, "
           f"person fraction {person:.3f}")
-    print(f"{tag} {r['plan']} {w}x{h} phases by the device clock (median of 10 runs, us): "
-          f"{r['phase_us']}")
+    if plan:
+        print(f"{tag} {r['plan']} {w}x{h} phases by the device clock (median of 10 runs, us): "
+              f"{r['phase_us']}")
     return r
 
 
-def family_classic(tag, path, margin, **mode):
-    """A model family's classic path at CLASSIC_SIZE with NV12 out (the
-    path the C ABI's staged MaskGen takes when hooks are set): K5 at the
-    model's canvas, the graph executor, the decode, the post, K4.
-    FAMILY_FRAMES frames, one K5 and one K4 launch a frame and no K1, K2
-    or K3 (counted frame by frame), held against the plain path (K5's and
-    K4's plain versions) under the decode flip rule (``margin`` of the
-    model output) and the tolerance invariant; K5 against its plain
-    version at the model's canvas, K5's and K4's device times alone and
-    in the pipeline beside their bounds, host-clock ms/frame, device busy
-    and operations a frame and the idle share.  ``mode``: the pipeline's
+def family_classic(tag, path, margin, fmt="nv12", **mode):
+    """A model family's classic path at CLASSIC_SIZE with ``fmt`` out (NV12
+    the path the C ABI's staged MaskGen takes when hooks are set): K5 at
+    the model's canvas, the graph executor, the decode, the post, K4 (K3
+    for YUYV).  FAMILY_FRAMES frames timed on the host clock, then again
+    from a fresh EMA with one K5 and one pack launch a frame and no other
+    kernel of the port's (counted frame by frame), held against the plain
+    path (K5's and the pack's plain versions) under the decode flip rule
+    (``margin`` of the model output) and the tolerance invariant; K5
+    against its plain version at the model's canvas, K5's and the pack's
+    device times alone and in the pipeline beside their bounds, host-clock
+    ms/frame, device busy and operations a frame, the idle share and the
+    launches by kernel over the counted frames.  ``mode``: the pipeline's
     precision arguments (``quantize="int8"``)."""
     import torch
     from backscrub_tpu_torch.ops.image_kernels import bilateral5
-    from backscrub_tpu_torch.ops.pack_kernels import blend_pack_420, blend_pack_420_plain
+    from backscrub_tpu_torch.ops.pack_kernels import (blend_pack_420, blend_pack_420_plain,
+                                                      blend_pack_yuyv, blend_pack_yuyv_plain)
     from backscrub_tpu_torch.pipeline.edge import post_footprint
     from backscrub_tpu_torch.pipeline.image import bilateral5 as bilateral5_plain
     from backscrub_tpu_torch.pipeline.frame import FramePipeline, PipelineConfig
     from make_synth_segm import moving_frames
 
     w, h = CLASSIC_SIZE
-    n = FAMILY_FRAMES
+    n, yuyv = FAMILY_FRAMES, fmt == "yuyv"
+    pk = "k3" if yuyv else "k4"
     pipe = FramePipeline(path, PipelineConfig(width=w, height=h, edge_fused=False,
-                                              output_format="nv12"), device="cuda", **mode)
+                                              output_format=fmt), device="cuda", **mode)
     mg = pipe.maskgen
     if mg.edge is not None:
         raise AssertionError(f"the {tag} classic path took the fused edge path")
     frames = [torch.from_numpy(f).cuda() for f in moving_frames(w, h, n)]
     bg = torch.from_numpy(np.random.default_rng(4).integers(
         0, 256, (h, w, 3), np.uint8)).cuda()
+
+    def pack(f, mask):
+        return blend_pack_yuyv(f, bg, mask) if yuyv else blend_pack_420(f, bg, mask, fmt)
+
+    def pack_plain(f, mask):
+        return (blend_pack_yuyv_plain(f, bg, mask) if yuyv
+                else blend_pack_420_plain(f, bg, mask, fmt))
+
     with torch.no_grad():
         canvas = _canvas(mg, frames[0])
         k5, p5 = bilateral5(canvas), bilateral5_plain(canvas)
@@ -1573,30 +1643,38 @@ def family_classic(tag, path, margin, **mode):
             raise AssertionError(f"K5 at the {tag} canvas: a rounded byte off by more than 1")
         mask0 = mg._decode_post(mg._infer(_plain_input(mg, frames[0])), mg.ema)[0]
         px = canvas.numel() // 3
-        r = dict(k5_err=float((k5 - p5).abs().max()),
-                 k5_us=device_ms(lambda: bilateral5(canvas)) * 1e3,
-                 k5_bound_us=bound(24 * px, BILATERAL_OPS * px)[0] * 1e3,
-                 k4_us=device_ms(lambda: blend_pack_420(frames[0], bg, mask0, "nv12")) * 1e3,
-                 k4_bound_us=bound(17 * h * w // 2, 35 * h * w)[0] * 1e3)
+        r = {"k5_err": float((k5 - p5).abs().max()),
+             "k5_us": device_ms(lambda: bilateral5(canvas)) * 1e3,
+             "k5_bound_us": bound(24 * px, BILATERAL_OPS * px)[0] * 1e3,
+             f"{pk}_us": device_ms(lambda: pack(frames[0], mask0)) * 1e3,
+             f"{pk}_bound_us": bound(*((9 * h * w, 30 * h * w) if yuyv
+                                      else (17 * h * w // 2, 35 * h * w)))[0] * 1e3}
     for f in frames[:3]:
         pipe.step(f, bg)
     busy, ops, by_name = _window(lambda f: pipe.step(f, bg), frames, FAMILY_WINDOW)
-    r.update(busy_ms_per_frame=busy, ops_per_frame=ops,
-             k5_pipeline_us=_kernel_us(by_name, "bilateral_kernel"),
-             k4_pipeline_us=_kernel_us(by_name, "blend_pack_420_kernel"))
+    r.update({"busy_ms_per_frame": busy, "ops_per_frame": ops,
+              "k5_pipeline_us": _kernel_us(by_name, "bilateral_kernel"),
+              f"{pk}_pipeline_us": _kernel_us(by_name, "blend_pack_yuyv_kernel" if yuyv
+                                              else "blend_pack_420_kernel")})
     pipe.reset()
     torch.cuda.synchronize()
-    want = dict(front=0, body=0, pack=0, pack_420=1, bilateral=1, jpeg_decode=0)
-    outs = []
     t0 = time.perf_counter()
+    for f in frames:
+        pipe.step(f, bg)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    pipe.reset()
+    want = dict(front=0, body=0, pack=int(yuyv), pack_420=int(not yuyv), bilateral=1,
+                jpeg_decode=0)
+    outs, total = [], collections.Counter()
     for f in frames:
         _zero_counts()
         outs.append(pipe.step(f, bg) + (mg.ema.clone(),))
         if _counts() != want:
-            raise AssertionError(f"{tag} classic launch counts a frame {_counts()}, "
+            raise AssertionError(f"{tag} classic {fmt} launch counts a frame {_counts()}, "
                                  f"expected {want}")
+        total.update(_counts())
     torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3 / n
     ema = torch.full(mg.ema_shape, 255, dtype=torch.uint8, device=mg.device)
     ever = torch.zeros_like(ema, dtype=torch.bool)
     fracs, flips, flip_margin = [], 0, 0.0
@@ -1607,11 +1685,12 @@ def family_classic(tag, path, margin, **mode):
             k, m = _flip_rule(ema_k, ema, margin(y), ever)
             flips, flip_margin = flips + k, max(flip_margin, m)
             foot = post_footprint(ema_k != ema, mg.geo, mg.post_mats)
-            ro = blend_pack_420_plain(f, bg, rm, "nv12")
+            ro = pack_plain(f, rm)
             if out.shape != ro.shape or out.dtype != torch.uint8:
                 raise AssertionError(f"output shape {tuple(out.shape)} {out.dtype}")
             fracs.append(_held_bytes([(out, ro), (mask, rm)], f"{tag} classic path",
-                                     [_nv12_footprint(foot), foot]))
+                                     [_yuyv_footprint(foot) if yuyv else _nv12_footprint(foot),
+                                      foot]))
     if float(np.mean(fracs)) > MEAN_TOL:
         raise AssertionError(f"{tag} classic: {100 * np.mean(fracs):.4f}% of bytes differ "
                              f"on average")
@@ -1619,15 +1698,16 @@ def family_classic(tag, path, margin, **mode):
     if not 0.01 < person < 0.99:
         raise AssertionError(f"degenerate {tag} mask: person fraction {person}")
     r.update(ms_per_frame=ms, idle_share=1 - r["busy_ms_per_frame"] / ms, flips=flips,
-             flip_margin=flip_margin)
-    print(f"{tag} classic nv12 {w}x{h}: K5 at the {canvas.shape[0]}x{canvas.shape[1]} canvas "
+             flip_margin=flip_margin, launches=dict(total))
+    print(f"{tag} classic {fmt} {w}x{h}: K5 at the {canvas.shape[0]}x{canvas.shape[1]} canvas "
           f"{r['k5_us']:.3f} us alone (bound {r['k5_bound_us']:.3f}, max_abs_err "
-          f"{r['k5_err']:.3g}), {r['k5_pipeline_us']:.3f} in the pipeline; K4 {r['k4_us']:.3f} "
-          f"us alone (bound {r['k4_bound_us']:.3f}), {r['k4_pipeline_us']:.3f} in the pipeline; "
+          f"{r['k5_err']:.3g}), {r['k5_pipeline_us']:.3f} in the pipeline; {pk.upper()} "
+          f"{r[pk + '_us']:.3f} us alone (bound {r[pk + '_bound_us']:.3f}), "
+          f"{r[pk + '_pipeline_us']:.3f} in the pipeline; "
           f"{n} frames, {ms:.4f} ms/frame (host clock), device busy "
           f"{r['busy_ms_per_frame']:.4f} ms/frame in {r['ops_per_frame']:.1f} device "
-          f"operations, idle share {r['idle_share']:.3f}; one K5 and one K4 launch a frame; "
-          f"vs plain path: decode flips {flips} (largest |margin| {flip_margin:.3g}), "
+          f"operations, idle share {r['idle_share']:.3f}; one K5 and one {pk.upper()} launch a "
+          f"frame; vs plain path: decode flips {flips} (largest |margin| {flip_margin:.3g}), "
           f"differing bytes mean {100 * np.mean(fracs):.4f}% max {100 * max(fracs):.4f}%, "
           f"person fraction {person:.3f}")
     return r
@@ -1781,7 +1861,8 @@ def _sha(t) -> str:
 
 def _cli_run(argv, want, n):
     """``cli.main(argv)`` in-process from zeroed counts: its stderr, the
-    launch counts checked against ``want`` and ``bs_body_mega`` n times."""
+    launch counts checked against ``want`` and ``bs_body_mega`` n times
+    (none where n is 0)."""
     import contextlib
     import io
     from backscrub_tpu_torch import cli
@@ -1793,7 +1874,8 @@ def _cli_run(argv, want, n):
         rc = cli.main(argv)
     counts = _counts()
     sys.stderr.write(err.getvalue())
-    if rc != 0 or counts != want or dict(body_launch.by_kernel) != {"bs_body_mega": n}:
+    if rc != 0 or counts != want or dict(body_launch.by_kernel) != (
+            {"bs_body_mega": n} if n else {}):
         raise AssertionError(f"cli {argv}: rc {rc}, launches {counts} "
                              f"{dict(body_launch.by_kernel)}, expected {want}")
     return err.getvalue()
@@ -3849,6 +3931,152 @@ def probe_phase():
     return res, launches
 
 
+def coverage_check(device):
+    """The op-coverage graph through the port's loader and executor on
+    ``device``, held to its committed golden (the JAX executor's output on
+    the CPU): f32 within COVERAGE_ATOL + COVERAGE_RTOL * |ref|, integers
+    and bools exactly.  Prints a line before each check.  Returns (the
+    model, the outputs on the host, the WHILE's trip count, the largest
+    f32 error)."""
+    import torch
+    from backscrub_tpu_torch._build import resolve_device
+    from backscrub_tpu_torch.graph.executor import load_model
+    from backscrub_tpu_torch.ops.control_flow import while_op
+
+    print(f"byo: loading {os.path.basename(COVERAGE)} with the port's loader on {device}")
+    model = load_model(COVERAGE, device)
+    gold = np.load(COVERAGE_GOLDEN)
+    hist = {}
+    for g in model.graph.subgraphs or [model.graph]:
+        for k, v in g.op_histogram().items():
+            hist[k] = hist.get(k, 0) + v
+    print(f"byo: coverage graph, {len(model.graph.subgraphs or [1])} subgraphs, op histogram "
+          + json.dumps(dict(sorted(hist.items()))))
+    while_op.iterations = 0
+    with torch.no_grad():
+        ys = [y.cpu().numpy()
+              for y in model(torch.from_numpy(gold["x"]).to(resolve_device(device)))]
+    trips = while_op.iterations
+    print(f"byo: checking the WHILE trip count: {trips} (golden {int(gold['trips'])})")
+    if trips != int(gold["trips"]):
+        raise AssertionError(f"the WHILE ran {trips} times, the golden {int(gold['trips'])}")
+    err = 0.0
+    for i, y in enumerate(ys):
+        ref = gold[f"jax_{i}"]
+        print(f"byo: checking output {i} ({ref.dtype}, {ref.size} values) against the golden")
+        if y.dtype != ref.dtype or y.shape != ref.shape:
+            raise AssertionError(f"coverage output {i}: {y.dtype} {y.shape}, golden "
+                                 f"{ref.dtype} {ref.shape}")
+        if ref.dtype.kind == "f":
+            d = np.abs(y.astype(np.float64) - ref)
+            err = max(err, float(d.max()))
+            if not (d <= COVERAGE_ATOL + COVERAGE_RTOL * np.abs(ref)).all():
+                raise AssertionError(f"coverage output {i}: largest error {d.max():.3g}")
+        elif not np.array_equal(y, ref):
+            raise AssertionError(f"coverage output {i}: {int((y != ref).sum())} values differ")
+    print(f"byo: coverage graph held to its golden, largest f32 error {err:.3g}")
+    return model, ys, trips, err
+
+
+def byo_cpu_twin(frames=2):
+    """byo_phase's CPU twin, for a machine without a card: the coverage
+    graph against its golden and the U-Net FramePipeline for ``frames``
+    frames on the CPU (the kernels' plain versions).  Returns its numbers."""
+    import torch
+    from backscrub_tpu_torch.pipeline.frame import FramePipeline, PipelineConfig
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    from make_synth_segm import moving_frames
+    _, _, trips, err = coverage_check("cpu")
+    w, h = CLASSIC_SIZE
+    print(f"byo: the U-Net through FramePipeline on the CPU, {frames} frames at {w}x{h}")
+    pipe = FramePipeline(UNET, PipelineConfig(width=w, height=h), device="cpu")
+    if pipe.maskgen.edge is None or pipe.maskgen.edge.plans:
+        raise AssertionError("the U-Net did not take K1 and the executor")
+    mask = None
+    for f in moving_frames(w, h, frames):
+        out, mask = pipe.step(torch.from_numpy(f))
+        if out.shape != (h, 2 * w) or out.dtype != torch.uint8:
+            raise AssertionError(f"output {tuple(out.shape)} {out.dtype}")
+    return dict(trips=trips, max_abs_err=err, frames=frames,
+                person=float((mask < 128).float().mean()))
+
+
+def byo_phase(smi):
+    """A model of the user's own: the op-coverage graph on the card against
+    its golden (``coverage_check``); the converted U-Net served through
+    FramePipeline fused with YUYV and NV12 out (``family_fused`` with no
+    body plan) and classic with YUYV (``family_classic``), then
+    ``backscrub-torch -m <unet>`` byte-equal to direct steps; the coverage model's parameters (its subgraphs' weights
+    included) exported on the card, reloaded and rerun bit-identical.
+    Returns (numbers, launches by kernel over the U-Net runs)."""
+    import tempfile
+    import torch
+    from backscrub_tpu_torch.io.streams import SyntheticSource
+    from backscrub_tpu_torch.pipeline.frame import FramePipeline, PipelineConfig
+    from backscrub_tpu_torch.tflite.export import export_params_to_tflite
+    from backscrub_tpu_torch.graph.executor import load_model
+
+    t_phase = time.perf_counter()
+    model, ys, trips, err = coverage_check("cuda")
+    res = {"coverage": dict(trips=trips, max_abs_err=err)}
+    w, h = CLASSIC_SIZE
+    launches = collections.Counter()
+    for fmt, pk in (("yuyv", "K3"), ("nv12", "K4")):
+        print(f"byo: the U-Net fused with {fmt} out at {w}x{h}: checking K1 and {pk} against "
+              f"their plain versions, no body plan, every frame's launches, the frames "
+              f"against the plain path")
+        res[f"fused {fmt}"] = family_fused("byo unet", UNET, w, h, fmt=fmt,
+                                           margin=_logit_margin, body_plan=False)
+        launches.update(res[f"fused {fmt}"]["launches"])
+    print(f"byo: the U-Net classic with yuyv out at {w}x{h}: checking K5 and K3 against their "
+          f"plain versions, every frame's launches, the frames against the plain path")
+    res["classic yuyv"] = family_classic("byo unet", UNET, _logit_margin, fmt="yuyv")
+    launches.update(res["classic yuyv"]["launches"])
+    n = BYO_CLI_FRAMES
+    src = SyntheticSource(w, h)
+    cli_frames = [src.read() for _ in range(n)]
+    pipe = FramePipeline(UNET, PipelineConfig(width=w, height=h), device="cuda")
+    golden = b"".join(pipe.step(f)[0].cpu().numpy().tobytes() for f in cli_frames)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "unet.yuv")
+        print(f"byo: backscrub-torch -m {os.path.basename(UNET)} -c test: --frames {n}, "
+              "checking its exit code, launches and bytes")
+        _cli_run(["-c", "test:", "--cg", f"{w}x{h}", "-m", UNET, "--frames", str(n),
+                  "-v", f"file:{out}"],
+                 dict(front=n, body=0, pack=n, pack_420=0, bilateral=0, jpeg_decode=0), 0)
+        with open(out, "rb") as fh:
+            data = fh.read()
+        if data != golden:
+            raise AssertionError(f"byo cli: {len(data)} bytes written, not the {len(golden)} "
+                                 f"bytes of {n} direct steps")
+        print("byo: exporting the coverage model's parameters on the card, reloading, rerunning")
+        tuned = {k: v * 1.25 if v.is_floating_point() else v for k, v in model.params.items()}
+        path = os.path.join(tmp, "coverage_tuned.tflite")
+        written = export_params_to_tflite(COVERAGE, model, tuned, path)
+        subs = sorted({m["subgraph"] for m in model.weight_meta.values()})
+        back = load_model(path, "cuda")
+        with torch.no_grad():
+            x = torch.from_numpy(np.load(COVERAGE_GOLDEN)["x"]).cuda()
+            a = model.raw_fn(tuned, x)
+            b = back(x)
+        for i, (u, v) in enumerate(zip(a, b)):
+            if not torch.equal(u, v):
+                raise AssertionError(f"byo export: output {i} of the reloaded file differs")
+        for k, v in tuned.items():
+            if not torch.equal(back.params[k], v):
+                raise AssertionError(f"byo export: parameter {k} did not round-trip")
+    res["cli"] = dict(frames=n, bytes=len(golden))
+    res["export"] = dict(tensors=written, subgraphs=subs)
+    res["seconds"] = time.perf_counter() - t_phase
+    f, c = res["fused yuyv"], res["classic yuyv"]
+    print(f"byo: {smi}: the U-Net at {w}x{h}, fused {f['ms_per_frame']:.4f} ms/frame (device "
+          f"busy {f['busy_ms_per_frame']:.4f}), classic {c['ms_per_frame']:.4f} ms/frame "
+          f"(device busy {c['busy_ms_per_frame']:.4f}); launches {dict(launches)}; export of "
+          f"{written} tensors in subgraphs {subs} reloaded bit-identical; the CLI's "
+          f"{len(golden)} bytes equal to direct steps; {res['seconds']:.2f} s")
+    return res, dict(launches)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3922,6 +4150,8 @@ def main() -> int:
     print(f"train phase: {train['seconds']:.2f} s")
     mesh, mesh_launches = mesh_phase(smi.stdout.strip().splitlines()[0])
     print(f"mesh phase: {mesh['seconds']:.2f} s")
+    byo, byo_launches = byo_phase(smi.stdout.strip().splitlines()[0])
+    print(f"byo phase: {byo['seconds']:.2f} s")
     main_size = SIZES[0]
     # launches: each kernel's count from the run of the path it serves
     launches = dict(runs[main_size][0], body_prefix=dl_launches["body_prefix"],
@@ -3981,6 +4211,12 @@ def main() -> int:
     # bucket's) and cli_multi --data-axis 2, counted from zero in its child
     for name, count in mesh_launches.items():
         results[name]["mesh_launches"] = count
+    # the byo phase's launches: the U-Net's fused (K1, K3, K4) and classic
+    # (K5, K3) runs, which byo_phase counted frame by frame
+    for name in ("front", "pack", "pack_420", "bilateral"):
+        if not byo_launches.get(name):
+            raise AssertionError(f"the byo phase launched no {name} kernel")
+        results[name]["byo_launches"] = byo_launches[name]
     # the stream batches' numbers (multistream_phase) beside each kernel's
     for name, by_s in batched.items():
         if name in results:
@@ -4013,7 +4249,7 @@ def main() -> int:
                                          "main_path_launches", "mean_abs_err",
                                          "three_term_device_ms", "rows_held",
                                          "control_rows_off", "batched", "capi_launches",
-                                         "train_launches", "mesh_launches")
+                                         "train_launches", "mesh_launches", "byo_launches")
             if k in results[name]}}
         for name, (src, rep) in meta.items()]}
     print(f"chip_smoke phases: {time.perf_counter() - t_start:.2f} s (the whole script)")
@@ -4027,6 +4263,7 @@ def main() -> int:
     print("capi: " + json.dumps(capi))
     print("train: " + json.dumps(train))
     print("mesh: " + json.dumps(mesh))
+    print("byo: " + json.dumps(byo))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

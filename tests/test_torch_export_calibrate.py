@@ -154,22 +154,30 @@ def test_export_refuses_size_mismatch(tmp_path):
 
 
 def test_export_refuses_several_subgraphs(tmp_path):
-    """A file with a second subgraph (segm_lite's main graph copied, as a
-    WHILE body would sit there) loads its main graph in the port, and its
-    export is refused naming ROADMAP queue 1 item 4."""
-    flatbuffers = pytest.importorskip("flatbuffers")
-    from tensorflow.lite.python import schema_py_generated as sg
-    path = MODELS["segm_lite"]
-    m = sg.ModelT.InitFromObj(sg.Model.GetRootAsModel(pathlib.Path(path).read_bytes(), 0))
-    m.subgraphs.append(copy.deepcopy(m.subgraphs[0]))
-    b = flatbuffers.Builder(0)
-    b.Finish(m.Pack(b), file_identifier=b"TFL3")
-    two = tmp_path / "segm_two_subgraphs.tflite"
-    two.write_bytes(bytes(b.Output()))
-    assert subgraph_count(two.read_bytes()) == 2
-    tm = build_model(load_tflite(str(two)))
-    with pytest.raises(ValueError, match="ROADMAP queue 1 item 4"):
-        export_params_to_tflite(str(two), tm, tm.params, str(tmp_path / "out.tflite"))
+    """A file with several subgraphs (the committed coverage model: a WHILE
+    and an IF whose subgraphs own weights) exports every parameter into
+    the subgraph its ``weight_meta`` names, byte-equal to the JAX export
+    of the same changed parameters, and loads back as those parameters in
+    the file's dtypes.  (The export refused such files until the port
+    loaded subgraphs; the test keeps its name.)"""
+    pytest.importorskip("tensorflow")
+    path = str(ROOT / "tests" / "data" / "ops_synth_coverage.tflite")
+    jm, tm = jax_load_model(path), load_model(path, "cpu")
+    assert len(tm.graph.subgraphs) == 5
+    assert {k: (m["tensor_index"], m["subgraph"], m["dtype"]) for k, m in tm.weight_meta.items()} \
+        == {k: (m["tensor_index"], m["subgraph"], m["dtype"]) for k, m in jm.weight_meta.items()}
+    subs = {m["subgraph"] for m in tm.weight_meta.values()}
+    assert {0, 2, 3, 4} <= subs, subs
+    floats = {k: v for k, v in tm.host_params.items() if v.dtype == np.float32}
+    tuned = dict(tm.host_params, **_tuned(floats, 6))
+    ours, theirs = tmp_path / "port.tflite", tmp_path / "jax.tflite"
+    n = export_params_to_tflite(path, tm, {k: torch.from_numpy(v) for k, v in tuned.items()},
+                                str(ours))
+    assert n == jax_export(path, jm, tuned, str(theirs)) == len(tm.weight_meta)
+    assert ours.read_bytes() == theirs.read_bytes() != pathlib.Path(path).read_bytes()
+    back = load_model(str(ours), "cpu")
+    for k, v in tuned.items():
+        np.testing.assert_array_equal(back.params[k].numpy(), v.astype(v.dtype), err_msg=k)
 
 
 def test_calibration_matches_jax():

@@ -153,6 +153,18 @@ def test_runner_matches_jax_runner_and_one_process(world, jmesh):
     np.testing.assert_allclose(got, one, rtol=1e-4, atol=1e-4)
 
 
+def test_unet_runner_matches_one_process(world):
+    """The converted U-Net (tests/test_torch_byo.py) through the runner on
+    the (2, 2) world: its convolutions and both builtin TRANSPOSE_CONVs
+    split their output channels over "model", the other new kinds read
+    their inputs whole; the probabilities within 1e-4 of one process."""
+    got = world[0]["unet_runner"]
+    with torch.no_grad():
+        one = load_model(ranks.UNET, "cpu")(torch.from_numpy(ranks.unet_batch())).numpy()
+    assert got.shape == one.shape == (2, 256, 256, 1)
+    np.testing.assert_allclose(got, one, rtol=1e-4, atol=1e-4)
+
+
 # ---------------------------------------------------------------------------
 # the train step
 

@@ -21,6 +21,7 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 DATA = ROOT / "tests" / "data"
 LITE = str(DATA / "segm_synth_lite_96x160.tflite")
 DEEPLAB = str(DATA / "deeplab_synth_257.tflite")
+UNET = str(DATA / "unet_synth_256x256.tflite")
 FAMILIES = {name: str(DATA / f) for name, f in (
     ("segm_lite", "segm_synth_lite_96x160.tflite"), ("segm_full", "segm_synth_full_144x256.tflite"),
     ("deeplab", "deeplab_synth_257.tflite"), ("mlkit", "selfie_synth_mlkit_256x256.tflite"),
@@ -43,6 +44,11 @@ def lite_batch(n=4):
 
 def runner_batch():
     return np.random.default_rng(5).random((4, 96, 160, 3), np.float32)
+
+
+def unet_batch():
+    """Two frames at the converted U-Net's 256x256, one a data rank."""
+    return np.random.default_rng(9).random((2, 256, 256, 3), np.float32)
 
 
 def deeplab_batch():
@@ -154,6 +160,9 @@ def world_checks(ckpt_dir: str) -> dict:
     # the tensor-parallel runner
     m = load_model(LITE, "cpu")
     out["runner"] = MultiStreamRunner(m.raw_fn, m.params, mesh)(runner_batch()).numpy()
+    # a converted model's: builtin TRANSPOSE_CONV split by columns too
+    u = load_model(UNET, "cpu")
+    out["unet_runner"] = MultiStreamRunner(u.raw_fn, u.params, mesh)(unet_batch()).numpy()
 
     # dp + tp + sp, dp only, tp only
     x, y = lite_batch()
