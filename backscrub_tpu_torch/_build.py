@@ -18,7 +18,8 @@ the source, its header and the flags.  :func:`capi_library` builds the
 port's C ABI (``backscrub_tpu_torch/native/bs_capi.cc``, an embedded
 CPython), :func:`native_program` the pure-C++ consumer
 (``native/demo.cc`` and ``native/bsio.cc``) linked against it; both take
-the embedding flags from ``sysconfig`` (:func:`python_embed`).
+the embedding flags from ``sysconfig`` (:func:`python_embed`, in
+``_embed.py``, which ``native/CMakeLists.txt`` runs for the same flags).
 
 Nothing here runs at import time: the CPU tests import every module on a
 machine without ``nvcc``.
@@ -32,10 +33,11 @@ import hashlib
 import os
 import shutil
 import subprocess
-import sysconfig
 import time
 
 import torch
+
+from ._embed import python_embed
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_HERE, "csrc")
@@ -53,7 +55,7 @@ SIGNATURES = {
     "bs_blend_pack_420": (P, P, P, P, I, I, I, I, P),
     "bs_bilateral": (P, P, P, I, I, I, F32, P),
     "bs_front": (P, P, P, I, I, I, I, I, I, I, I, I, F32, F32, F32, I, I, I, I, P),
-    "bs_gemm": (P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P),
+    "bs_gemm": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P),
     "bs_body_mega": (P, P, P, P, I, I, I, I, L, L, P, P),
     "bs_barrier_bench": (I, I, I, P),
     "bs_probe_dw9": (P, P, I, I, I, I, I, I, P),
@@ -228,27 +230,6 @@ def host_library(source: str, extra_flags=(), link=(), headers=()) -> str:
     stem = os.path.splitext(os.path.basename(src))[0]
     return _host_build(f"lib{stem}", ".so", [src], [src[:-3] + ".h", *headers],
                        ("-shared", *extra_flags), link)
-
-
-def python_embed() -> dict:
-    """The flags that embed this interpreter, from ``sysconfig``:
-    ``include`` (compile), ``shim`` (the shared library's link: the shared
-    ``libpython`` with an rpath where the interpreter is itself that
-    library, else nothing, so that a shim loaded into a statically linked
-    interpreter takes that interpreter's symbols and carries no second
-    one) and ``program`` (an executable's link: the shared ``libpython``
-    with an rpath, or the static archive in ``LIBPL`` whole, with its
-    symbols exported for the interpreter's extension modules)."""
-    cfg = sysconfig.get_config_var
-    inc = (f"-I{cfg('INCLUDEPY')}",)
-    if cfg("Py_ENABLE_SHARED"):
-        libdir = cfg("LIBDIR")
-        lib = (os.path.join(libdir, cfg("LDLIBRARY")), f"-Wl,-rpath,{libdir}")
-        return dict(include=inc, shim=lib, program=lib)
-    archive = os.path.join(cfg("LIBPL"), cfg("LIBRARY"))
-    libs = tuple(f"{cfg('LIBS') or ''} {cfg('SYSLIBS') or ''}".split())
-    return dict(include=inc, shim=(), program=("-Wl,--export-dynamic", "-Wl,--whole-archive",
-                                               archive, "-Wl,--no-whole-archive", *libs))
 
 
 def capi_library() -> str:

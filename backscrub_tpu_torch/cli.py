@@ -25,6 +25,8 @@ from typing import List, Optional
 
 import numpy as np
 
+from .models.specs import DEFAULT_MODEL
+
 
 def parse_geometry(s: str):
     try:
@@ -85,7 +87,7 @@ usage:
 def parse_args(argv: List[str]) -> Optional[dict]:
     cfg = dict(debug=0, progress=False, ccam="/dev/video0", vcam="/dev/video1",
                cap_geo=None, vid_geo=None, fourcc="", threads=2,
-               background=None, model="selfiesegmentation_mlkit-256x256-2021_01_19-v1215.f16.tflite",
+               background=None, model=DEFAULT_MODEL,
                blur_strength=0, mask_refine="box", flip_h=False, flip_v=False,
                width=640, height=480, set_w_or_h=False,
                frames=0, bf16=False, int8=False, bilateral=True,

@@ -40,6 +40,7 @@ import time
 from typing import List, Optional
 
 from .cli import parse_geometry
+from .models.specs import DEFAULT_MODEL
 
 USAGE = __doc__
 
@@ -64,7 +65,7 @@ def parse_stream_spec(spec: str) -> dict:
 
 
 def parse_args(argv: List[str]) -> Optional[dict]:
-    cfg = dict(streams=[], model="selfiesegmentation_mlkit-256x256-2021_01_19-v1215.f16.tflite",
+    cfg = dict(streams=[], model=DEFAULT_MODEL,
                background=None, debug=0, frames=0, threaded=False, depth=2,
                data_axis=1, bf16=False, stall_timeout=5.0)
     i = 0

@@ -3,7 +3,8 @@
 // backscrub_tpu_torch/ops/megakernel.py:MegaTable compiles once per plan.
 // It runs K2, the segm body's full span, and the deeplab body's two spans:
 // K2', the prefix at 129x129 and 65x65, and K2'', the flat continuation at
-// 33x33 (its 1x1 convs as the bf16x3 tensor-core GEMM of gemm_tc.cuh).
+// 33x33 (its 1x1 convs as the bf16x3 tensor-core GEMM of gemm_tc.cuh, or
+// at "highest" its six-term split).
 //
 // Replaces the TPU kernel backscrub_tpu/ops/megakernel.py:BodyMega in its
 // full-span mode (body_mega_for; plan interpreter _run_plan), its prefix
@@ -42,7 +43,8 @@
 //
 // Work in a phase: the flat continuation's spatial 1x1 convs as OP_GEMM
 // tiles of 128x64 to 16x32 outputs on the tensor cores (bf16x3, the
-// reference's HIGH split, gemm_tc.cuh; the tile per op so that the phase is
+// reference's HIGH split, gemm_tc.cuh; six terms, the TPU's HIGHEST, at
+// "highest"; the tile per op so that the phase is
 // one round over the SMs, a 3-deep ring of 16-byte cp.async.cg loads);
 // the other 1x1 convs (segm's, the deeplab prefix's) as output tiles of 256
 // to 32 outputs, sized per op so that the phase's tiles spread over the
@@ -352,7 +354,8 @@ __device__ void convw_op(const Args& a, const int* d, float* sm) {
 // the flat continuation's spatial 1x1 conv on the tensor cores: y =
 // act2(act(W x + b) + r) with W split into bf16 hi/lo on the host (the
 // arena holds W_hi at F_W and W_lo at F_W1, (co, F_KP) bf16 each; W_hi
-// alone in the bf16 mode, whose tile has TERMS = 1), x (ci, L) from the
+// alone in the bf16 mode, whose tile has TERMS = 1; W_lo2 at F_W2 too in
+// the six-term tile of "highest", TERMS = 6), x (ci, L) from the
 // workspace, r the optional residual.  The CTA's 256 threads run one
 // gemm_tc tile at a time (F_TILE: megakernel.py:_MEGA_GEMM_TILES), the
 // tiles of the op spread over the grid.
@@ -364,21 +367,21 @@ __device__ void gemm_tiles(const Args& a, const int* d, unsigned char* sm) {
   const int tn = (N + BN - 1) / BN, tiles = ((M + BM - 1) / BM) * tn;
   const auto* whi = reinterpret_cast<const __nv_bfloat16*>(a.ar + d[F_W]);
   const auto* wlo = reinterpret_cast<const __nv_bfloat16*>(a.ar + d[F_W1]);
+  const auto* wl2 = reinterpret_cast<const __nv_bfloat16*>(a.ar + d[F_W2]);
   for (int it = blockIdx.x; it < a.n * tiles; it += gridDim.x) {
     const int img = a.img(it, tiles), tile = it - img * tiles;
     const Args ai = a.at(img);
     const gemm_tc::Epilogue ep{ai.ar + d[F_B], d[F_ACT],
                                d[F_RES] ? operand(ai, d[F_AUX]) : nullptr, d[F_ACT2],
                                ai.ws + d[F_OUT], nullptr};
-    T::run(sm, whi, wlo, operand(ai, d[F_IN]), M, Kp, N, (tile / tn) * BM, (tile % tn) * BN,
+    T::run(sm, whi, wlo, wl2, operand(ai, d[F_IN]), M, Kp, N, (tile / tn) * BM, (tile % tn) * BN,
            0, Kp, K, ep);
     __syncthreads();   // the next tile refills the ring
   }
 }
 
-template <int BF16>
+template <int TERMS>
 __device__ void gemm_op(const Args& a, const int* d, float* sm) {
-  constexpr int TERMS = BF16 != 0 ? 1 : 3;
   unsigned char* s = reinterpret_cast<unsigned char*>(sm);
   switch (d[F_TILE]) {
     case 0: gemm_tiles<128, 64, 4, 2, 1, TERMS>(a, d, s); break;
@@ -679,8 +682,10 @@ __device__ __forceinline__ unsigned long long globaltimer() {
 // working memory follows it.  With ``stamps`` (a measurement run), CTA 0
 // writes the device's nanosecond clock after the start barrier and after
 // each phase's barrier (one more barrier ends the last phase): phases + 1
-// stamps.  BF16: the table's dot mode (0 f32 dots and bf16x3 GEMMs, 1 bf16)
-template <int BF16>
+// stamps.  BF16: the table's dot mode (0 f32 dots, 1 bf16); TERMS: its
+// GEMM tile's (3 the bf16x3 split, 1 the bf16 mode's one pass, 6 the
+// six-term split of "highest")
+template <int BF16, int TERMS>
 __global__ void __launch_bounds__(NT)
 body_mega_kernel(const float* x, float* ws, const float* arena, const int* table,
                  int n_ops, int n_img, long long x_stride, long long ws_stride,
@@ -708,7 +713,7 @@ body_mega_kernel(const float* x, float* ws, const float* arena, const int* table
       case OP_ELT: elt_op(a, sd); break;
       case OP_RESIZE: resize_op(a, sd); break;
       case OP_COPY: copy_op(a, sd); break;
-      case OP_GEMM: gemm_op<BF16>(a, sd, sm); break;
+      case OP_GEMM: gemm_op<TERMS>(a, sd, sm); break;
       case OP_CONVW: convw_op<BF16>(a, sd, sm); break;
       default: break;
     }
@@ -759,14 +764,17 @@ extern "C" {
 // DESC int32 at ``table``, image i's operands in ``ws + i * ws_stride``
 // (and ``x + i * x_stride``), weights in ``arena``;
 // ``smem`` dynamic shared bytes a CTA (MegaTable.smem_bytes); ``dots`` the
-// table's dot mode (0 f32 / bf16x3, 1 bf16: megakernel.py:_DOTS_KERNEL);
+// table's dot mode (0 f32 / bf16x3, 1 bf16, 2 f32 / bf16x6:
+// megakernel.py:DOT_MODES);
 // ``stamps`` null, or phases + 1 uint64 for the phase clock (a
 // measurement run)
 int bs_body_mega(const void* x, void* ws, const void* arena, const void* table, int n_ops,
                  int smem, int dots, int n_img, long long x_stride, long long ws_stride,
                  void* stamps, void* stream) {
-  if ((dots != 0 && dots != 1) || n_img < 1) return (int)cudaErrorInvalidValue;
-  auto* kern = dots ? &body_mega_kernel<1> : &body_mega_kernel<0>;
+  if (dots < 0 || dots > 2 || n_img < 1) return (int)cudaErrorInvalidValue;
+  auto* kern = dots == 1   ? &body_mega_kernel<1, 1>
+               : dots == 2 ? &body_mega_kernel<0, 6>
+                           : &body_mega_kernel<0, 3>;
   return launch_resident<0>(kern, 0, smem, (cudaStream_t)stream, (const float*)x, (float*)ws,
                             (const float*)arena, (const int*)table, n_ops, n_img, x_stride,
                             ws_stride, (unsigned long long*)stamps);

@@ -72,6 +72,10 @@ def spec_for_model(model_path: str) -> ModelSpec:
     return _SPECS["unknown"]
 
 
+# the default model file, the JAX spec's name (the mlkit selfie family)
+DEFAULT_MODEL = "selfiesegmentation_mlkit-256x256-2021_01_19-v1215.f16.tflite"
+
+
 def _package_root() -> str:
     """Directory holding the package: the Python analog of the reference's
     "relative to current binary location" step."""
@@ -138,3 +142,17 @@ def resolve_model_path(name: str) -> str:
         f"$XDG_DATA_HOME/backscrub/models, <prefix>/share/backscrub/models, "
         f"and the package tree ({_package_root()}/models). Set "
         f"BACKSCRUB_PATH or BACKSCRUB_TPU_MODELS to add search roots.")
+
+
+def install_default_search_roots() -> None:
+    """Entry-point helper: add the source tree's ``models/`` and
+    ``backgrounds/`` directories, where they exist, as the lowest-priority
+    search roots (``BACKSCRUB_TPU_MODELS``, ``BACKSCRUB_TPU_BACKGROUNDS``).
+    Library code never names an asset location; tools call this once at
+    startup.  A variable already set wins."""
+    root = _package_root()
+    for var, sub in (("BACKSCRUB_TPU_MODELS", "models"),
+                     ("BACKSCRUB_TPU_BACKGROUNDS", "backgrounds")):
+        local = os.path.join(root, sub)
+        if os.path.isdir(local):
+            os.environ.setdefault(var, local)

@@ -21,14 +21,17 @@ for the whole batch
 (``bs_body_mega``, walking the :class:`MegaTable` that ``body_plan_for``,
 ``body_plan_prefix_for`` and ``body_plan_continuation_for`` compile); the
 flat plan's spatial 1x1 convs run in it as the bf16x3 tensor-core GEMM
-(``csrc/gemm_tc.cuh``), whose standalone probe is :func:`conv1x1_gemm`.
+(six terms at "highest"; ``csrc/gemm_tc.cuh``), whose standalone probe is
+:func:`conv1x1_gemm`.
 Launches are counted in ``body_launch.launches``, ``body_launch.by_kernel``
 and the plan's own ``launches``; the table ops they ran, by kind, in
 ``body_launch.table_ops``.
 
 A plan's ``dots`` is the arithmetic of its 1x1 convs and FCs (the dots of
 the JAX plan): "f32" (HIGHEST), "bf16x3" (a flat plan's GEMMs at HIGH, the
-split on the tensor cores; its other dots f32) or "bf16" (DEFAULT, the
+split on the tensor cores; its other dots f32), "bf16x6" (a flat plan's
+GEMMs at HIGHEST, the TPU's six bf16 passes on the tensor cores; its other
+dots f32) or "bf16" (DEFAULT, the
 bf16 mode: both operands of every dot rounded to bf16, products summed in
 f32, as the JAX kernel's interpret mode rounds them).  Depthwise, pool,
 elementwise and resize ops are f32 in every mode.  :func:`dots_for` maps a
@@ -64,22 +67,30 @@ class Unsupported(Exception):
 
 
 # the body's precisions (models/specs.py:ModelSpec.mxu_precision) and the
-# plans' dot modes; the kernel's instantiation a mode runs (csrc/body_mega.cu
-# body_mega_kernel<BF16>: 0 = f32 FFMA dots and bf16x3 GEMMs, 1 = bf16)
+# plans' dot modes, each with (the kernel's instantiation it runs, its GEMM
+# tile's terms, the bf16 pieces of W those terms read): csrc/body_mega.cu
+# bs_body_mega's ``dots`` (0 = f32 FFMA dots and bf16x3 GEMMs, 1 = bf16, 2 =
+# f32 FFMA dots and bf16x6 GEMMs), gemm_tc.cuh's TERMS, and hi; hi, lo;
+# hi, lo, lo2
 PRECISIONS = ("highest", "high", "default")
-DOTS = ("f32", "bf16x3", "bf16")
-_DOTS_KERNEL = {"f32": 0, "bf16x3": 0, "bf16": 1}
+DOT_MODES = {"f32": (0, 3, 2), "bf16x3": (0, 3, 2), "bf16": (1, 1, 1), "bf16x6": (2, 6, 3)}
+DOTS = tuple(DOT_MODES)
+GEMM_PIECES = {terms: pieces for _, terms, pieces in DOT_MODES.values()}
 
 
 def dots_for(precision: str, flat: bool) -> str:
     """The dot mode of a plan at ``precision``: "default" is one bf16 pass
     ("bf16"); "highest" and "high" are f32 dots, but a flat plan's (K2'')
-    GEMMs, which compute the bf16x3 split at both."""
+    GEMMs, which compute the TPU's HIGHEST as six bf16 passes ("bf16x6")
+    at "highest" and the bf16x3 split at "high", as the JAX flat
+    continuation does (``backscrub_tpu/ops/megakernel.py:473-517``)."""
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
     if precision == "default":
         return "bf16"
-    return "bf16x3" if flat else "f32"
+    if not flat:
+        return "f32"
+    return "bf16x6" if precision == "highest" else "bf16x3"
 
 
 def bf16_round(a: torch.Tensor) -> torch.Tensor:
@@ -161,7 +172,8 @@ _MAX_SMEM = 232448
 
 def _gemm_ring_bytes(bm: int, bn: int, halves: int = 2) -> int:
     """The ring of a (bm, bn) tile: ``halves`` W tiles (hi and lo; hi alone
-    in the one-term GEMM) and one x slice a stage."""
+    in the one-term GEMM; hi, lo and lo2 in the six-term one) and one x
+    slice a stage."""
     return 3 * (halves * bm * 40 * 2 + 32 * (bn + 4) * 4)
 
 
@@ -183,8 +195,8 @@ class BodyPlan:
     keeps the input's shape, and 1x1 convs on spatial tensors run as the
     tensor-core GEMM (the table's ``gemm`` op).
     ``dots``: the 1x1 convs' and FCs' arithmetic (module docstring): "f32"
-    or "bf16" on a plan that is not flat (None: "f32"), "bf16x3" or
-    "bf16" on a flat one (None: "bf16x3").  A quantized model has no plan
+    or "bf16" on a plan that is not flat (None: "f32"), "bf16x3", "bf16x6"
+    or "bf16" on a flat one (None: "bf16x3").  A quantized model has no plan
     (Unsupported), as in the reference.
 
     :meth:`compile_mega` (``body_plan_for``, ``body_plan_prefix_for`` and
@@ -196,7 +208,7 @@ class BodyPlan:
     def __init__(self, model, start: int, end: int, in_tid: int, out_tid: int,
                  *, allow_spaced_output: bool = False, flat: bool = False,
                  dots: Optional[str] = None):
-        allowed = ("bf16x3", "bf16") if flat else ("f32", "bf16")
+        allowed = ("bf16x3", "bf16", "bf16x6") if flat else ("f32", "bf16")
         dots = dots or allowed[0]
         if dots not in allowed:
             raise ValueError(f"a {'flat' if flat else 'non-flat'} plan's dots are one of "
@@ -491,7 +503,8 @@ class BodyPlan:
     def run_plain(self, x: torch.Tensor, gemm: str = "f32") -> torch.Tensor:
         """The plan in plain PyTorch on (C, H*W) tensors (any device).
         ``gemm="bf16x3"`` runs a flat plan's spatial 1x1 convs, the ops its
-        table runs as ``gemm`` ops, as :func:`conv1x1_bf16x3_plain`;
+        table runs as ``gemm`` ops, as :func:`conv1x1_bf16x3_plain`
+        (``"bf16x6"``: :func:`conv1x1_bf16x6_plain`);
         ``gemm="bf16"`` runs every 1x1 conv and FC, spatial or on a pooled
         vector, as :func:`conv1x1_bf16_plain`: each the kernel's own
         arithmetic in that mode (``gemm=self.dots``).  Every other op, and
@@ -501,7 +514,8 @@ class BodyPlan:
             raise ValueError(f"gemm must be one of {DOTS}, got {gemm!r}")
         if x.dim() == 3:
             return torch.stack([self.run_plain(xi, gemm) for xi in x])
-        split = gemm == "bf16x3" and self.flat
+        tensor_core = {"bf16x3": conv1x1_bf16x3_plain,
+                       "bf16x6": conv1x1_bf16x6_plain}.get(gemm) if self.flat else None
         ws = self._weights_on(x.device)
         env = {self.in_tid: x.float().reshape(self._shape(self.in_tid))}
         for p in self.plan:
@@ -509,7 +523,7 @@ class BodyPlan:
             if op == "conv1x1":
                 _, tin, tout, wi, bi, act = p
                 conv = (conv1x1_bf16_plain if gemm == "bf16"
-                        else conv1x1_bf16x3_plain if split and not self.meta[tin].vec
+                        else tensor_core if tensor_core and not self.meta[tin].vec
                         else conv1x1_plain)
                 env[tout] = conv(ws[wi], ws[bi], env[tin], act)
             elif op == "dw":
@@ -621,7 +635,7 @@ class BodyPlan:
         arena, table = self.mega.on(x.device)
         return buf, (x.data_ptr(), buf.data_ptr(), arena.data_ptr(), table.data_ptr(),
                      len(self.mega.ops) if n_ops is None else n_ops, self.mega.smem_bytes,
-                     _DOTS_KERNEL[self.dots], n, x_stride, self.ws_stride)
+                     DOT_MODES[self.dots][0], n, x_stride, self.ws_stride)
 
 
 def conv1x1_plain(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
@@ -641,10 +655,15 @@ def conv1x1_bf16_plain(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
     return apply_activation(bf16_round(w[:, :x.shape[0]]) @ bf16_round(x) + b[:, None], act)
 
 
-def _bf16_split(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """a = hi + lo: hi = bf16_rn(a), lo = bf16_rn(a - hi), both bf16."""
-    hi = a.to(torch.bfloat16)
-    return hi, (a - hi.float()).to(torch.bfloat16)
+def _bf16_split(a: torch.Tensor, pieces: int = 2) -> Tuple[torch.Tensor, ...]:
+    """a = hi + lo (+ lo2): hi = bf16_rn(a), lo = bf16_rn(a - hi) and, with
+    ``pieces=3``, lo2 = bf16_rn(a - hi - lo), all bf16 (each difference is
+    exact in f32)."""
+    out, rest = [], a
+    for _ in range(pieces):
+        out.append(rest.to(torch.bfloat16))
+        rest = rest - out[-1].float()
+    return tuple(out)
 
 
 def conv1x1_bf16x3_plain(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
@@ -662,12 +681,32 @@ def conv1x1_bf16x3_plain(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
     return apply_activation(wh @ xh + wh @ xl + wl @ xh + b[:, None], act)
 
 
-def split_bf16(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The GEMM's weight operand: (hi, lo) bf16 of w (co, ci), each
-    (co, ci rounded up to 8) with zero columns, contiguous."""
-    hi, lo = _bf16_split(w)
+def conv1x1_bf16x6_plain(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
+                         act: str = "NONE", split=None) -> torch.Tensor:
+    """The six-term GEMM's arithmetic in plain PyTorch (any device): the
+    TPU's HIGHEST, which the JAX flat continuation asks of dot_general at
+    "highest" (``backscrub_tpu/ops/megakernel.py:516-518``,
+    ``backscrub_tpu/models/specs.py:26-28``): w and x each in three bf16
+    pieces (:func:`_bf16_split`), the six products w_i @ x_j with i + j <= 2
+    as f32 matmuls, summed as the kernel adds its three accumulators,
+    w0 x0 + ((w0 x1 + w1 x0) + (w0 x2 + w1 x1 + w2 x0)), then the bias and
+    the activation.  ``split``: w's (hi, lo, lo2) as ``split_bf16(w, 3)``
+    makes them, given instead of ``w`` (None); columns past x's rows are
+    padding."""
+    if split is None:
+        split = _bf16_split(w, 3)
+    w0, w1, w2 = (t[:, :x.shape[0]].float() for t in split)
+    x0, x1, x2 = (t.float() for t in _bf16_split(x, 3))
+    cross = (w0 @ x1 + w1 @ x0) + (w0 @ x2 + w1 @ x1 + w2 @ x0)
+    return apply_activation(w0 @ x0 + cross + b[:, None], act)
+
+
+def split_bf16(w: torch.Tensor, pieces: int = 2) -> Tuple[torch.Tensor, ...]:
+    """The GEMM's weight operand: (hi, lo) bf16 of w (co, ci), with
+    ``pieces=3`` (hi, lo, lo2) (:func:`_bf16_split`), each (co, ci rounded
+    up to 8) with zero columns, contiguous."""
     pad = -w.shape[1] % 8
-    return F.pad(hi, (0, pad)).contiguous(), F.pad(lo, (0, pad)).contiguous()
+    return tuple(F.pad(t, (0, pad)).contiguous() for t in _bf16_split(w, pieces))
 
 
 def gemm_config(co: int, ci: int, L: int, sms: int) -> Tuple[int, int, int]:
@@ -697,16 +736,16 @@ def gemm_config(co: int, ci: int, L: int, sms: int) -> Tuple[int, int, int]:
     return len(_GEMM_TILES) - 1, split, 16 * n16
 
 
-def _gemm(launch, whi, wlo, b_ptr, x_ptr, y_ptr, co, ci, L, act, device, terms) -> None:
-    """One ``bs_gemm`` launch through ``launch``, with the split-K
-    partials' buffer when the shape's config splits K; ``wlo`` None for
-    the one-term GEMM."""
+def _gemm(launch, pieces, terms, b_ptr, x_ptr, y_ptr, co, ci, L, act, device) -> None:
+    """One ``bs_gemm`` launch of ``terms`` through ``launch`` over W's bf16
+    ``pieces`` (hi; hi, lo; or hi, lo, lo2), with the split-K partials'
+    buffer when the shape's config splits K."""
     tile, split, kchunk = gemm_config(co, ci, L, _build.sm_count(device))
     part = (torch.empty(split * co * L, dtype=torch.float32, device=device)
             if split > 1 else None)
-    launch("bs_gemm", whi.data_ptr(), None if wlo is None else wlo.data_ptr(), b_ptr, x_ptr,
-           y_ptr, None if part is None else part.data_ptr(), co, ci, whi.shape[1], L,
-           _ACT_CODES[act], tile, split, kchunk, terms)
+    ptrs = [t.data_ptr() for t in pieces] + [None] * (3 - len(pieces))
+    launch("bs_gemm", *ptrs, b_ptr, x_ptr, y_ptr, None if part is None else part.data_ptr(),
+           co, ci, pieces[0].shape[1], L, _ACT_CODES[act], tile, split, kchunk, terms)
 
 
 def conv1x1_gemm(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
@@ -717,28 +756,29 @@ def conv1x1_gemm(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
     (``csrc/gemm_tc.cuh``) as a standalone kernel, the per-shape probe of
     that code.  ``terms=3``: the bf16x3 split, its weight split ``split`` =
     :func:`split_bf16` (w) given or made here; ``terms=1``: the bf16
-    mode's one pass (hi.hi), ``split`` then (hi, None).  On CPU tensors
-    :func:`conv1x1_plain` (three terms) or :func:`conv1x1_bf16_plain`
-    (one)."""
-    if terms not in (1, 3):
-        raise ValueError(f"terms must be 1 or 3, got {terms}")
+    mode's one pass (hi.hi), ``split`` then (hi, None); ``terms=6``: the
+    six-term split of "highest", ``split`` = ``split_bf16(w, 3)``.  On CPU
+    tensors :func:`conv1x1_plain` (three or six terms) or
+    :func:`conv1x1_bf16_plain` (one)."""
+    if terms not in GEMM_PIECES:
+        raise ValueError(f"terms must be 1, 3 or 6, got {terms}")
     if x.device.type == "cpu":
-        return (conv1x1_plain if terms == 3 else conv1x1_bf16_plain)(w, b, x, act)
+        return (conv1x1_bf16_plain if terms == 1 else conv1x1_plain)(w, b, x, act)
     co, ci = w.shape
     _build.check_cuda(w, "gemm weights", torch.float32)
     _build.check_cuda(b, "gemm bias", torch.float32, (co,))
     _build.check_cuda(x, "gemm input", torch.float32)
     if x.ndim != 2 or x.shape[0] != ci:
         raise ValueError(f"gemm input: expected ({ci}, L), got {tuple(x.shape)}")
-    hi, lo = split_bf16(w) if split is None else split
-    if terms == 1:
-        lo = None
-    for t, name in ((hi, "gemm weights hi"), (lo, "gemm weights lo")):
-        if t is not None:
-            _build.check_cuda(t, name, torch.bfloat16, (co, ci + (-ci % 8)))
+    n = GEMM_PIECES[terms]
+    pieces = tuple(split_bf16(w, n) if split is None else split)[:n]
+    if len(pieces) != n or any(t is None for t in pieces):
+        raise ValueError(f"gemm weights: {terms} terms need {n} bf16 pieces")
+    for t, name in zip(pieces, ("hi", "lo", "lo2")):
+        _build.check_cuda(t, f"gemm weights {name}", torch.bfloat16, (co, ci + (-ci % 8)))
     y = torch.empty((co, x.shape[1]), dtype=torch.float32, device=x.device)
-    _gemm(body_launch, hi, lo, b.data_ptr(), x.data_ptr(), y.data_ptr(), co, ci,
-          x.shape[1], act, x.device, terms)
+    _gemm(body_launch, pieces, terms, b.data_ptr(), x.data_ptr(), y.data_ptr(), co, ci,
+          x.shape[1], act, x.device)
     return y
 
 
@@ -1059,11 +1099,13 @@ class MegaTable:
         chunks, where, pos = [], {}, 0
 
         bf16 = self.dots == "bf16"
+        pieces = DOT_MODES[self.dots][2]    # a flat table's W pieces
 
         def arena(wi, form="", dot=False):
             """Weight ``wi``'s float offset: as it is, transposed ("T"), or
-            its bf16 hi or lo half ("hi", "lo": :func:`split_bf16`, rows
-            padded to a multiple of 8, two bf16 to a float); a ``dot``
+            its bf16 hi, lo or lo2 piece ("hi", "lo", "lo2":
+            :func:`split_bf16`, rows padded to a multiple of 8, two bf16 to
+            a float); a ``dot``
             operand rounded to bf16 in the bf16 mode; each chunk 16-byte
             aligned."""
             nonlocal pos
@@ -1075,7 +1117,7 @@ class MegaTable:
                 if form == "T":
                     a = a.T
                 elif form:
-                    half = split_bf16(torch.from_numpy(a))[form == "lo"]
+                    half = split_bf16(torch.from_numpy(a), 3)[("hi", "lo", "lo2").index(form)]
                     a = half.view(torch.int16).numpy().view(np.float32)
                 a = a.ravel()
                 where[key] = pos
@@ -1121,15 +1163,15 @@ class MegaTable:
                     cols = -(-r["n"] // _MEGA_CTAS)
                     r.update(tn=cols)
                     smem = max(smem, 4 * (r["co"] * sm.c + sm.c * cols))
-            elif k == "gemm":            # W's bf16 halves (hi alone: bf16), the tile a round fills
+            elif k == "gemm":            # W's bf16 pieces (hi alone: bf16), the tile a round fills
                 co = plan.weights[m["w"]].shape[0]
-                r.update(w=arena(m["w"], "hi"), w1=0 if bf16 else arena(m["w"], "lo"),
+                r.update(w=arena(m["w"], "hi"), w1=arena(m["w"], "lo") if pieces > 1 else 0,
+                         w2=arena(m["w"], "lo2") if pieces > 2 else 0,
                          b=arena(m["b"]), co=co, kp=sm.c + (-sm.c % 8),
                          tile=_gemm_tile(co, r["n"]))
                 if m["res"] is not None:
                     r.update(res=1, aux=off(m["res"]))
-                smem = max(smem, _gemm_ring_bytes(*_MEGA_GEMM_TILES[r["tile"]],
-                                                  1 if bf16 else 2))
+                smem = max(smem, _gemm_ring_bytes(*_MEGA_GEMM_TILES[r["tile"]], pieces))
             elif k in ("dw", "resize"):
                 om = plan.meta[m["out"]]
                 r.update(h=sm.rows, wd=sm.w, oh=om.rows, ow=om.w, c=om.c)
@@ -1193,7 +1235,8 @@ def walk_phase(plan: BodyPlan, x: torch.Tensor, snap: torch.Tensor, phase: int,
     operand rounded to bf16 (left as it is with ``round_dots=False``, a
     control), its ``gemm`` rows one bf16 pass on the arena's hi half; a
     bf16x3 table's ``gemm`` rows are :func:`conv1x1_bf16x3_plain` on both
-    halves."""
+    halves, a bf16x6 table's :func:`conv1x1_bf16x6_plain` on its three
+    pieces."""
     mt, dev = plan.mega, x.device
     bf16 = mt.dots == "bf16"
     rnd = bf16_round if bf16 and round_dots else (lambda t: t)
@@ -1212,16 +1255,17 @@ def walk_phase(plan: BodyPlan, x: torch.Tensor, snap: torch.Tensor, phase: int,
         kind, act, act2 = _CODE_KINDS[d["code"]], _ACT_NAMES[d["act"]], _ACT_NAMES[d["act2"]]
         c, n = d["c"], d["n"]
         inv = float(np.int32(d["pinv"]).view(np.float32))
-        if kind == "gemm":      # W's bf16 hi and lo, rows padded to kp, two to a float
+        if kind == "gemm":      # W's bf16 pieces, rows padded to kp, two to a float
             co, kp = d["co"], d["kp"]
             split = [ar[d[f]:d[f] + co * kp // 2].view(torch.bfloat16).reshape(co, kp)
-                     for f in (("w",) if bf16 else ("w", "w1"))]
+                     for f in ("w", "w1", "w2")[:DOT_MODES[mt.dots][2]]]
             xi = rd(d["in"], c * n).reshape(c, n)
             if bf16:            # hi alone: the one-term GEMM
                 y = apply_activation(split[0][:, :c].float() @ rnd(xi)
                                      + arr(d["b"], co)[:, None], act)
             else:
-                y = conv1x1_bf16x3_plain(None, arr(d["b"], co), xi, act, split=split)
+                y = (conv1x1_bf16x6_plain if len(split) == 3 else conv1x1_bf16x3_plain)(
+                    None, arr(d["b"], co), xi, act, split=split)
             if d["res"]:
                 y = apply_activation(y + rd(d["aux"], co * n).reshape(co, n), act2)
         elif kind in ("conv", "convw", "fc"):

@@ -36,7 +36,9 @@ Usage (from the repository root, on a machine with a CUDA card)::
    ops, alone (``bs_gemm``, its standalone probe) at every 1x1 shape of
    the continuation against ``conv1x1_plain`` (allclose(2e-3, 1e-3)) and
    ``conv1x1_bf16x3_plain`` (1e-5 relative), bit-identical over two runs,
-   with its device time beside ``torch.addmm``'s; then 30 frames held out
+   with its device time beside ``torch.addmm``'s (f32, TF32 off), and the
+   six-term tile of "highest" (``terms=6``) at every shape on the same
+   terms against ``conv1x1_bf16x6_plain``; then 30 frames held out
    from the synthetic model's fit (seed 1, frames 30-59) of
    ``FramePipeline`` against the plain path (K2'' in bf16x3) on the card under
    the tolerance invariant (every decode flip a near-tie of class 15's
@@ -253,11 +255,25 @@ Usage (from the repository root, on a machine with a CUDA card)::
    rerun bit-identical; a line before each check, a ``byo:`` line, and
    the U-Net runs' launches as ``byo_launches`` of K1, K3, K4 and K5 in
    the kernels line;
-23. prints one JSON line with every kernel's numbers (launches from the
+23. deeplab at "highest" (``highest_phase``): the continuation's dots
+   "bf16x6", its table the six-term instantiation; K2'' on a held-out
+   frame's prefix output against ``run_plain(gemm="bf16x6")`` at
+   allclose(atol=2e-3, rtol=1e-3) and the mean-abs bar, two runs
+   bit-identical, its distances to the f32 and three-term twins and its
+   device time beside the three-term table's; then HIGHEST_FRAMES held-out
+   frames of ``FramePipeline(precision="highest")`` against the plain path
+   in the same arithmetic under the decode flip rule, every launch
+   counted; ``body_cont_highest`` and ``gemm_highest`` in the kernels line;
+24. the tools (``tools_phase``): ``tools/roofline_torch.py`` (segm_lite at
+   1280x720) and ``tools/ab_torch.py`` (deeplab at "highest") in
+   subprocesses started together, each exit 0, each last line naming the
+   card and its power limit; a ``tools:`` line;
+25. prints one JSON line with every kernel's numbers (launches from the
    run of the path it serves, errors and times measured here, and the
    bound: the larger of the bytes it must move over 3.35 TB/s and its
    operations over the peak of their type, 67 TFLOP/s f32 or 989 TFLOP/s
-   bf16 on the tensor cores; every kernel also with ``device_ms`` (the
+   bf16 on the tensor cores, counted by ``backscrub_tpu_torch/utils/
+   roofline.py``; every kernel also with ``device_ms`` (the
    profiler's kernel time a call, at the main path's shapes: K1 on the
    segm canvas, K3 and K4 at 640x480, K5 at segm's 96x160; printed
    earlier for K1 on the deeplab canvas and K3 and K4 at 1280x720 too),
@@ -290,12 +306,21 @@ import time
 
 import numpy as np
 
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+# the counting behind every bound below (the H100 SXM's peaks, each
+# kernel's bytes and operations): backscrub_tpu_torch/utils/roofline.py
+from backscrub_tpu_torch.utils.roofline import (bf16_work, bilateral_work, bound,  # noqa: E402
+                                                cont_work, front_work, gemm_ops, gemm_work,
+                                                jpeg_decode_work, pack_420_work,
+                                                pack_yuyv_work)
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 MODEL = os.path.join(REPO, "tests", "data", "segm_synth_lite_96x160.tflite")
 SIZES = ((640, 480), (1280, 720))
 FRAMES = 50
 DEEPLAB = os.path.join(REPO, "tests", "data", "deeplab_synth_257.tflite")
 DEEPLAB_SIZE, DEEPLAB_FRAMES = (640, 480), 30
+HIGHEST_FRAMES = 15         # held-out deeplab frames of the "highest" run
 PERSON, TIE = 15, 1e-3      # deeplab's person class; a near-tie decode margin
 # deeplab's batch-vs-solo flip limit (multistream_pipelines): above the
 # sound batch's largest flip |margin| (6.08e-3 on an H100), below a planted
@@ -366,44 +391,12 @@ PRECISION_FRAMES, CONTROL_SHARE, MIN_CELLS = 10, 0.85, 10
 CLI_MODES = (("plain", []), ("drain-thread", ["--drain-thread"]),
              ("staging-force", ["--staging-force"]), ("staging", ["--staging"]),
              ("nv12", ["--sink-format", "nv12"]))
-# the H100 SXM's published peaks (HBM3 bytes/s, f32 FLOP/s outside the
-# tensor cores, dense bf16 FLOP/s on them) for the kernels' bounds
-HBM_BPS, F32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
-GEMM_REL = 1e-5            # the GEMM against conv1x1_bf16x3_plain, relative
-# operations a pixel of the d=5 bilateral: 13 taps of 3 subtractions, 3
-# absolute values, 2 adds, 3 multiplies for the weight (counting its exp as
-# one), 6 for the numerators, 1 for the denominator; then 3 divides
-BILATERAL_OPS = 13 * 19 + 3
-
-
-def bound(nbytes, ops, bf16_ops=0):
-    """The least time (ms) the card could take: the larger of the bytes
-    over the memory rate and the operations over their peak (f32, and
-    ``bf16_ops`` on the tensor cores)."""
-    tb, to = nbytes / HBM_BPS * 1e3, (ops / F32_FLOPS + bf16_ops / BF16_FLOPS) * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
-
-
-def gemm_work(co, ci, L):
-    """(bytes, f32 ops, bf16 ops) of one GEMM: x, the bias and y in f32 and
-    the split weights (hi and lo, bf16, ci padded to 8) moved once; three
-    bf16 products of 2 * co * ci * L operations on the tensor cores."""
-    kp = ci + (-ci % 8)
-    return 4 * (ci * L + co + co * L) + 2 * 2 * co * kp, 0, 3 * 2 * co * ci * L
-
-
-def gemm_ops(plan):
-    """The plan ops (1x1 convs) that ``plan``'s table runs as GEMM ops."""
-    return [plan.plan[m["idx"][0]] for m in plan.mega.ops if m["kind"] == "gemm"]
-
-
-def cont_work(plan):
-    """(bytes, f32 ops, bf16 ops) of the continuation plan: its work() with
-    the GEMMs' multiply-adds moved to the tensor cores as three passes."""
-    nbytes, flops = plan.work()
-    mm = sum(2 * plan.weights[p[3]].size * plan.meta[p[1]].rows * plan.meta[p[1]].w
-             for p in gemm_ops(plan))
-    return nbytes, flops - mm, 3 * mm
+GEMM_REL = 1e-5            # the GEMM against its plain twin in its arithmetic, relative
+# the six-term result's distance to f32 against the three-term one's: at
+# most 1/SIX_TERM_RATIO of it for K2'' at highest (as
+# tests/test_torch_highest.py's RATIO), 1/SIX_TERM_GEMM_RATIO for the GEMM
+# alone at each shape (its f32 reference rounds too)
+SIX_TERM_RATIO, SIX_TERM_GEMM_RATIO = 10, 2
 
 
 def ulp_nudge(x, seed):
@@ -483,15 +476,6 @@ def barrier_us():
              for n in (2000, 0)]
         res[name] = (t[0] - t[1]) * 1e3 / 2000
     return res
-
-
-def front_work(kw, cout):
-    """(bytes, ops) of K1: canvas, parameters and output once; the
-    bilateral, round and normalization a canvas pixel, 27 multiply-adds an
-    output value."""
-    H, W, oh, ow = kw["H"], kw["W"], kw["oh"], kw["ow"]
-    nbytes = 4 * (3 * (H + 4) * (W + 4) + 28 * cout + 13 + cout * oh * ow)
-    return nbytes, (BILATERAL_OPS + 9) * H * W + 2 * 27 * cout * oh * ow
 
 
 def timed(fn, n=30, warmup=3):
@@ -588,12 +572,11 @@ def kernel_phase(w, h):
                            device_ms=device_ms(lambda: blend_pack_yuyv(frame, bg, mask)),
                            device_ms_cold=device_ms(lambda: blend_pack_yuyv(frame, bg, mask),
                                                     cold="blend_pack_yuyv_kernel"),
-                           bound=bound(9 * h * w, 30 * h * w))
+                           bound=bound(*pack_yuyv_work(h, w)))
         for layout in ("nv12", "i420"):
             k4 = blend_pack_420(frame, bg, mask, layout)
             if not torch.equal(k4, blend_pack_420_plain(frame, bg, mask, layout)):
                 raise AssertionError(f"K4 differs from its plain version ({layout})")
-        # 7 B read and 1.5 B written a pixel; ~35 integer operations
         res["pack_420"] = dict(max_abs_err=0.0,
                                ms=timed(lambda: blend_pack_420(frame, bg, mask)),
                                plain_ms=timed(lambda: blend_pack_420_plain(frame, bg, mask)),
@@ -601,7 +584,7 @@ def kernel_phase(w, h):
                                device_ms_cold=device_ms(
                                    lambda: blend_pack_420(frame, bg, mask),
                                    cold="blend_pack_420_kernel"),
-                               bound=bound(17 * h * w // 2, 35 * h * w))
+                               bound=bound(*pack_420_work(h, w)))
     for name, r in res.items():
         print(f"kernel {name} {w}x{h}: max_abs_err={r['max_abs_err']:.3g} "
               f"kernel {r['ms'][0]:.4f} ms (checksum {r['ms'][1]:.6g}) "
@@ -714,19 +697,26 @@ def gemm_phase(cont, device):
     every 1x1 shape of the continuation ``cont`` (its weights, seeded
     inputs at L = 33 * 33): against conv1x1_plain (allclose) and
     conv1x1_bf16x3_plain (GEMM_REL relative), two runs bit-identical,
-    device time beside torch.addmm's (bias, no activation).  Returns the
-    kernels-line numbers at the largest shape (the ASPP projection)."""
+    device time beside torch.addmm's (bias, no activation, f32 with TF32
+    off); the six-term tile of "highest" (``terms=6``) at every shape on
+    the same terms against conv1x1_bf16x6_plain and at most
+    1/SIX_TERM_GEMM_RATIO of the three-term tile's distance from
+    conv1x1_plain, its device time beside the three-term tile's.  Returns
+    the kernels-line numbers of both tiles at the largest shape (the ASPP
+    projection)."""
     import torch
     from backscrub_tpu_torch.ops.megakernel import (_GEMM_TILES, _MEGA_GEMM_TILES, _gemm_tile,
-                                                    conv1x1_bf16x3_plain, conv1x1_gemm,
-                                                    conv1x1_plain, gemm_config, split_bf16)
+                                                    conv1x1_bf16x3_plain, conv1x1_bf16x6_plain,
+                                                    conv1x1_gemm, conv1x1_plain, gemm_config,
+                                                    split_bf16)
+    torch.backends.cuda.matmul.allow_tf32 = False
     ws = cont._weights_on(device)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     shapes = collections.defaultdict(list)
     for p in gemm_ops(cont):
         shapes[cont.weights[p[3]].shape].append(p)
-    split = {}
-    frame_us = lib_frame_us = 0.0
+    split, split6 = {}, {}
+    frame_us = lib_frame_us = six_frame_us = 0.0
     with torch.no_grad():
         for (co, ci), ps in sorted(shapes.items()):
             _, tin, _, wi, bi, act = ps[0]
@@ -742,6 +732,20 @@ def gemm_phase(cont, device):
             rel = float((k - pb).abs().max() / pb.abs().max())
             if rel > GEMM_REL or not torch.equal(k, k2):
                 raise AssertionError(f"GEMM {co}x{ci}: {rel:.3g} from bf16x3, or runs differ")
+            sp6 = split6[wi] = split_bf16(gw, 3)
+            k6, k6b = (conv1x1_gemm(gw, gb, gx, act, split=sp6, terms=6) for _ in range(2))
+            p6 = conv1x1_bf16x6_plain(gw, gb, gx, act)
+            torch.cuda.synchronize()
+            rel6 = float((k6 - p6).abs().max() / p6.abs().max())
+            if rel6 > GEMM_REL or not torch.equal(k6, k6b):
+                raise AssertionError(f"six-term GEMM {co}x{ci}: {rel6:.3g} from bf16x6, or "
+                                     f"runs differ")
+            gap3, gap6 = float((k - pf).abs().max()), float((k6 - pf).abs().max())
+            if gap6 * SIX_TERM_GEMM_RATIO > gap3:
+                raise AssertionError(f"six-term GEMM {co}x{ci}: {gap6:.3g} from f32, not "
+                                     f"1/{SIX_TERM_GEMM_RATIO} of three terms' {gap3:.3g}")
+            dev6 = device_ms(lambda: conv1x1_gemm(gw, gb, gx, "NONE", split=sp6, terms=6))
+            six_frame_us += 1e3 * dev6 * len(ps)
             dev = device_ms(lambda: conv1x1_gemm(gw, gb, gx, "NONE", split=sp))
             lib = device_ms(lambda: torch.addmm(gb[:, None], gw, gx))
             bb = b2b_ms(lambda: conv1x1_gemm(gw, gb, gx, "NONE", split=sp))
@@ -754,9 +758,12 @@ def gemm_phase(cont, device):
             print(f"gemm {co}x{ci} by {ci}x{L} ({len(ps)} a frame): tile {bm}x{bn} split "
                   f"{nsplit}, {-(-co // bm) * -(-L // bn) * nsplit} CTAs (in the table: tile "
                   f"{tm}x{tn}, {-(-co // tm) * -(-L // tn)} CTAs); max_abs_err vs f32 "
-                  f"{float((k - pf).abs().max()):.3g}, vs bf16x3 {rel:.3g} relative; device "
+                  f"{gap3:.3g}, vs bf16x3 {rel:.3g} relative; device "
                   f"{dev * 1e3:.3f} us (back to back {bb * 1e3:.3f} us), torch.addmm "
-                  f"{lib * 1e3:.3f} us, bound {b[0] * 1e3:.3f} us ({b[1]})")
+                  f"{lib * 1e3:.3f} us, bound {b[0] * 1e3:.3f} us ({b[1]}); six terms: vs "
+                  f"f32 {gap6:.3g}, vs bf16x6 {rel6:.3g} relative, "
+                  f"device {dev6 * 1e3:.3f} us, bound "
+                  f"{bound(*gemm_work(co, ci, L, terms=6))[0] * 1e3:.3f} us")
         co, ci = max(shapes, key=lambda s: s[0] * s[1])
         _, tin, _, wi, bi, act = shapes[(co, ci)][0]
         gw, gb, sp = ws[wi], ws[bi], split[wi]
@@ -771,12 +778,27 @@ def gemm_phase(cont, device):
                  library_ms=timed(lambda: torch.addmm(gb[:, None], gw, gx)),
                  library_device_ms=device_ms(lambda: torch.addmm(gb[:, None], gw, gx)),
                  library_b2b_ms=b2b_ms(lambda: torch.addmm(gb[:, None], gw, gx)))
+        sp6 = split6[wi]
+        k6 = conv1x1_gemm(gw, gb, gx, split=sp6, terms=6)
+        p6 = conv1x1_bf16x6_plain(gw, gb, gx)
+        r6 = _held(f"gemm_highest {co}x{ci}x{gx.shape[1]}", k6, p6,
+                   lambda: conv1x1_gemm(gw, gb, gx, split=sp6, terms=6),
+                   lambda: conv1x1_bf16x6_plain(gw, gb, gx))
+        r6.update(rel_err=float((k6 - p6).abs().max() / p6.abs().max()),
+                  f32_max_abs_err=float((k6 - conv1x1_plain(gw, gb, gx)).abs().max()),
+                  bound=bound(*gemm_work(co, ci, gx.shape[1], terms=6)),
+                  device_ms=device_ms(lambda: conv1x1_gemm(gw, gb, gx, split=sp6, terms=6)),
+                  three_term_device_ms=r["device_ms"], library_ms=r["library_ms"],
+                  library_device_ms=r["library_device_ms"], frame_us=six_frame_us)
     print(f"gemm {co}x{ci}: device {r['device_ms'] * 1e3:.3f} us, torch.addmm device "
           f"{r['library_device_ms'] * 1e3:.3f} us; back to back {r['b2b_ms'] * 1e3:.3f} vs "
           f"{r['library_b2b_ms'] * 1e3:.3f} us; wrapper {r['ms'][0]:.4f} ms vs "
           f"{r['library_ms'][0]:.4f} ms; a deeplab frame's {sum(map(len, shapes.values()))} "
-          f"GEMMs: {frame_us:.2f} us of device time (torch.addmm {lib_frame_us:.2f} us)")
-    return r
+          f"GEMMs: {frame_us:.2f} us of device time (torch.addmm {lib_frame_us:.2f} us, six "
+          f"terms {six_frame_us:.2f} us); six terms at {co}x{ci}: device "
+          f"{r6['device_ms'] * 1e3:.3f} us, {r6['rel_err']:.3g} relative from its twin, "
+          f"{r6['f32_max_abs_err']:.3g} from f32")
+    return r, r6
 
 
 def deeplab_phase():
@@ -785,12 +807,8 @@ def deeplab_phase():
     against the plain path, with every launch counter checked."""
     import torch
     from backscrub_tpu_torch.ops.megakernel import body_launch
-    from backscrub_tpu_torch.ops.pack_kernels import (blend_pack_yuyv,
-                                                      blend_pack_yuyv_plain)
-    from backscrub_tpu_torch.pipeline.decode import decode_val, ema_update
-    from backscrub_tpu_torch.pipeline.edge import front_fused, front_plain, post_footprint
+    from backscrub_tpu_torch.pipeline.edge import front_fused, front_plain
     from backscrub_tpu_torch.pipeline.frame import FramePipeline, PipelineConfig
-    from make_synth_segm import moving_frames
 
     w, h = DEEPLAB_SIZE
     pipe = FramePipeline(DEEPLAB, PipelineConfig(width=w, height=h), device="cuda")
@@ -811,10 +829,7 @@ def deeplab_phase():
             or not any(m.get("bn") for m in cont.mega.ops):
         raise AssertionError("the continuation table lacks the GEMM, the broadcast "
                              "or the dilated depthwise convs")
-    # held out from the synthetic model's fit (seed 0, frames 0-29): another
-    # seed's grain and frame indices 30-59 (the pose repeats every ~21 frames)
-    frames = [torch.from_numpy(f).cuda()
-              for f in moving_frames(w, h, 2 * DEEPLAB_FRAMES, seed=1)[DEEPLAB_FRAMES:]]
+    frames = _deeplab_held_out()
     res = {}
     with torch.no_grad():
         canvas, kw = e.canvas(frames[0]), e.front_kwargs()
@@ -866,13 +881,99 @@ def deeplab_phase():
         print(f"deeplab tables, device time a run: prefix "
               f"{res['body_prefix']['device_ms'] * 1e3:.2f} us, continuation "
               f"{res['body_cont']['device_ms'] * 1e3:.2f} us")
-        res["gemm"] = gemm_phase(cont, k2.device)
+        res["gemm"], res["gemm_highest"] = gemm_phase(cont, k2.device)
 
+    launches, ms = _deeplab_frames(pipe, frames, "bf16x3", "deeplab")
+    print("deeplab bounds: " + ", ".join(f"{k} {r['bound'][0]:.5f} ms ({r['bound'][1]})"
+                                         for k, r in res.items()))
+    return res, launches, ms
+
+
+def _deeplab_held_out(n=DEEPLAB_FRAMES):
+    """``n`` deeplab frames on the card held out from the synthetic model's
+    fit (seed 0, frames 0-29): another seed's grain and frame indices 30
+    on (the pose repeats every ~21 frames)."""
+    import torch
+    from make_synth_segm import moving_frames
+    w, h = DEEPLAB_SIZE
+    return [torch.from_numpy(f).cuda()
+            for f in moving_frames(w, h, DEEPLAB_FRAMES + n, seed=1)[DEEPLAB_FRAMES:]]
+
+
+def highest_phase(high_device_ms):
+    """deeplab at "highest" (``precision="highest"``): the continuation's
+    dots "bf16x6", its table ``body_mega_kernel<0, 6>`` with the six-term
+    GEMM tile, the TPU's HIGHEST that the JAX flat continuation asks of
+    dot_general.  K2'' on a held-out frame's prefix output: one launch, two
+    runs bit-identical, against ``run_plain(gemm="bf16x6")`` (allclose(ATOL,
+    RTOL) and the mean-abs bar: the six terms carry f32's rounding, so the
+    f32 bars hold, and would pass three terms too), its distance to the
+    f32 plain plan at most 1/SIX_TERM_RATIO of the three-term twin's, its
+    device time beside the three-term table's (``high_device_ms``);
+    then HIGHEST_FRAMES held-out frames of the pipeline against the plain
+    path in the same arithmetic under the decode flip rule
+    (``_deeplab_frames``).  Returns (kernels-line numbers, launches)."""
+    import torch
+    from backscrub_tpu_torch.pipeline.frame import FramePipeline, PipelineConfig
+    w, h = DEEPLAB_SIZE
+    pipe = FramePipeline(DEEPLAB, PipelineConfig(width=w, height=h), device="cuda",
+                         precision="highest")
+    e = pipe.maskgen.edge
+    pre, cont = e.prefix_plan, e.cont_plan
+    if (pre.dots, cont.dots) != ("f32", "bf16x6"):
+        raise AssertionError(f"deeplab at highest: dots {pre.dots}, {cont.dots}")
+    frames = _deeplab_held_out(HIGHEST_FRAMES)
+    with torch.no_grad():
+        k2 = pre.run_cuda(e.front(frames[0]).reshape(16, -1)).clone()
+        k3, k3b = cont.run_cuda(k2).clone(), cont.run_cuda(k2)
+        torch.cuda.synchronize()
+        if not torch.equal(k3, k3b):
+            raise AssertionError("two runs of the highest continuation differ")
+        r = _held("body_cont_highest", k3, cont.run_plain(k2, gemm="bf16x6"),
+                  lambda: cont.run_cuda(k2), lambda: cont.run_plain(k2, gemm="bf16x6"))
+        six, three, f32 = (cont.run_plain(k2, g) for g in ("bf16x6", "bf16x3", "f32"))
+        mean = float((k3 - six).abs().mean())
+        if mean > MATCHED_MEAN:
+            raise AssertionError(f"highest K2'' is {mean:.3g} from its twin on average")
+        gap, gap3 = float((k3 - f32).abs().max()), float((three - f32).abs().max())
+        if gap * SIX_TERM_RATIO > gap3:
+            raise AssertionError(f"highest K2'' is {gap:.3g} from the f32 plain plan, not "
+                                 f"1/{SIX_TERM_RATIO} of the three-term twin's {gap3:.3g}")
+        r.update(mean_abs_err=mean, precision_gap=gap, three_term_gap=gap3,
+                 device_ms=device_ms(lambda: cont.run_cuda(k2)),
+                 three_term_device_ms=high_device_ms, bound=bound(*cont_work(cont)),
+                 phases=cont.mega.phases)
+    print(f"deeplab continuation at highest: {cont.mega.phases} phases, "
+          f"{cont.mega.smem_bytes} B shared memory a CTA; against run_plain(gemm='bf16x6') "
+          f"max_abs_err {r['max_abs_err']:.3g}, mean {mean:.3g}; to the f32 plain plan "
+          f"{r['precision_gap']:.3g} (the three-term twin's {r['three_term_gap']:.3g}); "
+          f"device {r['device_ms'] * 1e3:.2f} us a run (three terms "
+          f"{high_device_ms * 1e3:.2f} us), bound {r['bound'][0] * 1e3:.3f} us "
+          f"({r['bound'][1]})")
+    launches, r["frame_ms"] = _deeplab_frames(pipe, frames, "bf16x6", "deeplab highest")
+    return r, launches
+
+
+def _deeplab_frames(pipe, frames, gemm, tag):
+    """``frames`` of the deeplab ``pipe`` on the card from a fresh EMA,
+    every launch counter checked (one K1, K2' and K2'' launch, one K3 and
+    the continuation's GEMM table ops a frame, no other body kernel),
+    against the plain path (K2'' in ``gemm`` arithmetic) frame by frame
+    under the decode flip rule.  Returns (launches, host ms a frame)."""
+    import torch
+    from backscrub_tpu_torch.ops.megakernel import body_launch
+    from backscrub_tpu_torch.ops.pack_kernels import blend_pack_yuyv, blend_pack_yuyv_plain
+    from backscrub_tpu_torch.pipeline.decode import decode_val, ema_update
+    from backscrub_tpu_torch.pipeline.edge import front_fused, post_footprint
+
+    e = pipe.maskgen.edge
+    pre, cont = e.prefix_plan, e.cont_plan
+    h, w = frames[0].shape[:2]
     bg = torch.from_numpy(np.random.default_rng(4).integers(
         0, 256, (h, w, 3), np.uint8)).cuda()
     for f in frames[:5]:
         pipe.step(f, bg)
-    n = DEEPLAB_FRAMES
+    n = len(frames)
     want_kernels = {"bs_body_mega": 2 * n}
     want = dict(front=n, body_prefix=n, body_cont=n, pack=n, gemm=n * cont.mega.kinds["gemm"])
 
@@ -903,10 +1004,8 @@ def deeplab_phase():
     launches, _ = drive(keep=False)
     ms = (time.perf_counter() - t0) * 1e3 / n
     _, outs = drive(keep=True)
-    print(f"deeplab launches by kernel over {n} frames: {dict(body_launch.by_kernel)}; "
+    print(f"{tag} launches by kernel over {n} frames: {dict(body_launch.by_kernel)}; "
           f"table ops run: {dict(body_launch.table_ops)}")
-    print("deeplab bounds: " + ", ".join(f"{k} {r['bound'][0]:.5f} ms ({r['bound'][1]})"
-                                         for k, r in res.items()))
 
     # The plain path, frame by frame from the same fresh EMA.  A decode
     # decision may flip where class 15's margin is a near-tie (the two
@@ -924,8 +1023,7 @@ def deeplab_phase():
         for f, (yuyv, mask, ema_k) in zip(frames, outs):
             if yuyv.shape != (h, 2 * w) or mask.shape != (h, w):
                 raise AssertionError(f"output shapes {yuyv.shape} {mask.shape}")
-            logits = e.body(e.front(f, plain=True), plain=True,
-                            gemm="bf16x3").permute(1, 2, 0)
+            logits = e.body(e.front(f, plain=True), plain=True, gemm=gemm).permute(1, 2, 0)
             ema = ema_update(ema, decode_val(logits, e.spec))
             rm = e.postprocess(ema)
             k, m = _flip_rule(ema_k, ema, _person_margin(logits), ever)
@@ -934,9 +1032,9 @@ def deeplab_phase():
             foot_yuyv = _yuyv_footprint(foot)
             masked += int(foot.sum()) + int(foot_yuyv.sum())
             fracs.append(_held_bytes([(yuyv, blend_pack_yuyv_plain(f, bg, rm)), (mask, rm)],
-                                     "deeplab fused path", [foot_yuyv, foot]))
+                                     f"{tag} fused path", [foot_yuyv, foot]))
     person = float((outs[-1][1] < 128).float().mean())
-    print(f"pipeline deeplab {w}x{h}: {n} frames, {ms:.4f} ms/frame (host clock, "
+    print(f"pipeline {tag} {w}x{h}: {n} frames, {ms:.4f} ms/frame (host clock, "
           f"synchronized), launches {launches}, differing bytes vs plain path mean "
           f"{100 * np.mean(fracs):.4f}% max {100 * max(fracs):.4f}% ({sum(map(bool, fracs))} "
           f"frames differ), decode flips against the matched plain path {flips} "
@@ -944,10 +1042,10 @@ def deeplab_phase():
           f"bytes in the flips' footprint {masked} of {n * 3 * h * w} (none off by more "
           f"than 1 outside it), person fraction {person:.3f}")
     if float(np.mean(fracs)) > MEAN_TOL:
-        raise AssertionError("deeplab outputs outside the tolerance invariant")
+        raise AssertionError(f"{tag} outputs outside the tolerance invariant")
     if not 0.01 < person < 0.99:
         raise AssertionError(f"degenerate mask: person fraction {person}")
-    return res, launches, ms
+    return launches, ms
 
 
 def _counters():
@@ -1014,7 +1112,7 @@ def bilateral_phase(segm, deeplab):
                      ms=timed(lambda: bilateral5(x)), plain_ms=timed(lambda: bilateral5_plain(x)),
                      device_ms=device_ms(lambda: bilateral5(x)),
                      device_ms_cold=device_ms(lambda: bilateral5(x), cold="bilateral_kernel"),
-                     bound=bound(24 * px, BILATERAL_OPS * px))
+                     bound=bound(*bilateral_work(px)))
             print(f"kernel bilateral {name}: max_abs_err={r['max_abs_err']:.3g}, rounded "
                   f"bytes differing {100 * float((rd > 0).float().mean()):.4f}%, kernel "
                   f"{r['ms'][0]:.4f} ms (checksum {r['ms'][1]:.6g}) plain "
@@ -1503,8 +1601,8 @@ def family_fused(tag, path, w, h, fmt="yuyv", margin=None, body_plan=True):
     with torch.no_grad():
         mask0 = e.postprocess(_edge_plain(e, frames[0], pipe.maskgen.ema, margin)[1])
         r.update(pack_us=device_ms(lambda: pack(frames[0], mask0)) * 1e3,
-                 pack_bound_us=bound(*((9 * h * w, 30 * h * w) if yuyv
-                                       else (17 * h * w // 2, 35 * h * w)))[0] * 1e3)
+                 pack_bound_us=bound(*(pack_yuyv_work if yuyv else pack_420_work)(h, w))[0]
+                 * 1e3)
         if e.rest is not None:
             rest_ms, r["rest_ops"] = device_kernels(lambda: e.rest(rest_in))
             r["rest_us"] = rest_ms * 1e3
@@ -1645,10 +1743,10 @@ def family_classic(tag, path, margin, fmt="nv12", **mode):
         px = canvas.numel() // 3
         r = {"k5_err": float((k5 - p5).abs().max()),
              "k5_us": device_ms(lambda: bilateral5(canvas)) * 1e3,
-             "k5_bound_us": bound(24 * px, BILATERAL_OPS * px)[0] * 1e3,
+             "k5_bound_us": bound(*bilateral_work(px))[0] * 1e3,
              f"{pk}_us": device_ms(lambda: pack(frames[0], mask0)) * 1e3,
-             f"{pk}_bound_us": bound(*((9 * h * w, 30 * h * w) if yuyv
-                                      else (17 * h * w // 2, 35 * h * w)))[0] * 1e3}
+             f"{pk}_bound_us": bound(*(pack_yuyv_work if yuyv else pack_420_work)(h, w))[0]
+             * 1e3}
     for f in frames[:3]:
         pipe.step(f, bg)
     busy, ops, by_name = _window(lambda f: pipe.step(f, bg), frames, FAMILY_WINDOW)
@@ -1951,9 +2049,7 @@ def mjpg_phase():
             k = decode_jpeg_bgr(ct, qt, info)
             if not torch.equal(k, decode_jpeg_bgr_plain(ct, qt, info)):
                 raise AssertionError(f"bs_jpeg_decode differs from its plain twin at {w}x{h}")
-            nbytes = sum(c.nbytes for c in coefs) + 3 * w * h
-            # ~22 integer operations a coefficient a pass (two passes), ~30 a pixel
-            ops = 44 * sum(c.size for c in coefs) + 30 * w * h
+            nbytes, ops = jpeg_decode_work(coefs, w, h)
             call = functools.partial(decode_jpeg_bgr, ct, qt, info)
             plain = functools.partial(decode_jpeg_bgr_plain, ct, qt, info)
             plain_dev, plain_ops = device_kernels(plain)
@@ -2197,16 +2293,6 @@ def options_phase():
     return res
 
 
-def bf16_work(plan):
-    """(bytes, f32 ops, bf16 ops) of a bf16 plan: its work() with the dots'
-    multiply-adds (1x1 convs and FCs, operands bf16) at the bf16 rate."""
-    nbytes, flops = plan.work()
-    mm = sum(2 * plan.weights[p[3]].size * (1 if plan.meta[p[1]].vec
-                                            else plan.meta[p[1]].rows * plan.meta[p[1]].w)
-             for p in plan.plan if p[0] == "conv1x1")
-    return nbytes, flops - mm, mm
-
-
 def _plan_bf16(plan, x, tag):
     """A bf16 plan's one launch on ``x``: two runs bit-identical, and the
     kernel held op by op (``BodyPlan.rows_on_card``: each phase's rows run
@@ -2435,7 +2521,6 @@ def gemm_bf16_phase(cont, dev):
         if rel > GEMM_REL or not torch.equal(k, k2):
             raise AssertionError(f"one-term GEMM {co}x{ci}: {rel:.3g} from its twin, or runs differ")
         wb, xb, bb = gw.bfloat16(), gx.bfloat16(), gb.bfloat16()[:, None]
-        kp = ci + (-ci % 8)
         r = dict(max_abs_err=float((k - pb).abs().max()), rel_err=rel,
                  ms=timed(lambda: conv1x1_gemm(gw, gb, gx, split=one, terms=1)),
                  plain_ms=timed(lambda: conv1x1_bf16_plain(gw, gb, gx)),
@@ -2443,7 +2528,7 @@ def gemm_bf16_phase(cont, dev):
                  three_term_device_ms=device_ms(lambda: conv1x1_gemm(gw, gb, gx, split=sp)),
                  library_ms=timed(lambda: torch.addmm(bb, wb, xb)),
                  library_device_ms=device_ms(lambda: torch.addmm(bb, wb, xb)),
-                 bound=bound(4 * (ci * L + co + co * L) + 2 * co * kp, 0, 2 * co * ci * L))
+                 bound=bound(*gemm_work(co, ci, L, terms=1)))
     print(f"gemm bf16 {co}x{ci} by {ci}x{L}: one term {r['device_ms'] * 1e3:.3f} us, three terms "
           f"{r['three_term_device_ms'] * 1e3:.3f} us, torch.addmm on bf16 operands "
           f"{r['library_device_ms'] * 1e3:.3f} us; bound {r['bound'][0] * 1e3:.3f} us "
@@ -2665,13 +2750,13 @@ def multistream_kernels(frames):
             out["pack"][S], _ = _batch_held(
                 "K3", lambda s: blend_pack_yuyv(*sel(s)),
                 lambda: blend_pack_yuyv_plain(fb, bg, mask), S,
-                lambda: blend_pack_yuyv.launches, (9 * h * w, 30 * h * w), "equal",
+                lambda: blend_pack_yuyv.launches, pack_yuyv_work(h, w), "equal",
                 "blend_pack_yuyv_kernel")
             for layout in ("nv12", "i420"):
                 r, _ = _batch_held(
                     f"K4 {layout}", lambda s: blend_pack_420(*sel(s), layout),
                     lambda: blend_pack_420_plain(fb, bg, mask, layout), S,
-                    lambda: blend_pack_420.launches, (17 * h * w // 2, 35 * h * w), "equal",
+                    lambda: blend_pack_420.launches, pack_420_work(h, w), "equal",
                     "blend_pack_420_kernel")
                 if layout == "nv12":
                     out["pack_420"][S] = r
@@ -4077,6 +4162,77 @@ def byo_phase(smi):
     return res, dict(launches)
 
 
+TOOLS_TIMEOUT = 300        # each tool's subprocess, its start and the card's included
+
+
+def tools_phase():
+    """The per-op roofline and the A/B tools over the port, in two
+    subprocesses started together (their times share the card, so the
+    numbers here are a check that they run, not a measurement):
+    ``tools/roofline_torch.py`` on segm_lite at 1280x720 (3 steps of
+    warm-up, a profiled window of 5) and ``tools/ab_torch.py`` on deeplab
+    at "highest" (20 steps, the parity dumps of a synthetic camera JPEG at
+    1280x720).  Either one's non-zero exit fails the run; each last line
+    must name the card and its power limit, the roofline's rows must add up
+    to its busy time with K1, K2 and K3 once a step each, and the A/B run
+    must report the six-term continuation and write both dumps at their
+    shapes.  Returns the tools' numbers."""
+    import tempfile
+    import torch
+    from backscrub_tpu_torch.io.streams import SyntheticJpegCamera
+    name = torch.cuda.get_device_name(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        jpg = os.path.join(tmp, "frame.jpg")
+        with open(jpg, "wb") as fh:
+            fh.write(SyntheticJpegCamera(1280, 720)())
+        tools = os.path.join(REPO, "tools")
+        cmds = {"roofline": [sys.executable, os.path.join(tools, "roofline_torch.py"),
+                             "--steps", "5", "--warmup", "3", "--top", "12"],
+                "ab": [sys.executable, os.path.join(tools, "ab_torch.py"), "--model", "deeplab",
+                       "--precision", "highest", "--iters", "20", "--image", jpg,
+                       "--out-dir", tmp, "--tag", "smoke"]}
+        procs = {k: subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                     text=True, cwd=REPO) for k, c in cmds.items()}
+        out = {}
+        try:
+            for k, proc in procs.items():
+                so, se = proc.communicate(timeout=TOOLS_TIMEOUT)
+                if k == "roofline":
+                    print(se.strip()[-4000:])
+                if proc.returncode != 0:
+                    raise AssertionError(f"tools/{k}: exit {proc.returncode}\n{se[-3000:]}")
+                out[k] = json.loads(so.strip().splitlines()[-1])
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        rl, ab = out["roofline"], out["ab"]
+        for k, rec in out.items():
+            if rec["device"]["name"] != name or not rec["device"]["power_limit"]:
+                raise AssertionError(f"tools/{k}: device {rec['device']}")
+        calls = {r["op"]: r["calls_per_step"] for r in rl["rows"]}
+        if any(calls.get(k) != 1 for k in ("K1 front", "K2 body plan", "K3 blend + YUYV")) \
+                or not 0 <= rl["idle_share"] <= 1:
+            raise AssertionError(f"tools/roofline: rows {calls}, idle {rl['idle_share']}")
+        mask, arg = (np.load(os.path.join(tmp, f"ab_torch_deeplab_smoke_{k}.npy"))
+                     for k in ("mask", "arg"))
+        if ab["dots"] != ["f32", "bf16x6"] or mask.shape != (720, 1280) \
+                or arg.shape != (257, 257):
+            raise AssertionError(f"tools/ab: dots {ab['dots']}, dumps {mask.shape} {arg.shape}")
+    print(f"tools: roofline_torch segm_lite 1280x720 busy {rl['busy_us_per_step']:.2f} us a "
+          f"step, idle share {rl['idle_share']:.4f}, {len(rl['rows'])} rows shown; ab_torch "
+          f"deeplab highest {ab['ms_per_frame_median']:.4f} ms a frame (median), busy "
+          f"{ab['busy_ms_per_frame']:.4f} ms, person fraction of the decode "
+          f"{ab['decode_person_frac']:.3f} (both tools at once on the card)")
+    return {"roofline": {k: rl[k] for k in ("busy_us_per_step", "window_us_per_step",
+                                            "idle_share", "device")},
+            "roofline_rows": [{k: r.get(k) for k in ("op", "us_per_step", "calls_per_step",
+                                                     "bound_us", "share_of_roof")}
+                              for r in rl["rows"]],
+            "ab": {k: v for k, v in ab.items() if k != "dumps"}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4104,6 +4260,9 @@ def main() -> int:
     t0 = time.perf_counter()
     dl_kernels, dl_launches, _ = deeplab_phase()
     print(f"deeplab phase: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    highest, highest_launches = highest_phase(dl_kernels["body_cont"]["device_ms"])
+    print(f"highest phase: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     classic, calls = classic_pipeline(), []
     staged = staged_maskgen(calls)
@@ -4152,16 +4311,21 @@ def main() -> int:
     print(f"mesh phase: {mesh['seconds']:.2f} s")
     byo, byo_launches = byo_phase(smi.stdout.strip().splitlines()[0])
     print(f"byo phase: {byo['seconds']:.2f} s")
+    t0 = time.perf_counter()
+    tools = tools_phase()
+    print(f"tools phase: {time.perf_counter() - t0:.2f} s")
     main_size = SIZES[0]
     # launches: each kernel's count from the run of the path it serves
     launches = dict(runs[main_size][0], body_prefix=dl_launches["body_prefix"],
                     body_cont=dl_launches["body_cont"], gemm=dl_launches["gemm"],
                     pack_420=fused_420_launches["pack_420"],
                     bilateral=classic_launches["bilateral"], jpeg_decode=jpeg_launches,
-                    **prec_launches)
+                    body_cont_highest=highest_launches["body_cont"],
+                    gemm_highest=highest_launches["gemm"], **prec_launches)
     results = dict(kernels[main_size], body_prefix=dl_kernels["body_prefix"],
                    body_cont=dl_kernels["body_cont"], gemm=dl_kernels["gemm"],
                    bilateral=k5["segm 96x160"], jpeg_decode=jpeg_kernel["640x480"],
+                   body_cont_highest=highest, gemm_highest=dl_kernels["gemm_highest"],
                    **prec_kernels)
     meta = {
         "front": ("backscrub_tpu_torch/csrc/front.cu", "backscrub_tpu/pipeline/edge.py:424"),
@@ -4198,6 +4362,14 @@ def main() -> int:
         "gemm_bf16": ("backscrub_tpu_torch/csrc/gemm_tc.cuh",
                       "backscrub_tpu/ops/megakernel.py:516 (BodyMega flat=True, the DEFAULT "
                       "dots of the continuation chain)"),
+        # "highest" (highest_phase): the continuation's table with the
+        # six-term GEMM tile; the GEMM's other numbers the tile alone
+        "body_cont_highest": ("backscrub_tpu_torch/csrc/body_mega.cu",
+                              "backscrub_tpu/ops/megakernel.py:794 (BodyMega flat=True, "
+                              "HIGHEST)"),
+        "gemm_highest": ("backscrub_tpu_torch/csrc/gemm_tc.cuh",
+                         "backscrub_tpu/ops/megakernel.py:516 (BodyMega flat=True, the HIGHEST "
+                         "dots of the continuation chain: the TPU's six bf16 passes)"),
     }
     # the C ABI's launches (capi_phase): K1 and K2 fused, K5 staged
     for name, count in capi_launches.items():
@@ -4247,7 +4419,7 @@ def main() -> int:
                                          "library_device_ms", "plain_device_ms",
                                          "library_b2b_ms", "precision_gap",
                                          "main_path_launches", "mean_abs_err",
-                                         "three_term_device_ms", "rows_held",
+                                         "three_term_device_ms", "three_term_gap", "rows_held",
                                          "control_rows_off", "batched", "capi_launches",
                                          "train_launches", "mesh_launches", "byo_launches")
             if k in results[name]}}
@@ -4264,6 +4436,7 @@ def main() -> int:
     print("train: " + json.dumps(train))
     print("mesh: " + json.dumps(mesh))
     print("byo: " + json.dumps(byo))
+    print("tools: " + json.dumps(tools))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,8 +19,8 @@ import torch
 from backscrub_tpu_torch import _build
 from backscrub_tpu_torch.graph.executor import build_model
 from backscrub_tpu_torch.ops.megakernel import (BodyPlan, body_launch, conv1x1_bf16_plain,
-                                                conv1x1_bf16x3_plain, conv1x1_gemm,
-                                                conv1x1_plain, split_bf16)
+                                                conv1x1_bf16x3_plain, conv1x1_bf16x6_plain,
+                                                conv1x1_gemm, conv1x1_plain, split_bf16)
 from backscrub_tpu_torch.ops.image_kernels import bilateral5
 from backscrub_tpu_torch.ops.pack_kernels import (blend_pack_420, blend_pack_420_plain,
                                                   blend_pack_yuyv, blend_pack_yuyv_plain)
@@ -1377,6 +1377,46 @@ def test_gemm_one_term_matches_plain(cuda_device, co, ci):
     assert torch.equal(k, k2)
     assert float((k - p).abs().max() / p.abs().max()) <= 1e-5
     assert not torch.equal(k, conv1x1_gemm(w, b, x))
+
+
+@pytest.mark.parametrize("co,ci", [(16, 96), (256, 512), (480, 80), (21, 256)])
+def test_gemm_six_terms_matches_plain(cuda_device, co, ci):
+    """``bs_gemm`` with terms=6 (the TPU's HIGHEST split) against
+    ``conv1x1_bf16x6_plain`` (relative 1e-5, the summation order alone),
+    bit-identical twice, closer to f32 than the three-term result."""
+    g = torch.Generator().manual_seed(co + ci)
+    w = (torch.randn(co, ci, generator=g) / ci ** 0.5).cuda()
+    b = torch.randn(co, generator=g).cuda()
+    x = (torch.rand(ci, 1089, generator=g) * 2).cuda()
+    k, k2 = (conv1x1_gemm(w, b, x, split=split_bf16(w, 3), terms=6) for _ in range(2))
+    p, f32 = conv1x1_bf16x6_plain(w, b, x), conv1x1_plain(w, b, x)
+    torch.cuda.synchronize()
+    assert torch.equal(k, k2)
+    assert float((k - p).abs().max() / p.abs().max()) <= 1e-5
+    assert float((k - f32).abs().max()) < float((conv1x1_gemm(w, b, x) - f32).abs().max())
+
+
+def test_deeplab_highest_continuation_matches_its_twin(cuda_device):
+    """deeplab at "highest": K2'' with the six-term GEMM as one launch,
+    two runs bit-identical, within allclose(2e-3, 1e-3) of
+    ``run_plain(gemm="bf16x6")`` and mean 1e-4, and at most a tenth of the
+    three-term twin's distance from the f32 plain plan (those bars alone
+    would pass three terms)."""
+    pipe = FramePipeline(str(DEEPLAB), PipelineConfig(width=640, height=480),
+                         device=cuda_device, precision="highest")
+    frame = torch.from_numpy(_frames(640, 480, 31, seed=1)[30]).to(cuda_device)
+    e = pipe.maskgen.edge
+    assert e.cont_plan.dots == "bf16x6"
+    with torch.no_grad():
+        k2 = e.prefix_plan.run_cuda(e.front(frame).reshape(16, -1)).clone()
+        k3 = e.cont_plan.run_cuda(k2).clone()
+        twin = e.cont_plan.run_plain(k2, gemm="bf16x6")
+        torch.testing.assert_close(k3, twin, atol=2e-3, rtol=1e-3)
+        assert float((k3 - twin).abs().mean()) <= 1e-4
+        assert torch.equal(k3, e.cont_plan.run_cuda(k2))
+        f32 = e.cont_plan.run_plain(k2)
+        three = e.cont_plan.run_plain(k2, gemm="bf16x3")
+        assert 10 * float((k3 - f32).abs().max()) <= float((three - f32).abs().max())
 
 
 def test_cli_bf16_and_int8_on_cuda(cuda_device, tmp_path):

@@ -92,12 +92,13 @@ def pair():
 @pytest.fixture(scope="module")
 def cuts(pair):
     """The JAX prefix megakernel and continuation chain (interpret mode)
-    and the port's prefix and continuation plans."""
+    and the port's prefix and continuation plans, both at deeplab's
+    precision, HIGH (the continuation's GEMMs bf16x3)."""
     jm, tm, jinfo, tinfo = pair
     jpre = jmega.body_mega_prefix_for(jm, jinfo, interpret=True)
     jcont = jmega.body_mega_continuation_for(jm, jinfo, jpre[1], jpre[2], interpret=True)
-    tpre = body_plan_prefix_for(tm, tinfo)
-    tcont = body_plan_continuation_for(tm, tinfo, tpre[1], tpre[2])
+    tpre = body_plan_prefix_for(tm, tinfo, precision="high")
+    tcont = body_plan_continuation_for(tm, tinfo, tpre[1], tpre[2], precision="high")
     return jpre, jcont, tpre, tcont
 
 

@@ -363,9 +363,10 @@ def test_preprocess_matches_jax_off_the_resize_ties():
 
 @pytest.mark.parametrize("path,w,h", [(FULL, 640, 480), (FULL, 1280, 720),
                                       (DEEPLAB, 1280, 720), (MLKIT, 640, 480),
-                                      (MLKIT, 160, 96)],
+                                      (MLKIT, 160, 96), (LITE, 160, 120)],
                          ids=["segm_full-640x480", "segm_full-1280x720",
-                              "deeplab-1280x720", "mlkit-640x480", "mlkit-160x96"])
+                              "deeplab-1280x720", "mlkit-640x480", "mlkit-160x96",
+                              "segm_lite-160x120"])
 def test_preprocess_resize_ties_match_jax(path, w, h):
     """The classic preprocess on six ``SyntheticSource`` frames, bit for bit
     the JAX package's, over a stream batch of two as well: segm_full at

@@ -384,7 +384,7 @@ def test_dots_for_and_plan_guards():
     assert [tmega.dots_for(p, False) for p in ("highest", "high", "default")] == \
         ["f32", "f32", "bf16"]
     assert [tmega.dots_for(p, True) for p in ("highest", "high", "default")] == \
-        ["bf16x3", "bf16x3", "bf16"]
+        ["bf16x6", "bf16x3", "bf16"]
     with pytest.raises(ValueError, match="precision"):
         tmega.dots_for("fast", False)
     tm = load_model(FAMILIES["segm_lite"], "cpu")

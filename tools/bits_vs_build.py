@@ -14,7 +14,12 @@ between the two checkouts can be compared.  The cases:
   model's parameter block and options, at the tile ``front_tile`` picks;
 - ``gemm``: the K2'' GEMM tile alone, ``conv1x1_gemm`` under RELU6 at
   every 1x1 shape of the deeplab frame and at ragged ones, on seeded
-  inputs, at ``gemm_config``'s tile and split;
+  inputs, at ``gemm_config``'s tile and split; ``gemm_bf16`` the same
+  with ``terms=1`` (the bf16 mode's one-term tile);
+- ``body``: the body plans, ``MaskGen(...).edge.body`` on K1's output of
+  the first held-out deeplab frame at "high" (K2' and K2'' with the
+  three-term GEMM, then the executor's resize) and "default" (the bf16
+  tables), and of segm_lite's first frame at 640x480 (K2);
 - ``bilateral``: K5, ``bilateral5`` on seeded u8-valued canvases at
   (1, 96, 160), (1, 257, 257), (4, 257, 257) and (2, 5, 7);
 - ``pack420``: K4, ``blend_pack_420`` NV12 and I420 on seeded frames,
@@ -53,7 +58,8 @@ in fresh subprocesses in turns: the other, this, this, the other.
 
 Usage (from the repository root, on a machine with a CUDA card)::
 
-    python tools/bits_vs_build.py OTHER_CHECKOUT [--time] [front] [gemm] [bilateral] [pack420]
+    python tools/bits_vs_build.py OTHER_CHECKOUT [--time] [front] [gemm] [gemm_bf16] [body]
+        [bilateral] [pack420]
         [pack_yuyv] [probe_se] [probe_dot] [probe_dw_flat] [probe_dw_rowpad] [probe_cat]
         [probe_stride2] [probe_copy]
 """
@@ -67,9 +73,11 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# run in a checkout: each call's wrapper on the saved inputs, on the card;
-# given a timer file (this checkout's chip_smoke.py), also its kernel's
-# device us a launch by that file's device_ms, warm and cold
+# run in a checkout: each call's wrapper on the saved inputs, on the card
+# (a call with ``build`` first builds an object by that callable, and its
+# ``wrapper`` is an attribute path on it); given a timer file (this
+# checkout's chip_smoke.py), also its kernel's device us a launch by that
+# file's device_ms, warm and cold
 _RUN = """
 import functools, importlib, importlib.util, sys, torch
 sys.path.insert(0, sys.argv[1])
@@ -86,9 +94,15 @@ PROBES = open("backscrub_tpu_torch/csrc/probes.cu").read()
 outs, times = [], []
 with torch.no_grad():
     for c in torch.load(sys.argv[2]):
-        mod, name = c["wrapper"].split(":")
-        call = functools.partial(getattr(importlib.import_module(mod), name),
-                                 *map(dev, c["args"]),
+        if "build" in c:
+            mod, name = c["build"].split(":")
+            obj = getattr(importlib.import_module(mod), name)(*c["build_args"],
+                                                              **c["build_kwargs"])
+            fn = functools.reduce(getattr, c["wrapper"].split("."), obj)
+        else:
+            mod, name = c["wrapper"].split(":")
+            fn = getattr(importlib.import_module(mod), name)
+        call = functools.partial(fn, *map(dev, c["args"]),
                                  **{k: dev(v) for k, v in c["kwargs"].items()})
         outs.append(call().cpu())
         if device_ms is not None:
@@ -141,6 +155,38 @@ def gemm_calls():
         calls.append((f"gemm {co}x{ci}x{n}", dict(
             wrapper="backscrub_tpu_torch.ops.megakernel:conv1x1_gemm", kernel="gemm_tc_kernel",
             args=[w, b, x], kwargs=dict(act="RELU6"))))
+    return calls
+
+
+def gemm_bf16_calls():
+    """(name, call) of the one-term GEMM at the ``gemm`` case's inputs."""
+    return [(f"{name} terms=1", dict(call, kwargs=dict(call["kwargs"], terms=1)))
+            for name, call in gemm_calls()]
+
+
+def body_calls():
+    """(name, call) of the body plans of deeplab at "high" and "default"
+    and of segm_lite, each on its K1 output of ``chip_smoke.py``'s first
+    frame (deeplab's first held-out one)."""
+    import torch
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    from chip_smoke import DEEPLAB, DEEPLAB_FRAMES, MODEL
+    from backscrub_tpu_torch.pipeline.maskgen import MaskGen
+    from make_synth_segm import moving_frames
+
+    calls = []
+    for path, frame, precs in (
+            (DEEPLAB, moving_frames(640, 480, 2 * DEEPLAB_FRAMES, seed=1)[DEEPLAB_FRAMES],
+             ("high", "default")),
+            (MODEL, moving_frames(640, 480, 1)[0], ("highest",))):
+        for prec in precs:
+            kw = dict(device="cuda", precision=prec)
+            with torch.no_grad():
+                h = MaskGen(path, 640, 480, **kw).edge.front(torch.from_numpy(frame).cuda())
+            calls.append((f"body {os.path.basename(path)} {prec}", dict(
+                build="backscrub_tpu_torch.pipeline.maskgen:MaskGen",
+                build_args=[path, 640, 480], build_kwargs=kw, wrapper="edge.body",
+                kernel="body_mega_kernel", args=[h.cpu()], kwargs={})))
     return calls
 
 
@@ -315,7 +361,8 @@ def probe_dot_calls():
         for x in (x2, x37) for prec in ("default", "high", "highest")]
 
 
-CASES = {"front": front_calls, "gemm": gemm_calls, "bilateral": bilateral_calls,
+CASES = {"front": front_calls, "gemm": gemm_calls, "gemm_bf16": gemm_bf16_calls,
+         "body": body_calls, "bilateral": bilateral_calls,
          "pack420": pack420_calls, "pack_yuyv": pack_yuyv_calls, "probe_se": probe_se_calls,
          "probe_dot": probe_dot_calls, "probe_cat": probe_cat_calls,
          "probe_dw_flat": probe_dw_flat_calls, "probe_dw_rowpad": probe_dw_rowpad_calls,

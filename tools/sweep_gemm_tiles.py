@@ -55,9 +55,9 @@ def main() -> int:
                 part = torch.empty(split * co * L, device="cuda")
 
                 def run():
-                    _build.launch("bs_gemm", hi.data_ptr(), lo.data_ptr(), b.data_ptr(),
+                    _build.launch("bs_gemm", hi.data_ptr(), lo.data_ptr(), None, b.data_ptr(),
                                   x.data_ptr(), y.data_ptr(), part.data_ptr(), co, ci, kp, L,
-                                  0, tile, split, 16 * n16)
+                                  0, tile, split, 16 * n16, 3)
                 run()
                 torch.cuda.synchronize()
                 ok = float((y - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
