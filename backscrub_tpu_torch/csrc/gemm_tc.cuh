@@ -1,6 +1,8 @@
-// The tensor-core GEMM tile of the flat continuation (K2''), shared
-// by the standalone bs_gemm (body_flat.cu, the per-shape probe) and the
-// persistent kernel's OP_GEMM (body_mega.cu, the deeplab table).
+// The bf16x3 tensor-core GEMM tile of the flat continuation (K2''),
+// shared by the standalone bs_gemm (body_flat.cu, the per-shape probe) and
+// the persistent kernel's OP_GEMM (body_mega.cu, the deeplab table at
+// "high").  One term (the bf16 mode) and six ("highest") run on the wgmma
+// tile of gemm_wg.cuh.
 //
 // It computes one BM x BN tile of y = W x for W (M, K) and x (K, N), the
 // TPU kernel's HIGH-precision dots (backscrub_tpu/ops/megakernel.py:
@@ -24,19 +26,6 @@
 // The warps tile BM x BN as WARPS_M x WARPS_N; with KG = 2 two groups of
 // them take the two k16 steps of each slice and add their sums in a fixed
 // order before the epilogue, so two runs give the same bits.
-//
-// TERMS = 1 is the bf16 mode's one pass (the reference's DEFAULT: both
-// operands rounded to bf16, products summed in f32): the hi.hi term alone.
-// It stages no W_lo (half the ring's weight traffic) and keeps no cross
-// term accumulators.  TERMS = 3 is the split above.  TERMS = 6 is the
-// TPU's HIGHEST (backscrub_tpu/models/specs.py:26-28, the precision that
-// the JAX flat continuation passes to dot_general at "highest"): both
-// operands in three bf16 pieces, a = a0 + a1 + a2 with a1 = bf16_rn(a -
-// a0) and a2 = bf16_rn(a - a0 - a1) (each difference exact in f32), and
-// the six products a_i.w_j with i + j <= 2: a0.w0 in the first register
-// tile, a0.w1 + a1.w0 in the second, a0.w2 + a1.w1 + a2.w0 in a third,
-// added in the epilogue as first + (second + third).  W comes as three
-// tiles a stage (W_hi, W_lo, W_lo2, split on the host); x is split here.
 
 #pragma once
 
@@ -63,13 +52,6 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, const uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// two f32 values (k, k+1) rounded to a packed bf16 pair (the one-term B
-// fragment)
-__device__ __forceinline__ uint32_t round2(float v0, float v1) {
-  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v0)) |
-         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v1)) << 16);
-}
-
 __device__ __forceinline__ uint32_t pack2(__nv_bfloat16 v0, __nv_bfloat16 v1) {
   return (uint32_t)__bfloat16_as_ushort(v0) | ((uint32_t)__bfloat16_as_ushort(v1) << 16);
 }
@@ -81,19 +63,6 @@ __device__ __forceinline__ void split2(float v0, float v1, uint32_t& hi, uint32_
   __nv_bfloat16 l1 = __float2bfloat16_rn(v1 - __bfloat162float(h1));
   hi = pack2(h0, h1);
   lo = pack2(l0, l1);
-}
-
-// the six-term split of two f32 values (k, k+1) into three packed bf16
-// pairs: hi, lo = bf16_rn(v - hi), lo2 = bf16_rn(v - hi - lo)
-__device__ __forceinline__ void split3(float v0, float v1, uint32_t& hi, uint32_t& lo,
-                                       uint32_t& lo2) {
-  __nv_bfloat16 h0 = __float2bfloat16_rn(v0), h1 = __float2bfloat16_rn(v1);
-  const float r0 = v0 - __bfloat162float(h0), r1 = v1 - __bfloat162float(h1);
-  __nv_bfloat16 l0 = __float2bfloat16_rn(r0), l1 = __float2bfloat16_rn(r1);
-  hi = pack2(h0, h1);
-  lo = pack2(l0, l1);
-  lo2 = pack2(__float2bfloat16_rn(r0 - __bfloat162float(l0)),
-              __float2bfloat16_rn(r1 - __bfloat162float(l1)));
 }
 
 // What a tile does with its sums v (hi.hi + cross terms): with ``part``,
@@ -109,12 +78,10 @@ struct Epilogue {
   float* part;
 };
 
-template <int BM, int BN, int WARPS_M, int WARPS_N, int KG, int TERMS = 3>
+template <int BM, int BN, int WARPS_M, int WARPS_N, int KG>
 struct Tile {
-  static_assert(TERMS == 1 || TERMS == 3 || TERMS == 6,
-                "one pass, the bf16x3 split or the six-term split");
-  // W tiles a stage (hi; lo; lo2), and as many f32 accumulator tiles
-  static constexpr int WH = TERMS == 6 ? 3 : TERMS == 3 ? 2 : 1;
+  // W tiles a stage (hi, lo), and as many f32 accumulator tiles
+  static constexpr int WH = 2;
   static constexpr int NT = 32 * WARPS_M * WARPS_N * KG;   // threads
   static constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;
   static constexpr int MF = WM / 16, NF = WN / 8;          // m16n8 tiles a warp
@@ -130,10 +97,8 @@ struct Tile {
   // The tile at (m0, n0) over K range [kb, kend_w) of W (x rows past
   // kend_x load as zeros), into ``ep``.  All NT threads call it; it leaves
   // no copy in flight, and the ring may be reused after a __syncthreads().
-  // ``wlo`` is not read with TERMS = 1, ``wl2`` only with TERMS = 6.
   __device__ static void run(unsigned char* smem, const __nv_bfloat16* whi,
-                             const __nv_bfloat16* wlo, const __nv_bfloat16* wl2,
-                             const float* x, int M, int Kp, int N,
+                             const __nv_bfloat16* wlo, const float* x, int M, int Kp, int N,
                              int m0, int n0, int kb, int kend_w, int kend_x,
                              const Epilogue& ep) {
     __nv_bfloat16* sw = reinterpret_cast<__nv_bfloat16*>(smem);          // [STAGES][WH][BM][WS]
@@ -155,7 +120,7 @@ struct Tile {
         int row = r / (BK / 8), ch = r % (BK / 8);
         int gm = m0 + row, gk = k0 + ch * 8;
         bool ok = gm < M && gk < kend_w;
-        const __nv_bfloat16* base = which == 0 ? whi : which == 1 ? wlo : wl2;
+        const __nv_bfloat16* base = which == 0 ? whi : wlo;
         cp_async16(sw + ((stage * WH + which) * BM + row) * WS + ch * 8,
                    base + (ok ? (size_t)gm * Kp + gk : 0), ok);
       }
@@ -168,15 +133,14 @@ struct Tile {
       }
     };
 
-    // acc: hi.hi; cor: the first cross terms (TERMS >= 3); cr2: the
-    // second (TERMS = 6)
-    float acc[MF][NF][4], cor[MF][NF][4], cr2[MF][NF][4];
+    // acc: hi.hi; cor: the cross terms
+    float acc[MF][NF][4], cor[MF][NF][4];
 #pragma unroll
     for (int i = 0; i < MF; ++i)
 #pragma unroll
       for (int j = 0; j < NF; ++j)
 #pragma unroll
-        for (int q = 0; q < 4; ++q) acc[i][j][q] = cor[i][j][q] = cr2[i][j][q] = 0.0f;
+        for (int q = 0; q < 4; ++q) acc[i][j][q] = cor[i][j][q] = 0.0f;
 
 #pragma unroll
     for (int s = 0; s < STAGES - 1; ++s) {
@@ -192,13 +156,12 @@ struct Tile {
 
       const int st = it % STAGES;
       const __nv_bfloat16* ah_s = sw + (st * WH + 0) * BM * WS;
-      const __nv_bfloat16* al_s = sw + (st * WH + 1) * BM * WS;   // read with TERMS >= 3
-      const __nv_bfloat16* a2_s = sw + (st * WH + 2) * BM * WS;   // read with TERMS = 6
+      const __nv_bfloat16* al_s = sw + (st * WH + 1) * BM * WS;
       const float* xs = sx + st * BK * XS;
       const unsigned xk0 = xw + (unsigned)(kb + it * BK) * (unsigned)N;
 #pragma unroll
       for (int ks = ks0; ks < BK; ks += 16 * KG) {
-        uint32_t ah[MF][4], al[MF][4], a2[MF][4], bh[NF][2], bl[NF][2], b2[NF][2];
+        uint32_t ah[MF][4], al[MF][4], bh[NF][2], bl[NF][2];
 #pragma unroll
         for (int i = 0; i < MF; ++i) {
           int r = wm * WM + i * 16 + g;
@@ -207,18 +170,10 @@ struct Tile {
           ah[i][1] = *reinterpret_cast<const uint32_t*>(ah_s + (r + 8) * WS + c);
           ah[i][2] = *reinterpret_cast<const uint32_t*>(ah_s + r * WS + c + 8);
           ah[i][3] = *reinterpret_cast<const uint32_t*>(ah_s + (r + 8) * WS + c + 8);
-          if constexpr (TERMS >= 3) {
-            al[i][0] = *reinterpret_cast<const uint32_t*>(al_s + r * WS + c);
-            al[i][1] = *reinterpret_cast<const uint32_t*>(al_s + (r + 8) * WS + c);
-            al[i][2] = *reinterpret_cast<const uint32_t*>(al_s + r * WS + c + 8);
-            al[i][3] = *reinterpret_cast<const uint32_t*>(al_s + (r + 8) * WS + c + 8);
-          }
-          if constexpr (TERMS == 6) {
-            a2[i][0] = *reinterpret_cast<const uint32_t*>(a2_s + r * WS + c);
-            a2[i][1] = *reinterpret_cast<const uint32_t*>(a2_s + (r + 8) * WS + c);
-            a2[i][2] = *reinterpret_cast<const uint32_t*>(a2_s + r * WS + c + 8);
-            a2[i][3] = *reinterpret_cast<const uint32_t*>(a2_s + (r + 8) * WS + c + 8);
-          }
+          al[i][0] = *reinterpret_cast<const uint32_t*>(al_s + r * WS + c);
+          al[i][1] = *reinterpret_cast<const uint32_t*>(al_s + (r + 8) * WS + c);
+          al[i][2] = *reinterpret_cast<const uint32_t*>(al_s + r * WS + c + 8);
+          al[i][3] = *reinterpret_cast<const uint32_t*>(al_s + (r + 8) * WS + c + 8);
         }
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
@@ -228,12 +183,7 @@ struct Tile {
 #pragma unroll
           for (int j = 0; j < NF; ++j) {
             int col = wn * WN + j * 8 + g;
-            if constexpr (TERMS == 6)
-              split3(r0[col], r1[col], bh[j][h], bl[j][h], b2[j][h]);
-            else if constexpr (TERMS == 3)
-              split2(r0[col], r1[col], bh[j][h], bl[j][h]);
-            else
-              bh[j][h] = round2(r0[col], r1[col]);
+            split2(r0[col], r1[col], bh[j][h], bl[j][h]);
           }
         }
 #pragma unroll
@@ -241,15 +191,8 @@ struct Tile {
 #pragma unroll
           for (int j = 0; j < NF; ++j) {
             mma_bf16(acc[i][j], ah[i], bh[j]);
-            if constexpr (TERMS >= 3) {
-              mma_bf16(cor[i][j], ah[i], bl[j]);
-              mma_bf16(cor[i][j], al[i], bh[j]);
-            }
-            if constexpr (TERMS == 6) {
-              mma_bf16(cr2[i][j], ah[i], b2[j]);
-              mma_bf16(cr2[i][j], al[i], bl[j]);
-              mma_bf16(cr2[i][j], a2[i], bh[j]);
-            }
+            mma_bf16(cor[i][j], ah[i], bl[j]);
+            mma_bf16(cor[i][j], al[i], bh[j]);
           }
       }
     }
@@ -258,8 +201,7 @@ struct Tile {
     if constexpr (KG > 1) {
       // group 1 hands its sums to group 0 through the ring (value v of
       // thread l at red[v * NT / KG + l]: a warp's lanes on consecutive
-      // banks): acc0 + acc1, cor0 + cor1 (TERMS >= 3), cr2_0 + cr2_1
-      // (TERMS = 6), in that order
+      // banks): acc0 + acc1, then cor0 + cor1
       constexpr int LANES = NT / KG;
       float* red = reinterpret_cast<float*>(smem) + wq * 32 + lane;
       __syncthreads();
@@ -272,8 +214,7 @@ struct Tile {
             for (int q = 0; q < 4; ++q) {
               const int v = ((i * NF + j) * 4 + q) * WH;
               red[v * LANES] = acc[i][j][q];
-              if constexpr (TERMS >= 3) red[(v + 1) * LANES] = cor[i][j][q];
-              if constexpr (TERMS == 6) red[(v + 2) * LANES] = cr2[i][j][q];
+              red[(v + 1) * LANES] = cor[i][j][q];
             }
       }
       __syncthreads();
@@ -286,8 +227,7 @@ struct Tile {
             for (int q = 0; q < 4; ++q) {
               const int v = ((i * NF + j) * 4 + q) * WH;
               acc[i][j][q] += red[v * LANES];
-              if constexpr (TERMS >= 3) cor[i][j][q] += red[(v + 1) * LANES];
-              if constexpr (TERMS == 6) cr2[i][j][q] += red[(v + 2) * LANES];
+              cor[i][j][q] += red[(v + 1) * LANES];
             }
       }
     }
@@ -311,9 +251,7 @@ struct Tile {
 #pragma unroll
           for (int q = 0; q < 4; ++q)
             tile[(wm * WM + i * 16 + g + (q >= 2 ? 8 : 0)) * TS + wn * WN + j * 8 + 2 * t +
-                 (q & 1)] = TERMS == 6   ? acc[i][j][q] + (cor[i][j][q] + cr2[i][j][q])
-                            : TERMS == 3 ? acc[i][j][q] + cor[i][j][q]
-                                         : acc[i][j][q];
+                 (q & 1)] = acc[i][j][q] + cor[i][j][q];
     }
     __syncthreads();
     const float* b = ep.b;

@@ -1,0 +1,316 @@
+// The wgmma GEMM tile of the flat continuation (K2'') at one term and at
+// six, for Hopper (sm_90a): the persistent kernel's OP_GEMM in its bf16
+// table (body_mega_kernel<1, 1>) and its "highest" table (<0, 6>), and the
+// standalone bs_gemm (body_flat.cu, the per-shape probe) at terms=1 and 6.
+// The three-term split stays on gemm_tc.cuh's mma.sync tile.
+//
+// Replaces the MXU dots of the TPU kernel backscrub_tpu/ops/megakernel.py:
+// BodyMega in its flat mode (:660, body_mega_continuation_for), the 1x1
+// convs' dot_general at megakernel.py:501-518: DEFAULT (TERMS = 1, the
+// bf16 mode: both operands rounded to bf16, the products summed in f32) and
+// HIGHEST (TERMS = 6, "highest": both operands in three bf16 pieces, a =
+// a0 + a1 + a2 with a1 = bf16_rn(a - a0), a2 = bf16_rn(a - a0 - a1), and
+// the six products a_i.w_j with i + j <= 2 in three f32 accumulators, a0.w0
+// in the first, a0.w1 + a1.w0 in the second, a0.w2 + a1.w1 + a2.w0 in the
+// third, added as first + (second + third)).
+//
+// Bound.  The deeplab frame's 29 GEMMs (co 16-480, ci 16-512, L = 33 x 33
+// = 1089) are small: at the ASPP projection (256 x 512 by 512 x 1089) six
+// terms need 1.73 us of the card's bf16 rate and one term 1.08 us of its
+// bytes, while the mma.sync tile took 24.2 and 15.3 us, bound by its loads:
+// every warp built its B fragments from the f32 x slice with scalar shared
+// loads and split them again (each x value split once a warp row: four times
+// in the 128 x 64 tile), its A fragments came in 32-bit shared loads (twelve
+// a fragment at six terms), and every thread issued the weights' 16-byte
+// cp.asyncs with its own address arithmetic.
+//
+// The design.  The product runs transposed, Y^T = X^T W^T, as
+// wgmma.m64nBNk16 (wgmma.cuh): M = 64 positions of L a CTA tile, N = BN
+// output channels (16-80, picked per op so that the phase is one round over
+// the SMs: ops/megakernel.py:_wg_tile), K = 16 a step.
+// - A = X^T from registers: each thread reads its fragment of the f32 x
+//   slice once from shared memory and splits it there (1 or 3 pieces), so
+//   every x value is split once a CTA tile.  x comes in by 16-byte
+//   cp.async.cg as before (gemm_tc.cuh): each row of a slice aligned down to
+//   16 bytes, XS = 68 floats wide, read at its shift, since an x row of
+//   1089 floats is not 16-byte aligned (nor its stride, which rules out a
+//   TMA tensor map).
+// - B = W^T from shared memory, K-major, no swizzle: the weight pieces are
+//   static, so the host lays them out once (MegaTable's arena; bs_gemm's
+//   wrapper) in exactly the layout the descriptor reads, a ring stage's
+//   pieces contiguous: for co tile t and K slice s of 64, the block
+//   [piece][BN / 8][8][8][8] of bf16 (core matrices of 8 output channels by
+//   8 of K, the K-neighbour 128 bytes on, the next 8 channels 1024), zeros
+//   past co and K.  One thread moves a stage's block with one
+//   cp.async.bulk completing on the stage's mbarrier.  A core matrix is
+//   128 contiguous bytes, which wgmma reads without bank conflicts, so the
+//   layout takes no swizzle.
+// - The CTA is two warpgroups, each taking every other k16 step of a
+//   64-deep slice (KG = 2, as gemm_tc.cuh's smaller tiles); after the last
+//   slice warpgroup 1 hands its accumulators to warpgroup 0 through shared
+//   memory, which adds them accumulator by accumulator in a fixed order, so
+//   two runs give the same bits.
+// - A ring of 3 slices: at slice i the loads of slice i + 2 go out (into
+//   the stage of slice i - 1, whose products both warpgroups have retired),
+//   then slice i's fragments are split and its wgmmas issued, and
+//   wgmma.wait_group 0 retires them before the next slice's split: ptxas
+//   serializes every wgmma whose register operands later code defines while
+//   it may be in flight (C7513), which cost more than the overlap it would
+//   bring.  Two other pipelines were tried while the tile was designed and
+//   were slower on the card: 32-deep slices with the fragments of two
+//   slices in registers, and 64-deep ones with the A pieces in shared memory
+//   (wgmma with both operands there, a warpgroup barrier and a proxy fence a
+//   slice) whose products ran under the next slice's split.
+// - The epilogue (bias, activation, residual or a split-K partial) is
+//   gemm_tc.cuh's, through a BN x 64 tile in the ring.
+//
+// What bounds it now: the chain of slices, each its loads' wait, a CTA
+// barrier, the split and the products in turn.  tools/gemm_ablation.py
+// times the tile with its products, its split or its x loads taken away
+// (PERF.md section 7 has what each saves).
+//
+// Shared memory a CTA (SMEM_BYTES): 3 x (W block + x slice) + 128 of
+// alignment + the mbarriers; at one term 58,520 (BN 16) to 83,096 (BN 80),
+// at six 70,808 (BN 16) to 144,536 (BN 80) (ops/megakernel.py:
+// _wg_smem_bytes, which the tests hold to the 232,448 a CTA may have).
+// Registers: BN / 2 f32 an accumulator a thread (three at six terms: 120 at
+// BN 80) and a slice's A fragments (8 or 24).
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "async_copy.cuh"
+#include "body_act.cuh"
+#include "gemm_tc.cuh"
+#include "wgmma.cuh"
+
+namespace {
+namespace gemm_wg {
+
+constexpr int BM = 64;            // positions a CTA tile: wgmma's M
+constexpr int BK = 64;            // K a ring stage: STEPS k16 steps for each warpgroup
+constexpr int STEPS = BK / 32;
+constexpr int STAGES = 3;         // ring depth: the slice in products and 2 loading
+constexpr int XS = BM + 4;        // f32 row stride of an x slice (a row's shift is 0-3)
+constexpr int XCH = BM / 4 + 1;   // its 16-byte chunks a row
+constexpr int NT = 256;           // two warpgroups
+constexpr int LBO = 128, SBO = BK / 8 * 128;   // the W block's core-matrix strides
+
+// two f32 values (k, k+1) rounded to a packed bf16 pair (the one-term A
+// fragment)
+__device__ __forceinline__ uint32_t round2(float v0, float v1) {
+  return gemm_tc::pack2(__float2bfloat16_rn(v0), __float2bfloat16_rn(v1));
+}
+
+// the six-term split of two f32 values (k, k+1) into three packed bf16
+// pairs: hi, lo = bf16_rn(v - hi), lo2 = bf16_rn(v - hi - lo)
+__device__ __forceinline__ void split3(float v0, float v1, uint32_t& hi, uint32_t& lo,
+                                       uint32_t& lo2) {
+  __nv_bfloat16 h0 = __float2bfloat16_rn(v0), h1 = __float2bfloat16_rn(v1);
+  const float r0 = v0 - __bfloat162float(h0), r1 = v1 - __bfloat162float(h1);
+  __nv_bfloat16 l0 = __float2bfloat16_rn(r0), l1 = __float2bfloat16_rn(r1);
+  hi = gemm_tc::pack2(h0, h1);
+  lo = gemm_tc::pack2(l0, l1);
+  lo2 = gemm_tc::pack2(__float2bfloat16_rn(r0 - __bfloat162float(l0)),
+                       __float2bfloat16_rn(r1 - __bfloat162float(l1)));
+}
+
+template <int BN, int TERMS>
+struct Tile {
+  static_assert(TERMS == 1 || TERMS == 6, "one bf16 pass or the six-term split");
+  static_assert(BN % 16 == 0 && BN >= 16 && BN <= 80, "a wgmma N of gemm_wg's");
+  static constexpr int P = TERMS == 6 ? 3 : 1;          // W pieces = accumulators
+  static constexpr int NA = BN / 2;                     // f32 an accumulator a thread
+  static constexpr int WBLK = P * BN * BK * 2;          // bytes of a stage's W block
+  static constexpr int XSL = BK * XS * 4;               // bytes of a stage's x slice
+  static constexpr int RING = STAGES * (WBLK + XSL);
+  static constexpr int SMEM_BYTES = RING + 128 + STAGES * 8;
+  static_assert(P * NA * 128 * 4 <= RING && BN * XS * 4 <= RING,
+                "the K-group sums and the epilogue tile fit the ring");
+
+  // The tile of output channels [ct * BN, ct * BN + BN) and positions [n0,
+  // n0 + 64) over K slices [s0, s1) of ``wblk`` (the op's laid-out W, nks
+  // slices a co tile; x rows from kend_x on load as zeros), into ``ep``.
+  // All NT threads call it; it leaves no copy in flight and its barriers
+  // invalidated, and the ring may be reused after a __syncthreads().
+  __device__ static void run(unsigned char* smem, const __nv_bfloat16* wblk, const float* x,
+                             int M, int N, int nks, int ct, int n0, int s0, int s1, int kend_x,
+                             const gemm_tc::Epilogue& ep) {
+    unsigned char* base = smem + ((0u - smem_u32(smem)) & 127u);   // 128-byte aligned
+    unsigned char* sw = base;                                        // [STAGES][WBLK]
+    float* sx = reinterpret_cast<float*>(base + STAGES * WBLK);      // [STAGES][BK][XS]
+    uint64_t* full = reinterpret_cast<uint64_t*>(base + RING);       // [STAGES]
+    const int tid = threadIdx.x, grp = tid >> 7, wt = tid & 127;
+    const int w = wt >> 5, g = (wt & 31) >> 2, t = wt & 3;
+    const int ns = s1 - s0;
+    const unsigned xw = (unsigned)((uintptr_t)x >> 2) + (unsigned)n0, nm = (unsigned)N & 3u;
+    const unsigned char* wsrc = reinterpret_cast<const unsigned char*>(wblk) +
+                                ((size_t)ct * nks + s0) * WBLK;
+
+    // generic accesses to this memory (an earlier tile or op) before the
+    // bulk copies' writes; the barriers for this tile
+    wg::fence_proxy_async();
+    if (tid == 0) {
+      for (int s = 0; s < STAGES; ++s) wg::mbar_init(full + s, 1);
+      wg::mbar_init_fence();
+    }
+    __syncthreads();
+
+    auto load = [&](int i) {       // slice s0 + i into stage i % STAGES
+      const int st = i % STAGES, k0 = (s0 + i) * BK;
+      if (tid == 0) {
+        wg::mbar_expect_tx(full + st, WBLK);
+        wg::bulk_g2s(sw + st * WBLK, wsrc + (size_t)i * WBLK, WBLK, full + st);
+      }
+      for (int e = tid; e < BK * XCH; e += NT) {
+        const int kk = e / XCH, c = e % XCH, gk = k0 + kk;
+        const float* row = x + (size_t)gk * N + n0;
+        const int sh = (int)(((uintptr_t)row >> 2) & 3), left = N - n0 - (4 * c - sh);
+        const int bytes = gk < kend_x && left > 0 ? 4 * min(4, left) : 0;
+        cp_async16n(sx + (st * BK + kk) * XS + 4 * c, bytes ? row - sh + 4 * c : x, bytes);
+      }
+    };
+
+    float acc[P][NA];
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+#pragma unroll
+      for (int i = 0; i < NA; ++i) acc[p][i] = 0.0f;
+
+#pragma unroll
+    for (int i = 0; i < STAGES - 1; ++i) {
+      if (i < ns) load(i);
+      cp_async_commit();
+    }
+#pragma unroll 1
+    for (int i = 0; i < ns; ++i) {
+      const int st = i % STAGES;
+      cp_async_wait<STAGES - 2>();
+      wg::mbar_wait(full + st, (i / STAGES) & 1);
+      __syncthreads();   // slice i landed; both warpgroups are done with slice i - 1
+      if (i + STAGES - 1 < ns) load(i + STAGES - 1);
+      cp_async_commit();
+
+      // this warpgroup's k16 steps of the slice, 2 h + grp (past K: zeros in
+      // x and W), split into their fragments, then their products
+      uint32_t af[STEPS][P][4];
+#pragma unroll
+      for (int h = 0; h < STEPS; ++h) {
+        const int kb = (2 * h + grp) * 16, gk0 = (s0 + i) * BK + kb;
+        const float* xs = sx + (st * BK + kb) * XS;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {   // A[m][k], A[m][k + 1] = x[k][m], x[k + 1][m]
+          const int m = 16 * w + g + 8 * (q & 1), k = 2 * t + 8 * (q >> 1);
+          const float* r0 = xs + k * XS + ((xw + (unsigned)(gk0 + k) * nm) & 3u);
+          const float* r1 = xs + (k + 1) * XS + ((xw + (unsigned)(gk0 + k + 1) * nm) & 3u);
+          if constexpr (TERMS == 6)
+            split3(r0[m], r1[m], af[h][0][q], af[h][1][q], af[h][2][q]);
+          else
+            af[h][0][q] = round2(r0[m], r1[m]);
+        }
+      }
+#pragma unroll
+      for (int p = 0; p < P; ++p) wg::reg_fence(acc[p]);
+      wg::fence();
+#pragma unroll
+      for (int h = 0; h < STEPS; ++h) {
+        // a k16 step is two core matrices of K on: 256 bytes
+        const unsigned char* wb = sw + st * WBLK + (2 * h + grp) * 256;
+        // accumulator p takes the products a_i.w_j with i + j = p, i ascending
+        wg::mma<BN>(acc[0], af[h][0], wg::smem_desc(wb, LBO, SBO));
+        if constexpr (TERMS == 6) {
+          constexpr int PB = BN * BK * 2;                   // a piece's bytes in the block
+          wg::mma<BN>(acc[1], af[h][0], wg::smem_desc(wb + PB, LBO, SBO));
+          wg::mma<BN>(acc[1], af[h][1], wg::smem_desc(wb, LBO, SBO));
+          wg::mma<BN>(acc[2], af[h][0], wg::smem_desc(wb + 2 * PB, LBO, SBO));
+          wg::mma<BN>(acc[2], af[h][1], wg::smem_desc(wb + PB, LBO, SBO));
+          wg::mma<BN>(acc[2], af[h][2], wg::smem_desc(wb, LBO, SBO));
+        }
+      }
+      wg::commit();
+      // the products done before the fragments' registers are reused (a
+      // wgmma in flight over registers that later code defines is one that
+      // ptxas serializes)
+      wg::wait<0>();
+#pragma unroll
+      for (int p = 0; p < P; ++p) wg::reg_fence(acc[p]);
+#pragma unroll
+      for (int h = 0; h < STEPS; ++h)
+#pragma unroll
+        for (int p = 0; p < P; ++p) wg::reg_fence(af[h][p]);
+    }
+    cp_async_wait<0>();
+    __syncthreads();     // every wait on the barriers passed; the ring is free
+    if (tid == 0)
+      for (int s = 0; s < STAGES; ++s) wg::mbar_inval(full + s);
+
+    // warpgroup 1's sums to warpgroup 0 (value v of thread l at red[v * 128
+    // + l]: a warp's lanes on consecutive banks), added accumulator by
+    // accumulator
+    float* red = reinterpret_cast<float*>(base) + wt;
+    if (grp == 1) {
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+#pragma unroll
+        for (int i = 0; i < NA; ++i) red[(p * NA + i) * 128] = acc[p][i];
+    }
+    __syncthreads();
+    if (grp == 0) {
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+#pragma unroll
+        for (int i = 0; i < NA; ++i) acc[p][i] += red[(p * NA + i) * 128];
+    }
+    __syncthreads();
+
+    // the epilogue: v = first (+ (second + third)) into a BN x 64 tile in
+    // the ring, tile[o][m], then every thread takes PER of its elements row
+    // by row (a warp on consecutive positions), GROUP at a time with their
+    // bias and residual loads issued before the group's first store (a
+    // store may alias them)
+    constexpr int TS = XS, PER = BN * BM / NT, GROUP = 4;
+    static_assert(PER % GROUP == 0, "the epilogue's groups");
+    float* tile = reinterpret_cast<float*>(base);
+    if (grp == 0) {
+#pragma unroll
+      for (int i = 0; i < NA; ++i) {
+        const int m = 16 * w + g + 8 * ((i >> 1) & 1), o = (i >> 2) * 8 + 2 * t + (i & 1);
+        tile[o * TS + m] = TERMS == 6 ? acc[0][i] + (acc[1 % P][i] + acc[2 % P][i])
+                                      : acc[0][i];
+      }
+    }
+    __syncthreads();
+    const int m0 = ct * BN, act = ep.act, act2 = ep.act2;
+#pragma unroll 1
+    for (int k0 = 0; k0 < PER; k0 += GROUP) {
+      float bias[GROUP], res[GROUP];
+#pragma unroll
+      for (int k = 0; k < GROUP; ++k) {
+        const int e = tid + (k0 + k) * NT, row = m0 + e / BM, col = n0 + e % BM;
+        const bool in = row < M && col < N;
+        bias[k] = ep.part == nullptr && in ? ep.b[row] : 0.0f;
+        res[k] = ep.r != nullptr && in ? __ldcg(ep.r + (size_t)row * N + col) : 0.0f;
+      }
+#pragma unroll
+      for (int k = 0; k < GROUP; ++k) {
+        const int e = tid + (k0 + k) * NT, row = m0 + e / BM, col = n0 + e % BM;
+        if (row >= M || col >= N) continue;
+        float v = tile[(e / BM) * TS + e % BM];
+        const size_t o = (size_t)row * N + col;
+        if (ep.part != nullptr) {
+          ep.part[o] = v;
+        } else {
+          v = activate(v + bias[k], act);
+          if (ep.r != nullptr) v = activate(v + res[k], act2);
+          ep.y[o] = v;
+        }
+      }
+    }
+  }
+};
+
+}  // namespace gemm_wg
+}  // namespace

@@ -48,6 +48,7 @@
 #include "async_copy.cuh"
 #include "gemm_tc.cuh"
 #include "launch.cuh"
+#include "wgmma.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -232,42 +233,6 @@ __device__ __forceinline__ int b_offset(int o, int k) {
   return (o >> 3) * B_SBO + (k >> 3) * B_LBO + (o & 7) * 16 + (k & 7) * 2;
 }
 
-// wgmma's matrix descriptor of a no-swizzle tile at ``p``: start address,
-// leading (K) and stride (M/N) byte offsets, each in 16-byte units; base
-// offset 0, layout type 0 (no swizzle) in bits 62-63
-__device__ __forceinline__ uint64_t smem_desc(const void* p) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(B_LBO >> 4) << 16) |
-         ((uint64_t)(B_SBO >> 4) << 32);
-}
-
-// d (64 x 16 f32 a warpgroup, 8 a thread) += a (64 x 16 bf16, registers) .
-// b (16 x 16 bf16, K-major in shared memory)
-__device__ __forceinline__ void wgmma_m64n16k16(float* d, const uint32_t* a, uint64_t b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// keep the compiler from moving register reads or writes across a wgmma
-// boundary (the instructions are asynchronous)
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void reg_fence(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
 // the 16 x 64 tile of x at column c0 (zeros past n) into registers, 8
 // floats a thread: two 16-byte vectors where ``VEC``, else single floats;
 // then (dot_put) into xs.  Loads through registers measured faster than
@@ -331,7 +296,7 @@ dot_kernel(const float* __restrict__ w, const float* __restrict__ x, float* __re
     gemm_tc::split2(__ldg(w + o * 16 + k), __ldg(w + o * 16 + k + 1), hi, lo);
     *reinterpret_cast<uint32_t*>(bw[0] + b_offset(o, k)) = hi;
     if (MODE == 1) *reinterpret_cast<uint32_t*>(bw[1] + b_offset(o, k)) = lo;
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
+    wg::fence_proxy_async();                       // visible to wgmma
   } else {
     ws[tid] = __ldg(w + tid);
     ws[tid + DOT_NT] = __ldg(w + tid + DOT_NT);
@@ -350,20 +315,20 @@ dot_kernel(const float* __restrict__ w, const float* __restrict__ x, float* __re
         gemm_tc::split2(xs[k * XS + m], xs[(k + 1) * XS + m], ah[q], al[q]);
       }
       float acc[8] = {}, cor[8] = {};
-      reg_fence(acc);
-      reg_fence(cor);
-      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-      wgmma_m64n16k16(acc, ah, smem_desc(bw[0]));
+      wg::reg_fence(acc);
+      wg::reg_fence(cor);
+      wg::fence();
+      wg::mma<16>(acc, ah, wg::smem_desc(bw[0], B_LBO, B_SBO));
       if (MODE == 1) {
-        wgmma_m64n16k16(cor, al, smem_desc(bw[0]));
-        wgmma_m64n16k16(cor, ah, smem_desc(bw[1]));
+        wg::mma<16>(cor, al, wg::smem_desc(bw[0], B_LBO, B_SBO));
+        wg::mma<16>(cor, ah, wg::smem_desc(bw[1], B_LBO, B_SBO));
       }
-      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-      reg_fence(acc);
-      reg_fence(cor);
-      reg_fence(ah);
-      reg_fence(al);
+      wg::commit();
+      wg::wait<0>();
+      wg::reg_fence(acc);
+      wg::reg_fence(cor);
+      wg::reg_fence(ah);
+      wg::reg_fence(al);
 #pragma unroll
       for (int i = 0; i < 8; ++i) {                // D[m][o] = y[o][c0 + m]
         const int m = m0 + ((i >> 1) & 1) * 8, o = (i >> 2) * 8 + 2 * t + (i & 1);

@@ -37,8 +37,11 @@ Usage (from the repository root, on a machine with a CUDA card)::
    the continuation against ``conv1x1_plain`` (allclose(2e-3, 1e-3)) and
    ``conv1x1_bf16x3_plain`` (1e-5 relative), bit-identical over two runs,
    with its device time beside ``torch.addmm``'s (f32, TF32 off), and the
-   six-term tile of "highest" (``terms=6``) at every shape on the same
-   terms against ``conv1x1_bf16x6_plain``; then 30 frames held out
+   six-term wgmma tile of "highest" (``terms=6``, ``csrc/gemm_wg.cuh``)
+   at every shape on the same terms against ``conv1x1_bf16x6_plain``,
+   each summed over a frame's 29 GEMMs; in the SASS the wgmma tile's
+   kernels and the one- and six-term tables hold HGMMA and no HMMA (the
+   three-term table still HMMA); then 30 frames held out
    from the synthetic model's fit (seed 1, frames 30-59) of
    ``FramePipeline`` against the plain path (K2'' in bf16x3) on the card under
    the tolerance invariant (every decode flip a near-tie of class 15's
@@ -153,7 +156,9 @@ Usage (from the repository root, on a machine with a CUDA card)::
    GEMM) held op by op on the kernel's own inputs at allclose(2e-3, 1e-3)
    with a control that must miss it, the frames against the plain bf16
    path with the f32 path as the control, device busy in both; the
-   one-term GEMM alone; every family's int8 classic path; ``backscrub-torch
+   one-term wgmma GEMM tile alone at every shape (its sum over a frame
+   beside ``torch.addmm`` on bf16 operands); every family's int8 classic
+   path; ``backscrub-torch
    --bf16`` and ``--int8``; a ``precision:`` line;
 18. multi-stream serving (``multistream_phase``): K1 (segm_lite, mlkit,
    deeplab), K2 (segm_lite, mlkit), K2' and K2'' (deeplab, f32 and bf16
@@ -433,10 +438,11 @@ def device_ms(fn, n=100, warmup=3, attempts=5, cold=None, kernel=None):
     ``cold`` are summed, divided by their count.  The profiler leaves out
     the first kernels of a window (99 of 100 launches were counted on an
     H100; 28 of 30 cold K1 launches in three windows running, in another
-    call), so each window opens with three short ``torch.cuda._sleep``
-    kernels that nothing sums.  A window that records no device events at
-    all, or (with a name) under ``n - 1`` of the named kernel, is measured
-    again, up to ``attempts`` windows."""
+    call; 98 of 100 of the JPEG decode's IDCT kernel behind three short
+    sleeps, in another), so each window opens with eight
+    ``torch.cuda._sleep`` kernels of ~10 us that nothing sums.  A window
+    that records no device events at all, or (with a name) under ``n - 1``
+    of the named kernel, is measured again, up to ``attempts`` windows."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -448,8 +454,8 @@ def device_ms(fn, n=100, warmup=3, attempts=5, cold=None, kernel=None):
     for _ in range(attempts):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                torch.cuda._sleep(1000)
+            for _ in range(8):
+                torch.cuda._sleep(20000)
             for i in range(n):
                 if cold:
                     flush.fill_(i)
@@ -698,17 +704,19 @@ def gemm_phase(cont, device):
     inputs at L = 33 * 33): against conv1x1_plain (allclose) and
     conv1x1_bf16x3_plain (GEMM_REL relative), two runs bit-identical,
     device time beside torch.addmm's (bias, no activation, f32 with TF32
-    off); the six-term tile of "highest" (``terms=6``) at every shape on
-    the same terms against conv1x1_bf16x6_plain and at most
+    off); the six-term wgmma tile of "highest" (``terms=6``, gemm_wg.cuh,
+    its weights laid out once by ``wgmma_weights``) at every shape on the
+    same terms against conv1x1_bf16x6_plain and at most
     1/SIX_TERM_GEMM_RATIO of the three-term tile's distance from
-    conv1x1_plain, its device time beside the three-term tile's.  Returns
-    the kernels-line numbers of both tiles at the largest shape (the ASPP
-    projection)."""
+    conv1x1_plain, its device time beside the three-term tile's and
+    torch.addmm's, summed over a frame.  Returns the kernels-line numbers
+    of both tiles at the largest shape (the ASPP projection)."""
     import torch
-    from backscrub_tpu_torch.ops.megakernel import (_GEMM_TILES, _MEGA_GEMM_TILES, _gemm_tile,
-                                                    conv1x1_bf16x3_plain, conv1x1_bf16x6_plain,
-                                                    conv1x1_gemm, conv1x1_plain, gemm_config,
-                                                    split_bf16)
+    from backscrub_tpu_torch.ops.megakernel import (_GEMM_TILES, _MEGA_GEMM_TILES, _WG_TILES,
+                                                    _gemm_tile, _wg_tile, conv1x1_bf16x3_plain,
+                                                    conv1x1_bf16x6_plain, conv1x1_gemm,
+                                                    conv1x1_plain, gemm_config, split_bf16,
+                                                    wgmma_weights)
     torch.backends.cuda.matmul.allow_tf32 = False
     ws = cont._weights_on(device)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
@@ -732,7 +740,7 @@ def gemm_phase(cont, device):
             rel = float((k - pb).abs().max() / pb.abs().max())
             if rel > GEMM_REL or not torch.equal(k, k2):
                 raise AssertionError(f"GEMM {co}x{ci}: {rel:.3g} from bf16x3, or runs differ")
-            sp6 = split6[wi] = split_bf16(gw, 3)
+            sp6 = split6[wi] = wgmma_weights(gw, 6, L)
             k6, k6b = (conv1x1_gemm(gw, gb, gx, act, split=sp6, terms=6) for _ in range(2))
             p6 = conv1x1_bf16x6_plain(gw, gb, gx, act)
             torch.cuda.synchronize()
@@ -752,6 +760,8 @@ def gemm_phase(cont, device):
             tile, nsplit, _ = gemm_config(co, ci, L, sms)
             bm, bn = _GEMM_TILES[tile]
             tm, tn = _MEGA_GEMM_TILES[_gemm_tile(co, L)]
+            tile6, nsplit6, _ = gemm_config(co, ci, L, sms, 6)
+            wn6, wt6 = _WG_TILES[tile6], _WG_TILES[_wg_tile(co, L)]
             b = bound(*gemm_work(co, ci, L))
             frame_us += 1e3 * dev * len(ps)
             lib_frame_us += 1e3 * lib * len(ps)
@@ -761,8 +771,9 @@ def gemm_phase(cont, device):
                   f"{gap3:.3g}, vs bf16x3 {rel:.3g} relative; device "
                   f"{dev * 1e3:.3f} us (back to back {bb * 1e3:.3f} us), torch.addmm "
                   f"{lib * 1e3:.3f} us, bound {b[0] * 1e3:.3f} us ({b[1]}); six terms: vs "
-                  f"f32 {gap6:.3g}, vs bf16x6 {rel6:.3g} relative, "
-                  f"device {dev6 * 1e3:.3f} us, bound "
+                  f"f32 {gap6:.3g}, vs bf16x6 {rel6:.3g} relative, tile 64x{wn6} split "
+                  f"{nsplit6}, {-(-co // wn6) * -(-L // 64) * nsplit6} CTAs (in the table 64x"
+                  f"{wt6}, {-(-co // wt6) * -(-L // 64)} CTAs), device {dev6 * 1e3:.3f} us, bound "
                   f"{bound(*gemm_work(co, ci, L, terms=6))[0] * 1e3:.3f} us")
         co, ci = max(shapes, key=lambda s: s[0] * s[1])
         _, tin, _, wi, bi, act = shapes[(co, ci)][0]
@@ -789,7 +800,11 @@ def gemm_phase(cont, device):
                   bound=bound(*gemm_work(co, ci, gx.shape[1], terms=6)),
                   device_ms=device_ms(lambda: conv1x1_gemm(gw, gb, gx, split=sp6, terms=6)),
                   three_term_device_ms=r["device_ms"], library_ms=r["library_ms"],
-                  library_device_ms=r["library_device_ms"], frame_us=six_frame_us)
+                  library_device_ms=r["library_device_ms"], frame_us=six_frame_us,
+                  library_frame_us=lib_frame_us)
+        r.update(frame_us=frame_us, library_frame_us=lib_frame_us)
+    print("gemm tiles in the SASS (HGMMA, HMMA, UBLKCP): "
+          + json.dumps(gemm_tiles_in_sass(sass_functions())))
     print(f"gemm {co}x{ci}: device {r['device_ms'] * 1e3:.3f} us, torch.addmm device "
           f"{r['library_device_ms'] * 1e3:.3f} us; back to back {r['b2b_ms'] * 1e3:.3f} vs "
           f"{r['library_b2b_ms'] * 1e3:.3f} us; wrapper {r['ms'][0]:.4f} ms vs "
@@ -2495,25 +2510,52 @@ def precision_family(tag, path, margin):
 
 
 def gemm_bf16_phase(cont, dev):
-    """The one-term GEMM alone (``bs_gemm`` with terms=1) at the ASPP shape
-    of the deeplab continuation: against conv1x1_bf16_plain (GEMM_REL
-    relative: one dot, the summation order alone), two runs bit-identical;
-    its device time beside the three-term tile's and torch.addmm's on bf16
-    operands (f32 out).  Returns the kernels-line numbers."""
+    """The one-term wgmma tile alone (``bs_gemm`` with terms=1, gemm_wg.cuh,
+    its weights laid out once by ``wgmma_weights``) at every 1x1 shape of
+    the deeplab continuation: against conv1x1_bf16_plain (GEMM_REL
+    relative: one dot, the summation order alone), two runs bit-identical,
+    its device time and torch.addmm's on bf16 operands (f32 out) summed
+    over a frame's GEMMs; at the ASPP shape also beside the three-term
+    tile's.  Returns the kernels-line numbers at the ASPP shape."""
     import torch
     from backscrub_tpu_torch.ops.megakernel import (conv1x1_bf16_plain, conv1x1_gemm,
-                                                    split_bf16)
+                                                    split_bf16, wgmma_weights)
     ws = cont._weights_on(dev)
-    p = max((p for p in gemm_ops(cont)), key=lambda p: cont.weights[p[3]].size)
-    _, tin, _, wi, bi, act = p
-    gw, gb = ws[wi], ws[bi]
-    co, ci = gw.shape
-    L = cont.meta[tin].rows * cont.meta[tin].w
-    gx = torch.from_numpy(np.random.default_rng(6).uniform(0, 2, (ci, L)).astype(
-        np.float32)).to(dev)
-    sp = split_bf16(gw)
-    one = (sp[0], None)
+    shapes = collections.defaultdict(list)
+    for p in gemm_ops(cont):
+        shapes[cont.weights[p[3]].shape].append(p)
+    frame_us = lib_frame_us = 0.0
     with torch.no_grad():
+        for (co, ci), ps in sorted(shapes.items()):
+            _, tin, _, wi, bi, act = ps[0]
+            gw, gb = ws[wi], ws[bi]
+            L = cont.meta[tin].rows * cont.meta[tin].w
+            gx = torch.from_numpy(np.random.default_rng(co * 1000 + ci).uniform(
+                0, 2, (ci, L)).astype(np.float32)).to(dev)
+            one = wgmma_weights(gw, 1, L)
+            k, k2 = (conv1x1_gemm(gw, gb, gx, act, split=one, terms=1) for _ in range(2))
+            pb = conv1x1_bf16_plain(gw, gb, gx, act)
+            torch.cuda.synchronize()
+            rel = float((k - pb).abs().max() / pb.abs().max())
+            if rel > GEMM_REL or not torch.equal(k, k2):
+                raise AssertionError(f"one-term GEMM {co}x{ci}: {rel:.3g} from its twin, or "
+                                     f"runs differ")
+            wb, xb, bb = gw.bfloat16(), gx.bfloat16(), gb.bfloat16()[:, None]
+            dev1 = device_ms(lambda: conv1x1_gemm(gw, gb, gx, split=one, terms=1))
+            lib = device_ms(lambda: torch.addmm(bb, wb, xb))
+            frame_us += 1e3 * dev1 * len(ps)
+            lib_frame_us += 1e3 * lib * len(ps)
+            print(f"gemm bf16 {co}x{ci} by {ci}x{L} ({len(ps)} a frame): one term "
+                  f"{dev1 * 1e3:.3f} us, torch.addmm on bf16 operands {lib * 1e3:.3f} us, "
+                  f"bound {bound(*gemm_work(co, ci, L, terms=1))[0] * 1e3:.3f} us; vs "
+                  f"conv1x1_bf16_plain {rel:.3g} relative")
+        co, ci = max(shapes, key=lambda s: s[0] * s[1])
+        _, tin, _, wi, bi, act = shapes[(co, ci)][0]
+        gw, gb = ws[wi], ws[bi]
+        L = cont.meta[tin].rows * cont.meta[tin].w
+        gx = torch.from_numpy(np.random.default_rng(6).uniform(0, 2, (ci, L)).astype(
+            np.float32)).to(dev)
+        sp, one = split_bf16(gw), wgmma_weights(gw, 1, L)
         k, k2 = (conv1x1_gemm(gw, gb, gx, split=one, terms=1) for _ in range(2))
         pb = conv1x1_bf16_plain(gw, gb, gx)
         torch.cuda.synchronize()
@@ -2528,11 +2570,14 @@ def gemm_bf16_phase(cont, dev):
                  three_term_device_ms=device_ms(lambda: conv1x1_gemm(gw, gb, gx, split=sp)),
                  library_ms=timed(lambda: torch.addmm(bb, wb, xb)),
                  library_device_ms=device_ms(lambda: torch.addmm(bb, wb, xb)),
-                 bound=bound(*gemm_work(co, ci, L, terms=1)))
+                 bound=bound(*gemm_work(co, ci, L, terms=1)), frame_us=frame_us,
+                 library_frame_us=lib_frame_us)
     print(f"gemm bf16 {co}x{ci} by {ci}x{L}: one term {r['device_ms'] * 1e3:.3f} us, three terms "
           f"{r['three_term_device_ms'] * 1e3:.3f} us, torch.addmm on bf16 operands "
           f"{r['library_device_ms'] * 1e3:.3f} us; bound {r['bound'][0] * 1e3:.3f} us "
-          f"({r['bound'][1]}); vs conv1x1_bf16_plain {rel:.3g} relative")
+          f"({r['bound'][1]}); vs conv1x1_bf16_plain {rel:.3g} relative; a deeplab frame's "
+          f"{sum(map(len, shapes.values()))} GEMMs: one term {frame_us:.2f} us of device time, "
+          f"torch.addmm on bf16 operands {lib_frame_us:.2f} us")
     return r
 
 
@@ -3877,6 +3922,28 @@ def wgmma_in_sass(sass):
     return counts
 
 
+def gemm_tiles_in_sass(sass):
+    """Raise unless, in ``sass`` (sass_functions), every instantiation of
+    the wgmma GEMM tile's standalone kernel (``gemm_wg_kernel<BN, 1 | 6>``)
+    and the two tables that run it (``body_mega_kernel<1, 1>`` and ``<0,
+    6>``) hold HGMMA (wgmma) and no HMMA (mma.sync), and the three-term
+    table (``<0, 3>``) still holds HMMA.  Returns {kernel: (HGMMA, HMMA,
+    UBLKCP)} counts, UBLKCP the bulk copy."""
+    counts = {}
+    for head, fn in sass.items():
+        m = re.search(r"gemm_wg_kernelILi(\d+)ELi(\d)E|body_mega_kernelILi(\d)ELi(\d)E", head)
+        if m:
+            name = (f"gemm_wg_kernel<{m.group(1)}, {m.group(2)}>" if m.group(1) else
+                    f"body_mega_kernel<{m.group(3)}, {m.group(4)}>")
+            counts[name] = (fn.count("HGMMA"), fn.count("HMMA"), fn.count("UBLKCP"))
+    wg = [k for k in counts if k.startswith("gemm_wg") or k in ("body_mega_kernel<1, 1>",
+                                                                "body_mega_kernel<0, 6>")]
+    if len(wg) != 12 or any(counts[k][0] == 0 or counts[k][1] for k in wg) \
+            or not counts.get("body_mega_kernel<0, 3>", (0, 0))[1]:
+        raise AssertionError(f"the GEMM tiles' SASS: {counts}")
+    return counts
+
+
 def loads_first_in_sass(sass):
     """Raise unless the copies' vector kernels (P6 and P7's
     ``strided_copy_kernel<S>``, S = 2 and 1, and P5's ``concat_kernel`` on
@@ -4359,7 +4426,7 @@ def main() -> int:
                              "DEFAULT)"),
         "body_cont_bf16": ("backscrub_tpu_torch/csrc/body_mega.cu",
                            "backscrub_tpu/ops/megakernel.py:794 (BodyMega flat=True, DEFAULT)"),
-        "gemm_bf16": ("backscrub_tpu_torch/csrc/gemm_tc.cuh",
+        "gemm_bf16": ("backscrub_tpu_torch/csrc/gemm_wg.cuh",
                       "backscrub_tpu/ops/megakernel.py:516 (BodyMega flat=True, the DEFAULT "
                       "dots of the continuation chain)"),
         # "highest" (highest_phase): the continuation's table with the
@@ -4367,7 +4434,7 @@ def main() -> int:
         "body_cont_highest": ("backscrub_tpu_torch/csrc/body_mega.cu",
                               "backscrub_tpu/ops/megakernel.py:794 (BodyMega flat=True, "
                               "HIGHEST)"),
-        "gemm_highest": ("backscrub_tpu_torch/csrc/gemm_tc.cuh",
+        "gemm_highest": ("backscrub_tpu_torch/csrc/gemm_wg.cuh",
                          "backscrub_tpu/ops/megakernel.py:516 (BodyMega flat=True, the HIGHEST "
                          "dots of the continuation chain: the TPU's six bf16 passes)"),
     }
@@ -4421,7 +4488,8 @@ def main() -> int:
                                          "main_path_launches", "mean_abs_err",
                                          "three_term_device_ms", "three_term_gap", "rows_held",
                                          "control_rows_off", "batched", "capi_launches",
-                                         "train_launches", "mesh_launches", "byo_launches")
+                                         "train_launches", "mesh_launches", "byo_launches",
+                                         "frame_us", "library_frame_us")
             if k in results[name]}}
         for name, (src, rep) in meta.items()]}
     print(f"chip_smoke phases: {time.perf_counter() - t_start:.2f} s (the whole script)")

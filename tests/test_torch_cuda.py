@@ -1361,15 +1361,16 @@ def test_bf16_tables_match_plain(cuda_device, path):
             x = k
 
 
-@pytest.mark.parametrize("co,ci", [(16, 96), (256, 512), (480, 80), (21, 256)])
-def test_gemm_one_term_matches_plain(cuda_device, co, ci):
-    """``bs_gemm`` with terms=1 against ``conv1x1_bf16_plain`` (relative
+@pytest.mark.parametrize("co,ci,L", _GEMM_SHAPES)
+def test_gemm_one_term_matches_plain(cuda_device, co, ci, L):
+    """``bs_gemm`` with terms=1 (the wgmma tile) at the continuation's 15
+    shapes and at ragged ones against ``conv1x1_bf16_plain`` (relative
     1e-5, the summation order alone), bit-identical twice, and not the
     three-term result."""
     g = torch.Generator().manual_seed(co + ci)
     w = (torch.randn(co, ci, generator=g) / ci ** 0.5).cuda()
     b = torch.randn(co, generator=g).cuda()
-    x = (torch.rand(ci, 1089, generator=g) * 2).cuda()
+    x = (torch.rand(ci, L, generator=g) * 2).cuda()
     hi, _ = split_bf16(w)
     k, k2 = (conv1x1_gemm(w, b, x, split=(hi, None), terms=1) for _ in range(2))
     p = conv1x1_bf16_plain(w, b, x)
@@ -1379,15 +1380,16 @@ def test_gemm_one_term_matches_plain(cuda_device, co, ci):
     assert not torch.equal(k, conv1x1_gemm(w, b, x))
 
 
-@pytest.mark.parametrize("co,ci", [(16, 96), (256, 512), (480, 80), (21, 256)])
-def test_gemm_six_terms_matches_plain(cuda_device, co, ci):
-    """``bs_gemm`` with terms=6 (the TPU's HIGHEST split) against
+@pytest.mark.parametrize("co,ci,L", _GEMM_SHAPES)
+def test_gemm_six_terms_matches_plain(cuda_device, co, ci, L):
+    """``bs_gemm`` with terms=6 (the TPU's HIGHEST split on the wgmma tile)
+    at the continuation's 15 shapes and at ragged ones against
     ``conv1x1_bf16x6_plain`` (relative 1e-5, the summation order alone),
     bit-identical twice, closer to f32 than the three-term result."""
     g = torch.Generator().manual_seed(co + ci)
     w = (torch.randn(co, ci, generator=g) / ci ** 0.5).cuda()
     b = torch.randn(co, generator=g).cuda()
-    x = (torch.rand(ci, 1089, generator=g) * 2).cuda()
+    x = (torch.rand(ci, L, generator=g) * 2).cuda()
     k, k2 = (conv1x1_gemm(w, b, x, split=split_bf16(w, 3), terms=6) for _ in range(2))
     p, f32 = conv1x1_bf16x6_plain(w, b, x), conv1x1_plain(w, b, x)
     torch.cuda.synchronize()
@@ -1417,6 +1419,26 @@ def test_deeplab_highest_continuation_matches_its_twin(cuda_device):
         f32 = e.cont_plan.run_plain(k2)
         three = e.cont_plan.run_plain(k2, gemm="bf16x3")
         assert 10 * float((k3 - f32).abs().max()) <= float((three - f32).abs().max())
+
+
+@pytest.mark.parametrize("precision", ["default", "highest"])
+def test_deeplab_continuation_stream_batch_is_per_image(cuda_device, precision):
+    """K2'' with the wgmma GEMM tile (the bf16 mode's one term at
+    "default", six terms at "highest") over a stream batch of three
+    held-out frames: one launch, every image bit-identical to its own
+    launch."""
+    mg = MaskGen(str(DEEPLAB), 640, 480, device=cuda_device, precision=precision)
+    e, S = mg.edge, 3
+    assert e.cont_plan.dots == ("bf16" if precision == "default" else "bf16x6")
+    fr = torch.from_numpy(np.stack(_frames(640, 480, 30 + S, seed=1)[30:])).to(cuda_device)
+    with torch.no_grad():
+        x = tedge.front_fused(e.canvas(fr), e.front_params, **e.front_kwargs())
+        x = e.prefix_plan(x.reshape(S, x.shape[1], -1))
+        before = body_launch.by_kernel["bs_body_mega"]
+        out = e.cont_plan(x)
+        assert body_launch.by_kernel["bs_body_mega"] == before + 1
+        for i in range(S):
+            assert torch.equal(out[i], e.cont_plan(x[i]))
 
 
 def test_cli_bf16_and_int8_on_cuda(cuda_device, tmp_path):

@@ -88,19 +88,34 @@ def _held(six, three, ref):
 def test_highest_flat_plan_is_six_terms(paths):
     """At "highest" the continuation's dots are "bf16x6" (the prefix's f32),
     its table the kernel's third instantiation (dots 2) with each GEMM row's
-    third weight piece at ``w2`` and a ring of three W tiles; "high" keeps
-    "bf16x3", no third piece, two W tiles."""
+    three weight pieces in one block at ``w``, laid out for the wgmma tile
+    of the row's width, and that tile's ring; "high" keeps "bf16x3", hi at
+    ``w`` and lo at ``w1`` for the mma.sync tile and its ring of two W
+    tiles."""
     *_, highest, high = paths
     assert [p.dots for p in highest.plans] == ["f32", "bf16x6"]
     assert [p.dots for p in high.plans] == ["f32", "bf16x3"]
     assert tmega.DOT_MODES["bf16x6"][0] == 2 and tmega.DOT_MODES["bf16x3"][0] == 0
     for edge, third in ((highest, True), (high, False)):
-        mt = edge.cont_plan.mega
+        plan = edge.cont_plan
+        mt = plan.mega
         gemm = mt.table[mt.table[:, _F["code"]] == tmega.MEGA_CODES["gemm"]]
-        assert len(gemm) == 29 and bool((gemm[:, _F["w2"]] > 0).all()) == third
-        assert not third or len(set(gemm[:, _F["w2"]])) == 29
-        rings = [tmega._gemm_ring_bytes(*tmega._MEGA_GEMM_TILES[t], 3 if third else 2)
-                 for t in gemm[:, _F["tile"]]]
+        assert len(gemm) == 29 and not gemm[:, _F["w2"]].any()
+        assert bool((gemm[:, _F["w1"]] > 0).all()) != third
+        assert len(set(gemm[:, _F["w"]])) == 29
+        if third:
+            rings = [tmega._wg_smem_bytes(tmega._WG_TILES[t], 6) for t in gemm[:, _F["tile"]]]
+            ar = torch.from_numpy(mt.arena)
+            m = next(m for m in mt.ops if m["kind"] == "gemm")
+            r = gemm[0]
+            w = torch.from_numpy(np.asarray(plan.weights[m["w"]], np.float32))
+            got = tmega.unlay_wgmma(ar[r[_F["w"]]:].view(torch.bfloat16), 3, *w.shape,
+                                    tmega._WG_TILES[r[_F["tile"]]])
+            assert all(torch.equal(a, b[:, :w.shape[1]])
+                       for a, b in zip(got, split_bf16(w, 3)))
+        else:
+            rings = [tmega._gemm_ring_bytes(*tmega._MEGA_GEMM_TILES[t])
+                     for t in gemm[:, _F["tile"]]]
         assert mt.smem_bytes >= mt.table.nbytes + max(rings)
     assert highest.cont_plan.mega.smem_bytes > high.cont_plan.mega.smem_bytes
 

@@ -15,11 +15,20 @@ between the two checkouts can be compared.  The cases:
 - ``gemm``: the K2'' GEMM tile alone, ``conv1x1_gemm`` under RELU6 at
   every 1x1 shape of the deeplab frame and at ragged ones, on seeded
   inputs, at ``gemm_config``'s tile and split; ``gemm_bf16`` the same
-  with ``terms=1`` (the bf16 mode's one-term tile);
+  with ``terms=1`` (the bf16 mode's one-term tile) and ``gemm_highest``
+  with ``terms=6`` (the six-term tile of "highest"), both timed at the
+  deeplab shapes (the kernel alone, without a split-K sum pass), and
+  reported, not held: a build whose one- and six-term tiles sum in
+  another order (the wgmma tile of ``csrc/gemm_wg.cuh`` against the
+  ``mma.sync`` tile before it) differs in the last bits;
 - ``body``: the body plans, ``MaskGen(...).edge.body`` on K1's output of
   the first held-out deeplab frame at "high" (K2' and K2'' with the
   three-term GEMM, then the executor's resize) and "default" (the bf16
-  tables), and of segm_lite's first frame at 640x480 (K2);
+  tables; reported, as their GEMM's tile may sum in another order), and
+  of segm_lite's first frame at 640x480 (K2);
+- ``cont``: K2'' alone, ``edge.cont_plan`` on the prefix's output of that
+  deeplab frame at "high", "default" and "highest", timed; "high" held bit
+  for bit, the other two (their GEMM tiles' order) reported;
 - ``bilateral``: K5, ``bilateral5`` on seeded u8-valued canvases at
   (1, 96, 160), (1, 257, 257), (4, 257, 257) and (2, 5, 7);
 - ``pack420``: K4, ``blend_pack_420`` NV12 and I420 on seeded frames,
@@ -41,13 +50,14 @@ between the two checkouts can be compared.  The cases:
   ``reshape_flat``, at ``tools/probe_hopper.py``'s ``COPY_SHAPES`` (the
   probe shape on the original's input), bit for bit.  Their kernels were
   ``stride2_kernel`` and ``cat_kernel`` before the strided copy.  A build
-  whose ``probes.cu`` does not name a call's kernel is timed by the old
-  name.
+  whose CUDA sources do not name a call's kernel (``gemm_wg_kernel`` is
+  ``gemm_tc_kernel`` before the wgmma tile) is timed by the old name.
 
 Prints, per call, whether the outputs are bit-identical (else how many
 values differ and by how much) and exits 1 if any differs; the probe
 calls, whose kernels may sum in another order than the other build's,
-print the largest difference instead and fail above 2e-5.  With
+print the largest difference instead and fail above 2e-5, and the calls
+marked reported print it and never fail.  With
 ``--time`` it also times the kernel of each call at a main path's shape
 (K1's canvases, K5 at the three canvas shapes, K3 and K4 at 640x480
 and 1280x720, the probes on the original's inputs) in each checkout by the
@@ -58,8 +68,8 @@ in fresh subprocesses in turns: the other, this, this, the other.
 
 Usage (from the repository root, on a machine with a CUDA card)::
 
-    python tools/bits_vs_build.py OTHER_CHECKOUT [--time] [front] [gemm] [gemm_bf16] [body]
-        [bilateral] [pack420]
+    python tools/bits_vs_build.py OTHER_CHECKOUT [--time] [front] [gemm] [gemm_bf16]
+        [gemm_highest] [body] [cont] [bilateral] [pack420]
         [pack_yuyv] [probe_se] [probe_dot] [probe_dw_flat] [probe_dw_rowpad] [probe_cat]
         [probe_stride2] [probe_copy]
 """
@@ -81,6 +91,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _RUN = """
 import functools, importlib, importlib.util, sys, torch
 sys.path.insert(0, sys.argv[1])
+import backscrub_tpu_torch  # this checkout's, before the timer puts its own repository first
 device_ms = None
 if len(sys.argv) > 4:
     spec = importlib.util.spec_from_file_location("timer", sys.argv[4])
@@ -89,8 +100,9 @@ if len(sys.argv) > 4:
     device_ms = timer.device_ms
 def dev(v):
     return v.cuda() if isinstance(v, torch.Tensor) else v
-# a call's kernel by its name in this checkout's probes.cu, else its old_kernel
-PROBES = open("backscrub_tpu_torch/csrc/probes.cu").read()
+# a call's kernel by its name in this checkout's sources, else its old_kernel
+import glob
+SOURCES = "".join(open(f).read() for f in glob.glob("backscrub_tpu_torch/csrc/*.cu*"))
 outs, times = [], []
 with torch.no_grad():
     for c in torch.load(sys.argv[2]):
@@ -107,7 +119,7 @@ with torch.no_grad():
         outs.append(call().cpu())
         if device_ms is not None:
             k = c["kernel"]
-            if "old_kernel" in c and k.lstrip(":") not in PROBES:
+            if "old_kernel" in c and k.lstrip(":") not in SOURCES:
                 k = c["old_kernel"]
             times.append((1e3 * device_ms(call, kernel=k), 1e3 * device_ms(call, cold=k)))
 torch.save((outs, times), sys.argv[3])
@@ -158,10 +170,23 @@ def gemm_calls():
     return calls
 
 
+def _wgmma_calls(terms):
+    """(name, call) of the GEMM at ``terms`` 1 or 6 at the ``gemm`` case's
+    inputs: reported, the deeplab shapes timed."""
+    return [(f"{name} terms={terms}", dict(
+        call, kwargs=dict(call["kwargs"], terms=terms), kernel="gemm_wg_kernel",
+        old_kernel="gemm_tc_kernel", exact=False, tol=None, timed=name.endswith(f"x{GEMM_L}")))
+        for name, call in gemm_calls()]
+
+
 def gemm_bf16_calls():
     """(name, call) of the one-term GEMM at the ``gemm`` case's inputs."""
-    return [(f"{name} terms=1", dict(call, kwargs=dict(call["kwargs"], terms=1)))
-            for name, call in gemm_calls()]
+    return _wgmma_calls(1)
+
+
+def gemm_highest_calls():
+    """(name, call) of the six-term GEMM at the ``gemm`` case's inputs."""
+    return _wgmma_calls(6)
 
 
 def body_calls():
@@ -183,10 +208,37 @@ def body_calls():
             kw = dict(device="cuda", precision=prec)
             with torch.no_grad():
                 h = MaskGen(path, 640, 480, **kw).edge.front(torch.from_numpy(frame).cuda())
+            # the bf16 tables' GEMM runs the one-term tile: reported
             calls.append((f"body {os.path.basename(path)} {prec}", dict(
                 build="backscrub_tpu_torch.pipeline.maskgen:MaskGen",
                 build_args=[path, 640, 480], build_kwargs=kw, wrapper="edge.body",
-                kernel="body_mega_kernel", args=[h.cpu()], kwargs={})))
+                kernel="body_mega_kernel", args=[h.cpu()], kwargs={},
+                **(dict(exact=False, tol=None) if prec == "default" else {}))))
+    return calls
+
+
+def cont_calls():
+    """(name, call) of K2'' alone at "high", "default" and "highest", each
+    on its prefix's output of ``chip_smoke.py``'s first held-out deeplab
+    frame, timed; "high" held bit for bit, the others reported."""
+    import torch
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    from chip_smoke import DEEPLAB, DEEPLAB_FRAMES
+    from backscrub_tpu_torch.pipeline.maskgen import MaskGen
+    from make_synth_segm import moving_frames
+
+    frame = moving_frames(640, 480, 2 * DEEPLAB_FRAMES, seed=1)[DEEPLAB_FRAMES]
+    calls = []
+    for prec in ("high", "default", "highest"):
+        kw = dict(device="cuda", precision=prec)
+        with torch.no_grad():
+            e = MaskGen(DEEPLAB, 640, 480, **kw).edge
+            x = e.prefix_plan(e.front(torch.from_numpy(frame).cuda()).reshape(16, -1))
+        calls.append((f"cont deeplab {prec}", dict(
+            build="backscrub_tpu_torch.pipeline.maskgen:MaskGen",
+            build_args=[DEEPLAB, 640, 480], build_kwargs=kw, wrapper="edge.cont_plan",
+            kernel="body_mega_kernel", timed=True, args=[x.cpu()], kwargs={},
+            **({} if prec == "high" else dict(exact=False, tol=None)))))
     return calls
 
 
@@ -362,7 +414,8 @@ def probe_dot_calls():
 
 
 CASES = {"front": front_calls, "gemm": gemm_calls, "gemm_bf16": gemm_bf16_calls,
-         "body": body_calls, "bilateral": bilateral_calls,
+         "gemm_highest": gemm_highest_calls, "body": body_calls, "cont": cont_calls,
+         "bilateral": bilateral_calls,
          "pack420": pack420_calls, "pack_yuyv": pack_yuyv_calls, "probe_se": probe_se_calls,
          "probe_dot": probe_dot_calls, "probe_cat": probe_cat_calls,
          "probe_dw_flat": probe_dw_flat_calls, "probe_dw_rowpad": probe_dw_rowpad_calls,
@@ -415,9 +468,10 @@ def main(argv) -> int:
             continue
         diff = float((got - ref).abs().max())
         if not call.get("exact", True):
-            differ += diff > INEXACT_TOL
+            tol = call.get("tol", INEXACT_TOL)
+            differ += tol is not None and diff > tol
             print(f"{name} {tuple(ref.shape)}: max difference {diff:.3g} from the other "
-                  f"build (bar {INEXACT_TOL:g})")
+                  f"build ({'reported' if tol is None else f'bar {tol:g}'})")
             continue
         same = torch.equal(got, ref)
         differ += not same

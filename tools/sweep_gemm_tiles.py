@@ -3,15 +3,19 @@ each 1x1 shape of the deeplab frame, on one CUDA card.
 
 For each (co, ci) at L = 33 * 33 prints the six fastest (tile, split)
 choices by device time (the torch.profiler's kernel time, mean of 50
-calls; the split-K sum kernel included), each checked against
-``conv1x1_bf16x3_plain`` (1e-5 relative), beside what ``gemm_config``
-picks.  The data behind ``gemm_config``'s rule.
+calls; the split-K sum kernel included), each checked against its plain
+twin (1e-5 relative), beside what ``gemm_config`` picks.  The data behind
+``gemm_config``'s rule.  ``--terms 3`` (the default): the bf16x3 split on
+the mma.sync tiles of ``_GEMM_TILES``, against ``conv1x1_bf16x3_plain``;
+``--terms 1`` or ``6``: the wgmma tile at each width of ``_WG_TILES``,
+against ``conv1x1_bf16_plain`` or ``conv1x1_bf16x6_plain``.
 
 Usage (from the repository root, on a machine with a CUDA card)::
 
-    python tools/sweep_gemm_tiles.py
+    python tools/sweep_gemm_tiles.py [--terms 3|1|6]
 """
 
+import argparse
 import os
 import sys
 
@@ -24,7 +28,10 @@ SHAPES = [(16, 96), (21, 256), (32, 96), (32, 192), (48, 192), (48, 288), (80, 2
 L = 33 * 33
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--terms", type=int, default=3, choices=(1, 3, 6))
+    terms = ap.parse_args(argv).terms
     import torch
     if not torch.cuda.is_available():
         print("sweep_gemm_tiles: CUDA is not available", file=sys.stderr)
@@ -35,40 +42,50 @@ def main() -> int:
     from chip_smoke import device_ms
     torch.backends.cuda.matmul.allow_tf32 = False
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    print(f"{torch.cuda.get_device_name(0)}, {sms} SMs")
+    print(f"{torch.cuda.get_device_name(0)}, {sms} SMs, {terms} terms")
     for co, ci in SHAPES:
         rng = np.random.default_rng(co * 1000 + ci)
         w, x = (torch.from_numpy((rng.standard_normal(s) / np.sqrt(ci)).astype(np.float32))
                 .cuda() for s in ((co, ci), (ci, L)))
         b = torch.from_numpy(rng.standard_normal(co).astype(np.float32)).cuda()
-        hi, lo = mk.split_bf16(w)
-        kp, slices = hi.shape[1], -(-hi.shape[1] // 16)
         y = torch.empty((co, L), device="cuda")
-        ref = mk.conv1x1_bf16x3_plain(w, b, x)
         res = []
-        for tile, (bm, bn) in enumerate(mk._GEMM_TILES):
+        if terms == 3:
+            ref = mk.conv1x1_bf16x3_plain(w, b, x)
+            hi, lo = mk.split_bf16(w)
+            kp, slices, deep = hi.shape[1], -(-hi.shape[1] // 16), 16
+            tiles = [(bm, bn) for bm, bn in mk._GEMM_TILES]
+        else:
+            ref = (mk.conv1x1_bf16_plain if terms == 1 else mk.conv1x1_bf16x6_plain)(w, b, x)
+            pieces = mk.split_bf16(w, mk.GEMM_PIECES[terms])
+            kp, slices, deep = 0, -(-ci // mk._WG_BK), mk._WG_BK
+            tiles = [(bn, mk._WG_BM) for bn in mk._WG_TILES]
+        for tile, (bm, bn) in enumerate(tiles):
+            blk = None if terms == 3 else mk.lay_wgmma(pieces, bm)   # alive while timed
+            ptrs = (hi.data_ptr(), lo.data_ptr()) if terms == 3 else (blk.data_ptr(), None)
             for want in (1, 2, 4, 8):
                 if want > slices:
                     continue
-                n16 = -(-slices // want)
-                split = -(-slices // n16)
+                per = -(-slices // want)
+                split = -(-slices // per)
                 part = torch.empty(split * co * L, device="cuda")
 
                 def run():
-                    _build.launch("bs_gemm", hi.data_ptr(), lo.data_ptr(), None, b.data_ptr(),
-                                  x.data_ptr(), y.data_ptr(), part.data_ptr(), co, ci, kp, L,
-                                  0, tile, split, 16 * n16, 3)
+                    _build.launch("bs_gemm", *ptrs, None, b.data_ptr(), x.data_ptr(),
+                                  y.data_ptr(), part.data_ptr(), co, ci, kp, L, 0, tile,
+                                  split, deep * per, terms)
                 run()
                 torch.cuda.synchronize()
                 ok = float((y - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
                 res.append((device_ms(run, n=50) * 1e3, tile, split,
                             -(-co // bm) * -(-L // bn) * split, ok))
         res.sort()
-        print(f"{co}x{ci}: gemm_config {mk.gemm_config(co, ci, L, sms)}; fastest " + "; ".join(
+        cfg = mk.gemm_config(co, ci, L, sms, terms)
+        print(f"{co}x{ci}: gemm_config {cfg}; fastest " + "; ".join(
             f"tile {t} split {s} ({n} CTAs) {us:.2f} us{'' if ok else ' WRONG'}"
             for us, t, s, n, ok in res[:6]))
         if not all(r[4] for r in res):
-            raise AssertionError(f"{co}x{ci}: a choice disagrees with the bf16x3 plain version")
+            raise AssertionError(f"{co}x{ci}: a choice disagrees with its plain twin")
     return 0
 
 

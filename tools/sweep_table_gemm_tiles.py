@@ -7,12 +7,14 @@ tile in turn in the table on the card and reads the op's phase by the
 device clock (``BodyPlan.phase_ns``, the median of ``--runs`` measurement
 runs of the whole table), the other ops at their own tiles; then prints,
 per op, each tile's microseconds and CTAs beside ``_gemm_tile``'s choice.
-The data behind ``_gemm_tile``'s rule.  ``--bf16``: the bf16 mode's table
-(``precision="default"``: the one-term GEMM).
+The data behind ``_gemm_tile``'s rule, for the three-term table (at
+"high"; the one- and six-term tables' wgmma tile has its weights laid out
+for its width when the table is compiled, and
+``tools/sweep_gemm_tiles.py --terms 1|6`` sweeps its widths).
 
 Usage (from the repository root, on a machine with a CUDA card)::
 
-    python tools/sweep_table_gemm_tiles.py [--runs 9] [--bf16]
+    python tools/sweep_table_gemm_tiles.py [--runs 9]
 """
 
 import argparse
@@ -28,7 +30,6 @@ DEEPLAB = os.path.join(REPO, "tests", "data", "deeplab_synth_257.tflite")
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--runs", type=int, default=9)
-    ap.add_argument("--bf16", action="store_true")
     a = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -40,8 +41,8 @@ def main(argv=None) -> int:
     from backscrub_tpu_torch.pipeline.frame import FramePipeline, PipelineConfig
     from make_synth_segm import moving_frames
 
-    mode = dict(compute_dtype=torch.bfloat16, precision="default") if a.bf16 else {}
-    pipe = FramePipeline(DEEPLAB, PipelineConfig(width=640, height=480), device="cuda", **mode)
+    pipe = FramePipeline(DEEPLAB, PipelineConfig(width=640, height=480), device="cuda",
+                         precision="high")
     e = pipe.maskgen.edge
     frame = torch.from_numpy(moving_frames(640, 480, 1)[0]).cuda()
     with torch.no_grad():
@@ -50,8 +51,7 @@ def main(argv=None) -> int:
     f_tile = mk.MEGA_FIELDS.index("tile")
     table = mt.on(x.device)[1]
     own_smem = mt.smem_bytes
-    halves = 1 if a.bf16 else 2
-    mt.smem_bytes = max(own_smem, mt.table.nbytes + max(mk._gemm_ring_bytes(*t, halves)
+    mt.smem_bytes = max(own_smem, mt.table.nbytes + max(mk._gemm_ring_bytes(*t)
                                                         for t in mk._MEGA_GEMM_TILES))
     print(f"{torch.cuda.get_device_name(0)}; deeplab continuation ({mt.dots}), {len(mt.ops)} "
           f"table ops in {mt.phases} phases, median of {a.runs} runs")
