@@ -55,7 +55,7 @@ SIGNATURES = {
     "bs_blend_pack_420": (P, P, P, P, I, I, I, I, P),
     "bs_bilateral": (P, P, P, I, I, I, F32, P),
     "bs_front": (P, P, P, I, I, I, I, I, I, I, I, I, F32, F32, F32, I, I, I, I, P),
-    "bs_gemm": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P),
+    "bs_gemm": (P, P, P, P, P, I, I, I, I, I, I, I, I, P),
     "bs_body_mega": (P, P, P, P, I, I, I, I, L, L, P, P),
     "bs_barrier_bench": (I, I, I, P),
     "bs_probe_dw9": (P, P, I, I, I, I, I, I, P),
@@ -67,7 +67,7 @@ SIGNATURES = {
     "bs_probe_copy": (P, P, I, I, P),
     "bs_probe_empty": (P,),
     "bs_probe_touch": (P, P, P),
-    "bs_jpeg_decode": (P, P, P, P, P, P, P, P),
+    "bs_jpeg_decode": (P, P, P, P, P, P, P),
 }
 
 

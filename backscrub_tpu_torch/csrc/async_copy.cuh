@@ -1,4 +1,4 @@
-// cp.async (sm_80+) helpers of the GEMM tile (gemm_tc.cuh) and the
+// cp.async (sm_80+) helpers of the GEMM tile (gemm_wg.cuh) and the
 // persistent body kernel (body_mega.cu).
 #pragma once
 

@@ -1,4 +1,4 @@
-// The fused activations of the body kernels (body_mega.cu, gemm_tc.cuh,
+// The fused activations of the body kernels (body_mega.cu, gemm_wg.cuh,
 // body_flat.cu).
 #pragma once
 

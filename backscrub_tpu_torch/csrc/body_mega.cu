@@ -3,9 +3,8 @@
 // backscrub_tpu_torch/ops/megakernel.py:MegaTable compiles once per plan.
 // It runs K2, the segm body's full span, and the deeplab body's two spans:
 // K2', the prefix at 129x129 and 65x65, and K2'', the flat continuation at
-// 33x33 (its 1x1 convs as the bf16x3 tensor-core GEMM of gemm_tc.cuh, or
-// at "highest" the six-term split and in the bf16 mode one bf16 pass, both
-// on gemm_wg.cuh's wgmma tile).
+// 33x33 (its 1x1 convs as gemm_wg.cuh's wgmma tile: the bf16x3 split, at
+// "highest" the six-term split, in the bf16 mode one bf16 pass).
 //
 // Replaces the TPU kernel backscrub_tpu/ops/megakernel.py:BodyMega in its
 // full-span mode (body_mega_for; plan interpreter _run_plan), its prefix
@@ -44,11 +43,10 @@
 //
 // Work in a phase: the flat continuation's spatial 1x1 convs as OP_GEMM
 // tiles on the tensor cores, the tile per op so that the phase is one round
-// over the SMs (bf16x3, the reference's HIGH split: mma.sync tiles of
-// 128x64 to 16x32 outputs, a 3-deep ring of 16-byte cp.async.cg loads,
-// gemm_tc.cuh; six terms, the TPU's HIGHEST, at "highest", and one in the
-// bf16 mode: wgmma tiles of 16-80 output channels by 64 positions, the
-// weights by bulk copy, gemm_wg.cuh);
+// over the SMs (wgmma tiles of 16-80 output channels by 64 positions, x by
+// 16-byte cp.async.cg and the weights by bulk copy, gemm_wg.cuh: bf16x3,
+// the reference's HIGH split; six terms, the TPU's HIGHEST, at "highest";
+// one in the bf16 mode);
 // the other 1x1 convs (segm's, the deeplab prefix's) as output tiles of 256
 // to 32 outputs, sized per op so that the phase's tiles spread over the
 // SMs, with K split over the CTA's thread groups (W and X for up to 320 of
@@ -99,7 +97,6 @@
 
 #include "async_copy.cuh"
 #include "body_act.cuh"
-#include "gemm_tc.cuh"
 #include "gemm_wg.cuh"
 #include "launch.cuh"
 
@@ -115,7 +112,7 @@ enum Field {
   F_CODE, F_SYNC, F_ACT, F_ACT2, F_IN, F_OUT, F_AUX, F_W, F_B,
   F_C, F_CO, F_H, F_WD, F_OH, F_OW, F_FH, F_FW, F_S, F_D, F_PH, F_PW, F_BAND,
   F_N, F_ELT, F_BVEC, F_GATE, F_RES, F_PACT, F_PINV, F_HID, F_W1, F_B1, F_ACT1,
-  F_W2, F_B2, F_ACTG, F_POOL, F_POUT, F_TM, F_TN, F_CPI, F_KP, F_TILE, F_BN, DESC = 48
+  F_W2, F_B2, F_ACTG, F_POOL, F_POUT, F_TM, F_TN, F_CPI, F_TILE, F_BN, DESC = 48
 };
 // op codes (megakernel.py:MEGA_CODES)
 enum Code { OP_CONV = 1, OP_FC, OP_DW, OP_GPOOL, OP_ELT, OP_RESIZE, OP_COPY, OP_GEMM, OP_CONVW };
@@ -357,35 +354,12 @@ __device__ void convw_op(const Args& a, const int* d, float* sm) {
 
 // the flat continuation's spatial 1x1 conv on the tensor cores: y =
 // act2(act(W x + b) + r) with x (ci, L) from the workspace and r the
-// optional residual.  The bf16x3 split (TERMS = 3) runs gemm_tc.cuh's
-// mma.sync tile: W split into bf16 hi/lo on the host (the arena holds W_hi
-// at F_W and W_lo at F_W1, (co, F_KP) bf16 each), one tile of
-// megakernel.py:_MEGA_GEMM_TILES (F_TILE) at a time.  The bf16 mode's one
-// term (TERMS = 1) and the six terms of "highest" (TERMS = 6) run
-// gemm_wg.cuh's wgmma tile: F_W holds W's pieces (hi; hi, lo, lo2) laid out
-// for it (megakernel.py:lay_wgmma), F_TILE its width
-// (megakernel.py:_WG_TILES).  The CTA's 256 threads run one tile at a
-// time, the tiles of the op spread over the grid.
-template <int BM, int BN, int WARPS_M, int WARPS_N, int KG>
-__device__ void gemm_tiles(const Args& a, const int* d, unsigned char* sm) {
-  using T = gemm_tc::Tile<BM, BN, WARPS_M, WARPS_N, KG>;
-  static_assert(T::NT == NT, "a table GEMM tile takes the whole CTA");
-  const int M = d[F_CO], K = d[F_C], N = d[F_N], Kp = d[F_KP];
-  const int tn = (N + BN - 1) / BN, tiles = ((M + BM - 1) / BM) * tn;
-  const auto* whi = reinterpret_cast<const __nv_bfloat16*>(a.ar + d[F_W]);
-  const auto* wlo = reinterpret_cast<const __nv_bfloat16*>(a.ar + d[F_W1]);
-  for (int it = blockIdx.x; it < a.n * tiles; it += gridDim.x) {
-    const int img = a.img(it, tiles), tile = it - img * tiles;
-    const Args ai = a.at(img);
-    const gemm_tc::Epilogue ep{ai.ar + d[F_B], d[F_ACT],
-                               d[F_RES] ? operand(ai, d[F_AUX]) : nullptr, d[F_ACT2],
-                               ai.ws + d[F_OUT], nullptr};
-    T::run(sm, whi, wlo, operand(ai, d[F_IN]), M, Kp, N, (tile / tn) * BM, (tile % tn) * BN,
-           0, Kp, K, ep);
-    __syncthreads();   // the next tile refills the ring
-  }
-}
-
+// optional residual, on gemm_wg.cuh's wgmma tile at TERMS 1 (the bf16
+// mode), 3 (the bf16x3 split) or 6 (the six-term split of "highest"): F_W
+// holds W's pieces (hi; hi, lo; hi, lo, lo2) laid out for it
+// (megakernel.py:lay_wgmma), F_TILE its width (megakernel.py:_WG_TILES).
+// The CTA's 256 threads run one tile at a time, the tiles of the op spread
+// over the grid.
 template <int BN, int TERMS>
 __device__ void gemm_wg_tiles(const Args& a, const int* d, unsigned char* sm) {
   using T = gemm_wg::Tile<BN, TERMS>;
@@ -396,7 +370,7 @@ __device__ void gemm_wg_tiles(const Args& a, const int* d, unsigned char* sm) {
   for (int it = blockIdx.x; it < a.n * tiles; it += gridDim.x) {
     const int img = a.img(it, tiles), tile = it - img * tiles;
     const Args ai = a.at(img);
-    const gemm_tc::Epilogue ep{ai.ar + d[F_B], d[F_ACT],
+    const gemm_wg::Epilogue ep{ai.ar + d[F_B], d[F_ACT],
                                d[F_RES] ? operand(ai, d[F_AUX]) : nullptr, d[F_ACT2],
                                ai.ws + d[F_OUT], nullptr};
     T::run(sm, w, operand(ai, d[F_IN]), M, N, nks, tile / tn, (tile % tn) * gemm_wg::BM, 0,
@@ -408,24 +382,13 @@ __device__ void gemm_wg_tiles(const Args& a, const int* d, unsigned char* sm) {
 template <int TERMS>
 __device__ void gemm_op(const Args& a, const int* d, float* sm) {
   unsigned char* s = reinterpret_cast<unsigned char*>(sm);
-  if constexpr (TERMS == 3) {
-    switch (d[F_TILE]) {
-      case 0: gemm_tiles<128, 64, 4, 2, 1>(a, d, s); break;
-      case 1: gemm_tiles<64, 64, 2, 2, 2>(a, d, s); break;
-      case 2: gemm_tiles<32, 64, 2, 2, 2>(a, d, s); break;
-      case 3: gemm_tiles<32, 32, 2, 2, 2>(a, d, s); break;
-      case 4: gemm_tiles<16, 32, 1, 4, 2>(a, d, s); break;
-      default: break;
-    }
-  } else {
-    switch (d[F_TILE]) {
-      case 0: gemm_wg_tiles<16, TERMS>(a, d, s); break;
-      case 1: gemm_wg_tiles<32, TERMS>(a, d, s); break;
-      case 2: gemm_wg_tiles<48, TERMS>(a, d, s); break;
-      case 3: gemm_wg_tiles<64, TERMS>(a, d, s); break;
-      case 4: gemm_wg_tiles<80, TERMS>(a, d, s); break;
-      default: break;
-    }
+  switch (d[F_TILE]) {
+    case 0: gemm_wg_tiles<16, TERMS>(a, d, s); break;
+    case 1: gemm_wg_tiles<32, TERMS>(a, d, s); break;
+    case 2: gemm_wg_tiles<48, TERMS>(a, d, s); break;
+    case 3: gemm_wg_tiles<64, TERMS>(a, d, s); break;
+    case 4: gemm_wg_tiles<80, TERMS>(a, d, s); break;
+    default: break;
   }
 }
 

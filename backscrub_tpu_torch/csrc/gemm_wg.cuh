@@ -1,40 +1,44 @@
-// The wgmma GEMM tile of the flat continuation (K2'') at one term and at
-// six, for Hopper (sm_90a): the persistent kernel's OP_GEMM in its bf16
-// table (body_mega_kernel<1, 1>) and its "highest" table (<0, 6>), and the
-// standalone bs_gemm (body_flat.cu, the per-shape probe) at terms=1 and 6.
-// The three-term split stays on gemm_tc.cuh's mma.sync tile.
+// The GEMM tile of the flat continuation (K2'') for Hopper (sm_90a), on
+// wgmma, at all three of its term counts: the persistent kernel's OP_GEMM
+// in its bf16 table (body_mega_kernel<1, 1>), its "high" table (<0, 3>,
+// deeplab's and BodyPix's default) and its "highest" table (<0, 6>), and
+// the standalone bs_gemm (body_flat.cu, the per-shape probe).
 //
 // Replaces the MXU dots of the TPU kernel backscrub_tpu/ops/megakernel.py:
 // BodyMega in its flat mode (:660, body_mega_continuation_for), the 1x1
 // convs' dot_general at megakernel.py:501-518: DEFAULT (TERMS = 1, the
-// bf16 mode: both operands rounded to bf16, the products summed in f32) and
-// HIGHEST (TERMS = 6, "highest": both operands in three bf16 pieces, a =
-// a0 + a1 + a2 with a1 = bf16_rn(a - a0), a2 = bf16_rn(a - a0 - a1), and
-// the six products a_i.w_j with i + j <= 2 in three f32 accumulators, a0.w0
-// in the first, a0.w1 + a1.w0 in the second, a0.w2 + a1.w1 + a2.w0 in the
-// third, added as first + (second + third)).
+// bf16 mode: both operands rounded to bf16, the products summed in f32),
+// HIGH (TERMS = 3, the reference's split at :501-515: both operands as hi
+// + lo with hi = bf16_rn(a), lo = bf16_rn(a - hi); hi.hi in a first f32
+// accumulator, hi.lo + lo.hi in a second, added as first + second; lo.lo
+// dropped) and HIGHEST (TERMS = 6, "highest": both operands in three bf16
+// pieces, a = a0 + a1 + a2 with a1 = bf16_rn(a - a0), a2 = bf16_rn(a - a0 -
+// a1), and the six products a_i.w_j with i + j <= 2 in three f32
+// accumulators, a0.w0 in the first, a0.w1 + a1.w0 in the second, a0.w2 +
+// a1.w1 + a2.w0 in the third, added as first + (second + third)).
 //
 // Bound.  The deeplab frame's 29 GEMMs (co 16-480, ci 16-512, L = 33 x 33
 // = 1089) are small: at the ASPP projection (256 x 512 by 512 x 1089) six
-// terms need 1.73 us of the card's bf16 rate and one term 1.08 us of its
-// bytes, while the mma.sync tile took 24.2 and 15.3 us, bound by its loads:
-// every warp built its B fragments from the f32 x slice with scalar shared
-// loads and split them again (each x value split once a warp row: four times
-// in the 128 x 64 tile), its A fragments came in 32-bit shared loads (twelve
-// a fragment at six terms), and every thread issued the weights' 16-byte
-// cp.asyncs with its own address arithmetic.
+// terms need 1.73 us of the card's bf16 rate, three 1.16 us of its bytes
+// and one term 1.08 us, while the mma.sync tile this replaced took 24.2,
+// 17.9 and 15.3 us, bound by its loads: every warp built its B fragments
+// from the f32 x slice with scalar shared loads and split them again (each
+// x value split once a warp row: four times in the 128 x 64 tile), its A
+// fragments came in 32-bit shared loads (four a fragment at three terms,
+// twelve at six), and every thread issued the weights' 16-byte cp.asyncs
+// with its own address arithmetic.
 //
 // The design.  The product runs transposed, Y^T = X^T W^T, as
 // wgmma.m64nBNk16 (wgmma.cuh): M = 64 positions of L a CTA tile, N = BN
 // output channels (16-80, picked per op so that the phase is one round over
 // the SMs: ops/megakernel.py:_wg_tile), K = 16 a step.
 // - A = X^T from registers: each thread reads its fragment of the f32 x
-//   slice once from shared memory and splits it there (1 or 3 pieces), so
-//   every x value is split once a CTA tile.  x comes in by 16-byte
-//   cp.async.cg as before (gemm_tc.cuh): each row of a slice aligned down to
-//   16 bytes, XS = 68 floats wide, read at its shift, since an x row of
-//   1089 floats is not 16-byte aligned (nor its stride, which rules out a
-//   TMA tensor map).
+//   slice once from shared memory and splits it there (1, 2 or 3 pieces),
+//   so every x value is split once a CTA tile.  x comes in by 16-byte
+//   cp.async.cg: each row of a slice aligned down to 16 bytes, XS = 68
+//   floats wide, read at its shift, since an x row of 1089 floats is not
+//   16-byte aligned (nor its stride, which rules out a TMA tensor map).
+//   Bytes past a row's end and rows past K load as zeros.
 // - B = W^T from shared memory, K-major, no swizzle: the weight pieces are
 //   static, so the host lays them out once (MegaTable's arena; bs_gemm's
 //   wrapper) in exactly the layout the descriptor reads, a ring stage's
@@ -46,10 +50,10 @@
 //   128 contiguous bytes, which wgmma reads without bank conflicts, so the
 //   layout takes no swizzle.
 // - The CTA is two warpgroups, each taking every other k16 step of a
-//   64-deep slice (KG = 2, as gemm_tc.cuh's smaller tiles); after the last
-//   slice warpgroup 1 hands its accumulators to warpgroup 0 through shared
-//   memory, which adds them accumulator by accumulator in a fixed order, so
-//   two runs give the same bits.
+//   64-deep slice (KG = 2); after the last slice warpgroup 1 hands its
+//   accumulators to warpgroup 0 through shared memory, which adds them
+//   accumulator by accumulator in a fixed order, so two runs give the same
+//   bits.
 // - A ring of 3 slices: at slice i the loads of slice i + 2 go out (into
 //   the stage of slice i - 1, whose products both warpgroups have retired),
 //   then slice i's fragments are split and its wgmmas issued, and
@@ -61,8 +65,9 @@
 //   slices in registers, and 64-deep ones with the A pieces in shared memory
 //   (wgmma with both operands there, a warpgroup barrier and a proxy fence a
 //   slice) whose products ran under the next slice's split.
-// - The epilogue (bias, activation, residual or a split-K partial) is
-//   gemm_tc.cuh's, through a BN x 64 tile in the ring.
+// - The epilogue (bias, activation, residual or a split-K partial) goes
+//   through a BN x 64 tile in the ring, each thread's loads of a group
+//   issued before its first store.
 //
 // What bounds it now: the chain of slices, each its loads' wait, a CTA
 // barrier, the split and the products in turn.  tools/gemm_ablation.py
@@ -71,10 +76,11 @@
 //
 // Shared memory a CTA (SMEM_BYTES): 3 x (W block + x slice) + 128 of
 // alignment + the mbarriers; at one term 58,520 (BN 16) to 83,096 (BN 80),
-// at six 70,808 (BN 16) to 144,536 (BN 80) (ops/megakernel.py:
-// _wg_smem_bytes, which the tests hold to the 232,448 a CTA may have).
-// Registers: BN / 2 f32 an accumulator a thread (three at six terms: 120 at
-// BN 80) and a slice's A fragments (8 or 24).
+// at three 64,664 to 113,816, at six 70,808 to 144,536
+// (ops/megakernel.py:_wg_smem_bytes, which the tests hold to the 232,448 a
+// CTA may have).  Registers: BN / 2 f32 an accumulator a thread (two at
+// three terms, three at six: 120 at BN 80) and a slice's A fragments (8,
+// 16 or 24).
 
 #pragma once
 
@@ -84,7 +90,6 @@
 
 #include "async_copy.cuh"
 #include "body_act.cuh"
-#include "gemm_tc.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -99,30 +104,25 @@ constexpr int XCH = BM / 4 + 1;   // its 16-byte chunks a row
 constexpr int NT = 256;           // two warpgroups
 constexpr int LBO = 128, SBO = BK / 8 * 128;   // the W block's core-matrix strides
 
-// two f32 values (k, k+1) rounded to a packed bf16 pair (the one-term A
-// fragment)
-__device__ __forceinline__ uint32_t round2(float v0, float v1) {
-  return gemm_tc::pack2(__float2bfloat16_rn(v0), __float2bfloat16_rn(v1));
-}
-
-// the six-term split of two f32 values (k, k+1) into three packed bf16
-// pairs: hi, lo = bf16_rn(v - hi), lo2 = bf16_rn(v - hi - lo)
-__device__ __forceinline__ void split3(float v0, float v1, uint32_t& hi, uint32_t& lo,
-                                       uint32_t& lo2) {
-  __nv_bfloat16 h0 = __float2bfloat16_rn(v0), h1 = __float2bfloat16_rn(v1);
-  const float r0 = v0 - __bfloat162float(h0), r1 = v1 - __bfloat162float(h1);
-  __nv_bfloat16 l0 = __float2bfloat16_rn(r0), l1 = __float2bfloat16_rn(r1);
-  hi = gemm_tc::pack2(h0, h1);
-  lo = gemm_tc::pack2(l0, l1);
-  lo2 = gemm_tc::pack2(__float2bfloat16_rn(r0 - __bfloat162float(l0)),
-                       __float2bfloat16_rn(r1 - __bfloat162float(l1)));
-}
+// What a tile does with its sums v: with ``part``, part[m, n] = v (a
+// split-K partial); else y[m, n] = act(v + b[m]), then with ``r`` y =
+// act2(y + r[m, n]) (a residual, read through L2).  y, r and part are (M,
+// N) row-major.
+struct Epilogue {
+  const float* b;
+  int act;
+  const float* r;
+  int act2;
+  float* y;
+  float* part;
+};
 
 template <int BN, int TERMS>
 struct Tile {
-  static_assert(TERMS == 1 || TERMS == 6, "one bf16 pass or the six-term split");
+  static_assert(TERMS == 1 || TERMS == 3 || TERMS == 6,
+                "one bf16 pass, the HIGH split or the six-term split");
   static_assert(BN % 16 == 0 && BN >= 16 && BN <= 80, "a wgmma N of gemm_wg's");
-  static constexpr int P = TERMS == 6 ? 3 : 1;          // W pieces = accumulators
+  static constexpr int P = TERMS == 6 ? 3 : TERMS == 3 ? 2 : 1;   // W pieces = accumulators
   static constexpr int NA = BN / 2;                     // f32 an accumulator a thread
   static constexpr int WBLK = P * BN * BK * 2;          // bytes of a stage's W block
   static constexpr int XSL = BK * XS * 4;               // bytes of a stage's x slice
@@ -138,7 +138,7 @@ struct Tile {
   // invalidated, and the ring may be reused after a __syncthreads().
   __device__ static void run(unsigned char* smem, const __nv_bfloat16* wblk, const float* x,
                              int M, int N, int nks, int ct, int n0, int s0, int s1, int kend_x,
-                             const gemm_tc::Epilogue& ep) {
+                             const Epilogue& ep) {
     unsigned char* base = smem + ((0u - smem_u32(smem)) & 127u);   // 128-byte aligned
     unsigned char* sw = base;                                        // [STAGES][WBLK]
     float* sx = reinterpret_cast<float*>(base + STAGES * WBLK);      // [STAGES][BK][XS]
@@ -207,9 +207,11 @@ struct Tile {
           const float* r0 = xs + k * XS + ((xw + (unsigned)(gk0 + k) * nm) & 3u);
           const float* r1 = xs + (k + 1) * XS + ((xw + (unsigned)(gk0 + k + 1) * nm) & 3u);
           if constexpr (TERMS == 6)
-            split3(r0[m], r1[m], af[h][0][q], af[h][1][q], af[h][2][q]);
+            wg::split3(r0[m], r1[m], af[h][0][q], af[h][1][q], af[h][2][q]);
+          else if constexpr (TERMS == 3)
+            wg::split2(r0[m], r1[m], af[h][0][q], af[h][1][q]);
           else
-            af[h][0][q] = round2(r0[m], r1[m]);
+            af[h][0][q] = wg::round2(r0[m], r1[m]);
         }
       }
 #pragma unroll
@@ -220,14 +222,16 @@ struct Tile {
         // a k16 step is two core matrices of K on: 256 bytes
         const unsigned char* wb = sw + st * WBLK + (2 * h + grp) * 256;
         // accumulator p takes the products a_i.w_j with i + j = p, i ascending
+        constexpr int PB = BN * BK * 2;                     // a piece's bytes in the block
         wg::mma<BN>(acc[0], af[h][0], wg::smem_desc(wb, LBO, SBO));
+        if constexpr (TERMS >= 3) {
+          wg::mma<BN>(acc[1 % P], af[h][0], wg::smem_desc(wb + PB, LBO, SBO));
+          wg::mma<BN>(acc[1 % P], af[h][1 % P], wg::smem_desc(wb, LBO, SBO));
+        }
         if constexpr (TERMS == 6) {
-          constexpr int PB = BN * BK * 2;                   // a piece's bytes in the block
-          wg::mma<BN>(acc[1], af[h][0], wg::smem_desc(wb + PB, LBO, SBO));
-          wg::mma<BN>(acc[1], af[h][1], wg::smem_desc(wb, LBO, SBO));
-          wg::mma<BN>(acc[2], af[h][0], wg::smem_desc(wb + 2 * PB, LBO, SBO));
-          wg::mma<BN>(acc[2], af[h][1], wg::smem_desc(wb + PB, LBO, SBO));
-          wg::mma<BN>(acc[2], af[h][2], wg::smem_desc(wb, LBO, SBO));
+          wg::mma<BN>(acc[2 % P], af[h][0], wg::smem_desc(wb + 2 * PB, LBO, SBO));
+          wg::mma<BN>(acc[2 % P], af[h][1 % P], wg::smem_desc(wb + PB, LBO, SBO));
+          wg::mma<BN>(acc[2 % P], af[h][2 % P], wg::smem_desc(wb, LBO, SBO));
         }
       }
       wg::commit();
@@ -266,7 +270,8 @@ struct Tile {
     }
     __syncthreads();
 
-    // the epilogue: v = first (+ (second + third)) into a BN x 64 tile in
+    // the epilogue: v = first (+ second, or + (second + third)) into a BN x
+    // 64 tile in
     // the ring, tile[o][m], then every thread takes PER of its elements row
     // by row (a warp on consecutive positions), GROUP at a time with their
     // bias and residual loads issued before the group's first store (a
@@ -278,8 +283,9 @@ struct Tile {
 #pragma unroll
       for (int i = 0; i < NA; ++i) {
         const int m = 16 * w + g + 8 * ((i >> 1) & 1), o = (i >> 2) * 8 + 2 * t + (i & 1);
-        tile[o * TS + m] = TERMS == 6 ? acc[0][i] + (acc[1 % P][i] + acc[2 % P][i])
-                                      : acc[0][i];
+        tile[o * TS + m] = TERMS == 6   ? acc[0][i] + (acc[1 % P][i] + acc[2 % P][i])
+                           : TERMS == 3 ? acc[0][i] + acc[1 % P][i]
+                                        : acc[0][i];
       }
     }
     __syncthreads();

@@ -34,7 +34,7 @@
 // taps in the original's order (di outer, dj inner, from 0), each weight the
 // f32 rounding of the double 0.1 + di + 2 dj; P5-P7 copy.  P3 runs DEFAULT
 // as one bf16 wgmma pass (f32 accumulate), HIGH as the bf16x3 split of
-// gemm_tc.cuh (K2''s GEMM), HIGHEST as f32 FFMA; P4 sums each row,
+// K2''s GEMM (wgmma.cuh's split2), HIGHEST as f32 FFMA; P4 sums each row,
 // divides by N (jnp.mean), and gates with 1 / (1 + expf(-z)).
 
 #include <cooperative_groups.h>
@@ -46,7 +46,6 @@
 #include <type_traits>
 
 #include "async_copy.cuh"
-#include "gemm_tc.cuh"
 #include "launch.cuh"
 #include "wgmma.cuh"
 
@@ -217,7 +216,7 @@ dw9_scalar_kernel(const float* __restrict__ x, float* __restrict__ out, int c, i
 // B = W^T from shared memory, W split once a CTA into hi and lo in the
 // no-swizzle K-major core-matrix layout (W (o, k) row-major is already
 // K-major for W^T).  DEFAULT is hi.hi; HIGH adds lo.hi + hi.lo from a
-// second accumulator, then acc + cor as gemm_tc.cuh does.  HIGHEST is f32
+// second accumulator, then acc + cor as gemm_wg.cuh does.  HIGHEST is f32
 // FFMA on the same staged tile: a thread 4 consecutive columns of 2 rows,
 // k ascending.
 
@@ -293,7 +292,7 @@ dot_kernel(const float* __restrict__ w, const float* __restrict__ x, float* __re
   if constexpr (MODE < 2) {
     const int o = tid >> 3, k = (tid & 7) * 2;     // a pair (k, k + 1) a thread
     uint32_t hi, lo;
-    gemm_tc::split2(__ldg(w + o * 16 + k), __ldg(w + o * 16 + k + 1), hi, lo);
+    wg::split2(__ldg(w + o * 16 + k), __ldg(w + o * 16 + k + 1), hi, lo);
     *reinterpret_cast<uint32_t*>(bw[0] + b_offset(o, k)) = hi;
     if (MODE == 1) *reinterpret_cast<uint32_t*>(bw[1] + b_offset(o, k)) = lo;
     wg::fence_proxy_async();                       // visible to wgmma
@@ -312,7 +311,7 @@ dot_kernel(const float* __restrict__ w, const float* __restrict__ x, float* __re
 #pragma unroll
       for (int q = 0; q < 4; ++q) {                // A[m][k], A[m][k + 1] = xs[k][m], xs[k + 1][m]
         const int m = m0 + (q & 1) * 8, k = 2 * t + (q >> 1) * 8;
-        gemm_tc::split2(xs[k * XS + m], xs[(k + 1) * XS + m], ah[q], al[q]);
+        wg::split2(xs[k * XS + m], xs[(k + 1) * XS + m], ah[q], al[q]);
       }
       float acc[8] = {}, cor[8] = {};
       wg::reg_fence(acc);

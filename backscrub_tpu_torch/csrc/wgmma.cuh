@@ -1,6 +1,6 @@
-// Hopper's warpgroup product (wgmma) and bulk copy (cp.async.bulk on an
-// mbarrier), shared by P3 (probes.cu: dot_kernel) and the wgmma GEMM tile
-// of K2'' (gemm_wg.cuh).  sm_90a only.
+// Hopper's warpgroup product (wgmma), bulk copy (cp.async.bulk on an
+// mbarrier) and the bf16 splits of its A operand, shared by P3 (probes.cu:
+// dot_kernel) and the wgmma GEMM tile of K2'' (gemm_wg.cuh).  sm_90a only.
 //
 // wgmma here is always m64nNk16 bf16 x bf16 -> f32 with A (64 x 16) from
 // registers and B (16 x N) from shared memory in the no-swizzle K-major
@@ -14,6 +14,7 @@
 // (q & 1)].
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -21,6 +22,41 @@
 
 namespace {
 namespace wg {
+
+// -- A fragments: two f32 values (k, k + 1) as packed bf16 pairs ---------------
+
+__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 v0, __nv_bfloat16 v1) {
+  return (uint32_t)__bfloat16_as_ushort(v0) | ((uint32_t)__bfloat16_as_ushort(v1) << 16);
+}
+
+// rounded to bf16 (one term)
+__device__ __forceinline__ uint32_t round2(float v0, float v1) {
+  return pack2(__float2bfloat16_rn(v0), __float2bfloat16_rn(v1));
+}
+
+// the reference's HIGH split (three terms): hi = bf16_rn(v), lo =
+// bf16_rn(v - hi)
+__device__ __forceinline__ void split2(float v0, float v1, uint32_t& hi, uint32_t& lo) {
+  __nv_bfloat16 h0 = __float2bfloat16_rn(v0), h1 = __float2bfloat16_rn(v1);
+  __nv_bfloat16 l0 = __float2bfloat16_rn(v0 - __bfloat162float(h0));
+  __nv_bfloat16 l1 = __float2bfloat16_rn(v1 - __bfloat162float(h1));
+  hi = pack2(h0, h1);
+  lo = pack2(l0, l1);
+}
+
+// the six-term split: hi, lo = bf16_rn(v - hi), lo2 = bf16_rn(v - hi - lo)
+__device__ __forceinline__ void split3(float v0, float v1, uint32_t& hi, uint32_t& lo,
+                                       uint32_t& lo2) {
+  __nv_bfloat16 h0 = __float2bfloat16_rn(v0), h1 = __float2bfloat16_rn(v1);
+  const float r0 = v0 - __bfloat162float(h0), r1 = v1 - __bfloat162float(h1);
+  __nv_bfloat16 l0 = __float2bfloat16_rn(r0), l1 = __float2bfloat16_rn(r1);
+  hi = pack2(h0, h1);
+  lo = pack2(l0, l1);
+  lo2 = pack2(__float2bfloat16_rn(r0 - __bfloat162float(l0)),
+              __float2bfloat16_rn(r1 - __bfloat162float(l1)));
+}
+
+// -- the product ------------------------------------------------------------------
 
 // the descriptor of a no-swizzle tile at ``p``: start address, LBO and SBO,
 // each in 16-byte units; base offset 0, layout type 0 (no swizzle) in bits

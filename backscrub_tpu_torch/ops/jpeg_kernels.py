@@ -5,8 +5,9 @@ No ``pallas_call`` stands behind it: in the JAX package the decode
 fuses into the frame program.  :func:`decode_jpeg_bgr` runs the plain
 version (``pipeline/jpeg.py:decode_jpeg_bgr``, here
 ``decode_jpeg_bgr_plain``) on CPU tensors and on CUDA tensors launches the
-kernel's one call of two kernels (dequantize + IDCT into sample planes,
-then upsample + colour), counting calls in ``decode_jpeg_bgr.launches``.
+kernel once (``jpeg_decode_kernel``: a CTA a tile of MCUs, dequantize +
+IDCT of its blocks and its chroma halo into shared memory, then upsample +
+colour from there), counting launches in ``decode_jpeg_bgr.launches``.
 Kernel and plain version are byte-identical: integer math throughout.
 """
 
@@ -21,11 +22,6 @@ from .. import _build
 from ..io.jpeg import JpegInfo
 from ..pipeline.jpeg import decode_jpeg_bgr as decode_jpeg_bgr_plain
 from ..pipeline.jpeg import upsample_method
-
-
-def plane_bytes(info: JpegInfo) -> int:
-    """The kernel's scratch: one u8 sample a coefficient of every block."""
-    return sum(bh * bw * 64 for bh, bw in info.blocks)
 
 
 def decode_jpeg_bgr(coefs: Sequence[torch.Tensor], qtabs: torch.Tensor,
@@ -43,16 +39,14 @@ def decode_jpeg_bgr(coefs: Sequence[torch.Tensor], qtabs: torch.Tensor,
         upsample_method(*info.sampling[c], hmax, vmax)  # raises on a ratio it lacks
         _build.check_cuda(coefs[c], f"coefficients {c}", torch.int16, info.blocks[c] + (64,))
     _build.check_cuda(qtabs, "quant tables", torch.int32, (info.ncomp, 64))
-    dev = coefs[0].device
-    planes = torch.empty(plane_bytes(info), dtype=torch.uint8, device=dev)
-    out = torch.empty((info.height, info.width, 3), dtype=torch.uint8, device=dev)
+    out = torch.empty((info.height, info.width, 3), dtype=torch.uint8, device=coefs[0].device)
     geom = [info.height, info.width, info.ncomp]
     for c in range(3):
         geom += ([*info.sampling[c], *info.blocks[c]] if c < info.ncomp else [0, 0, 0, 0])
     geom = (ctypes.c_int32 * 15)(*geom)
     ptrs = [coefs[c].data_ptr() if c < info.ncomp else None for c in range(3)]
-    _build.launch("bs_jpeg_decode", *ptrs, qtabs.data_ptr(), planes.data_ptr(),
-                  out.data_ptr(), ctypes.addressof(geom))
+    _build.launch("bs_jpeg_decode", *ptrs, qtabs.data_ptr(), out.data_ptr(),
+                  ctypes.addressof(geom))
     decode_jpeg_bgr.launches += 1
     return out
 

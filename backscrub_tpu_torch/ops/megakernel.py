@@ -21,10 +21,9 @@ for the whole batch
 (``bs_body_mega``, walking the :class:`MegaTable` that ``body_plan_for``,
 ``body_plan_prefix_for`` and ``body_plan_continuation_for`` compile); the
 flat plan's spatial 1x1 convs run in it as the tensor-core GEMM, whose
-standalone probe is :func:`conv1x1_gemm`: the bf16x3 split on the mma.sync
-tile (``csrc/gemm_tc.cuh``), one term (the bf16 mode) and six ("highest")
-on the wgmma tile (``csrc/gemm_wg.cuh``, its weights laid out by
-:func:`lay_wgmma`).
+standalone probe is :func:`conv1x1_gemm`: the wgmma tile
+(``csrc/gemm_wg.cuh``, its weights laid out by :func:`lay_wgmma`) at three
+terms (the bf16x3 split), one (the bf16 mode) or six ("highest").
 Launches are counted in ``body_launch.launches``, ``body_launch.by_kernel``
 and the plan's own ``launches``; the table ops they ran, by kind, in
 ``body_launch.table_ops``.
@@ -72,8 +71,8 @@ class Unsupported(Exception):
 # plans' dot modes, each with (the kernel's instantiation it runs, its GEMM
 # tile's terms, the bf16 pieces of W those terms read): csrc/body_mega.cu
 # bs_body_mega's ``dots`` (0 = f32 FFMA dots and bf16x3 GEMMs, 1 = bf16, 2 =
-# f32 FFMA dots and bf16x6 GEMMs), the GEMM's terms (3: gemm_tc.cuh; 1 and
-# 6: gemm_wg.cuh's TERMS), and hi; hi, lo; hi, lo, lo2
+# f32 FFMA dots and bf16x6 GEMMs), the GEMM's terms (gemm_wg.cuh's TERMS),
+# and hi; hi, lo; hi, lo, lo2
 PRECISIONS = ("highest", "high", "default")
 DOT_MODES = {"f32": (0, 3, 2), "bf16x3": (0, 3, 2), "bf16": (1, 1, 1), "bf16x6": (2, 6, 3)}
 DOTS = tuple(DOT_MODES)
@@ -142,7 +141,7 @@ MEGA_FIELDS = ("code", "sync", "act", "act2", "in", "out", "aux", "w", "b",
                "c", "co", "h", "wd", "oh", "ow", "fh", "fw", "s", "d", "ph", "pw",
                "band", "n", "elt", "bvec", "gate", "res", "pact", "pinv", "hid",
                "w1", "b1", "act1", "w2", "b2", "actg", "pool", "pout", "tm", "tn", "cpi",
-               "kp", "tile", "bn")
+               "tile", "bn")
 MEGA_DESC = 48
 MEGA_CODES = {"conv": 1, "fc": 2, "dw": 3, "gpool": 4, "elt": 5, "resize": 6, "copy": 7,
               "gemm": 8, "convw": 9}
@@ -164,27 +163,13 @@ _MEGA_CTAS, _SE_CONV_CTAS = 132, 48
 _CONVW_MIN_COLS = 32
 _SE_W_FLOATS = 48 * 1024           # both SE FCs' weights, staged in shared memory
 
-# the three-term table GEMM's CTA tiles (csrc/body_mega.cu:gemm_op's
-# ``F_TILE``, 256 threads each) and its ring (csrc/gemm_tc.cuh: 3 stages of
-# 32 of K, W hi and lo bf16 rows of 40, x rows of BN + 4 floats); a card's
-# shared memory a CTA (the H100's 227 KB)
-_MEGA_GEMM_TILES = ((128, 64), (64, 64), (32, 64), (32, 32), (16, 32))
+# a card's shared memory a CTA (the H100's 227 KB)
 _MAX_SMEM = 232448
 
-
-def _gemm_ring_bytes(bm: int, bn: int) -> int:
-    """The ring of a (bm, bn) tile: two W tiles (hi and lo) and one x slice
-    a stage."""
-    return 3 * (2 * bm * 40 * 2 + 32 * (bn + 4) * 4)
-
-
-# the standalone GEMM's CTA tiles (csrc/body_flat.cu, bs_gemm's ``tile``)
-_GEMM_TILES = ((64, 64), (32, 64), (32, 32), (16, 32))
-
-# the wgmma tile of one and six terms (csrc/gemm_wg.cuh): 64 positions (its
-# BM) by one of these widths of output channels (the table's and bs_gemm's
-# ``tile``), a ring of 3 stages of 64 of K (BK), each a W block of the
-# pieces laid out by lay_wgmma and an x slice of 64 rows of 68 floats
+# the GEMM's wgmma tile (csrc/gemm_wg.cuh): 64 positions (its BM) by one of
+# these widths of output channels (the table's and bs_gemm's ``tile``), a
+# ring of 3 stages of 64 of K (BK), each a W block of the pieces laid out
+# by lay_wgmma and an x slice of 64 rows of 68 floats
 _WG_TILES = (16, 32, 48, 64, 80)
 _WG_BM, _WG_BK, _WG_STAGES = 64, 64, 3
 
@@ -208,7 +193,7 @@ def _wg_tile(co: int, L: int, ctas: int = _MEGA_CTAS) -> int:
 
 
 def lay_wgmma(pieces, bn: int) -> torch.Tensor:
-    """W's bf16 ``pieces`` (1 or 3 of (co, ci or more) from
+    """W's bf16 ``pieces`` (1, 2 or 3 of (co, ci or more) from
     :func:`split_bf16`) as the wgmma tile of width ``bn`` reads them, 1-D
     bf16: for each tile of ``bn`` output channels and each K slice of
     _WG_BK, the slice's block [piece][bn / 8][_WG_BK / 8][8][8] (core
@@ -760,61 +745,42 @@ def split_bf16(w: torch.Tensor, pieces: int = 2) -> Tuple[torch.Tensor, ...]:
 
 
 def gemm_config(co: int, ci: int, L: int, sms: int, terms: int = 3) -> Tuple[int, int, int]:
-    """(tile, split, kchunk) of ``bs_gemm`` for a (co, ci) by (ci, L) GEMM
-    on a card with ``sms`` SMs.  Three terms: the largest tile of
-    ``_GEMM_TILES`` whose grid reaches 2 waves of the SMs for a deep K (ci
-    >= 256), 3 for a shallow one; else the smallest tile, a deep K split
-    into the fewest chunks of 16-multiples (``kchunk``) that reach 2 waves
-    (or 16-deep ones), a shallow K not split.  Fitted to
-    tools/sweep_gemm_tiles.py on the H100: small tiles at several CTAs an
-    SM beat large ones, and the split-K sum pass costs more than it saves
-    on a shallow K.  One and six terms: the table's wgmma tile
-    (:func:`_wg_tile`, one CTA an SM for one round), a deep K whose grid
-    leaves SMs idle split into the fewest chunks of whole K slices
-    (_WG_BK) that fill the most of them."""
-    kp = ci + (-ci % 8)
-    deep = kp >= 256
-    if terms != 3:
-        tile = _wg_tile(co, L, sms)
-        grid, slices = -(-co // _WG_TILES[tile]) * -(-L // _WG_BM), -(-ci // _WG_BK)
-        split = min(max(1, sms // grid), slices) if deep else 1
-        per = -(-slices // split)
-        return tile, -(-slices // per), _WG_BK * per
-    waves = (2 if deep else 3) * sms
-    for i, (bm, bn) in enumerate(_GEMM_TILES):
-        if -(-co // bm) * -(-L // bn) >= waves:
-            return i, 1, kp + (-kp % 16)
-    bm, bn = _GEMM_TILES[-1]
-    grid, slices = -(-co // bm) * -(-L // bn), -(-kp // 16)
-    if not deep:
-        return len(_GEMM_TILES) - 1, 1, 16 * slices
-    for s in range(1, slices + 1):
-        n16 = -(-slices // s)
-        split = -(-slices // n16)
-        if grid * split >= waves:
-            break
-    return len(_GEMM_TILES) - 1, split, 16 * n16
-
-
-def _gemm(launch, pieces, terms, b_ptr, x_ptr, y_ptr, co, ci, L, act, device) -> None:
-    """One ``bs_gemm`` launch of ``terms`` through ``launch`` over W's bf16
-    ``pieces`` (hi, lo for three terms; for one and six the laid-out block
-    of :func:`wgmma_weights`), with the split-K partials' buffer when the
-    shape's config splits K."""
-    tile, split, kchunk = gemm_config(co, ci, L, _build.sm_count(device), terms)
-    part = (torch.empty(split * co * L, dtype=torch.float32, device=device)
-            if split > 1 else None)
-    ptrs = [t.data_ptr() for t in pieces] + [None] * (3 - len(pieces))
-    kp = pieces[0].shape[1] if terms == 3 else 0
-    launch("bs_gemm", *ptrs, b_ptr, x_ptr, y_ptr, None if part is None else part.data_ptr(),
-           co, ci, kp, L, _ACT_CODES[act], tile, split, kchunk, terms)
+    """(tile, split, kchunk) of ``bs_gemm`` at ``terms`` for a (co, ci) by
+    (ci, L) GEMM on a card with ``sms`` SMs, on the wgmma tile: a shallow K
+    (ci < 256) at the table's width (:func:`_wg_tile`, one CTA an SM for
+    one round), not split.  A deep K at three terms: the width and split
+    (into 1, 2, 4 or 8 ranges of whole K slices of _WG_BK) whose CTAs fill
+    the most of one round, ties to the fewest slices a CTA, then the
+    narrower width; at one and six terms the table's width, split into the
+    fewest ranges that fill the most of the SMs left.  Fitted to
+    tools/sweep_gemm_tiles.py on the H100 at each term count."""
+    if terms not in GEMM_PIECES:
+        raise ValueError(f"terms must be 1, 3 or 6, got {terms}")
+    deep, slices = ci + (-ci % 8) >= 256, -(-ci // _WG_BK)
+    if deep and terms == 3:
+        best = None
+        for i, bn in enumerate(_WG_TILES):
+            grid = -(-co // bn) * -(-L // _WG_BM)
+            for want in (1, 2, 4, 8):
+                per = -(-slices // want)
+                split = -(-slices // per)
+                key = (grid * split, -per, -i)
+                if grid * split <= sms and (best is None or key > best[0]):
+                    best = key, (i, split, _WG_BK * per)
+        if best is not None:
+            return best[1]
+    tile = _wg_tile(co, L, sms)
+    grid = -(-co // _WG_TILES[tile]) * -(-L // _WG_BM)
+    split = min(max(1, sms // grid), slices) if deep else 1
+    per = -(-slices // split)
+    return tile, -(-slices // per), _WG_BK * per
 
 
 def wgmma_weights(w: torch.Tensor, terms: int, L: int, split=None) -> torch.Tensor:
-    """W (co, ci) as ``bs_gemm`` takes it at ``terms`` 1 or 6 for an L-wide
-    input on ``w``'s card: :func:`lay_wgmma` of its 1 or 3 bf16 pieces
-    (``split``, as :func:`split_bf16` makes them, given or made here) at
-    the width that :func:`gemm_config` picks."""
+    """W (co, ci) as ``bs_gemm`` takes it at ``terms`` (1, 3 or 6) for an
+    L-wide input on ``w``'s card: :func:`lay_wgmma` of its 1, 2 or 3 bf16
+    pieces (``split``, as :func:`split_bf16` makes them, given or made
+    here) at the width that :func:`gemm_config` picks."""
     n = GEMM_PIECES[terms]
     pieces = tuple(split_bf16(w, n) if split is None else split)[:n]
     if len(pieces) != n or any(t is None for t in pieces):
@@ -830,15 +796,13 @@ def conv1x1_gemm(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
                  act: str = "NONE", split=None, terms: int = 3) -> torch.Tensor:
     """The K2'' 1x1 conv alone: act(w @ x + b) for w (co, ci), b (co,) and
     x (ci, L) f32.  On CUDA tensors ``bs_gemm`` (``csrc/body_flat.cu``,
-    counted in ``body_launch``), the table's GEMM tiles as a standalone
-    kernel, the per-shape probe of that code.  ``terms=3``: the bf16x3
-    split on the mma.sync tile (``csrc/gemm_tc.cuh``), its weight split
-    ``split`` = :func:`split_bf16` (w) given or made here; ``terms=1``: the
-    bf16 mode's one pass, ``terms=6``: the six-term split of "highest",
-    both on the wgmma tile (``csrc/gemm_wg.cuh``), ``split`` then W's
-    pieces (``split_bf16(w, 1 | 3)``; (hi, None) will do for one term) or
-    their layout for this L, :func:`wgmma_weights`, given or made here.  On
-    CPU tensors :func:`conv1x1_plain` (three or six terms) or
+    counted in ``body_launch``), the table's wgmma tile
+    (``csrc/gemm_wg.cuh``) as a standalone kernel, the per-shape probe of
+    that code, at ``terms`` 3 (the bf16x3 split), 1 (the bf16 mode's one
+    pass) or 6 (the six-term split of "highest"); ``split`` is W's pieces
+    (``split_bf16(w, 2 | 1 | 3)``; (hi, None) will do for one term) or their
+    layout for this L, :func:`wgmma_weights`, given or made here.  On CPU
+    tensors :func:`conv1x1_plain` (three or six terms) or
     :func:`conv1x1_bf16_plain` (one)."""
     if terms not in GEMM_PIECES:
         raise ValueError(f"terms must be 1, 3 or 6, got {terms}")
@@ -851,22 +815,19 @@ def conv1x1_gemm(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
     if x.ndim != 2 or x.shape[0] != ci:
         raise ValueError(f"gemm input: expected ({ci}, L), got {tuple(x.shape)}")
     L = x.shape[1]
-    if terms == 3:
-        pieces = tuple(split_bf16(w) if split is None else split)[:2]
-        if len(pieces) != 2 or any(t is None for t in pieces):
-            raise ValueError("gemm weights: 3 terms need 2 bf16 pieces")
-        for t, name in zip(pieces, ("hi", "lo")):
-            _build.check_cuda(t, f"gemm weights {name}", torch.bfloat16, (co, ci + (-ci % 8)))
-    else:
-        if not isinstance(split, torch.Tensor):
-            split = wgmma_weights(w, terms, L, split)
-        bn = _WG_TILES[gemm_config(co, ci, L, _build.sm_count(x.device), terms)[0]]
-        n = GEMM_PIECES[terms] * (co + (-co % bn)) * -(-ci // _WG_BK) * _WG_BK
-        _build.check_cuda(split, "gemm weights, laid out", torch.bfloat16, (n,))
-        pieces = (split,)
+    if not isinstance(split, torch.Tensor):
+        split = wgmma_weights(w, terms, L, split)
+    tile, nsplit, kchunk = gemm_config(co, ci, L, _build.sm_count(x.device), terms)
+    bn = _WG_TILES[tile]
+    n = GEMM_PIECES[terms] * (co + (-co % bn)) * -(-ci // _WG_BK) * _WG_BK
+    _build.check_cuda(split, "gemm weights, laid out", torch.bfloat16, (n,))
     y = torch.empty((co, L), dtype=torch.float32, device=x.device)
-    _gemm(body_launch, pieces, terms, b.data_ptr(), x.data_ptr(), y.data_ptr(), co, ci,
-          L, act, x.device)
+    # the split-K partials, when the shape's config splits K
+    part = (torch.empty(nsplit * co * L, dtype=torch.float32, device=x.device)
+            if nsplit > 1 else None)
+    body_launch("bs_gemm", split.data_ptr(), b.data_ptr(), x.data_ptr(), y.data_ptr(),
+                None if part is None else part.data_ptr(), co, ci, L, _ACT_CODES[act], tile,
+                nsplit, kchunk, terms)
     return y
 
 
@@ -908,8 +869,8 @@ class MegaTable:
     its phase, 1-based); ``table``: (len(ops), MEGA_DESC) int32 rows of
     MEGA_FIELDS; ``arena``: every weight, bias and resize tap the table
     reads, f32 (tap indices as exact floats; a ``gemm`` op's weight split
-    into bf16 pieces, two bf16 to a float: hi and lo at "bf16x3", else its
-    1 or 3 pieces laid out for the wgmma tile by :func:`lay_wgmma`);
+    into its 1, 2 or 3 bf16 pieces laid out for the wgmma tile by
+    :func:`lay_wgmma`, two bf16 to a float);
     ``phases``: the number of
     phases, each but the last ending in a barrier (``sync``);
     ``smem_bytes``: the dynamic shared memory a CTA needs; ``kinds``: the
@@ -1192,10 +1153,9 @@ class MegaTable:
         pieces = DOT_MODES[self.dots][2]    # a flat table's W pieces
 
         def arena(wi, form="", dot=False, bn=0):
-            """Weight ``wi``'s float offset: as it is, transposed ("T"), its
-            bf16 hi or lo piece ("hi", "lo": :func:`split_bf16`, rows padded
-            to a multiple of 8, two bf16 to a float), or its ``pieces`` bf16
-            pieces laid out for the wgmma tile of width ``bn`` ("wg":
+            """Weight ``wi``'s float offset: as it is, transposed ("T"), or
+            its ``pieces`` bf16 pieces (:func:`split_bf16`) laid out for the
+            wgmma tile of width ``bn``, two bf16 to a float ("wg":
             :func:`lay_wgmma`); a ``dot`` operand rounded to bf16 in the
             bf16 mode; each chunk 16-byte aligned."""
             nonlocal pos
@@ -1209,9 +1169,6 @@ class MegaTable:
                 elif form == "wg":
                     block = lay_wgmma(split_bf16(torch.from_numpy(a), pieces), bn)
                     a = block.view(torch.int16).numpy().view(np.float32)
-                elif form:
-                    half = split_bf16(torch.from_numpy(a))[("hi", "lo").index(form)]
-                    a = half.view(torch.int16).numpy().view(np.float32)
                 a = a.ravel()
                 where[key] = pos
                 chunks.append(np.pad(a, (0, -a.size % 4)))
@@ -1256,17 +1213,12 @@ class MegaTable:
                     cols = -(-r["n"] // _MEGA_CTAS)
                     r.update(tn=cols)
                     smem = max(smem, 4 * (r["co"] * sm.c + sm.c * cols))
-            elif k == "gemm":            # W's bf16 pieces, the tile a round fills
+            elif k == "gemm":            # W's bf16 pieces laid out for the tile a round fills
                 co = plan.weights[m["w"]].shape[0]
-                r.update(b=arena(m["b"]), co=co, kp=sm.c + (-sm.c % 8))
-                if pieces == 2:          # bf16x3: hi and lo on the mma.sync tile
-                    r.update(w=arena(m["w"], "hi"), w1=arena(m["w"], "lo"),
-                             tile=_gemm_tile(co, r["n"]))
-                    smem = max(smem, _gemm_ring_bytes(*_MEGA_GEMM_TILES[r["tile"]]))
-                else:                    # hi, or hi, lo, lo2, laid out for the wgmma tile
-                    tile = _wg_tile(co, r["n"])
-                    r.update(w=arena(m["w"], "wg", bn=_WG_TILES[tile]), tile=tile)
-                    smem = max(smem, _wg_smem_bytes(_WG_TILES[tile], DOT_MODES[self.dots][1]))
+                tile = _wg_tile(co, r["n"])
+                r.update(b=arena(m["b"]), co=co, tile=tile,
+                         w=arena(m["w"], "wg", bn=_WG_TILES[tile]))
+                smem = max(smem, _wg_smem_bytes(_WG_TILES[tile], DOT_MODES[self.dots][1]))
                 if m["res"] is not None:
                     r.update(res=1, aux=off(m["res"]))
             elif k in ("dw", "resize"):
@@ -1352,14 +1304,10 @@ def walk_phase(plan: BodyPlan, x: torch.Tensor, snap: torch.Tensor, phase: int,
         kind, act, act2 = _CODE_KINDS[d["code"]], _ACT_NAMES[d["act"]], _ACT_NAMES[d["act2"]]
         c, n = d["c"], d["n"]
         inv = float(np.int32(d["pinv"]).view(np.float32))
-        if kind == "gemm":      # W's bf16 pieces, two to a float
-            co, kp, n_pieces = d["co"], d["kp"], DOT_MODES[mt.dots][2]
-            if n_pieces == 2:   # hi and lo, rows padded to kp
-                split = [ar[d[f]:d[f] + co * kp // 2].view(torch.bfloat16).reshape(co, kp)
-                         for f in ("w", "w1")]
-            else:               # laid out for the wgmma tile
-                split = unlay_wgmma(ar[d["w"]:].view(torch.bfloat16), n_pieces, co, c,
-                                    _WG_TILES[d["tile"]])
+        if kind == "gemm":      # W's bf16 pieces laid out for the wgmma tile
+            co = d["co"]
+            split = unlay_wgmma(ar[d["w"]:].view(torch.bfloat16), DOT_MODES[mt.dots][2], co, c,
+                                _WG_TILES[d["tile"]])
             xi = rd(d["in"], c * n).reshape(c, n)
             if bf16:            # hi alone: the one-term GEMM
                 y = apply_activation(split[0][:, :c].float() @ rnd(xi)
@@ -1440,17 +1388,6 @@ def walk_table(plan: BodyPlan, x: torch.Tensor) -> torch.Tensor:
         ws = walk_phase(plan, x, ws, k)[0]
     o = plan._offsets[plan.out_tid]
     return ws[o:o + plan.out_meta.size].reshape(plan.out_meta.c, -1)
-
-
-def _gemm_tile(co: int, L: int) -> int:
-    """The table GEMM's tile for a (co, L) output: the smallest of
-    _MEGA_GEMM_TILES whose tiles fit one round over the CTAs (the most SMs
-    at work, none twice), else the largest."""
-    for i in reversed(range(len(_MEGA_GEMM_TILES))):
-        bm, bn = _MEGA_GEMM_TILES[i]
-        if -(-co // bm) * -(-L // bn) <= _MEGA_CTAS:
-            return i
-    return 0
 
 
 def _se_floats(c: int, hid: int) -> int:

@@ -161,14 +161,12 @@ def jpeg_decode_work(coefs: Sequence[np.ndarray], w, h):
 PORT_KERNELS = {
     "front_kernel": "K1 front",
     "body_mega_kernel": "K2 body plan",
-    "gemm_tc_kernel": "K2'' GEMM (probe)",
     "gemm_wg_kernel": "K2'' GEMM, wgmma tile (probe)",
     "splitk_sum_kernel": "K2'' GEMM split-K sum",
     "blend_pack_yuyv_kernel": "K3 blend + YUYV",
     "blend_pack_420_kernel": "K4 blend + 4:2:0",
     "bilateral_kernel": "K5 bilateral",
-    "idct_kernel": "JPEG decode IDCT",
-    "color_kernel": "JPEG decode color",
+    "jpeg_decode_kernel": "JPEG decode",
 }
 
 

@@ -31,17 +31,17 @@ Usage (from the repository root, on a machine with a CUDA card)::
    rtol=1e-3); K2'' against ``run_plain(gemm="bf16x3")``, its own
    arithmetic, at MATCHED_ATOL/RTOL and a mean-abs bar, the f32 distance
    printed as the precision gap beside the twins' one-ulp noise floor),
-   timed with CUDA events and as device time; the bf16x3
-   tensor-core GEMM tile that the continuation's table runs as its GEMM
+   timed with CUDA events and as device time; the wgmma GEMM tile
+   (``csrc/gemm_wg.cuh``) that the continuation's table runs as its GEMM
    ops, alone (``bs_gemm``, its standalone probe) at every 1x1 shape of
-   the continuation against ``conv1x1_plain`` (allclose(2e-3, 1e-3)) and
-   ``conv1x1_bf16x3_plain`` (1e-5 relative), bit-identical over two runs,
-   with its device time beside ``torch.addmm``'s (f32, TF32 off), and the
-   six-term wgmma tile of "highest" (``terms=6``, ``csrc/gemm_wg.cuh``)
-   at every shape on the same terms against ``conv1x1_bf16x6_plain``,
-   each summed over a frame's 29 GEMMs; in the SASS the wgmma tile's
-   kernels and the one- and six-term tables hold HGMMA and no HMMA (the
-   three-term table still HMMA); then 30 frames held out
+   the continuation: at three terms (the bf16x3 split of "high") against
+   ``conv1x1_plain`` (allclose(2e-3, 1e-3)) and ``conv1x1_bf16x3_plain``
+   (1e-5 relative), bit-identical over two runs, with its device time
+   beside ``torch.addmm``'s (f32, TF32 off), and at six terms
+   (``terms=6``, "highest") on the same terms against
+   ``conv1x1_bf16x6_plain``, each summed over a frame's 29 GEMMs; in the
+   SASS every GEMM kernel and the one-, three- and six-term tables hold
+   HGMMA, and no kernel HMMA; then 30 frames held out
    from the synthetic model's fit (seed 1, frames 30-59) of
    ``FramePipeline`` against the plain path (K2'' in bf16x3) on the card under
    the tolerance invariant (every decode flip a near-tie of class 15's
@@ -698,25 +698,24 @@ def _held(name, k, p, fn_k, fn_p, atol=ATOL, rtol=RTOL):
 
 
 def gemm_phase(cont, device):
-    """The bf16x3 GEMM tile of the continuation table's GEMM ops, alone
-    (``bs_gemm``, the standalone probe built from the same gemm_tc.cuh), at
-    every 1x1 shape of the continuation ``cont`` (its weights, seeded
-    inputs at L = 33 * 33): against conv1x1_plain (allclose) and
+    """The continuation table's GEMM tile alone (``bs_gemm``, the standalone
+    probe built from the same gemm_wg.cuh, its weights laid out once by
+    ``wgmma_weights``) at every 1x1 shape of the continuation ``cont`` (its
+    weights, seeded inputs at L = 33 * 33): at three terms (the bf16x3
+    split of "high") against conv1x1_plain (allclose) and
     conv1x1_bf16x3_plain (GEMM_REL relative), two runs bit-identical,
     device time beside torch.addmm's (bias, no activation, f32 with TF32
-    off); the six-term wgmma tile of "highest" (``terms=6``, gemm_wg.cuh,
-    its weights laid out once by ``wgmma_weights``) at every shape on the
-    same terms against conv1x1_bf16x6_plain and at most
-    1/SIX_TERM_GEMM_RATIO of the three-term tile's distance from
-    conv1x1_plain, its device time beside the three-term tile's and
-    torch.addmm's, summed over a frame.  Returns the kernels-line numbers
-    of both tiles at the largest shape (the ASPP projection)."""
+    off); at six terms (``terms=6``, "highest") on the same terms against
+    conv1x1_bf16x6_plain and at most 1/SIX_TERM_GEMM_RATIO of the
+    three-term tile's distance from conv1x1_plain, its device time beside
+    the three-term tile's and torch.addmm's, summed over a frame; the SASS
+    of every GEMM kernel and body table (HGMMA, no HMMA).  Returns the
+    kernels-line numbers of both term counts at the largest shape (the ASPP
+    projection)."""
     import torch
-    from backscrub_tpu_torch.ops.megakernel import (_GEMM_TILES, _MEGA_GEMM_TILES, _WG_TILES,
-                                                    _gemm_tile, _wg_tile, conv1x1_bf16x3_plain,
+    from backscrub_tpu_torch.ops.megakernel import (_WG_TILES, _wg_tile, conv1x1_bf16x3_plain,
                                                     conv1x1_bf16x6_plain, conv1x1_gemm,
-                                                    conv1x1_plain, gemm_config, split_bf16,
-                                                    wgmma_weights)
+                                                    conv1x1_plain, gemm_config, wgmma_weights)
     torch.backends.cuda.matmul.allow_tf32 = False
     ws = cont._weights_on(device)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
@@ -729,8 +728,8 @@ def gemm_phase(cont, device):
         for (co, ci), ps in sorted(shapes.items()):
             _, tin, _, wi, bi, act = ps[0]
             gw, gb = ws[wi], ws[bi]
-            sp = split[wi] = split_bf16(gw)
             L = cont.meta[tin].rows * cont.meta[tin].w
+            sp = split[wi] = wgmma_weights(gw, 3, L)
             gx = torch.from_numpy(np.random.default_rng(co * 1000 + ci).uniform(
                 0, 2, (ci, L)).astype(np.float32)).to(device)
             k, k2 = (conv1x1_gemm(gw, gb, gx, act, split=sp) for _ in range(2))
@@ -758,16 +757,15 @@ def gemm_phase(cont, device):
             lib = device_ms(lambda: torch.addmm(gb[:, None], gw, gx))
             bb = b2b_ms(lambda: conv1x1_gemm(gw, gb, gx, "NONE", split=sp))
             tile, nsplit, _ = gemm_config(co, ci, L, sms)
-            bm, bn = _GEMM_TILES[tile]
-            tm, tn = _MEGA_GEMM_TILES[_gemm_tile(co, L)]
+            wn, wt = _WG_TILES[tile], _WG_TILES[_wg_tile(co, L)]
             tile6, nsplit6, _ = gemm_config(co, ci, L, sms, 6)
             wn6, wt6 = _WG_TILES[tile6], _WG_TILES[_wg_tile(co, L)]
             b = bound(*gemm_work(co, ci, L))
             frame_us += 1e3 * dev * len(ps)
             lib_frame_us += 1e3 * lib * len(ps)
-            print(f"gemm {co}x{ci} by {ci}x{L} ({len(ps)} a frame): tile {bm}x{bn} split "
-                  f"{nsplit}, {-(-co // bm) * -(-L // bn) * nsplit} CTAs (in the table: tile "
-                  f"{tm}x{tn}, {-(-co // tm) * -(-L // tn)} CTAs); max_abs_err vs f32 "
+            print(f"gemm {co}x{ci} by {ci}x{L} ({len(ps)} a frame): tile 64x{wn} split "
+                  f"{nsplit}, {-(-co // wn) * -(-L // 64) * nsplit} CTAs (in the table: tile "
+                  f"64x{wt}, {-(-co // wt) * -(-L // 64)} CTAs); max_abs_err vs f32 "
                   f"{gap3:.3g}, vs bf16x3 {rel:.3g} relative; device "
                   f"{dev * 1e3:.3f} us (back to back {bb * 1e3:.3f} us), torch.addmm "
                   f"{lib * 1e3:.3f} us, bound {b[0] * 1e3:.3f} us ({b[1]}); six terms: vs "
@@ -2068,13 +2066,15 @@ def mjpg_phase():
             call = functools.partial(decode_jpeg_bgr, ct, qt, info)
             plain = functools.partial(decode_jpeg_bgr_plain, ct, qt, info)
             plain_dev, plain_ops = device_kernels(plain)
-            r = dict(max_abs_err=0.0, ms=timed(call), plain_ms=timed(plain),
-                     device_ms=device_ms(call),
-                     device_ms_cold=sum(device_ms(call, cold=kn)
-                                        for kn in ("idct_kernel", "color_kernel")),
-                     idct_us=device_ms(call, kernel="idct_kernel") * 1e3,
-                     color_us=device_ms(call, kernel="color_kernel") * 1e3,
-                     plain_device_ms=plain_dev, plain_ops=plain_ops,
+            # one launch a call: device_ms finds jpeg_decode_kernel once a
+            # call (n - 1 to n in a window of n) and no other device time
+            one, every = device_ms(call, kernel="jpeg_decode_kernel"), device_ms(call)
+            if every > 1.05 * one:
+                raise AssertionError(f"bs_jpeg_decode at {w}x{h}: {every * 1e3:.3f} us of device "
+                                     f"time a call, {one * 1e3:.3f} of it jpeg_decode_kernel")
+            r = dict(max_abs_err=0.0, ms=timed(call), plain_ms=timed(plain), device_ms=one,
+                     device_ms_cold=device_ms(call, cold="jpeg_decode_kernel"),
+                     launches_a_call=1, plain_device_ms=plain_dev, plain_ops=plain_ops,
                      bound=bound(nbytes, ops), library_ms=None)
             kern[f"{w}x{h}"] = r
             comp = k
@@ -2089,7 +2089,8 @@ def mjpg_phase():
             res[f"encode {w}x{h}"] = dict(device_ms=enc_dev, ops=enc_ops,
                                           host_ms=(time.perf_counter() - t0) * 1e3 / 20)
             print(f"mjpg decode {w}x{h}: bs_jpeg_decode {r['device_ms'] * 1e3:.3f} us device "
-                  f"(idct {r['idct_us']:.3f} + color {r['color_us']:.3f}; cold "
+                  f"in one launch a call (jpeg_decode_kernel; all kernels "
+                  f"{every * 1e3:.3f}; cold "
                   f"{r['device_ms_cold'] * 1e3:.3f}), bound {r['bound'][0] * 1e3:.3f} us "
                   f"({r['bound'][1]}, {nbytes / 1e6:.3f} MB); events {r['ms'][0]:.4f} ms a call "
                   f"vs plain {r['plain_ms'][0]:.4f}; plain twin {plain_dev * 1e3:.2f} us device "
@@ -2519,7 +2520,7 @@ def gemm_bf16_phase(cont, dev):
     tile's.  Returns the kernels-line numbers at the ASPP shape."""
     import torch
     from backscrub_tpu_torch.ops.megakernel import (conv1x1_bf16_plain, conv1x1_gemm,
-                                                    split_bf16, wgmma_weights)
+                                                    wgmma_weights)
     ws = cont._weights_on(dev)
     shapes = collections.defaultdict(list)
     for p in gemm_ops(cont):
@@ -2555,7 +2556,7 @@ def gemm_bf16_phase(cont, dev):
         L = cont.meta[tin].rows * cont.meta[tin].w
         gx = torch.from_numpy(np.random.default_rng(6).uniform(0, 2, (ci, L)).astype(
             np.float32)).to(dev)
-        sp, one = split_bf16(gw), wgmma_weights(gw, 1, L)
+        sp, one = wgmma_weights(gw, 3, L), wgmma_weights(gw, 1, L)
         k, k2 = (conv1x1_gemm(gw, gb, gx, split=one, terms=1) for _ in range(2))
         pb = conv1x1_bf16_plain(gw, gb, gx)
         torch.cuda.synchronize()
@@ -3924,11 +3925,11 @@ def wgmma_in_sass(sass):
 
 def gemm_tiles_in_sass(sass):
     """Raise unless, in ``sass`` (sass_functions), every instantiation of
-    the wgmma GEMM tile's standalone kernel (``gemm_wg_kernel<BN, 1 | 6>``)
-    and the two tables that run it (``body_mega_kernel<1, 1>`` and ``<0,
-    6>``) hold HGMMA (wgmma) and no HMMA (mma.sync), and the three-term
-    table (``<0, 3>``) still holds HMMA.  Returns {kernel: (HGMMA, HMMA,
-    UBLKCP)} counts, UBLKCP the bulk copy."""
+    the wgmma GEMM tile's standalone kernel (``gemm_wg_kernel<BN, 1 | 3 |
+    6>``, five widths each) and the three tables that run it
+    (``body_mega_kernel<1, 1>``, ``<0, 3>`` and ``<0, 6>``) hold HGMMA
+    (wgmma), and no kernel of the library holds HMMA (mma.sync).  Returns
+    {kernel: (HGMMA, HMMA, UBLKCP)} counts, UBLKCP the bulk copy."""
     counts = {}
     for head, fn in sass.items():
         m = re.search(r"gemm_wg_kernelILi(\d+)ELi(\d)E|body_mega_kernelILi(\d)ELi(\d)E", head)
@@ -3936,11 +3937,11 @@ def gemm_tiles_in_sass(sass):
             name = (f"gemm_wg_kernel<{m.group(1)}, {m.group(2)}>" if m.group(1) else
                     f"body_mega_kernel<{m.group(3)}, {m.group(4)}>")
             counts[name] = (fn.count("HGMMA"), fn.count("HMMA"), fn.count("UBLKCP"))
-    wg = [k for k in counts if k.startswith("gemm_wg") or k in ("body_mega_kernel<1, 1>",
-                                                                "body_mega_kernel<0, 6>")]
-    if len(wg) != 12 or any(counts[k][0] == 0 or counts[k][1] for k in wg) \
-            or not counts.get("body_mega_kernel<0, 3>", (0, 0))[1]:
-        raise AssertionError(f"the GEMM tiles' SASS: {counts}")
+    tables = {"body_mega_kernel<1, 1>", "body_mega_kernel<0, 3>", "body_mega_kernel<0, 6>"}
+    wg = [k for k in counts if k.startswith("gemm_wg") or k in tables]
+    hmma = [head for head, fn in sass.items() if "HMMA" in fn]
+    if len(wg) != 18 or not tables <= set(wg) or any(counts[k][0] == 0 for k in wg) or hmma:
+        raise AssertionError(f"the GEMM tiles' SASS: {counts}; HMMA in {hmma}")
     return counts
 
 
@@ -4405,7 +4406,7 @@ def main() -> int:
         "body_cont": ("backscrub_tpu_torch/csrc/body_mega.cu",
                       "backscrub_tpu/ops/megakernel.py:794 (BodyMega flat=True, "
                       "continuation chain)"),
-        "gemm": ("backscrub_tpu_torch/csrc/gemm_tc.cuh",
+        "gemm": ("backscrub_tpu_torch/csrc/gemm_wg.cuh",
                  "backscrub_tpu/ops/megakernel.py:501 (BodyMega flat=True, the bf16x3 "
                  "1x1-conv dots of the continuation chain)"),
         "pack_420": ("backscrub_tpu_torch/csrc/blend_pack.cu",

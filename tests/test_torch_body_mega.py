@@ -36,7 +36,7 @@ from backscrub_tpu.pipeline import edge as jedge
 from backscrub_tpu.pipeline.geometry import compute_roi
 from backscrub_tpu_torch.graph.executor import build_model, load_model
 from backscrub_tpu_torch.models.specs import spec_for_model
-from backscrub_tpu_torch.ops.megakernel import (_GEMM_TILES, MEGA_FIELDS, BodyPlan,
+from backscrub_tpu_torch.ops.megakernel import (_WG_TILES, MEGA_FIELDS, BodyPlan, _wg_tile,
                                                 body_plan_for, conv1x1_bf16x3_plain,
                                                 conv1x1_plain, gemm_config, split_bf16,
                                                 walk_table)
@@ -234,18 +234,31 @@ def test_split_bf16_pads_and_reconstructs():
 
 @pytest.mark.parametrize("co,ci", DEEPLAB_GEMMS)
 def test_gemm_config_grid(co, ci):
-    """At 132 SMs a deep GEMM (ci >= 256) launches two waves; a shallow one
-    three, or, at the smallest tile and no split, what it has: the four
-    shallow, narrow shapes of the frame.  Split K covers ci in chunks of
-    16-multiples, and only a deep K is split."""
+    """At 132 SMs the three-term GEMM (the default) takes the wgmma tile.
+    A shallow K (ci < 256) runs at the table's width, the narrowest whose
+    grid is one round over the SMs, and is not split.  A deep K takes the
+    width and split into 1, 2, 4 or 8 ranges of whole 64-deep slices whose
+    CTAs fill the most of one round, ties to the fewest slices a CTA (the
+    fit to tools/sweep_gemm_tiles.py --terms 3 on the H100): at the
+    frame's deep shapes 32x4, 32x3, 48x3, 32x2, 64x2 and 48x1 (width x
+    split)."""
     tile, split, kchunk = gemm_config(co, ci, 1089, 132)
-    bm, bn = _GEMM_TILES[tile]
-    ctas = -(-co // bm) * -(-1089 // bn) * split
-    kp = ci + (-ci % 8)
-    assert kchunk % 16 == 0 and (split - 1) * kchunk < kp <= split * kchunk
-    assert split == 1 or (tile == len(_GEMM_TILES) - 1 and kp >= 256)
-    if kp >= 256:
-        assert ctas >= 2 * 132
-    elif ctas < 3 * 132:
-        assert tile == len(_GEMM_TILES) - 1 and split == 1
-    assert (ctas < 132) == ((co, ci) in {(16, 96), (32, 96), (32, 192), (48, 192)})
+    assert (tile, split, kchunk) == gemm_config(co, ci, 1089, 132, 3)
+    bn = _WG_TILES[tile]
+    grid = -(-co // bn) * -(-1089 // 64)
+    assert kchunk % 64 == 0 and (split - 1) * kchunk < ci <= split * kchunk
+    assert grid * split <= 132
+    if ci < 256:
+        assert tile == _wg_tile(co, 1089) and split == 1
+        assert tile == 0 or -(-co // _WG_TILES[tile - 1]) * -(-1089 // 64) > 132
+        return
+    slices = -(-ci // 64)
+    for other in _WG_TILES:
+        for want in (1, 2, 4, 8):
+            per = -(-slices // want)
+            ctas = -(-co // other) * -(-1089 // 64) * -(-slices // per)
+            assert ctas > 132 or ctas < grid * split or (
+                ctas == grid * split and per >= kchunk // 64)
+    assert (bn, split) == {(21, 256): (32, 4), (48, 288): (32, 3), (80, 288): (48, 3),
+                           (80, 480): (32, 2), (160, 480): (64, 2),
+                           (256, 512): (48, 1)}[(co, ci)]

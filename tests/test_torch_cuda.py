@@ -20,7 +20,8 @@ from backscrub_tpu_torch import _build
 from backscrub_tpu_torch.graph.executor import build_model
 from backscrub_tpu_torch.ops.megakernel import (BodyPlan, body_launch, conv1x1_bf16_plain,
                                                 conv1x1_bf16x3_plain, conv1x1_bf16x6_plain,
-                                                conv1x1_gemm, conv1x1_plain, split_bf16)
+                                                conv1x1_gemm, conv1x1_plain, split_bf16,
+                                                wgmma_weights)
 from backscrub_tpu_torch.ops.image_kernels import bilateral5
 from backscrub_tpu_torch.ops.pack_kernels import (blend_pack_420, blend_pack_420_plain,
                                                   blend_pack_yuyv, blend_pack_yuyv_plain)
@@ -688,9 +689,10 @@ _GEMM_SHAPES = [(co, ci, 1089) for co, ci in (
 @pytest.mark.parametrize("co,ci,L", _GEMM_SHAPES)
 @pytest.mark.parametrize("act", ["NONE", "RELU6"])
 def test_gemm_kernel_matches_plain(cuda_device, co, ci, L, act):
-    """The K2'' bf16x3 tensor-core GEMM at the continuation's shapes and at
-    ragged ones: allclose(2e-3, 1e-3) of the f32 plain version, 1e-5
-    relative of the bf16x3 plain version, two runs bit-identical."""
+    """The K2'' bf16x3 GEMM (``bs_gemm`` at three terms, the wgmma tile) at
+    the continuation's 15 shapes and at ragged ones: allclose(2e-3, 1e-3)
+    of the f32 plain version, 1e-5 relative of the bf16x3 plain version,
+    two runs bit-identical, the weights given as their split or laid out."""
     rng = np.random.default_rng(co * 1000 + ci)
     w, x = (torch.from_numpy((rng.standard_normal(s) / np.sqrt(ci)).astype(np.float32))
             .to(cuda_device) for s in ((co, ci), (ci, L)))
@@ -698,11 +700,12 @@ def test_gemm_kernel_matches_plain(cuda_device, co, ci, L, act):
     before = body_launch.by_kernel["bs_gemm"]
     got = conv1x1_gemm(w, b, x, act)
     again = conv1x1_gemm(w, b, x, act, split=split_bf16(w))
-    assert body_launch.by_kernel["bs_gemm"] == before + 2
+    laid = conv1x1_gemm(w, b, x, act, split=wgmma_weights(w, 3, L))
+    assert body_launch.by_kernel["bs_gemm"] == before + 3
     torch.testing.assert_close(got, conv1x1_plain(w, b, x, act), atol=2e-3, rtol=1e-3)
     ref = conv1x1_bf16x3_plain(w, b, x, act)
     assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
-    assert torch.equal(got, again)
+    assert torch.equal(got, again) and torch.equal(got, laid)
 
 
 @pytest.mark.parametrize("w,h", [(640, 480), (1280, 720)])
@@ -1111,7 +1114,8 @@ _JPEG_META = ROOT / "tests" / "data" / "mjpg_synth.json"
 # 4:4:0 (h1v2), 4:1:1 (replication), grayscale
 JPEG_SAMPLINGS = {"420": ((2, 2), (1, 1), (1, 1)), "422": ((2, 1), (1, 1), (1, 1)),
                   "444": ((1, 1), (1, 1), (1, 1)), "440": ((1, 2), (1, 1), (1, 1)),
-                  "411": ((4, 1), (1, 1), (1, 1)), "gray": ((1, 1),)}
+                  "411": ((4, 1), (1, 1), (1, 1)), "311": ((3, 1), (1, 1), (1, 1)),
+                  "gray": ((1, 1),)}
 
 
 def random_coefficients(info, seed, device):
@@ -1139,6 +1143,28 @@ def test_jpeg_decode_matches_plain(cuda_device, size, sampling):
     assert decode_jpeg_bgr.launches == before + 1
     want = decode_jpeg_bgr_plain(coefs, q, info)
     assert got.shape == (size[1], size[0], 3) and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("sampling", list(JPEG_SAMPLINGS))
+def test_jpeg_decode_on_views_off_16_bytes(cuda_device, sampling):
+    """Coefficients given as views 2 bytes past a 16-byte boundary (the
+    kernel's 2-byte staging path; the first component aligned, the others
+    not) at an odd size: byte-identical to the plain version, one launch."""
+    from backscrub_tpu_torch.io.jpeg import make_info
+    from backscrub_tpu_torch.ops.jpeg_kernels import decode_jpeg_bgr, decode_jpeg_bgr_plain
+    sf = JPEG_SAMPLINGS[sampling]
+    info = make_info(63, 47, sf, ncomp=len(sf))
+    coefs, q = random_coefficients(info, 5, cuda_device)
+    views = [coefs[0]]
+    for c in coefs[1:]:
+        buf = torch.zeros(c.numel() + 8, dtype=torch.int16, device=cuda_device)
+        views.append(buf[1:1 + c.numel()].view(c.shape))
+        views[-1].copy_(c)
+    assert all(v.data_ptr() % 16 == 2 for v in views[1:])
+    before = decode_jpeg_bgr.launches
+    got = decode_jpeg_bgr(views, q, info)
+    assert decode_jpeg_bgr.launches == before + 1
+    assert torch.equal(got, decode_jpeg_bgr_plain(coefs, q, info))
 
 
 def test_jpeg_decode_wraps_like_plain(cuda_device):
@@ -1421,15 +1447,16 @@ def test_deeplab_highest_continuation_matches_its_twin(cuda_device):
         assert 10 * float((k3 - f32).abs().max()) <= float((three - f32).abs().max())
 
 
-@pytest.mark.parametrize("precision", ["default", "highest"])
+@pytest.mark.parametrize("precision", ["default", "high", "highest"])
 def test_deeplab_continuation_stream_batch_is_per_image(cuda_device, precision):
     """K2'' with the wgmma GEMM tile (the bf16 mode's one term at
-    "default", six terms at "highest") over a stream batch of three
-    held-out frames: one launch, every image bit-identical to its own
-    launch."""
+    "default", the bf16x3 split at "high", six terms at "highest") over a
+    stream batch of three held-out frames: one launch, every image
+    bit-identical to its own launch."""
     mg = MaskGen(str(DEEPLAB), 640, 480, device=cuda_device, precision=precision)
     e, S = mg.edge, 3
-    assert e.cont_plan.dots == ("bf16" if precision == "default" else "bf16x6")
+    assert e.cont_plan.dots == {"default": "bf16", "high": "bf16x3",
+                                "highest": "bf16x6"}[precision]
     fr = torch.from_numpy(np.stack(_frames(640, 480, 30 + S, seed=1)[30:])).to(cuda_device)
     with torch.no_grad():
         x = tedge.front_fused(e.canvas(fr), e.front_params, **e.front_kwargs())

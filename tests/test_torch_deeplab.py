@@ -43,7 +43,7 @@ from backscrub_tpu.pipeline.maskgen import MaskGen as JaxMaskGen
 from backscrub_tpu_torch.graph.executor import load_model, params_from_jax
 from backscrub_tpu_torch.models import specs
 from backscrub_tpu_torch.ops import megakernel as tmega
-from backscrub_tpu_torch.ops.megakernel import (_MAX_SMEM, _MEGA_GEMM_TILES, MEGA_CODES,
+from backscrub_tpu_torch.ops.megakernel import (_MAX_SMEM, _WG_TILES, MEGA_CODES,
                                                 MEGA_FIELDS, BodyPlan, Unsupported,
                                                 body_plan_continuation_for,
                                                 body_plan_prefix_for)
@@ -351,9 +351,12 @@ def test_deeplab_tables_structure(cuts, which):
         bands = -(-r[_F["oh"]] // r[_F["band"]])
         assert bands * -(-r[_F["c"]] // r[_F["cpi"]]) <= 132
     assert all(m["kind"] == "gemm" for m in mt.ops if m["res"] is not None)
+    rings = []
     for r in mt.table[mt.table[:, _F["code"]] == MEGA_CODES["gemm"]]:
-        bm, bn = _MEGA_GEMM_TILES[r[_F["tile"]]]
-        assert -(-r[_F["co"]] // bm) * -(-r[_F["n"]] // bn) <= 132
+        bn = _WG_TILES[r[_F["tile"]]]
+        assert -(-r[_F["co"]] // bn) * -(-r[_F["n"]] // 64) <= 132
+        rings.append(tmega._wg_smem_bytes(bn, tmega.DOT_MODES[plan.dots][1]))
+    assert mt.table.nbytes + max(rings) <= mt.smem_bytes <= _MAX_SMEM
 
 
 def test_plan_guards(pair):

@@ -5,7 +5,7 @@ dot_general for HIGHEST (``backscrub_tpu/ops/megakernel.py:473-517``),
 f32 on the CPU and the TPU's six bf16 passes on the chip
 (``backscrub_tpu/models/specs.py:26-28``).  The port's K2'' GEMM computes
 that six-term split at "highest" (``dots_for("highest", True) ==
-"bf16x6"``, the tile's TERMS = 6 in ``csrc/gemm_tc.cuh``); its plain twin
+"bf16x6"``, the tile's TERMS = 6 in ``csrc/gemm_wg.cuh``); its plain twin
 is ``conv1x1_bf16x6_plain`` (``BodyPlan.run_plain(x, gemm="bf16x6")``).
 
 References, on the committed synthetic deeplabv3_257-shaped model: the
@@ -89,9 +89,9 @@ def test_highest_flat_plan_is_six_terms(paths):
     """At "highest" the continuation's dots are "bf16x6" (the prefix's f32),
     its table the kernel's third instantiation (dots 2) with each GEMM row's
     three weight pieces in one block at ``w``, laid out for the wgmma tile
-    of the row's width, and that tile's ring; "high" keeps "bf16x3", hi at
-    ``w`` and lo at ``w1`` for the mma.sync tile and its ring of two W
-    tiles."""
+    of the row's width, and that tile's ring; "high" keeps "bf16x3", its
+    two pieces (hi, lo) in one block at ``w`` for the same tile and that
+    tile's ring at three terms."""
     *_, highest, high = paths
     assert [p.dots for p in highest.plans] == ["f32", "bf16x6"]
     assert [p.dots for p in high.plans] == ["f32", "bf16x3"]
@@ -100,23 +100,19 @@ def test_highest_flat_plan_is_six_terms(paths):
         plan = edge.cont_plan
         mt = plan.mega
         gemm = mt.table[mt.table[:, _F["code"]] == tmega.MEGA_CODES["gemm"]]
-        assert len(gemm) == 29 and not gemm[:, _F["w2"]].any()
-        assert bool((gemm[:, _F["w1"]] > 0).all()) != third
+        assert len(gemm) == 29 and not gemm[:, _F["w1"]].any() and not gemm[:, _F["w2"]].any()
         assert len(set(gemm[:, _F["w"]])) == 29
-        if third:
-            rings = [tmega._wg_smem_bytes(tmega._WG_TILES[t], 6) for t in gemm[:, _F["tile"]]]
-            ar = torch.from_numpy(mt.arena)
-            m = next(m for m in mt.ops if m["kind"] == "gemm")
-            r = gemm[0]
-            w = torch.from_numpy(np.asarray(plan.weights[m["w"]], np.float32))
-            got = tmega.unlay_wgmma(ar[r[_F["w"]]:].view(torch.bfloat16), 3, *w.shape,
-                                    tmega._WG_TILES[r[_F["tile"]]])
-            assert all(torch.equal(a, b[:, :w.shape[1]])
-                       for a, b in zip(got, split_bf16(w, 3)))
-        else:
-            rings = [tmega._gemm_ring_bytes(*tmega._MEGA_GEMM_TILES[t])
-                     for t in gemm[:, _F["tile"]]]
-        assert mt.smem_bytes >= mt.table.nbytes + max(rings)
+        n = 3 if third else 2
+        rings = [tmega._wg_smem_bytes(tmega._WG_TILES[t], 6 if third else 3)
+                 for t in gemm[:, _F["tile"]]]
+        ar = torch.from_numpy(mt.arena)
+        m = next(m for m in mt.ops if m["kind"] == "gemm")
+        r = gemm[0]
+        w = torch.from_numpy(np.asarray(plan.weights[m["w"]], np.float32))
+        got = tmega.unlay_wgmma(ar[r[_F["w"]]:].view(torch.bfloat16), n, *w.shape,
+                                tmega._WG_TILES[r[_F["tile"]]])
+        assert all(torch.equal(a, b[:, :w.shape[1]]) for a, b in zip(got, split_bf16(w, n)))
+        assert mt.table.nbytes + max(rings) <= mt.smem_bytes <= tmega._MAX_SMEM
     assert highest.cont_plan.mega.smem_bytes > high.cont_plan.mega.smem_bytes
 
 

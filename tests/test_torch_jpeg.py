@@ -190,100 +190,203 @@ def test_decode_wraps_int32_like_jax(jax_jpeg):
 
 def _kernel_constants():
     src = (ROOT / "backscrub_tpu_torch" / "csrc" / "jpeg.cu").read_text()
-    return {k: int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
-            for k in ("BPC", "CTW")}
+    k = {n: int(re.search(rf"constexpr int {n} = (\d+);", src).group(1))
+         for n in ("NT", "TILE_H", "TILE_W", "SEG")}
+    rows = max(k["TILE_H"] // 8, k["TILE_H"] // 16 + 2)
+    cols = max(k["TILE_W"] // 8, k["TILE_W"] // 16 + 2, 6)
+    return dict(k, WROWS=rows, WCOLS=cols, MAXB=3 * rows * cols)
 
 
-def _walk(coefs, q, info):
-    """``csrc/jpeg.cu``'s decomposition in numpy: idct_kernel's grid over
-    every component's blocks (BPC a CTA, the component by its first block,
-    each block's samples stored at its plane offset), then color_kernel's
-    pixel threads (CTW a CTA row), each sampling every component with the
-    kernel's per-method neighbour rule; every output byte written once."""
+def _walk(coefs, q, info, out_offset=0, decode=True):
+    """``csrc/jpeg.cu``'s decomposition in numpy: a CTA a tile of TILE_H x
+    TILE_W pixels at most (TILE_H / 8 / vmax MCUs down, TILE_W / 8 / hmax
+    across); each CTA decodes the blocks of each component's window (its
+    own blocks and, where the fancy upsampling reads across an edge, the
+    block beyond it, clipped to the grid: a halo block recomputed in every
+    CTA that reads it, from the same coefficients) into a window of its own
+    (unset samples -1), then writes its pixels SEG a thread, reading
+    samples from its windows alone, with the kernel's per-method neighbour
+    rule (a pixel past the width computed at the last column, its parity
+    its index's, and not written); the threads of a 16-pixel chunk store
+    it as three 16-byte words where the chunk lies inside the image and
+    starts on 16 bytes of an output at ``out_offset`` bytes past a 256-byte
+    boundary, else pixel by pixel.
+    Every output byte is written once; returns the image and the counts of
+    the CTAs, the blocks decoded, the vector and the per-pixel segments
+    (with ``decode`` False the counts alone, the image None)."""
     k = _kernel_constants()
     hmax = max(s[0] for s in info.sampling)
     vmax = max(s[1] for s in info.sampling)
-    firsts, offs, first = [], [], 0
-    for bh, bw in info.blocks:
-        firsts.append(first)
-        offs.append(first * 64)
-        first += bh * bw
-    total = first
-    planes = np.full(total * 64, -1, np.int64)
-    for cta in range(-(-total // k["BPC"])):
-        for lb in range(k["BPC"]):
-            b = cta * k["BPC"] + lb
-            if b >= total:
-                continue
-            c = max(i for i in range(info.ncomp) if b >= firsts[i])
-            bh, bw = info.blocks[c]
-            kk = b - firsts[c]
-            blk = tdec.idct_islow(torch.from_numpy(
-                coefs[c][kk // bw, kk % bw].astype(np.int32) * q[c]).reshape(8, 8)).numpy()
-            by, bx = divmod(kk, bw)
-            for r in range(8):
-                o = offs[c] + (by * 8 + r) * bw * 8 + bx * 8
-                assert (planes[o:o + 8] == -1).all()
-                planes[o:o + 8] = blk[r]
-    assert (planes >= 0).all()
+    my, mx = k["TILE_H"] // 8 // vmax, max(1, k["TILE_W"] // 8 // hmax)
+    mx += mx * hmax % 2
+    th, tw = my * vmax * 8, mx * hmax * 8
+    assert th <= k["TILE_H"] and tw % 16 == 0
+    ch = [-(-info.height * v // vmax) for _, v in info.sampling]
+    cw = [-(-info.width * h // hmax) for h, _ in info.sampling]
+    methods = [tdec.upsample_method(h, v, hmax, vmax) for h, v in info.sampling]
     out = np.full((info.height, info.width, 3), -1, np.int64)
+    counts = dict(ctas=0, blocks=0, vector=0, pixel=0)
+    seg = k["SEG"]
+    for ty in range(-(-info.height // th)):
+        for tx in range(-(-info.width // tw)):
+            counts["ctas"] += 1
+            wins, nb = [], 0
+            for c in range(info.ncomp):
+                h, v = info.sampling[c]
+                bh, bw = info.blocks[c]
+                hy = int(methods[c] in ("h2v2", "h1v2"))
+                hx = int(methods[c] in ("h2v2", "h2v1"))
+                by, bx = ty * my * v, tx * mx * h
+                r0, c0 = max(by - hy, 0), max(bx - hx, 0)
+                r1, c1 = min(by + my * v + hy, bh), min(bx + mx * h + hx, bw)
+                win = np.full(((r1 - r0) * 8, (c1 - c0) * 8), -1, np.int64)
+                assert r1 - r0 <= k["WROWS"] and c1 - c0 <= k["WCOLS"]
+                nb += (r1 - r0) * (c1 - c0)
+                for yb in range(r0 if decode else r1, r1):
+                    for xb in range(c0, c1):
+                        blk = tdec.idct_islow(torch.from_numpy(
+                            coefs[c][yb, xb].astype(np.int32) * q[c]).reshape(8, 8)).numpy()
+                        win[(yb - r0) * 8:(yb - r0) * 8 + 8, (xb - c0) * 8:(xb - c0) * 8 + 8] = blk
+                wins.append((win, r0 * 8, c0 * 8))
+            assert nb <= k["MAXB"]
+            counts["blocks"] += nb
 
-    def sample(c, y, x):
-        h, v = info.sampling[c]
-        bw = info.blocks[c][1]
-        ch = -(-info.height * v // vmax)
-        cw = -(-info.width * h // hmax)
+            def at(c, i, j):
+                win, oy, ox = wins[c]
+                assert 0 <= i - oy < win.shape[0] and 0 <= j - ox < win.shape[1]
+                val = int(win[i - oy, j - ox])
+                assert val >= 0
+                return val
 
-        def p(i, j):
-            return int(planes[offs[c] + i * bw * 8 + j])
-        method = tdec.upsample_method(h, v, hmax, vmax)
-        if method == "full":
-            return p(y, x)
-        if method == "h2v1":
-            j = x >> 1
-            return ((3 * p(y, j) + p(y, min(j + 1, cw - 1)) + 2) >> 2 if x & 1
-                    else (3 * p(y, j) + p(y, max(j - 1, 0)) + 1) >> 2)
-        i = y >> 1
-        io = min(i + 1, ch - 1) if y & 1 else max(i - 1, 0)
-        if method == "h2v2":
-            j = x >> 1
-            jn = min(j + 1, cw - 1) if x & 1 else max(j - 1, 0)
-            c0, cn = 3 * p(i, j) + p(io, j), 3 * p(i, jn) + p(io, jn)
-            return (3 * c0 + cn + (7 if x & 1 else 8)) >> 4
-        if method == "h1v2":
-            return (3 * p(i, x) + p(io, x) + (2 if y & 1 else 1)) >> 2
-        return p(y // (vmax // v), x // (hmax // h))
+            def sample(c, y, x, odd):
+                h, v = info.sampling[c]
+                method = methods[c]
+                if method == "full":
+                    return at(c, y, x)
+                if method == "h2v1":
+                    j = x >> 1
+                    return ((3 * at(c, y, j) + at(c, y, min(j + 1, cw[c] - 1)) + 2) >> 2 if odd
+                            else (3 * at(c, y, j) + at(c, y, max(j - 1, 0)) + 1) >> 2)
+                i = y >> 1
+                io = min(i + 1, ch[c] - 1) if y & 1 else max(i - 1, 0)
+                if method == "h2v2":
+                    j = x >> 1
+                    jn = min(j + 1, cw[c] - 1) if odd else max(j - 1, 0)
+                    c0_, cn = 3 * at(c, i, j) + at(c, io, j), 3 * at(c, i, jn) + at(c, io, jn)
+                    return (3 * c0_ + cn + (7 if odd else 8)) >> 4
+                if method == "h1v2":
+                    return (3 * at(c, i, x) + at(c, io, x) + (2 if y & 1 else 1)) >> 2
+                return at(c, y // (vmax // v), x // (hmax // h))
 
-    for y in range(info.height):
-        for cta in range(-(-info.width // k["CTW"])):
-            for t in range(k["CTW"]):
-                x = cta * k["CTW"] + t
-                if x >= info.width:
+            y0, x0 = ty * th, tx * tw
+            rows = min(th, info.height - y0)
+            segs = 16 // seg * -(-min(tw, info.width - x0) // 16)
+            assert rows * segs <= k["NT"]
+            for sidx in range(rows * segs):
+                y, xs = y0 + sidx // segs, x0 + (sidx % segs) * seg
+                x16 = xs - xs % 16
+                vector = (x16 + 16 <= info.width
+                          and (out_offset + (y * info.width + x16) * 3) % 16 == 0)
+                counts["vector" if vector else "pixel"] += 1
+                if not decode:
                     continue
-                assert (out[y, x] == -1).all()
-                yy = sample(0, y, x)
-                if info.ncomp == 1:
-                    out[y, x] = yy
-                    continue
-                cbm, crm = sample(1, y, x) - 128, sample(2, y, x) - 128
-                out[y, x] = np.clip([yy + ((116130 * cbm + 32768) >> 16),
-                                     yy + ((-22554 * cbm + 32768 - 46802 * crm) >> 16),
-                                     yy + ((91881 * crm + 32768) >> 16)], 0, 255)
-    return out.astype(np.uint8)
+                px = []
+                for kk in range(seg):
+                    x = min(xs + kk, info.width - 1)
+                    yy = sample(0, y, x, kk & 1)
+                    if info.ncomp == 1:
+                        px.append((yy, yy, yy))
+                        continue
+                    cbm, crm = sample(1, y, x, kk & 1) - 128, sample(2, y, x, kk & 1) - 128
+                    px.append(tuple(np.clip([yy + ((116130 * cbm + 32768) >> 16),
+                                             yy + ((-22554 * cbm + 32768 - 46802 * crm) >> 16),
+                                             yy + ((91881 * crm + 32768) >> 16)], 0, 255)))
+                for kk in range(seg):
+                    if xs + kk < info.width:
+                        assert (out[y, xs + kk] == -1).all()
+                        out[y, xs + kk] = px[kk]
+    if not decode:
+        return None, counts
+    assert (out >= 0).all()
+    return out.astype(np.uint8), counts
 
 
-@pytest.mark.parametrize("sampling", list(SAMPLINGS) + ["gray"])
-def test_kernel_walk_matches_plain(sampling):
-    """The kernel's decomposition, walked at 37x21 (ragged blocks, a
-    partial CTA row), byte for byte the plain decode."""
-    sf = ((1, 1),) if sampling == "gray" else SAMPLINGS[sampling]
-    info = make_info(37, 21, sf, ncomp=len(sf))
-    rng = np.random.default_rng(5)
+_WALK_CASES = {"420": (SAMPLINGS["420"], 37, 21), "422": (SAMPLINGS["422"], 37, 21),
+               "444": (SAMPLINGS["444"], 37, 21), "440": (SAMPLINGS["440"], 37, 21),
+               "411": (SAMPLINGS["411"], 37, 21), "gray": (((1, 1),), 37, 21),
+               "420 odd": (SAMPLINGS["420"], 131, 67), "420 two tiles": (SAMPLINGS["420"], 96, 48),
+               "422 odd": (SAMPLINGS["422"], 67, 41), "444 odd": (SAMPLINGS["444"], 81, 35),
+               "gray odd": (((1, 1),), 75, 33), "mixed": (((2, 1), (1, 2), (1, 1)), 45, 29),
+               "141": (((1, 4), (1, 1), (1, 1)), 37, 45),
+               "311": (((3, 1), (1, 1), (1, 1)), 101, 19)}
+
+
+@pytest.mark.parametrize("case", list(_WALK_CASES))
+def test_kernel_walk_matches_plain(case):
+    """The kernel's decomposition, walked at ragged sizes (partial MCUs,
+    tiles and segments, one tile and several down and across), byte for
+    byte the plain decode at every sampling, gray and a replicated ratio;
+    each byte written once, and a halo block decoded by each tile that
+    reads it."""
+    sf, w, h = _WALK_CASES[case]
+    info = make_info(w, h, sf, ncomp=len(sf))
+    rng = np.random.default_rng(w * h)
     coefs = [rng.integers(-40, 41, (bh, bw, 64)).astype(np.int16) for bh, bw in info.blocks]
     q = rng.integers(1, 50, (info.ncomp, 64)).astype(np.int32)
     want = tdec.decode_jpeg_bgr([torch.from_numpy(c) for c in coefs], torch.from_numpy(q), info)
-    assert np.array_equal(_walk(coefs, q, info), want.numpy())
-    assert jpeg_kernels.plane_bytes(info) == sum(bh * bw * 64 for bh, bw in info.blocks)
+    got, counts = _walk(coefs, q, info)
+    assert np.array_equal(got, want.numpy())
+    own = sum(bh * bw for bh, bw in info.blocks)
+    fancy = any(tdec.upsample_method(*s, max(t[0] for t in sf), max(t[1] for t in sf))
+                not in ("full", "int") for s in sf)
+    assert counts["blocks"] >= own if fancy else counts["blocks"] == own
+    assert counts["pixel"] > 0 if w % 16 else counts["pixel"] == 0
+
+
+def test_kernel_walk_at_the_main_path_sizes():
+    """At 640x480 and 1280x720 4:2:0 (the MJPG camera's frames) the walk
+    takes a CTA a TILE_H x TILE_W tile, each of at most its luma blocks and
+    each chroma's with its halo, more than the frame's own blocks; every
+    segment by 16-byte stores; an output 8 bytes off 16 takes them all
+    pixel by pixel, and an odd size both paths, each byte once and the
+    plain decode's."""
+    k = _kernel_constants()
+    th, tw, seg = k["TILE_H"], k["TILE_W"], k["SEG"]
+    most = th * tw // 64 + 2 * (th // 16 + 2) * (tw // 16 + 2)
+    for w, h in ((640, 480), (1280, 720)):
+        info = make_info(w, h)
+        _, counts = _walk(None, None, info, decode=False)
+        ctas = -(-w // tw) * -(-h // th)
+        assert counts["ctas"] == ctas and counts["pixel"] == 0
+        assert counts["vector"] == h * w // seg
+        assert sum(bh * bw for bh, bw in info.blocks) < counts["blocks"] <= ctas * most
+        assert _walk(None, None, info, out_offset=8, decode=False)[1]["pixel"] == h * w // seg
+    info = make_info(77, 35)
+    rng = np.random.default_rng(77)
+    coefs = [rng.integers(-40, 41, (bh, bw, 64)).astype(np.int16) for bh, bw in info.blocks]
+    q = rng.integers(1, 50, (3, 64)).astype(np.int32)
+    want = tdec.decode_jpeg_bgr([torch.from_numpy(c) for c in coefs], torch.from_numpy(q), info)
+    got, counts = _walk(coefs, q, info, out_offset=4)
+    assert np.array_equal(got, want.numpy()) and counts["vector"] and counts["pixel"]
+
+
+@pytest.mark.parametrize("variant", [(32, 128, ""), (64, 256, ""), (32, 128, "no loads"),
+                                     (32, 128, "no idct"), (32, 128, "no colour"),
+                                     (32, 128, "nothing")])
+def test_sweep_variants_apply_to_the_source(variant):
+    """tools/sweep_jpeg_tiles.py's variants find the constants and the
+    ablations' anchors they replace in jpeg.cu, once each, and change
+    nothing else."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    import sweep_jpeg_tiles
+    src = (ROOT / "backscrub_tpu_torch" / "csrc" / "jpeg.cu").read_text()
+    tile_w, nt, ablation = variant
+    text = sweep_jpeg_tiles.variant_source(src, tile_w, nt, ablation)
+    assert f"constexpr int TILE_W = {tile_w};" in text and f"constexpr int NT = {nt};" in text
+    edits = sweep_jpeg_tiles.ABLATIONS.get(ablation, [])
+    assert all(new in text for _, new in edits)
+    assert len(text.splitlines()) == len(src.splitlines()) + sum(
+        new.count("\n") for _, new in edits)
 
 
 def test_kernel_wrapper_counts_no_cpu_launch():

@@ -14,21 +14,27 @@ between the two checkouts can be compared.  The cases:
   model's parameter block and options, at the tile ``front_tile`` picks;
 - ``gemm``: the K2'' GEMM tile alone, ``conv1x1_gemm`` under RELU6 at
   every 1x1 shape of the deeplab frame and at ragged ones, on seeded
-  inputs, at ``gemm_config``'s tile and split; ``gemm_bf16`` the same
-  with ``terms=1`` (the bf16 mode's one-term tile) and ``gemm_highest``
-  with ``terms=6`` (the six-term tile of "highest"), both timed at the
-  deeplab shapes (the kernel alone, without a split-K sum pass), and
-  reported, not held: a build whose one- and six-term tiles sum in
-  another order (the wgmma tile of ``csrc/gemm_wg.cuh`` against the
-  ``mma.sync`` tile before it) differs in the last bits;
+  inputs, at ``gemm_config``'s tile and split, at three terms (the bf16x3
+  split of "high"); ``gemm_bf16`` the same with ``terms=1`` (the bf16
+  mode's one-term tile) and ``gemm_highest`` with ``terms=6`` (the
+  six-term tile of "highest"); all timed at the deeplab shapes (the kernel
+  alone, without a split-K sum pass); the three-term calls reported, not
+  held: a build whose tile sums in another order (the wgmma tile of
+  ``csrc/gemm_wg.cuh`` against the ``mma.sync`` tile of ``gemm_tc.cuh``
+  before it) differs in the last bits, and each build is held to the
+  plain twins by ``chip_smoke.py`` and the card tests; the one- and
+  six-term calls held bit for bit;
 - ``body``: the body plans, ``MaskGen(...).edge.body`` on K1's output of
   the first held-out deeplab frame at "high" (K2' and K2'' with the
-  three-term GEMM, then the executor's resize) and "default" (the bf16
-  tables; reported, as their GEMM's tile may sum in another order), and
-  of segm_lite's first frame at 640x480 (K2);
+  three-term GEMM, then the executor's resize; reported, as its GEMM's
+  tile may sum in another order) and "default" (the bf16 tables), and of
+  segm_lite's first frame at 640x480 (K2), held bit for bit;
 - ``cont``: K2'' alone, ``edge.cont_plan`` on the prefix's output of that
-  deeplab frame at "high", "default" and "highest", timed; "high" held bit
-  for bit, the other two (their GEMM tiles' order) reported;
+  deeplab frame at "high" (reported), "default" and "highest" (held bit
+  for bit), timed, and K2' alone at "high" (held bit for bit);
+- ``jpeg``: ``bs_jpeg_decode``, ``decode_jpeg_bgr`` on the synthetic MJPG
+  camera's frames at 640x480 and 1280x720 (timed) and on seeded
+  coefficients at every sampling, gray and odd sizes, bit for bit;
 - ``bilateral``: K5, ``bilateral5`` on seeded u8-valued canvases at
   (1, 96, 160), (1, 257, 257), (4, 257, 257) and (2, 5, 7);
 - ``pack420``: K4, ``blend_pack_420`` NV12 and I420 on seeded frames,
@@ -50,8 +56,11 @@ between the two checkouts can be compared.  The cases:
   ``reshape_flat``, at ``tools/probe_hopper.py``'s ``COPY_SHAPES`` (the
   probe shape on the original's input), bit for bit.  Their kernels were
   ``stride2_kernel`` and ``cat_kernel`` before the strided copy.  A build
-  whose CUDA sources do not name a call's kernel (``gemm_wg_kernel`` is
-  ``gemm_tc_kernel`` before the wgmma tile) is timed by the old name.
+  whose CUDA sources do not name a call's kernel (``jpeg_decode_kernel`` is
+  ``idct_kernel`` and ``color_kernel`` before the one-launch decode) is
+  timed by the old names.  The GEMM calls are timed by the kernels whose
+  name starts with ``gemm_`` (``gemm_wg_kernel``; ``gemm_tc_kernel`` at
+  three terms before the wgmma tile took them).
 
 Prints, per call, whether the outputs are bit-identical (else how many
 values differ and by how much) and exits 1 if any differs; the probe
@@ -69,7 +78,7 @@ in fresh subprocesses in turns: the other, this, this, the other.
 Usage (from the repository root, on a machine with a CUDA card)::
 
     python tools/bits_vs_build.py OTHER_CHECKOUT [--time] [front] [gemm] [gemm_bf16]
-        [gemm_highest] [body] [cont] [bilateral] [pack420]
+        [gemm_highest] [body] [cont] [jpeg] [bilateral] [pack420]
         [pack_yuyv] [probe_se] [probe_dot] [probe_dw_flat] [probe_dw_rowpad] [probe_cat]
         [probe_stride2] [probe_copy]
 """
@@ -99,6 +108,11 @@ if len(sys.argv) > 4:
     spec.loader.exec_module(timer)
     device_ms = timer.device_ms
 def dev(v):
+    if isinstance(v, dict) and "make" in v:      # an argument built in the checkout
+        mod, name = v["make"].split(":")
+        return getattr(importlib.import_module(mod), name)(*v["args"])
+    if isinstance(v, list):
+        return [dev(t) for t in v]
     return v.cuda() if isinstance(v, torch.Tensor) else v
 # a call's kernel by its name in this checkout's sources, else its old_kernel
 import glob
@@ -121,7 +135,9 @@ with torch.no_grad():
             k = c["kernel"]
             if "old_kernel" in c and k.lstrip(":") not in SOURCES:
                 k = c["old_kernel"]
-            times.append((1e3 * device_ms(call, kernel=k), 1e3 * device_ms(call, cold=k)))
+            ks = k if isinstance(k, (list, tuple)) else [k]   # a call's kernels, summed
+            times.append((sum(1e3 * device_ms(call, kernel=q) for q in ks),
+                          sum(1e3 * device_ms(call, cold=q) for q in ks)))
 torch.save((outs, times), sys.argv[3])
 """
 
@@ -156,7 +172,8 @@ def front_calls():
 
 
 def gemm_calls():
-    """(name, call) of the GEMM at the deeplab shapes and ragged ones."""
+    """(name, call) of the three-term GEMM at the deeplab shapes and ragged
+    ones: reported, the deeplab shapes timed."""
     import torch
     calls = []
     for co, ci, n in [(co, ci, GEMM_L) for co, ci in GEMM_SHAPES] + GEMM_RAGGED:
@@ -165,18 +182,18 @@ def gemm_calls():
                 for s in ((co, ci), (ci, n)))
         b = torch.from_numpy(rng.standard_normal(co).astype(np.float32))
         calls.append((f"gemm {co}x{ci}x{n}", dict(
-            wrapper="backscrub_tpu_torch.ops.megakernel:conv1x1_gemm", kernel="gemm_tc_kernel",
+            wrapper="backscrub_tpu_torch.ops.megakernel:conv1x1_gemm", kernel="::gemm_",
+            exact=False, tol=None, timed=n == GEMM_L,
             args=[w, b, x], kwargs=dict(act="RELU6"))))
     return calls
 
 
 def _wgmma_calls(terms):
     """(name, call) of the GEMM at ``terms`` 1 or 6 at the ``gemm`` case's
-    inputs: reported, the deeplab shapes timed."""
-    return [(f"{name} terms={terms}", dict(
-        call, kwargs=dict(call["kwargs"], terms=terms), kernel="gemm_wg_kernel",
-        old_kernel="gemm_tc_kernel", exact=False, tol=None, timed=name.endswith(f"x{GEMM_L}")))
-        for name, call in gemm_calls()]
+    inputs: held bit for bit, the deeplab shapes timed."""
+    return [(f"{name} terms={terms}", dict(call, kwargs=dict(call["kwargs"], terms=terms),
+                                             exact=True))
+            for name, call in gemm_calls()]
 
 
 def gemm_bf16_calls():
@@ -208,19 +225,21 @@ def body_calls():
             kw = dict(device="cuda", precision=prec)
             with torch.no_grad():
                 h = MaskGen(path, 640, 480, **kw).edge.front(torch.from_numpy(frame).cuda())
-            # the bf16 tables' GEMM runs the one-term tile: reported
+            # deeplab's "high" tables run the three-term GEMM: reported
             calls.append((f"body {os.path.basename(path)} {prec}", dict(
                 build="backscrub_tpu_torch.pipeline.maskgen:MaskGen",
                 build_args=[path, 640, 480], build_kwargs=kw, wrapper="edge.body",
                 kernel="body_mega_kernel", args=[h.cpu()], kwargs={},
-                **(dict(exact=False, tol=None) if prec == "default" else {}))))
+                **(dict(exact=False, tol=None) if prec == "high" else {}))))
     return calls
 
 
 def cont_calls():
     """(name, call) of K2'' alone at "high", "default" and "highest", each
     on its prefix's output of ``chip_smoke.py``'s first held-out deeplab
-    frame, timed; "high" held bit for bit, the others reported."""
+    frame, timed ("high", the three-term GEMM's, reported; the others held
+    bit for bit), and K2' alone at "high" on K1's output, held bit for
+    bit."""
     import torch
     sys.path.insert(0, os.path.join(REPO, "tools"))
     from chip_smoke import DEEPLAB, DEEPLAB_FRAMES
@@ -233,12 +252,56 @@ def cont_calls():
         kw = dict(device="cuda", precision=prec)
         with torch.no_grad():
             e = MaskGen(DEEPLAB, 640, 480, **kw).edge
-            x = e.prefix_plan(e.front(torch.from_numpy(frame).cuda()).reshape(16, -1))
+            k1 = e.front(torch.from_numpy(frame).cuda()).reshape(16, -1)
+            x = e.prefix_plan(k1)
+        if prec == "high":
+            calls.append(("prefix deeplab high", dict(
+                build="backscrub_tpu_torch.pipeline.maskgen:MaskGen",
+                build_args=[DEEPLAB, 640, 480], build_kwargs=kw, wrapper="edge.prefix_plan",
+                kernel="body_mega_kernel", args=[k1.cpu()], kwargs={})))
         calls.append((f"cont deeplab {prec}", dict(
             build="backscrub_tpu_torch.pipeline.maskgen:MaskGen",
             build_args=[DEEPLAB, 640, 480], build_kwargs=kw, wrapper="edge.cont_plan",
             kernel="body_mega_kernel", timed=True, args=[x.cpu()], kwargs={},
-            **({} if prec == "high" else dict(exact=False, tol=None)))))
+            **(dict(exact=False, tol=None) if prec == "high" else {}))))
+    return calls
+
+
+JPEG_SAMPLINGS = {"420": ((2, 2), (1, 1), (1, 1)), "422": ((2, 1), (1, 1), (1, 1)),
+                  "444": ((1, 1), (1, 1), (1, 1)), "440": ((1, 2), (1, 1), (1, 1)),
+                  "411": ((4, 1), (1, 1), (1, 1)), "311": ((3, 1), (1, 1), (1, 1)),
+                  "gray": ((1, 1),)}
+
+
+def jpeg_calls():
+    """(name, call) of the decode: the synthetic camera's JPEGs at 640x480
+    and 1280x720, timed, and seeded coefficients at every sampling at
+    63x47 and 64x48."""
+    import torch
+    from backscrub_tpu_torch.io import streams
+    from backscrub_tpu_torch.io.jpeg import JpegEntropyDecoder
+
+    def call(w, h, sf, coefs, q, timed):
+        info = dict(make="backscrub_tpu_torch.io.jpeg:make_info", args=[w, h, sf, len(sf)])
+        return dict(wrapper="backscrub_tpu_torch.ops.jpeg_kernels:decode_jpeg_bgr",
+                    kernel="jpeg_decode_kernel", old_kernel=("idct_kernel", "color_kernel"),
+                    timed=timed, args=[[torch.from_numpy(c) for c in coefs],
+                                       torch.from_numpy(np.asarray(q, np.int32)), info],
+                    kwargs={})
+    calls = []
+    for w, h in ((640, 480), (1280, 720)):
+        dec = JpegEntropyDecoder()
+        coefs, q = dec.decode(streams.SyntheticJpegCamera(w, h)())
+        sf = tuple(dec.info.sampling)
+        calls.append((f"jpeg camera {w}x{h}", call(w, h, sf, coefs, q, True)))
+    for name, sf in JPEG_SAMPLINGS.items():
+        for w, h in ((63, 47), (64, 48)):
+            hm, vm = max(s[0] for s in sf), max(s[1] for s in sf)
+            blocks = [(-(-h // (8 * vm)) * v, -(-w // (8 * hm)) * hh) for hh, v in sf]
+            rng = np.random.default_rng(w * h + len(name))
+            coefs = [rng.integers(-40, 41, (bh, bw, 64)).astype(np.int16) for bh, bw in blocks]
+            q = rng.integers(1, 50, (len(sf), 64))
+            calls.append((f"jpeg {name} {w}x{h}", call(w, h, sf, coefs, q, False)))
     return calls
 
 
@@ -415,7 +478,7 @@ def probe_dot_calls():
 
 CASES = {"front": front_calls, "gemm": gemm_calls, "gemm_bf16": gemm_bf16_calls,
          "gemm_highest": gemm_highest_calls, "body": body_calls, "cont": cont_calls,
-         "bilateral": bilateral_calls,
+         "jpeg": jpeg_calls, "bilateral": bilateral_calls,
          "pack420": pack420_calls, "pack_yuyv": pack_yuyv_calls, "probe_se": probe_se_calls,
          "probe_dot": probe_dot_calls, "probe_cat": probe_cat_calls,
          "probe_dw_flat": probe_dw_flat_calls, "probe_dw_rowpad": probe_dw_rowpad_calls,

@@ -10,7 +10,7 @@ with one edit of ``gemm_wg.cuh``:
   memory nor split;
 - ``no x loads``: no cp.async of x (the W blocks still come in);
 
-then at each shape times ``bs_gemm`` at ``terms`` 1 and 6 (the profiler's
+then at each shape times ``bs_gemm`` at ``terms`` 1, 3 and 6 (the profiler's
 device time of ``gemm_wg_kernel`` a launch, ``chip_smoke.device_ms``), at
 ``gemm_config``'s width, on seeded inputs, and prints each variant's
 microseconds and the share of the tile's time that the part took away
@@ -37,13 +37,17 @@ L = 33 * 33
 
 # (name, [(text in gemm_wg.cuh, its replacement)])
 ABLATIONS = [
-    ("no products", [("        wg::mma<BN>(acc[0], af[h][0], wg::smem_desc(wb, LBO, SBO));\n"
-                      "        if constexpr (TERMS == 6) {",
-                      "        if constexpr (false) {")]),
+    ("no products", [("namespace gemm_wg {\n",
+                      "namespace gemm_wg {\n"
+                      "template <typename... A>\n"
+                      "__device__ __forceinline__ void skip_mma(A...) {}\n"),
+                     ("wg::mma<BN>(", "skip_mma(")]),
     ("no split", [("          if constexpr (TERMS == 6)\n"
-                   "            split3(r0[m], r1[m], af[h][0][q], af[h][1][q], af[h][2][q]);\n"
+                   "            wg::split3(r0[m], r1[m], af[h][0][q], af[h][1][q], af[h][2][q]);\n"
+                   "          else if constexpr (TERMS == 3)\n"
+                   "            wg::split2(r0[m], r1[m], af[h][0][q], af[h][1][q]);\n"
                    "          else\n"
-                   "            af[h][0][q] = round2(r0[m], r1[m]);",
+                   "            af[h][0][q] = wg::round2(r0[m], r1[m]);",
                    "          (void)r0;\n          (void)r1;\n"
                    "          for (int p = 0; p < P; ++p) af[h][p][q] = 0x3f803f80u;")]),
     ("no x loads", [("      for (int e = tid; e < BK * XCH; e += NT) {",
@@ -99,7 +103,7 @@ def main(argv=None) -> int:
             lib.bs_gemm.restype = ctypes.c_int
             libs.append(lib)
         print(f"{torch.cuda.get_device_name(0)}; bs_gemm, device us a launch")
-        for terms in (1, 6):
+        for terms in (1, 3, 6):
             for shape in a.shapes:
                 co, ci = map(int, shape.split("x"))
                 rng = np.random.default_rng(co * 1000 + ci)
@@ -114,8 +118,8 @@ def main(argv=None) -> int:
                 times = []
                 for lib in libs:
                     def run(lib=lib):
-                        e = lib.bs_gemm(blk.data_ptr(), None, None, b.data_ptr(), x.data_ptr(),
-                                        y.data_ptr(), part.data_ptr(), co, ci, 0, L, 0, tile,
+                        e = lib.bs_gemm(blk.data_ptr(), b.data_ptr(), x.data_ptr(),
+                                        y.data_ptr(), part.data_ptr(), co, ci, L, 0, tile,
                                         split, kchunk, terms,
                                         torch.cuda.current_stream().cuda_stream)
                         if e != 0:
@@ -123,8 +127,8 @@ def main(argv=None) -> int:
                     run()
                     if not times:
                         torch.cuda.synchronize()
-                        ref = (mk.conv1x1_bf16_plain if terms == 1 else
-                               mk.conv1x1_bf16x6_plain)(w, b, x)
+                        ref = {1: mk.conv1x1_bf16_plain, 3: mk.conv1x1_bf16x3_plain,
+                               6: mk.conv1x1_bf16x6_plain}[terms](w, b, x)
                         rel = float((y - ref).abs().max() / ref.abs().max())
                         if rel > 1e-5:
                             raise AssertionError(f"{shape} terms={terms}: {rel:.3g} from twin")

@@ -44,7 +44,7 @@ import numpy as np
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the __global__ functions of backscrub_tpu_torch/csrc (templates by name)
 _PORT_KERNELS = {"front_kernel", "bilateral_kernel", "blend_pack_yuyv_kernel",
-                 "blend_pack_420_kernel", "gemm_tc_kernel", "gemm_wg_kernel",
+                 "blend_pack_420_kernel", "gemm_wg_kernel",
                  "splitk_sum_kernel", "body_mega_kernel"}
 
 

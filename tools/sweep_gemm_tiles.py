@@ -5,10 +5,10 @@ For each (co, ci) at L = 33 * 33 prints the six fastest (tile, split)
 choices by device time (the torch.profiler's kernel time, mean of 50
 calls; the split-K sum kernel included), each checked against its plain
 twin (1e-5 relative), beside what ``gemm_config`` picks.  The data behind
-``gemm_config``'s rule.  ``--terms 3`` (the default): the bf16x3 split on
-the mma.sync tiles of ``_GEMM_TILES``, against ``conv1x1_bf16x3_plain``;
-``--terms 1`` or ``6``: the wgmma tile at each width of ``_WG_TILES``,
-against ``conv1x1_bf16_plain`` or ``conv1x1_bf16x6_plain``.
+``gemm_config``'s rule: the wgmma tile at each width of ``_WG_TILES`` and
+split K into 1, 2, 4 or 8 ranges of whole 64-deep slices, at ``--terms 3``
+(the default, the bf16x3 split, against ``conv1x1_bf16x3_plain``), ``1``
+(``conv1x1_bf16_plain``) or ``6`` (``conv1x1_bf16x6_plain``).
 
 Usage (from the repository root, on a machine with a CUDA card)::
 
@@ -50,19 +50,12 @@ def main(argv=None) -> int:
         b = torch.from_numpy(rng.standard_normal(co).astype(np.float32)).cuda()
         y = torch.empty((co, L), device="cuda")
         res = []
-        if terms == 3:
-            ref = mk.conv1x1_bf16x3_plain(w, b, x)
-            hi, lo = mk.split_bf16(w)
-            kp, slices, deep = hi.shape[1], -(-hi.shape[1] // 16), 16
-            tiles = [(bm, bn) for bm, bn in mk._GEMM_TILES]
-        else:
-            ref = (mk.conv1x1_bf16_plain if terms == 1 else mk.conv1x1_bf16x6_plain)(w, b, x)
-            pieces = mk.split_bf16(w, mk.GEMM_PIECES[terms])
-            kp, slices, deep = 0, -(-ci // mk._WG_BK), mk._WG_BK
-            tiles = [(bn, mk._WG_BM) for bn in mk._WG_TILES]
-        for tile, (bm, bn) in enumerate(tiles):
-            blk = None if terms == 3 else mk.lay_wgmma(pieces, bm)   # alive while timed
-            ptrs = (hi.data_ptr(), lo.data_ptr()) if terms == 3 else (blk.data_ptr(), None)
+        ref = {1: mk.conv1x1_bf16_plain, 3: mk.conv1x1_bf16x3_plain,
+               6: mk.conv1x1_bf16x6_plain}[terms](w, b, x)
+        pieces = mk.split_bf16(w, mk.GEMM_PIECES[terms])
+        slices = -(-ci // mk._WG_BK)
+        for tile, bn in enumerate(mk._WG_TILES):
+            blk = mk.lay_wgmma(pieces, bn)      # alive while timed
             for want in (1, 2, 4, 8):
                 if want > slices:
                     continue
@@ -71,14 +64,14 @@ def main(argv=None) -> int:
                 part = torch.empty(split * co * L, device="cuda")
 
                 def run():
-                    _build.launch("bs_gemm", *ptrs, None, b.data_ptr(), x.data_ptr(),
-                                  y.data_ptr(), part.data_ptr(), co, ci, kp, L, 0, tile,
-                                  split, deep * per, terms)
+                    _build.launch("bs_gemm", blk.data_ptr(), b.data_ptr(), x.data_ptr(),
+                                  y.data_ptr(), part.data_ptr(), co, ci, L, 0, tile, split,
+                                  mk._WG_BK * per, terms)
                 run()
                 torch.cuda.synchronize()
                 ok = float((y - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
                 res.append((device_ms(run, n=50) * 1e3, tile, split,
-                            -(-co // bm) * -(-L // bn) * split, ok))
+                            -(-co // bn) * -(-L // mk._WG_BM) * split, ok))
         res.sort()
         cfg = mk.gemm_config(co, ci, L, sms, terms)
         print(f"{co}x{ci}: gemm_config {cfg}; fastest " + "; ".join(
