@@ -68,6 +68,12 @@
 // - The epilogue (bias, activation, residual or a split-K partial) goes
 //   through a BN x 64 tile in the ring, each thread's loads of a group
 //   issued before its first store.
+// - A CTA that takes several tiles of one op (the table's GEMM op over a
+//   stream batch: run_seq) runs them through one ring, slice after slice
+//   from its first tile to its last, so that a tile's first two slices
+//   load under the tile before's last products and epilogue; the K-group
+//   sums and the epilogue tile then go through memory of their own past the
+//   ring.  Each tile's slices, products and epilogue are run's.
 //
 // What bounds it now: the chain of slices, each its loads' wait, a CTA
 // barrier, the split and the products in turn.  tools/gemm_ablation.py
@@ -77,8 +83,10 @@
 // Shared memory a CTA (SMEM_BYTES): 3 x (W block + x slice) + 128 of
 // alignment + the mbarriers; at one term 58,520 (BN 16) to 83,096 (BN 80),
 // at three 64,664 to 113,816, at six 70,808 to 144,536
-// (ops/megakernel.py:_wg_smem_bytes, which the tests hold to the 232,448 a
-// CTA may have).  Registers: BN / 2 f32 an accumulator a thread (two at
+// (ops/megakernel.py:_wg_smem_bytes); run_seq's SEQ_SMEM_BYTES adds the
+// larger of the K-group sums and the epilogue tile: at six terms and BN 80
+// 205,976 (ops/megakernel.py:_wg_seq_smem_bytes, which the tests hold to the
+// 232,448 a CTA may have with the table).  Registers: BN / 2 f32 an accumulator a thread (two at
 // three terms, three at six: 120 at BN 80) and a slice's A fragments (8,
 // 16 or 24).
 
@@ -128,133 +136,139 @@ struct Tile {
   static constexpr int XSL = BK * XS * 4;               // bytes of a stage's x slice
   static constexpr int RING = STAGES * (WBLK + XSL);
   static constexpr int SMEM_BYTES = RING + 128 + STAGES * 8;
-  static_assert(P * NA * 128 * 4 <= RING && BN * XS * 4 <= RING,
-                "the K-group sums and the epilogue tile fit the ring");
+  // the K-group sums and the epilogue tile: in the ring after a tile's
+  // last slice (run), or in this many bytes after the barriers (run_seq)
+  static constexpr int EPI = P * NA * 128 * 4 > BN * XS * 4 ? P * NA * 128 * 4 : BN * XS * 4;
+  static constexpr int SEQ_SMEM_BYTES = SMEM_BYTES + EPI;
+  static_assert(EPI <= RING, "the K-group sums and the epilogue tile fit the ring");
 
-  // The tile of output channels [ct * BN, ct * BN + BN) and positions [n0,
-  // n0 + 64) over K slices [s0, s1) of ``wblk`` (the op's laid-out W, nks
-  // slices a co tile; x rows from kend_x on load as zeros), into ``ep``.
-  // All NT threads call it; it leaves no copy in flight and its barriers
-  // invalidated, and the ring may be reused after a __syncthreads().
-  __device__ static void run(unsigned char* smem, const __nv_bfloat16* wblk, const float* x,
-                             int M, int N, int nks, int ct, int n0, int s0, int s1, int kend_x,
-                             const Epilogue& ep) {
-    unsigned char* base = smem + ((0u - smem_u32(smem)) & 127u);   // 128-byte aligned
-    unsigned char* sw = base;                                        // [STAGES][WBLK]
-    float* sx = reinterpret_cast<float*>(base + STAGES * WBLK);      // [STAGES][BK][XS]
-    uint64_t* full = reinterpret_cast<uint64_t*>(base + RING);       // [STAGES]
+  // the ring: STAGES W blocks, then STAGES x slices, 128-byte aligned; then
+  // the stages' mbarriers
+  struct Ring {
+    unsigned char* sw;   // [STAGES][WBLK]
+    float* sx;           // [STAGES][BK][XS]
+    uint64_t* full;      // [STAGES]
+    __device__ __forceinline__ explicit Ring(unsigned char* smem) {
+      unsigned char* base = smem + ((0u - smem_u32(smem)) & 127u);
+      sw = base;
+      sx = reinterpret_cast<float*>(base + STAGES * WBLK);
+      full = reinterpret_cast<uint64_t*>(base + RING);
+    }
+    // generic accesses to this memory (an earlier tile or op) before the
+    // bulk copies' writes; the barriers
+    __device__ __forceinline__ void init() const {
+      wg::fence_proxy_async();
+      if (threadIdx.x == 0) {
+        for (int s = 0; s < STAGES; ++s) wg::mbar_init(full + s, 1);
+        wg::mbar_init_fence();
+      }
+      __syncthreads();
+    }
+    // every copy landed and every wait passed: the barriers invalidated
+    __device__ __forceinline__ void release() const {
+      cp_async_wait<0>();
+      __syncthreads();
+      if (threadIdx.x == 0)
+        for (int s = 0; s < STAGES; ++s) wg::mbar_inval(full + s);
+    }
+  };
+
+  // slice k0 of x (rows k0 .. k0 + BK - 1 at positions n0 .. n0 + 63; rows
+  // from kend_x on and bytes past a row's end as zeros) and the W block at
+  // ``wsrc`` into stage st; the block by one bulk copy on the stage's
+  // barrier, x by 16-byte cp.async (the caller commits)
+  __device__ __forceinline__ static void load(const Ring& r, int st, const unsigned char* wsrc,
+                                              const float* x, int N, int n0, int k0,
+                                              int kend_x) {
+    const int tid = threadIdx.x;
+    if (tid == 0) {
+      wg::mbar_expect_tx(r.full + st, WBLK);
+      wg::bulk_g2s(r.sw + st * WBLK, wsrc, WBLK, r.full + st);
+    }
+    for (int e = tid; e < BK * XCH; e += NT) {
+      const int kk = e / XCH, c = e % XCH, gk = k0 + kk;
+      const float* row = x + (size_t)gk * N + n0;
+      const int sh = (int)(((uintptr_t)row >> 2) & 3), left = N - n0 - (4 * c - sh);
+      const int bytes = gk < kend_x && left > 0 ? 4 * min(4, left) : 0;
+      cp_async16n(r.sx + (st * BK + kk) * XS + 4 * c, bytes ? row - sh + 4 * c : x, bytes);
+    }
+  }
+
+  // the products of the slice in stage st (its first K row gk at
+  // ``kslice``; xw, nm: the x rows' shift, as run computes them) into acc:
+  // this warpgroup's k16 steps of the slice, 2 h + grp (past K: zeros in x
+  // and W), split into their fragments, then their products, retired
+  // before the fragments' registers are reused
+  __device__ __forceinline__ static void products(const Ring& r, int st, int kslice,
+                                                  unsigned xw, unsigned nm,
+                                                  float (&acc)[P][NA]) {
     const int tid = threadIdx.x, grp = tid >> 7, wt = tid & 127;
     const int w = wt >> 5, g = (wt & 31) >> 2, t = wt & 3;
-    const int ns = s1 - s0;
-    const unsigned xw = (unsigned)((uintptr_t)x >> 2) + (unsigned)n0, nm = (unsigned)N & 3u;
-    const unsigned char* wsrc = reinterpret_cast<const unsigned char*>(wblk) +
-                                ((size_t)ct * nks + s0) * WBLK;
-
-    // generic accesses to this memory (an earlier tile or op) before the
-    // bulk copies' writes; the barriers for this tile
-    wg::fence_proxy_async();
-    if (tid == 0) {
-      for (int s = 0; s < STAGES; ++s) wg::mbar_init(full + s, 1);
-      wg::mbar_init_fence();
+    uint32_t af[STEPS][P][4];
+#pragma unroll
+    for (int h = 0; h < STEPS; ++h) {
+      const int kb = (2 * h + grp) * 16, gk0 = kslice + kb;
+      const float* xs = r.sx + (st * BK + kb) * XS;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {   // A[m][k], A[m][k + 1] = x[k][m], x[k + 1][m]
+        const int m = 16 * w + g + 8 * (q & 1), k = 2 * t + 8 * (q >> 1);
+        const float* r0 = xs + k * XS + ((xw + (unsigned)(gk0 + k) * nm) & 3u);
+        const float* r1 = xs + (k + 1) * XS + ((xw + (unsigned)(gk0 + k + 1) * nm) & 3u);
+        if constexpr (TERMS == 6)
+          wg::split3(r0[m], r1[m], af[h][0][q], af[h][1][q], af[h][2][q]);
+        else if constexpr (TERMS == 3)
+          wg::split2(r0[m], r1[m], af[h][0][q], af[h][1][q]);
+        else
+          af[h][0][q] = wg::round2(r0[m], r1[m]);
+      }
     }
-    __syncthreads();
-
-    auto load = [&](int i) {       // slice s0 + i into stage i % STAGES
-      const int st = i % STAGES, k0 = (s0 + i) * BK;
-      if (tid == 0) {
-        wg::mbar_expect_tx(full + st, WBLK);
-        wg::bulk_g2s(sw + st * WBLK, wsrc + (size_t)i * WBLK, WBLK, full + st);
+#pragma unroll
+    for (int p = 0; p < P; ++p) wg::reg_fence(acc[p]);
+    wg::fence();
+#pragma unroll
+    for (int h = 0; h < STEPS; ++h) {
+      // a k16 step is two core matrices of K on: 256 bytes
+      const unsigned char* wb = r.sw + st * WBLK + (2 * h + grp) * 256;
+      // accumulator p takes the products a_i.w_j with i + j = p, i ascending
+      constexpr int PB = BN * BK * 2;                     // a piece's bytes in the block
+      wg::mma<BN>(acc[0], af[h][0], wg::smem_desc(wb, LBO, SBO));
+      if constexpr (TERMS >= 3) {
+        wg::mma<BN>(acc[1 % P], af[h][0], wg::smem_desc(wb + PB, LBO, SBO));
+        wg::mma<BN>(acc[1 % P], af[h][1 % P], wg::smem_desc(wb, LBO, SBO));
       }
-      for (int e = tid; e < BK * XCH; e += NT) {
-        const int kk = e / XCH, c = e % XCH, gk = k0 + kk;
-        const float* row = x + (size_t)gk * N + n0;
-        const int sh = (int)(((uintptr_t)row >> 2) & 3), left = N - n0 - (4 * c - sh);
-        const int bytes = gk < kend_x && left > 0 ? 4 * min(4, left) : 0;
-        cp_async16n(sx + (st * BK + kk) * XS + 4 * c, bytes ? row - sh + 4 * c : x, bytes);
+      if constexpr (TERMS == 6) {
+        wg::mma<BN>(acc[2 % P], af[h][0], wg::smem_desc(wb + 2 * PB, LBO, SBO));
+        wg::mma<BN>(acc[2 % P], af[h][1 % P], wg::smem_desc(wb + PB, LBO, SBO));
+        wg::mma<BN>(acc[2 % P], af[h][2 % P], wg::smem_desc(wb, LBO, SBO));
       }
-    };
-
-    float acc[P][NA];
-#pragma unroll
-    for (int p = 0; p < P; ++p)
-#pragma unroll
-      for (int i = 0; i < NA; ++i) acc[p][i] = 0.0f;
-
-#pragma unroll
-    for (int i = 0; i < STAGES - 1; ++i) {
-      if (i < ns) load(i);
-      cp_async_commit();
     }
-#pragma unroll 1
-    for (int i = 0; i < ns; ++i) {
-      const int st = i % STAGES;
-      cp_async_wait<STAGES - 2>();
-      wg::mbar_wait(full + st, (i / STAGES) & 1);
-      __syncthreads();   // slice i landed; both warpgroups are done with slice i - 1
-      if (i + STAGES - 1 < ns) load(i + STAGES - 1);
-      cp_async_commit();
+    wg::commit();
+    // the products done before the fragments' registers are reused (a
+    // wgmma in flight over registers that later code defines is one that
+    // ptxas serializes)
+    wg::wait<0>();
+#pragma unroll
+    for (int p = 0; p < P; ++p) wg::reg_fence(acc[p]);
+#pragma unroll
+    for (int h = 0; h < STEPS; ++h)
+#pragma unroll
+      for (int p = 0; p < P; ++p) wg::reg_fence(af[h][p]);
+  }
 
-      // this warpgroup's k16 steps of the slice, 2 h + grp (past K: zeros in
-      // x and W), split into their fragments, then their products
-      uint32_t af[STEPS][P][4];
-#pragma unroll
-      for (int h = 0; h < STEPS; ++h) {
-        const int kb = (2 * h + grp) * 16, gk0 = (s0 + i) * BK + kb;
-        const float* xs = sx + (st * BK + kb) * XS;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {   // A[m][k], A[m][k + 1] = x[k][m], x[k + 1][m]
-          const int m = 16 * w + g + 8 * (q & 1), k = 2 * t + 8 * (q >> 1);
-          const float* r0 = xs + k * XS + ((xw + (unsigned)(gk0 + k) * nm) & 3u);
-          const float* r1 = xs + (k + 1) * XS + ((xw + (unsigned)(gk0 + k + 1) * nm) & 3u);
-          if constexpr (TERMS == 6)
-            wg::split3(r0[m], r1[m], af[h][0][q], af[h][1][q], af[h][2][q]);
-          else if constexpr (TERMS == 3)
-            wg::split2(r0[m], r1[m], af[h][0][q], af[h][1][q]);
-          else
-            af[h][0][q] = wg::round2(r0[m], r1[m]);
-        }
-      }
-#pragma unroll
-      for (int p = 0; p < P; ++p) wg::reg_fence(acc[p]);
-      wg::fence();
-#pragma unroll
-      for (int h = 0; h < STEPS; ++h) {
-        // a k16 step is two core matrices of K on: 256 bytes
-        const unsigned char* wb = sw + st * WBLK + (2 * h + grp) * 256;
-        // accumulator p takes the products a_i.w_j with i + j = p, i ascending
-        constexpr int PB = BN * BK * 2;                     // a piece's bytes in the block
-        wg::mma<BN>(acc[0], af[h][0], wg::smem_desc(wb, LBO, SBO));
-        if constexpr (TERMS >= 3) {
-          wg::mma<BN>(acc[1 % P], af[h][0], wg::smem_desc(wb + PB, LBO, SBO));
-          wg::mma<BN>(acc[1 % P], af[h][1 % P], wg::smem_desc(wb, LBO, SBO));
-        }
-        if constexpr (TERMS == 6) {
-          wg::mma<BN>(acc[2 % P], af[h][0], wg::smem_desc(wb + 2 * PB, LBO, SBO));
-          wg::mma<BN>(acc[2 % P], af[h][1 % P], wg::smem_desc(wb + PB, LBO, SBO));
-          wg::mma<BN>(acc[2 % P], af[h][2 % P], wg::smem_desc(wb, LBO, SBO));
-        }
-      }
-      wg::commit();
-      // the products done before the fragments' registers are reused (a
-      // wgmma in flight over registers that later code defines is one that
-      // ptxas serializes)
-      wg::wait<0>();
-#pragma unroll
-      for (int p = 0; p < P; ++p) wg::reg_fence(acc[p]);
-#pragma unroll
-      for (int h = 0; h < STEPS; ++h)
-#pragma unroll
-        for (int p = 0; p < P; ++p) wg::reg_fence(af[h][p]);
-    }
-    cp_async_wait<0>();
-    __syncthreads();     // every wait on the barriers passed; the ring is free
-    if (tid == 0)
-      for (int s = 0; s < STAGES; ++s) wg::mbar_inval(full + s);
-
-    // warpgroup 1's sums to warpgroup 0 (value v of thread l at red[v * 128
-    // + l]: a warp's lanes on consecutive banks), added accumulator by
-    // accumulator
-    float* red = reinterpret_cast<float*>(base) + wt;
+  // the tile's sums into ``ep``, through EPI bytes at ``scratch`` that no
+  // copy in flight writes: warpgroup 1's sums to warpgroup 0 (value v of
+  // thread l at red[v * 128 + l]: a warp's lanes on consecutive banks),
+  // added accumulator by accumulator; then v = first (+ second, or +
+  // (second + third)) into a BN x 64 tile, tile[o][m], and every thread
+  // takes PER of its elements row by row (a warp on consecutive
+  // positions), GROUP at a time with their bias and residual loads issued
+  // before the group's first store (a store may alias them)
+  __device__ __forceinline__ static void finish(unsigned char* scratch, float (&acc)[P][NA],
+                                                int M, int N, int ct, int n0,
+                                                const Epilogue& ep) {
+    const int tid = threadIdx.x, grp = tid >> 7, wt = tid & 127;
+    const int w = wt >> 5, g = (wt & 31) >> 2, t = wt & 3;
+    float* red = reinterpret_cast<float*>(scratch) + wt;
     if (grp == 1) {
 #pragma unroll
       for (int p = 0; p < P; ++p)
@@ -270,15 +284,9 @@ struct Tile {
     }
     __syncthreads();
 
-    // the epilogue: v = first (+ second, or + (second + third)) into a BN x
-    // 64 tile in
-    // the ring, tile[o][m], then every thread takes PER of its elements row
-    // by row (a warp on consecutive positions), GROUP at a time with their
-    // bias and residual loads issued before the group's first store (a
-    // store may alias them)
     constexpr int TS = XS, PER = BN * BM / NT, GROUP = 4;
     static_assert(PER % GROUP == 0, "the epilogue's groups");
-    float* tile = reinterpret_cast<float*>(base);
+    float* tile = reinterpret_cast<float*>(scratch);
     if (grp == 0) {
 #pragma unroll
       for (int i = 0; i < NA; ++i) {
@@ -315,6 +323,113 @@ struct Tile {
         }
       }
     }
+  }
+
+  // The tile of output channels [ct * BN, ct * BN + BN) and positions [n0,
+  // n0 + 64) over K slices [s0, s1) of ``wblk`` (the op's laid-out W, nks
+  // slices a co tile; x rows from kend_x on load as zeros), into ``ep``.
+  // All NT threads call it; it leaves no copy in flight and its barriers
+  // invalidated, and the ring may be reused after a __syncthreads().
+  __device__ __forceinline__ static void run(unsigned char* smem, const __nv_bfloat16* wblk,
+                                             const float* x, int M, int N, int nks, int ct,
+                                             int n0, int s0, int s1, int kend_x,
+                                             const Epilogue& ep) {
+    const Ring r(smem);
+    const int ns = s1 - s0;
+    const unsigned xw = (unsigned)((uintptr_t)x >> 2) + (unsigned)n0, nm = (unsigned)N & 3u;
+    const unsigned char* wsrc = reinterpret_cast<const unsigned char*>(wblk) +
+                                ((size_t)ct * nks + s0) * WBLK;
+    r.init();
+    float acc[P][NA];
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+#pragma unroll
+      for (int i = 0; i < NA; ++i) acc[p][i] = 0.0f;
+
+    // a ring of STAGES: at slice i the loads of slice i + 2 go out (into the
+    // stage of slice i - 1, whose products both warpgroups have retired)
+#pragma unroll
+    for (int i = 0; i < STAGES - 1; ++i) {
+      if (i < ns) load(r, i, wsrc + (size_t)i * WBLK, x, N, n0, (s0 + i) * BK, kend_x);
+      cp_async_commit();
+    }
+#pragma unroll 1
+    for (int i = 0; i < ns; ++i) {
+      const int st = i % STAGES;
+      cp_async_wait<STAGES - 2>();
+      wg::mbar_wait(r.full + st, (i / STAGES) & 1);
+      __syncthreads();   // slice i landed; both warpgroups are done with slice i - 1
+      const int nx = i + STAGES - 1;
+      if (nx < ns)
+        load(r, nx % STAGES, wsrc + (size_t)nx * WBLK, x, N, n0, (s0 + nx) * BK, kend_x);
+      cp_async_commit();
+      products(r, st, (s0 + i) * BK, xw, nm, acc);
+    }
+    r.release();         // the ring is free: the sums go through it
+    finish(r.sw, acc, M, N, ct, n0, ep);
+  }
+
+  // A CTA's sequence of ``count`` tiles of one op (the table's OP_GEMM:
+  // every slice of K, x rows from K on as zeros), from the tile of cursor
+  // ``c`` on (c.x(), c.ct, c.n0(), c.ep() its x, co tile, first position
+  // and epilogue; c.next() the next tile): one ring from the first slice of
+  // the first tile to the last of the last, so that the first STAGES - 1
+  // slices of a tile load under the tile before's last products and its
+  // epilogue, which goes through the EPI bytes past the barriers
+  // (SEQ_SMEM_BYTES in all).  Each tile's sums are run's for that tile: the
+  // same slices, products and epilogue in the same order.  Leaves no copy
+  // in flight and the barriers invalidated.
+  template <class Cursor>
+  __device__ __forceinline__ static void run_seq(unsigned char* smem,
+                                                 const __nv_bfloat16* wblk, int M, int N,
+                                                 int K, int count, Cursor c) {
+    const Ring r(smem);
+    unsigned char* scratch = reinterpret_cast<unsigned char*>(r.full) + STAGES * 8;
+    const int nks = (K + BK - 1) / BK, total = count * nks;
+    const unsigned nm = (unsigned)N & 3u;
+    const auto* w8 = reinterpret_cast<const unsigned char*>(wblk);
+    Cursor ic = c;       // the tile of the next slice to load: its x, first
+    int ii = 0;          // position and W blocks, and the slice
+    const float* ix = ic.x();
+    int in0 = ic.n0();
+    const unsigned char* iw = w8 + (size_t)ic.ct * nks * WBLK;
+    auto issue = [&](int q) {   // slice q of the sequence into its stage
+      load(r, q % STAGES, iw + (size_t)ii * WBLK, ix, N, in0, ii * BK, K);
+      if (++ii == nks) {
+        ii = 0;
+        ic.next();
+        ix = ic.x();
+        in0 = ic.n0();
+        iw = w8 + (size_t)ic.ct * nks * WBLK;
+      }
+    };
+    r.init();
+#pragma unroll 1
+    for (int q = 0; q < STAGES - 1; ++q) {
+      if (q < total) issue(q);
+      cp_async_commit();
+    }
+#pragma unroll 1
+    for (int j = 0, q = 0; j < count; ++j, c.next()) {
+      const unsigned xw = (unsigned)((uintptr_t)c.x() >> 2) + (unsigned)c.n0();
+      float acc[P][NA];
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+#pragma unroll
+        for (int i = 0; i < NA; ++i) acc[p][i] = 0.0f;
+#pragma unroll 1
+      for (int i = 0; i < nks; ++i, ++q) {
+        const int st = q % STAGES;
+        cp_async_wait<STAGES - 2>();
+        wg::mbar_wait(r.full + st, (q / STAGES) & 1);
+        __syncthreads();   // slice q landed; both warpgroups are done with slice q - 1
+        if (q + STAGES - 1 < total) issue(q + STAGES - 1);
+        cp_async_commit();
+        products(r, st, i * BK, xw, nm, acc);
+      }
+      finish(scratch, acc, M, N, c.ct, c.n0(), c.ep());
+    }
+    r.release();
   }
 };
 

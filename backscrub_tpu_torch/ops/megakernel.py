@@ -141,15 +141,19 @@ MEGA_FIELDS = ("code", "sync", "act", "act2", "in", "out", "aux", "w", "b",
                "c", "co", "h", "wd", "oh", "ow", "fh", "fw", "s", "d", "ph", "pw",
                "band", "n", "elt", "bvec", "gate", "res", "pact", "pinv", "hid",
                "w1", "b1", "act1", "w2", "b2", "actg", "pool", "pout", "tm", "tn", "cpi",
-               "tile", "bn")
+               "tile", "bn", "bufs")
 MEGA_DESC = 48
 MEGA_CODES = {"conv": 1, "fc": 2, "dw": 3, "gpool": 4, "elt": 5, "resize": 6, "copy": 7,
               "gemm": 8, "convw": 9}
 MEGA_ELT = {"unary": 0, "ADD": 1, "MUL": 2, "bcast": 3}
 # csrc/body_mega.cu's sizes: threads a CTA, the K a conv stages at once,
-# the SE vectors' capacity, the depthwise band's input window (floats) and
-# its deepest band
-_MEGA_NT, _CONV_K, _SE_MAX_C = 256, 320, 512
+# the SE vectors' capacity, the SE gates a CTA holds at once (one an image
+# of its next items), the depthwise band's input window (floats) and its
+# deepest band.  In a batch's launch a conv or column-wise op stages a
+# CTA's items into a ring of buffers (the row's ``bufs``: as many as fit
+# the shared memory a CTA has, up to _MEGA_BUFS, at least one), the loads
+# of the next bufs - 1 items in flight while one computes.
+_MEGA_NT, _CONV_K, _SE_MAX_C, _SE_GATES, _MEGA_BUFS = 256, 320, 512, 8, 4
 _DW_SMEM_FLOATS, _DW_MAX_BAND = 8192, 8
 _DW_ITEM_FLOATS = 12288            # an item's windows, all its channels
 # a conv's CTA tiles (rows, columns; _MEGA_NT / (rows * columns) thread
@@ -180,6 +184,15 @@ def _wg_smem_bytes(bn: int, terms: int) -> int:
     alignment, the stages' mbarriers."""
     block = GEMM_PIECES[terms] * bn * _WG_BK * 2
     return _WG_STAGES * (block + _WG_BK * (_WG_BM + 4) * 4) + 128 + 8 * _WG_STAGES
+
+
+def _wg_seq_smem_bytes(bn: int, terms: int) -> int:
+    """The dynamic shared memory of a table GEMM op's tile of width ``bn``
+    at ``terms`` (gemm_wg.cuh's SEQ_SMEM_BYTES): the ring of
+    :func:`_wg_smem_bytes`, then the K-group sums and the epilogue tile
+    beside it, so that the next tile's slices load under the epilogue."""
+    pieces = GEMM_PIECES[terms]
+    return _wg_smem_bytes(bn, terms) + max(pieces * bn * 256, bn * (_WG_BM + 4) * 4)
 
 
 def _wg_tile(co: int, L: int, ctas: int = _MEGA_CTAS) -> int:
@@ -631,6 +644,26 @@ class BodyPlan:
         _build.launch("bs_body_mega", *args, stamps.data_ptr())
         return torch.diff(stamps).tolist()
 
+    def phase_kinds(self, x: torch.Tensor, runs: int = 20) -> Dict[str, Tuple[int, float]]:
+        """The phase clock by op kind: {label: (phases, ns)}, the median of
+        ``runs`` :meth:`phase_ns` runs on ``x`` (one input or a stream
+        batch) summed over the phases whose table ops carry that label:
+        each op's kind with its fused extras ("conv+se" a conv that computes
+        an SE gate, "dw+pool" a depthwise op that pools, "+res" an
+        epilogue's residual), a phase's ops joined by " & ".
+        Synchronizes."""
+        ns = np.median(np.array([self.phase_ns(x) for _ in range(runs)]), axis=0)
+        kinds: Dict[int, set] = collections.defaultdict(set)
+        for m in self.mega.ops:
+            kinds[m["level"]].add(m["kind"] + "".join(
+                f"+{k}" for k in ("se", "pool", "res") if m.get(k) is not None))
+        out: Dict[str, Tuple[int, float]] = {}
+        for level, t in enumerate(ns, 1):
+            label = " & ".join(sorted(kinds[level]))
+            n, s = out.get(label, (0, 0.0))
+            out[label] = (n + 1, s + float(t))
+        return out
+
     def rows_on_card(self, x: torch.Tensor):
         """A check of the kernel op by op on the card: for each phase, the
         table's rows up to its end as one ``bs_body_mega`` launch (not
@@ -669,7 +702,8 @@ class BodyPlan:
         buf = torch.empty(n * self.ws_stride, dtype=torch.float32, device=x.device)
         arena, table = self.mega.on(x.device)
         return buf, (x.data_ptr(), buf.data_ptr(), arena.data_ptr(), table.data_ptr(),
-                     len(self.mega.ops) if n_ops is None else n_ops, self.mega.smem_bytes,
+                     len(self.mega.ops) if n_ops is None else n_ops,
+                     self.mega.smem_bytes if n == 1 else self.mega.smem_batch,
                      DOT_MODES[self.dots][0], n, x_stride, self.ws_stride)
 
 
@@ -873,11 +907,15 @@ class MegaTable:
     :func:`lay_wgmma`, two bf16 to a float);
     ``phases``: the number of
     phases, each but the last ending in a barrier (``sync``);
-    ``smem_bytes``: the dynamic shared memory a CTA needs; ``kinds``: the
-    ops by kind; ``dots``: the plan's.  Raises Unsupported where an op does
-    not fit the kernel's shared memory.  With ``dots="bf16"`` the arena
-    holds every dot weight (1x1 convs, FCs, the SE FCs) rounded to bf16,
-    and a ``gemm`` op's hi piece alone; the kernel rounds the activations.
+    ``smem_bytes``: the dynamic shared memory a CTA needs in a one-image
+    launch; ``smem_batch``: in a batch's (a conv or column-wise row stages
+    its items in a ring of ``bufs`` buffers, as many as fit up to
+    _MEGA_BUFS; a GEMM row's ring has its epilogue space beside it);
+    ``kinds``: the ops by kind; ``dots``: the plan's.  Raises Unsupported
+    where an op does not fit the kernel's shared memory.  With
+    ``dots="bf16"`` the arena holds every dot weight (1x1 convs, FCs, the
+    SE FCs) rounded to bf16, and a ``gemm`` op's hi piece alone; the kernel
+    rounds the activations.
 
     Each plan op becomes one table op (a flat plan's spatial 1x1 conv the
     ``gemm`` op, the tensor-core GEMM; another spatial 1x1 conv over
@@ -1178,7 +1216,16 @@ class MegaTable:
         def off(t):
             return -1 if t == plan.in_tid else plan._offsets[t]
 
-        rows, smem = [], 0
+        rows, one, smem = [], 0, 0     # a one-image launch's memory, a batch's
+        room = _MAX_SMEM - len(self.ops) * MEGA_DESC * 4    # what the table leaves a CTA
+
+        def buffered(need):
+            """(buffers, bytes) of an op whose working memory is need(bufs)
+            bytes: the most buffers, up to _MEGA_BUFS, that fit, at least
+            one."""
+            bufs = max([1] + [nb for nb in range(2, _MEGA_BUFS + 1) if need(nb) <= room])
+            return bufs, need(bufs)
+
         for i, m in enumerate(self.ops):
             r = dict.fromkeys(MEGA_FIELDS, 0)
             sm = plan.meta[m["src"]]
@@ -1200,25 +1247,34 @@ class MegaTable:
                              w1=arena(se["w1"], "T", dot=True), b1=arena(se["b1"]),
                              act1=_ACT_CODES[se["act1"]], w2=arena(se["w2"], "T", dot=True),
                              b2=arena(se["b2"]), actg=_ACT_CODES[se["actg"]])
-                if k == "conv":           # the tile or the SE weights, then the SE vectors
+                if k == "conv":           # two tiles or the SE weights, then the SE vectors
                     co, L = r["co"], r["n"]
                     cap = _MEGA_CTAS if m["se"] is None else _SE_CONV_CTAS
                     fits = [t for t in _CONV_TILES if -(-co // t[0]) * -(-L // t[1]) <= cap]
                     tm, tn = fits[-1] if fits else _CONV_TILES[0]
                     r.update(tm=tm, tn=tn)
-                    tile = min(sm.c, _CONV_K) * (tm + 1 + tn)
+                    kc = min(sm.c, _CONV_K)
                     se_w = 0 if m["se"] is None else _se_floats(sm.c, m["se"]["hid"])
-                    smem = max(smem, 4 * (max(tile, se_w) + 2 * _SE_MAX_C + _MEGA_NT))
-                elif k == "convw":         # columns a CTA; W and those columns staged
+                    one = max(one, 4 * (max(kc * (tm + 1 + tn), se_w) + 2 * _SE_MAX_C + _MEGA_NT))
+                    gates = 0 if m["se"] is None else (_SE_GATES + 1) * _SE_MAX_C
+                    bufs, need = buffered(lambda nb: 4 * (
+                        max(min(nb, 2) * kc * (tm + 1) + nb * kc * tn, se_w) + gates + _MEGA_NT))
+                    r.update(bufs=bufs)
+                    smem = max(smem, need)
+                elif k == "convw":         # columns a CTA; W and the items' columns staged
                     cols = -(-r["n"] // _MEGA_CTAS)
-                    r.update(tn=cols)
-                    smem = max(smem, 4 * (r["co"] * sm.c + sm.c * cols))
+                    one = max(one, 4 * (r["co"] * sm.c + sm.c * cols))
+                    bufs, need = buffered(lambda nb: 4 * (r["co"] * sm.c + nb * sm.c * cols))
+                    r.update(tn=cols, bufs=bufs)
+                    smem = max(smem, need)
             elif k == "gemm":            # W's bf16 pieces laid out for the tile a round fills
                 co = plan.weights[m["w"]].shape[0]
                 tile = _wg_tile(co, r["n"])
                 r.update(b=arena(m["b"]), co=co, tile=tile,
                          w=arena(m["w"], "wg", bn=_WG_TILES[tile]))
-                smem = max(smem, _wg_smem_bytes(_WG_TILES[tile], DOT_MODES[self.dots][1]))
+                terms = DOT_MODES[self.dots][1]
+                one = max(one, _wg_smem_bytes(_WG_TILES[tile], terms))
+                smem = max(smem, _wg_seq_smem_bytes(_WG_TILES[tile], terms))
                 if m["res"] is not None:
                     r.update(res=1, aux=off(m["res"]))
             elif k in ("dw", "resize"):
@@ -1235,7 +1291,7 @@ class MegaTable:
                     groups = max(1, _MEGA_CTAS // bands)
                     cpi = max(1, min(-(-om.c // groups), _DW_ITEM_FLOATS // win))
                     slot = win + (-win % 4) + 8      # a window's slot: 16-byte chunks, slack
-                    smem = max(smem, 4 * (cpi * slot + _MEGA_NT))
+                    one = max(one, 4 * (cpi * slot + _MEGA_NT))
                     r.update(w=arena(m["w"]), b=arena(m["b"]), fh=m["fh"], fw=m["fw"],
                              s=m["s"], d=m["d"], ph=m["ph"], pw=m["pw"], band=band,
                              cpi=cpi)
@@ -1257,9 +1313,12 @@ class MegaTable:
             rows.append([r[f] for f in MEGA_FIELDS] + [0] * (MEGA_DESC - len(MEGA_FIELDS)))
         self.table = np.asarray(rows, np.int32).reshape(len(rows), MEGA_DESC)
         self.arena = np.concatenate(chunks) if chunks else np.zeros(4, np.float32)
-        self.smem_bytes = self.table.nbytes + smem     # the table, then the ops' memory
-        if self.smem_bytes > _MAX_SMEM:
-            raise Unsupported(f"table needs {self.smem_bytes} B of shared memory a CTA")
+        # the table, then the ops' memory
+        self.smem_bytes = self.table.nbytes + one
+        self.smem_batch = self.table.nbytes + max(one, smem)
+        if max(self.smem_bytes, self.smem_batch) > _MAX_SMEM:
+            raise Unsupported(f"table needs {max(self.smem_bytes, self.smem_batch)} B of "
+                              "shared memory a CTA")
 
     def phase_rows(self) -> List[Tuple[int, int]]:
         """Each phase's rows of ``table`` as [start, end) indices."""

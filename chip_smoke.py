@@ -2725,6 +2725,19 @@ def _batch_held(tag, run, plain, S, counter, work, hold, cold):
     return r, k
 
 
+def _phase_kinds(tag, plan, x):
+    """The plan's phase clock by op kind (``BodyPlan.phase_kinds``) on the
+    batch's first image and on the batch ``x``, printed a kind a line;
+    returns {kind: [phases, us at S = 1, us at S]}."""
+    one, many = plan.phase_kinds(x[0]), plan.phase_kinds(x)
+    S = x.shape[0]
+    print(f"phases by op kind {tag}: {sum(t for _, t in one.values()) / 1e3:.2f} us at S = 1, "
+          f"{sum(t for _, t in many.values()) / 1e3:.2f} at S = {S}")
+    for k in sorted(one, key=lambda k: -many[k][1]):
+        print(f"  {k}: {one[k][0]} phases, {one[k][1] / 1e3:.2f} / {many[k][1] / 1e3:.2f} us")
+    return {k: [one[k][0], one[k][1] / 1e3, many[k][1] / 1e3] for k in one}
+
+
 def multistream_kernels(frames):
     """K1 (segm_lite, mlkit, deeplab), K2 (segm_lite, mlkit), K2' and K2''
     (deeplab, f32 and bf16 tables), K3 and K4 over stream batches of
@@ -2733,7 +2746,9 @@ def multistream_kernels(frames):
     MATCHED_ATOL/RTOL; K3 and K4 byte-equal; the bf16 tables, whose single
     launches precision_phase holds op by op, by each image's bit identity
     to them, the distance to run_plain(gemm="bf16") printed); the plans'
-    workspace bytes a batch.  Returns {kernel key: {S: numbers}}."""
+    workspace bytes a batch and, at the largest batch, their phase clock by
+    op kind at S = 1 and S (``_phase_kinds``).  Returns {kernel key: {S:
+    numbers}}."""
     import torch
     from backscrub_tpu_torch.ops.megakernel import body_launch
     from backscrub_tpu_torch.ops.pack_kernels import (blend_pack_420, blend_pack_420_plain,
@@ -2783,6 +2798,8 @@ def multistream_kernels(frames):
                         lambda: body_launch.by_kernel["bs_body_mega"], work, hold,
                         "body_mega_kernel")
                     r.update(workspace_bytes=4 * S * plan.ws_stride, phases=plan.mega.phases)
+                    if S == max(MS_BATCHES):
+                        r["phase_us_by_kind"] = _phase_kinds(f"{name} {tag}", plan, xin)
                     out[name if tag != "mlkit" else f"{name} {tag}"][S] = r
             fb, bg = (torch.from_numpy(rng.integers(0, 256, (S, h, w, 3), np.uint8)).cuda()
                       for _ in range(2))

@@ -1447,14 +1447,16 @@ def test_deeplab_highest_continuation_matches_its_twin(cuda_device):
         assert 10 * float((k3 - f32).abs().max()) <= float((three - f32).abs().max())
 
 
+@pytest.mark.parametrize("S", [3, 8])
 @pytest.mark.parametrize("precision", ["default", "high", "highest"])
-def test_deeplab_continuation_stream_batch_is_per_image(cuda_device, precision):
+def test_deeplab_continuation_stream_batch_is_per_image(cuda_device, precision, S):
     """K2'' with the wgmma GEMM tile (the bf16 mode's one term at
     "default", the bf16x3 split at "high", six terms at "highest") over a
-    stream batch of three held-out frames: one launch, every image
-    bit-identical to its own launch."""
+    stream batch of S held-out frames (at 8 a CTA takes several tiles of an
+    op through one ring): one launch, every image bit-identical to its own
+    launch."""
     mg = MaskGen(str(DEEPLAB), 640, 480, device=cuda_device, precision=precision)
-    e, S = mg.edge, 3
+    e = mg.edge
     assert e.cont_plan.dots == {"default": "bf16", "high": "bf16x3",
                                 "highest": "bf16x6"}[precision]
     fr = torch.from_numpy(np.stack(_frames(640, 480, 30 + S, seed=1)[30:])).to(cuda_device)
@@ -1485,14 +1487,16 @@ def test_cli_bf16_and_int8_on_cuda(cuda_device, tmp_path):
         assert out.read_bytes() == want
 
 
-@pytest.mark.parametrize("path", [FULL, SELFIE, DEEPLAB])
-def test_stream_batch_is_one_launch_of_each_kernel(cuda_device, path):
-    """A stream batch of three 640x480 frames: K1, each body plan, K3 and
-    K4 one launch a batch each, every image bit-identical to its own
-    launch."""
+@pytest.mark.parametrize("S", [3, 8])
+@pytest.mark.parametrize("path", [FULL, SELFIE, DEEPLAB, SEGM_FULL, BODYPIX])
+def test_stream_batch_is_one_launch_of_each_kernel(cuda_device, path, S):
+    """A stream batch of S 640x480 frames (at 8 a CTA of the body kernels
+    takes several items of an op, the SE gates of several images): K1, each
+    body plan (mlkit's and segm_lite's K2 with their SE blocks), K3 and K4
+    one launch a batch each, every image bit-identical to its own launch."""
     from backscrub_tpu_torch.ops.pack_kernels import blend_pack_420, blend_pack_yuyv
     pipe = FramePipeline(str(path), PipelineConfig(width=640, height=480), device=cuda_device)
-    e, S = pipe.maskgen.edge, 3
+    e = pipe.maskgen.edge
     rng = np.random.default_rng(2)
     fr, bg = (torch.from_numpy(rng.integers(0, 256, (S, 480, 640, 3), np.uint8))
               .to(cuda_device) for _ in range(2))

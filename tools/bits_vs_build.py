@@ -32,6 +32,12 @@ between the two checkouts can be compared.  The cases:
 - ``cont``: K2'' alone, ``edge.cont_plan`` on the prefix's output of that
   deeplab frame at "high" (reported), "default" and "highest" (held bit
   for bit), timed, and K2' alone at "high" (held bit for bit);
+- ``batch``: every body plan of the fused path, one image and a stream
+  batch of 4 and of 8 (``BATCHES``): segm_lite's, mlkit's and segm_full's
+  K2, BodyPix's K2' and deeplab's K2' and K2'' at "high", "default" and
+  "highest", each on its input from ``chip_smoke.py``'s moving frames at
+  640x480 (stream s the sequence of seed s: K1's output, then each plan's
+  output for the next plan), held bit for bit and timed;
 - ``jpeg``: ``bs_jpeg_decode``, ``decode_jpeg_bgr`` on the synthetic MJPG
   camera's frames at 640x480 and 1280x720 (timed) and on seeded
   coefficients at every sampling, gray and odd sizes, bit for bit;
@@ -78,7 +84,7 @@ in fresh subprocesses in turns: the other, this, this, the other.
 Usage (from the repository root, on a machine with a CUDA card)::
 
     python tools/bits_vs_build.py OTHER_CHECKOUT [--time] [front] [gemm] [gemm_bf16]
-        [gemm_highest] [body] [cont] [jpeg] [bilateral] [pack420]
+        [gemm_highest] [body] [cont] [batch] [jpeg] [bilateral] [pack420]
         [pack_yuyv] [probe_se] [probe_dot] [probe_dw_flat] [probe_dw_rowpad] [probe_cat]
         [probe_stride2] [probe_copy]
 """
@@ -264,6 +270,42 @@ def cont_calls():
             build_args=[DEEPLAB, 640, 480], build_kwargs=kw, wrapper="edge.cont_plan",
             kernel="body_mega_kernel", timed=True, args=[x.cpu()], kwargs={},
             **(dict(exact=False, tol=None) if prec == "high" else {}))))
+    return calls
+
+
+BATCHES = (1, 4, 8)
+
+
+def batch_calls():
+    """(name, call) of every fused body plan of the five families at
+    BATCHES images, held bit for bit and timed."""
+    import torch
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    from chip_smoke import BODYPIX, DEEPLAB, MODEL, SEGM_FULL, SELFIE
+    from backscrub_tpu_torch.pipeline.maskgen import MaskGen
+    from make_synth_segm import moving_frames
+
+    frames = torch.from_numpy(np.stack([moving_frames(640, 480, 1, seed=s)[0]
+                                        for s in range(max(BATCHES))])).cuda()
+    calls = []
+    for path, prec in ((MODEL, "highest"), (SELFIE, "highest"), (SEGM_FULL, "highest"),
+                       (BODYPIX, "highest"), (DEEPLAB, "high"), (DEEPLAB, "default"),
+                       (DEEPLAB, "highest")):
+        kw = dict(device="cuda", precision=prec)
+        e = MaskGen(path, 640, 480, **kw).edge
+        for S in BATCHES:
+            with torch.no_grad():
+                h = e.front(frames[:S] if S > 1 else frames[0])
+                x = h.reshape(h.shape[:-3] + (h.shape[-3], -1))
+                for attr in ("body_plan", "prefix_plan", "cont_plan"):
+                    plan = getattr(e, attr)
+                    if plan is None:
+                        continue
+                    calls.append((f"batch {os.path.basename(path)} {prec} {attr} S={S}", dict(
+                        build="backscrub_tpu_torch.pipeline.maskgen:MaskGen",
+                        build_args=[path, 640, 480], build_kwargs=kw, wrapper=f"edge.{attr}",
+                        kernel="body_mega_kernel", timed=True, args=[x.cpu()], kwargs={})))
+                    x = plan(x)
     return calls
 
 
@@ -478,6 +520,7 @@ def probe_dot_calls():
 
 CASES = {"front": front_calls, "gemm": gemm_calls, "gemm_bf16": gemm_bf16_calls,
          "gemm_highest": gemm_highest_calls, "body": body_calls, "cont": cont_calls,
+         "batch": batch_calls,
          "jpeg": jpeg_calls, "bilateral": bilateral_calls,
          "pack420": pack420_calls, "pack_yuyv": pack_yuyv_calls, "probe_se": probe_se_calls,
          "probe_dot": probe_dot_calls, "probe_cat": probe_cat_calls,

@@ -42,16 +42,16 @@ ABLATIONS = [
                       "template <typename... A>\n"
                       "__device__ __forceinline__ void skip_mma(A...) {}\n"),
                      ("wg::mma<BN>(", "skip_mma(")]),
-    ("no split", [("          if constexpr (TERMS == 6)\n"
-                   "            wg::split3(r0[m], r1[m], af[h][0][q], af[h][1][q], af[h][2][q]);\n"
-                   "          else if constexpr (TERMS == 3)\n"
-                   "            wg::split2(r0[m], r1[m], af[h][0][q], af[h][1][q]);\n"
-                   "          else\n"
-                   "            af[h][0][q] = wg::round2(r0[m], r1[m]);",
-                   "          (void)r0;\n          (void)r1;\n"
-                   "          for (int p = 0; p < P; ++p) af[h][p][q] = 0x3f803f80u;")]),
-    ("no x loads", [("      for (int e = tid; e < BK * XCH; e += NT) {",
-                     "      for (int e = tid; e < 0; e += NT) {")]),
+    ("no split", [("        if constexpr (TERMS == 6)\n"
+                   "          wg::split3(r0[m], r1[m], af[h][0][q], af[h][1][q], af[h][2][q]);\n"
+                   "        else if constexpr (TERMS == 3)\n"
+                   "          wg::split2(r0[m], r1[m], af[h][0][q], af[h][1][q]);\n"
+                   "        else\n"
+                   "          af[h][0][q] = wg::round2(r0[m], r1[m]);",
+                   "        (void)r0;\n        (void)r1;\n"
+                   "        for (int p = 0; p < P; ++p) af[h][p][q] = 0x3f803f80u;")]),
+    ("no x loads", [("    for (int e = tid; e < BK * XCH; e += NT) {",
+                     "    for (int e = tid; e < 0; e += NT) {")]),
 ]
 
 

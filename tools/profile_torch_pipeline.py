@@ -13,7 +13,11 @@ then prints:
 - the device time of each body plan of the fused path (K2, or K2' and
   K2'') run alone on the frame's body input, by kernel name (each plan is
   one ``bs_body_mega`` launch over its op table: its ops and phases);
-- optionally (``--trace PATH``) the window's Chrome trace.
+- optionally (``--trace PATH``) the window's Chrome trace;
+- with ``--streams S``, each body plan's phase clock by op kind
+  (``BodyPlan.phase_kinds``: the phases of each kind, their device us)
+  on one frame and on a stream batch of S frames (stream s the moving
+  sequence of seed s), one launch each, with the batch's us a frame.
 
 ``--classic`` runs the classic stages (``edge_fused=False``: preprocess
 with K5, the graph executor), ``--output-format`` picks yuyv, nv12, i420
@@ -30,6 +34,8 @@ Usage::
     python tools/profile_torch_pipeline.py --staged --model tests/data/deeplab_synth_257.tflite
     python tools/profile_torch_pipeline.py --model tests/data/body-pix_synth_050_8_257.tflite \
         --edge-cont on
+    python tools/profile_torch_pipeline.py --model tests/data/selfie_synth_mlkit_256x256.tflite \
+        --streams 8
 """
 
 from __future__ import annotations
@@ -70,6 +76,34 @@ def _print_phases(plan, x, runs: int = 20) -> None:
         print(f"  phase {level}: {t / 1e3:.2f} us  {desc}")
 
 
+def _print_kinds(edge, frames, streams: int, runs: int = 20) -> None:
+    """Each body plan's phase clock by op kind (``BodyPlan.phase_kinds``)
+    on ``frames[0]`` alone and on the batch ``frames[:streams]``."""
+    import torch
+    with torch.no_grad():
+        xs = {1: edge.front(frames[0]), streams: edge.front(frames[:streams])}
+    for name, plan in (("K2", edge.body_plan), ("K2'", edge.prefix_plan),
+                       ("K2''", edge.cont_plan)):
+        if plan is None:
+            continue
+        kinds = {}
+        for S, h in xs.items():
+            lead = h.shape[:-3]
+            kinds[S] = plan.phase_kinds(h.reshape(lead + (h.shape[-3], -1)), runs)
+            with torch.no_grad():
+                xs[S] = plan(h.reshape(lead + (h.shape[-3], -1))).reshape(
+                    lead + (plan.out_meta.c, plan.out_meta.rows, plan.out_meta.w))
+        tot = {S: sum(t for _, t in k.values()) for S, k in kinds.items()}
+        print(f"plan {name} phases by op kind (median of {runs} runs; us at S = 1 / "
+              f"S = {streams}, and a frame): {tot[1] / 1e3:.2f} / {tot[streams] / 1e3:.2f}, "
+              f"{tot[streams] / 1e3 / streams:.2f} a frame")
+        for label in sorted(kinds[1], key=lambda k: -kinds[streams][k][1]):
+            n, t1 = kinds[1][label]
+            tS = kinds[streams][label][1]
+            print(f"  {label}: {n} phases, {t1 / 1e3:.2f} / {tS / 1e3:.2f} us "
+                  f"({tS / max(t1, 1.0):.2f}x; {100 * tS / tot[streams]:.1f}% of the batch)")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model", default=os.path.join(
@@ -84,6 +118,8 @@ def main(argv=None) -> int:
     ap.add_argument("--output-format", default="yuyv")
     ap.add_argument("--edge-cont", choices=("on", "off"), default=None,
                     help="the flat continuation after a prefix plan (default: the spec's)")
+    ap.add_argument("--streams", type=int, default=0,
+                    help="also each body plan's phase clock by op kind over a batch of S")
     a = ap.parse_args(argv)
 
     import torch
@@ -175,6 +211,10 @@ def main(argv=None) -> int:
                 if plan.mega is not None:
                     _print_phases(plan, x)
                 x = y
+    if e is not None and e.plans and a.streams > 0:
+        batch = torch.from_numpy(np.stack([moving_frames(w, h, 1, seed=s)[0]
+                                           for s in range(a.streams)])).cuda()
+        _print_kinds(e, batch, a.streams)
     return 0
 
 
